@@ -1,0 +1,104 @@
+"""Convert the JAX package's parameters (as numpy arrays) to the port's and back.
+
+The Flax tree of ``AtariNet`` is ``params/{Conv_0,Conv_1,Conv_2,Dense_0,
+policy,baseline}/{kernel,bias}``.  Conv kernels are HWIO and become OIHW;
+dense kernels are ``[in, out]`` and become ``[out, in]``.  ``Dense_0``'s rows
+follow the NHWC flatten of the conv output, which is the order the port's
+``AtariNet`` flattens in, so they need no permutation.
+
+Any tree shaped like the params converts the same way, which covers the
+second moment ``nu`` of optax's RMSProp: :func:`rmsprop_state_to_torch`
+pulls it (and the schedule's update count) out of an optax chain state.
+This module imports neither JAX nor the JAX package; it walks nested dicts,
+tuples and namedtuples of numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+# Flax module name -> the port's module path in AtariNet's state_dict
+ATARI_NAMES = {
+    "Conv_0": "convs.0",
+    "Conv_1": "convs.1",
+    "Conv_2": "convs.2",
+    "Dense_0": "fc",
+    "policy": "policy",
+    "baseline": "baseline",
+}
+
+
+def _kernel_to_torch(kernel: np.ndarray) -> np.ndarray:
+    if kernel.ndim == 4:  # HWIO -> OIHW
+        return kernel.transpose(3, 2, 0, 1)
+    return kernel.T  # [in, out] -> [out, in]
+
+
+def _kernel_to_flax(weight: np.ndarray) -> np.ndarray:
+    if weight.ndim == 4:  # OIHW -> HWIO
+        return weight.transpose(2, 3, 1, 0)
+    return weight.T
+
+
+def flax_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax ``AtariNet`` param tree (with or without the top ``params``
+    level) -> the port's ``{name: tensor}`` state dict, float32."""
+    tree = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    for flax_name, torch_name in ATARI_NAMES.items():
+        layer = tree[flax_name]
+        kernel = _kernel_to_torch(np.asarray(layer["kernel"], np.float32))
+        bias = np.asarray(layer["bias"], np.float32)
+        out[f"{torch_name}.weight"] = torch.tensor(np.ascontiguousarray(kernel), device=device)
+        out[f"{torch_name}.bias"] = torch.tensor(bias, device=device)
+    return out
+
+
+def torch_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's state dict -> ``{"params": {...}}`` of numpy arrays."""
+    params: Dict[str, Any] = {}
+    for flax_name, torch_name in ATARI_NAMES.items():
+        weight = state[f"{torch_name}.weight"].detach().cpu().numpy()
+        bias = state[f"{torch_name}.bias"].detach().cpu().numpy()
+        params[flax_name] = {
+            "kernel": np.ascontiguousarray(_kernel_to_flax(weight)),
+            "bias": bias.copy(),
+        }
+    return {"params": params}
+
+
+def _find_field(state: Any, field: str) -> Optional[Any]:
+    """Depth-first search of an optax state for a namedtuple with ``field``."""
+    if hasattr(state, "_fields"):
+        if field in state._fields:
+            return getattr(state, field)
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_field(sub, field)
+            if found is not None:
+                return found
+    return None
+
+
+def rmsprop_state_to_torch(
+    opt_state: Any, device: torch.device | str = "cpu"
+) -> Dict[str, Any]:
+    """An ``optax.chain(clip_by_global_norm, rmsprop)`` state (leaves as
+    numpy arrays) -> the port's RMSProp state ``{"nu": {...}, "count": t}``.
+
+    ``count`` is the learning-rate schedule's update count, 0 when the chain
+    has a constant learning rate (it keeps no count then)."""
+    nu = _find_field(opt_state, "nu")
+    if nu is None:
+        raise ValueError("no ScaleByRmsState (field 'nu') in the optimizer state")
+    count = _find_field(opt_state, "count")
+    count = 0 if count is None else int(np.asarray(count))
+    return {
+        "nu": flax_to_torch(nu, device),
+        "count": torch.tensor(count, dtype=torch.int32, device=device),
+    }

@@ -1,0 +1,81 @@
+"""The all-finite update guard.
+
+Port of ``scalerl_tpu/parallel/train_step.py::guard_nonfinite_updates`` /
+``maybe_guard_nonfinite``.  A learn step whose result holds NaN/Inf is
+SKIPPED (the input state survives) instead of poisoning the run, and the
+verdict rides the metrics as ``nonfinite_grads`` / ``skipped_steps``.
+
+The JAX version gates with ``lax.cond``.  Here the choice is a device-side
+``torch.where`` over every leaf of the state: branching on the verdict in
+Python would copy it to the host and stall the device every step.  For the
+same reason the check always runs; ``check_every=K`` keeps the reference's
+semantics (only steps with ``step % K == 0`` can be skipped) by folding the
+step test into the select, not by skipping the reduction.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List
+
+import torch
+
+
+# A train state is a dataclass of tensors and (nested) dicts of tensors.
+
+
+def tensor_leaves(tree: Any) -> List[torch.Tensor]:
+    """Tensor leaves of a train state."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        tree = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+    return [leaf for sub in tree.values() for leaf in tensor_leaves(sub)]
+
+
+def tree_select(pred: torch.Tensor, on_true: Any, on_false: Any) -> Any:
+    """``torch.where(pred, a, b)`` leaf by leaf over two train states."""
+    if isinstance(on_true, torch.Tensor):
+        return torch.where(pred, on_true, on_false)
+    if dataclasses.is_dataclass(on_true):
+        return dataclasses.replace(on_true, **{
+            f.name: tree_select(pred, getattr(on_true, f.name), getattr(on_false, f.name))
+            for f in dataclasses.fields(on_true)
+        })
+    return {k: tree_select(pred, v, on_false[k]) for k, v in on_true.items()}
+
+
+def all_finite(tree: Any) -> torch.Tensor:
+    """0-dim bool tensor: every floating leaf of ``tree`` is finite.
+
+    Integer and bool leaves (counters) cannot go NaN and are skipped."""
+    checks = [torch.isfinite(x).all() for x in tensor_leaves(tree) if x.is_floating_point()]
+    return torch.stack(checks).all()
+
+
+def guard_nonfinite_updates(learn_fn: Callable, check_every: int = 1) -> Callable:
+    """Wrap ``(state, *args) -> (state, metrics)`` so a non-finite result
+    keeps the input state; ``state.step`` is the learner update count.
+    (The JAX version also sanitises extra outputs such as PER priorities;
+    they arrive with the replay slice.)"""
+
+    def guarded(state, *args):
+        new_state, metrics = learn_fn(state, *args)
+        metrics = dict(metrics)
+        skip = ((state.step % check_every) == 0) & ~all_finite(new_state)
+        safe_state = tree_select(~skip, new_state, state)
+        bad = skip.to(torch.float32)
+        metrics["nonfinite_grads"] = bad
+        metrics["skipped_steps"] = bad
+        return safe_state, metrics
+
+    return guarded
+
+
+def maybe_guard_nonfinite(learn_fn: Callable, args: Any) -> Callable:
+    """Apply :func:`guard_nonfinite_updates` unless ``args.nonfinite_guard``
+    is False, in which case ``learn_fn`` comes back untouched (no check, no
+    counters in the metrics)."""
+    if args.nonfinite_guard:
+        return guard_nonfinite_updates(learn_fn, check_every=args.nonfinite_check_every)
+    return learn_fn

@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone and never hides a missing card.
+
+- Importing ``scalerl_torch`` and every submodule loads no JAX and nothing
+  of ``scalerl_tpu``; no source of the port (nor ``chip_smoke.py``) names
+  them in an import.
+- The entry points default to ``device="cuda"`` and raise without a card
+  instead of running on the host.
+- ``chip_smoke.py`` fails, printing no result, without a card, and in a
+  directory that holds nothing else of the repo.
+"""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import scalerl_torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "scalerl_tpu")
+
+
+def _submodules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(scalerl_torch.__path__, "scalerl_torch.")
+    )
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {['scalerl_torch'] + _submodules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(_submodules()) >= 15
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_source_imports_jax():
+    sources = sorted((REPO / "scalerl_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in sources:
+        bad = set(_imported_roots(path)) & set(FORBIDDEN)
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+    from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.models.atari import AtariNet
+    from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ImpalaArguments(use_lstm=False, hidden_size=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SyntheticPixelEnv(num_envs=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ImpalaAgent(args, (84, 84, 4), 6)
+    with pytest.raises(RuntimeError, match="cuda"):
+        AtariNet(num_actions=6, use_lstm=False)
+    env = SyntheticPixelEnv(num_envs=2, device="cpu")
+    agent = ImpalaAgent(args, env.observation_shape, env.num_actions, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), unroll_length=2)
+
+
+def _run_smoke(cwd: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_the_repo(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
