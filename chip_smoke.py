@@ -26,6 +26,24 @@ no result line:
    ("error")`` with every kernel's launch count zeroed just before; then
    two more chunks under ``torch.profiler`` for the device's busy share and
    the heaviest kernels (``impala_profile``).
+7. ``per_kernels``: the two prioritized-replay kernels against their plain
+   PyTorch versions on the card.  Sampling at N = 2^20 and a ragged
+   N = 1,000,003, S in {32, 512}: exact indices on integer priorities; on
+   ``uniform**0.6`` priorities every index brackets its target to within
+   ``PER_BRACKET_REL`` of its block's sum, and indices differ from the
+   plain version's only where the target lies within that margin of a
+   boundary.  The update at M = 512 with duplicates and same-block revisits,
+   with and without block sums: the plane exact (and equal to an ordered
+   host loop), the sums to ``PER_SUMS_RTOL``.  Times beside the byte bounds.
+8. ``dqn_learn``: one full-size learn step (sample -> learn -> priority
+   update) from the same buffer contents and uniforms, once through the
+   kernels and once through the plain versions, float32 with TF32 off:
+   indices equal, priority plane and params within ``DQN_LEARN_TOL``.
+9. ``dqn_per``: the slice's main path, ``OffPolicyTrainer(...).run()`` for
+   DQN with prioritized replay through both kernels on ``TensorCartPole``
+   (16 envs, a 65,536 x 16 replay, batch 512, 3-step returns, 40,000 env
+   steps), with every kernel's launch count zeroed just before; then 20
+   learn steps under ``torch.profiler`` (``dqn_profile``).
 
 Then a line with the card, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -41,6 +59,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from types import SimpleNamespace
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -49,6 +68,19 @@ VTRACE_TOL = 1e-5
 MODEL_TOL = 1e-4
 
 MAIN_T, MAIN_B, MAIN_ITERS, MAIN_CHUNKS = 20, 512, 5, 10
+
+# Prioritized replay (phases 7-9): the DQN slice's configuration
+PER_BLOCK = 1024
+PER_NUM_ENVS, PER_CAPACITY, PER_BATCH, PER_N_STEP = 16, 65536, 512, 3
+# float32 scans in different orders round differently: an index may move
+# to a neighbour only where its target lies this close (relative to the
+# block's sum) to the boundary between them
+PER_BRACKET_REL = 1e-6
+PER_SUMS_RTOL = 1e-5
+# kernels vs plain versions in one learn step on the card: with equal
+# indices the batch, the learn step and the priorities are the same
+# operations on the same inputs, so only cuBLAS's sum order could differ
+DQN_LEARN_TOL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -353,17 +385,16 @@ def phase_impala_fused(report: dict) -> None:
     profile_chunks(loop, state, carry, seconds / MAIN_CHUNKS, report["card"])
 
 
-def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 2) -> None:
-    """Where the time goes: ``chunks`` more chunks (after the counted run)
-    under ``torch.profiler``; the device's busy time per chunk against the
-    unprofiled chunk time, and the kernels that take the most of it."""
+def profile_device(fn):
+    """Run ``fn()`` under ``torch.profiler``; returns the wall seconds it
+    took there and ``[(kernel, device us, calls)]``, heaviest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.run(state, carry, num_calls=chunks)
+        fn()
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
 
@@ -375,6 +406,14 @@ def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 
          if e.device_type == DeviceType.CUDA and device_us(e) > 0),
         key=lambda k: -k[1],
     )
+    return profiled_s, kernels
+
+
+def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 2) -> None:
+    """Where the time goes: ``chunks`` more chunks (after the counted run)
+    under ``torch.profiler``; the device's busy time per chunk against the
+    unprofiled chunk time, and the kernels that take the most of it."""
+    profiled_s, kernels = profile_device(lambda: loop.run(state, carry, num_calls=chunks))
     busy_s = sum(us for _, us, _ in kernels) / 1e6 / chunks
     emit("impala_profile", chunks=chunks, unprofiled_chunk_s=chunk_s,
          profiled_chunk_s=profiled_s / chunks,
@@ -386,8 +425,332 @@ def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 
          card=card)
 
 
+def _per_bracket(p, b_idx, within_t, got, want, n):
+    """The bracket rule on real-valued priorities, against a float64 scan of
+    each chosen block: (samples whose index does not bracket its target,
+    samples that differ from the plain version away from a boundary)."""
+    import torch
+
+    from scalerl_torch.ops import per
+
+    cum = per.gather_blocks(p, b_idx, PER_BLOCK).double().cumsum(dim=1)
+    tol = PER_BRACKET_REL * cum[:, -1]
+    t = within_t.double()
+
+    def cum_at(w):
+        return torch.gather(cum, 1, w.clamp(0, PER_BLOCK - 1)[:, None])[:, 0]
+
+    w = got - b_idx * PER_BLOCK
+    clipped = (w == PER_BLOCK - 1) | (got == n - 1)
+    lower_ok = (w == 0) | (cum_at(w - 1) <= t + tol)
+    upper_ok = clipped | (t <= cum_at(w) + tol)
+    off_bracket = int((~(lower_ok & upper_ok)).sum())
+    lo = torch.minimum(got, want) - b_idx * PER_BLOCK
+    hi = torch.maximum(got, want) - b_idx * PER_BLOCK
+    near = ((cum_at(lo) - t).abs() <= tol) & ((cum_at(hi - 1) - t).abs() <= tol)
+    far_mismatch = int(((got != want) & ~near).sum())
+    return off_bracket, far_mismatch
+
+
+def _update_case(n, g):
+    import torch
+
+    M = PER_BATCH
+    p0 = torch.rand(n, generator=g, device="cuda") * 2 + 0.1
+    idx = torch.randint(0, n, (M,), generator=g, device="cuda")
+    idx[10] = idx[3]  # duplicate slots: the last write wins
+    idx[20] = idx[3]
+    idx[30] = (idx[5] // PER_BLOCK) * PER_BLOCK + (idx[5] + 1) % PER_BLOCK  # revisit
+    idx[40] = n - 1  # the last lane of the plane
+    idx[41] = n + 7  # clipped to n - 1
+    new_p = torch.rand(M, generator=g, device="cuda") + 0.5
+    return p0, idx, new_p
+
+
+def phase_per_kernels(report: dict) -> None:
+    import numpy as np
+    import torch
+
+    from scalerl_torch.ops import cuda_per, per
+
+    set_tf32(False)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sample_cases, worst_sample = [], 0
+    main = None
+    for n in (1 << 20, 1_000_003):
+        for kind in ("integer", "real"):
+            if kind == "integer":
+                p = torch.randint(1, 17, (n,), generator=g, device="cuda").float()
+            else:
+                p = torch.rand(n, generator=g, device="cuda") ** 0.6
+            total = p.sum()
+            for S in (32, PER_BATCH):
+                u = torch.rand(S, generator=g, device="cuda")
+                targets = (torch.arange(S, device="cuda") + u) / S * total
+                b_idx, within_t = per.split_targets(p, targets, PER_BLOCK)
+                got = cuda_per.within_block_kernel(p, b_idx, within_t, PER_BLOCK)
+                want = per.within_block_sample(p, b_idx, within_t, PER_BLOCK)
+                torch.cuda.synchronize()
+                mismatches = int((got != want).sum())
+                err = int((got - want).abs().max())
+                worst_sample = max(worst_sample, err)
+                case = {"n": n, "S": S, "priorities": kind, "mismatches": mismatches,
+                        "max_abs_err": err}
+                if kind == "integer":
+                    if mismatches:
+                        raise AssertionError(f"sample kernel: {mismatches} index mismatches {case}")
+                else:
+                    off, far = _per_bracket(p, b_idx, within_t, got, want, n)
+                    case.update(off_bracket=off, mismatch_away_from_boundary=far)
+                    if off or far:
+                        raise AssertionError(f"sample kernel off its bracket: {case}")
+                    if n == 1 << 20 and S == PER_BATCH:
+                        main = (p, targets, b_idx, within_t)
+                sample_cases.append(case)
+
+    update_cases, worst_update = [], 0.0
+    for n in (1 << 20, 1_000_003):
+        p0, idx, new_p = _update_case(n, g)
+        want_np = p0.cpu().numpy()
+        for i, v in zip(idx.clamp(0, n - 1).cpu().numpy(), new_p.cpu().numpy()):
+            want_np[i] = v  # the JAX package's ordered loop
+        for with_sums in (False, True):
+            pk, pp = p0.clone(), p0.clone()
+            sk = per.block_sums(p0, PER_BLOCK) if with_sums else None
+            sp = sk.clone() if with_sums else None
+            cuda_per.update_kernel(pk, idx, new_p, sk, PER_BLOCK)
+            per.update_priorities_plain(pp, idx, new_p, sp, PER_BLOCK)
+            torch.cuda.synchronize()
+            plane_err = float((pk - pp).abs().max())
+            loop_exact = bool(np.array_equal(pk.cpu().numpy(), want_np))
+            case = {"n": n, "M": PER_BATCH, "sums": with_sums, "plane_max_abs_err": plane_err,
+                    "equals_ordered_loop": loop_exact}
+            if with_sums:
+                case["sums_max_rel_err"] = float(((sk - sp).abs() / sp.abs()).max())
+            update_cases.append(case)
+            worst_update = max(worst_update, plane_err)
+            if plane_err != 0.0 or not loop_exact or case.get("sums_max_rel_err", 0.0) > PER_SUMS_RTOL:
+                raise AssertionError(f"update kernel disagrees: {case}")
+
+    # times at the DQN slice's shapes: N = 2^20, S = M = 512, blocks of 1024
+    p, targets, b_idx, within_t = main
+    n = p.shape[0]
+    distinct_blocks = int(torch.unique(b_idx).numel())
+    sample_bytes = distinct_blocks * PER_BLOCK * 4 + PER_BATCH * (8 + 4) + PER_BATCH * 8
+    sample_ops = 2 * PER_BATCH * PER_BLOCK  # a scan add and a compare per lane
+    sample_timing = _bound(sample_bytes, sample_ops, dict(
+        ms=gpu_time_ms(lambda: cuda_per.within_block_kernel(p, b_idx, within_t, PER_BLOCK), 200),
+        eager_ms=eager_time_ms(lambda: cuda_per.within_block_kernel(p, b_idx, within_t, PER_BLOCK), 200),
+        plain_ms=gpu_time_ms(lambda: per.within_block_sample(p, b_idx, within_t, PER_BLOCK), 50),
+        plain_eager_ms=eager_time_ms(lambda: per.within_block_sample(p, b_idx, within_t, PER_BLOCK), 50),
+        with_phase1_ms=gpu_time_ms(lambda: cuda_per.sample_kernel(p, targets, PER_BLOCK), 50),
+        with_phase1_eager_ms=eager_time_ms(lambda: cuda_per.sample_kernel(p, targets, PER_BLOCK), 50),
+        plain_hierarchical_ms=gpu_time_ms(lambda: per.hierarchical_sample(p, targets, PER_BLOCK), 50),
+        flat_cumsum_ms=gpu_time_ms(lambda: per.cumsum_sample(p, targets), 50),
+        distinct_blocks=distinct_blocks,
+    ))
+    p0, idx, new_p = _update_case(n, g)
+    pk, pp = p0.clone(), p0.clone()
+    clipped = idx.clamp(0, n - 1)
+    slots = int(torch.unique(clipped).numel())
+    touched = int(torch.unique(clipped // PER_BLOCK).numel())
+    update_bytes = PER_BATCH * (8 + 4) + slots * 4  # indices, values in; slots out
+    update_timing = _bound(update_bytes, 0, dict(
+        ms=gpu_time_ms(lambda: cuda_per.update_kernel(pk, idx, new_p, None, PER_BLOCK), 200),
+        eager_ms=eager_time_ms(lambda: cuda_per.update_kernel(pk, idx, new_p, None, PER_BLOCK), 200),
+        plain_ms=gpu_time_ms(lambda: per.update_priorities_plain(pp, idx, new_p, None, PER_BLOCK), 50),
+        plain_eager_ms=eager_time_ms(lambda: per.update_priorities_plain(pp, idx, new_p, None, PER_BLOCK), 50),
+        distinct_slots=slots, touched_blocks=touched,
+    ))
+    sk = per.block_sums(p0, PER_BLOCK)
+    sp = sk.clone()
+    sums_bytes = update_bytes + touched * PER_BLOCK * 4 + touched * 4  # + blocks read, sums out
+    sums_timing = _bound(sums_bytes, touched * PER_BLOCK, dict(
+        ms=gpu_time_ms(lambda: cuda_per.update_kernel(pk, idx, new_p, sk, PER_BLOCK), 200),
+        plain_ms=gpu_time_ms(lambda: per.update_priorities_plain(pp, idx, new_p, sp, PER_BLOCK), 50),
+    ))
+    report["per_sample"] = {"max_abs_err": float(worst_sample), **sample_timing}
+    report["per_update"] = {"max_abs_err": worst_update, **update_timing}
+    emit("per_kernels", block=PER_BLOCK, sample_cases=sample_cases, update_cases=update_cases,
+         sample=sample_timing, update=update_timing, update_with_sums=sums_timing,
+         bracket_rel=PER_BRACKET_REL, sums_rtol=PER_SUMS_RTOL, card=report["card"],
+         library_ms=None, library_note="no single PyTorch call computes either function: "
+         "index_put_ does not promise last-wins; flat_cumsum_ms times cumsum + searchsorted")
+
+
+def _bound(moved: int, ops: int, timing: dict) -> dict:
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    return dict(timing, bytes_moved=moved, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _dqn_args(**kw):
+    from scalerl_torch.config import DQNArguments
+
+    return DQNArguments(num_envs=PER_NUM_ENVS, buffer_size=PER_CAPACITY, batch_size=PER_BATCH,
+                        use_per=True, n_steps=PER_N_STEP, **kw)
+
+
+def phase_dqn_learn(report: dict) -> None:
+    """One full-size learn step from the same buffer contents and uniforms,
+    through the kernels and through the plain versions, on the card."""
+    import dataclasses
+
+    import torch
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.data.prioritized import per_sample_from_uniforms
+    from scalerl_torch.data.sampler import Sampler
+
+    set_tf32(False)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (PER_CAPACITY, PER_NUM_ENVS)
+    done = torch.rand(shape, generator=g, device="cuda") < 0.05
+    contents = dict(
+        obs=torch.randn(shape + (4,), generator=g, device="cuda"),
+        next_obs=torch.randn(shape + (4,), generator=g, device="cuda"),
+        action=torch.randint(0, 2, shape, generator=g, device="cuda"),
+        reward=torch.rand(shape, generator=g, device="cuda"),
+        done=done,
+        boundary=done | (torch.rand(shape, generator=g, device="cuda") < 0.01),
+    )
+    priorities = torch.rand(shape, generator=g, device="cuda") * 2 + 0.05
+    u = torch.rand(PER_BATCH, generator=g, device="cuda")
+    out = {}
+    for name, use_pallas in (("plain", False), ("kernel", True)):
+        args = _dqn_args(use_pallas=use_pallas)
+        agent = DQNAgent(args, (4,), 2)
+        sampler = Sampler((4,), PER_CAPACITY, PER_NUM_ENVS, use_per=True, per_alpha=args.per_alpha,
+                          n_step=PER_N_STEP, gamma=args.gamma, use_pallas=use_pallas)
+        state = sampler.buffer.state
+        for k, v in contents.items():
+            state.replay.storage[k].copy_(v)
+        state.priorities.copy_(priorities)
+        # a full ring whose head has wrapped: the sample rolls the plane
+        sampler.buffer.state = dataclasses.replace(
+            state, replay=dataclasses.replace(state.replay, pos=12345, size=PER_CAPACITY))
+        batch = per_sample_from_uniforms(sampler.buffer.state, u, args.per_alpha, args.per_beta,
+                                         PER_N_STEP, args.gamma, sampler.buffer.sample_method)
+        metrics, td_abs = agent.learn_device(batch)
+        sampler.update_priorities(batch["indices"], td_abs + 1e-6)
+        torch.cuda.synchronize()
+        out[name] = dict(indices=batch["indices"], plane=sampler.buffer.state.priorities,
+                         params=torch.cat([v.reshape(-1) for v in agent.state.params.values()]),
+                         loss=float(metrics["loss"]))
+    plain, kern = out["plain"], out["kernel"]
+    mismatches = int((plain["indices"] != kern["indices"]).sum())
+    errs = {
+        "plane_max_abs_err": float((plain["plane"] - kern["plane"]).abs().max()),
+        "params_max_abs_err": float((plain["params"] - kern["params"]).abs().max()),
+    }
+    emit("dqn_learn", index_mismatches=mismatches, **errs, loss_plain=plain["loss"],
+         loss_kernel=kern["loss"], batch=PER_BATCH, replay=list(shape), tol=DQN_LEARN_TOL,
+         tf32=False)
+    if mismatches or any(not v <= DQN_LEARN_TOL for v in errs.values()):
+        raise AssertionError(f"kernel learn step off the plain one: {mismatches} indices, {errs}")
+
+
+class CartPoleVectorView:
+    """gym's vector-env API over the port's ``TensorCartPole`` on the card
+    (whose machine may have no gymnasium): ``reset(seed)``, ``step(actions)``
+    -> ``(obs, reward, terminated, truncated, infos)``, ``num_envs`` and the
+    spaces' ``shape`` and ``n``.
+
+    ``done`` splits into ``truncated`` (the step that reaches ``max_steps``)
+    and ``terminated`` (every other end).  No ``final_obs``: where an episode
+    ends, ``obs`` is already the reset observation, so a truncated
+    transition's ``next_obs`` is the reset observation."""
+
+    def __init__(self, num_envs: int) -> None:
+        from scalerl_torch.envs.tensor_envs import TensorCartPole
+
+        self.env = TensorCartPole(num_envs)
+        self.num_envs = num_envs
+        self.single_observation_space = SimpleNamespace(shape=self.env.observation_shape)
+        self.single_action_space = SimpleNamespace(n=self.env.num_actions)
+
+    def reset(self, seed: int):
+        import torch
+
+        self.generator = torch.Generator(device=self.env.device).manual_seed(seed)
+        self.state, obs = self.env.reset(self.generator)
+        return obs, {}
+
+    def step(self, actions):
+        at_limit = self.state.t + 1 >= self.env.max_steps
+        self.state, obs, reward, done = self.env.step(self.state, actions, self.generator)
+        truncated = done & at_limit
+        return obs, reward, done & ~truncated, truncated, {}
+
+
+def phase_dqn_per(report: dict) -> None:
+    import torch
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.ops import cuda_per, cuda_vtrace
+    from scalerl_torch.trainer.off_policy import OffPolicyTrainer
+
+    set_tf32(False)
+    args = _dqn_args(use_pallas=True, warmup_learn_steps=2000, train_frequency=PER_NUM_ENVS,
+                     max_timesteps=40_000, eval_frequency=10**9)
+    envs = CartPoleVectorView(PER_NUM_ENVS)
+    agent = DQNAgent(args, envs.single_observation_space.shape, envs.single_action_space.n)
+    trainer = OffPolicyTrainer(args, agent, envs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_vtrace.launches = 0
+    cuda_per.sample_launches = 0
+    cuda_per.update_launches = 0
+    t0 = time.perf_counter()
+    summary = trainer.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"per_sample": cuda_per.sample_launches, "per_update": cuda_per.update_launches}
+    report["launches"].update(launches)
+    learn_steps = trainer.learn_steps
+    skipped = float(trainer.skipped_steps)
+    losses = [m["loss"] for _, kind, m in trainer.log_history if kind == "train" and "loss" in m]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the learn step alone (sample -> learn -> priority update), synchronised
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    learn_step_s = (time.perf_counter() - t0) / reps
+
+    emit("dqn_per", num_envs=PER_NUM_ENVS, replay=[PER_CAPACITY, PER_NUM_ENVS],
+         batch=PER_BATCH, n_step=PER_N_STEP, env_steps=trainer.global_step, seconds=seconds,
+         env_steps_per_s=trainer.global_step / seconds, learn_steps=learn_steps,
+         learn_steps_per_s=learn_steps / seconds, learn_step_ms=learn_step_s * 1e3,
+         launches=launches, vtrace_launches=cuda_vtrace.launches, skipped_steps=skipped,
+         logged_losses=len(losses), losses_finite=all(math.isfinite(x) for x in losses),
+         last_loss=losses[-1] if losses else None,
+         episodes=summary.get("episodes"), return_mean=summary.get("return_mean"),
+         peak_mem_gib=peak, card=report["card"])
+    if launches != {"per_sample": learn_steps, "per_update": learn_steps} or learn_steps < 2000:
+        raise AssertionError(f"PER kernel launches {launches} for {learn_steps} learn steps")
+    if not losses or not all(math.isfinite(x) for x in losses) or skipped != 0.0:
+        raise AssertionError(f"{len(losses)} logged losses (finite: "
+                             f"{all(math.isfinite(x) for x in losses)}), {skipped} skipped steps")
+
+    steps = 20
+    profiled_s, kernels = profile_device(lambda: [trainer.train_step() for _ in range(steps)])
+    busy_s = sum(us for _, us, _ in kernels) / 1e6 / steps
+    emit("dqn_profile", learn_steps=steps, unprofiled_learn_step_s=learn_step_s,
+         profiled_learn_step_s=profiled_s / steps,
+         device_busy_s_per_learn_step=busy_s if kernels else None,
+         device_busy_share=busy_s / learn_step_s if kernels else None,
+         kernel_launches_per_learn_step=sum(n for _, _, n in kernels) / steps,
+         top_kernels=[{"name": k[:90], "us_per_learn_step": us / steps,
+                       "calls_per_learn_step": n / steps} for k, us, n in kernels[:12]],
+         card=report["card"])
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
-          phase_impala_fused]
+          phase_impala_fused, phase_per_kernels, phase_dqn_learn, phase_dqn_per]
 
 
 def main() -> int:
@@ -407,21 +770,27 @@ def main() -> int:
 
     import torch
 
-    vt = report["vtrace"]
+    # (name, source, the TPU kernel it replaces); none has a single PyTorch
+    # call that computes the same function, so library_ms is null
+    kernels = [
+        ("vtrace", "scalerl_torch/csrc/vtrace.cu", "scalerl_tpu/ops/pallas_vtrace.py:36"),
+        ("per_sample", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:66"),
+        ("per_update", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:225"),
+    ]
     print(report["card"], flush=True)
     print(json.dumps({"kernels": [{
-        "name": "vtrace",
+        "name": name,
         "route": "cuda",
-        "source": "scalerl_torch/csrc/vtrace.cu",
-        "replaces": "scalerl_tpu/ops/pallas_vtrace.py:36",
-        "launches": report["launches"]["vtrace"],
-        "max_abs_err": vt["max_abs_err"],
-        "ms": vt["ms"],
-        "plain_ms": vt["plain_ms"],
-        "bound_ms": vt["bound_ms"],
-        "bound_by": vt["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes V-trace
-    }]}), flush=True)
+        "source": source,
+        "replaces": replaces,
+        "launches": report["launches"][name],
+        "max_abs_err": report[name]["max_abs_err"],
+        "ms": report[name]["ms"],
+        "plain_ms": report[name]["plain_ms"],
+        "bound_ms": report[name]["bound_ms"],
+        "bound_by": report[name]["bound_by"],
+        "library_ms": None,
+    } for name, source, replaces in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

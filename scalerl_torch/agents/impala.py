@@ -74,6 +74,15 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x)) for x in tree.values()))
 
 
+def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+    """``optax.clip_by_global_norm``: scale by ``max_norm / norm`` only when
+    ``norm >= max_norm``, with nothing added to the norm (torch's
+    ``clip_grad_norm_`` adds 1e-6 and always rescales)."""
+    g_norm = global_norm(grads)
+    trigger = g_norm < max_norm
+    return {k: torch.where(trigger, g, (g / g_norm) * max_norm) for k, g in grads.items()}
+
+
 class RMSPropOptimizer:
     """``optax.chain(clip_by_global_norm(max_norm), rmsprop(lr, decay, eps))``.
 
@@ -103,12 +112,7 @@ class RMSPropOptimizer:
     def update(
         self, grads: Params, opt_state: Dict[str, Any]
     ) -> Tuple[Params, Dict[str, Any]]:
-        g_norm = global_norm(grads)
-        trigger = g_norm < self.max_norm
-        grads = {
-            k: torch.where(trigger, g, (g / g_norm) * self.max_norm)
-            for k, g in grads.items()
-        }
+        grads = clip_by_global_norm(grads, self.max_norm)
         nu = {
             k: (1 - self.decay) * torch.square(g) + self.decay * opt_state["nu"][k]
             for k, g in grads.items()

@@ -6,16 +6,20 @@ dense kernels are ``[in, out]`` and become ``[out, in]``.  ``Dense_0``'s rows
 follow the NHWC flatten of the conv output, which is the order the port's
 ``AtariNet`` flattens in, so they need no permutation.
 
+``QNet``'s tree is ``params/Dense_{i}/{kernel,bias}``, the port's
+``dense.{i}`` (:func:`dense_stack_to_torch`).
+
 Any tree shaped like the params converts the same way, which covers the
-second moment ``nu`` of optax's RMSProp: :func:`rmsprop_state_to_torch`
-pulls it (and the schedule's update count) out of an optax chain state.
+optimizer moments: :func:`rmsprop_state_to_torch` pulls RMSProp's ``nu``
+(and the schedule's update count) out of an optax chain state, and
+:func:`adam_state_to_torch` Adam's ``mu``, ``nu`` and ``count``.
 This module imports neither JAX nor the JAX package; it walks nested dicts,
 tuples and namedtuples of numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -72,6 +76,23 @@ def torch_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": params}
 
 
+def dense_stack_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax tree of ``Dense_0 .. Dense_k`` layers (``QNet``), with or
+    without the top ``params`` level -> ``{"dense.{i}.weight": ...}``."""
+    tree = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    for name, layer in tree.items():
+        if not name.startswith("Dense_"):
+            raise ValueError(f"expected Dense_<i> layers, got {name!r}")
+        i = int(name[len("Dense_"):])
+        kernel = _kernel_to_torch(np.asarray(layer["kernel"], np.float32))
+        out[f"dense.{i}.weight"] = torch.tensor(np.ascontiguousarray(kernel), device=device)
+        out[f"dense.{i}.bias"] = torch.tensor(np.asarray(layer["bias"], np.float32), device=device)
+    return out
+
+
 def _find_field(state: Any, field: str) -> Optional[Any]:
     """Depth-first search of an optax state for a namedtuple with ``field``."""
     if hasattr(state, "_fields"):
@@ -101,4 +122,24 @@ def rmsprop_state_to_torch(
     return {
         "nu": flax_to_torch(nu, device),
         "count": torch.tensor(count, dtype=torch.int32, device=device),
+    }
+
+
+def adam_state_to_torch(
+    opt_state: Any,
+    tree_to_torch: Callable[..., Dict[str, torch.Tensor]] = dense_stack_to_torch,
+    device: torch.device | str = "cpu",
+) -> Dict[str, Any]:
+    """An optax chain state holding ``ScaleByAdamState`` (leaves as numpy
+    arrays) -> the port's Adam state ``{"mu": {...}, "nu": {...}, "count":
+    t}``; ``tree_to_torch`` converts each moment tree like the params."""
+    mu = _find_field(opt_state, "mu")
+    nu = _find_field(opt_state, "nu")
+    count = _find_field(opt_state, "count")
+    if mu is None or nu is None or count is None:
+        raise ValueError("no ScaleByAdamState (fields mu, nu, count) in the optimizer state")
+    return {
+        "mu": tree_to_torch(mu, device),
+        "nu": tree_to_torch(nu, device),
+        "count": torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device),
     }

@@ -43,7 +43,7 @@ def same_padding(n: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     # Flax's default kernel init: variance 1/fan_in, normal truncated at two
     # standard deviations (scaled so the truncated law keeps that variance)
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -101,7 +101,7 @@ class AtariNet(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for layer in [*self.convs, self.fc, self.policy, self.baseline]:
             fan_in = layer.weight[0].numel()
-            _lecun_normal_(layer.weight, fan_in, generator)
+            lecun_normal_(layer.weight, fan_in, generator)
             layer.bias.zero_()
 
     def initial_state(self, batch_size: int) -> tuple:

@@ -25,12 +25,13 @@ import torch
 
 
 def tensor_leaves(tree: Any) -> List[torch.Tensor]:
-    """Tensor leaves of a train state."""
+    """Tensor leaves of a train state (or a tuple of them)."""
     if isinstance(tree, torch.Tensor):
         return [tree]
     if dataclasses.is_dataclass(tree):
         tree = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
-    return [leaf for sub in tree.values() for leaf in tensor_leaves(sub)]
+    subs = tree if isinstance(tree, (tuple, list)) else tree.values()
+    return [leaf for sub in subs for leaf in tensor_leaves(sub)]
 
 
 def tree_select(pred: torch.Tensor, on_true: Any, on_false: Any) -> Any:
@@ -54,20 +55,26 @@ def all_finite(tree: Any) -> torch.Tensor:
 
 
 def guard_nonfinite_updates(learn_fn: Callable, check_every: int = 1) -> Callable:
-    """Wrap ``(state, *args) -> (state, metrics)`` so a non-finite result
-    keeps the input state; ``state.step`` is the learner update count.
-    (The JAX version also sanitises extra outputs such as PER priorities;
-    they arrive with the replay slice.)"""
+    """Wrap ``(state, *args) -> (state, metrics, *aux)`` so a non-finite
+    result keeps the input state; ``state.step`` is the learner update
+    count.  On a skipped step the aux tensors (e.g. the per-sample |TD|
+    that feeds PER priorities) come back with their non-finite entries
+    zeroed, so NaN cannot reach the replay through the feedback path."""
 
     def guarded(state, *args):
-        new_state, metrics = learn_fn(state, *args)
-        metrics = dict(metrics)
-        skip = ((state.step % check_every) == 0) & ~all_finite(new_state)
+        out = learn_fn(state, *args)
+        new_state, metrics, aux = out[0], dict(out[1]), tuple(out[2:])
+        skip = ((state.step % check_every) == 0) & ~all_finite((new_state, aux))
         safe_state = tree_select(~skip, new_state, state)
+        safe_aux = tuple(
+            torch.where(skip, torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0), x)
+            if x.is_floating_point() else x
+            for x in aux
+        )
         bad = skip.to(torch.float32)
         metrics["nonfinite_grads"] = bad
         metrics["skipped_steps"] = bad
-        return safe_state, metrics
+        return (safe_state, metrics) + safe_aux
 
     return guarded
 

@@ -1,0 +1,52 @@
+"""Episode accounting for vector envs (port of ``EpisodeMetrics`` of
+``scalerl_tpu/utils/metrics.py``).  Plain numpy on the host: episode
+boundaries are data-dependent."""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+
+class EpisodeMetrics:
+    """Track each env's running return and length; record finished episodes."""
+
+    def __init__(self, num_envs: int) -> None:
+        self.num_envs = num_envs
+        self._returns = np.zeros(num_envs, dtype=np.float64)
+        self._lengths = np.zeros(num_envs, dtype=np.int64)
+        self.episode_returns: List[float] = []
+        self.episode_lengths: List[int] = []
+
+    def step(self, rewards: np.ndarray, dones: np.ndarray) -> int:
+        """Accumulate one vector step; returns the number of episodes that
+        finished."""
+        rewards = np.asarray(rewards, dtype=np.float64).ravel()
+        dones = np.asarray(dones).reshape(rewards.shape[0]).astype(bool)
+        self._returns += rewards
+        self._lengths += 1
+        for i in np.nonzero(dones)[0]:
+            self.episode_returns.append(float(self._returns[i]))
+            self.episode_lengths.append(int(self._lengths[i]))
+        self._returns[dones] = 0.0
+        self._lengths[dones] = 0
+        return int(dones.sum())
+
+    @property
+    def num_episodes(self) -> int:
+        return len(self.episode_returns)
+
+    def summary(self, window: int = 100) -> Dict[str, float]:
+        rets = self.episode_returns[-window:]
+        lens = self.episode_lengths[-window:]
+        if not rets:
+            return {"episodes": 0}
+        return {
+            "episodes": float(len(self.episode_returns)),
+            "return_mean": float(np.mean(rets)),
+            "return_std": float(np.std(rets)),
+            "return_max": float(np.max(rets)),
+            "return_min": float(np.min(rets)),
+            "length_mean": float(np.mean(lens)),
+        }

@@ -1,9 +1,12 @@
-"""The port's ``SyntheticPixelEnv`` against the JAX env, exactly.
+"""The port's device envs against the JAX envs.
 
 The random streams of ``jax.random`` and ``torch.Generator`` differ, so the
-test repeats the JAX env's own draws (``split`` into teleport/reset/sticky
-keys, then ``randint``/``bernoulli``, synthetic.py:116-131) on the same
-per-lane keys and feeds them to the port's pure transition.
+tests repeat the JAX env's own draws on the same per-lane keys and feed them
+to the port's pure transition: for ``SyntheticPixelEnv`` the teleport,
+reset and sticky draws (``split``, then ``randint``/``bernoulli``,
+synthetic.py:116-131), exactly; for ``TensorCartPole`` the reset values
+(cartpole.py:56), on injected states, with the physics at 1e-6 (XLA's and
+PyTorch's sin and cos may differ in the last bit) and ``done`` exact.
 """
 
 import jax
@@ -12,8 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from scalerl_torch.envs.tensor_envs import SyntheticDraws, SyntheticPixelEnv, SyntheticState
+from scalerl_torch.envs.tensor_envs import (
+    CartPoleState,
+    SyntheticDraws,
+    SyntheticPixelEnv,
+    SyntheticState,
+    TensorCartPole,
+)
 from scalerl_tpu.envs.jax_envs.base import JaxVecEnv
+from scalerl_tpu.envs.jax_envs.cartpole import CartPoleState as JaxCartPoleState
+from scalerl_tpu.envs.jax_envs.cartpole import JaxCartPole
 from scalerl_tpu.envs.jax_envs.synthetic import SyntheticPixelEnv as JaxSyntheticPixelEnv
 
 torch.set_num_threads(1)
@@ -87,3 +98,85 @@ def test_step_draws_from_the_generator_and_auto_resets():
         assert bool((done == (t % 3 == 0)).all())
         assert bool((state.t == t % 3).all())
         assert bool(((state.cell >= 0) & (state.cell < env.num_states)).all())
+
+
+def _jax_cartpole_step(env):
+    def one(state, action, key):
+        reset_vals = jax.random.uniform(key, (4,), minval=-0.05, maxval=0.05)
+        return env.step(state, action, key), reset_vals
+
+    return jax.jit(jax.vmap(one))
+
+
+def _cartpole_states(B, rng):
+    """Random states across the whole range, many near a limit."""
+    return JaxCartPoleState(
+        x=jnp.asarray(rng.uniform(-2.5, 2.5, B), jnp.float32),
+        x_dot=jnp.asarray(rng.normal(0, 1.5, B), jnp.float32),
+        theta=jnp.asarray(rng.uniform(-0.22, 0.22, B), jnp.float32),
+        theta_dot=jnp.asarray(rng.normal(0, 2.0, B), jnp.float32),
+        t=jnp.asarray(rng.integers(0, 500, B), jnp.int32),
+    )
+
+
+def _to_port(jstate):
+    return CartPoleState(*(torch.from_numpy(np.array(x)) for x in jstate[:4]),
+                         torch.from_numpy(np.array(jstate.t)).long())
+
+
+def _assert_cartpole_close(got, want):
+    state, obs, reward, done = got
+    (jstate, jobs, jrew, jdone) = want
+    np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
+    for name, a, b in zip(CartPoleState._fields, state, jstate):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=1e-6, err_msg=name)
+    np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), atol=1e-6, rtol=1e-6)
+    np.testing.assert_array_equal(reward.numpy(), np.asarray(jrew))
+
+
+def test_cartpole_step_matches_jax_on_injected_states():
+    B = 512
+    jenv, env = JaxCartPole(), TensorCartPole(num_envs=B, device="cpu")
+    step = _jax_cartpole_step(jenv)
+    rng = np.random.default_rng(0)
+    jstate = _cartpole_states(B, rng)
+    actions = rng.integers(0, 2, B).astype(np.int32)
+    keys = jax.random.split(jax.random.PRNGKey(3), B)
+    want, reset_vals = step(jstate, jnp.asarray(actions), keys)
+    got = env.transition(_to_port(jstate), torch.from_numpy(actions),
+                         torch.from_numpy(np.array(reset_vals)))
+    _assert_cartpole_close(got, want)
+    assert 0 < int(np.asarray(want[3]).sum()) < B  # some lanes ended, some did not
+
+
+def test_cartpole_rollout_matches_jax_step_by_step():
+    B, steps = 16, 300
+    jenv, env = JaxCartPole(max_steps=120), TensorCartPole(num_envs=B, max_steps=120, device="cpu")
+    step = _jax_cartpole_step(jenv)
+    rng = np.random.default_rng(1)
+    jstate = _cartpole_states(B, rng)._replace(t=jnp.zeros(B, jnp.int32))
+    key = jax.random.PRNGKey(2)
+    ends = 0
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        actions = rng.integers(0, 2, B).astype(np.int32)
+        want, reset_vals = step(jstate, jnp.asarray(actions), jax.random.split(sub, B))
+        got = env.transition(_to_port(jstate), torch.from_numpy(actions),
+                             torch.from_numpy(np.array(reset_vals)))
+        _assert_cartpole_close(got, want)
+        ends += int(np.asarray(want[3]).sum())
+        jstate = want[0]  # inject: each step starts from the JAX state
+    assert ends > 0
+
+
+def test_cartpole_draws_from_the_generator_and_auto_resets():
+    env = TensorCartPole(num_envs=6, max_steps=4, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    state, obs = env.reset(gen)
+    assert obs.shape == (6, 4) and obs.dtype == torch.float32
+    assert bool((obs.abs() <= 0.05).all())
+    for t in range(1, 9):
+        state, obs, reward, done = env.step(state, torch.ones(6, dtype=torch.long), gen)
+        assert bool((reward == 1.0).all())
+        assert bool(done[state.t == 0].all()) and not bool(done[state.t != 0].any())
+        assert bool((state.t <= 3).all())

@@ -47,7 +47,7 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_submodules()) >= 15
+    assert len(_submodules()) >= 39  # the IMPALA and DQN slices
 
 
 def _imported_roots(path: Path):
@@ -85,6 +85,28 @@ def test_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
     agent = ImpalaAgent(args, env.observation_shape, env.num_actions, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), unroll_length=2)
+
+
+def test_dqn_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.config import DQNArguments
+    from scalerl_torch.data.prioritized import PrioritizedReplayBuffer
+    from scalerl_torch.data.replay import ReplayBuffer
+    from scalerl_torch.data.sampler import Sampler
+    from scalerl_torch.envs.tensor_envs import TensorCartPole
+    from scalerl_torch.models.mlp import QNet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: DQNAgent(DQNArguments(), (4,), 2),
+        lambda: TensorCartPole(num_envs=2),
+        lambda: QNet((4,), 2),
+        lambda: ReplayBuffer((4,), 8),
+        lambda: PrioritizedReplayBuffer((4,), 8),
+        lambda: Sampler((4,), 8, use_per=True, use_pallas=True),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
 
 
 def _run_smoke(cwd: Path):
