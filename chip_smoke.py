@@ -44,6 +44,32 @@ no result line:
    (16 envs, a 65,536 x 16 replay, batch 512, 3-step returns, 40,000 env
    steps), with every kernel's launch count zeroed just before; then 20
    learn steps under ``torch.profiler`` (``dqn_profile``).
+10. ``paged_attn``: the paged decode attention kernel against its plain
+    PyTorch version on the card (max abs error <= ``PAGED_TOL``): at the
+    generation engine's shape (256 lanes, 8 heads of 32, pages of 16, 24
+    per lane, 6,145 pages; fragmented seeded tables with shared pages,
+    null or random junk past each length, lengths over [1, 384]), at the
+    small layouts of the JAX tests with a length-1 lane, and in bfloat16
+    (``PAGED_BF16_TOL``).  Its time by CUDA-graph replay and eagerly, the
+    plain version's, the byte bound, and gather + SDPA as context.
+11. ``genrl_model``: the full-width generation model (V=32, d=256, 8
+    heads, 4 layers) on the card against the same weights on the host,
+    float32 with TF32 off (``GEN_MODEL_TOL``): masked forward, paged
+    prefill, paged decode through the kernel, tail prefill, the pools.
+12. ``genrl_decode``: one full-shape macro step (256 lanes, 16 substeps)
+    from the same state and generator seed, through the kernel and
+    through the plain version: tokens equal, the rest within
+    ``GEN_DECODE_TOL``.
+13. ``genrl_continuous``: the main path as ``bench.py --mode genrl
+    --continuous`` sets it up on an accelerator: the cohort engine for
+    ``GEN_TARGET_S``, a warm-up of six lane-fills, then the continuous
+    engine for ``GEN_TARGET_S`` under Poisson arrivals at twice the cohort's
+    completion rate with the kernel's launch count zeroed just before
+    (launches must equal 64 per dispatched macro step); 8 more macro steps
+    of the same traffic under ``torch.profiler`` (``genrl_profile``); a
+    drain (every reservation returned); then at temperature 0 a handful of
+    prompts through both engines, token-identical with logp within
+    ``GEN_IDENTITY_LOGP_TOL`` (``genrl_identity``).
 
 Then a line with the card, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -60,6 +86,8 @@ import time
 import traceback
 from pathlib import Path
 from types import SimpleNamespace
+
+import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -409,6 +437,29 @@ def profile_device(fn):
     return profiled_s, kernels
 
 
+def profile_host(fn, top: int = 12):
+    """Run ``fn()`` under cProfile; returns the wall seconds and the
+    port's functions with the largest cumulative time, as
+    ``[(file:function, seconds, calls)]``.  cProfile slows Python calls,
+    so read shares, not absolute times."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    rows = [(f"{Path(file).name}:{func}", ct, nc)
+            for (file, _line, func), (_cc, nc, _tt, ct, _callers) in pstats.Stats(prof).stats.items()
+            if "scalerl_torch" in file]
+    return wall, sorted(rows, key=lambda r: -r[1])[:top]
+
+
 def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 2) -> None:
     """Where the time goes: ``chunks`` more chunks (after the counted run)
     under ``torch.profiler``; the device's busy time per chunk against the
@@ -749,8 +800,461 @@ def phase_dqn_per(report: dict) -> None:
          card=report["card"])
 
 
+# Generation plane (phases 10-13): bench.py's genrl-continuous setup
+GEN_V, GEN_D, GEN_HEADS, GEN_LAYERS = 32, 256, 8, 4
+GEN_P, GEN_R, GEN_LANES = 128, 256, 256
+GEN_PAGE, GEN_MACRO, GEN_MIN_FREE = 16, 16, 32
+GEN_MAX_LEN = 2 * (GEN_P + GEN_R)
+GEN_PAGES_PER_LANE = (GEN_P + GEN_R) // GEN_PAGE  # 24
+GEN_NUM_PAGES = GEN_LANES * GEN_PAGES_PER_LANE + 1  # 6,145 with the null page
+GEN_TARGET_S = 10.0
+# the kernel against its plain version: the same float32 arithmetic summed
+# in another order (an online softmax over chunks of 16 tokens against one
+# softmax and an einsum); JAX pins its kernel to its reference at 1e-5
+PAGED_TOL = 1e-5
+# bfloat16 inputs: both sides accumulate in float32 and round the output to
+# bfloat16 once, so they may differ by one bfloat16 step of an output below
+# 4 in magnitude (2^-6)
+PAGED_BF16_TOL = 2.0 ** -6
+# the model on the card against the same weights on the host, float32 with
+# TF32 off: cuBLAS and the host's BLAS sum the d=256 and 1,024-wide products
+# in different orders, which moves logits ~1e-6 per layer
+GEN_MODEL_TOL = 1e-4
+# one macro step, kernel against plain version on the card: attention
+# differs by <= PAGED_TOL per call and that passes through 4 layers and 16
+# dependent substeps
+GEN_DECODE_TOL = 1e-4
+# temperature 0, continuous (paged kernel) against cohort (dense masked
+# attention) engine: JAX's acceptance pin, tests/test_continuous.py:74-94
+GEN_IDENTITY_LOGP_TOL = 1e-5
+
+
+def _gen_model(device, seed=0):
+    import torch
+
+    from scalerl_torch.models.transformer import TransformerPolicy
+
+    return TransformerPolicy(num_actions=GEN_V, vocab_size=GEN_V, d_model=GEN_D,
+                             num_heads=GEN_HEADS, num_layers=GEN_LAYERS, max_len=GEN_MAX_LEN,
+                             device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def _gen_config(**kw):
+    from scalerl_torch.genrl.continuous import ContinuousConfig
+
+    base = dict(vocab_size=GEN_V, max_prompt_len=GEN_P, max_new_tokens=GEN_R, temperature=1.0,
+                eos_token=1, seed=0, lanes=GEN_LANES, page_size=GEN_PAGE,
+                steps_per_macro=GEN_MACRO, min_free_lanes=GEN_MIN_FREE, prompt_buckets=(GEN_P,))
+    return ContinuousConfig(**{**base, **kw})
+
+
+def _paged_case(B, H, D, ps, M, N, lengths, seed, dtype, junk=False, shared=0):
+    """Pools, q and a fragmented table: lane pages drawn from one shuffled
+    pool order; ``shared`` lanes map lane 0's first two pages; entries past
+    a lane's pages are the null page (or random pages with ``junk``)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    order = torch.randperm(N - 1, generator=g) + 1
+    table = torch.zeros(B, M, dtype=torch.int32)
+    cursor = 0
+    for b in range(B):
+        n = -(-int(lengths[b]) // ps)
+        table[b, :n] = order[cursor:cursor + n].to(torch.int32)
+        cursor = (cursor + n) % (N - 1 - M)
+        if junk and n < M:
+            table[b, n:] = torch.randint(0, N, (M - n,), generator=g, dtype=torch.int32)
+    for b in range(1, min(B, 1 + shared)):
+        if -(-int(lengths[b]) // ps) > 2 and -(-int(lengths[0]) // ps) > 2:
+            table[b, :2] = table[0, :2]
+    dev = "cuda"
+    return dict(
+        q=torch.randn(B, 1, H, D, generator=g).to(dev, dtype),
+        k_pages=torch.randn(N, ps, H, D, generator=g).to(dev, dtype),
+        v_pages=torch.randn(N, ps, H, D, generator=g).to(dev, dtype),
+        page_table=table.to(dev),
+        lengths=torch.as_tensor(lengths, dtype=torch.int32).to(dev),
+    )
+
+
+def phase_paged_attn(report: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from scalerl_torch.ops import cuda_paged_attention
+    from scalerl_torch.ops.paged_attention import paged_attention_reference
+
+    set_tf32(False)
+    kernel = cuda_paged_attention.paged_decode_attention
+    g = torch.Generator().manual_seed(11)
+    B, H, D = GEN_LANES, GEN_HEADS, GEN_D // GEN_HEADS
+    ps, M, N = GEN_PAGE, GEN_PAGES_PER_LANE, GEN_NUM_PAGES
+    main_lengths = torch.randint(1, M * ps + 1, (B,), generator=g)
+    main_lengths[0], main_lengths[1], main_lengths[2] = M * ps, 1, 17
+    cases = []
+    worst = 0.0
+    layouts = [  # tests/test_paging.py:342-351, plus a length-1 lane
+        ([[1, 2, 3], [4, 5, 6]], [12, 8]),
+        ([[7, 1, 5], [3, 8, 2]], [12, 12]),
+        ([[5, 3, 0], [6, 0, 0]], [7, 2]),
+        ([[4, 0, 0], [2, 6, 1]], [1, 9]),
+    ]
+    for i, (table, lengths) in enumerate(layouts):
+        inp = _paged_case(2, 2, 8, 4, 3, 9, lengths, seed=20 + i, dtype=torch.float32)
+        inp["page_table"] = torch.tensor(table, dtype=torch.int32, device="cuda")
+        err = (kernel(**inp) - paged_attention_reference(**inp)).abs().max().item()
+        cases.append({"shape": "small", "table": table, "lengths": lengths, "max_abs_err": err})
+        worst = max(worst, err)
+    for name, kw in (("main", dict(shared=8)), ("main_junk_tail", dict(junk=True, shared=8))):
+        inp = _paged_case(B, H, D, ps, M, N, main_lengths, seed=12, dtype=torch.float32, **kw)
+        err = (kernel(**inp) - paged_attention_reference(**inp)).abs().max().item()
+        cases.append({"shape": name, "max_abs_err": err})
+        worst = max(worst, err)
+    torch.cuda.synchronize()
+    bad = [c for c in cases if not c["max_abs_err"] <= PAGED_TOL]
+    inp16 = _paged_case(B, H, D, ps, M, N, main_lengths, seed=13, dtype=torch.bfloat16, shared=8)
+    bf16_err = (kernel(**inp16).float()
+                - paged_attention_reference(**inp16).float()).abs().max().item()
+    cases.append({"shape": "main_bf16", "max_abs_err": bf16_err, "tol": PAGED_BF16_TOL})
+    if bad or not bf16_err <= PAGED_BF16_TOL:
+        raise AssertionError(f"paged kernel off its plain version: {cases}")
+
+    inp = _paged_case(B, H, D, ps, M, N, main_lengths, seed=12, dtype=torch.float32, shared=8)
+    live = int(main_lengths.sum())
+    moved = (live * 2 * H * D * 4 + 2 * B * H * D * 4 + B * M * 4 + B * 4)
+    ops = live * H * (4 * D + 6)  # q.k and p.v (2D each), the softmax's few
+    kflat = inp["k_pages"].view(N * ps, H, D)
+    vflat = inp["v_pages"].view(N * ps, H, D)
+    idx = (inp["page_table"].long()[:, :, None] * ps
+           + torch.arange(ps, device="cuda")[None, None, :]).reshape(B, M * ps)
+    valid = torch.arange(M * ps, device="cuda")[None, :] < inp["lengths"][:, None]
+    valid = valid[:, None, None, :]
+
+    def gather_sdpa():
+        k = kflat[idx].transpose(1, 2)
+        v = vflat[idx].transpose(1, 2)
+        return F.scaled_dot_product_attention(inp["q"].transpose(1, 2), k, v, attn_mask=valid)
+
+    lib_err = (gather_sdpa().transpose(1, 2) - paged_attention_reference(**inp)).abs().max().item()
+    timing = _bound(moved, ops, dict(
+        ms=gpu_time_ms(lambda: kernel(**inp), 200),
+        eager_ms=eager_time_ms(lambda: kernel(**inp), 200),
+        plain_ms=gpu_time_ms(lambda: paged_attention_reference(**inp), 20),
+        plain_eager_ms=eager_time_ms(lambda: paged_attention_reference(**inp), 20),
+        library_ms=gpu_time_ms(gather_sdpa, 20),
+        live_tokens=live,
+    ))
+    report["paged_attention"] = {"max_abs_err": worst, **timing}
+    emit("paged_attn", tol=PAGED_TOL, max_abs_err=worst, cases=cases,
+         shape={"lanes": B, "heads": H, "head_dim": D, "page_size": ps, "pages_per_lane": M,
+                "num_pages": N},
+         library="gather + F.scaled_dot_product_attention (context only; the port never "
+                 "calls it)", library_max_abs_err=lib_err, card=report["card"], **timing)
+
+
+def phase_genrl_model(report: dict) -> None:
+    """The full-width model on the card against the same weights on the
+    host, on the masked, paged prefill, paged decode (kernel on the card,
+    plain version on the host) and tail prefill paths."""
+    import torch
+
+    from scalerl_torch.models.transformer import (
+        init_paged_kv_cache,
+        prompt_attention_mask,
+        sequence_attention_mask,
+        sequence_positions,
+    )
+    from scalerl_torch.ops import cuda_paged_attention
+
+    set_tf32(False)
+    gpu = _gen_model("cuda", seed=1)
+    gpu.paged_attn_fn = cuda_paged_attention.paged_decode_attention
+    cpu = _gen_model("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(3)
+    A, P, ps, M = 4, GEN_P, GEN_PAGE, GEN_PAGES_PER_LANE
+    N = A * M + 1
+    lengths = np.array([P, P * 3 // 5, P // 8 + 1, 2], np.int32)
+    tokens = rng.integers(2, GEN_V, size=(A, P)).astype(np.int32)
+    order = rng.permutation(np.arange(1, N)).astype(np.int32)  # fragmented pages
+    table = order.reshape(A, M)
+    pos = np.arange(P)
+    page_ids = np.where(pos[None] < lengths[:, None], table[:, pos // ps], 0).astype(np.int32)
+    offsets = np.where(pos[None] < lengths[:, None], pos % ps, 0).astype(np.int32)
+    head_dim = GEN_D // GEN_HEADS
+
+    def run(model, dev):
+        t = dict(tokens=tokens, lengths=lengths, table=table, page_ids=page_ids, offsets=offsets)
+        t = {k: torch.as_tensor(v).to(dev) for k, v in t.items()}
+        out = {}
+        with torch.no_grad():
+            S = P
+            mask = sequence_attention_mask(t["lengths"], S, S)
+            o = model(t["tokens"], positions=sequence_positions(t["lengths"], S, S), attn_mask=mask)
+            out["masked"] = (o.policy_logits, o.baseline)
+            pools = init_paged_kv_cache(N, ps, GEN_LAYERS, GEN_HEADS, head_dim, device=dev)
+            o, _ = model(t["tokens"], positions=torch.arange(P, device=dev).expand(A, P),
+                         attn_mask=prompt_attention_mask(t["lengths"], P), paged_cache=pools,
+                         page_ids=t["page_ids"], page_offsets=t["offsets"])
+            out["paged_prefill"] = (o.policy_logits, o.baseline)
+            # one decode token at each lane's cursor, through the table
+            cl = t["lengths"].clone()
+            tok = t["tokens"][:, :1].clone()
+            pid = t["table"].gather(1, (cl // ps).long()[:, None])
+            o, _ = model(tok, positions=cl[:, None], paged_cache=pools, page_ids=pid,
+                         page_offsets=(cl % ps)[:, None], page_table=t["table"],
+                         attn_lengths=cl + 1)
+            out["paged_decode"] = (o.policy_logits, o.baseline)
+            # tail prefill: the last 5 prompt tokens again, on top of the
+            # prefix before them in the pool
+            T = 5
+            starts = (t["lengths"] - T).clamp(min=0)
+            gpos = starts[:, None] + torch.arange(T, device=dev)[None, :]
+            toks = t["tokens"].gather(1, gpos.long())
+            o, _ = model(toks, positions=gpos, paged_cache=pools,
+                         page_ids=t["table"].gather(1, (gpos // ps).long()),
+                         page_offsets=gpos % ps, page_table=t["table"], prefix_starts=starts)
+            out["tail_prefill"] = (o.policy_logits, o.baseline)
+            out["pools"] = torch.cat([torch.stack(pools.k)[:, 1:].reshape(-1),
+                                      torch.stack(pools.v)[:, 1:].reshape(-1)])
+        return out
+
+    launches0 = cuda_paged_attention.launches
+    want, got = run(cpu, "cpu"), run(gpu, "cuda")
+    kernel_calls = cuda_paged_attention.launches - launches0
+    errs = {}
+    for path in ("masked", "paged_prefill", "paged_decode", "tail_prefill"):
+        errs[path] = max((g.cpu() - w).abs().max().item() for g, w in zip(got[path], want[path]))
+    errs["pools"] = (got["pools"].cpu() - want["pools"]).abs().max().item()
+    emit("genrl_model", tol=GEN_MODEL_TOL, max_abs_err=errs, kernel_calls=kernel_calls,
+         d_model=GEN_D, heads=GEN_HEADS, layers=GEN_LAYERS, vocab=GEN_V, tf32=False)
+    if kernel_calls != GEN_LAYERS:
+        raise AssertionError(f"paged decode ran the kernel {kernel_calls} times, want {GEN_LAYERS}")
+    bad = {k: v for k, v in errs.items() if not v <= GEN_MODEL_TOL}
+    if bad:
+        raise AssertionError(f"model card vs host off tolerance: {bad}")
+
+
+def _prompts(rng, n):
+    lengths = rng.integers(2, GEN_P + 1, size=n).astype(np.int32)
+    prompts = rng.integers(2, GEN_V, size=(n, GEN_P)).astype(np.int32)
+    return prompts, lengths
+
+
+def phase_genrl_decode(report: dict) -> None:
+    """One full-shape macro step from the same state and generator seed:
+    through the kernel and through the plain version, on the card."""
+    import torch
+
+    from scalerl_torch.genrl import continuous
+    from scalerl_torch.genrl.continuous import ContinuousEngine
+    from scalerl_torch.ops import cuda_paged_attention
+
+    set_tf32(False)
+    model = _gen_model("cuda")
+    params = model.state_dict()
+    prompts, lengths = _prompts(np.random.default_rng(5), GEN_LANES)
+    out = {}
+    for impl in ("pallas", "xla"):
+        eng = ContinuousEngine(model, params, _gen_config(paged_attn=impl))
+        for i in range(GEN_LANES):
+            eng.submit(prompts[i], lengths[i])
+        launches0 = cuda_paged_attention.launches
+        eng._admit()
+        eng._ensure_pages()
+        p, gen = eng._snapshot_params()
+        with torch.no_grad():
+            (table,) = continuous._device_put((eng._table,), eng.device)
+            packed = eng._decode_macro(p, gen, table)
+        host = eng._unpack(continuous._device_get(packed))
+        out[impl] = dict(host=host, logits=eng._logits_st.cpu(), live=eng.live_lanes,
+                         pools=torch.cat([torch.stack(eng._pools.k)[:, 1:].reshape(-1),
+                                          torch.stack(eng._pools.v)[:, 1:].reshape(-1)]).cpu(),
+                         launches=cuda_paged_attention.launches - launches0)
+        del eng
+    k, p = out["pallas"], out["xla"]
+    mismatches = {f: int((k["host"][f] != p["host"][f]).sum())
+                  for f in ("tokens", "mask", "cl", "done", "resp")}
+    errs = {
+        "logp": float(np.abs(k["host"]["logp"] - p["host"]["logp"]).max()),
+        "value": float(np.abs(k["host"]["value"] - p["host"]["value"]).max()),
+        "logits": (k["logits"] - p["logits"]).abs().max().item(),
+        "pools": (k["pools"] - p["pools"]).abs().max().item(),
+    }
+    emit("genrl_decode", lanes=GEN_LANES, live_lanes=k["live"], steps=GEN_MACRO,
+         mismatches=mismatches, max_abs_err=errs, tol=GEN_DECODE_TOL, kernel_launches=k["launches"],
+         plain_launches=p["launches"], tf32=False)
+    if any(mismatches.values()) or any(not v <= GEN_DECODE_TOL for v in errs.values()):
+        raise AssertionError(f"macro step kernel vs plain: {mismatches}, {errs}")
+    if k["launches"] != GEN_MACRO * GEN_LAYERS or p["launches"] != 0:
+        raise AssertionError(f"launches {k['launches']} / {p['launches']}")
+
+
+def phase_genrl_continuous(report: dict) -> None:
+    """The main path as bench.py's genrl-continuous mode sets it up: the
+    cohort engine, then the continuous engine under Poisson arrivals at
+    twice the cohort's completion rate, then the temperature-0 identity of
+    the two engines at full width, then a profile."""
+    import torch
+
+    from scalerl_torch.genrl.continuous import ContinuousEngine
+    from scalerl_torch.genrl.engine import GenerationConfig, GenerationEngine
+    from scalerl_torch.ops import cuda_paged_attention
+
+    set_tf32(False)
+    model = _gen_model("cuda")
+    params = model.state_dict()
+    rng = np.random.default_rng(0)
+    base = dict(vocab_size=GEN_V, max_prompt_len=GEN_P, max_new_tokens=GEN_R, temperature=1.0,
+                eos_token=1, seed=0)
+    cohort = GenerationEngine(model, params, GenerationConfig(**base))
+    cohort.generate(*_prompts(rng, GEN_LANES))  # warm-up round
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cohort_tokens = cohort_rounds = 0
+    while time.perf_counter() - t0 < GEN_TARGET_S or cohort_rounds < 2:
+        cohort_tokens += cohort.generate(*_prompts(rng, GEN_LANES)).decode_tokens
+        cohort_rounds += 1
+    cohort_s = time.perf_counter() - t0
+    cohort_seq_per_s = cohort_rounds * GEN_LANES / cohort_s
+
+    engine = ContinuousEngine(model, params, _gen_config())
+    rate = 2.0 * cohort_seq_per_s
+    t_warm = time.perf_counter()
+    prompts, lengths = _prompts(rng, 6 * GEN_LANES)  # six lane-fills
+    for i in range(len(lengths)):
+        engine.submit(prompts[i], lengths[i])
+    while engine.live_lanes or engine.pending or engine._inflight:
+        engine.step()
+    warm_s = time.perf_counter() - t_warm
+
+    clock = {"t0": time.perf_counter()}
+    clock["next"] = rng.exponential(1.0 / rate)
+
+    def cycle():
+        """Submit the arrivals that are due, then one engine step."""
+        now = time.perf_counter() - clock["t0"]
+        n_new = 0
+        while clock["next"] <= now:
+            n_new += 1
+            clock["next"] += rng.exponential(1.0 / rate)
+        if n_new:
+            prompts, lengths = _prompts(rng, n_new)
+            for i in range(n_new):
+                engine.submit(prompts[i], lengths[i])
+        if engine.live_lanes == 0 and engine.pending == 0:
+            return []  # idle until the next arrival lands
+        return engine.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_paged_attention.launches = 0
+    occ0, macro0 = engine._occupancy_sum, engine.macro_steps
+    saved0 = engine.prefix_tokens_saved
+    done = []
+    t0 = clock["t0"] = time.perf_counter()
+    while time.perf_counter() - t0 < GEN_TARGET_S or len(done) < 2:
+        done.extend(cycle())
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t0
+    launches = cuda_paged_attention.launches
+    macros = engine.macro_steps - macro0
+    occupancy = (engine._occupancy_sum - occ0) / max(macros, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    window = list(done)
+    cont_tokens = sum(len(c.response_tokens) for c in window)
+    report["launches"]["paged_attention"] = launches
+    macro_s = cont_s / max(macros, 1)
+
+    # where the time goes: more macro steps of the same traffic (arrivals
+    # timed from each window's own start) under torch.profiler, against the
+    # unprofiled macro step time above; then the host's side under cProfile
+    def more_cycles(k=8):
+        clock["t0"] = time.perf_counter()
+        clock["next"] = rng.exponential(1.0 / rate)
+        for _ in range(k):
+            done.extend(cycle())
+
+    macro1 = engine.macro_steps
+    profiled_s, kernels = profile_device(more_cycles)
+    pmacros = max(engine.macro_steps - macro1, 1)
+    busy_s = sum(us for _, us, _ in kernels) / 1e6 / pmacros
+    paged_us = sum(us for k, us, _ in kernels if "paged_decode" in k) / pmacros
+    macro1 = engine.macro_steps
+    host_s, host_top = profile_host(more_cycles)
+    hmacros = max(engine.macro_steps - macro1, 1)
+
+    while engine.live_lanes or engine.pending or engine._inflight:  # drain
+        done.extend(engine.step())
+    lat = np.array([c.admit_time - c.submit_time for c in window]) * 1e3
+    lens = [len(c.response_tokens) for c in done]
+    tokens_ok = all(((c.response_tokens >= 0) & (c.response_tokens < GEN_V)).all() for c in done)
+    logp_ok = all(np.isfinite(c.behavior_logp).all() for c in done)
+    emit("genrl_continuous", lanes=GEN_LANES, page_size=GEN_PAGE, steps_per_macro=GEN_MACRO,
+         min_free_lanes=GEN_MIN_FREE, vocab=GEN_V, d_model=GEN_D, layers=GEN_LAYERS,
+         prompt_max=GEN_P, response_budget=GEN_R, pages_capacity=engine.allocator.capacity,
+         decode_tokens_per_s=cont_tokens / cont_s,
+         cohort_decode_tokens_per_s=cohort_tokens / cohort_s,
+         speedup_vs_cohort=(cont_tokens / cont_s) / max(cohort_tokens / cohort_s, 1e-9),
+         cohort_rounds=cohort_rounds, cohort_s=cohort_s, arrival_rate_per_s=rate,
+         warmup_s=warm_s, seconds=cont_s, macro_steps=macros, macro_step_ms=macro_s * 1e3,
+         lane_occupancy_mean=occupancy,
+         admission_latency_ms={f"p{q}": float(np.percentile(lat, q)) for q in (50, 95, 99)},
+         completed_in_window=len(window), completed_total=len(done),
+         prefix_tokens_saved=engine.prefix_tokens_saved - saved0,
+         kernel_launches=launches, response_len_max=max(lens),
+         response_len_mean=float(np.mean(lens)), reserved_after_drain=engine.allocator.reserved,
+         shed_total=engine._batcher.shed_total, peak_mem_gib=peak, card=report["card"])
+    emit("genrl_profile", macro_steps=pmacros, unprofiled_macro_step_s=macro_s,
+         profiled_macro_step_s=profiled_s / pmacros,
+         device_busy_s_per_macro_step=busy_s if kernels else None,
+         device_busy_share=busy_s / macro_s if kernels else None,
+         kernel_launches_per_macro_step=sum(n for _, _, n in kernels) / pmacros,
+         paged_kernel_us_per_macro_step=paged_us,
+         paged_kernel_share_of_device=paged_us / 1e6 / busy_s if kernels else None,
+         top_kernels=[{"name": k[:90], "us_per_macro_step": us / pmacros,
+                       "calls_per_macro_step": n / pmacros} for k, us, n in kernels[:12]],
+         cprofile_macro_step_s=host_s / hmacros,
+         host_top=[{"function": f, "cumulative_ms_per_macro_step": ct / hmacros * 1e3,
+                    "calls_per_macro_step": n / hmacros} for f, ct, n in host_top],
+         card=report["card"])
+    if launches != GEN_MACRO * GEN_LAYERS * macros or macros == 0:
+        raise AssertionError(f"paged kernel launches {launches} for {macros} macro steps")
+    if max(lens) > GEN_R or not tokens_ok or not logp_ok or engine.allocator.reserved != 0:
+        raise AssertionError(f"bad completions: max len {max(lens)}, tokens in vocab {tokens_ok}, "
+                             f"finite logp {logp_ok}, reserved {engine.allocator.reserved}")
+    del engine
+
+    # temperature 0 at full width: the continuous engine (paged kernel)
+    # token-identical to the cohort engine (dense masked attention)
+    n = 8
+    prompts, lengths = _prompts(np.random.default_rng(9), n)
+    greedy = dict(base, temperature=0.0)
+    ref = GenerationEngine(model, params, GenerationConfig(**greedy)).generate(prompts, lengths)
+    eng0 = ContinuousEngine(model, params, _gen_config(temperature=0.0))
+    for i in range(n):
+        eng0.submit(prompts[i], lengths[i])
+    by_prompt = {tuple(c.prompt.tolist()): c for c in eng0.run_until(n)}
+    mismatched, logp_err, value_err = 0, 0.0, 0.0
+    for i in range(n):
+        c = by_prompt[tuple(prompts[i, :lengths[i]].tolist())]
+        r = int(ref.response_len[i])
+        same = len(c.response_tokens) == r and np.array_equal(c.response_tokens,
+                                                               ref.response_tokens[i, :r])
+        mismatched += int(not same)
+        if same:
+            logp_err = max(logp_err, float(np.abs(c.behavior_logp - ref.behavior_logp[i, :r]).max()))
+            value_err = max(value_err, float(np.abs(c.values - ref.values[i, :r]).max()))
+    emit("genrl_identity", prompts=n, response_lens=[int(x) for x in ref.response_len],
+         mismatched_sequences=mismatched, logp_max_abs_err=logp_err, value_max_abs_err=value_err,
+         tol=GEN_IDENTITY_LOGP_TOL)
+    if mismatched or not logp_err <= GEN_IDENTITY_LOGP_TOL:
+        raise AssertionError(f"temperature-0 identity: {mismatched} sequences differ, logp {logp_err}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
-          phase_impala_fused, phase_per_kernels, phase_dqn_learn, phase_dqn_per]
+          phase_impala_fused, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
+          phase_paged_attn, phase_genrl_model, phase_genrl_decode, phase_genrl_continuous]
 
 
 def main() -> int:
@@ -770,12 +1274,15 @@ def main() -> int:
 
     import torch
 
-    # (name, source, the TPU kernel it replaces); none has a single PyTorch
-    # call that computes the same function, so library_ms is null
+    # (name, source, the TPU kernel it replaces); library_ms is null where
+    # no single PyTorch call computes the same function (the paged kernel's
+    # is gather + scaled_dot_product_attention, timed in phase_paged_attn)
     kernels = [
         ("vtrace", "scalerl_torch/csrc/vtrace.cu", "scalerl_tpu/ops/pallas_vtrace.py:36"),
         ("per_sample", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:66"),
         ("per_update", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:225"),
+        ("paged_attention", "scalerl_torch/csrc/paged_attention.cu",
+         "scalerl_tpu/ops/pallas_paged_attention.py:108"),
     ]
     print(report["card"], flush=True)
     print(json.dumps({"kernels": [{
@@ -789,7 +1296,7 @@ def main() -> int:
         "plain_ms": report[name]["plain_ms"],
         "bound_ms": report[name]["bound_ms"],
         "bound_by": report[name]["bound_by"],
-        "library_ms": None,
+        "library_ms": report[name].get("library_ms"),
     } for name, source, replaces in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

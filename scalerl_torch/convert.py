@@ -9,6 +9,10 @@ follow the NHWC flatten of the conv output, which is the order the port's
 ``QNet``'s tree is ``params/Dense_{i}/{kernel,bias}``, the port's
 ``dense.{i}`` (:func:`dense_stack_to_torch`).
 
+``TransformerPolicy``'s tree converts through :func:`transformer_to_torch`
+and back through :func:`torch_to_transformer` (names in
+:func:`_transformer_names`).
+
 Any tree shaped like the params converts the same way, which covers the
 optimizer moments: :func:`rmsprop_state_to_torch` pulls RMSProp's ``nu``
 (and the schedule's update count) out of an optax chain state, and
@@ -19,7 +23,7 @@ tuples and namedtuples of numpy arrays.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +95,81 @@ def dense_stack_to_torch(
         out[f"dense.{i}.weight"] = torch.tensor(np.ascontiguousarray(kernel), device=device)
         out[f"dense.{i}.bias"] = torch.tensor(np.asarray(layer["bias"], np.float32), device=device)
     return out
+
+
+def _transformer_names(tree: Mapping[str, Any]) -> Dict[Tuple[str, ...], str]:
+    """Flax ``TransformerPolicy`` param path -> the port's state_dict name.
+
+    ``block_i/LayerNorm_{0,1}/scale`` -> ``blocks.i.ln_{0,1}.weight``,
+    ``block_i/{qkv,proj}/kernel`` (no bias) and ``block_i/{mlp_in,mlp_out}/
+    {kernel,bias}`` -> ``blocks.i.<name>.{weight,bias}``; ``token_embed/
+    embedding``, ``obs_embed/{kernel,bias}``, ``pos_embed``, ``final_norm/
+    scale``, ``{policy,value}_head/{kernel,bias}`` keep their names."""
+    names: Dict[Tuple[str, ...], str] = {("pos_embed",): "pos_embed",
+                                         ("final_norm", "scale"): "final_norm.weight"}
+    if "token_embed" in tree:
+        names[("token_embed", "embedding")] = "token_embed.weight"
+    if "obs_embed" in tree:
+        names[("obs_embed", "kernel")] = "obs_embed.weight"
+        names[("obs_embed", "bias")] = "obs_embed.bias"
+    for head in ("policy_head", "value_head"):
+        names[(head, "kernel")] = f"{head}.weight"
+        names[(head, "bias")] = f"{head}.bias"
+    blocks = sorted((k for k in tree if k.startswith("block_")), key=lambda k: int(k[6:]))
+    for name in blocks:
+        i = int(name[len("block_"):])
+        for ln in (0, 1):
+            names[(name, f"LayerNorm_{ln}", "scale")] = f"blocks.{i}.ln_{ln}.weight"
+        for dense in ("qkv", "proj"):
+            names[(name, dense, "kernel")] = f"blocks.{i}.{dense}.weight"
+        for dense in ("mlp_in", "mlp_out"):
+            names[(name, dense, "kernel")] = f"blocks.{i}.{dense}.weight"
+            names[(name, dense, "bias")] = f"blocks.{i}.{dense}.bias"
+    return names
+
+
+def transformer_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax ``TransformerPolicy`` param tree (with or without the top
+    ``params`` level, leaves as numpy arrays) -> the port's
+    ``TransformerPolicy`` state dict, float32.  Dense kernels ``[in, out]``
+    become ``[out, in]``; embeddings, ``pos_embed`` and norm scales keep
+    their layout."""
+    tree = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    for path, torch_name in _transformer_names(tree).items():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        arr = np.asarray(leaf, np.float32)
+        if path[-1] == "kernel":
+            arr = arr.T
+        out[torch_name] = torch.tensor(np.ascontiguousarray(arr), device=device)
+    return out
+
+
+def torch_to_transformer(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``TransformerPolicy`` state dict -> ``{"params": {...}}``
+    of numpy arrays in the Flax tree's layout (the inverse of
+    :func:`transformer_to_torch`)."""
+    skeleton: Dict[str, Any] = {"pos_embed": None}
+    blocks = {name.split(".")[1] for name in state if name.startswith("blocks.")}
+    for i in blocks:
+        skeleton[f"block_{i}"] = None
+    for head in ("token_embed", "obs_embed"):
+        if f"{head}.weight" in state:
+            skeleton[head] = None
+    params: Dict[str, Any] = {}
+    for path, torch_name in _transformer_names(skeleton).items():
+        arr = state[torch_name].detach().cpu().numpy()
+        if path[-1] == "kernel":
+            arr = arr.T
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return {"params": params}
 
 
 def _find_field(state: Any, field: str) -> Optional[Any]:

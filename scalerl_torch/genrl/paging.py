@@ -1,0 +1,229 @@
+"""Host-side page allocator for the block-paged KV cache.
+
+A copy of ``scalerl_tpu/genrl/paging.py``: plain Python, so the port keeps
+its own copy rather than importing the JAX package.  The allocator
+is pure Python bookkeeping over page *ids* — the device only ever sees the
+resulting int32 page tables, uploaded inside the continuous engine's one
+batched transfer per macro-step.  Two-level accounting:
+
+- **reservations** bound admission: admitting a prompt reserves its
+  worst-case page count (``ceil((prompt_len + response_budget) /
+  page_size)``) so a live lane can NEVER hit mid-flight exhaustion — when
+  the pool can't cover a new sequence's worst case, admission backpressures
+  (the prompt stays queued / is shed at the queue bound), it never
+  corrupts;
+- **allocations** track live tokens: physical pages are drawn lazily as a
+  lane's context actually grows, so the allocated-page gauge — the memory
+  the continuous plane really uses — scales with live tokens, not with
+  ``max_bucket x lanes`` (early-EOS lanes return their pages immediately).
+
+Pages are **refcounted**: a full prefix page can back several
+lanes at once (group sampling forks n lanes over one prompt's KV, and the
+prefix cache keeps hot chains alive between admissions).  :meth:`alloc`
+starts a page at refcount 1, :meth:`share` bumps it on behalf of another
+holder, and :meth:`free` decrements — the page returns to the free list
+only at zero.  Every hold is labelled with its *holder* (``"lane[3]"``,
+``"prefix-cache"``), so the double-free / foreign-free guards can name
+exactly who held what when the invariant broke.
+
+Page 0 is the **null page**: never handed out, the routing target for
+dead-lane and pad writes, never read (reads are masked by true lengths).
+Double-free and foreign-free are hard errors — the no-aliasing invariant
+the randomized admit/finish test hammers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+
+class PageAllocator:
+    """Refcounted free-list page allocator with admission reservations.
+
+    ``num_pages`` includes the null page, so ``capacity = num_pages - 1``
+    pages are actually allocatable.  All methods are O(1)/O(k) list ops;
+    not thread-safe (the continuous engine drives it from its one host
+    loop, like every other host-side queue in the codebase).
+
+    ``reclaim``: optional hook called when :meth:`alloc` finds the free
+    list short — the prefix cache registers its LRU evictor here, so
+    cached-but-unreferenced chains are reclaimed on demand instead of
+    counting against admission.
+    """
+
+    def __init__(self, num_pages: int, page_size: int) -> None:
+        if num_pages < 2:
+            raise ValueError(
+                f"num_pages must be >= 2 (page 0 is the null page), got "
+                f"{num_pages}"
+            )
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        # LIFO free list: recently-freed pages are reused first, so a long
+        # churny run naturally fragments lane->page maps — which is why
+        # fragmentation-independence is a tested property, not an accident
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._refs: Dict[int, int] = {}  # live page -> refcount
+        self._holders: Dict[int, List[str]] = {}  # live page -> holder labels
+        self.reserved = 0
+        self._reclaim: Optional[Callable[[int], int]] = None
+
+    # -- capacity ------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        return self.num_pages - 1
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def allocated_pages(self) -> int:
+        return len(self._refs)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages currently held by more than one holder (CoW prefixes)."""
+        return sum(1 for r in self._refs.values() if r > 1)
+
+    def refcount(self, page: int) -> int:
+        """Current holder count for ``page`` (0 = not live)."""
+        return self._refs.get(page, 0)
+
+    def holders(self, page: int) -> List[str]:
+        """Holder labels currently registered on ``page`` (diagnostics)."""
+        return list(self._holders.get(page, ()))
+
+    def pages_for_tokens(self, tokens: int) -> int:
+        return -(-tokens // self.page_size)  # ceil div
+
+    def set_reclaim_hook(self, hook: Optional[Callable[[int], int]]) -> None:
+        """Register ``hook(n) -> freed``: asked to return up to ``n`` pages
+        to the free list (the prefix cache's LRU evictor)."""
+        self._reclaim = hook
+
+    # -- reservations (admission control) ------------------------------
+    def try_reserve(self, n_pages: int) -> bool:
+        """Reserve worst-case capacity for a new sequence; False =
+        backpressure (the pool cannot guarantee the sequence finishes).
+
+        A lane's reservation covers EVERY page in its table — shared
+        prefix pages included — so sharing never loosens the exhaustion
+        guarantee: the win of the prefix cache is skipped prefill compute
+        and fewer *allocated* pages, not a larger admission envelope.
+        """
+        if self.reserved + n_pages > self.capacity:
+            return False
+        self.reserved += n_pages
+        return True
+
+    def release(self, n_pages: int) -> None:
+        """Return a reservation (the lane finished or was never admitted)."""
+        if n_pages > self.reserved:
+            raise RuntimeError(
+                f"release({n_pages}) exceeds outstanding reservation "
+                f"{self.reserved}"
+            )
+        self.reserved -= n_pages
+
+    # -- physical pages ------------------------------------------------
+    def alloc(self, n_pages: int, holder: str = "?") -> List[int]:
+        """Draw ``n_pages`` fresh physical pages at refcount 1.  Callers
+        alloc only within their reservation; when the free list is short
+        the reclaim hook (prefix-cache LRU eviction) is asked first, and
+        an empty free list after that is a bookkeeping bug (aliasing
+        hazard) and raises instead of corrupting."""
+        if n_pages > len(self._free) and self._reclaim is not None:
+            self._reclaim(n_pages - len(self._free))
+        if n_pages > len(self._free):
+            raise RuntimeError(
+                f"alloc({n_pages}) by {holder!r} with only "
+                f"{len(self._free)} free pages (reserved={self.reserved}) "
+                "— reservation accounting broken"
+            )
+        pages = [self._free.pop() for _ in range(n_pages)]
+        for p in pages:
+            self._refs[p] = 1
+            self._holders[p] = [holder]
+        return pages
+
+    def share(self, pages: List[int], holder: str = "?") -> None:
+        """Bump the refcount of already-live pages on behalf of a new
+        holder (a forked group lane or the prefix cache).  Sharing a page
+        that is not live is a hard error — it would alias a recycled
+        page."""
+        for p in pages:
+            if p == 0 or p not in self._refs:
+                raise RuntimeError(
+                    f"share of page {p} by {holder!r}: page is not live "
+                    "(never allocated, or already fully freed)"
+                )
+        for p in pages:
+            self._refs[p] += 1
+            self._holders[p].append(holder)
+
+    def free(self, pages: List[int], holder: str = "?") -> None:
+        """Drop one hold per page; a page returns to the free list only
+        when its refcount reaches zero.  Freeing a non-live page
+        (double-free) or a page this holder never held (foreign-free)
+        raises, naming the page and the holders involved."""
+        for p in pages:
+            if p == 0 or p not in self._refs:
+                raise RuntimeError(
+                    f"free of page {p} by {holder!r}: page is not live "
+                    "(double free, or never allocated)"
+                )
+            held = self._holders[p]
+            if holder != "?" and holder not in held:
+                raise RuntimeError(
+                    f"free of page {p} by {holder!r}: foreign free — page "
+                    f"is held by {held!r}"
+                )
+            held.remove(holder if holder in held else held[-1])
+            self._refs[p] -= 1
+            if self._refs[p] == 0:
+                del self._refs[p]
+                del self._holders[p]
+                self._free.append(p)
+
+    # -- telemetry -----------------------------------------------------
+    def stats(self) -> Dict[str, int]:
+        return {
+            "capacity": self.capacity,
+            "free": self.free_pages,
+            "allocated": self.allocated_pages,
+            "shared": self.shared_pages,
+            "reserved": self.reserved,
+        }
+
+
+def rewind_pages(
+    allocator: PageAllocator,
+    pages: List[int],
+    keep_pages: int,
+    holder: str = "?",
+) -> int:
+    """Page-cursor rewind: drop ``holder``'s hold on every page
+    of ``pages`` past the first ``keep_pages`` entries, truncating the list
+    in place.  Returns the number of tail pages rewound.
+
+    This is how a speculative-decode rejection rolls back: the verify pass
+    advanced the lane cursor by fewer tokens than the pages pre-extended
+    for the draft horizon, so the whole pages past
+    ``pages_for_tokens(new_cursor)`` go back through :meth:`PageAllocator
+    .free` — a refcount decrement, NEVER a mutation, so a rewound page that
+    another lane or the prefix cache still holds stays live for them and
+    only this holder's ref drops.  The kept partial page's garbage beyond
+    the cursor is harmless by the engine's masking invariant (attention
+    never reads past a lane's cursor, and the next accepted tokens
+    overwrite those slots).
+    """
+    if keep_pages < 0:
+        raise ValueError(f"keep_pages must be >= 0, got {keep_pages}")
+    tail = pages[keep_pages:]
+    if tail:
+        allocator.free(tail, holder=holder)
+        del pages[keep_pages:]
+    return len(tail)

@@ -1,0 +1,395 @@
+"""Decoder-only transformer policy: port of ``scalerl_tpu/models/transformer.py``.
+
+A causal transformer actor-critic over ``[B, T]`` token ids (token mode,
+``vocab_size`` set: the sequence-RL plane) or ``[B, T, obs_dim]`` features,
+producing per-step policy logits and a baseline.  The Flax module's
+numerics are kept: LayerNorm without bias at eps 1e-6, tanh-form GELU,
+``qkv`` split on the last axis into q, k, v, masked scores at -1e30 in
+float32, fully masked rows uniform.  ``convert.py::transformer_to_torch``
+loads a Flax param tree.
+
+The forward has the JAX module's paths, chosen by its arguments:
+
+- full causal (:func:`~scalerl_torch.ops.attention.full_attention`), or
+  masked under ``attn_mask`` ``[B, T, T]``;
+- packed rows (``segment_ids``): the dense :func:`packed_attention_mask`
+  on the masked path (the flash segment kernel, B5, is not ported yet);
+- dense ``KVCache`` prefill and decode (the cohort engine);
+- paged (``paged_cache``): local prefill, decode through ``paged_attn_fn``
+  (the CUDA paged kernel in the continuous engine), and the shared-table
+  tail prefill over a cached prefix.
+
+Cache writes are IN PLACE: the dense cache by slice assignment, the paged
+pools by ``index_copy_`` on their flat ``[N * ps, H, D]`` view, where the
+JAX module returns new arrays (its engines donate the old ones).  The
+returned caches are the same tensors.  Several pad or dead-lane writes
+may land on the null page 0, slot 0 in one call; which one wins does not
+matter, because page 0 is never read (every read is masked by a lane's
+true length).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from scalerl_torch.models.atari import lecun_normal_
+from scalerl_torch.ops.attention import full_attention
+from scalerl_torch.ops.paged_attention import NEG_BIG, paged_attention_reference
+from scalerl_torch.utils.platform import DeviceLike, resolve_device
+
+
+class TransformerOutput(NamedTuple):
+    policy_logits: torch.Tensor  # [B, T, num_actions]
+    baseline: torch.Tensor  # [B, T]
+
+
+class KVCache(NamedTuple):
+    """Per-layer ``[B, S, H, D]`` keys and values for incremental decoding
+    (``S`` = prompt bucket + response bucket)."""
+
+    k: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+
+
+class PagedKVCache(NamedTuple):
+    """Per-layer ``[num_pages, page_size, H, D]`` pools shared by every
+    lane; page 0 is the never-read null page."""
+
+    k: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+
+
+def init_kv_cache(batch: int, total_len: int, num_layers: int, num_heads: int, head_dim: int,
+                  dtype: torch.dtype = torch.float32, device: DeviceLike = "cpu") -> KVCache:
+    shape = (batch, total_len, num_heads, head_dim)
+    return KVCache(
+        k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)),
+        v=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)),
+    )
+
+
+def init_paged_kv_cache(num_pages: int, page_size: int, num_layers: int, num_heads: int,
+                        head_dim: int, dtype: torch.dtype = torch.float32,
+                        device: DeviceLike = "cpu") -> PagedKVCache:
+    shape = (num_pages, page_size, num_heads, head_dim)
+    return PagedKVCache(
+        k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)),
+        v=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)),
+    )
+
+
+def prompt_attention_mask(lengths: torch.Tensor, total_len: int) -> torch.Tensor:
+    """``[B, T, T]`` causal mask over RIGHT-padded prompts (paged prefill):
+    row ``i`` sees columns ``<= i`` inside the real prefix."""
+    ar = torch.arange(total_len, device=lengths.device)
+    cols, rows = ar[None, None, :], ar[None, :, None]
+    return (cols <= rows) & (cols < lengths[:, None, None])
+
+
+def prefill_attention_mask(lengths: torch.Tensor, prompt_pad: int, total_len: int) -> torch.Tensor:
+    """``[B, P, S]`` mask for the prefill over LEFT-padded prompts: row
+    ``r`` sees the real prompt causally, never the pad prefix or the
+    response region."""
+    cols = torch.arange(total_len, device=lengths.device)[None, None, :]
+    rows = torch.arange(prompt_pad, device=lengths.device)[None, :, None]
+    pad = (prompt_pad - lengths)[:, None, None]
+    return (cols >= pad) & (cols <= rows)
+
+
+def decode_attention_mask(lengths: torch.Tensor, prompt_pad: int, step: int,
+                          total_len: int) -> torch.Tensor:
+    """``[B, 1, S]`` mask for decode step ``step``: the real prompt plus
+    every response token written so far, including this step's."""
+    cols = torch.arange(total_len, device=lengths.device)[None, None, :]
+    pad = (prompt_pad - lengths)[:, None, None]
+    return (cols >= pad) & (cols <= prompt_pad + step)
+
+
+def sequence_attention_mask(lengths: torch.Tensor, prompt_pad: int, total_len: int) -> torch.Tensor:
+    """``[B, S, S]`` causal mask over a whole left-padded sequence (the
+    learner's forward), pad-prefix columns excluded."""
+    ar = torch.arange(total_len, device=lengths.device)
+    cols, rows = ar[None, None, :], ar[None, :, None]
+    pad = (prompt_pad - lengths)[:, None, None]
+    return (cols >= pad) & (cols <= rows)
+
+
+def sequence_positions(lengths: torch.Tensor, prompt_pad: int, total_len: int) -> torch.Tensor:
+    """``[B, S]`` position ids for left-padded sequences: the first real
+    token is position 0; pad positions clamp to 0."""
+    pad = (prompt_pad - lengths)[:, None]
+    ar = torch.arange(total_len, device=lengths.device)[None, :]
+    return (ar - pad).clamp(0, total_len - 1)
+
+
+def packed_attention_mask(segment_ids: torch.Tensor) -> torch.Tensor:
+    """``[B, S, S]`` segment-blocked causal mask over PACKED rows: token
+    ``i`` sees ``j <= i`` iff both carry the same nonzero segment id."""
+    seg = segment_ids.to(torch.int32)
+    S = seg.shape[1]
+    ar = torch.arange(S, device=seg.device)
+    causal = ar[None, :, None] >= ar[None, None, :]
+    return causal & (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0)
+
+
+def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """q ``[B, T, H, D]`` against k/v ``[B, S, H, D]`` under ``mask``
+    ``[B, T, S]`` (True = attend).  Scores and softmax in float32; fully
+    masked rows come out uniform, never NaN."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, :, :], NEG_BIG)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", probs, v.float()).to(out_dtype)
+
+
+def _layer_norm(d_model: int) -> nn.LayerNorm:
+    # Flax nn.LayerNorm(use_bias=False): eps 1e-6, scale only
+    return nn.LayerNorm(d_model, eps=1e-6, bias=False)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block: ``x + proj(attn(LN(x)))``, then ``x + MLP(LN(x))``
+    (Flax ``_Block``; children named as its params, ``LayerNorm_0`` ->
+    ``ln_0`` and ``LayerNorm_1`` -> ``ln_1``)."""
+
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int) -> None:
+        super().__init__()
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.ln_0 = _layer_norm(d_model)
+        self.qkv = nn.Linear(d_model, 3 * d_model, bias=False)
+        self.proj = nn.Linear(d_model, d_model, bias=False)
+        self.ln_1 = _layer_norm(d_model)
+        self.mlp_in = nn.Linear(d_model, mlp_ratio * d_model)
+        self.mlp_out = nn.Linear(mlp_ratio * d_model, d_model)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        paged_attn_fn: Optional[Callable] = None,
+        layer_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        cache_index: Optional[int] = None,
+        attn_mask: Optional[torch.Tensor] = None,
+        paged_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        page_ids: Optional[torch.Tensor] = None,
+        page_offsets: Optional[torch.Tensor] = None,
+        page_table: Optional[torch.Tensor] = None,
+        attn_lengths: Optional[torch.Tensor] = None,
+        prefix_starts: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Returns the block's output; cache arguments are written in place
+        (see :class:`TransformerPolicy`)."""
+        B, T, _ = x.shape
+        H = self.num_heads
+        D = self.d_model // H
+        dtype = x.dtype
+        h = self.ln_0(x)
+        q, k, v = self.qkv(h).split(self.d_model, dim=-1)
+        q, k, v = q.reshape(B, T, H, D), k.reshape(B, T, H, D), v.reshape(B, T, H, D)
+        if paged_cache is not None:
+            kp, vp = paged_cache
+            N, ps = kp.shape[0], kp.shape[1]
+            flat_idx = (page_ids.long() * ps + page_offsets.long()).reshape(B * T)
+            kflat = kp.view(N * ps, H, D)
+            vflat = vp.view(N * ps, H, D)
+            # in place; pad and dead-lane rows all land on page 0 slot 0
+            # (never read), so the winner among them does not matter
+            kflat.index_copy_(0, flat_idx, k.reshape(B * T, H, D).to(kp.dtype))
+            vflat.index_copy_(0, flat_idx, v.reshape(B * T, H, D).to(vp.dtype))
+            if page_table is not None and prefix_starts is not None:
+                # shared-table tail prefill: gather the whole context (the
+                # cached prefix pages and the tail just written) through
+                # the table, attend causally from the start; no kernel
+                M = page_table.shape[1]
+                pages = page_table.long().clamp(0, N - 1)
+                gidx = (pages[:, :, None] * ps
+                        + torch.arange(ps, device=x.device)[None, None, :]).reshape(B, M * ps)
+                pos = torch.arange(M * ps, device=x.device)[None, None, :]
+                qpos = (prefix_starts[:, None]
+                        + torch.arange(T, device=x.device)[None, :])[:, :, None]
+                out = _masked_attention(q, kflat[gidx], vflat[gidx], pos <= qpos, dtype)
+            elif page_table is not None:
+                paged_attn = paged_attn_fn or paged_attention_reference
+                out = paged_attn(q.contiguous(), kp, vp, page_table, attn_lengths).to(dtype)
+            else:
+                out = _masked_attention(q, k, v, attn_mask, dtype)
+        elif layer_cache is not None:
+            ck, cv = layer_cache
+            ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
+            cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
+            out = _masked_attention(q, ck, cv, attn_mask, dtype)
+        elif attn_mask is not None:
+            out = _masked_attention(q, k, v, attn_mask, dtype)
+        else:
+            out = full_attention(q, k, v, causal=True)
+        x = x + self.proj(out.reshape(B, T, self.d_model))
+        h = self.mlp_out(F.gelu(self.mlp_in(self.ln_1(x)), approximate="tanh"))
+        return x + h
+
+
+class TransformerPolicy(nn.Module):
+    """Causal transformer actor-critic (port of the Flax
+    ``TransformerPolicy``; float32).
+
+    Token mode (``vocab_size`` set): ``obs`` is int ``[B, T]``, embedded by
+    ``token_embed``; ``num_actions`` is the vocabulary the policy head
+    scores.  Feature mode needs ``obs_dim`` (Flax infers the Dense input
+    width lazily; torch needs it up front).
+
+    ``paged_attn_fn`` is the paged-decode seam
+    (``ops/cuda_paged_attention.py::paged_decode_attention`` in the
+    continuous engine; None = the plain reference).  ``use_flash=True``
+    (B4) and a ``segment_attn_fn`` (B5) need kernels that are not ported
+    yet and raise.
+    """
+
+    def __init__(
+        self,
+        num_actions: int,
+        d_model: int = 128,
+        num_heads: int = 4,
+        num_layers: int = 2,
+        mlp_ratio: int = 4,
+        max_len: int = 4096,
+        use_flash: bool = False,
+        vocab_size: Optional[int] = None,
+        obs_dim: Optional[int] = None,
+        paged_attn_fn: Optional[Callable] = None,
+        segment_attn_fn: Optional[Callable] = None,
+        device: DeviceLike = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        """``generator``: a host ``torch.Generator`` for the initial weights
+        (Flax's defaults: truncated LeCun-normal kernels, zero biases, unit
+        norm scales, ``normal(1/sqrt(V))`` token and ``normal(0.02)``
+        position tables)."""
+        super().__init__()
+        if use_flash:
+            raise NotImplementedError(
+                "use_flash=True needs the flash attention kernel (B4), which is not "
+                "ported yet (ROADMAP B4); use the default attention"
+            )
+        if segment_attn_fn is not None:
+            raise NotImplementedError(
+                "segment_attn_fn needs the segment flash kernel (B5), which is not "
+                "ported yet (ROADMAP B5); packed rows take the dense mask path"
+            )
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} must divide by num_heads {num_heads}")
+        if vocab_size is None and obs_dim is None:
+            raise ValueError("feature mode needs obs_dim (or set vocab_size for token mode)")
+        device = resolve_device(device)
+        self.num_actions = num_actions
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.num_layers = num_layers
+        self.mlp_ratio = mlp_ratio
+        self.max_len = max_len
+        self.vocab_size = vocab_size
+        self.paged_attn_fn = paged_attn_fn
+        if vocab_size is not None:
+            self.token_embed = nn.Embedding(vocab_size, d_model)
+        else:
+            self.obs_embed = nn.Linear(obs_dim, d_model)
+        self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
+        self.blocks = nn.ModuleList(
+            [TransformerBlock(d_model, num_heads, mlp_ratio) for _ in range(num_layers)]
+        )
+        self.final_norm = _layer_norm(d_model)
+        self.policy_head = nn.Linear(d_model, num_actions)
+        self.value_head = nn.Linear(d_model, 1)
+        self.reset_parameters(generator)  # on the host: one seed, same weights
+        self.to(device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for name, p in self.named_parameters():
+            if name == "pos_embed":
+                p.normal_(0.0, 0.02, generator=generator)
+            elif name == "token_embed.weight":
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[0]), generator=generator)
+            elif name.endswith(("ln_0.weight", "ln_1.weight")) or name == "final_norm.weight":
+                p.fill_(1.0)
+            elif name.endswith(".weight"):
+                lecun_normal_(p, p.shape[1], generator)
+            else:
+                p.zero_()
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+    def forward(
+        self,
+        obs: torch.Tensor,
+        positions: Optional[torch.Tensor] = None,
+        kv_cache: Optional[KVCache] = None,
+        cache_index: Optional[int] = None,
+        attn_mask: Optional[torch.Tensor] = None,
+        paged_cache: Optional[PagedKVCache] = None,
+        page_ids: Optional[torch.Tensor] = None,
+        page_offsets: Optional[torch.Tensor] = None,
+        page_table: Optional[torch.Tensor] = None,
+        attn_lengths: Optional[torch.Tensor] = None,
+        prefix_starts: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+    ):
+        """Full forward, masked forward, or a cached incremental step.
+
+        - no cache, no mask: causal attention -> :class:`TransformerOutput`;
+        - ``attn_mask`` ``[B, T, T]``: masked forward (the learner's pass
+          over left-padded sequences, :func:`sequence_attention_mask`);
+        - ``segment_ids`` ``[B, S]``: packed rows through the dense
+          :func:`packed_attention_mask`;
+        - ``kv_cache`` + ``cache_index`` (a Python int) + ``attn_mask``
+          ``[B, T, S]``: write this call's k/v at ``cache_index`` and attend
+          against the cache -> ``(TransformerOutput, kv_cache)``;
+        - ``paged_cache``: write this call's k/v at ``(page_ids[b, t],
+          page_offsets[b, t])``; attend locally under ``attn_mask`` (paged
+          prefill), through ``page_table`` + ``attn_lengths`` with ``T = 1``
+          (paged decode), or through ``page_table`` + ``prefix_starts``
+          (tail prefill over a cached prefix) -> ``(TransformerOutput,
+          paged_cache)``.
+
+        Positions index ``pos_embed`` after a clamp into ``[0, max_len)``,
+        as a JAX gather clamps (a dead lane's cursor may sit at the end).
+        """
+        B, T = obs.shape[:2]
+        if T > self.max_len:
+            raise ValueError(f"sequence length {T} exceeds max_len={self.max_len}")
+        if segment_ids is not None:
+            attn_mask = packed_attention_mask(segment_ids)
+        if positions is None:
+            positions = torch.arange(T, device=obs.device).expand(B, T)
+        if self.vocab_size is not None:
+            x = self.token_embed(obs.long())
+        else:
+            x = self.obs_embed(obs.reshape(B, T, -1).float())
+        x = x + F.embedding(positions.long().clamp(0, self.max_len - 1), self.pos_embed)
+        for i, block in enumerate(self.blocks):
+            x = block(
+                x, self.paged_attn_fn,
+                layer_cache=None if kv_cache is None else (kv_cache.k[i], kv_cache.v[i]),
+                cache_index=cache_index,
+                attn_mask=attn_mask,
+                paged_cache=None if paged_cache is None else (paged_cache.k[i], paged_cache.v[i]),
+                page_ids=page_ids,
+                page_offsets=page_offsets,
+                page_table=page_table,
+                attn_lengths=attn_lengths,
+                prefix_starts=prefix_starts,
+            )
+        x = self.final_norm(x.float())
+        out = TransformerOutput(self.policy_head(x), self.value_head(x).squeeze(-1))
+        if paged_cache is not None:
+            return out, paged_cache
+        if kv_cache is not None:
+            return out, kv_cache
+        return out

@@ -1,0 +1,83 @@
+"""Generation-tagged parameter snapshots for the generation engines.
+
+Port of ``scalerl_tpu/runtime/param_server.py::ParamSnapshotPlane`` over
+torch parameter dicts (``{name: tensor}``, a module's ``state_dict``
+layout).  :meth:`ParamSnapshotPlane.push_params` publishes a device-side
+copy of every tensor (the copy detaches the snapshot from the learner's
+live parameters, which an optimizer updates in place) on the plane's
+device, with a monotonic generation bump and no host transfer;
+``_snapshot_params`` hands consumers the current ``(params, generation)``;
+:meth:`staleness_steps` reads the bounded generation -> learner-step map.
+
+Quantized pushes (``quantize="int8" | "bf16"``) need the port of
+``runtime/quantize.py`` and raise ``NotImplementedError`` until then.
+The fleet's pull endpoint (``ParameterServer``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def _copy_params(params: Mapping[str, torch.Tensor], device: torch.device) -> Params:
+    return {k: v.detach().to(device, copy=True) for k, v in params.items()}
+
+
+class ParamSnapshotPlane:
+    """Mixin: a consumer calls ``_init_param_plane(params, device)`` once,
+    then ``push_params`` / ``_snapshot_params`` / ``staleness_steps``."""
+
+    _GEN_STEPS_CAP = 64
+
+    def _init_param_plane(self, params: Optional[Mapping[str, torch.Tensor]],
+                          device: torch.device) -> None:
+        self._param_lock = threading.Lock()
+        self._param_device = device
+        self._params = None if params is None else _copy_params(params, device)
+        self.generation = 0
+        self._gen_steps: Dict[int, int] = {0: 0}
+        self._latest_learner_step = 0
+
+    def push_params(
+        self,
+        params: Mapping[str, torch.Tensor],
+        learner_step: Optional[int] = None,
+        quantize: Optional[str] = None,
+    ) -> int:
+        """Publish fresh params (device-side copy + monotonic generation
+        bump).  Returns the new generation."""
+        if quantize is not None:
+            raise NotImplementedError(
+                f"quantize={quantize!r} needs the port of runtime/quantize.py "
+                "(ROADMAP A5); push full-precision params"
+            )
+        snapshot = _copy_params(params, self._param_device)
+        with self._param_lock:
+            self.generation += 1
+            gen = self.generation
+            self._params = snapshot
+            self._latest_learner_step = (
+                int(learner_step) if learner_step is not None else gen
+            )
+            self._gen_steps[gen] = self._latest_learner_step
+            while len(self._gen_steps) > self._GEN_STEPS_CAP:
+                self._gen_steps.pop(min(self._gen_steps))
+            return gen
+
+    def _snapshot_params(self) -> Tuple[Params, int]:
+        with self._param_lock:
+            return self._params, self.generation
+
+    def staleness_steps(self, served_generation: int) -> float:
+        """Learner steps between the newest pushed params and the
+        generation that produced a sequence (the generation delta for
+        generations older than the bounded map)."""
+        with self._param_lock:
+            newest = self._latest_learner_step
+            served = self._gen_steps.get(int(served_generation), int(served_generation))
+        return float(max(newest - served, 0))

@@ -47,7 +47,7 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_submodules()) >= 39  # the IMPALA and DQN slices
+    assert len(_submodules()) >= 54  # the IMPALA, DQN and generation slices
 
 
 def _imported_roots(path: Path):
@@ -107,6 +107,23 @@ def test_dqn_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+
+
+def test_generation_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.genrl.continuous import ContinuousConfig, ContinuousEngine
+    from scalerl_torch.genrl.engine import GenerationConfig, GenerationEngine
+    from scalerl_torch.models.transformer import TransformerPolicy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(num_actions=11, vocab_size=11, d_model=16, num_heads=2, num_layers=1, max_len=32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransformerPolicy(**kw)
+    model = TransformerPolicy(**kw, device="cpu")
+    cfg = dict(vocab_size=11, max_prompt_len=4, max_new_tokens=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GenerationEngine(model, model.state_dict(), GenerationConfig(**cfg))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ContinuousEngine(model, model.state_dict(), ContinuousConfig(**cfg, lanes=2))
 
 
 def _run_smoke(cwd: Path):
