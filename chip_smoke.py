@@ -70,6 +70,32 @@ no result line:
     drain (every reservation returned); then at temperature 0 a handful of
     prompts through both engines, token-identical with logp within
     ``GEN_IDENTITY_LOGP_TOL`` (``genrl_identity``).
+14. ``segment_attn``: the three segment flash attention kernels (forward,
+    dq, dk/dv) against their plain PyTorch version on the card: at the
+    packed learn batch of ``bench.py`` (64 sequences of 2-128 tokens in
+    rows of 256, 8 heads of 32), as strided views of one fused projection,
+    at rows of 512 with 2-3 segments, at ragged S (333 and 19), with an
+    all-pad row, at head dim 64 and in bfloat16.  Values within
+    ``SEG_VALUE_TOL``, gradients within ``SEG_GRAD_REL_TOL`` of the largest
+    gradient (``SEG_BF16_REL_TOL`` in bfloat16), exact zeros on pad, two
+    runs bit-equal.  Each kernel's time by CUDA-graph replay and eagerly,
+    the plain version's, the bound, and SDPA with the dense mask as context.
+15. ``token_ppo_learn``: one full-width learn step (64 rows of 512,
+    ``kl_cost`` on) from the same state and batch, through the kernels and
+    through the dense packed mask, float32 with TF32 off (``TOKEN_PPO_TOL``).
+16. ``genrl_train``: the training slice's main path, ``SequenceRLTrainer``
+    at ``bench.py --mode genrl``'s width (V=1024, d=256, 8 heads, 4 layers,
+    64 lanes, prompts of 2-128 tokens, 128 new tokens) with the packed
+    learner in rows of 512 through the kernels: two warm-up rounds, then
+    ``TRAIN_COHORT_S`` on the cohort engine with every kernel's launch count
+    zeroed just before (each segment kernel = 4 x learn steps, PER sample =
+    learn steps; warm rounds run under sync debug mode "error"); two rounds
+    and three learn steps under ``torch.profiler`` (``genrl_train_profile``);
+    ``TRAIN_CONTINUOUS_ROUNDS`` rounds on the continuous engine (the paged
+    kernel launches too); the packed against the padded learn rate on
+    ``bench.py``'s mixed-length batch (``token_ppo_learn_rate``); and two
+    three-round runs from one seed, compared bit for bit
+    (``genrl_train_repeat``; reported, not required).
 
 Then a line with the card, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -115,18 +141,21 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def gpu_time_ms(fn, launches: int, reps: int = 5) -> float:
+def gpu_time_ms(fn, launches: int, reps: int = 5, stream=None) -> float:
     """Median device time of one ``fn()``: ``launches`` calls captured in a
-    CUDA graph, replayed between two events, so host overhead drops out."""
+    CUDA graph, replayed between two events, so host overhead drops out.
+    ``stream``: the stream to capture on.  A backward pass runs on the stream
+    its forward ran on, so an ``autograd.grad`` of a retained graph is
+    captured on the stream that made the forward."""
     import torch
 
-    stream = torch.cuda.Stream()
+    stream = stream or torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         fn()  # warm up outside the capture
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(launches):
             fn()
     times = []
@@ -518,6 +547,50 @@ def _update_case(n, g):
     return p0, idx, new_p
 
 
+def _per_replay_plane_cases(g) -> list:
+    """The sample kernel at the sequence replay's size: a plane of 2 *
+    TRAIN_B = 128 unit priorities (one ragged block, an eighth of a
+    1024-wide one) and TRAIN_B = 64 stratified targets, through the
+    dispatch the trainer calls.  Pad rows and empty slots carry priority 0
+    and may never be drawn; integer priorities must give the plain
+    version's indices exactly, real ones must bracket their targets."""
+    import torch
+
+    from scalerl_torch.ops import per
+
+    n, S = 2 * TRAIN_B, TRAIN_B
+    live = torch.zeros(n, dtype=torch.bool, device="cuda")
+    live[:41] = True  # two inserts of bucketed rows, each with a pad tail,
+    live[64:93] = True  # and the rest of the ring still empty
+    cases = []
+    for kind in ("integer", "real"):
+        if kind == "integer":
+            raw = torch.randint(1, 17, (n,), generator=g, device="cuda").float()
+        else:  # the trainer's own form: priority ** alpha
+            raw = (torch.rand(n, generator=g, device="cuda") * 2 + 1e-3) ** 0.6
+        p = torch.where(live, raw, 0.0)
+        u = torch.rand(S, generator=g, device="cuda")
+        targets = (torch.arange(S, device="cuda") + u) / S * p.sum()
+        got = per.proportional_sample(p, targets, method="pallas", block_size=PER_BLOCK)
+        want = per.proportional_sample(p, targets, method="hierarchical", block_size=PER_BLOCK)
+        torch.cuda.synchronize()
+        case = {"n": n, "S": S, "priorities": kind, "live_slots": int(live.sum()),
+                "mismatches": int((got != want).sum()),
+                "max_abs_err": int((got - want).abs().max()),
+                "pad_slots_drawn": int((~live[got]).sum())}
+        if kind == "real":
+            b_idx, within_t = per.split_targets(p, targets, PER_BLOCK)
+            off, far = _per_bracket(p, b_idx, within_t, got, want, n)
+            case.update(off_bracket=off, mismatch_away_from_boundary=far)
+            bad = off or far
+        else:
+            bad = case["mismatches"]
+        if bad or case["pad_slots_drawn"]:
+            raise AssertionError(f"sample kernel on the replay's plane: {case}")
+        cases.append(case)
+    return cases
+
+
 def phase_per_kernels(report: dict) -> None:
     import numpy as np
     import torch
@@ -526,7 +599,8 @@ def phase_per_kernels(report: dict) -> None:
 
     set_tf32(False)
     g = torch.Generator(device="cuda").manual_seed(5)
-    sample_cases, worst_sample = [], 0
+    sample_cases = _per_replay_plane_cases(g)
+    worst_sample = max(c["max_abs_err"] for c in sample_cases)
     main = None
     for n in (1 << 20, 1_000_003):
         for kind in ("integer", "real"):
@@ -1252,9 +1326,591 @@ def phase_genrl_continuous(report: dict) -> None:
         raise AssertionError(f"temperature-0 identity: {mismatched} sequences differ, logp {logp_err}")
 
 
+# Sequence-RL training plane (phases 14-16): bench.py's genrl width with the
+# packed learner on
+TRAIN_V, TRAIN_D, TRAIN_HEADS, TRAIN_LAYERS = 1024, 256, 8, 4
+TRAIN_P, TRAIN_R, TRAIN_B = 128, 128, 64
+TRAIN_PACK_LEN = 512
+TRAIN_HEAD_DIM = TRAIN_D // TRAIN_HEADS
+TRAIN_COHORT_S = 20.0
+TRAIN_CONTINUOUS_ROUNDS = 3
+TRAIN_LEARN_RATE_S = 3.0
+# the segment kernels against the plain version in float32: the same
+# arithmetic summed in another order (an online softmax over chunks of 8
+# keys and thread-serial sums over up to 512 keys, against one softmax and
+# two einsums); the JAX package pins its kernel to its reference at 2e-5 on
+# values and 1e-5 on gradients of O(1) inputs.  Gradients here are held
+# relative to the largest reference gradient of the case
+SEG_VALUE_TOL = 2e-5
+SEG_GRAD_REL_TOL = 1e-4
+# bfloat16 inputs: both sides accumulate in float32 and round each output to
+# bfloat16 once (8 bits of mantissa: half a step is 2^-9 relative), so they
+# may differ by one bfloat16 step of the largest output or gradient (2^-7
+# relative), plus the plain version's own rounding of its float32 result
+SEG_BF16_REL_TOL = 2.0 ** -6
+# learn steps, kernel against dense masked attention, from the same state
+# and batch on the card.  The gradients are held leaf by leaf, relative to
+# each leaf's largest element: both paths sum the same float32 products in
+# another order.  Adam's first step is lr * g / (|g| + eps), the sign of the
+# gradient whatever its size, so the params are compared after a second step,
+# whose moments carry the sizes; where a gradient element is within float
+# noise of zero its step may still land up to lr either way, so the params
+# are held by the relative L2 of the whole update
+TOKEN_PPO_STEPS = 2
+TOKEN_PPO_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "metrics_abs": 1e-4,
+                 "grad_leaf_rel": 1e-4, "update_rel_l2": 1e-3}
+
+
+def _train_args(**kw):
+    from scalerl_torch.config import GenRLArguments
+
+    base = dict(vocab_size=TRAIN_V, prompt_len=TRAIN_P, max_new_tokens=TRAIN_R,
+                d_model=TRAIN_D, n_layers=TRAIN_LAYERS, n_heads=TRAIN_HEADS,
+                genrl_batch=TRAIN_B, genrl_sample_batch=TRAIN_B,
+                genrl_buffer_sequences=2 * TRAIN_B, learner_packing=True,
+                learner_packed_attn="pallas", learner_pack_len=TRAIN_PACK_LEN)
+    return GenRLArguments(**{**base, **kw})
+
+
+def _ragged_sequences(rng, B, p_range, r_range, V, behavior_p=(0.05, 0.5)):
+    """True-length sequences as ``pack_learner_batch`` takes them; the
+    behaviour probabilities are uniform over ``behavior_p``."""
+    plens = rng.integers(p_range[0], p_range[1] + 1, B)
+    rlens = rng.integers(r_range[0], r_range[1] + 1, B)
+    return dict(
+        prompts=[rng.integers(1, V, n).astype(np.int32) for n in plens],
+        responses=[rng.integers(1, V, n).astype(np.int32) for n in rlens],
+        behavior_logp=[np.log(rng.uniform(*behavior_p, n)).astype(np.float32) for n in rlens],
+        values=[rng.normal(0, 0.1, n).astype(np.float32) for n in rlens],
+        rewards=rng.uniform(0, 1, B).astype(np.float32),
+        generations=np.zeros(B, np.int32), plens=plens, rlens=rlens,
+    )
+
+
+def _packed_rows(seqs, pack_len, row_cap):
+    from scalerl_torch.genrl.rollout import pack_learner_batch
+    from scalerl_torch.utils.buckets import bucket_for, default_buckets
+
+    pk = pack_learner_batch(seqs["prompts"], seqs["responses"], seqs["behavior_logp"],
+                            seqs["values"], seqs["rewards"], seqs["generations"], pack_len)
+    return pk.bucketed(bucket_for(max(pk.rows, 1), default_buckets(row_cap)))
+
+
+def _bench_learn_batches():
+    """The packed and padded learn batches of bench.py's packed-learner
+    phase on an accelerator: 64 sequences, prompt and response lengths
+    uniform in [1, 64], rows of 256 bucketed up the pow2 ladder."""
+    rng = np.random.default_rng(0)
+    S = TRAIN_P + TRAIN_R
+    seqs = _ragged_sequences(rng, TRAIN_B, (1, TRAIN_P // 2), (1, TRAIN_R // 2), TRAIN_V)
+    pk = _packed_rows(seqs, S, TRAIN_B)
+    tokens = np.zeros((TRAIN_B, S), np.int32)
+    blogp = np.zeros((TRAIN_B, TRAIN_R), np.float32)
+    bval = np.zeros((TRAIN_B, TRAIN_R), np.float32)
+    mask = np.zeros((TRAIN_B, TRAIN_R), np.float32)
+    for i in range(TRAIN_B):
+        n, r = int(seqs["plens"][i]), int(seqs["rlens"][i])
+        tokens[i, TRAIN_P - n:TRAIN_P] = seqs["prompts"][i]
+        tokens[i, TRAIN_P:TRAIN_P + r] = seqs["responses"][i]
+        blogp[i, :r] = seqs["behavior_logp"][i]
+        bval[i, :r] = seqs["values"][i]
+        mask[i, :r] = 1.0
+    padded = dict(tokens=tokens, behavior_logp=blogp, value=bval, mask=mask,
+                  reward=seqs["rewards"], prompt_len=seqs["plens"].astype(np.int32),
+                  generation=seqs["generations"])
+    return pk, padded, int(mask.sum())
+
+
+def _live_pairs(seg: np.ndarray) -> int:
+    """(query, key) pairs the segment rule keeps, per head: for a segment of
+    length L, L * (L + 1) / 2."""
+    total = 0
+    for row in seg:
+        ids, counts = np.unique(row[row > 0], return_counts=True)
+        total += int(sum(int(c) * (int(c) + 1) // 2 for c in counts))
+    return total
+
+
+def _seg_case(seg: np.ndarray, H, D, dtype, seed, strided=False):
+    import torch
+
+    B, S = seg.shape
+    g = torch.Generator().manual_seed(seed)
+    if strided:  # q, k, v as the slices of one fused projection, as the model hands them over
+        qkv = torch.randn(B, S, 3 * H * D, generator=g).to("cuda", dtype)
+        q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    else:
+        q, k, v = (torch.randn(B, S, H, D, generator=g).to("cuda", dtype) for _ in range(3))
+    return dict(q=q, k=k, v=v, seg=torch.tensor(seg).cuda(),
+                do=torch.randn(B, S, H, D, generator=g).to("cuda", dtype))
+
+
+def _seg_check(name, case, report_cases):
+    """Forward and backward through the kernels against the plain version in
+    float32 on the same inputs; exact zeros on pad; two runs bit-equal."""
+    import torch
+
+    from scalerl_torch.ops import cuda_segment_attention as csa
+    from scalerl_torch.ops.attention import segment_attention_reference
+
+    def run(fn, cast):
+        leaves = [cast(case[n]).detach().requires_grad_(True) for n in ("q", "k", "v")]
+        out = fn(*leaves, case["seg"])
+        return out, torch.autograd.grad(out, leaves, cast(case["do"]))
+
+    o1, g1 = run(csa.segment_flash_attention, lambda t: t)
+    o2, g2 = run(csa.segment_flash_attention, lambda t: t)
+    ow, gw = run(segment_attention_reference, lambda t: t.float())
+    torch.cuda.synchronize()
+    bf16 = case["q"].dtype == torch.bfloat16
+    pad = case["seg"] == 0
+    o_err = (o1.float() - ow).abs().max().item()
+    o_max = ow.abs().max().item()
+    g_err = [(a.float() - b).abs().max().item() for a, b in zip(g1, gw)]
+    g_max = max(b.abs().max().item() for b in gw)
+    res = dict(case=name, shape=list(case["q"].shape), dtype=str(case["q"].dtype)[6:],
+               contiguous=case["q"].is_contiguous(), o_max_abs_err=o_err,
+               dq_max_abs_err=g_err[0], dk_max_abs_err=g_err[1], dv_max_abs_err=g_err[2],
+               largest_gradient=g_max, pad_tokens=int(pad.sum()),
+               pad_exact_zero=bool((o1[pad] == 0).all() and all((g[pad] == 0).all() for g in g1)),
+               repeat_bit_equal=bool(torch.equal(o1, o2)
+                                     and all(torch.equal(a, b) for a, b in zip(g1, g2))),
+               finite=bool(torch.isfinite(o1).all() and all(torch.isfinite(g).all() for g in g1)))
+    report_cases.append(res)
+    if bf16:
+        ok = (o_err <= SEG_BF16_REL_TOL * max(o_max, 1.0)
+              and max(g_err) <= SEG_BF16_REL_TOL * max(g_max, 1.0))
+    else:
+        ok = o_err <= SEG_VALUE_TOL and max(g_err) <= SEG_GRAD_REL_TOL * max(g_max, 1.0)
+    if not (ok and res["pad_exact_zero"] and res["repeat_bit_equal"] and res["finite"]):
+        raise AssertionError(f"segment kernels off their plain version: {res}")
+    return o_err, g_err[0], max(g_err[1:])  # by kernel: forward, dq, dk/dv
+
+
+def phase_segment_attn(report: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from scalerl_torch.models.transformer import packed_attention_mask
+    from scalerl_torch.ops import cuda_segment_attention as csa
+    from scalerl_torch.ops.attention import segment_attention_reference
+
+    set_tf32(False)
+    H, D = TRAIN_HEADS, TRAIN_HEAD_DIM
+    pk, _, _ = _bench_learn_batches()
+    main_seg = pk.segment_ids  # [rows, 256], the bench's packed batch
+    rng = np.random.default_rng(1)
+    wide = _packed_rows(_ragged_sequences(rng, TRAIN_B, (2, TRAIN_P), (TRAIN_R, TRAIN_R), TRAIN_V),
+                        TRAIN_PACK_LEN, TRAIN_B).segment_ids  # 2-3 segments per row of 512
+    ragged = wide[:4, :333].copy()  # S not a multiple of either tile
+    small = np.zeros((2, 19), np.int32)  # the JAX test's ragged tail
+    small[0, :7] = 1
+    small[1, :11], small[1, 11:19] = 1, 2
+    all_pad = main_seg[:4].copy()
+    all_pad[1] = 0
+    cases = []
+    worst = [0.0, 0.0, 0.0]  # float32 cases, by kernel: forward, dq, dk/dv
+    for name, seg, heads, dim, dtype, strided in (
+        ("main", main_seg, H, D, torch.float32, False),
+        ("main_strided_views", main_seg, H, D, torch.float32, True),
+        ("rows_of_512", wide, H, D, torch.float32, True),
+        ("ragged_S_333", ragged, H, D, torch.float32, False),
+        ("ragged_S_19_D_8", small, 2, 8, torch.float32, False),
+        ("all_pad_row", all_pad, H, D, torch.float32, False),
+        ("main_bf16", main_seg, H, D, torch.bfloat16, False),
+        ("rows_of_512_bf16", wide[:8], H, D, torch.bfloat16, True),
+    ):
+        errs = _seg_check(name, _seg_case(seg, heads, dim, dtype, seed=len(cases), strided=strided),
+                          cases)
+        if dtype == torch.float32:
+            worst = [max(w, e) for w, e in zip(worst, errs)]
+
+    # times at the main shape, each kernel alone by CUDA-graph replay
+    c = _seg_case(main_seg, H, D, torch.float32, seed=100)
+    q, k, v, seg, do = c["q"], c["k"], c["v"], c["seg"], c["do"]
+    rows, S = main_seg.shape
+    scale = 1.0 / math.sqrt(D)
+    o, lse = csa.segment_forward_kernel(q, k, v, seg, scale)
+    dq, delta = csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale)
+    pairs = _live_pairs(main_seg) * H
+    real_tokens = int((main_seg > 0).sum())
+    # The bytes this batch needs: a tensor that is read (q, k, v, o, do, lse,
+    # delta) counts only at the real tokens, since pad rows of it never enter
+    # the result; the ids and every tensor that is written count whole, pad
+    # being stored as zeros (lse as -inf).  All float32.
+    vec = real_tokens * H * D * 4  # one [., H, D] tensor at the real tokens
+    vec_out = rows * S * H * D * 4  # one whole [rows, S, H, D] tensor
+    stat = real_tokens * H * 4  # lse or delta at the real tokens
+    stat_out = rows * H * S * 4  # lse or delta, whole
+    ids = rows * S * 4
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    mask = packed_attention_mask(seg)[:, None]  # [rows, 1, S, S] bool
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq.transpose(1, 2), kk.transpose(1, 2),
+                                              vv.transpose(1, 2), attn_mask=mask).transpose(1, 2)
+
+    def fwd_bwd(fn):
+        out = fn(*leaves)
+        torch.autograd.grad(out, leaves, do)
+
+    # the plain version's and the library call's backward, each split as the
+    # kernels split it (dq alone; dk and dv), by CUDA-graph replay like every
+    # other time: the retained forward is made on the stream that captures
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        side_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = segment_attention_reference(*side_leaves, seg)
+        lib_out = sdpa(*side_leaves)
+    torch.cuda.current_stream().wait_stream(side)
+    real = (seg > 0)[:, :, None, None]
+    lib_err = ((lib_out - plain_out) * real).abs().max().item()
+
+    def bwd_ms(out, wrt):
+        return gpu_time_ms(lambda: torch.autograd.grad(out, wrt, do, retain_graph=True), 10,
+                           stream=side)
+
+    fwd = _bound(3 * vec + vec_out + stat_out + ids, 4 * D * pairs, dict(
+        ms=gpu_time_ms(lambda: csa.segment_forward_kernel(q, k, v, seg, scale), 50),
+        eager_ms=eager_time_ms(lambda: csa.segment_forward_kernel(q, k, v, seg, scale), 50),
+        plain_ms=gpu_time_ms(lambda: segment_attention_reference(q, k, v, seg), 10),
+        plain_eager_ms=eager_time_ms(lambda: segment_attention_reference(q, k, v, seg), 10),
+        library_ms=gpu_time_ms(lambda: sdpa(q, k, v), 10),
+    ))
+    # dq reads q, k, v, o, do, lse and writes dq, delta; s, dp and ds.k per pair
+    dq_t = _bound(5 * vec + stat + vec_out + stat_out + ids, 6 * D * pairs, dict(
+        ms=gpu_time_ms(lambda: csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale), 50),
+        eager_ms=eager_time_ms(lambda: csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale), 50),
+        plain_ms=bwd_ms(plain_out, side_leaves[:1]), library_ms=bwd_ms(lib_out, side_leaves[:1]),
+    ))
+    # dk/dv reads q, k, v, do, lse, delta and writes dk, dv; s, dp, p.do and ds.q per pair
+    dkv_t = _bound(4 * vec + 2 * stat + 2 * vec_out + ids, 8 * D * pairs, dict(
+        ms=gpu_time_ms(lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale), 50),
+        eager_ms=eager_time_ms(lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale), 50),
+        plain_ms=bwd_ms(plain_out, side_leaves[1:]), library_ms=bwd_ms(lib_out, side_leaves[1:]),
+    ))
+    whole = dict(
+        plain_bwd_ms=bwd_ms(plain_out, side_leaves), library_bwd_ms=bwd_ms(lib_out, side_leaves),
+        kernel_fwd_bwd_eager_ms=eager_time_ms(lambda: fwd_bwd(lambda a, b, cc: csa.segment_flash_attention(a, b, cc, seg)), 20),
+        plain_fwd_bwd_eager_ms=eager_time_ms(lambda: fwd_bwd(lambda a, b, cc: segment_attention_reference(a, b, cc, seg)), 10),
+        library_fwd_bwd_eager_ms=eager_time_ms(lambda: fwd_bwd(sdpa), 10),
+        # forward + backward by the function's need: q, k, v, do read, o, dq,
+        # dk, dv written, the ids; 4 D forward and 10 D backward per live pair
+        fwd_bwd_bound_ms=max((4 * vec + 4 * vec_out + ids) / H100_BYTES_PER_S,
+                             14 * D * pairs / H100_F32_OPS_PER_S) * 1e3,
+    )
+    report["segment_attention_fwd"] = {"max_abs_err": worst[0], **fwd}
+    report["segment_attention_bwd_dq"] = {"max_abs_err": worst[1], **dq_t}
+    report["segment_attention_bwd_dkv"] = {"max_abs_err": worst[2], **dkv_t}
+    emit("segment_attn", value_tol=SEG_VALUE_TOL, grad_rel_tol=SEG_GRAD_REL_TOL,
+         bf16_rel_tol=SEG_BF16_REL_TOL, cases=cases,
+         main_shape={"rows": rows, "S": S, "heads": H, "head_dim": D,
+                     "live_pairs_per_head": pairs // H, "real_tokens": real_tokens},
+         forward=fwd, bwd_dq=dq_t, bwd_dkv=dkv_t, **whole,
+         backward_note="plain_ms and library_ms of bwd_dq are the plain version's and SDPA's "
+         "backward for dq alone, those of bwd_dkv for dk and dv; plain_bwd_ms and "
+         "library_bwd_ms for all three; all by CUDA-graph replay",
+         library="F.scaled_dot_product_attention with the dense boolean mask "
+         "(context only; the port never calls it)", library_max_abs_err_on_real_tokens=lib_err,
+         card=report["card"])
+
+
+def phase_token_ppo_learn(report: dict) -> None:
+    """Full-width learn steps from the same state and batch on the card,
+    through the segment kernels and through the dense packed mask: the
+    loss's gradients leaf by leaf, then the metrics and the parameters."""
+    import torch
+
+    from scalerl_torch.agents.token_ppo import TokenPPOAgent, token_ppo_packed_loss
+    from scalerl_torch.ops import cuda_segment_attention as csa
+    from scalerl_torch.trainer.sequence_rl import build_genrl_model
+
+    set_tf32(False)
+    rng = np.random.default_rng(2)
+    # behaviour probabilities around the fresh model's near-uniform 1 / V, so
+    # the ratios sit inside and outside the clip range and the policy-gradient
+    # term carries gradient
+    seqs = _ragged_sequences(rng, 3 * TRAIN_B, (2, TRAIN_P), (TRAIN_R, TRAIN_R), TRAIN_V,
+                             behavior_p=(0.7 / TRAIN_V, 1.4 / TRAIN_V))
+    pk = _packed_rows(seqs, TRAIN_PACK_LEN, 2 * TRAIN_B)
+    fields, _ = pk.fields()
+    fields = {k: v[:TRAIN_B] for k, v in fields.items()}  # 64 rows of 512, 2-3 segments each
+    batch = {k: torch.tensor(v).cuda() for k, v in fields.items()}
+    batch["is_weight"] = torch.rand(TRAIN_B, generator=torch.Generator().manual_seed(3)).cuda() * 0.7 + 0.3
+    out = {}
+    for impl in ("pallas", "xla"):
+        args = _train_args(learner_packed_attn=impl, kl_cost=0.05)
+        agent = TokenPPOAgent(args, build_genrl_model(args))
+        params = {k: v.detach().requires_grad_(True) for k, v in agent.state.params.items()}
+        loss, _ = token_ppo_packed_loss(
+            params, agent.state.ref_params, agent.model, batch, clip_range=args.clip_range,
+            value_cost=args.value_cost, entropy_cost=args.entropy_cost, kl_cost=args.kl_cost,
+            adv_norm=args.adv_norm)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        before = torch.cat([v.reshape(-1) for v in agent.get_weights().values()])
+        csa.fwd_launches = csa.dq_launches = csa.dkv_launches = 0
+        for _ in range(TOKEN_PPO_STEPS):
+            metrics = agent.learn(batch)
+        after = torch.cat([v.reshape(-1) for v in agent.get_weights().values()])
+        out[impl] = dict(metrics=metrics, grads=grads, update=(after - before).cpu(),
+                         launches=(csa.fwd_launches, csa.dq_launches, csa.dkv_launches))
+    k, p = out["pallas"], out["xla"]
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1.0)
+
+    # each leaf's largest error over its largest element
+    leaf_rel = {n: ((k["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                for n, g in p["grads"].items()}
+    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    errs = {
+        "loss_rel": rel(k["metrics"]["total_loss"], p["metrics"]["total_loss"]),
+        "grad_norm_rel": rel(k["metrics"]["grad_norm"], p["metrics"]["grad_norm"]),
+        "metrics_abs": max(abs(k["metrics"][m] - p["metrics"][m]) for m in p["metrics"]
+                           if m not in ("total_loss", "grad_norm")),
+        "grad_leaf_rel": leaf_rel[worst_leaf],
+        "update_rel_l2": ((k["update"] - p["update"]).norm() / p["update"].norm()).item(),
+    }
+    emit("token_ppo_learn", rows=TRAIN_B, pack_len=TRAIN_PACK_LEN, kl_cost=0.05,
+         learn_steps=TOKEN_PPO_STEPS, **errs, grad_leaves=len(leaf_rel),
+         grad_leaf_worst=worst_leaf,
+         update_max_abs_err=(k["update"] - p["update"]).abs().max().item(),
+         update_max_abs=p["update"].abs().max().item(), metrics_kernel=k["metrics"],
+         metrics_dense=p["metrics"], kernel_launches=k["launches"], dense_launches=p["launches"],
+         tol=TOKEN_PPO_TOL, tf32=False)
+    # kl_cost > 0: the frozen reference's forward goes through the kernel too
+    want = tuple(n * TRAIN_LAYERS * TOKEN_PPO_STEPS for n in (2, 1, 1))
+    if k["launches"] != want or p["launches"] != (0, 0, 0):
+        raise AssertionError(f"segment kernel launches {k['launches']} / {p['launches']}")
+    bad = {m: e for m, e in errs.items() if not e <= TOKEN_PPO_TOL[m]}
+    if bad or k["metrics"]["skipped_steps"] != 0.0:
+        raise AssertionError(f"learn steps kernel vs dense off tolerance: {bad}")
+
+
+def _zero_launch_counts():
+    from scalerl_torch.ops import cuda_paged_attention, cuda_per, cuda_segment_attention, cuda_vtrace
+
+    cuda_vtrace.launches = 0
+    cuda_per.sample_launches = cuda_per.update_launches = 0
+    cuda_paged_attention.launches = 0
+    cuda_segment_attention.fwd_launches = 0
+    cuda_segment_attention.dq_launches = cuda_segment_attention.dkv_launches = 0
+
+
+def _launch_counts() -> dict:
+    from scalerl_torch.ops import cuda_paged_attention, cuda_per, cuda_segment_attention, cuda_vtrace
+
+    return {"vtrace": cuda_vtrace.launches, "per_sample": cuda_per.sample_launches,
+            "per_update": cuda_per.update_launches,
+            "paged_attention": cuda_paged_attention.launches,
+            "segment_attention_fwd": cuda_segment_attention.fwd_launches,
+            "segment_attention_bwd_dq": cuda_segment_attention.dq_launches,
+            "segment_attention_bwd_dkv": cuda_segment_attention.dkv_launches}
+
+
+def _gauge(name: str) -> float:
+    from scalerl_torch.runtime import telemetry
+
+    return telemetry.get_registry().gauge(name).value
+
+
+def _train_window(trainer, seconds: float, min_rounds: int):
+    """Rounds of ``trainer`` for ``seconds`` (at least ``min_rounds``), with
+    every kernel's launch count zeroed just before and read just after."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen0 = int(trainer.agent.state.tokens_seen)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rounds = []
+    while time.perf_counter() - t0 < seconds or len(rounds) < min_rounds:
+        rounds.append(trainer.train_round())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    n = len(rounds)
+    learn_tokens = int(trainer.agent.state.tokens_seen) - seen0
+    decode_tokens = sum(m["decode_tokens"] for m in rounds)
+    stats = dict(
+        rounds=n, seconds=wall, rounds_per_s=n / wall, learn_steps=n, learn_steps_per_s=n / wall,
+        learn_tokens=learn_tokens, learn_tokens_per_s=learn_tokens / wall,
+        decode_tokens_per_s=decode_tokens / wall,
+        real_token_frac_mean=float(np.mean([m["real_token_frac"] for m in rounds])),
+        pad_ratio_last_insert=_gauge("genrl.pad_ratio"),
+        round_reward_first=rounds[0]["round_reward"], round_reward_last=rounds[-1]["round_reward"],
+        staleness_mean=float(np.mean([m["staleness"] for m in rounds])),
+        skipped_steps=float(sum(m["skipped_steps"] for m in rounds)),
+        losses_finite=all(math.isfinite(m["total_loss"]) for m in rounds),
+        last_loss=rounds[-1]["total_loss"], launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    return stats
+
+
+def _check_train_window(name: str, stats: dict, continuous: bool) -> None:
+    n, launches = stats["learn_steps"], stats["launches"]
+    want = {k: TRAIN_LAYERS * n for k in ("segment_attention_fwd", "segment_attention_bwd_dq",
+                                          "segment_attention_bwd_dkv")}
+    want["per_sample"] = n
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: kernel launches {got}, want {want} for {n} learn steps")
+    if continuous and launches["paged_attention"] <= 0:
+        raise AssertionError(f"{name}: the continuous rounds never launched the paged kernel")
+    if not stats["losses_finite"] or stats["skipped_steps"] != 0.0:
+        raise AssertionError(f"{name}: finite losses {stats['losses_finite']}, "
+                             f"skipped {stats['skipped_steps']}")
+
+
+def phase_genrl_train(report: dict) -> None:
+    """The training slice's main path: ``SequenceRLTrainer`` at bench.py's
+    genrl width with the packed learner through the segment kernels, on the
+    cohort engine and for a few rounds on the continuous engine; then the
+    packed against the padded learn rate, a profile, and two seeded runs."""
+    import torch
+
+    from scalerl_torch.agents.token_ppo import TokenPPOAgent
+    from scalerl_torch.data.sequence_replay import seq_sample
+    from scalerl_torch.genrl.task import TokenRecallTask
+    from scalerl_torch.runtime.dispatch import MetricsPipeline
+    from scalerl_torch.trainer.sequence_rl import SequenceRLTrainer, build_genrl_model
+
+    set_tf32(False)
+
+    def make_trainer(**kw):
+        # ragged prompts: rows of 512 hold 2-3 sequences and a pad tail
+        task = TokenRecallTask(vocab_size=TRAIN_V, prompt_len=(2, TRAIN_P), response_len=TRAIN_R)
+        return SequenceRLTrainer(_train_args(**kw), task=task)
+
+    trainer = make_trainer()
+    t0 = time.perf_counter()
+    for _ in range(2):  # warm-up: first allocations, the kernels' load
+        trainer.train_round()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    cohort = _train_window(trainer, TRAIN_COHORT_S, 3)
+    shape = dict(vocab=TRAIN_V, d_model=TRAIN_D, heads=TRAIN_HEADS, layers=TRAIN_LAYERS,
+                 prompt_max=TRAIN_P, new_tokens=TRAIN_R, genrl_batch=TRAIN_B,
+                 sample_batch_rows=TRAIN_B, pack_len=TRAIN_PACK_LEN, replay_rows=2 * TRAIN_B,
+                 max_len=trainer.agent.model.max_len)
+    emit("genrl_train", engine="cohort", **shape, warmup_s=warmup_s, **cohort,
+         sync_debug_mode="error in warm rounds (insert, sample, learn) and in warm generation",
+         card=report["card"])
+    _check_train_window("cohort", cohort, continuous=False)
+    for k in ("segment_attention_fwd", "segment_attention_bwd_dq", "segment_attention_bwd_dkv"):
+        report["launches"][k] = cohort["launches"][k]
+    round_s = cohort["seconds"] / cohort["rounds"]
+
+    # where a round's time goes: two more rounds under torch.profiler, and
+    # three learn steps alone on a sampled batch
+    def seg_us(kernels):
+        return {n: sum(us for k, us, _ in kernels if n in k)
+                for n in ("seg_fwd_kernel", "seg_bwd_dq_kernel", "seg_bwd_dkv_kernel")}
+
+    prof_rounds = 2
+    profiled_s, kernels = profile_device(lambda: [trainer.train_round() for _ in range(prof_rounds)])
+    busy_s = sum(us for _, us, _ in kernels) / 1e6 / prof_rounds
+    batch, _, _, weights = seq_sample(trainer.replay, trainer._sample_generator, TRAIN_B,
+                                      method="pallas")
+    batch = dict(batch, is_weight=weights)
+    steps = 3
+    trainer.agent.learn(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.agent.learn(batch)
+    torch.cuda.synchronize()
+    learn_step_s = (time.perf_counter() - t0) / steps
+    _, lkernels = profile_device(lambda: [trainer.agent.learn(batch) for _ in range(steps)])
+    learn_busy_s = sum(us for _, us, _ in lkernels) / 1e6 / steps
+    seg_learn = seg_us(lkernels)
+    emit("genrl_train_profile", rounds=prof_rounds, unprofiled_round_s=round_s,
+         profiled_round_s=profiled_s / prof_rounds,
+         device_busy_s_per_round=busy_s if kernels else None,
+         device_busy_share=busy_s / round_s if kernels else None,
+         kernel_launches_per_round=sum(n for _, _, n in kernels) / prof_rounds,
+         top_kernels_round=[{"name": k[:90], "ms_per_round": us / 1e3 / prof_rounds,
+                             "calls_per_round": n / prof_rounds} for k, us, n in kernels[:10]],
+         learn_step_s=learn_step_s, learn_step_device_busy_s=learn_busy_s if lkernels else None,
+         learn_step_device_busy_share=learn_busy_s / learn_step_s if lkernels else None,
+         kernel_launches_per_learn_step=sum(n for _, _, n in lkernels) / steps,
+         segment_kernels_us_per_learn_step={k: us / steps for k, us in seg_learn.items()},
+         segment_kernels_share_of_learn_device_time=(
+             sum(seg_learn.values()) / 1e6 / steps / learn_busy_s if lkernels else None),
+         top_kernels_learn_step=[{"name": k[:90], "us_per_learn_step": us / steps,
+                                  "calls_per_learn_step": n / steps} for k, us, n in lkernels[:10]],
+         card=report["card"])
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # a few rounds on the continuous engine: the other bridge, and the paged kernel
+    trainer = make_trainer(genrl_engine="continuous", genrl_page_size=GEN_PAGE,
+                           genrl_macro_steps=GEN_MACRO)
+    t0 = time.perf_counter()
+    trainer.train_round()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    cont = _train_window(trainer, 0.0, TRAIN_CONTINUOUS_ROUNDS)
+    emit("genrl_train", engine="continuous", **shape, lanes=TRAIN_B, page_size=GEN_PAGE,
+         steps_per_macro=GEN_MACRO, warmup_s=warmup_s, **cont, card=report["card"])
+    _check_train_window("continuous", cont, continuous=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the packed against the padded learn rate on bench.py's mixed-length
+    # batch: real response tokens per second of wall clock, metrics read
+    # through a two-deep pipeline
+    pk, padded, real_tokens = _bench_learn_batches()
+    args = _train_args(learner_pack_len=0)
+    agent = TokenPPOAgent(args, build_genrl_model(args))
+    layouts = {"packed": {k: torch.tensor(v).cuda() for k, v in pk.fields()[0].items()},
+               "padded": {k: torch.tensor(v).cuda() for k, v in padded.items()}}
+    rates = {}
+    for name, dev_batch in layouts.items():
+        agent.learn(dev_batch)  # warm
+        pipe = MetricsPipeline(depth=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        while time.perf_counter() - t0 < TRAIN_LEARN_RATE_S or n < 2:
+            n += 1
+            pipe.push(n, agent.learn_device(dev_batch))
+        pipe.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates[name] = dict(steps=n, seconds=wall, learn_steps_per_s=n / wall,
+                           learn_tokens_per_s=n * real_tokens / wall,
+                           rows=int(dev_batch["tokens"].shape[0]),
+                           row_len=int(dev_batch["tokens"].shape[1]))
+    emit("token_ppo_learn_rate", real_response_tokens=real_tokens, **rates,
+         packed_over_padded=rates["packed"]["learn_tokens_per_s"] / rates["padded"]["learn_tokens_per_s"],
+         card=report["card"])
+    del agent, layouts
+    torch.cuda.empty_cache()
+
+    # two runs from one seed: the segment kernels repeat bit for bit, but the
+    # embedding tables' gradients go through index_put_(accumulate=True),
+    # whose float atomics may land in another order.  Measured, not required
+    finals = []
+    for _ in range(2):
+        t = make_trainer(seed=11)
+        for _ in range(3):
+            m = t.train_round()
+        finals.append((torch.cat([v.reshape(-1) for v in t.agent.get_weights().values()]).cpu(),
+                       m["total_loss"]))
+        del t
+    diff = (finals[0][0] - finals[1][0]).abs().max().item()
+    emit("genrl_train_repeat", rounds=3, seed=11, params_bit_equal=diff == 0.0,
+         params_max_abs_diff=diff, last_loss=[finals[0][1], finals[1][1]])
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
-          phase_paged_attn, phase_genrl_model, phase_genrl_decode, phase_genrl_continuous]
+          phase_paged_attn, phase_genrl_model, phase_genrl_decode, phase_genrl_continuous,
+          phase_segment_attn, phase_token_ppo_learn, phase_genrl_train]
 
 
 def main() -> int:
@@ -1283,6 +1939,12 @@ def main() -> int:
         ("per_update", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:225"),
         ("paged_attention", "scalerl_torch/csrc/paged_attention.cu",
          "scalerl_tpu/ops/pallas_paged_attention.py:108"),
+        ("segment_attention_fwd", "scalerl_torch/csrc/segment_attention.cu",
+         "scalerl_tpu/ops/pallas_attention.py:426"),
+        ("segment_attention_bwd_dq", "scalerl_torch/csrc/segment_attention.cu",
+         "scalerl_tpu/ops/pallas_attention.py:532"),
+        ("segment_attention_bwd_dkv", "scalerl_torch/csrc/segment_attention.cu",
+         "scalerl_tpu/ops/pallas_attention.py:578"),
     ]
     print(report["card"], flush=True)
     print(json.dumps({"kernels": [{

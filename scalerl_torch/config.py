@@ -1,8 +1,8 @@
 """Argument schemas the ported slices read.
 
 The port's own copies of the ``scalerl_tpu/config.py`` fields that the fused
-IMPALA loop and the DQN off-policy trainer read, with the same names and
-defaults, so an argument set means the same thing to both packages.  Fields
+IMPALA loop, the DQN off-policy trainer and the sequence-RL trainer read,
+with the same names and defaults, so an argument set means the same thing to both packages.  Fields
 that no module of the port reads yet are left out; they arrive with the
 modules that read them.  Among them are the checkpoint fields
 (``save_model``, ``save_frequency``, ...) and the telemetry fields, whose
@@ -14,7 +14,7 @@ if either is set.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 
@@ -143,3 +143,178 @@ class DQNArguments(RLArguments):
             raise ValueError(f"n_steps must be >= 1, got {self.n_steps}")
         if not (0.0 <= self.per_alpha <= 1.0):
             raise ValueError(f"per_alpha must be in [0, 1], got {self.per_alpha}")
+
+
+@dataclass
+class GenRLArguments(RLArguments):
+    """Token-level sequence-RL options (``scalerl_tpu.config.GenRLArguments``).
+
+    One generation round = generate ``genrl_batch`` sequences, score them
+    with the task's rule-based reward, pack them into the prioritized
+    sequence replay, sample ``genrl_sample_batch`` replay units and take one
+    token-PPO learn step.  ``d_model``, ``n_layers`` and ``n_heads`` size the
+    policy (the JAX package keeps them on ``RLArguments``; here only this
+    plane reads them).
+
+    Kept with their JAX defaults and refused by :meth:`validate` when set,
+    because the parts that read them are not ported yet: ``spec_enable``
+    (speculative decoding; its ``spec_k`` and ``spec_ngram`` are left out until
+    then), ``dp_size``/``mp_size`` (the sharded learner),
+    ``bf16_params``, and the ``disagg_*`` fields, which only the
+    disaggregated trainer reads.  ``genrl_iter_mode`` is accepted and has no
+    effect: the port runs eagerly with one loop form.
+    """
+
+    algo_name: str = "token_ppo"
+    learning_rate: float = 3e-3
+    max_grad_norm: float = 1.0
+    d_model: int = 128
+    n_layers: int = 2
+    n_heads: int = 4
+
+    # Vocabulary and sequence geometry; the model's max_len is derived as
+    # prompt bucket + response bucket.
+    vocab_size: int = 16
+    prompt_len: int = 4  # the task's maximum true prompt length
+    max_new_tokens: int = 4
+    eos_token: int = -1  # < 0: fixed-length responses (no early stop)
+
+    # Sampling (stored logprobs are under exactly this distribution).
+    temperature: float = 1.0
+    top_k: int = 0
+
+    # Token-PPO objective.
+    clip_range: float = 0.2
+    value_cost: float = 0.5
+    entropy_cost: float = 0.01
+    kl_cost: float = 0.0  # KL to the frozen initial params; 0 = no anchor forward
+    adv_norm: bool = True
+
+    # Round geometry and replay.
+    genrl_rounds: int = 200
+    genrl_batch: int = 32  # sequences generated per round
+    genrl_sample_batch: int = 32  # replay units per learn step
+    genrl_buffer_sequences: int = 64  # sequence-replay capacity
+    genrl_push_every: int = 1  # publish params to the engine every N learn steps
+    genrl_iter_mode: str = "auto"
+
+    # Engine: "cohort" (one fixed-cohort round) or "continuous" (paged KV,
+    # macro steps, admission into freed lanes).
+    genrl_engine: str = "cohort"
+    genrl_lanes: int = 0  # continuous decode lanes; 0 -> genrl_batch
+    genrl_page_size: int = 8
+    genrl_num_pages: int = 0  # 0 -> every lane's worst case
+    genrl_macro_steps: int = 4
+    genrl_admit_wait_ms: float = 0.0
+    genrl_max_pending: int = 0  # admission queue bound (0 = unbounded)
+    genrl_paged_attn: str = "auto"  # pallas | auto = the CUDA kernel, xla = plain
+    samples_per_prompt: int = 1  # completions per prompt (group sampling)
+    genrl_steps_in_flight: int = 2
+    genrl_prefix_cache: bool = True
+    spec_enable: bool = False  # not ported yet: must stay False
+
+    # Packed learner: bin-pack compact sequences into [rows, learner_pack_len]
+    # rows with per-token segment ids; the learn step attends within
+    # segments only.
+    learner_packing: bool = False
+    learner_pack_len: int = 0  # 0 -> prompt bucket + response bucket
+    # pallas | auto = the CUDA segment flash kernels, xla = the dense mask
+    learner_packed_attn: str = "auto"
+
+    # Not ported yet: must stay at these values.
+    dp_size: int = 0
+    mp_size: int = 1
+    bf16_params: bool = False
+    disagg_hosts: int = 2
+    disagg_lanes_per_host: int = 0
+    disagg_quantize: str = "int8"
+    disagg_upload_batch: int = 4
+    disagg_round_timeout_s: float = 120.0
+    disagg_ledger_dir: str = ""
+
+    def validate(self) -> None:
+        super().validate()
+        unported = {
+            "spec_enable": "speculative decoding (ROADMAP A5)",
+            "dp_size": "the sharded learner (ROADMAP A6)",
+            "mp_size": "the sharded learner (ROADMAP A6)",
+            "bf16_params": "bf16 parameters (ROADMAP A6)",
+            **{f.name: "the disaggregated trainer (ROADMAP A5)"
+               for f in fields(self) if f.name.startswith("disagg_")},
+        }
+        defaults = {f.name: f.default for f in fields(self)}
+        for name, part in unported.items():
+            if getattr(self, name) != defaults[name]:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} needs {part}, which is not ported yet; "
+                    f"leave it at {defaults[name]!r}"
+                )
+        if self.vocab_size < 4:
+            raise ValueError(f"vocab_size must be >= 4, got {self.vocab_size}")
+        if self.prompt_len < 1 or self.max_new_tokens < 1:
+            raise ValueError(
+                "prompt_len and max_new_tokens must be >= 1, got "
+                f"{self.prompt_len}/{self.max_new_tokens}"
+            )
+        if self.temperature < 0:
+            raise ValueError(f"temperature must be >= 0 (0 = greedy), got {self.temperature}")
+        if not 0.0 < self.clip_range < 1.0:
+            raise ValueError(f"clip_range must be in (0, 1), got {self.clip_range}")
+        if self.kl_cost < 0 or self.value_cost < 0:
+            raise ValueError(
+                f"kl_cost and value_cost must be >= 0, got {self.kl_cost}/{self.value_cost}"
+            )
+        if self.genrl_batch < 1 or self.genrl_sample_batch < 1:
+            raise ValueError(
+                "genrl_batch and genrl_sample_batch must be >= 1, got "
+                f"{self.genrl_batch}/{self.genrl_sample_batch}"
+            )
+        if self.genrl_buffer_sequences < self.genrl_batch:
+            raise ValueError(
+                f"genrl_buffer_sequences ({self.genrl_buffer_sequences}) must be >= "
+                f"genrl_batch ({self.genrl_batch})"
+            )
+        if self.genrl_push_every < 1:
+            raise ValueError(f"genrl_push_every must be >= 1, got {self.genrl_push_every}")
+        if self.genrl_iter_mode not in ("auto", "scan", "unroll"):
+            raise ValueError(
+                f"genrl_iter_mode must be auto | scan | unroll, got {self.genrl_iter_mode!r}"
+            )
+        if self.genrl_engine not in ("cohort", "continuous"):
+            raise ValueError(
+                f"genrl_engine must be cohort | continuous, got {self.genrl_engine!r}"
+            )
+        if self.genrl_lanes < 0 or self.genrl_page_size < 1:
+            raise ValueError(
+                "genrl_lanes must be >= 0 and genrl_page_size >= 1, got "
+                f"{self.genrl_lanes}/{self.genrl_page_size}"
+            )
+        if self.genrl_macro_steps < 1:
+            raise ValueError(f"genrl_macro_steps must be >= 1, got {self.genrl_macro_steps}")
+        if self.genrl_paged_attn not in ("auto", "pallas", "xla"):
+            raise ValueError(
+                f"genrl_paged_attn must be auto | pallas | xla, got {self.genrl_paged_attn!r}"
+            )
+        if self.samples_per_prompt < 1:
+            raise ValueError(f"samples_per_prompt must be >= 1, got {self.samples_per_prompt}")
+        if self.genrl_batch % self.samples_per_prompt != 0:
+            raise ValueError(
+                f"genrl_batch ({self.genrl_batch}) must be a multiple of samples_per_prompt "
+                f"({self.samples_per_prompt}) so rounds hold whole groups"
+            )
+        if self.genrl_steps_in_flight < 1:
+            raise ValueError(
+                f"genrl_steps_in_flight must be >= 1, got {self.genrl_steps_in_flight}"
+            )
+        if self.learner_packed_attn not in ("auto", "pallas", "xla"):
+            raise ValueError(
+                f"learner_packed_attn must be auto | pallas | xla, got {self.learner_packed_attn!r}"
+            )
+        if self.learner_pack_len < 0:
+            raise ValueError(f"learner_pack_len must be >= 0, got {self.learner_pack_len}")
+        if self.learner_pack_len and self.learner_pack_len < self.prompt_len + self.max_new_tokens:
+            raise ValueError(
+                f"learner_pack_len ({self.learner_pack_len}) must fit one maximum-length "
+                f"sequence (prompt_len + max_new_tokens = {self.prompt_len + self.max_new_tokens}) "
+                "or every full-length completion would be shed"
+            )

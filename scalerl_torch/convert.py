@@ -17,6 +17,8 @@ Any tree shaped like the params converts the same way, which covers the
 optimizer moments: :func:`rmsprop_state_to_torch` pulls RMSProp's ``nu``
 (and the schedule's update count) out of an optax chain state, and
 :func:`adam_state_to_torch` Adam's ``mu``, ``nu`` and ``count``.
+:func:`token_ppo_state_to_torch` carries a whole token-PPO train state
+across (params, the frozen reference params, Adam's moments, both counters).
 This module imports neither JAX nor the JAX package; it walks nested dicts,
 tuples and namedtuples of numpy arrays.
 """
@@ -222,3 +224,19 @@ def adam_state_to_torch(
         "nu": tree_to_torch(nu, device),
         "count": torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device),
     }
+
+
+def token_ppo_state_to_torch(state: Any, device: torch.device | str = "cpu"):
+    """A JAX ``TokenPPOTrainState`` (any object with ``params``,
+    ``ref_params``, ``opt_state``, ``step`` and ``tokens_seen``, leaves as
+    numpy arrays) -> the port's ``agents/token_ppo.py::TokenPPOTrainState``."""
+    from scalerl_torch.agents.token_ppo import TokenPPOTrainState
+
+    return TokenPPOTrainState(
+        params=transformer_to_torch(state.params, device),
+        ref_params=transformer_to_torch(state.ref_params, device),
+        opt_state=adam_state_to_torch(state.opt_state, transformer_to_torch, device),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
+        tokens_seen=torch.tensor(int(np.asarray(state.tokens_seen)), dtype=torch.int32,
+                                 device=device),
+    )

@@ -12,8 +12,10 @@ The forward has the JAX module's paths, chosen by its arguments:
 
 - full causal (:func:`~scalerl_torch.ops.attention.full_attention`), or
   masked under ``attn_mask`` ``[B, T, T]``;
-- packed rows (``segment_ids``): the dense :func:`packed_attention_mask`
-  on the masked path (the flash segment kernel, B5, is not ported yet);
+- packed rows (``segment_ids``): through ``segment_attn_fn`` in every
+  block when the model has one (the CUDA segment flash kernels,
+  ``ops/cuda_segment_attention.py``), else the dense
+  :func:`packed_attention_mask` on the masked path;
 - dense ``KVCache`` prefill and decode (the cohort engine);
 - paged (``paged_cache``): local prefill, decode through ``paged_attn_fn``
   (the CUDA paged kernel in the continuous engine), and the shared-table
@@ -174,6 +176,8 @@ class TransformerBlock(nn.Module):
         self,
         x: torch.Tensor,
         paged_attn_fn: Optional[Callable] = None,
+        segment_attn_fn: Optional[Callable] = None,
+        segment_ids: Optional[torch.Tensor] = None,
         layer_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         cache_index: Optional[int] = None,
         attn_mask: Optional[torch.Tensor] = None,
@@ -225,6 +229,11 @@ class TransformerBlock(nn.Module):
             ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
             cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
             out = _masked_attention(q, ck, cv, attn_mask, dtype)
+        elif segment_ids is not None and segment_attn_fn is not None:
+            # packed rows through the flash seam: the kernels apply the
+            # segment-blocked causal rule and skip cross-segment and pad
+            # tiles; q, k, v go in as the strided views they are
+            out = segment_attn_fn(q, k, v, segment_ids).to(dtype)
         elif attn_mask is not None:
             out = _masked_attention(q, k, v, attn_mask, dtype)
         else:
@@ -245,9 +254,11 @@ class TransformerPolicy(nn.Module):
 
     ``paged_attn_fn`` is the paged-decode seam
     (``ops/cuda_paged_attention.py::paged_decode_attention`` in the
-    continuous engine; None = the plain reference).  ``use_flash=True``
-    (B4) and a ``segment_attn_fn`` (B5) need kernels that are not ported
-    yet and raise.
+    continuous engine; None = the plain reference).  ``segment_attn_fn``
+    is the packed-learner seam (``ops/cuda_segment_attention.py::
+    make_segment_attn_fn``; None = the dense :func:`packed_attention_mask`).
+    ``use_flash=True`` (B4) needs a kernel that is not ported yet and
+    raises.
     """
 
     def __init__(
@@ -276,11 +287,6 @@ class TransformerPolicy(nn.Module):
                 "use_flash=True needs the flash attention kernel (B4), which is not "
                 "ported yet (ROADMAP B4); use the default attention"
             )
-        if segment_attn_fn is not None:
-            raise NotImplementedError(
-                "segment_attn_fn needs the segment flash kernel (B5), which is not "
-                "ported yet (ROADMAP B5); packed rows take the dense mask path"
-            )
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} must divide by num_heads {num_heads}")
         if vocab_size is None and obs_dim is None:
@@ -294,6 +300,7 @@ class TransformerPolicy(nn.Module):
         self.max_len = max_len
         self.vocab_size = vocab_size
         self.paged_attn_fn = paged_attn_fn
+        self.segment_attn_fn = segment_attn_fn
         if vocab_size is not None:
             self.token_embed = nn.Embedding(vocab_size, d_model)
         else:
@@ -346,8 +353,9 @@ class TransformerPolicy(nn.Module):
         - no cache, no mask: causal attention -> :class:`TransformerOutput`;
         - ``attn_mask`` ``[B, T, T]``: masked forward (the learner's pass
           over left-padded sequences, :func:`sequence_attention_mask`);
-        - ``segment_ids`` ``[B, S]``: packed rows through the dense
-          :func:`packed_attention_mask`;
+        - ``segment_ids`` ``[B, S]``: packed rows (callers pass per-segment
+          ``positions``), through ``segment_attn_fn`` in every block or,
+          without one, the dense :func:`packed_attention_mask`;
         - ``kv_cache`` + ``cache_index`` (a Python int) + ``attn_mask``
           ``[B, T, S]``: write this call's k/v at ``cache_index`` and attend
           against the cache -> ``(TransformerOutput, kv_cache)``;
@@ -364,8 +372,10 @@ class TransformerPolicy(nn.Module):
         B, T = obs.shape[:2]
         if T > self.max_len:
             raise ValueError(f"sequence length {T} exceeds max_len={self.max_len}")
-        if segment_ids is not None:
+        if segment_ids is not None and self.segment_attn_fn is None:
+            # one [B, S, S] mask shared by every block
             attn_mask = packed_attention_mask(segment_ids)
+            segment_ids = None
         if positions is None:
             positions = torch.arange(T, device=obs.device).expand(B, T)
         if self.vocab_size is not None:
@@ -375,7 +385,7 @@ class TransformerPolicy(nn.Module):
         x = x + F.embedding(positions.long().clamp(0, self.max_len - 1), self.pos_embed)
         for i, block in enumerate(self.blocks):
             x = block(
-                x, self.paged_attn_fn,
+                x, self.paged_attn_fn, self.segment_attn_fn, segment_ids,
                 layer_cache=None if kv_cache is None else (kv_cache.k[i], kv_cache.v[i]),
                 cache_index=cache_index,
                 attn_mask=attn_mask,

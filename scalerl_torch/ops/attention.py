@@ -1,11 +1,18 @@
 """Plain single-device attention over ``[B, T, H, D]``.
 
-Counterpart of ``scalerl_tpu/ops/ring_attention.py::full_attention``, the
-default attention of ``TransformerPolicy``'s full forward.  Scores and the
-softmax run in float32; the output comes back in q's dtype.
+:func:`full_attention` is the counterpart of ``scalerl_tpu/ops/
+ring_attention.py::full_attention``, the default attention of
+``TransformerPolicy``'s full forward.  :func:`segment_attention_reference`
+is the counterpart of ``scalerl_tpu/ops/pallas_attention.py::
+segment_attention_reference``: the plain version of the segment flash
+kernels of ``ops/cuda_segment_attention.py``, values and (through autograd)
+gradients.  Scores and the softmax run in float32; the output comes back in
+q's dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,3 +30,25 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(~visible, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def segment_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                segment_ids: torch.Tensor,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Causal self-attention within packed segments, dense: q, k, v
+    ``[B, T, H, D]``, ``segment_ids`` ``[B, T]`` (0 = pad).  Token ``i``
+    attends ``j <= i`` iff ``segment_ids[i] == segment_ids[j] != 0``; a
+    query with no live key (pad) gives exact zeros, not a uniform average.
+    Materialises the ``[T, T]`` scores."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    seg = segment_ids.to(torch.int32)
+    T = q.shape[1]
+    ar = torch.arange(T, device=q.device)
+    causal = ar[None, :, None] >= ar[None, None, :]
+    mask = causal & (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0)  # [B, T, T]
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, :, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(mask.any(dim=-1)[:, None, :, None], probs, 0.0)
+    return torch.einsum("bhts,bshd->bthd", probs, v.float()).to(q.dtype)

@@ -47,7 +47,7 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_submodules()) >= 54  # the IMPALA, DQN and generation slices
+    assert len(_submodules()) >= 60  # the IMPALA, DQN, generation and sequence-RL training slices
 
 
 def _imported_roots(path: Path):
@@ -124,6 +124,24 @@ def test_generation_entry_points_refuse_the_default_device_without_a_card(monkey
         GenerationEngine(model, model.state_dict(), GenerationConfig(**cfg))
     with pytest.raises(RuntimeError, match="cuda"):
         ContinuousEngine(model, model.state_dict(), ContinuousConfig(**cfg, lanes=2))
+
+
+def test_sequence_rl_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.config import GenRLArguments
+    from scalerl_torch.data.sequence_replay import seq_import, seq_init
+    from scalerl_torch.trainer.sequence_rl import SequenceRLTrainer, build_genrl_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = GenRLArguments()
+    for make in (
+        lambda: SequenceRLTrainer(args),
+        lambda: build_genrl_model(args),
+        lambda: seq_init({"x": ((2,), torch.float32)}, (), 4),
+        lambda: seq_import({"storage": {}, "core": (), "priorities": [0.0], "pos": 0, "size": 0}),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    SequenceRLTrainer(args, device="cpu").train_round()
 
 
 def _run_smoke(cwd: Path):

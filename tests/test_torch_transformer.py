@@ -211,8 +211,18 @@ def test_unported_kernels_and_bad_shapes_raise(models):
               max_len=MAX_LEN, device="cpu")
     with pytest.raises(NotImplementedError, match="B4"):
         tt.TransformerPolicy(use_flash=True, **kw)
-    with pytest.raises(NotImplementedError, match="B5"):
-        tt.TransformerPolicy(segment_attn_fn=lambda *a: None, **kw)
+    # the segment seam is ported: the model takes a segment_attn_fn and
+    # routes packed rows to it in every block
+    calls = []
+
+    def seg_fn(q, k, v, seg):
+        calls.append(tuple(q.shape))
+        return torch.zeros_like(q)
+
+    packed = tt.TransformerPolicy(segment_attn_fn=seg_fn, **kw)
+    seg = torch.ones(2, 5, dtype=torch.int32)
+    packed(torch.zeros(2, 5, dtype=torch.int32), segment_ids=seg)
+    assert calls == [(2, 5, HEADS, D_MODEL // HEADS)]
     with pytest.raises(ValueError, match="obs_dim"):
         tt.TransformerPolicy(num_actions=3, device="cpu")
     with pytest.raises(ValueError, match="max_len"):

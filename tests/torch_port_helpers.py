@@ -70,3 +70,67 @@ def assert_params_close(port_params, jax_params, atol=1e-5, rtol=1e-5):
         np.testing.assert_allclose(
             port_params[k].detach().numpy(), v.numpy(), atol=atol, rtol=rtol, err_msg=k
         )
+
+
+# ---------------------------------------------------------------------------
+# sequence-RL training slice (token-PPO over padded sequences and packed rows)
+
+GENRL_SMALL = dict(vocab_size=12, prompt_len=8, max_new_tokens=8, d_model=32, n_layers=1,
+                   n_heads=2, genrl_batch=8, genrl_sample_batch=8, genrl_buffer_sequences=16)
+
+
+def genrl_args_pair(**kw):
+    """The same GenRLArguments for both packages (the JAX one with its
+    telemetry and logger switched off, fields the port does not have)."""
+    fields = {**GENRL_SMALL, **kw}
+    jargs = jconfig.GenRLArguments(**fields, telemetry_interval_s=0.0, logger_backend="none")
+    return jargs, tconfig.GenRLArguments(**fields)
+
+
+def token_ppo_state_to_torch(jax_state):
+    """A JAX ``TokenPPOTrainState`` -> the port's, on the host."""
+    return convert.token_ppo_state_to_torch(to_numpy(jax_state))
+
+
+def ragged_token_batches(seed, V=12, P=8, R=8, B=6):
+    """The SAME ragged sequences in both learner layouts, as numpy dicts:
+    ``(padded, packed, rows)`` (tests/test_packed_learner.py::_ragged_batches
+    with the port's packer, which tests/test_torch_rollout.py holds equal to
+    the JAX one)."""
+    from scalerl_torch.genrl.rollout import pack_learner_batch
+
+    rng = np.random.default_rng(seed)
+    S = P + R
+    plens = rng.integers(1, P + 1, B)
+    rlens = rng.integers(1, R + 1, B)
+    plens[0], rlens[0] = 1, 1
+    plens[1], rlens[1] = P, R
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in plens]
+    resps = [rng.integers(1, V, n).astype(np.int32) for n in rlens]
+    logps = [np.log(rng.uniform(0.05, 0.5, n)).astype(np.float32) for n in rlens]
+    vals = [rng.normal(0, 0.1, n).astype(np.float32) for n in rlens]
+    rewards = rng.uniform(0, 1, B).astype(np.float32)
+    gens = rng.integers(0, 3, B).astype(np.int32)
+    tokens = np.zeros((B, S), np.int32)
+    blogp = np.zeros((B, R), np.float32)
+    bval = np.zeros((B, R), np.float32)
+    mask = np.zeros((B, R), np.float32)
+    for i in range(B):
+        n, r = int(plens[i]), int(rlens[i])
+        tokens[i, P - n:P] = prompts[i]
+        tokens[i, P:P + r] = resps[i]
+        blogp[i, :r] = logps[i]
+        bval[i, :r] = vals[i]
+        mask[i, :r] = 1.0
+    padded = dict(tokens=tokens, behavior_logp=blogp, value=bval, mask=mask, reward=rewards,
+                  prompt_len=plens.astype(np.int32), generation=gens)
+    pk = pack_learner_batch(prompts, resps, logps, vals, rewards, gens, pack_len=S)
+    return padded, dict(pk.fields()[0]), pk.rows
+
+
+def to_jax_batch(batch):
+    return {k: jax.numpy.asarray(v) for k, v in batch.items()}
+
+
+def to_torch_batch(batch):
+    return {k: torch.tensor(np.asarray(v)) for k, v in batch.items()}
