@@ -9,7 +9,8 @@ no result line:
 1. ``device``: needs ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` reports them.
 2. ``build``: compiles every CUDA source of ``scalerl_torch/csrc`` with
-   ``nvcc`` (one process per source, all started together).
+   ``nvcc`` (one process per source, all started together); fails if
+   ptxas reports a local-memory spill in any kernel.
 3. ``vtrace``: the V-trace kernel against its plain PyTorch version on the
    card, at the fused loop's [20, 512] and at ragged shapes, for three clip
    settings (max abs error <= 1e-5); its time beside the plain version's
@@ -96,13 +97,45 @@ no result line:
     ``bench.py``'s mixed-length batch (``token_ppo_learn_rate``); and two
     three-round runs from one seed, compared bit for bit
     (``genrl_train_repeat``; reported, not required).
+17. ``flash_attn``: the three flash attention kernels (forward, dq, dk/dv)
+    against their plain PyTorch version on the card, in 13 layouts: the
+    learner's ``[8, 17, 16, 64]`` bf16 causal as views of one fused
+    projection, ``[4, 256, 2, 64]``, the JAX package's compiled-check shapes
+    (D = 128, causal and not, a ragged T = 200, bf16), cross lengths 24/56
+    and 256/1024 (causal top-left aligned and not), D in {8, 16, 32} and a
+    ``[1, 4096, 8, 64]`` bf16 context.  o, lse, dq, dk and dv each within
+    ``FLASH_*_TOL``, two runs bit-equal, causal row 0 equal to v[0]; the
+    autograd function bit-equal to the direct calls.  Each kernel's time by
+    CUDA-graph replay at three shapes beside the plain version, SDPA and the
+    bound.
+18. ``transformer_learn``: the transformer-policy IMPALA learner at
+    ``bench.py --mode sharded``'s width (d=1024, 8 layers, 16 heads, T=16,
+    B=8, obs 64, 16 actions; 100.8M parameters): the flash model on the
+    card against the host, then two ``ImpalaAgent``s from one seed, with
+    ``use_pallas`` (flash attention and V-trace kernels) and without:
+    gradients leaf by leaf and two learn steps in float32
+    (``SHARD_LEARN_TOL``), and under ``bf16_params`` the dtype layout,
+    float32 optimizer state, finite losses and ``SHARD_BF16_TOL``, each
+    bf16 path also held against the float32 model on the same params.
+19. ``transformer_train``: the slice's main path, bench.py's sharded learn
+    step at dp=1 (bf16 params, flash and V-trace kernels) for
+    ``SHARD_TRAIN_S`` on one synthetic trajectory, metrics read two steps
+    behind, warm steps under sync debug mode "error", every kernel's launch
+    count zeroed just before (8 launches of each flash kernel and 1 of
+    V-trace per step); train frames/s, achieved TFLOP/s, peak memory, and
+    three steps under ``torch.profiler`` (``transformer_train_profile``).
+20. ``flash_train_step``: the JAX package's compiled flash train-step check
+    at T = 256 (d=128, 2 heads, 2 layers, one Adam step), flash against the
+    plain attention.
 
-Then a line with the card, a ``{"kernels": [...]}`` line, and last
+Then a line with the card, a ``{"kernels": [...]}`` line (ten kernels),
+and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -227,7 +260,19 @@ def phase_build(report: dict) -> None:
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
     }
-    emit("build", seconds=seconds, sources=list(cuda_build.KERNEL_SOURCES), ptxas=ptxas)
+    # each spill line under the function ptxas names just before it
+    spills = []
+    for name, log in logs.items():
+        function = "?"
+        for ln in log.splitlines():
+            if "Function properties for" in ln:
+                function = ln.split("Function properties for", 1)[1].strip()
+            elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
+                spills.append(f"{name}: {function}: {ln.strip()}")
+    emit("build", seconds=seconds, sources=list(cuda_build.KERNEL_SOURCES), ptxas=ptxas,
+         spill_free=not spills)
+    if spills:
+        raise AssertionError(f"ptxas reports local-memory spills: {spills}")
 
 
 def _vtrace_inputs(T, B, seed, device):
@@ -703,9 +748,11 @@ def phase_per_kernels(report: dict) -> None:
          "index_put_ does not promise last-wins; flat_cumsum_ms times cumsum + searchsorted")
 
 
-def _bound(moved: int, ops: int, timing: dict) -> dict:
+def _bound(moved: int, ops: int, timing: dict, ops_per_s: float = H100_F32_OPS_PER_S) -> dict:
+    """The larger of the bytes over the memory rate and the operations over
+    ``ops_per_s``, the card's peak for the inputs' type."""
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_F32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return dict(timing, bytes_moved=moved, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -1689,8 +1736,16 @@ def phase_token_ppo_learn(report: dict) -> None:
 
 
 def _zero_launch_counts():
-    from scalerl_torch.ops import cuda_paged_attention, cuda_per, cuda_segment_attention, cuda_vtrace
+    from scalerl_torch.ops import (
+        cuda_flash_attention,
+        cuda_paged_attention,
+        cuda_per,
+        cuda_segment_attention,
+        cuda_vtrace,
+    )
 
+    cuda_flash_attention.fwd_launches = 0
+    cuda_flash_attention.dq_launches = cuda_flash_attention.dkv_launches = 0
     cuda_vtrace.launches = 0
     cuda_per.sample_launches = cuda_per.update_launches = 0
     cuda_paged_attention.launches = 0
@@ -1699,14 +1754,23 @@ def _zero_launch_counts():
 
 
 def _launch_counts() -> dict:
-    from scalerl_torch.ops import cuda_paged_attention, cuda_per, cuda_segment_attention, cuda_vtrace
+    from scalerl_torch.ops import (
+        cuda_flash_attention,
+        cuda_paged_attention,
+        cuda_per,
+        cuda_segment_attention,
+        cuda_vtrace,
+    )
 
     return {"vtrace": cuda_vtrace.launches, "per_sample": cuda_per.sample_launches,
             "per_update": cuda_per.update_launches,
             "paged_attention": cuda_paged_attention.launches,
             "segment_attention_fwd": cuda_segment_attention.fwd_launches,
             "segment_attention_bwd_dq": cuda_segment_attention.dq_launches,
-            "segment_attention_bwd_dkv": cuda_segment_attention.dkv_launches}
+            "segment_attention_bwd_dkv": cuda_segment_attention.dkv_launches,
+            "flash_attention_fwd": cuda_flash_attention.fwd_launches,
+            "flash_attention_bwd_dq": cuda_flash_attention.dq_launches,
+            "flash_attention_bwd_dkv": cuda_flash_attention.dkv_launches}
 
 
 def _gauge(name: str) -> float:
@@ -1907,10 +1971,593 @@ def phase_genrl_train(report: dict) -> None:
          params_max_abs_diff=diff, last_loss=[finals[0][1], finals[1][1]])
 
 
+# Transformer-policy IMPALA learner (phases 17-20): bench.py --mode sharded's
+# accelerator width (bench.py:335-348) at dp=1
+SHARD_D, SHARD_LAYERS, SHARD_HEADS = 1024, 8, 16
+SHARD_T, SHARD_B, SHARD_OBS, SHARD_A = 16, 8, 64, 16
+SHARD_HEAD_DIM = SHARD_D // SHARD_HEADS
+SHARD_TRAIN_S = 15.0
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+# the flash kernels against the plain version.  float32: the same products
+# summed in another order (an online softmax over chunks of 8 keys, lane
+# butterflies over D, against one softmax and two einsums); the JAX package
+# pins its kernel to its reference at 2e-5 on values.  lse is m + log(l) of
+# the same sums.  Gradients are held relative to each gradient's largest
+# element.  bfloat16 inputs: both sides accumulate in float32 (the plain
+# version on the upcast inputs); the kernel rounds o, dq, dk, dv to bfloat16
+# once (half a step is 2^-9 relative) and reads o and do rounded, so they may
+# differ by a step of the largest element (2^-7) and the plain version's own
+# float32 noise: 2^-6 of the largest
+FLASH_VALUE_TOL = 2e-5
+FLASH_LSE_TOL = 2e-5
+FLASH_GRAD_REL_TOL = 1e-4
+FLASH_BF16_REL_TOL = 2.0 ** -6
+# learn steps, flash kernels against the plain attention, from the same
+# state and trajectory at the sharded width in float32 with TF32 off: the
+# same arithmetic summed in another order; RMSProp's first step from nu = 0
+# is ~lr * sign(g), so the update is compared after a second step
+SHARD_LEARN_STEPS = 2
+SHARD_LEARN_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grad_leaf_rel": 1e-4,
+                   "update_rel_l2": 1e-3, "model_card_vs_host": MODEL_TOL}
+# bf16_params: the plain attention rounds the scores q.k to bfloat16 before
+# the float32 softmax (as the JAX full_attention does), the kernel keeps
+# them in float32, and every block's output is rounded to bfloat16, so the
+# two paths differ by bf16 rounding (2^-9 relative per rounding) compounded
+# over 8 blocks and a backward pass.  The control holds each path against
+# the float32 model on the same (upcast) params; on an H100 the plain path
+# lay 2.1% of a leaf's largest gradient from it, the flash path 2.2%, and
+# the two 2.2% (loss 1.4e-2) apart.  Held at 2^-5 on the loss and 2^-4 of
+# each leaf's largest gradient (about 3x the readings), flash against plain
+# and flash against float32; the bit-level check is the float32 one above
+SHARD_BF16_TOL = {"loss_rel": 2.0 ** -5, "grad_leaf_rel": 2.0 ** -4,
+                  "flash_vs_float32_grad_leaf_rel": 2.0 ** -4}
+FLASH_STEP_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4}
+
+
+def _flash_case(B, Tq, Tk, H, D, dtype, seed, strided=False):
+    """q, k, v and a cotangent on the card; ``strided``: q, k, v as the
+    slices of one fused projection, as the model hands them over."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    if strided:
+        assert Tq == Tk
+        qkv = torch.randn(B, Tq, 3 * H * D, generator=g).to("cuda", dtype)
+        q, k, v = (t.reshape(B, Tq, H, D) for t in qkv.split(H * D, dim=-1))
+    else:
+        q = torch.randn(B, Tq, H, D, generator=g).to("cuda", dtype)
+        k, v = (torch.randn(B, Tk, H, D, generator=g).to("cuda", dtype) for _ in range(2))
+    return q, k, v, torch.randn(B, Tq, H, D, generator=g).to("cuda", dtype)
+
+
+def _visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs one (batch row, head) computes: key j is visible to
+    query i iff j <= i under ``causal``."""
+    if not causal:
+        return Tq * Tk
+    return sum(min(i + 1, Tk) for i in range(Tq))
+
+
+def _flash_check(name, case, causal, report_cases):
+    """Each kernel against the plain version in float32 on the same inputs:
+    o, lse, dq, dk, dv; two runs bit-equal; causal row 0 finite and = v[0]."""
+    import torch
+
+    from scalerl_torch.ops import cuda_flash_attention as cfa
+    from scalerl_torch.ops.attention import flash_attention_reference
+
+    q, k, v, do = case
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def kernels():
+        o, lse = cfa.flash_forward_kernel(q, k, v, scale, causal)
+        return (o, lse) + cfa.flash_backward_kernels(q, k, v, o, lse, do, scale, causal)
+
+    got, again = kernels(), kernels()
+    leaves = [t.float().detach().requires_grad_(True) for t in (q, k, v)]
+    ow, lw = flash_attention_reference(*leaves, causal, scale)
+    gw = torch.autograd.grad(ow, leaves, do.float())
+    torch.cuda.synchronize()
+    o, lse, dq, dk, dv = got
+    bf16 = q.dtype == torch.bfloat16
+    o_err = (o.float() - ow).abs().max().item()
+    o_max = ow.abs().max().item()
+    lse_err = (lse - lw).abs().max().item()
+    g_err = [(a.float() - b).abs().max().item() for a, b in zip((dq, dk, dv), gw)]
+    g_max = [b.abs().max().item() for b in gw]
+    res = dict(case=name, q=list(q.shape), k=list(k.shape), causal=causal,
+               dtype=str(q.dtype)[6:], contiguous=q.is_contiguous(), o_max_abs_err=o_err,
+               o_max=o_max, lse_max_abs_err=lse_err, dq_max_abs_err=g_err[0],
+               dk_max_abs_err=g_err[1], dv_max_abs_err=g_err[2], largest_gradients=g_max,
+               repeat_bit_equal=all(torch.equal(a, b) for a, b in zip(got, again)),
+               finite=all(bool(torch.isfinite(t).all()) for t in got))
+    if causal:
+        res["row0_equals_v0"] = bool(torch.equal(o[:, 0], v[:, 0]))
+    report_cases.append(res)
+    if bf16:
+        ok = (o_err <= FLASH_BF16_REL_TOL * max(o_max, 1.0)
+              and all(e <= FLASH_BF16_REL_TOL * max(m, 1.0) for e, m in zip(g_err, g_max)))
+    else:
+        ok = (o_err <= FLASH_VALUE_TOL
+              and all(e <= FLASH_GRAD_REL_TOL * max(m, 1.0) for e, m in zip(g_err, g_max)))
+    ok = ok and lse_err <= FLASH_LSE_TOL and res["repeat_bit_equal"] and res["finite"]
+    if not (ok and res.get("row0_equals_v0", True)):
+        raise AssertionError(f"flash kernels off their plain version: {res}")
+    # by kernel: forward (o and lse), dq, dk/dv
+    return max(o_err, lse_err), g_err[0], max(g_err[1:])
+
+
+def _flash_times(B, T, H, D, dtype, strided, launches):
+    """Each kernel alone by CUDA-graph replay at one causal self-attention
+    shape, beside the plain version, SDPA and the bounds.  The operations
+    bound takes the card's peak for the inputs' type: the bf16 tensor-core
+    rate for bfloat16, the float32 rate outside the tensor cores for
+    float32 (the kernels compute exact float32; TF32 is another result)."""
+    import torch
+    import torch.nn.functional as F
+
+    from scalerl_torch.ops import cuda_flash_attention as cfa
+    from scalerl_torch.ops.attention import flash_attention_reference
+
+    q, k, v, do = _flash_case(B, T, T, H, D, dtype, seed=100, strided=strided)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = cfa.flash_forward_kernel(q, k, v, scale, True)
+    dq, delta = cfa.flash_dq_kernel(q, k, v, o, lse, do, scale, True)
+    pairs = _visible_pairs(T, T, True) * B * H
+    vec = B * T * H * D * q.element_size()  # one [B, T, H, D] tensor
+    stat = B * H * T * 4  # lse or delta
+    peak = H100_BF16_OPS_PER_S if dtype == torch.bfloat16 else H100_F32_OPS_PER_S
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq.transpose(1, 2), kk.transpose(1, 2),
+                                              vv.transpose(1, 2), is_causal=True).transpose(1, 2)
+
+    # the plain version's and SDPA's backward, split as the kernels split it,
+    # from a forward retained on the stream that captures
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        side_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out, _ = flash_attention_reference(*side_leaves, True, scale)
+        lib_out = sdpa(*side_leaves)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def bwd_ms(out, wrt, n):
+        return gpu_time_ms(lambda: torch.autograd.grad(out, wrt, do, retain_graph=True), n,
+                           stream=side)
+
+    slow = max(launches // 10, 1)
+    fwd = _bound(4 * vec + stat, 4 * D * pairs, dict(
+        ms=gpu_time_ms(lambda: cfa.flash_forward_kernel(q, k, v, scale, True), launches),
+        plain_ms=gpu_time_ms(lambda: flash_attention_reference(q, k, v, True, scale), slow),
+        library_ms=gpu_time_ms(lambda: sdpa(q, k, v), launches)), peak)
+    # dq reads q, k, v, o, do, lse and writes dq, delta
+    dq_t = _bound(6 * vec + 2 * stat, 6 * D * pairs, dict(
+        ms=gpu_time_ms(lambda: cfa.flash_dq_kernel(q, k, v, o, lse, do, scale, True), launches),
+        plain_ms=bwd_ms(plain_out, side_leaves[:1], slow),
+        library_ms=bwd_ms(lib_out, side_leaves[:1], launches)), peak)
+    # dk/dv reads q, k, v, do, lse, delta and writes dk, dv
+    dkv_t = _bound(6 * vec + 2 * stat, 8 * D * pairs, dict(
+        ms=gpu_time_ms(lambda: cfa.flash_dkv_kernel(q, k, v, lse, delta, do, scale, True),
+                       launches),
+        plain_ms=bwd_ms(plain_out, side_leaves[1:], slow),
+        library_ms=bwd_ms(lib_out, side_leaves[1:], launches)), peak)
+    return dict(shape=[B, T, H, D], dtype=str(dtype)[6:], strided_views=strided, ops_peak=peak,
+                visible_pairs=pairs, forward=fwd, bwd_dq=dq_t, bwd_dkv=dkv_t,
+                plain_bwd_ms=bwd_ms(plain_out, side_leaves, slow),
+                library_bwd_ms=bwd_ms(lib_out, side_leaves, launches))
+
+
+# the flash kernels' layouts: name, (B, Tq, Tk, H, D), dtype, causal, views
+# of one fused projection; the first is the learner's
+FLASH_LAYOUTS = [
+    ("main_path", (SHARD_B, SHARD_T + 1, SHARD_T + 1, SHARD_HEADS, SHARD_HEAD_DIM), "bfloat16",
+     True, True),
+    ("T256_D64", (4, 256, 256, 2, 64), "float32", True, False),
+    ("tpu_D128_causal", (2, 256, 256, 4, 128), "float32", True, False),
+    ("tpu_D128_full", (2, 256, 256, 4, 128), "float32", False, False),
+    ("tpu_ragged_T200", (1, 200, 200, 2, 128), "float32", True, False),
+    ("tpu_bf16_D128", (2, 256, 256, 2, 128), "bfloat16", True, False),
+    ("cross_24_56", (1, 24, 56, 2, 8), "float32", False, False),
+    ("cross_256_1024_causal", (1, 256, 1024, 2, 64), "float32", True, False),
+    ("cross_256_1024_full", (1, 256, 1024, 2, 64), "float32", False, False),
+    ("D8", (2, 48, 48, 2, 8), "float32", True, False),
+    ("D16_T100", (2, 100, 100, 2, 16), "float32", True, False),
+    ("D32", (2, 48, 48, 2, 32), "float32", True, True),
+    ("long_T4096_bf16", (1, 4096, 4096, 8, 64), "bfloat16", True, False),
+]
+# timed causal self-attention shapes: name -> (B, T, H, D), dtype, views,
+# launches per graph
+FLASH_TIMED = {
+    "main_path": ((SHARD_B, SHARD_T + 1, SHARD_HEADS, SHARD_HEAD_DIM), "bfloat16", True, 200),
+    "T256_f32": ((4, 256, 2, 64), "float32", False, 50),
+    "long_T4096_bf16": ((1, 4096, 8, 64), "bfloat16", False, 10),
+}
+
+
+def phase_flash_attn(report: dict) -> None:
+    import torch
+
+    from scalerl_torch.ops import cuda_flash_attention as cfa
+
+    set_tf32(False)
+    cases = []
+    errs = {}
+    for i, (name, shape, dtype, causal, strided) in enumerate(FLASH_LAYOUTS):
+        case = _flash_case(*shape, getattr(torch, dtype), seed=i, strided=strided)
+        errs[name] = _flash_check(name, case, causal, cases)
+    # the autograd function routes the main path's views through the same
+    # kernels: its output and gradients equal the direct calls bit for bit
+    B, T1, _, H, D = FLASH_LAYOUTS[0][1]
+    bf16 = torch.bfloat16
+    q, k, v, do = _flash_case(B, T1, T1, H, D, bf16, seed=0, strided=True)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = cfa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = cfa.flash_forward_kernel(q, k, v, scale, True)
+    direct = (o,) + cfa.flash_backward_kernels(q, k, v, o, lse, do, scale, True)
+    autograd_equal = all(torch.equal(a, b) for a, b in zip((out,) + grads, direct))
+    if not autograd_equal:
+        raise AssertionError("the autograd function differs from the direct kernel calls")
+
+    times = {name: _flash_times(*shape, getattr(torch, dtype), strided, launches)
+             for name, (shape, dtype, strided, launches) in FLASH_TIMED.items()}
+    main = times["main_path"]
+    # the kernels line reports the main path's shape and its case's errors
+    for key, part, err in (("flash_attention_fwd", "forward", errs["main_path"][0]),
+                           ("flash_attention_bwd_dq", "bwd_dq", errs["main_path"][1]),
+                           ("flash_attention_bwd_dkv", "bwd_dkv", errs["main_path"][2])):
+        report[key] = {"max_abs_err": err, **main[part]}
+    emit("flash_attn", value_tol=FLASH_VALUE_TOL, lse_tol=FLASH_LSE_TOL,
+         grad_rel_tol=FLASH_GRAD_REL_TOL, bf16_rel_tol=FLASH_BF16_REL_TOL, cases=cases,
+         autograd_bit_equal_to_direct=autograd_equal, times=times,
+         backward_note="plain_ms and library_ms of bwd_dq are the plain version's and SDPA's "
+         "backward for dq alone, those of bwd_dkv for dk and dv; plain_bwd_ms and "
+         "library_bwd_ms for all three; all by CUDA-graph replay",
+         library="F.scaled_dot_product_attention(is_causal=True) (context only; the port "
+         "never calls it)", card=report["card"])
+
+
+def _shard_args(**kw):
+    from scalerl_torch.config import ImpalaArguments
+
+    base = dict(policy_arch="transformer", d_model=SHARD_D, n_layers=SHARD_LAYERS,
+                n_heads=SHARD_HEADS, rollout_length=SHARD_T, batch_size=SHARD_B,
+                use_lstm=False, use_pallas=True, max_timesteps=0)
+    return ImpalaArguments(**{**base, **kw})
+
+
+def _shard_traj(device, seed=0):
+    """A synthetic [T+1, B] trajectory over flat observations, as bench.py's
+    sharded mode makes it (done all False)."""
+    import torch
+
+    from scalerl_torch.data.trajectory import Trajectory
+
+    g = torch.Generator().manual_seed(seed)
+    T1 = SHARD_T + 1
+    return Trajectory(
+        obs=torch.randn(T1, SHARD_B, SHARD_OBS, generator=g).to(device),
+        action=torch.randint(0, SHARD_A, (T1, SHARD_B), generator=g).to(device),
+        reward=torch.randn(T1, SHARD_B, generator=g).to(device),
+        done=torch.zeros(T1, SHARD_B, dtype=torch.bool, device=device),
+        logits=torch.randn(T1, SHARD_B, SHARD_A, generator=g).to(device),
+    )
+
+
+def _shard_model(args, device="cuda"):
+    """The learner's model as ``ImpalaAgent`` builds it: flash attention
+    under ``args.use_pallas``."""
+    import torch
+
+    from scalerl_torch.models.transformer_policy import build_mp_policy
+
+    return build_mp_policy(args, (SHARD_OBS,), SHARD_A, device=device,
+                           generator=torch.Generator().manual_seed(args.seed))
+
+
+def _flash_counts():
+    from scalerl_torch.ops import cuda_flash_attention as cfa
+
+    return (cfa.fwd_launches, cfa.dq_launches, cfa.dkv_launches)
+
+
+def _loss_grads(params, model, traj, args):
+    """The IMPALA loss and its gradients leaf by leaf; V-trace through its
+    kernel on both sides, so that only the attention differs."""
+    import torch
+
+    from scalerl_torch.agents.impala import impala_loss
+
+    params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, _ = impala_loss(params, model, traj, discounting=args.discounting,
+                          baseline_cost=args.baseline_cost, entropy_cost=args.entropy_cost,
+                          vtrace_impl="kernel")
+    return loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def _learn_pair(args, traj, steps):
+    """Two agents from one seed, with the kernels (``use_pallas``: flash
+    attention and V-trace) and without: the loss's gradients leaf by leaf,
+    then ``steps`` learn steps from the same state."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.ops import cuda_flash_attention as cfa
+
+    out = {}
+    for name, use_pallas in (("flash", True), ("plain", False)):
+        agent = ImpalaAgent(dataclasses.replace(args, use_pallas=use_pallas), (SHARD_OBS,),
+                            SHARD_A)
+        model = agent.model
+        loss, grads = _loss_grads(agent.state.params, model, traj, args)
+        learn = agent.make_learn_fn()
+        before = torch.cat([v.float().reshape(-1) for v in agent.state.params.values()])
+        cfa.fwd_launches = cfa.dq_launches = cfa.dkv_launches = 0
+        state, losses = agent.state, []
+        for _ in range(steps):
+            state, metrics = learn(state, traj)
+            losses.append(metrics)
+        after = torch.cat([v.float().reshape(-1) for v in state.params.values()])
+        out[name] = dict(loss=loss.item(), grads=grads, metrics=[
+            {k: float(v) for k, v in m.items()} for m in losses], update=(after - before).cpu(),
+            launches=_flash_counts(),
+            dtypes={k: str(v.dtype)[6:] for k, v in state.params.items()},
+            opt_dtypes=sorted({str(v.dtype)[6:] for v in state.opt_state["nu"].values()}))
+        del agent, model, state
+    return out["flash"], out["plain"]
+
+
+def _float32_reference_grads(bargs, traj):
+    """The bf16 learner's initial params, upcast, through the float32 model
+    with the plain attention: the loss and gradients that both bf16 paths
+    approximate."""
+    f32 = _shard_model(dataclasses.replace(bargs, bf16_params=False, use_pallas=False))
+    f32.load_state_dict(_shard_model(dataclasses.replace(bargs, use_pallas=False)).state_dict())
+    loss, grads = _loss_grads(dict(f32.named_parameters()), f32, traj, bargs)
+    return loss.item(), grads
+
+
+def _leaf_rel(got: dict, want: dict) -> dict:
+    """Each gradient leaf's largest error over its largest element."""
+    return {n: ((got[n].float() - g.float()).abs().max()
+                / g.float().abs().max().clamp(min=1e-30)).item() for n, g in want.items()}
+
+
+def phase_transformer_learn(report: dict) -> None:
+    """The learner at the sharded width, flash kernels against the plain
+    attention: the model card vs host, the gradients leaf by leaf and two
+    learn steps in float32; then the same under bf16_params."""
+    import torch
+
+    from scalerl_torch.models.transformer import TransformerPolicy
+
+    set_tf32(False)
+    args = _shard_args()
+    traj = _shard_traj("cuda")
+
+    # the model on the card (flash kernels) against the model on the host
+    # (the flash op's plain version), one seed
+    gpu = _shard_model(args)
+    cpu = _shard_model(args, device="cpu")
+    with torch.no_grad():
+        want, _ = cpu(traj.obs.cpu(), None, None, None)
+        got, _ = gpu(traj.obs, None, None, None)
+    model_err = max((got.policy_logits.cpu() - want.policy_logits).abs().max().item(),
+                    (got.baseline.cpu() - want.baseline).abs().max().item())
+    params = sum(p.numel() for p in gpu.parameters())
+    del gpu, cpu
+
+    k, p = _learn_pair(args, traj, SHARD_LEARN_STEPS)
+    leaf = _leaf_rel(k["grads"], p["grads"])
+    worst = max(leaf, key=leaf.get)
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1.0)
+
+    errs = {
+        "loss_rel": rel(k["loss"], p["loss"]),
+        "grad_norm_rel": rel(k["metrics"][0]["grad_norm"], p["metrics"][0]["grad_norm"]),
+        "grad_leaf_rel": leaf[worst],
+        "update_rel_l2": ((k["update"] - p["update"]).norm() / p["update"].norm()).item(),
+        "model_card_vs_host": model_err,
+    }
+    want_launches = tuple(SHARD_LAYERS * SHARD_LEARN_STEPS for _ in range(3))
+    f32 = dict(errs, grad_leaf_worst=worst, grad_leaves=len(leaf), loss=k["loss"],
+               loss_plain=p["loss"], launches_flash=k["launches"], launches_plain=p["launches"])
+    del k, p
+    torch.cuda.empty_cache()
+
+    # bf16_params: the dtypes of the layout and the optimizer state, finite
+    # losses, and the flash path against the plain one at a bf16 tolerance
+    bargs = _shard_args(bf16_params=True)
+    kb, pb = _learn_pair(bargs, traj, SHARD_LEARN_STEPS)
+    bleaf = _leaf_rel(kb["grads"], pb["grads"])
+    bworst = max(bleaf, key=bleaf.get)
+    float32_leaves = sorted(n for n, d in kb["dtypes"].items() if d == "float32")
+    # float32 stay: the blocks' LayerNorm scales, final_norm and the heads
+    layout_ok = (set(kb["dtypes"].values()) == {"bfloat16", "float32"}
+                 and all(TransformerPolicy.keeps_float32(n[len("transformer."):])
+                         for n in float32_leaves)
+                 and kb["opt_dtypes"] == ["float32"] and kb["dtypes"] == pb["dtypes"])
+    berrs = {"loss_rel": rel(kb["loss"], pb["loss"]), "grad_leaf_rel": bleaf[bworst]}
+    # the control: how far each bf16 path lies from the float32 truth
+    ref_loss, ref_grads = _float32_reference_grads(bargs, traj)
+    control = {f"{n}_vs_float32": dict(loss_rel=rel(r["loss"], ref_loss),
+                                       grad_leaf_rel=max(_leaf_rel(r["grads"], ref_grads).values()))
+               for n, r in (("flash", kb), ("plain", pb))}
+    berrs["flash_vs_float32_grad_leaf_rel"] = control["flash_vs_float32"]["grad_leaf_rel"]
+    del ref_grads
+    finite = all(math.isfinite(m["total_loss"]) and m["skipped_steps"] == 0.0
+                 for m in kb["metrics"] + pb["metrics"])
+    bf16 = dict(berrs, grad_leaf_worst=bworst, loss=kb["loss"], loss_plain=pb["loss"],
+                float32_leaves=float32_leaves, optimizer_state_dtypes=kb["opt_dtypes"],
+                layout_ok=layout_ok, losses_finite=finite, launches_flash=kb["launches"],
+                metrics_flash=kb["metrics"], loss_float32=ref_loss, control=control)
+    emit("transformer_learn", d_model=SHARD_D, layers=SHARD_LAYERS, heads=SHARD_HEADS,
+         unroll=SHARD_T, batch=SHARD_B, obs_dim=SHARD_OBS, actions=SHARD_A, params=params,
+         learn_steps=SHARD_LEARN_STEPS, float32=f32, bf16_params=bf16, tol=SHARD_LEARN_TOL,
+         bf16_tol=SHARD_BF16_TOL, tf32=False)
+    bad = {m: e for m, e in errs.items() if not e <= SHARD_LEARN_TOL[m]}
+    bad.update({f"bf16_{m}": e for m, e in berrs.items() if not e <= SHARD_BF16_TOL[m]})
+    if bad or not (layout_ok and finite):
+        raise AssertionError(f"transformer learner flash vs plain: {bad}, layout {layout_ok}, "
+                             f"finite {finite}")
+    if f32["launches_flash"] != want_launches or f32["launches_plain"] != (0, 0, 0):
+        raise AssertionError(f"flash launches {f32['launches_flash']} / {f32['launches_plain']}")
+
+
+def _train_flops(params: int) -> int:
+    """One learn step's FLOPs by an analytic count: 6 x params x tokens (a
+    forward and a backward over every token, with the matmul of each weight
+    twice in the backward) plus attention's scores and weighted sums, 4 x
+    head_dim per visible (query, key) pair and head forward, twice that
+    backward, in every layer."""
+    T1 = SHARD_T + 1
+    tokens = T1 * SHARD_B
+    pairs = _visible_pairs(T1, T1, True) * SHARD_B * SHARD_HEADS
+    return 6 * params * tokens + 3 * SHARD_LAYERS * 4 * SHARD_HEAD_DIM * pairs
+
+
+def phase_transformer_train(report: dict) -> None:
+    """The slice's main path: bench.py --mode sharded at dp=1 on one card,
+    bf16 params with float32 heads and optimizer state, attention through
+    the flash kernels, V-trace through its kernel; learn steps for
+    ``SHARD_TRAIN_S`` on one synthetic trajectory with the metrics read two
+    steps behind, warm steps under sync debug mode "error"."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.runtime.dispatch import MetricsPipeline, steady_state_guard
+
+    set_tf32(False)
+    args = _shard_args(bf16_params=True)
+    agent = ImpalaAgent(args, (SHARD_OBS,), SHARD_A)
+    params = sum(p.numel() for p in agent.state.params.values())
+    traj = _shard_traj("cuda")
+    t0 = time.perf_counter()
+    for _ in range(2):  # warm-up: first allocations, the kernels' load
+        agent.learn(traj)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    pipe = MetricsPipeline(depth=2)
+    results = []
+    steps = 0
+    t0 = time.perf_counter()
+    with steady_state_guard():
+        while time.perf_counter() - t0 < SHARD_TRAIN_S or steps < 2:
+            steps += 1
+            results += pipe.push(steps, agent.learn_device(traj))
+        results += pipe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    per_step = {k: launches[k] / steps for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                                 "flash_attention_bwd_dkv", "vtrace")}
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        report["launches"][k] = launches[k]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(math.isfinite(m["total_loss"]) and m["skipped_steps"] == 0.0 for _, m in results)
+    step_s = wall / steps
+    flops = _train_flops(params)
+
+    # where a step's time goes: three steps under torch.profiler
+    prof_steps = 3
+    profiled_s, kernels = profile_device(lambda: [agent.learn_device(traj)
+                                                  for _ in range(prof_steps)])
+    busy_s = sum(us for _, us, _ in kernels) / 1e6 / prof_steps
+    flash_us = {n: sum(us for kk, us, _ in kernels if n in kk) / prof_steps
+                for n in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    emit("transformer_train", d_model=SHARD_D, layers=SHARD_LAYERS, heads=SHARD_HEADS,
+         unroll=SHARD_T, batch=SHARD_B, obs_dim=SHARD_OBS, actions=SHARD_A, params=params,
+         bf16_params=True, use_flash=True, use_pallas=True, warmup_s=warmup_s, steps=steps,
+         seconds=wall, steps_per_s=steps / wall,
+         train_frames_per_s=steps * SHARD_T * SHARD_B / wall,
+         learn_step_ms=step_s * 1e3, flops_per_step=flops,
+         achieved_tflops=flops / step_s / 1e12,
+         bf16_tensor_peak_share=flops / step_s / H100_BF16_OPS_PER_S,
+         peak_mem_gib=peak, launches=launches, launches_per_step=per_step,
+         losses_finite=finite, first_loss=results[0][1]["total_loss"],
+         last_loss=results[-1][1]["total_loss"], sync_debug_mode="error in the warm steps",
+         card=report["card"])
+    emit("transformer_train_profile", steps=prof_steps, unprofiled_step_ms=step_s * 1e3,
+         profiled_step_ms=profiled_s / prof_steps * 1e3,
+         device_busy_ms_per_step=busy_s * 1e3 if kernels else None,
+         device_busy_share=busy_s / step_s if kernels else None,
+         kernel_launches_per_step=sum(n for _, _, n in kernels) / prof_steps,
+         flash_us_per_step=flash_us,
+         flash_share_of_device_time=(sum(flash_us.values()) / 1e6 / busy_s if kernels else None),
+         top_kernels=[{"name": kk[:90], "us_per_step": us / prof_steps,
+                       "calls_per_step": n / prof_steps} for kk, us, n in kernels[:12]],
+         card=report["card"])
+    want = {"flash_attention_fwd": SHARD_LAYERS, "flash_attention_bwd_dq": SHARD_LAYERS,
+            "flash_attention_bwd_dkv": SHARD_LAYERS, "vtrace": 1}
+    if per_step != want:
+        raise AssertionError(f"launches per learn step {per_step}, want {want}")
+    if not finite:
+        raise AssertionError("non-finite loss or skipped step in the training window")
+
+
+def phase_flash_train_step(report: dict) -> None:
+    """The JAX package's own on-chip check (tests_tpu/test_compiled_kernels.py
+    ::test_transformer_flash_train_step_on_tpu): one Adam step through a
+    flash TransformerPolicy at T = 256 (the kernels' multi-tile path),
+    against the same step with the plain attention, float32, TF32 off."""
+    import torch
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from scalerl_torch.agents.dqn import AdamOptimizer
+    from scalerl_torch.models.transformer import TransformerPolicy
+
+    set_tf32(False)
+    obs = torch.randn(4, 256, 16, generator=torch.Generator().manual_seed(0)).cuda()
+    actions = torch.zeros(4, 256, dtype=torch.long, device="cuda")
+    out = {}
+    for use_flash in (True, False):
+        model = TransformerPolicy(num_actions=4, d_model=128, num_heads=2, num_layers=2,
+                                  max_len=256, use_flash=use_flash, obs_dim=16,
+                                  generator=torch.Generator().manual_seed(1))
+        params = {k: v.detach().requires_grad_(True) for k, v in model.named_parameters()}
+        before = _flash_counts()
+        logits = functional_call(model, params, (obs,)).policy_logits
+        logp = F.log_softmax(logits, dim=-1)
+        loss = -logp.gather(-1, actions[..., None]).mean()
+        # the value head takes no part in this loss: its gradients are zeros, as in JAX
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        opt = AdamOptimizer(1e-3)
+        updates, _ = opt.update(grads, opt.init(params))
+        new = {k: params[k].detach() + updates[k] for k in params}
+        out[use_flash] = dict(loss=loss.item(), grads=grads, new=new,
+                              launches=tuple(a - b for a, b in zip(_flash_counts(), before)))
+    k, p = out[True], out[False]
+    leaf = _leaf_rel(k["grads"], p["grads"])
+    worst = max(leaf, key=leaf.get)
+    errs = {"loss_rel": abs(k["loss"] - p["loss"]) / max(abs(p["loss"]), 1.0),
+            "grad_leaf_rel": leaf[worst]}
+    finite = math.isfinite(k["loss"]) and all(torch.isfinite(v).all() for v in k["new"].values())
+    emit("flash_train_step", obs=[4, 256, 16], d_model=128, heads=2, layers=2, **errs,
+         grad_leaf_worst=worst, loss=k["loss"], loss_plain=p["loss"], finite=bool(finite),
+         launches_flash=k["launches"], launches_plain=p["launches"], tol=FLASH_STEP_TOL,
+         tf32=False)
+    bad = {m: e for m, e in errs.items() if not e <= FLASH_STEP_TOL[m]}
+    if bad or not finite or k["launches"] != (2, 2, 2) or p["launches"] != (0, 0, 0):
+        raise AssertionError(f"flash train step: {bad}, finite {finite}, "
+                             f"launches {k['launches']} / {p['launches']}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
           phase_paged_attn, phase_genrl_model, phase_genrl_decode, phase_genrl_continuous,
-          phase_segment_attn, phase_token_ppo_learn, phase_genrl_train]
+          phase_segment_attn, phase_token_ppo_learn, phase_genrl_train, phase_flash_attn,
+          phase_transformer_learn, phase_transformer_train, phase_flash_train_step]
 
 
 def main() -> int:
@@ -1945,6 +2592,12 @@ def main() -> int:
          "scalerl_tpu/ops/pallas_attention.py:532"),
         ("segment_attention_bwd_dkv", "scalerl_torch/csrc/segment_attention.cu",
          "scalerl_tpu/ops/pallas_attention.py:578"),
+        ("flash_attention_fwd", "scalerl_torch/csrc/flash_attention.cu",
+         "scalerl_tpu/ops/pallas_attention.py:76"),
+        ("flash_attention_bwd_dq", "scalerl_torch/csrc/flash_attention.cu",
+         "scalerl_tpu/ops/pallas_attention.py:180"),
+        ("flash_attention_bwd_dkv", "scalerl_torch/csrc/flash_attention.cu",
+         "scalerl_tpu/ops/pallas_attention.py:220"),
     ]
     print(report["card"], flush=True)
     print(json.dumps({"kernels": [{

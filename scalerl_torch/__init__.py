@@ -7,11 +7,14 @@ functions: time-major ``[T, B, ...]`` trajectories and NHWC uint8 frames.
 
 Ported so far: the fused IMPALA loop (V-trace kernel), DQN with prioritized
 replay (PER sample and update kernels), token generation over a paged KV
-cache (paged decode attention kernel), and token-PPO training over packed
-rows (segment flash attention, forward and both backward kernels):
+cache (paged decode attention kernel), token-PPO training over packed rows
+(segment flash attention, forward and both backward kernels):
 ``trainer/sequence_rl.py::SequenceRLTrainer`` closes the loop generate ->
-score -> pack -> replay -> learn -> push.  The one TPU kernel still to port is
-``flash_attention`` behind ``TransformerPolicy(use_flash=True)``.
+score -> pack -> replay -> learn -> push, and the transformer-policy IMPALA
+learner (``policy_arch="transformer"``, optionally with bf16 params) whose
+attention runs through the flash attention kernels (forward, dq, dk/dv)
+behind ``TransformerPolicy(use_flash=True)``.  Every TPU kernel of the JAX
+package now has a hand-written CUDA counterpart.
 
 It imports ``torch`` and numpy only.  Entry points default to
 ``device="cuda"`` and raise when no card is present; pass ``device="cpu"``

@@ -1,8 +1,10 @@
 """IMPALA: the V-trace actor-learner agent.
 
 Port of ``scalerl_tpu/agents/impala.py`` (with the parts of
-``agents/policy_value.py`` it needs) for pixel observations and the
-feed-forward ``AtariNet``.
+``agents/policy_value.py`` it needs) for pixel observations with the
+feed-forward ``AtariNet``, and for flat observations with the transformer
+actor-critic (``policy_arch="transformer"``,
+``models/transformer_policy.py``), in float32 or with ``bf16_params``.
 
 The learn step is a function of an explicit ``ImpalaTrainState``, as in the
 JAX package: the model is called with the state's parameters through
@@ -29,9 +31,10 @@ from torch.func import functional_call
 from scalerl_torch.config import ImpalaArguments
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.models.atari import AtariNet
+from scalerl_torch.models.transformer_policy import build_mp_policy
 from scalerl_torch.ops.losses import baseline_loss, entropy_loss, policy_gradient_loss
 from scalerl_torch.ops.vtrace import vtrace_from_logits
-from scalerl_torch.parallel.train_step import maybe_guard_nonfinite
+from scalerl_torch.parallel.train_step import fp32_optimizer_state, maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
 
@@ -235,10 +238,12 @@ def make_impala_learn_fn(
     return maybe_guard_nonfinite(learn, args)
 
 
-def make_impala_optimizer(args: ImpalaArguments) -> RMSPropOptimizer:
+def make_impala_optimizer(args: ImpalaArguments):
     """RMSProp + global-norm clip; with ``total_steps > 0`` the learning
     rate decays linearly to 0 over ``total_steps`` env frames, counted in
-    learner updates."""
+    learner updates.  With ``bf16_params`` it is wrapped in
+    ``fp32_optimizer_state``: float32 moments and clipping, updates cast
+    back to each param's dtype."""
     if args.rmsprop_momentum != 0.0:
         raise NotImplementedError("RMSProp momentum is not ported; use 0.0")
     lr: Union[float, Schedule] = args.learning_rate
@@ -248,9 +253,10 @@ def make_impala_optimizer(args: ImpalaArguments) -> RMSPropOptimizer:
             0.0,
             max(args.total_steps // (args.rollout_length * args.batch_size), 1),
         )
-    return RMSPropOptimizer(
+    tx = RMSPropOptimizer(
         lr, decay=args.rmsprop_alpha, eps=args.rmsprop_eps, max_norm=args.max_grad_norm
     )
+    return fp32_optimizer_state(tx) if args.bf16_params else tx
 
 
 def build_model(
@@ -259,11 +265,18 @@ def build_model(
     num_actions: int,
     device: DeviceLike = "cuda",
     generator: Optional[torch.Generator] = None,
-) -> AtariNet:
-    """Pixel obs -> ``AtariNet``.  Flat obs (``MLPPolicyNet``) and the
-    transformer/MoE families are not ported yet."""
+) -> torch.nn.Module:
+    """``args.policy_arch`` first (``"transformer"`` ->
+    ``TransformerPolicyNet``, as the JAX function dispatches through
+    ``build_mp_policy``); then pixel obs -> ``AtariNet``.  Flat obs under
+    ``"auto"`` need ``MLPPolicyNet``, which is not ported yet."""
+    mp_model = build_mp_policy(args, obs_shape, num_actions, device, generator)
+    if mp_model is not None:
+        return mp_model
     if len(obs_shape) != 3:
-        raise NotImplementedError("only pixel observations [H, W, C] are ported")
+        raise NotImplementedError(
+            "flat observations need MLPPolicyNet, which is not ported yet; use "
+            "policy_arch='transformer' or pixel observations [H, W, C]")
     return AtariNet(
         num_actions=num_actions,
         use_lstm=args.use_lstm,

@@ -45,10 +45,29 @@ class RLArguments:
     nonfinite_check_every: int = 1
     # Not ported yet (the divergence tripwire's rollback): must stay 0.
     divergence_rollback_steps: int = 0
-    # Route the hand-written CUDA kernels in: V-trace (ops/cuda_vtrace.py)
-    # and both halves of prioritized replay, sampling and the priority
-    # update (ops/cuda_per.py).  On host tensors their plain versions run.
+    # Route the hand-written CUDA kernels in: V-trace (ops/cuda_vtrace.py),
+    # both halves of prioritized replay, sampling and the priority update
+    # (ops/cuda_per.py), and the transformer policy's attention
+    # (ops/cuda_flash_attention.py).  On host tensors their plain versions run.
     use_pallas: bool = False
+    # The sharded learner's mesh (ROADMAP A6, not ported): must stay at
+    # mp_size 1 and dp_size 0.
+    mp_size: int = 1
+    dp_size: int = 0
+    # Policy architecture for the actor-learner agents: "transformer" picks
+    # models/transformer_policy.py::TransformerPolicyNet, sized by d_model,
+    # n_layers and n_heads; "auto" keeps the agent's own model; "moe" is not
+    # ported (moe_experts and moe_hidden size it in the JAX package).
+    policy_arch: str = "auto"
+    d_model: int = 128
+    n_layers: int = 2
+    n_heads: int = 4
+    moe_experts: int = 8
+    moe_hidden: int = 256
+    # bf16 params and compute with float32 heads and float32 optimizer state
+    # (parallel/train_step.py::fp32_optimizer_state).  Only the transformer
+    # architecture stores bf16 params; IMPALA wraps its optimizer either way.
+    bf16_params: bool = False
 
     def validate(self) -> None:
         if self.batch_size <= 0:
@@ -70,6 +89,19 @@ class RLArguments:
             raise ValueError(
                 "nonfinite_check_every must be >= 1, got "
                 f"{self.nonfinite_check_every}"
+            )
+        if self.mp_size < 1:
+            raise ValueError(f"mp_size must be >= 1, got {self.mp_size}")
+        if self.dp_size < 0:
+            raise ValueError(f"dp_size must be >= 0, got {self.dp_size}")
+        if self.policy_arch not in ("auto", "transformer", "moe"):
+            raise ValueError(
+                f"policy_arch must be auto | transformer | moe, got {self.policy_arch!r}"
+            )
+        if self.mp_size != 1 or self.dp_size != 0:
+            raise NotImplementedError(
+                f"mp_size={self.mp_size}, dp_size={self.dp_size} need the sharded learner "
+                "(ROADMAP A6), which is not ported yet; leave them at 1 and 0"
             )
 
 
@@ -152,25 +184,22 @@ class GenRLArguments(RLArguments):
     One generation round = generate ``genrl_batch`` sequences, score them
     with the task's rule-based reward, pack them into the prioritized
     sequence replay, sample ``genrl_sample_batch`` replay units and take one
-    token-PPO learn step.  ``d_model``, ``n_layers`` and ``n_heads`` size the
-    policy (the JAX package keeps them on ``RLArguments``; here only this
-    plane reads them).
+    token-PPO learn step.  ``d_model``, ``n_layers`` and ``n_heads`` (on
+    :class:`RLArguments`) size the policy.
 
     Kept with their JAX defaults and refused by :meth:`validate` when set,
     because the parts that read them are not ported yet: ``spec_enable``
     (speculative decoding; its ``spec_k`` and ``spec_ngram`` are left out until
-    then), ``dp_size``/``mp_size`` (the sharded learner),
-    ``bf16_params``, and the ``disagg_*`` fields, which only the
-    disaggregated trainer reads.  ``genrl_iter_mode`` is accepted and has no
-    effect: the port runs eagerly with one loop form.
+    then), ``bf16_params`` (the token-PPO bf16 path), the sharded learner's
+    ``dp_size``/``mp_size`` (refused by :class:`RLArguments`), and the
+    ``disagg_*`` fields, which only the disaggregated trainer reads.
+    ``genrl_iter_mode`` is accepted and has no effect: the port runs eagerly
+    with one loop form.
     """
 
     algo_name: str = "token_ppo"
     learning_rate: float = 3e-3
     max_grad_norm: float = 1.0
-    d_model: int = 128
-    n_layers: int = 2
-    n_heads: int = 4
 
     # Vocabulary and sequence geometry; the model's max_len is derived as
     # prompt bucket + response bucket.
@@ -222,9 +251,6 @@ class GenRLArguments(RLArguments):
     learner_packed_attn: str = "auto"
 
     # Not ported yet: must stay at these values.
-    dp_size: int = 0
-    mp_size: int = 1
-    bf16_params: bool = False
     disagg_hosts: int = 2
     disagg_lanes_per_host: int = 0
     disagg_quantize: str = "int8"
@@ -236,9 +262,7 @@ class GenRLArguments(RLArguments):
         super().validate()
         unported = {
             "spec_enable": "speculative decoding (ROADMAP A5)",
-            "dp_size": "the sharded learner (ROADMAP A6)",
-            "mp_size": "the sharded learner (ROADMAP A6)",
-            "bf16_params": "bf16 parameters (ROADMAP A6)",
+            "bf16_params": "bf16 parameters on the token-PPO learner (ROADMAP A6)",
             **{f.name: "the disaggregated trainer (ROADMAP A5)"
                for f in fields(self) if f.name.startswith("disagg_")},
         }

@@ -11,11 +11,15 @@ follow the NHWC flatten of the conv output, which is the order the port's
 
 ``TransformerPolicy``'s tree converts through :func:`transformer_to_torch`
 and back through :func:`torch_to_transformer` (names in
-:func:`_transformer_names`).
+:func:`_transformer_names`), keeping each leaf's dtype (float32, or
+bfloat16 under ``bf16_params``).  ``TransformerPolicyNet``'s tree is the same
+under ``transformer/``, the port's ``transformer.*``
+(:func:`transformer_policy_net_to_torch` and back).
 
 Any tree shaped like the params converts the same way, which covers the
 optimizer moments: :func:`rmsprop_state_to_torch` pulls RMSProp's ``nu``
-(and the schedule's update count) out of an optax chain state, and
+(and the schedule's update count) out of an optax chain state (a float32
+chain under ``fp32_optimizer_state`` has the same layout), and
 :func:`adam_state_to_torch` Adam's ``mu``, ``nu`` and ``count``.
 :func:`token_ppo_state_to_torch` carries a whole token-PPO train state
 across (params, the frozen reference params, Adam's moments, both counters).
@@ -39,6 +43,27 @@ ATARI_NAMES = {
     "policy": "policy",
     "baseline": "baseline",
 }
+
+
+def _leaf_to_torch(arr: Any, device: torch.device | str) -> torch.Tensor:
+    """A numpy leaf -> a tensor of the same dtype; a bfloat16 leaf (numpy's
+    ``ml_dtypes`` bfloat16, as JAX hands it over) goes through its bits."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`_leaf_to_torch` (bfloat16 needs ``ml_dtypes``,
+    which is imported only then)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def _kernel_to_torch(kernel: np.ndarray) -> np.ndarray:
@@ -135,19 +160,19 @@ def transformer_to_torch(
 ) -> Dict[str, torch.Tensor]:
     """A Flax ``TransformerPolicy`` param tree (with or without the top
     ``params`` level, leaves as numpy arrays) -> the port's
-    ``TransformerPolicy`` state dict, float32.  Dense kernels ``[in, out]``
-    become ``[out, in]``; embeddings, ``pos_embed`` and norm scales keep
-    their layout."""
+    ``TransformerPolicy`` state dict, each leaf in its own dtype.  Dense
+    kernels ``[in, out]`` become ``[out, in]``; embeddings, ``pos_embed``
+    and norm scales keep their layout."""
     tree = tree.get("params", tree)
     out: Dict[str, torch.Tensor] = {}
     for path, torch_name in _transformer_names(tree).items():
         leaf = tree
         for key in path:
             leaf = leaf[key]
-        arr = np.asarray(leaf, np.float32)
+        arr = np.asarray(leaf)
         if path[-1] == "kernel":
             arr = arr.T
-        out[torch_name] = torch.tensor(np.ascontiguousarray(arr), device=device)
+        out[torch_name] = _leaf_to_torch(arr, device)
     return out
 
 
@@ -164,7 +189,7 @@ def torch_to_transformer(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             skeleton[head] = None
     params: Dict[str, Any] = {}
     for path, torch_name in _transformer_names(skeleton).items():
-        arr = state[torch_name].detach().cpu().numpy()
+        arr = _leaf_to_numpy(state[torch_name])
         if path[-1] == "kernel":
             arr = arr.T
         node = params
@@ -172,6 +197,25 @@ def torch_to_transformer(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(arr)
     return {"params": params}
+
+
+def transformer_policy_net_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax ``TransformerPolicyNet`` param tree (``transformer/...``, with
+    or without the top ``params`` level) -> the port's
+    ``TransformerPolicyNet`` state dict (``transformer.*``), each leaf in
+    its own dtype."""
+    tree = tree.get("params", tree)
+    return {f"transformer.{k}": v
+            for k, v in transformer_to_torch(tree["transformer"], device).items()}
+
+
+def torch_to_transformer_policy_net(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`transformer_policy_net_to_torch`:
+    ``{"params": {"transformer": {...}}}`` of numpy arrays."""
+    inner = {k[len("transformer."):]: v for k, v in state.items()}
+    return {"params": {"transformer": torch_to_transformer(inner)["params"]}}
 
 
 def _find_field(state: Any, field: str) -> Optional[Any]:
@@ -188,10 +232,13 @@ def _find_field(state: Any, field: str) -> Optional[Any]:
 
 
 def rmsprop_state_to_torch(
-    opt_state: Any, device: torch.device | str = "cpu"
+    opt_state: Any, device: torch.device | str = "cpu",
+    tree_to_torch: Callable[..., Dict[str, torch.Tensor]] = flax_to_torch,
 ) -> Dict[str, Any]:
     """An ``optax.chain(clip_by_global_norm, rmsprop)`` state (leaves as
-    numpy arrays) -> the port's RMSProp state ``{"nu": {...}, "count": t}``.
+    numpy arrays) -> the port's RMSProp state ``{"nu": {...}, "count": t}``;
+    ``tree_to_torch`` converts ``nu`` like the params (``AtariNet``'s by
+    default).
 
     ``count`` is the learning-rate schedule's update count, 0 when the chain
     has a constant learning rate (it keeps no count then)."""
@@ -201,7 +248,7 @@ def rmsprop_state_to_torch(
     count = _find_field(opt_state, "count")
     count = 0 if count is None else int(np.asarray(count))
     return {
-        "nu": flax_to_torch(nu, device),
+        "nu": tree_to_torch(nu, device),
         "count": torch.tensor(count, dtype=torch.int32, device=device),
     }
 

@@ -8,10 +8,19 @@ numerics are kept: LayerNorm without bias at eps 1e-6, tanh-form GELU,
 float32, fully masked rows uniform.  ``convert.py::transformer_to_torch``
 loads a Flax param tree.
 
+``dtype``/``param_dtype`` are the Flax module's mixed precision: the
+embeddings and the blocks' dense layers store their params in
+``param_dtype`` and compute in ``dtype``; the blocks' LayerNorm scales stay
+float32 (Flax's LayerNorm keeps its own float32 ``param_dtype``), take
+their statistics in float32 and round once to ``dtype``; ``final_norm`` and
+the two heads stay float32 in params and compute.
+
 The forward has the JAX module's paths, chosen by its arguments:
 
-- full causal (:func:`~scalerl_torch.ops.attention.full_attention`), or
-  masked under ``attn_mask`` ``[B, T, T]``;
+- full causal, through :func:`~scalerl_torch.ops.attention.full_attention`
+  or, with ``use_flash``, the CUDA flash kernels
+  (``ops/cuda_flash_attention.py``); or masked under ``attn_mask``
+  ``[B, T, T]``;
 - packed rows (``segment_ids``): through ``segment_attn_fn`` in every
   block when the model has one (the CUDA segment flash kernels,
   ``ops/cuda_segment_attention.py``), else the dense
@@ -41,6 +50,7 @@ from torch import nn
 
 from scalerl_torch.models.atari import lecun_normal_
 from scalerl_torch.ops.attention import full_attention
+from scalerl_torch.ops.cuda_flash_attention import flash_attention
 from scalerl_torch.ops.paged_attention import NEG_BIG, paged_attention_reference
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
 
@@ -67,7 +77,8 @@ class PagedKVCache(NamedTuple):
 
 
 def init_kv_cache(batch: int, total_len: int, num_layers: int, num_heads: int, head_dim: int,
-                  dtype: torch.dtype = torch.float32, device: DeviceLike = "cpu") -> KVCache:
+                  dtype: torch.dtype = torch.float32, device: DeviceLike = "cuda") -> KVCache:
+    device = resolve_device(device)
     shape = (batch, total_len, num_heads, head_dim)
     return KVCache(
         k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)),
@@ -77,7 +88,8 @@ def init_kv_cache(batch: int, total_len: int, num_layers: int, num_heads: int, h
 
 def init_paged_kv_cache(num_pages: int, page_size: int, num_layers: int, num_heads: int,
                         head_dim: int, dtype: torch.dtype = torch.float32,
-                        device: DeviceLike = "cpu") -> PagedKVCache:
+                        device: DeviceLike = "cuda") -> PagedKVCache:
+    device = resolve_device(device)
     shape = (num_pages, page_size, num_heads, head_dim)
     return PagedKVCache(
         k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)),
@@ -151,26 +163,52 @@ def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: t
     return torch.einsum("bhts,bshd->bthd", probs, v.float()).to(out_dtype)
 
 
-def _layer_norm(d_model: int) -> nn.LayerNorm:
-    # Flax nn.LayerNorm(use_bias=False): eps 1e-6, scale only
-    return nn.LayerNorm(d_model, eps=1e-6, bias=False)
+class _LayerNorm(nn.LayerNorm):
+    """Flax ``nn.LayerNorm(use_bias=False, dtype=dtype)``: eps 1e-6, a
+    float32 scale, statistics and normalisation in float32, one rounding
+    to ``dtype`` at the end."""
+
+    def __init__(self, d_model: int, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(d_model, eps=1e-6, bias=False)
+        self.out_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), None,
+                            self.eps).to(self.out_dtype)
+
+
+class _Dense(nn.Linear):
+    """Flax ``nn.Dense(dtype=dtype)``: input, kernel and bias cast to
+    ``dtype`` at the call (no-ops when the params are stored in it)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: ``x + proj(attn(LN(x)))``, then ``x + MLP(LN(x))``
     (Flax ``_Block``; children named as its params, ``LayerNorm_0`` ->
-    ``ln_0`` and ``LayerNorm_1`` -> ``ln_1``)."""
+    ``ln_0`` and ``LayerNorm_1`` -> ``ln_1``), computing in ``dtype``."""
 
-    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int) -> None:
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int,
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False) -> None:
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
-        self.ln_0 = _layer_norm(d_model)
-        self.qkv = nn.Linear(d_model, 3 * d_model, bias=False)
-        self.proj = nn.Linear(d_model, d_model, bias=False)
-        self.ln_1 = _layer_norm(d_model)
-        self.mlp_in = nn.Linear(d_model, mlp_ratio * d_model)
-        self.mlp_out = nn.Linear(mlp_ratio * d_model, d_model)
+        self.use_flash = use_flash
+        self.ln_0 = _LayerNorm(d_model, dtype)
+        self.qkv = _Dense(d_model, 3 * d_model, bias=False, dtype=dtype)
+        self.proj = _Dense(d_model, d_model, bias=False, dtype=dtype)
+        self.ln_1 = _LayerNorm(d_model, dtype)
+        self.mlp_in = _Dense(d_model, mlp_ratio * d_model, dtype=dtype)
+        self.mlp_out = _Dense(mlp_ratio * d_model, d_model, dtype=dtype)
 
     def forward(
         self,
@@ -236,6 +274,10 @@ class TransformerBlock(nn.Module):
             out = segment_attn_fn(q, k, v, segment_ids).to(dtype)
         elif attn_mask is not None:
             out = _masked_attention(q, k, v, attn_mask, dtype)
+        elif self.use_flash:
+            # the whole-trajectory forward through the flash kernels; q, k,
+            # v go in as the strided views they are
+            out = flash_attention(q, k, v, causal=True)
         else:
             out = full_attention(q, k, v, causal=True)
         x = x + self.proj(out.reshape(B, T, self.d_model))
@@ -245,7 +287,7 @@ class TransformerBlock(nn.Module):
 
 class TransformerPolicy(nn.Module):
     """Causal transformer actor-critic (port of the Flax
-    ``TransformerPolicy``; float32).
+    ``TransformerPolicy``).
 
     Token mode (``vocab_size`` set): ``obs`` is int ``[B, T]``, embedded by
     ``token_embed``; ``num_actions`` is the vocabulary the policy head
@@ -257,8 +299,12 @@ class TransformerPolicy(nn.Module):
     continuous engine; None = the plain reference).  ``segment_attn_fn``
     is the packed-learner seam (``ops/cuda_segment_attention.py::
     make_segment_attn_fn``; None = the dense :func:`packed_attention_mask`).
-    ``use_flash=True`` (B4) needs a kernel that is not ported yet and
-    raises.
+    ``use_flash=True`` routes the full causal forward of every block (no
+    mask, cache or segments) through the flash kernels
+    (``ops/cuda_flash_attention.py::flash_attention``), as the Flax module
+    routes it through the Pallas kernel; every other path is unchanged.
+    ``dtype``/``param_dtype``: see the module docstring (bfloat16 for both
+    on the sharded learner plane).
     """
 
     def __init__(
@@ -274,19 +320,17 @@ class TransformerPolicy(nn.Module):
         obs_dim: Optional[int] = None,
         paged_attn_fn: Optional[Callable] = None,
         segment_attn_fn: Optional[Callable] = None,
+        dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32,
         device: DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
         """``generator``: a host ``torch.Generator`` for the initial weights
         (Flax's defaults: truncated LeCun-normal kernels, zero biases, unit
         norm scales, ``normal(1/sqrt(V))`` token and ``normal(0.02)``
-        position tables)."""
+        position tables), drawn in float32 and then rounded to
+        ``param_dtype``."""
         super().__init__()
-        if use_flash:
-            raise NotImplementedError(
-                "use_flash=True needs the flash attention kernel (B4), which is not "
-                "ported yet (ROADMAP B4); use the default attention"
-            )
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} must divide by num_heads {num_heads}")
         if vocab_size is None and obs_dim is None:
@@ -299,21 +343,34 @@ class TransformerPolicy(nn.Module):
         self.mlp_ratio = mlp_ratio
         self.max_len = max_len
         self.vocab_size = vocab_size
+        self.dtype = dtype
         self.paged_attn_fn = paged_attn_fn
         self.segment_attn_fn = segment_attn_fn
         if vocab_size is not None:
             self.token_embed = nn.Embedding(vocab_size, d_model)
         else:
-            self.obs_embed = nn.Linear(obs_dim, d_model)
+            self.obs_embed = _Dense(obs_dim, d_model, dtype=dtype)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
         self.blocks = nn.ModuleList(
-            [TransformerBlock(d_model, num_heads, mlp_ratio) for _ in range(num_layers)]
+            [TransformerBlock(d_model, num_heads, mlp_ratio, dtype, use_flash)
+             for _ in range(num_layers)]
         )
-        self.final_norm = _layer_norm(d_model)
+        self.final_norm = _LayerNorm(d_model)
         self.policy_head = nn.Linear(d_model, num_actions)
         self.value_head = nn.Linear(d_model, 1)
         self.reset_parameters(generator)  # on the host: one seed, same weights
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if not self.keeps_float32(name):
+                    p.data = p.data.to(param_dtype)
         self.to(device)
+
+    @staticmethod
+    def keeps_float32(name: str) -> bool:
+        """Whether param ``name`` stays float32 whatever ``param_dtype`` is:
+        the LayerNorm scales, ``final_norm`` and the heads, as in Flax."""
+        return name.endswith(("ln_0.weight", "ln_1.weight")) or name.startswith(
+            ("final_norm.", "policy_head.", "value_head."))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -379,10 +436,11 @@ class TransformerPolicy(nn.Module):
         if positions is None:
             positions = torch.arange(T, device=obs.device).expand(B, T)
         if self.vocab_size is not None:
-            x = self.token_embed(obs.long())
+            x = self.token_embed(obs.long()).to(self.dtype)
         else:
-            x = self.obs_embed(obs.reshape(B, T, -1).float())
-        x = x + F.embedding(positions.long().clamp(0, self.max_len - 1), self.pos_embed)
+            x = self.obs_embed(obs.reshape(B, T, -1))
+        pos = F.embedding(positions.long().clamp(0, self.max_len - 1), self.pos_embed)
+        x = x + pos.to(self.dtype)
         for i, block in enumerate(self.blocks):
             x = block(
                 x, self.paged_attn_fn, self.segment_attn_fn, segment_ids,

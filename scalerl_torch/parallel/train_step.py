@@ -1,7 +1,7 @@
-"""The all-finite update guard.
+"""The all-finite update guard and the float32 optimizer-state wrapper.
 
 Port of ``scalerl_tpu/parallel/train_step.py::guard_nonfinite_updates`` /
-``maybe_guard_nonfinite``.  A learn step whose result holds NaN/Inf is
+``maybe_guard_nonfinite`` and ``fp32_optimizer_state``.  A learn step whose result holds NaN/Inf is
 SKIPPED (the input state survives) instead of poisoning the run, and the
 verdict rides the metrics as ``nonfinite_grads`` / ``skipped_steps``.
 
@@ -16,7 +16,7 @@ step test into the select, not by skipping the reduction.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
@@ -86,3 +86,34 @@ def maybe_guard_nonfinite(learn_fn: Callable, args: Any) -> Callable:
     if args.nonfinite_guard:
         return guard_nonfinite_updates(learn_fn, check_every=args.nonfinite_check_every)
     return learn_fn
+
+
+def _to_float32(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.float() if v.is_floating_point() else v for k, v in tree.items()}
+
+
+class _Fp32OptimizerState:
+    """bf16 params with float32 optimizer state (JAX
+    ``fp32_optimizer_state``): ``init`` builds the wrapped optimizer's state
+    from a float32 view of the params; ``update`` upcasts the gradients,
+    runs the wrapped update in float32 and casts each update back to its
+    gradient's dtype, so a bf16 leaf stays bf16 and a float32 head stays
+    float32 when the update is added.  The port's optimizers read no params
+    in ``update``, so there are none to upcast there."""
+
+    def __init__(self, optimizer: Any) -> None:
+        self.optimizer = optimizer
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        return self.optimizer.init(_to_float32(params))
+
+    def update(self, grads: Dict[str, torch.Tensor],
+               opt_state: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        updates, opt_state = self.optimizer.update(_to_float32(grads), opt_state)
+        return {k: u.to(grads[k].dtype) for k, u in updates.items()}, opt_state
+
+
+def fp32_optimizer_state(optimizer: Any) -> _Fp32OptimizerState:
+    """Wrap one of the port's optimizers (``init(params)`` and ``update(grads,
+    state) -> (updates, state)``) so its state lives in float32."""
+    return _Fp32OptimizerState(optimizer)

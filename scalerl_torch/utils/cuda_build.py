@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 600
 
 # Every kernel source of the package, by name (csrc/<name>.cu).
-KERNEL_SOURCES = ("vtrace", "per", "paged_attention", "segment_attention")
+KERNEL_SOURCES = ("vtrace", "per", "paged_attention", "segment_attention", "flash_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()

@@ -112,18 +112,47 @@ def test_dqn_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
 def test_generation_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
     from scalerl_torch.genrl.continuous import ContinuousConfig, ContinuousEngine
     from scalerl_torch.genrl.engine import GenerationConfig, GenerationEngine
-    from scalerl_torch.models.transformer import TransformerPolicy
+    from scalerl_torch.models.transformer import (
+        TransformerPolicy,
+        init_kv_cache,
+        init_paged_kv_cache,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kw = dict(num_actions=11, vocab_size=11, d_model=16, num_heads=2, num_layers=1, max_len=32)
-    with pytest.raises(RuntimeError, match="cuda"):
-        TransformerPolicy(**kw)
+    for make in (
+        lambda: TransformerPolicy(**kw),
+        lambda: init_kv_cache(2, 8, 1, 2, 8),
+        lambda: init_paged_kv_cache(5, 4, 1, 2, 8),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert init_kv_cache(2, 8, 1, 2, 8, device="cpu").k[0].device.type == "cpu"
     model = TransformerPolicy(**kw, device="cpu")
     cfg = dict(vocab_size=11, max_prompt_len=4, max_new_tokens=4)
     with pytest.raises(RuntimeError, match="cuda"):
         GenerationEngine(model, model.state_dict(), GenerationConfig(**cfg))
     with pytest.raises(RuntimeError, match="cuda"):
         ContinuousEngine(model, model.state_dict(), ContinuousConfig(**cfg, lanes=2))
+
+
+def test_transformer_learner_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+    from scalerl_torch.models.transformer_policy import TransformerPolicyNet, build_mp_policy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ImpalaArguments(policy_arch="transformer", d_model=16, n_heads=2, n_layers=1,
+                           rollout_length=4, batch_size=2, use_lstm=False, bf16_params=True,
+                           use_pallas=True)
+    for make in (
+        lambda: TransformerPolicyNet(3, (8,), d_model=16, num_heads=2, num_layers=1),
+        lambda: build_mp_policy(args, (8,), 3),
+        lambda: ImpalaAgent(args, (8,), 3),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    ImpalaAgent(args, (8,), 3, device="cpu")
 
 
 def test_sequence_rl_entry_points_refuse_the_default_device_without_a_card(monkeypatch):

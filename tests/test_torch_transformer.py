@@ -124,7 +124,7 @@ def test_dense_cache_prefill_and_decode(models):
     tokens = rng.integers(2, V, size=(B, P)).astype(np.int32)
     jl, tl = jnp.asarray(lengths), _t(lengths)
     jcache = jt.init_kv_cache(B, S, LAYERS, HEADS, HEAD_DIM)
-    tcache = tt.init_kv_cache(B, S, LAYERS, HEADS, HEAD_DIM)
+    tcache = tt.init_kv_cache(B, S, LAYERS, HEADS, HEAD_DIM, device="cpu")
     jo, jcache = models["apply"](models["params"], jnp.asarray(tokens),
                                  positions=jt.sequence_positions(jl, P, S)[:, :P],
                                  kv_cache=jcache, cache_index=0,
@@ -163,7 +163,7 @@ def test_paged_prefill_decode_and_tail_prefill(models):
     page_ids = np.where(live, table[:, np.minimum(pos // ps, M - 1)], 0).astype(np.int32)
     offsets = np.where(live, pos % ps, 0).astype(np.int32)
     jpools = jt.init_paged_kv_cache(N, ps, LAYERS, HEADS, HEAD_DIM)
-    tpools = tt.init_paged_kv_cache(N, ps, LAYERS, HEADS, HEAD_DIM)
+    tpools = tt.init_paged_kv_cache(N, ps, LAYERS, HEADS, HEAD_DIM, device="cpu")
     jo, jpools = models["apply"](
         models["params"], jnp.asarray(tokens), positions=jnp.broadcast_to(jnp.arange(P), (A, P)),
         attn_mask=jt.prompt_attention_mask(jnp.asarray(lengths), P), paged_cache=jpools,
@@ -209,8 +209,16 @@ def test_paged_prefill_decode_and_tail_prefill(models):
 def test_unported_kernels_and_bad_shapes_raise(models):
     kw = dict(num_actions=V, vocab_size=V, d_model=D_MODEL, num_heads=HEADS, num_layers=1,
               max_len=MAX_LEN, device="cpu")
-    with pytest.raises(NotImplementedError, match="B4"):
-        tt.TransformerPolicy(use_flash=True, **kw)
+    # the flash seam (B4) is ported: use_flash=True runs the full causal
+    # forward through ops/cuda_flash_attention.py (its plain version on the
+    # host) and matches the default attention
+    plain = tt.TransformerPolicy(**kw, generator=torch.Generator().manual_seed(0))
+    flash = tt.TransformerPolicy(use_flash=True, **kw)
+    flash.load_state_dict(plain.state_dict())
+    tokens = torch.tensor(models["rng"].integers(0, V, size=(2, 7)))
+    with torch.no_grad():
+        for a, b in zip(flash(tokens), plain(tokens)):
+            _close(a.numpy(), b.numpy())
     # the segment seam is ported: the model takes a segment_attn_fn and
     # routes packed rows to it in every block
     calls = []
