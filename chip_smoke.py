@@ -80,7 +80,8 @@ no result line:
     ``SEG_VALUE_TOL``, gradients within ``SEG_GRAD_REL_TOL`` of the largest
     gradient (``SEG_BF16_REL_TOL`` in bfloat16), exact zeros on pad, two
     runs bit-equal.  Each kernel's time by CUDA-graph replay and eagerly,
-    the plain version's, the bound, and SDPA with the dense mask as context.
+    the plain version's, both bounds, and SDPA with the dense mask as
+    context, at the bench's batch and at the learn step's 64 rows of 512.
 15. ``token_ppo_learn``: one full-width learn step (64 rows of 512,
     ``kl_cost`` on) from the same state and batch, through the kernels and
     through the dense packed mask, float32 with TF32 off (``TOKEN_PPO_TOL``).
@@ -98,16 +99,18 @@ no result line:
     three-round runs from one seed, compared bit for bit
     (``genrl_train_repeat``; reported, not required).
 17. ``flash_attn``: the three flash attention kernels (forward, dq, dk/dv)
-    against their plain PyTorch version on the card, in 13 layouts: the
+    against their plain PyTorch version on the card, in 25 layouts: the
     learner's ``[8, 17, 16, 64]`` bf16 causal as views of one fused
     projection, ``[4, 256, 2, 64]``, the JAX package's compiled-check shapes
     (D = 128, causal and not, a ragged T = 200, bf16), cross lengths 24/56
-    and 256/1024 (causal top-left aligned and not), D in {8, 16, 32} and a
-    ``[1, 4096, 8, 64]`` bf16 context.  o, lse, dq, dk and dv each within
-    ``FLASH_*_TOL``, two runs bit-equal, causal row 0 equal to v[0]; the
-    autograd function bit-equal to the direct calls.  Each kernel's time by
-    CUDA-graph replay at three shapes beside the plain version, SDPA and the
-    bound.
+    and 256/1024 (causal top-left aligned and not), D in {8, 16, 32}, a
+    ``[1, 4096, 8, 64]`` bf16 context, and in bf16 (the tensor-core forward
+    and dk/dv) D in {8, 16, 32, 128}, T = 200, both cross lengths causal
+    and not, and views whose rows sit 8, 4 and 2 bytes off 16.  o, lse, dq, dk
+    and dv each within ``FLASH_*_TOL``, two runs bit-equal, causal row 0
+    equal to v[0]; the autograd function bit-equal to the direct calls.
+    Each kernel's time by CUDA-graph replay at four shapes beside the plain
+    version, SDPA, the bound and its share of the bf16 operations bound.
 18. ``transformer_learn``: the transformer-policy IMPALA learner at
     ``bench.py --mode sharded``'s width (d=1024, 8 layers, 16 heads, T=16,
     B=8, obs 64, 16 actions; 100.8M parameters): the flash model on the
@@ -753,7 +756,8 @@ def _bound(moved: int, ops: int, timing: dict, ops_per_s: float = H100_F32_OPS_P
     ``ops_per_s``, the card's peak for the inputs' type."""
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
-    return dict(timing, bytes_moved=moved, bound_ms=max(bytes_ms, ops_ms),
+    return dict(timing, bytes_moved=moved, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -1443,6 +1447,18 @@ def _packed_rows(seqs, pack_len, row_cap):
     return pk.bucketed(bucket_for(max(pk.rows, 1), default_buckets(row_cap)))
 
 
+def _learn_step_fields(rng):
+    """The token-PPO learn step's batch: 64 rows of 512 packed from
+    sequences with prompts in [2, 128] and 128-token responses, 2-3
+    segments a row; behaviour probabilities around a fresh model's
+    near-uniform 1 / V, so the ratios sit inside and outside the clip
+    range."""
+    seqs = _ragged_sequences(rng, 3 * TRAIN_B, (2, TRAIN_P), (TRAIN_R, TRAIN_R), TRAIN_V,
+                             behavior_p=(0.7 / TRAIN_V, 1.4 / TRAIN_V))
+    fields, _ = _packed_rows(seqs, TRAIN_PACK_LEN, 2 * TRAIN_B).fields()
+    return {k: v[:TRAIN_B] for k, v in fields.items()}
+
+
 def _bench_learn_batches():
     """The packed and padded learn batches of bench.py's packed-learner
     phase on an accelerator: 64 sequences, prompt and response lengths
@@ -1534,7 +1550,10 @@ def _seg_check(name, case, report_cases):
     return o_err, g_err[0], max(g_err[1:])  # by kernel: forward, dq, dk/dv
 
 
-def phase_segment_attn(report: dict) -> None:
+def _seg_times(seg_ids: np.ndarray, H: int, D: int, launches: int) -> dict:
+    """The three segment kernels, each alone by CUDA-graph replay, at one
+    packed batch (float32), beside the plain version, SDPA under the dense
+    segment mask and both bounds (bytes; operations at the float32 peak)."""
     import torch
     import torch.nn.functional as F
 
@@ -1542,45 +1561,14 @@ def phase_segment_attn(report: dict) -> None:
     from scalerl_torch.ops import cuda_segment_attention as csa
     from scalerl_torch.ops.attention import segment_attention_reference
 
-    set_tf32(False)
-    H, D = TRAIN_HEADS, TRAIN_HEAD_DIM
-    pk, _, _ = _bench_learn_batches()
-    main_seg = pk.segment_ids  # [rows, 256], the bench's packed batch
-    rng = np.random.default_rng(1)
-    wide = _packed_rows(_ragged_sequences(rng, TRAIN_B, (2, TRAIN_P), (TRAIN_R, TRAIN_R), TRAIN_V),
-                        TRAIN_PACK_LEN, TRAIN_B).segment_ids  # 2-3 segments per row of 512
-    ragged = wide[:4, :333].copy()  # S not a multiple of either tile
-    small = np.zeros((2, 19), np.int32)  # the JAX test's ragged tail
-    small[0, :7] = 1
-    small[1, :11], small[1, 11:19] = 1, 2
-    all_pad = main_seg[:4].copy()
-    all_pad[1] = 0
-    cases = []
-    worst = [0.0, 0.0, 0.0]  # float32 cases, by kernel: forward, dq, dk/dv
-    for name, seg, heads, dim, dtype, strided in (
-        ("main", main_seg, H, D, torch.float32, False),
-        ("main_strided_views", main_seg, H, D, torch.float32, True),
-        ("rows_of_512", wide, H, D, torch.float32, True),
-        ("ragged_S_333", ragged, H, D, torch.float32, False),
-        ("ragged_S_19_D_8", small, 2, 8, torch.float32, False),
-        ("all_pad_row", all_pad, H, D, torch.float32, False),
-        ("main_bf16", main_seg, H, D, torch.bfloat16, False),
-        ("rows_of_512_bf16", wide[:8], H, D, torch.bfloat16, True),
-    ):
-        errs = _seg_check(name, _seg_case(seg, heads, dim, dtype, seed=len(cases), strided=strided),
-                          cases)
-        if dtype == torch.float32:
-            worst = [max(w, e) for w, e in zip(worst, errs)]
-
-    # times at the main shape, each kernel alone by CUDA-graph replay
-    c = _seg_case(main_seg, H, D, torch.float32, seed=100)
+    c = _seg_case(seg_ids, H, D, torch.float32, seed=100)
     q, k, v, seg, do = c["q"], c["k"], c["v"], c["seg"], c["do"]
-    rows, S = main_seg.shape
+    rows, S = seg_ids.shape
     scale = 1.0 / math.sqrt(D)
     o, lse = csa.segment_forward_kernel(q, k, v, seg, scale)
     dq, delta = csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale)
-    pairs = _live_pairs(main_seg) * H
-    real_tokens = int((main_seg > 0).sum())
+    pairs = _live_pairs(seg_ids) * H
+    real_tokens = int((seg_ids > 0).sum())
     # The bytes this batch needs: a tensor that is read (q, k, v, o, do, lse,
     # delta) counts only at the real tokens, since pad rows of it never enter
     # the result; the ids and every tensor that is written count whole, pad
@@ -1619,22 +1607,22 @@ def phase_segment_attn(report: dict) -> None:
                            stream=side)
 
     fwd = _bound(3 * vec + vec_out + stat_out + ids, 4 * D * pairs, dict(
-        ms=gpu_time_ms(lambda: csa.segment_forward_kernel(q, k, v, seg, scale), 50),
-        eager_ms=eager_time_ms(lambda: csa.segment_forward_kernel(q, k, v, seg, scale), 50),
+        ms=gpu_time_ms(lambda: csa.segment_forward_kernel(q, k, v, seg, scale), launches),
+        eager_ms=eager_time_ms(lambda: csa.segment_forward_kernel(q, k, v, seg, scale), launches),
         plain_ms=gpu_time_ms(lambda: segment_attention_reference(q, k, v, seg), 10),
         plain_eager_ms=eager_time_ms(lambda: segment_attention_reference(q, k, v, seg), 10),
         library_ms=gpu_time_ms(lambda: sdpa(q, k, v), 10),
     ))
     # dq reads q, k, v, o, do, lse and writes dq, delta; s, dp and ds.k per pair
     dq_t = _bound(5 * vec + stat + vec_out + stat_out + ids, 6 * D * pairs, dict(
-        ms=gpu_time_ms(lambda: csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale), 50),
-        eager_ms=eager_time_ms(lambda: csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale), 50),
+        ms=gpu_time_ms(lambda: csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale), launches),
+        eager_ms=eager_time_ms(lambda: csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale), launches),
         plain_ms=bwd_ms(plain_out, side_leaves[:1]), library_ms=bwd_ms(lib_out, side_leaves[:1]),
     ))
     # dk/dv reads q, k, v, do, lse, delta and writes dk, dv; s, dp, p.do and ds.q per pair
     dkv_t = _bound(4 * vec + 2 * stat + 2 * vec_out + ids, 8 * D * pairs, dict(
-        ms=gpu_time_ms(lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale), 50),
-        eager_ms=eager_time_ms(lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale), 50),
+        ms=gpu_time_ms(lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale), launches),
+        eager_ms=eager_time_ms(lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale), launches),
         plain_ms=bwd_ms(plain_out, side_leaves[1:]), library_ms=bwd_ms(lib_out, side_leaves[1:]),
     ))
     whole = dict(
@@ -1647,20 +1635,60 @@ def phase_segment_attn(report: dict) -> None:
         fwd_bwd_bound_ms=max((4 * vec + 4 * vec_out + ids) / H100_BYTES_PER_S,
                              14 * D * pairs / H100_F32_OPS_PER_S) * 1e3,
     )
+    return dict(shape={"rows": rows, "S": S, "heads": H, "head_dim": D,
+                       "live_pairs_per_head": pairs // H, "real_tokens": real_tokens},
+                forward=fwd, bwd_dq=dq_t, bwd_dkv=dkv_t,
+                library_max_abs_err_on_real_tokens=lib_err, **whole)
+
+
+def phase_segment_attn(report: dict) -> None:
+    import torch
+
+    set_tf32(False)
+    H, D = TRAIN_HEADS, TRAIN_HEAD_DIM
+    pk, _, _ = _bench_learn_batches()
+    main_seg = pk.segment_ids  # [rows, 256], the bench's packed batch
+    rng = np.random.default_rng(1)
+    wide = _packed_rows(_ragged_sequences(rng, TRAIN_B, (2, TRAIN_P), (TRAIN_R, TRAIN_R), TRAIN_V),
+                        TRAIN_PACK_LEN, TRAIN_B).segment_ids  # 2-3 segments per row of 512
+    ragged = wide[:4, :333].copy()  # S not a multiple of either tile
+    small = np.zeros((2, 19), np.int32)  # the JAX test's ragged tail
+    small[0, :7] = 1
+    small[1, :11], small[1, 11:19] = 1, 2
+    all_pad = main_seg[:4].copy()
+    all_pad[1] = 0
+    cases = []
+    worst = [0.0, 0.0, 0.0]  # float32 cases, by kernel: forward, dq, dk/dv
+    for name, seg, heads, dim, dtype, strided in (
+        ("main", main_seg, H, D, torch.float32, False),
+        ("main_strided_views", main_seg, H, D, torch.float32, True),
+        ("rows_of_512", wide, H, D, torch.float32, True),
+        ("ragged_S_333", ragged, H, D, torch.float32, False),
+        ("ragged_S_19_D_8", small, 2, 8, torch.float32, False),
+        ("all_pad_row", all_pad, H, D, torch.float32, False),
+        ("main_bf16", main_seg, H, D, torch.bfloat16, False),
+        ("rows_of_512_bf16", wide[:8], H, D, torch.bfloat16, True),
+    ):
+        errs = _seg_check(name, _seg_case(seg, heads, dim, dtype, seed=len(cases), strided=strided),
+                          cases)
+        if dtype == torch.float32:
+            worst = [max(w, e) for w, e in zip(worst, errs)]
+
+    # times at the bench's packed batch and at the learn step's rows of 512
+    main = _seg_times(main_seg, H, D, 50)
+    learn = _seg_times(_learn_step_fields(np.random.default_rng(2))["segment_ids"], H, D, 20)
+    fwd, dq_t, dkv_t = main["forward"], main["bwd_dq"], main["bwd_dkv"]
     report["segment_attention_fwd"] = {"max_abs_err": worst[0], **fwd}
     report["segment_attention_bwd_dq"] = {"max_abs_err": worst[1], **dq_t}
     report["segment_attention_bwd_dkv"] = {"max_abs_err": worst[2], **dkv_t}
     emit("segment_attn", value_tol=SEG_VALUE_TOL, grad_rel_tol=SEG_GRAD_REL_TOL,
-         bf16_rel_tol=SEG_BF16_REL_TOL, cases=cases,
-         main_shape={"rows": rows, "S": S, "heads": H, "head_dim": D,
-                     "live_pairs_per_head": pairs // H, "real_tokens": real_tokens},
-         forward=fwd, bwd_dq=dq_t, bwd_dkv=dkv_t, **whole,
+         bf16_rel_tol=SEG_BF16_REL_TOL, cases=cases, main_shape=main.pop("shape"), **main,
+         learn_step=learn,
          backward_note="plain_ms and library_ms of bwd_dq are the plain version's and SDPA's "
          "backward for dq alone, those of bwd_dkv for dk and dv; plain_bwd_ms and "
          "library_bwd_ms for all three; all by CUDA-graph replay",
          library="F.scaled_dot_product_attention with the dense boolean mask "
-         "(context only; the port never calls it)", library_max_abs_err_on_real_tokens=lib_err,
-         card=report["card"])
+         "(context only; the port never calls it)", card=report["card"])
 
 
 def phase_token_ppo_learn(report: dict) -> None:
@@ -1674,15 +1702,7 @@ def phase_token_ppo_learn(report: dict) -> None:
     from scalerl_torch.trainer.sequence_rl import build_genrl_model
 
     set_tf32(False)
-    rng = np.random.default_rng(2)
-    # behaviour probabilities around the fresh model's near-uniform 1 / V, so
-    # the ratios sit inside and outside the clip range and the policy-gradient
-    # term carries gradient
-    seqs = _ragged_sequences(rng, 3 * TRAIN_B, (2, TRAIN_P), (TRAIN_R, TRAIN_R), TRAIN_V,
-                             behavior_p=(0.7 / TRAIN_V, 1.4 / TRAIN_V))
-    pk = _packed_rows(seqs, TRAIN_PACK_LEN, 2 * TRAIN_B)
-    fields, _ = pk.fields()
-    fields = {k: v[:TRAIN_B] for k, v in fields.items()}  # 64 rows of 512, 2-3 segments each
+    fields = _learn_step_fields(np.random.default_rng(2))  # 64 rows of 512
     batch = {k: torch.tensor(v).cuda() for k, v in fields.items()}
     batch["is_weight"] = torch.rand(TRAIN_B, generator=torch.Generator().manual_seed(3)).cuda() * 0.7 + 0.3
     out = {}
@@ -1987,7 +2007,10 @@ H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # version on the upcast inputs); the kernel rounds o, dq, dk, dv to bfloat16
 # once (half a step is 2^-9 relative) and reads o and do rounded, so they may
 # differ by a step of the largest element (2^-7) and the plain version's own
-# float32 noise: 2^-6 of the largest
+# float32 noise: 2^-6 of the largest.  The tensor-core forward and dk/dv also
+# round P and dS to bfloat16 before their products (2^-9 relative each,
+# independent errors that average over the keys); the CPU test of that
+# arithmetic holds it inside the same 2^-6
 FLASH_VALUE_TOL = 2e-5
 FLASH_LSE_TOL = 2e-5
 FLASH_GRAD_REL_TOL = 1e-4
@@ -2142,6 +2165,11 @@ def _flash_times(B, T, H, D, dtype, strided, launches):
                        launches),
         plain_ms=bwd_ms(plain_out, side_leaves[1:], slow),
         library_ms=bwd_ms(lib_out, side_leaves[1:], launches)), peak)
+    # each kernel's share of the bf16 tensor-core bound for its operations
+    # (the fraction of the card's bf16 peak it reaches), whatever the type
+    for t, ops in ((fwd, 4 * D * pairs), (dq_t, 6 * D * pairs), (dkv_t, 8 * D * pairs)):
+        t["bf16_ops_bound_ms"] = ops / H100_BF16_OPS_PER_S * 1e3
+        t["share_of_bf16_ops_bound"] = t["bf16_ops_bound_ms"] / t["ms"]
     return dict(shape=[B, T, H, D], dtype=str(dtype)[6:], strided_views=strided, ops_peak=peak,
                 visible_pairs=pairs, forward=fwd, bwd_dq=dq_t, bwd_dkv=dkv_t,
                 plain_bwd_ms=bwd_ms(plain_out, side_leaves, slow),
@@ -2165,12 +2193,29 @@ FLASH_LAYOUTS = [
     ("D16_T100", (2, 100, 100, 2, 16), "float32", True, False),
     ("D32", (2, 48, 48, 2, 32), "float32", True, True),
     ("long_T4096_bf16", (1, 4096, 4096, 8, 64), "bfloat16", True, False),
+    # the bfloat16 tensor-core kernels' edges: every padded head dim, ragged
+    # and cross lengths, and views whose rows are not 16-byte aligned (the
+    # odd heads of a D = 20 projection sit 8 bytes off, of D = 6 4 bytes, of
+    # D = 7 2 bytes: each copy width the kernels take)
+    ("bf16_D8", (2, 48, 48, 2, 8), "bfloat16", True, False),
+    ("bf16_D16_T100", (2, 100, 100, 2, 16), "bfloat16", True, False),
+    ("bf16_D32_views", (2, 48, 48, 2, 32), "bfloat16", True, True),
+    ("bf16_D128_full", (2, 256, 256, 4, 128), "bfloat16", False, False),
+    ("bf16_ragged_T200", (1, 200, 200, 2, 128), "bfloat16", True, False),
+    ("bf16_cross_24_56_full", (1, 24, 56, 2, 8), "bfloat16", False, False),
+    ("bf16_cross_24_56_causal", (1, 24, 56, 2, 8), "bfloat16", True, False),
+    ("bf16_cross_256_1024_causal", (1, 256, 1024, 2, 64), "bfloat16", True, False),
+    ("bf16_cross_256_1024_full", (1, 256, 1024, 2, 64), "bfloat16", False, False),
+    ("bf16_D20_views_8B", (2, 40, 40, 4, 20), "bfloat16", True, True),
+    ("bf16_D6_views_4B", (1, 20, 20, 2, 6), "bfloat16", True, True),
+    ("bf16_D7_views_2B", (1, 20, 20, 3, 7), "bfloat16", True, True),
 ]
 # timed causal self-attention shapes: name -> (B, T, H, D), dtype, views,
 # launches per graph
 FLASH_TIMED = {
     "main_path": ((SHARD_B, SHARD_T + 1, SHARD_HEADS, SHARD_HEAD_DIM), "bfloat16", True, 200),
     "T256_f32": ((4, 256, 2, 64), "float32", False, 50),
+    "T256_bf16": ((4, 256, 2, 64), "bfloat16", False, 50),
     "long_T4096_bf16": ((1, 4096, 8, 64), "bfloat16", False, 10),
 }
 

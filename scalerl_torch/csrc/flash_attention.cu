@@ -9,12 +9,17 @@
 //
 // Contract (ops/attention.py::flash_attention_reference): q [B, Tq, H, D],
 // k and v [B, Tk, H, D] (float32 or bfloat16, one type for all three),
-// D <= 128.  Scores are (scale * q) . k in float32; with `causal` key j is
+// D <= 128.  Scores are scale * (q . k) in float32; with `causal` key j is
 // visible to query i iff j <= i (top-left aligned, also when Tq != Tk).
 // The output is in q's type and lse [B, H, Tq] in float32.  A query with
 // no visible key gives exact zeros and lse = -inf.
 //
-// Design, the same in all three kernels: a block of kThreads = 128 threads
+// Two designs.  bfloat16 forward and dk/dv run on the tensor cores
+// (namespace tc below); float32, and the bfloat16 dq kernel, run the lane
+// design that follows.  float32 stays off the tensor cores on purpose: the
+// kernels compute exact float32, and a TF32 product would be another result.
+//
+// Lane design (float32; bfloat16 dq): a block of kThreads = 128 threads
 // owns kRows consecutive rows of one (batch row, head) -- queries in the
 // forward and dq kernels, keys in the dk/dv kernel -- and splits each row's
 // head dim over kLanes = DMAX / 8 neighbouring lanes of a warp, 8 elements
@@ -30,11 +35,54 @@
 // past D as zeros).  q enters every kernel multiplied by scale; dq gets the
 // second factor when it is stored and dk gets none.
 //
+// Tensor-core design (bfloat16 forward and dk/dv; FlashAttention-2 on
+// mma.sync.m16n8k16 bf16 -> f32): each warp owns 16 rows of one (batch row,
+// head) -- a forward block of 8 warps 128 queries, a dk/dv block of 4 warps
+// 64 keys.  Its own rows' operands are staged once (q in the forward; k and
+// v in dk/dv) and the other axis streams through a 2-stage ring of 64-row
+// tiles in shared memory, filled by cp.async 16-byte copies, so the copy of
+// the next tile overlaps the products of this one.  Shared rows are padded by
+// 16 bytes, so the 8 rows an ldmatrix reads fall in 8 distinct bank groups.
+// D is padded up to the mma depth of 16 (DP = 16, 32, 64, 128); columns
+// past D and rows past the end stage as zeros (cp.async's src-size below
+// its copy size zero-fills), and nothing is padded in memory.
+//   Forward: S = q k^T on the tensor cores; the online softmax runs on the
+//   accumulator fragments, a row's max closing over the 4 lanes that share
+//   it (2 shuffles), and P = 2^(S scale log2 e - m) takes the scale in
+//   float32 inside one FMA; P is rounded to bf16 in registers and is the A
+//   operand of P v directly, v's B operand coming from ldmatrix.trans.  o
+//   is stored in bf16, lse in float32.
+//   dk/dv: k and v stay resident (their A fragments in registers up to
+//   DP = 64, in shared memory at 128, where the dk and dv accumulators take
+//   128 registers a thread); q, do, lse and delta tiles stream.  Per pass
+//   of 32 queries (16 at DP = 128): S^T = k q^T, P^T = exp(S^T scale - lse),
+//   dv += P^T do, dP^T = v do^T, dS^T = P^T (dP^T - delta), dk += dS^T q;
+//   P^T and dS^T are rounded to bf16 as A operands, do and q enter
+//   transposed through ldmatrix.trans, and scale multiplies dk once, at the
+//   store.
+//   Rounding P and dS to bf16 before their products is where these kernels
+//   differ from the float32 lane design (and from a TPU's float32 dots); the
+//   products themselves are exact and accumulate in float32.
+//   Row addresses: a (batch row, head) slice whose rows are not 16-byte
+//   aligned (odd heads of a fused projection at D = 20) takes 8- or 4-byte
+//   cp.async copies, and a 2-byte aligned one plain loads, all in the
+//   kernel, never a copy in the wrapper.
+//   Grid: one dimension, the longest causal walk first (the forward's last
+//   query tiles, dk/dv's first key tiles), so the last wave is not the
+//   diagonal's long tail.  Shared memory above 48 KB (DP = 64 and 128) is
+//   dynamic, allowed by cudaFuncSetAttribute, whose return code the launch
+//   returns.
+//
 // Causal tile skip (_causal_live): the forward and dq kernels stop at the
 // last key tile that meets their block's last query; the dk/dv kernel
-// starts at the query tile that holds its block's first key.  Tiles above
-// the diagonal are never loaded.  Ragged lengths are masked in the kernel
-// (q_len = Tq, k_len = Tk), nothing is padded.
+// starts at its block's first key.  Tiles above the diagonal are never
+// loaded; the tensor-core kernels also skip a warp's tile (or pass) that
+// lies wholly above its rows, mask element by element only the tiles that
+// cross the diagonal or the end, and take an unmasked path below.  A mask
+// is one limit per row compared with each element's column as an immediate
+// (per-element index arithmetic, which ptxas hoists into registers, was the
+// forward's largest avoidable cost).  Ragged lengths are masked in the
+// kernel (q_len = Tq, k_len = Tk).
 //
 // Masking: a masked score is selected to -inf (forward) or its probability
 // to 0 (backward) before it meets anything else; the running max is made
@@ -42,29 +90,36 @@
 // row with no visible key keeps l = 0 -> o = 0, lse = -inf.  The backward
 // reads lse = -inf as 0, where every probability of that row is masked.
 //
-// No atomics: dq is summed by the lanes of its query, dk and dv by the
-// lanes of their key, each in a fixed order, so values and gradients repeat
-// bit for bit.  delta = sum_d do * o is computed by the dq kernel and
-// written to a [B, H, Tq] buffer that the dk/dv kernel, launched after it on
-// the same stream, reads (JAX computes it with an einsum before both).
+// No atomics: every sum runs in a fixed order inside one block (lane
+// butterflies, quad shuffles, mma accumulation), dq over query tiles, dk and
+// dv over key tiles, so values and gradients repeat bit for bit.  delta =
+// sum_d do * o is computed by the dq kernel and written to a [B, H, Tq]
+// buffer that the dk/dv kernel, launched after it on the same stream, reads
+// (JAX computes it with an einsum before both).
 //
 // Addressing: q, k and v through their batch, token and head strides (unit
 // stride along D), so the views a fused qkv projection hands over are read
 // in place; o, lse, delta, do, dq, dk and dv are contiguous.
 //
 // Bound on an H100: at the learner's shapes ([8, 17, 16, 64]) the work is
-// tiny and one launch costs more than the bytes; at long T the work is
-// operations, 4 D flops per visible (i, j) pair forward and 10 D backward,
-// which this version does in float32 FMAs outside the tensor cores (67
-// TFLOP/s, not 989 in bf16).  No tensor cores, TMA or asynchronous copies
-// yet: those are for a faster version.
+// tiny; one launch and its latency cost more than the bytes (0.3-0.5 us).
+// At long T the work is operations, 4 D flops per visible (i, j) pair
+// forward and 8 D for dk/dv: on bf16 inputs the tensor cores' 989 TFLOP/s
+// set the bound, which the tensor-core kernels approach through mma.sync
+// (wgmma with TMA is the later step); the float32 lane kernels run outside
+// the tensor cores (67 TFLOP/s), in FMAs and shuffles.
 //
-// Numerics: expf and logf (no fast math).  Sums over D and over the keys
-// run in another order than the plain version's softmax and einsum.
+// Numerics: expf and logf in the lane kernels (no fast math); in the
+// tensor-core kernels the special-function unit's ex2.approx (about 2 ulp,
+// far inside the bf16 rounding of P that follows) and logf.  Sums over D
+// and over the keys run in another order than the plain version's softmax
+// and einsum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -386,6 +441,610 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 forward and dk/dv on the tensor cores (the header's second design)
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;  // dk/dv: 4 warps
+constexpr int kRows = 64;      // keys a dk/dv block owns, 16 a warp
+constexpr int kTile = 64;      // rows of the streamed axis per ring stage
+constexpr int kPad = 8;        // bf16 of padding per shared row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int DP>
+struct Dims {
+    static_assert(DP % 16 == 0 && DP >= 16 && DP <= 128, "head dim padded to the mma depth");
+    static constexpr int kStride = DP + kPad;           // bf16 per shared row
+    static constexpr int kTileElems = kTile * kStride;  // one [64][DP + 8] tile
+    static constexpr int kK = DP / 16;                  // mma k-steps over D
+    static constexpr int kN = DP / 8;                   // mma n-tiles over D
+    static constexpr int kChunks = DP / 8;              // 16-byte chunks per row
+};
+
+// --- PTX wrappers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `size` bytes, of which the first `bytes` are read and the rest
+// zero-filled; src aligned to `size`
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr) : "memory");
+}
+
+// 2^x on the special-function unit (about 2 ulp; subnormal results flush to
+// zero, far below any probability these kernels keep)
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// c += a (16 x 16, row major) * b (16 x 8, column major), bf16 in, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// --- end PTX wrappers
+
+// two floats rounded to nearest even as one bf16x2 register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The widest copy every row of a slice allows: its first row's address and
+// its row stride, in bytes, share this power of two (16 at most).
+__device__ __forceinline__ int copy_width(const bf16* x, long long stride_t) {
+    const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
+                                    static_cast<unsigned long long>(stride_t) * sizeof(bf16);
+    return (bits & 15) == 0 ? 16 : (bits & 7) == 0 ? 8 : (bits & 3) == 0 ? 4 : 2;
+}
+
+// 8 bf16 at src, of which `valid` are read and the rest zero, into 16 bytes
+// of shared memory, in copies of `width` bytes
+__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int valid, int width) {
+    const uint32_t d = smem_u32(dst);
+    const int bytes = 2 * valid;
+    if (width == 16) {
+        cp_async_16(d, src, bytes);
+    } else if (width == 8) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            const int n = min(8, max(0, bytes - 8 * p));
+            cp_async_8(d + 8 * p, n > 0 ? src + 4 * p : src, n);
+        }
+    } else if (width == 4) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+            const int n = min(4, max(0, bytes - 4 * p));
+            cp_async_4(d + 4 * p, n > 0 ? src + 2 * p : src, n);
+        }
+    } else {  // 2-byte aligned rows: through registers
+        const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+        uint32_t w[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+            const uint32_t lo = 2 * p < valid ? s[2 * p] : 0u;
+            const uint32_t hi = 2 * p + 1 < valid ? s[2 * p + 1] : 0u;
+            w[p] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+}
+
+// Rows [r0, r0 + ROWS) of a slice (x at its row 0, rows stride_t apart)
+// into a [ROWS][DP + kPad] tile, by a block of THREADS; rows at or past n
+// and columns at or past D land as zeros.  The caller commits the cp.async
+// group.
+template <int DP, int ROWS = kTile, int THREADS = kThreads>
+__device__ __forceinline__ void stage_rows(bf16* tile, const bf16* __restrict__ x,
+                                           long long stride_t, int r0, int n, int D, int width) {
+    using L = Dims<DP>;
+    constexpr int kChunks = ROWS * L::kChunks;
+#pragma unroll
+    for (int i = 0; i < (kChunks + THREADS - 1) / THREADS; ++i) {
+        const int idx = threadIdx.x + i * THREADS;
+        if (kChunks % THREADS != 0 && idx >= kChunks) break;
+        const int r = idx / L::kChunks;
+        const int c = idx - r * L::kChunks;
+        const int row = r0 + r;
+        bf16* dst = tile + r * L::kStride + 8 * c;
+        if (width == 16 && D == DP) {  // whole, aligned 16-byte chunks
+            cp_async_16(smem_u32(dst), row < n ? x + row * stride_t + 8 * c : x,
+                        row < n ? 16 : 0);
+        } else {
+            const int valid = row < n ? min(8, max(0, D - 8 * c)) : 0;
+            copy_chunk(dst, valid > 0 ? x + row * stride_t + 8 * c : x, valid, width);
+        }
+    }
+}
+
+// 64 floats (lse or delta) from rows [r0, r0 + kTile) of x, zero past n
+// (threads 0..63 of the block)
+__device__ __forceinline__ void stage_stats(float* dst, const float* __restrict__ x, int r0,
+                                            int n) {
+    if (threadIdx.x < kTile) {
+        const int row = r0 + threadIdx.x;
+        cp_async_4(smem_u32(dst + threadIdx.x), row < n ? x + row : x, row < n ? 4 : 0);
+    }
+}
+
+// The mma A operand (16 x 16) at (row0, col0) of a shared tile
+template <int DP>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int row0, int col0,
+                                       int lane) {
+    ldsm_x4(a, smem_u32(tile + (row0 + (lane & 15)) * Dims<DP>::kStride + col0 + (lane >> 4) * 8));
+}
+
+// B operands of two n-tiles whose n runs along the tile's rows n0..n0+15 and
+// k along its columns k0..k0+15: {b[0], b[1]} for n0, {b[2], b[3]} for n0 + 8
+template <int DP>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int n0, int k0,
+                                       int lane) {
+    ldsm_x4(b, smem_u32(tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * Dims<DP>::kStride + k0 +
+                        ((lane >> 3) & 1) * 8));
+}
+
+// The same with k along the tile's rows k0..k0+15 and n along its columns
+// n0..n0+15 (ldmatrix.trans)
+template <int DP>
+__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* tile, int k0, int n0,
+                                        int lane) {
+    ldsm_x4_t(b, smem_u32(tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * Dims<DP>::kStride +
+                          n0 + (lane >> 4) * 8));
+}
+
+// The A operand of a 16 x 16 product from two n-tiles of f32 accumulators
+// (columns 2 j .. 2 j + 1 of this k-step), rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+    a[0] = pack_bf16(lo[0], lo[1]);
+    a[1] = pack_bf16(lo[2], lo[3]);
+    a[2] = pack_bf16(hi[0], hi[1]);
+    a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// store a warp's 16 rows of f32 accumulators (times mul) as bf16 rows of a
+// contiguous [., H, D] tensor: row r at out + r * row_stride
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, long long row_stride,
+                                           const float (&acc)[DP / 8][4], const float (&mul)[2],
+                                           int row0, int n, int D, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        if (row >= n) continue;
+        bf16* dst = out + row * row_stride;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+            const int col = 8 * j + 2 * t;
+            const float x0 = acc[j][2 * r] * mul[r], x1 = acc[j][2 * r + 1] * mul[r];
+            if (col + 1 < D && (D & 1) == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x0, x1);
+            } else {
+                if (col < D) dst[col] = __float2bfloat16_rn(x0);
+                if (col + 1 < D) dst[col + 1] = __float2bfloat16_rn(x1);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The forward's tiling: 8 warps of 16 queries share every k and v tile a
+// block stages.  (Two m-tiles a warp, which halve the ldmatrix reads per
+// product, reached the register cap at DP = 64, one block an SM, and ran
+// slower on the H100.)
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdRows = 16 * kFwdWarps;  // queries a block owns
+
+// forward: a 1-D grid of ceil(Tq / kFwdRows) * H * B blocks, the last query
+// tiles first; warp w owns queries q0 + 16 w .. q0 + 16 w + 15
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, int H, int B, int D, Strides sq, Strides sk, Strides sv,
+                 float scale, int causal) {
+    using L = Dims<DP>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kFwdRows][DP + kPad]
+    bf16* k_s = q_s + kFwdRows * L::kStride;     // 2 stages
+    bf16* v_s = k_s + 2 * L::kTileElems;         // 2 stages
+
+    const int slices = H * B;
+    const int bh = blockIdx.x % slices;
+    const int h = bh % H, b = bh / H;
+    const int q0 =
+        ((Tq + kFwdRows - 1) / kFwdRows - 1 - static_cast<int>(blockIdx.x / slices)) * kFwdRows;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wq0 = q0 + 16 * warp;  // this warp's first query
+
+    const bf16* qx = q + b * sq.b + h * sq.h;
+    const bf16* kx = k + b * sk.b + h * sk.h;
+    const bf16* vx = v + b * sv.b + h * sv.h;
+    const int wk = copy_width(kx, sk.t), wv = copy_width(vx, sv.t);
+    // keys past the block's last query are above the diagonal of every row
+    const int k_end = causal ? min(Tk, min(q0 + kFwdRows, Tq)) : Tk;
+    const int n_tiles = (k_end + kTile - 1) / kTile;
+
+    stage_rows<DP, kFwdRows, kFwdThreads>(q_s, qx, sq.t, q0, Tq, D, copy_width(qx, sq.t));
+    stage_rows<DP, kTile, kFwdThreads>(k_s, kx, sk.t, 0, Tk, D, wk);
+    stage_rows<DP, kTile, kFwdThreads>(v_s, vx, sv.t, 0, Tk, D, wv);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    uint32_t qf[L::kK][4];
+#pragma unroll
+    for (int kk = 0; kk < L::kK; ++kk) load_a<DP>(qf[kk], q_s, 16 * warp, 16 * kk, lane);
+
+    float acc[L::kN][4];
+#pragma unroll
+    for (int j = 0; j < L::kN; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    // running max (log2 units) and this lane's part of the running sum of
+    // rows wq0 + g and wq0 + g + 8
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
+    const float scale_log2 = scale * kLog2e;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            const int nxt = (it + 1) & 1;
+            stage_rows<DP, kTile, kFwdThreads>(k_s + nxt * L::kTileElems, kx, sk.t,
+                                               (it + 1) * kTile, Tk, D, wk);
+            stage_rows<DP, kTile, kFwdThreads>(v_s + nxt * L::kTileElems, vx, sv.t,
+                                               (it + 1) * kTile, Tk, D, wv);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // tile it has landed for every thread
+
+        const int k0 = it * kTile;
+        const bf16* kt = k_s + (it & 1) * L::kTileElems;
+        const bf16* vt = v_s + (it & 1) * L::kTileElems;
+        // a warp past Tq, or wholly above the diagonal here, has nothing to do
+        if (wq0 < Tq && (!causal || k0 <= wq0 + 15)) {
+            float s[8][4];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+            for (int kk = 0; kk < L::kK; ++kk) {
+#pragma unroll
+                for (int np = 0; np < 4; ++np) {
+                    uint32_t bb[4];
+                    load_b<DP>(bb, kt, 16 * np, 16 * kk, lane);
+                    mma(s[2 * np], qf[kk], bb[0], bb[1]);
+                    mma(s[2 * np + 1], qf[kk], bb[2], bb[3]);
+                }
+            }
+            // element masks only where the tile crosses the end or the
+            // diagonal: key k0 + 2 t + 8 j + (e & 1) is visible to row r iff
+            // 8 j + (e & 1) <= lim[r] (a compare with an immediate)
+            if (k0 + kTile > Tk || (causal && k0 + kTile - 1 > wq0)) {
+                int lim[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const int row = wq0 + g + 8 * r;
+                    lim[r] = (causal ? min(row, Tk - 1) : Tk - 1) - (k0 + 2 * t);
+                }
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        if (8 * j + (e & 1) > lim[e >> 1]) s[j][e] = -CUDART_INF_F;
+                    }
+                }
+            }
+            float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};  // of the raw scores
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+            }
+            float corr[2], safe[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+                const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+                // no visible key yet: exp2(-inf - 0) = 0, never -inf - -inf
+                safe[r] = m_new == -CUDART_INF_F ? 0.0f : m_new;
+                corr[r] = ex2(m[r] - safe[r]);
+                m[r] = m_new;
+            }
+            // P = 2^(s scale log2 e - m), the scale applied in float32
+            float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    s[j][e] = ex2(fmaf(s[j][e], scale_log2, -safe[e >> 1]));
+                    rs[e >> 1] += s[j][e];
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+            for (int j = 0; j < L::kN; ++j) {
+                acc[j][0] *= corr[0];
+                acc[j][1] *= corr[0];
+                acc[j][2] *= corr[1];
+                acc[j][3] *= corr[1];
+            }
+            // o += P v, P rounded to bf16 as the A operand
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                uint32_t pa[4];
+                acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+                for (int np = 0; np < L::kK; ++np) {
+                    uint32_t bb[4];
+                    load_bt<DP>(bb, vt, 16 * kk, 16 * np, lane);
+                    mma(acc[2 * np], pa, bb[0], bb[1]);
+                    mma(acc[2 * np + 1], pa, bb[2], bb[3]);
+                }
+            }
+        }
+        __syncthreads();  // tile it has been read before its stage is refilled
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(kFull, l[r], 1);
+        l[r] += __shfl_xor_sync(kFull, l[r], 2);
+        inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
+    }
+    store_rows<DP>(o + (static_cast<long long>(b) * Tq * H + h) * D, static_cast<long long>(H) * D,
+                   acc, inv, wq0, Tq, D, lane);
+    if (t == 0) {
+        float* lse_row = lse + (static_cast<long long>(b) * H + h) * Tq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = wq0 + g + 8 * r;
+            if (row < Tq) lse_row[row] = l[r] > 0.0f ? m[r] * kLn2 + logf(l[r]) : -CUDART_INF_F;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// dk and dv: a 1-D grid of ceil(Tk / kRows) * H * B blocks, the first key
+// tiles first; warp w owns keys k0 + 16 w .. k0 + 16 w + 15
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int H, int B,
+                     int D, Strides sq, Strides sk, Strides sv, float scale, int causal) {
+    using L = Dims<DP>;
+    // queries per pass: 16 at DP = 128, where dk and dv take 128 registers
+    constexpr int kSub = DP > 64 ? 16 : 32;
+    // k and v fragments held in registers up to DP = 64, re-read from shared
+    // memory at 128
+    constexpr bool kKVRegs = DP <= 64;
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* k_s = reinterpret_cast<bf16*>(smem);
+    bf16* v_s = k_s + L::kTileElems;
+    bf16* q_s = v_s + L::kTileElems;       // 2 stages
+    bf16* do_s = q_s + 2 * L::kTileElems;  // 2 stages
+    float* lse_s = reinterpret_cast<float*>(do_s + 2 * L::kTileElems);  // 2 stages
+    float* dl_s = lse_s + 2 * kTile;                                     // 2 stages
+
+    const int slices = H * B;
+    const int bh = blockIdx.x % slices;
+    const int h = bh % H, b = bh / H;
+    const int k0 = static_cast<int>(blockIdx.x / slices) * kRows;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wk0 = k0 + 16 * warp;
+
+    const bf16* qx = q + b * sq.b + h * sq.h;
+    const bf16* kx = k + b * sk.b + h * sk.h;
+    const bf16* vx = v + b * sv.b + h * sv.h;
+    const long long do_stride = static_cast<long long>(H) * D;
+    const bf16* dox = d_o + (static_cast<long long>(b) * Tq * H + h) * D;
+    const float* lse_x = lse + (static_cast<long long>(b) * H + h) * Tq;
+    const float* dl_x = delta + (static_cast<long long>(b) * H + h) * Tq;
+    const int wq = copy_width(qx, sq.t), wdo = copy_width(dox, do_stride);
+    // queries before the block's first key see none of its keys
+    const int i_begin = causal ? k0 : 0;
+    const int n_tiles = i_begin < Tq ? (Tq - i_begin + kTile - 1) / kTile : 0;
+
+    auto stage_queries = [&](int stage, int i0) {
+        stage_rows<DP>(q_s + stage * L::kTileElems, qx, sq.t, i0, Tq, D, wq);
+        stage_rows<DP>(do_s + stage * L::kTileElems, dox, do_stride, i0, Tq, D, wdo);
+        stage_stats(lse_s + stage * kTile, lse_x, i0, Tq);
+        stage_stats(dl_s + stage * kTile, dl_x, i0, Tq);
+    };
+    stage_rows<DP>(k_s, kx, sk.t, k0, Tk, D, copy_width(kx, sk.t));
+    stage_rows<DP>(v_s, vx, sv.t, k0, Tk, D, copy_width(vx, sv.t));
+    if (n_tiles > 0) stage_queries(0, i_begin);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    uint32_t kf[kKVRegs ? L::kK : 1][4], vf[kKVRegs ? L::kK : 1][4];
+    if constexpr (kKVRegs) {
+#pragma unroll
+        for (int kk = 0; kk < L::kK; ++kk) {
+            load_a<DP>(kf[kk], k_s, 16 * warp, 16 * kk, lane);
+            load_a<DP>(vf[kk], v_s, 16 * warp, 16 * kk, lane);
+        }
+    }
+    float dk_acc[L::kN][4], dv_acc[L::kN][4];
+#pragma unroll
+    for (int j = 0; j < L::kN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+    }
+    const float scale_log2 = scale * kLog2e;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) stage_queries((it + 1) & 1, i_begin + (it + 1) * kTile);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // tile it has landed for every thread
+
+        const int i0 = i_begin + it * kTile;
+        const bf16* qt = q_s + (it & 1) * L::kTileElems;
+        const bf16* dot = do_s + (it & 1) * L::kTileElems;
+        const float* lse_t = lse_s + (it & 1) * kTile;
+        const float* dl_t = dl_s + (it & 1) * kTile;
+#pragma unroll 1
+        for (int sub = 0; sub < kTile; sub += kSub) {
+            const int is0 = i0 + sub;
+            // a warp past Tk, a pass past Tq, or a pass wholly before the
+            // warp's first key has nothing to do
+            if (wk0 >= Tk || is0 >= Tq || (causal && is0 + kSub - 1 < wk0)) continue;
+            float st[kSub / 8][4], dp[kSub / 8][4];  // S^T and dP^T: 16 keys x kSub queries
+#pragma unroll
+            for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.0f;
+            }
+#pragma unroll
+            for (int kk = 0; kk < L::kK; ++kk) {
+                uint32_t ka[4], va[4];
+                if constexpr (kKVRegs) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        ka[e] = kf[kk][e];
+                        va[e] = vf[kk][e];
+                    }
+                } else {
+                    load_a<DP>(ka, k_s, 16 * warp, 16 * kk, lane);
+                    load_a<DP>(va, v_s, 16 * warp, 16 * kk, lane);
+                }
+#pragma unroll
+                for (int np = 0; np < kSub / 16; ++np) {
+                    uint32_t bb[4];
+                    load_b<DP>(bb, qt, sub + 16 * np, 16 * kk, lane);
+                    mma(st[2 * np], ka, bb[0], bb[1]);
+                    mma(st[2 * np + 1], ka, bb[2], bb[3]);
+                    load_b<DP>(bb, dot, sub + 16 * np, 16 * kk, lane);
+                    mma(dp[2 * np], va, bb[0], bb[1]);
+                    mma(dp[2 * np + 1], va, bb[2], bb[3]);
+                }
+            }
+            // P^T into st, dS^T into dp; element masks only where the pass
+            // crosses Tq or the diagonal: query is0 + 2 t + 8 j + (e & 1) sees
+            // key r iff lo[r] <= 8 j + (e & 1) < hi (compares with immediates)
+            const bool edge = is0 + kSub > Tq || (causal && is0 < wk0 + 15);
+            const int hi = edge ? Tq - (is0 + 2 * t) : kSub;
+            int lo[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) lo[r] = edge && causal ? wk0 + g + 8 * r - (is0 + 2 * t) : 0;
+            const float* lse_c = lse_t + sub + 2 * t;
+            const float* dl_c = dl_t + sub + 2 * t;
+#pragma unroll
+            for (int j = 0; j < kSub / 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int c = 8 * j + (e & 1);  // query column, past is0 + 2 t
+                    const bool visible = c >= lo[e >> 1] && c < hi;
+                    float row_lse = lse_c[c];
+                    row_lse = row_lse == -CUDART_INF_F ? 0.0f : row_lse * kLog2e;
+                    const float p = visible ? ex2(fmaf(st[j][e], scale_log2, -row_lse)) : 0.0f;
+                    st[j][e] = p;
+                    dp[j][e] = p * (dp[j][e] - dl_c[c]);
+                }
+            }
+            // dv += P^T do, dk += dS^T q over this pass's queries
+#pragma unroll
+            for (int kq = 0; kq < kSub / 16; ++kq) {
+                uint32_t pa[4], da[4];
+                acc_to_a(pa, st[2 * kq], st[2 * kq + 1]);
+                acc_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+                for (int np = 0; np < L::kK; ++np) {
+                    uint32_t bb[4];
+                    load_bt<DP>(bb, dot, sub + 16 * kq, 16 * np, lane);
+                    mma(dv_acc[2 * np], pa, bb[0], bb[1]);
+                    mma(dv_acc[2 * np + 1], pa, bb[2], bb[3]);
+                    load_bt<DP>(bb, qt, sub + 16 * kq, 16 * np, lane);
+                    mma(dk_acc[2 * np], da, bb[0], bb[1]);
+                    mma(dk_acc[2 * np + 1], da, bb[2], bb[3]);
+                }
+            }
+        }
+        __syncthreads();  // tile it has been read before its stage is refilled
+    }
+
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = (static_cast<long long>(b) * Tk * H + h) * D;
+    const float dk_mul[2] = {scale, scale}, dv_mul[2] = {1.0f, 1.0f};
+    store_rows<DP>(dk + base, row_stride, dk_acc, dk_mul, wk0, Tk, D, lane);
+    store_rows<DP>(dv + base, row_stride, dv_acc, dv_mul, wk0, Tk, D, lane);
+}
+
+// ---------------------------------------------------------------------------
+template <int DP>
+constexpr int fwd_smem_bytes() {
+    return (kFwdRows + 4 * kTile) * Dims<DP>::kStride * static_cast<int>(sizeof(bf16));
+}
+template <int DP>
+constexpr int dkv_smem_bytes() {
+    return 6 * Dims<DP>::kTileElems * static_cast<int>(sizeof(bf16)) +
+           4 * kTile * static_cast<int>(sizeof(float));
+}
+
+// blocks for `rows` rows of every (batch row, head), `own` a block, or 0
+// past the grid's limit
+inline unsigned grid_of(int rows, int own, int H, int B) {
+    const long long n = static_cast<long long>((rows + own - 1) / own) * H * B;
+    return n <= 0x7fffffffLL && static_cast<long long>(H) * B <= 0x7fffffffLL
+               ? static_cast<unsigned>(n) : 0u;
+}
+
+// dynamic shared memory above the default 48 KB needs the kernel's consent
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 struct Args {
     const void *q, *k, *v;
     int B, Tq, Tk, H, D;
@@ -402,58 +1061,100 @@ dim3 grid_of(const Args& a, int rows) {
                 static_cast<unsigned>(a.B));
 }
 
+// The lane kernels (float32; bfloat16 dq)
 template <typename T, int DMAX>
-void fwd(const Args& a, void* o, float* lse) {
+cudaError_t fwd(const Args& a, void* o, float* lse) {
     flash_fwd_kernel<T, DMAX><<<grid_of<DMAX>(a, a.Tq), kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<T*>(o), lse, a.Tq, a.Tk, a.H, a.D, a.sq, a.sk, a.sv, a.scale, a.causal);
+    return cudaSuccess;
 }
 
 template <typename T, int DMAX>
-void bwd_dq(const Args& a, const void* o, const void* d_o, const float* lse, void* dq,
-            float* delta) {
+cudaError_t bwd_dq(const Args& a, const void* o, const void* d_o, const float* lse, void* dq,
+                   float* delta) {
     flash_bwd_dq_kernel<T, DMAX><<<grid_of<DMAX>(a, a.Tq), kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(o), static_cast<const T*>(d_o), lse, static_cast<T*>(dq), delta,
         a.Tq, a.Tk, a.H, a.D, a.sq, a.sk, a.sv, a.scale, a.causal);
+    return cudaSuccess;
 }
 
 template <typename T, int DMAX>
-void bwd_dkv(const Args& a, const void* d_o, const float* lse, const float* delta, void* dk,
-             void* dv) {
+cudaError_t bwd_dkv(const Args& a, const void* d_o, const float* lse, const float* delta,
+                    void* dk, void* dv) {
     flash_bwd_dkv_kernel<T, DMAX><<<grid_of<DMAX>(a, a.Tk), kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
         a.Tq, a.Tk, a.H, a.D, a.sq, a.sk, a.sv, a.scale, a.causal);
+    return cudaSuccess;
 }
 
-// Pick the instantiation for the dtype (0 = float32, 1 = bfloat16) and the
-// smallest built head dim DMAX >= D (8, 16, 32, 64, 128), and call
-// CALL(T, DMAX).  Columns D..DMAX-1 ride as zeros.
-#define FLASH_DISPATCH_D(a, T, CALL)                     \
-    do {                                                 \
-        if ((a).D <= 8) {                                \
-            CALL(T, 8);                                  \
-        } else if ((a).D <= 16) {                        \
-            CALL(T, 16);                                 \
-        } else if ((a).D <= 32) {                        \
-            CALL(T, 32);                                 \
-        } else if ((a).D <= 64) {                        \
-            CALL(T, 64);                                 \
-        } else {                                         \
-            CALL(T, 128);                                \
-        }                                                \
+namespace tc {
+
+// the tensor-core head dim for a built DMAX: the mma depth is 16
+constexpr int padded(int dmax) { return dmax < 16 ? 16 : dmax; }
+
+template <int DP>
+cudaError_t fwd(const Args& a, void* o, float* lse) {
+    const unsigned blocks = grid_of(a.Tq, kFwdRows, a.H, a.B);
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+    const cudaError_t err = allow_smem(flash_fwd_kernel<DP>, fwd_smem_bytes<DP>());
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<DP><<<blocks, kFwdThreads, fwd_smem_bytes<DP>(), a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(o), lse, a.Tq, a.Tk, a.H, a.B, a.D,
+        a.sq, a.sk, a.sv, a.scale, a.causal);
+    return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t bwd_dkv(const Args& a, const void* d_o, const float* lse, const float* delta,
+                    void* dk, void* dv) {
+    const unsigned blocks = grid_of(a.Tk, kRows, a.H, a.B);
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+    const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<DP>, dkv_smem_bytes<DP>());
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<DP><<<blocks, kThreads, dkv_smem_bytes<DP>(), a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(d_o), lse, delta,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.Tq, a.Tk, a.H, a.B, a.D, a.sq, a.sk,
+        a.sv, a.scale, a.causal);
+    return cudaSuccess;
+}
+
+}  // namespace tc
+
+// Pick the instantiation for the smallest built head dim DMAX >= D (8, 16,
+// 32, 64, 128) and set err = CALL(DMAX).  Columns D..DMAX-1 ride as zeros.
+#define FLASH_DISPATCH_D(a, err, CALL) \
+    do {                               \
+        if ((a).D <= 8) {              \
+            err = CALL(8);             \
+        } else if ((a).D <= 16) {      \
+            err = CALL(16);            \
+        } else if ((a).D <= 32) {      \
+            err = CALL(32);            \
+        } else if ((a).D <= 64) {      \
+            err = CALL(64);            \
+        } else {                       \
+            err = CALL(128);           \
+        }                              \
     } while (0)
 
-#define FLASH_DISPATCH(a, dtype, CALL)                                       \
+// dtype 0 = float32 through CALL_F32, 1 = bfloat16 through CALL_BF16; a
+// refused attribute or launch reaches the caller
+#define FLASH_DISPATCH(a, dtype, CALL_F32, CALL_BF16)                        \
     do {                                                                     \
         if ((dtype) != 0 && (dtype) != 1) return (int)cudaErrorInvalidValue; \
         if ((a).D < 1 || (a).D > 128) return (int)cudaErrorInvalidValue;     \
+        cudaError_t err_ = cudaSuccess;                                      \
         if ((dtype) == 0) {                                                  \
-            FLASH_DISPATCH_D(a, float, CALL);                                \
+            FLASH_DISPATCH_D(a, err_, CALL_F32);                             \
         } else {                                                             \
-            FLASH_DISPATCH_D(a, __nv_bfloat16, CALL);                        \
+            FLASH_DISPATCH_D(a, err_, CALL_BF16);                            \
         }                                                                    \
+        if (err_ != cudaSuccess) return (int)err_;                           \
         return (int)cudaGetLastError();                                      \
     } while (0)
 
@@ -479,21 +1180,23 @@ Args make_args(const void* q, const void* k, const void* v, int B, int Tq, int T
 
 }  // namespace
 
-// Each launches on `stream` and returns cudaGetLastError(), so a refused
-// launch reaches the caller; none synchronises.  `strides` holds the batch,
-// token and head strides (in elements) of q, then k, then v, on the host.
-// The caller checks shapes (1 <= D <= 128, H and B <= 65535, Tq >= 1, and
-// Tk >= 1 for dk/dv), types and that o, lse, delta, do, dq, dk and dv are
-// contiguous.
+// Each launches on `stream` and returns cudaGetLastError() (or the refused
+// shared-memory attribute), so a refused launch reaches the caller; none
+// synchronises.  `strides` holds the batch, token and head strides (in
+// elements) of q, then k, then v, on the host.  The caller checks shapes
+// (1 <= D <= 128, H and B <= 65535, Tq >= 1, and Tk >= 1 for dk/dv), types
+// and that o, lse, delta, do, dq, dk and dv are contiguous.
 
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                           float* lse, int B, int Tq, int Tk, int H, int D,
                                           const long long* strides, float scale, int causal,
                                           int dtype, void* stream) {
     const Args a = make_args(q, k, v, B, Tq, Tk, H, D, strides, scale, causal, stream);
-#define CALL_FWD(T, DMAX) fwd<T, DMAX>(a, o, lse)
-    FLASH_DISPATCH(a, dtype, CALL_FWD);
+#define CALL_FWD(DMAX) fwd<float, DMAX>(a, o, lse)
+#define CALL_FWD_TC(DMAX) tc::fwd<tc::padded(DMAX)>(a, o, lse)
+    FLASH_DISPATCH(a, dtype, CALL_FWD, CALL_FWD_TC);
 #undef CALL_FWD
+#undef CALL_FWD_TC
 }
 
 extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
@@ -502,9 +1205,11 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const
                                              int D, const long long* strides, float scale,
                                              int causal, int dtype, void* stream) {
     const Args a = make_args(q, k, v, B, Tq, Tk, H, D, strides, scale, causal, stream);
-#define CALL_DQ(T, DMAX) bwd_dq<T, DMAX>(a, o, d_o, lse, dq, delta)
-    FLASH_DISPATCH(a, dtype, CALL_DQ);
+#define CALL_DQ(DMAX) bwd_dq<float, DMAX>(a, o, d_o, lse, dq, delta)
+#define CALL_DQ_BF16(DMAX) bwd_dq<__nv_bfloat16, DMAX>(a, o, d_o, lse, dq, delta)
+    FLASH_DISPATCH(a, dtype, CALL_DQ, CALL_DQ_BF16);
 #undef CALL_DQ
+#undef CALL_DQ_BF16
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
@@ -514,7 +1219,9 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
                                               const long long* strides, float scale, int causal,
                                               int dtype, void* stream) {
     const Args a = make_args(q, k, v, B, Tq, Tk, H, D, strides, scale, causal, stream);
-#define CALL_DKV(T, DMAX) bwd_dkv<T, DMAX>(a, d_o, lse, delta, dk, dv)
-    FLASH_DISPATCH(a, dtype, CALL_DKV);
+#define CALL_DKV(DMAX) bwd_dkv<float, DMAX>(a, d_o, lse, delta, dk, dv)
+#define CALL_DKV_TC(DMAX) tc::bwd_dkv<tc::padded(DMAX)>(a, d_o, lse, delta, dk, dv)
+    FLASH_DISPATCH(a, dtype, CALL_DKV, CALL_DKV_TC);
 #undef CALL_DKV
+#undef CALL_DKV_TC
 }

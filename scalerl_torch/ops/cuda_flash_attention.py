@@ -4,11 +4,12 @@ Replaces the three TPU kernels behind ``scalerl_tpu/ops/pallas_attention.py
 ::flash_attention`` (``_fwd_kernel``, ``_bwd_dq_kernel``,
 ``_bwd_dkv_kernel``), with its contract: q ``[B, Tq, H, D]`` against k, v
 ``[B, Tk, H, D]``, ``Tq != Tk`` allowed, causal masking top-left aligned,
-lse in float32.  Each kernel gives a row (a query in the forward and dq
-kernels, a key in the dk/dv kernel) to ``D / 8`` lanes of a warp and walks
-the other axis in shared-memory tiles, skipping the tiles above the causal
-diagonal; the source says what bounds them.  No kernel uses atomics, so
-values and gradients repeat bit for bit.
+lse in float32.  Each kernel owns rows of one axis (queries in the forward
+and dq kernels, keys in the dk/dv kernel) and walks the other in
+shared-memory tiles, skipping the tiles above the causal diagonal: on
+bfloat16 the forward and dk/dv run on the tensor cores, float32 (and dq)
+on ``D / 8`` lanes of a warp per row; the source says what bounds them.
+No kernel uses atomics, so values and gradients repeat bit for bit.
 
 :func:`flash_attention` is differentiable in q, k and v (a
 ``torch.autograd.Function``; the flags get no gradient).  For host tensors

@@ -10,7 +10,10 @@ multiple), cross lengths 24/56, gradients under a cotangent (5e-5), bf16
 inputs (5e-2).  Besides: top-left causal masking with Tq != Tk against a
 numpy oracle, lse against a direct log-sum-exp and against the Pallas
 forward's, and the inputs the op refuses.  The CUDA kernels run only on a
-card (``chip_smoke.py`` phase ``flash_attn``).
+card (``chip_smoke.py`` phase ``flash_attn``); their bfloat16 arithmetic
+(the tensor-core forward and dk/dv, which round P and dS to bfloat16
+before their products) is emulated here tile by tile and held against the
+Pallas kernels and the float32 reference at the card check's tolerance.
 """
 
 import jax
@@ -28,6 +31,10 @@ torch.set_num_threads(1)
 VALUE_TOL = 2e-5
 GRAD_TOL = 5e-5
 BF16_TOL = 5e-2
+# chip_smoke.py's FLASH_BF16_REL_TOL and FLASH_LSE_TOL, the card check's
+# bounds on bfloat16 o and gradients (of the largest element) and on lse
+BF16_REL_TOL = 2.0 ** -6
+LSE_TOL = 2e-5
 
 
 def _inputs(seed, B, Tq, Tk, H, D):
@@ -193,3 +200,118 @@ def test_kernel_entry_points_refuse_host_tensors():
         cfa.flash_forward_kernel(q, q, q, 1.0, True)
     cfa.flash_attention(q, q, q, causal=True)
     assert (cfa.fwd_launches, cfa.dq_launches, cfa.dkv_launches) == launches
+
+
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    """x rounded to bfloat16 (nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_emulation(q, k, v, do, causal, scale, tile=64):
+    """The bfloat16 kernels' arithmetic in plain torch: o, lse, dq, dk, dv.
+
+    Forward (csrc/flash_attention.cu, tc::flash_fwd_kernel): key tiles of
+    64, S = q k^T from exact bf16 products summed in float32, an online
+    softmax on exp2 with the scale (times log2 e) applied to S in float32,
+    P rounded to bf16 before P v, o = acc / l rounded to bf16, lse = m ln 2
+    + log l.  dq (the
+    lane kernel) in float32 with delta = sum do * o from the rounded o.
+    dk/dv (tc::flash_bwd_dkv_kernel): query tiles of 64, P^T = exp2(S^T
+    scale log2 e - lse log2 e), dS^T = P^T (dP^T - delta), both rounded to
+    bf16 before dv += P^T do and dk += dS^T q; scale times dk at the end.
+    """
+    q, k, v, do = (t.float() for t in (q, k, v, do))  # bf16 values, exactly
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    rows = torch.arange(Tq)[:, None]
+    neg_inf = torch.tensor(float("-inf"))
+
+    def visible(k0, n):
+        cols = torch.arange(k0, k0 + n)[None, :]
+        return (cols <= rows) if causal else torch.ones(Tq, n, dtype=torch.bool)
+
+    m = torch.full((B, H, Tq), float("-inf"))
+    l = torch.zeros(B, H, Tq)
+    acc = torch.zeros(B, H, Tq, D)
+    for k0 in range(0, Tk, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kt) * (scale * LOG2E)
+        s = torch.where(visible(k0, kt.shape[1]), s, neg_inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        corr = torch.exp2(m - safe)
+        p = torch.exp2(s - safe[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", _bf16(p), vt)
+        m = m_new
+    o = _bf16(acc * (1.0 / l.clamp(min=1e-30))[..., None]).permute(0, 2, 1, 3)  # [B, Tq, H, D]
+    lse = torch.where(l > 0, m * np.log(2.0) + torch.log(l), neg_inf)
+
+    delta = torch.einsum("bqhd,bqhd->bhq", do, o)
+    row_lse = torch.where(torch.isneginf(lse), 0.0, lse)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    mask = visible(0, Tk)
+    p = torch.where(mask, torch.exp2(s * (scale * LOG2E) - row_lse[..., None] * LOG2E), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - delta[..., None])
+    dq = _bf16(torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale)
+    dk = torch.zeros(B, Tk, H, D)
+    dv = torch.zeros(B, Tk, H, D)
+    for i0 in range(0, Tq, tile):
+        sl = slice(i0, i0 + tile)
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", _bf16(p[:, :, sl]), do[:, sl])
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", _bf16(ds[:, :, sl]), q[:, sl])
+    return o, lse, dq, _bf16(dk * scale), _bf16(dv)
+
+
+def _float32_reference(q, k, v, do, causal, scale):
+    """o, lse and the gradients of the plain version in float32 on the same
+    (bf16-valued) inputs."""
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_attention_reference(*leaves, causal, scale)
+    return (o.detach(), lse.detach()) + torch.autograd.grad(o, leaves, do.float())
+
+
+def _rel_err(got, want):
+    """max |got - want| over max(max |want|, 1), as the card check holds bf16."""
+    return (got.float() - want.float()).abs().max().item() / max(want.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [
+    (8, 17, 17, 16, 64, True),  # the transformer learner's attention
+    (1, 70, 150, 2, 32, True),  # ragged, cross lengths, causal top-left
+], ids=["learner_8x17x16x64", "ragged_cross_70_150"])
+def test_bf16_tensor_core_arithmetic_stays_inside_the_card_tolerance(B, Tq, Tk, H, D, causal):
+    """Rounding P and dS to bf16 before their products, as the bf16 kernels
+    do, keeps o and every gradient within 2^-6 of the largest element of the
+    float32 reference and of the Pallas kernels (interpret mode), and lse
+    within 2e-5: the bounds of the card check, and well inside the 2^-4 the
+    bf16 learner's gradients are held to."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.tensor(rng.normal(size=(B, T, H, D)).astype(np.float32)).bfloat16()
+               for T in (Tq, Tk, Tk))
+    do = torch.tensor(rng.normal(size=(B, Tq, H, D)).astype(np.float32)).bfloat16()
+    scale = 1.0 / np.sqrt(D)
+    emu = _tensor_core_emulation(q, k, v, do, causal, scale)
+    ref = _float32_reference(q, k, v, do, causal, scale)
+    names = ("o", "lse", "dq", "dk", "dv")
+    assert torch.equal(emu[0][:, 0], v.float()[:, 0]), "causal row 0 is v[0] exactly"
+    assert (emu[1] - ref[1]).abs().max().item() <= LSE_TOL
+    for name, e, r in zip(names, emu, ref):
+        if name != "lse":
+            assert _rel_err(e, r) <= BF16_REL_TOL, (name, _rel_err(e, r))
+
+    def loss(a, b, c):
+        out = jpa.flash_attention(a, b, c, causal=causal, block_q=16, block_k=16)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do.float().numpy()))
+
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v))
+    jo = jax.jit(lambda a, b, c: jpa.flash_attention(a, b, c, causal=causal, block_q=16,
+                                                     block_k=16))(jq, jk, jv)
+    jgrads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(jq, jk, jv)
+    for name, e, j in zip(("o", "dq", "dk", "dv"), (emu[0],) + emu[2:], (jo,) + tuple(jgrads)):
+        want = torch.tensor(np.asarray(j, np.float32))
+        assert _rel_err(e, want) <= BF16_REL_TOL, (name, _rel_err(e, want))
