@@ -14,44 +14,74 @@
 // The output is in q's type and lse [B, H, Tq] in float32.  A query with
 // no visible key gives exact zeros and lse = -inf.
 //
-// Two designs.  bfloat16 forward and dk/dv run on the tensor cores
-// (namespace tc below); float32, and the bfloat16 dq kernel, run the lane
-// design that follows.  float32 stays off the tensor cores on purpose: the
-// kernels compute exact float32, and a TF32 product would be another result.
+// Three designs.  bfloat16 runs on the tensor cores (namespace tc): the
+// forward, dq and dk/dv.  The float32 forward runs the micro-tile design
+// (namespace mt); float32 dq and dk/dv run the lane design.  float32 stays
+// off the tensor cores on purpose: the kernels compute exact float32 (FMAs,
+// expf and logf), and a TF32 product would be another result.
 //
-// Lane design (float32; bfloat16 dq): a block of kThreads = 128 threads
-// owns kRows consecutive rows of one (batch row, head) -- queries in the
-// forward and dq kernels, keys in the dk/dv kernel -- and splits each row's
-// head dim over kLanes = DMAX / 8 neighbouring lanes of a warp, 8 elements
-// a lane, so a row vector costs each thread 8 registers whatever D is (one
-// thread per row spilled at D = 64 in csrc/segment_attention.cu).  A lane
-// holds elements 4 * sub + {0..3} and DMAX / 2 + 4 * sub + {0..3}, so the
-// lanes of a row read two runs of consecutive float4s from shared memory.
-// An inner product is 8 FMAs and a butterfly of log2(kLanes) shuffles; the
+// Lane design (float32 dq and dk/dv): a block of kThreads = 128 threads
+// owns kRows consecutive rows of one (batch row, head) -- queries in the dq
+// kernel, keys in the dk/dv kernel -- and splits each row's head dim over
+// kLanes = DMAX / 8 neighbouring lanes of a warp, 8 elements a lane, so a
+// row vector costs each thread 8 registers whatever D is (one thread per
+// row spilled at D = 64 in csrc/segment_attention.cu).  A lane holds
+// elements 4 * sub + {0..3} and DMAX / 2 + 4 * sub + {0..3}, so the lanes
+// of a row read two runs of consecutive float4s from shared memory.  An
+// inner product is 8 FMAs and a butterfly of log2(kLanes) shuffles; the
 // butterfly adds the same two values on both lanes of every pair, so all
 // lanes of a row hold the same score bit for bit and take the same masking
 // and softmax decisions.  The other axis is walked in tiles of kTile = 32
 // rows staged in shared memory as float32 (rows past the end and columns
-// past D as zeros).  q enters every kernel multiplied by scale; dq gets the
+// past D as zeros).  q enters both kernels multiplied by scale; dq gets the
 // second factor when it is stored and dk gets none.
 //
-// Tensor-core design (bfloat16 forward and dk/dv; FlashAttention-2 on
+// Micro-tile design (float32 forward; an SGEMM's register blocking on the
+// FMA units, for latency: the lane design's per-key chain of dot, butterfly,
+// expf and axpy left an SM idle between its few warps).  A block of 4 warps
+// owns 16 queries of one (batch row, head), stages them once, and streams
+// the keys through a 2-stage cp.async ring of 64-key tiles; warp w takes
+// keys 16 w .. 16 w + 15 of every tile.  Lane 8 r + c computes the 4 x 2
+// micro-tile of scores of rows r + 4 i (i < 4) against keys c and c + 8 of
+// its warp's 16: float4 reads of q and k rows from shared memory feed 32
+// independent FMAs per 4 columns of D, with no shuffle.  Shared rows are
+// padded by 4 floats, so the 4 q rows and 8 k rows a read touches fall in
+// distinct bank groups.  A row's max closes once per tile over its 8 lanes
+// (3 shuffles); P passes through a per-warp shared tile to the o += P v
+// micro-tile (rows r + 4 i by D / 8 columns of lane c).  Each warp keeps
+// its own running (m, l, o) over its keys; at the end the 4 partials are
+// combined through shared memory in warp order (so repeats stay bit-equal)
+// and o is divided by the row's sum element by element.
+// The short query tile gives [4, 256, 2, 64] 128 blocks on 132 SMs, and the
+// key split gives each block 4 warps of independent work along its walk.
+//
+// Tensor-core design (bfloat16 forward, dq and dk/dv; FlashAttention-2 on
 // mma.sync.m16n8k16 bf16 -> f32): each warp owns 16 rows of one (batch row,
-// head) -- a forward block of 8 warps 128 queries, a dk/dv block of 4 warps
-// 64 keys.  Its own rows' operands are staged once (q in the forward; k and
-// v in dk/dv) and the other axis streams through a 2-stage ring of 64-row
-// tiles in shared memory, filled by cp.async 16-byte copies, so the copy of
-// the next tile overlaps the products of this one.  Shared rows are padded by
-// 16 bytes, so the 8 rows an ldmatrix reads fall in 8 distinct bank groups.
-// D is padded up to the mma depth of 16 (DP = 16, 32, 64, 128); columns
-// past D and rows past the end stage as zeros (cp.async's src-size below
-// its copy size zero-fills), and nothing is padded in memory.
+// head) -- a forward or dq block of 8 warps 128 queries, a dk/dv block of 4
+// warps 64 keys.  Its own rows' operands are
+// staged once (q in the forward; q and do in dq; k and v in dk/dv) and the
+// other axis streams through a 2-stage ring of 64-row tiles in shared
+// memory, filled by cp.async 16-byte copies, so the copy of the next tile
+// overlaps the products of this one.  Shared rows are padded by 16 bytes,
+// so the 8 rows an ldmatrix reads fall in 8 distinct bank groups.  D is
+// padded up to the mma depth of 16 (DP = 16, 32, 64, 128); columns past D
+// and rows past the end stage as zeros (cp.async's src-size below its copy
+// size zero-fills), and nothing is padded in memory.
 //   Forward: S = q k^T on the tensor cores; the online softmax runs on the
 //   accumulator fragments, a row's max closing over the 4 lanes that share
 //   it (2 shuffles), and P = 2^(S scale log2 e - m) takes the scale in
 //   float32 inside one FMA; P is rounded to bf16 in registers and is the A
 //   operand of P v directly, v's B operand coming from ldmatrix.trans.  o
 //   is stored in bf16, lse in float32.
+//   dq: q and do stay resident (their A fragments in registers up to DP =
+//   64, re-read from shared memory at 128), and so do each lane's lse and
+//   delta of rows g and g + 8; delta = sum_d do * o is computed from the
+//   stored bf16 o in float32 and written for the dk/dv kernel.  k and v
+//   tiles stream; per 32-key half of a tile (which keeps S and dP at 16
+//   registers each): S = q k^T, dP = do v^T, P = 2^(S scale log2 e - lse
+//   log2 e) (the dk/dv kernel's formula, so both passes see one P), dS = P
+//   (dP - delta) rounded to bf16 as the A operand of dq += dS k, k entering
+//   through ldmatrix.trans; scale multiplies dq once, at the store.
 //   dk/dv: k and v stay resident (their A fragments in registers up to
 //   DP = 64, in shared memory at 128, where the dk and dv accumulators take
 //   128 registers a thread); q, do, lse and delta tiles stream.  Per pass
@@ -61,28 +91,28 @@
 //   transposed through ldmatrix.trans, and scale multiplies dk once, at the
 //   store.
 //   Rounding P and dS to bf16 before their products is where these kernels
-//   differ from the float32 lane design (and from a TPU's float32 dots); the
+//   differ from the float32 designs (and from a TPU's float32 dots); the
 //   products themselves are exact and accumulate in float32.
 //   Row addresses: a (batch row, head) slice whose rows are not 16-byte
 //   aligned (odd heads of a fused projection at D = 20) takes 8- or 4-byte
 //   cp.async copies, and a 2-byte aligned one plain loads, all in the
-//   kernel, never a copy in the wrapper.
-//   Grid: one dimension, the longest causal walk first (the forward's last
-//   query tiles, dk/dv's first key tiles), so the last wave is not the
-//   diagonal's long tail.  Shared memory above 48 KB (DP = 64 and 128) is
-//   dynamic, allowed by cudaFuncSetAttribute, whose return code the launch
-//   returns.
+//   kernel, never a copy in the wrapper.  The float32 forward stages the
+//   same way (float32 rows are 4-byte aligned at least).
+//   Grid: one dimension, the longest causal walk first (the forward's and
+//   dq's last query tiles, dk/dv's first key tiles), so the last wave is
+//   not the diagonal's long tail.  Shared memory above 48 KB is dynamic,
+//   allowed by cudaFuncSetAttribute, whose return code the launch returns.
 //
 // Causal tile skip (_causal_live): the forward and dq kernels stop at the
 // last key tile that meets their block's last query; the dk/dv kernel
 // starts at its block's first key.  Tiles above the diagonal are never
-// loaded; the tensor-core kernels also skip a warp's tile (or pass) that
-// lies wholly above its rows, mask element by element only the tiles that
-// cross the diagonal or the end, and take an unmasked path below.  A mask
-// is one limit per row compared with each element's column as an immediate
-// (per-element index arithmetic, which ptxas hoists into registers, was the
-// forward's largest avoidable cost).  Ragged lengths are masked in the
-// kernel (q_len = Tq, k_len = Tk).
+// loaded; the tensor-core and micro-tile kernels also skip a warp's tile
+// (or pass) that lies wholly above its rows, mask element by element only
+// the tiles that cross the diagonal or the end, and take an unmasked path
+// below.  A mask is one limit per row compared with each element's column
+// as an immediate (per-element index arithmetic, which ptxas hoists into
+// registers, was the bf16 forward's largest avoidable cost).  Ragged
+// lengths are masked in the kernel (q_len = Tq, k_len = Tk).
 //
 // Masking: a masked score is selected to -inf (forward) or its probability
 // to 0 (backward) before it meets anything else; the running max is made
@@ -91,8 +121,9 @@
 // reads lse = -inf as 0, where every probability of that row is masked.
 //
 // No atomics: every sum runs in a fixed order inside one block (lane
-// butterflies, quad shuffles, mma accumulation), dq over query tiles, dk and
-// dv over key tiles, so values and gradients repeat bit for bit.  delta =
+// butterflies, quad shuffles, mma accumulation, the float32 forward's
+// warp-order combine), dq over query tiles, dk and dv over key tiles, so
+// values and gradients repeat bit for bit.  delta =
 // sum_d do * o is computed by the dq kernel and written to a [B, H, Tq]
 // buffer that the dk/dv kernel, launched after it on the same stream, reads
 // (JAX computes it with an einsum before both).
@@ -104,12 +135,13 @@
 // Bound on an H100: at the learner's shapes ([8, 17, 16, 64]) the work is
 // tiny; one launch and its latency cost more than the bytes (0.3-0.5 us).
 // At long T the work is operations, 4 D flops per visible (i, j) pair
-// forward and 8 D for dk/dv: on bf16 inputs the tensor cores' 989 TFLOP/s
-// set the bound, which the tensor-core kernels approach through mma.sync
-// (wgmma with TMA is the later step); the float32 lane kernels run outside
-// the tensor cores (67 TFLOP/s), in FMAs and shuffles.
+// forward, 6 D for dq and 8 D for dk/dv: on bf16 inputs the tensor cores'
+// 989 TFLOP/s set the bound, which the tensor-core kernels approach through
+// mma.sync (wgmma with TMA is the later step); the float32 kernels run
+// outside the tensor cores (67 TFLOP/s), in FMAs (and shuffles in the lane
+// design).
 //
-// Numerics: expf and logf in the lane kernels (no fast math); in the
+// Numerics: expf and logf in the float32 kernels (no fast math); in the
 // tensor-core kernels the special-function unit's ex2.approx (about 2 ulp,
 // far inside the bf16 rounding of P that follows) and logf.  Sums over D
 // and over the keys run in another order than the plain version's softmax
@@ -131,10 +163,9 @@ constexpr int kThreads = 128;  // threads per block
 constexpr int kMinBlocks = 4;
 constexpr int kVec = 8;        // elements of a row each lane holds
 constexpr int kTile = 32;      // rows of the other axis per shared-memory tile
-constexpr int kChunk = 8;      // forward scores held in registers at a time
 constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(kTile % kChunk == 0 && kTile <= kThreads, "tile sizes");
+static_assert(kTile <= kThreads, "a tile's stats stage in one pass");
 
 struct Strides {
     long long b, t, h;  // in elements; the stride along D is 1
@@ -150,10 +181,7 @@ struct Layout {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-// round to nearest even, as torch's float32 -> bfloat16 cast rounds
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // the head-dim column of register slot r of lane `sub`
 template <int DMAX>
@@ -237,80 +265,7 @@ __device__ __forceinline__ void store_vec(T* __restrict__ out, const float (&reg
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(Tq / kRows), H, B), one query per kLanes lanes
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, int H, int D,
-                 Strides sq, Strides sk, Strides sv, float scale, int causal) {
-    using L = Layout<DMAX>;
-    __shared__ __align__(16) float k_s[kTile][DMAX];
-    __shared__ __align__(16) float v_s[kTile][DMAX];
-
-    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * L::kRows;
-    const int sub = threadIdx.x % L::kLanes;
-    const int i = q0 + threadIdx.x / L::kLanes;
-    const bool live = i < Tq;
-
-    float q_r[kVec], acc[kVec];
-    load_vec<T, DMAX>(q_r, q, b * sq.b + i * sq.t + h * sq.h, sub, live, D, scale);
-#pragma unroll
-    for (int r = 0; r < kVec; ++r) acc[r] = 0.0f;
-    float m = -CUDART_INF_F;  // running max of the visible scores
-    float l = 0.0f;           // running sum of exp(score - m)
-
-    const long long k_base = b * sk.b + h * sk.h;
-    const long long v_base = b * sv.b + h * sv.h;
-    // keys past the block's last query are above the diagonal of every row
-    const int k_end = causal ? min(Tk, min(q0 + L::kRows, Tq)) : Tk;
-    for (int k0 = 0; k0 < k_end; k0 += kTile) {
-        __syncthreads();  // the previous tile has been read
-        stage_tile<T, DMAX>(k_s, k, k_base, sk.t, k0, Tk, D, 1.0f);
-        stage_tile<T, DMAX>(v_s, v, v_base, sv.t, k0, Tk, D, 1.0f);
-        __syncthreads();
-
-#pragma unroll 1
-        for (int c = 0; c < kTile && k0 + c < k_end; c += kChunk) {
-            float s[kChunk];
-            float m_chunk = -CUDART_INF_F;
-#pragma unroll
-            for (int j = 0; j < kChunk; ++j) {
-                const int key = k0 + c + j;
-                const float dot = row_sum<L::kLanes>(dot_part<DMAX>(q_r, k_s[c + j], sub));
-                const bool visible = live && key < Tk && (!causal || key <= i);
-                s[j] = visible ? dot : -CUDART_INF_F;
-                m_chunk = fmaxf(m_chunk, s[j]);
-            }
-            const float m_new = fmaxf(m, m_chunk);
-            // no visible key yet: exp(-inf - 0) = 0 everywhere, never -inf - -inf
-            const float safe_m = m_new == -CUDART_INF_F ? 0.0f : m_new;
-            const float corr = expf(m - safe_m);
-            float p_sum = 0.0f;
-#pragma unroll
-            for (int r = 0; r < kVec; ++r) acc[r] *= corr;
-#pragma unroll
-            for (int j = 0; j < kChunk; ++j) {
-                const float p = expf(s[j] - safe_m);
-                p_sum += p;
-                axpy_part<DMAX>(acc, p, v_s[c + j], sub);
-            }
-            l = l * corr + p_sum;
-            m = m_new;
-        }
-    }
-
-    if (!live) return;
-    const float denom = fmaxf(l, 1e-30f);
-    store_vec<T, DMAX>(o + ((static_cast<long long>(b) * Tq + i) * H + h) * D, acc, sub, D,
-                       1.0f / denom);
-    if (sub == 0) {
-        lse[(static_cast<long long>(b) * H + h) * Tq + i] =
-            l > 0.0f ? m + logf(denom) : -CUDART_INF_F;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// dq (and delta): grid (ceil(Tq / kRows), H, B), one query per kLanes lanes
+// float32 dq (and delta): grid (ceil(Tq / kRows), H, B), one query per kLanes lanes
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -375,7 +330,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ---------------------------------------------------------------------------
-// dk and dv: grid (ceil(Tk / kRows), H, B), one key per kLanes lanes
+// float32 dk and dv: grid (ceil(Tk / kRows), H, B), one key per kLanes lanes
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -528,40 +483,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the two bf16 of a register as floats, the low half first (exact)
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
 // The widest copy every row of a slice allows: its first row's address and
 // its row stride, in bytes, share this power of two (16 at most).
-__device__ __forceinline__ int copy_width(const bf16* x, long long stride_t) {
+template <typename T>
+__device__ __forceinline__ int copy_width(const T* x, long long stride_t) {
     const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
-                                    static_cast<unsigned long long>(stride_t) * sizeof(bf16);
+                                    static_cast<unsigned long long>(stride_t) * sizeof(T);
     return (bits & 15) == 0 ? 16 : (bits & 7) == 0 ? 8 : (bits & 3) == 0 ? 4 : 2;
 }
 
-// 8 bf16 at src, of which `valid` are read and the rest zero, into 16 bytes
-// of shared memory, in copies of `width` bytes
-__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int valid, int width) {
+// 16 bytes of elements at src, of which `valid` are read and the rest zero,
+// into 16 bytes of shared memory, in copies of `width` bytes (2 only for
+// bf16, whose rows may sit 2 bytes off)
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int valid, int width) {
     const uint32_t d = smem_u32(dst);
-    const int bytes = 2 * valid;
+    const char* s = reinterpret_cast<const char*>(src);
+    const int bytes = static_cast<int>(sizeof(T)) * valid;
     if (width == 16) {
         cp_async_16(d, src, bytes);
     } else if (width == 8) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
             const int n = min(8, max(0, bytes - 8 * p));
-            cp_async_8(d + 8 * p, n > 0 ? src + 4 * p : src, n);
+            cp_async_8(d + 8 * p, n > 0 ? s + 8 * p : s, n);
         }
     } else if (width == 4) {
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
             const int n = min(4, max(0, bytes - 4 * p));
-            cp_async_4(d + 4 * p, n > 0 ? src + 2 * p : src, n);
+            cp_async_4(d + 4 * p, n > 0 ? s + 4 * p : s, n);
         }
-    } else {  // 2-byte aligned rows: through registers
-        const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    } else if constexpr (sizeof(T) == 2) {  // 2-byte aligned bf16 rows: through registers
+        const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
         uint32_t w[4];
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
-            const uint32_t lo = 2 * p < valid ? s[2 * p] : 0u;
-            const uint32_t hi = 2 * p + 1 < valid ? s[2 * p + 1] : 0u;
+            const uint32_t lo = 2 * p < valid ? h[2 * p] : 0u;
+            const uint32_t hi = 2 * p + 1 < valid ? h[2 * p + 1] : 0u;
             w[p] = lo | (hi << 16);
         }
         *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -569,28 +533,31 @@ __device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int valid
 }
 
 // Rows [r0, r0 + ROWS) of a slice (x at its row 0, rows stride_t apart)
-// into a [ROWS][DP + kPad] tile, by a block of THREADS; rows at or past n
-// and columns at or past D land as zeros.  The caller commits the cp.async
-// group.
-template <int DP, int ROWS = kTile, int THREADS = kThreads>
-__device__ __forceinline__ void stage_rows(bf16* tile, const bf16* __restrict__ x,
-                                           long long stride_t, int r0, int n, int D, int width) {
-    using L = Dims<DP>;
-    constexpr int kChunks = ROWS * L::kChunks;
+// into a [ROWS][STRIDE] tile of DP columns, by a block of THREADS; rows at
+// or past n and columns at or past D land as zeros.  The caller commits the
+// cp.async group.
+template <int DP, int ROWS = kTile, int THREADS = kThreads, int STRIDE = Dims<DP>::kStride,
+          typename T>
+__device__ __forceinline__ void stage_rows(T* tile, const T* __restrict__ x, long long stride_t,
+                                           int r0, int n, int D, int width) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte chunk
+    constexpr int kRowChunks = DP / kPer;
+    constexpr int kChunks = ROWS * kRowChunks;
+    static_assert(DP % kPer == 0 && STRIDE % kPer == 0, "rows of whole 16-byte chunks");
 #pragma unroll
     for (int i = 0; i < (kChunks + THREADS - 1) / THREADS; ++i) {
         const int idx = threadIdx.x + i * THREADS;
         if (kChunks % THREADS != 0 && idx >= kChunks) break;
-        const int r = idx / L::kChunks;
-        const int c = idx - r * L::kChunks;
+        const int r = idx / kRowChunks;
+        const int c = idx - r * kRowChunks;
         const int row = r0 + r;
-        bf16* dst = tile + r * L::kStride + 8 * c;
+        T* dst = tile + r * STRIDE + kPer * c;
         if (width == 16 && D == DP) {  // whole, aligned 16-byte chunks
-            cp_async_16(smem_u32(dst), row < n ? x + row * stride_t + 8 * c : x,
+            cp_async_16(smem_u32(dst), row < n ? x + row * stride_t + kPer * c : x,
                         row < n ? 16 : 0);
         } else {
-            const int valid = row < n ? min(8, max(0, D - 8 * c)) : 0;
-            copy_chunk(dst, valid > 0 ? x + row * stride_t + 8 * c : x, valid, width);
+            const int valid = row < n ? min(kPer, max(0, D - kPer * c)) : 0;
+            copy_chunk(dst, valid > 0 ? x + row * stride_t + kPer * c : x, valid, width);
         }
     }
 }
@@ -1017,9 +984,247 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// dq's tiling: 8 warps of 16 queries share every k and v tile a block
+// stages.  (4 warps, twice the blocks, ran 8% slower at [1, 4096, 8, 64]
+// and at the learner's [8, 17, 16, 64], 4% faster at [4, 256, 2, 64], on
+// an H100.)
+constexpr int kDqWarps = 8;
+constexpr int kDqThreads = 32 * kDqWarps;
+constexpr int kDqRows = 16 * kDqWarps;  // queries a block owns
+
+// dq (and delta): a 1-D grid of ceil(Tq / kDqRows) * H * B blocks, the last
+// query tiles first; warp w owns queries q0 + 16 w .. q0 + 16 w + 15
+template <int DP>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ o,
+                    const bf16* __restrict__ d_o, const float* __restrict__ lse,
+                    bf16* __restrict__ dq, float* __restrict__ delta, int Tq, int Tk, int H,
+                    int B, int D, Strides sq, Strides sk, Strides sv, float scale, int causal) {
+    using L = Dims<DP>;
+    // q and do fragments held in registers up to DP = 64, re-read from
+    // shared memory at 128, where dq takes 64 registers a thread
+    constexpr bool kQRegs = DP <= 64;
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* q_s = reinterpret_cast<bf16*>(smem);   // [kDqRows][DP + kPad]
+    bf16* do_s = q_s + kDqRows * L::kStride;      // [kDqRows][DP + kPad]
+    bf16* k_s = do_s + kDqRows * L::kStride;      // 2 stages
+    bf16* v_s = k_s + 2 * L::kTileElems;          // 2 stages
+    float* dl_s = reinterpret_cast<float*>(v_s + 2 * L::kTileElems);  // [kDqRows] delta
+
+    const int slices = H * B;
+    const int bh = blockIdx.x % slices;
+    const int h = bh % H, b = bh / H;
+    const int q0 =
+        ((Tq + kDqRows - 1) / kDqRows - 1 - static_cast<int>(blockIdx.x / slices)) * kDqRows;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wq0 = q0 + 16 * warp;  // this warp's first query
+
+    const bf16* qx = q + b * sq.b + h * sq.h;
+    const bf16* kx = k + b * sk.b + h * sk.h;
+    const bf16* vx = v + b * sv.b + h * sv.h;
+    const long long row_stride = static_cast<long long>(H) * D;  // of o, do and dq
+    const long long rows_base = (static_cast<long long>(b) * Tq * H + h) * D;
+    const bf16* ox = o + rows_base;
+    const bf16* dox = d_o + rows_base;
+    const long long stat_base = (static_cast<long long>(b) * H + h) * Tq;
+    const int wk = copy_width(kx, sk.t), wv = copy_width(vx, sv.t);
+    // keys past the block's last query are above the diagonal of every row
+    const int k_end = causal ? min(Tk, min(q0 + kDqRows, Tq)) : Tk;
+    const int n_tiles = (k_end + kTile - 1) / kTile;
+
+    stage_rows<DP, kDqRows, kDqThreads>(q_s, qx, sq.t, q0, Tq, D, copy_width(qx, sq.t));
+    stage_rows<DP, kDqRows, kDqThreads>(do_s, dox, row_stride, q0, Tq, D,
+                                        copy_width(dox, row_stride));
+    stage_rows<DP, kTile, kDqThreads>(k_s, kx, sk.t, 0, Tk, D, wk);
+    stage_rows<DP, kTile, kDqThreads>(v_s, vx, sv.t, 0, Tk, D, wv);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // delta = sum_d do * o over the warp's 16 rows in float32, from the
+    // staged do and the stored o: a row's DP / 8 chunks of 8 on as many
+    // lanes, closed by a butterfly, into dl_s and the delta buffer
+    {
+        constexpr int kRowsPass = 32 / L::kChunks;  // rows per pass
+        const int c = lane % L::kChunks;
+        const bool whole = D == DP && copy_width(ox, row_stride) == 16;
+#pragma unroll
+        for (int pass = 0; pass < 16 / kRowsPass; ++pass) {
+            const int rr = lane / L::kChunks + pass * kRowsPass;  // the warp's row
+            const int row = wq0 + rr;
+            float part = 0.0f;
+            if (row < Tq) {
+                const bf16* src = ox + row * row_stride + 8 * c;
+                const uint4 dw = *reinterpret_cast<const uint4*>(
+                    do_s + (16 * warp + rr) * L::kStride + 8 * c);
+                uint4 ow;
+                if (whole) {
+                    ow = *reinterpret_cast<const uint4*>(src);
+                } else {
+                    const unsigned short* hs = reinterpret_cast<const unsigned short*>(src);
+                    uint32_t w[4];
+#pragma unroll
+                    for (int p = 0; p < 4; ++p) {
+                        const uint32_t lo = 8 * c + 2 * p < D ? hs[2 * p] : 0u;
+                        const uint32_t hi = 8 * c + 2 * p + 1 < D ? hs[2 * p + 1] : 0u;
+                        w[p] = lo | (hi << 16);
+                    }
+                    ow = make_uint4(w[0], w[1], w[2], w[3]);
+                }
+                const uint32_t dws[4] = {dw.x, dw.y, dw.z, dw.w};
+                const uint32_t ows[4] = {ow.x, ow.y, ow.z, ow.w};
+#pragma unroll
+                for (int p = 0; p < 4; ++p) {
+                    const float2 df = unpack_bf16(dws[p]), of = unpack_bf16(ows[p]);
+                    part += df.x * of.x;
+                    part += df.y * of.y;
+                }
+            }
+#pragma unroll
+            for (int off = L::kChunks / 2; off > 0; off >>= 1) {
+                part += __shfl_xor_sync(kFull, part, off);
+            }
+            if (c == 0) dl_s[16 * warp + rr] = part;
+        }
+        __syncwarp();
+        if (lane < 16 && wq0 + lane < Tq) delta[stat_base + wq0 + lane] = dl_s[16 * warp + lane];
+    }
+    // rows g and g + 8 of the warp: lse in log2 units (-inf read as 0: every
+    // probability of such a row is masked) and delta
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = wq0 + g + 8 * r;
+        const float x = row < Tq ? lse[stat_base + row] : 0.0f;
+        lse2[r] = x == -CUDART_INF_F ? 0.0f : x * kLog2e;
+        dl[r] = dl_s[16 * warp + g + 8 * r];
+    }
+
+    uint32_t qf[kQRegs ? L::kK : 1][4], df[kQRegs ? L::kK : 1][4];
+    if constexpr (kQRegs) {
+#pragma unroll
+        for (int kk = 0; kk < L::kK; ++kk) {
+            load_a<DP>(qf[kk], q_s, 16 * warp, 16 * kk, lane);
+            load_a<DP>(df[kk], do_s, 16 * warp, 16 * kk, lane);
+        }
+    }
+    float acc[L::kN][4];
+#pragma unroll
+    for (int j = 0; j < L::kN; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    const float scale_log2 = scale * kLog2e;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            const int nxt = (it + 1) & 1;
+            stage_rows<DP, kTile, kDqThreads>(k_s + nxt * L::kTileElems, kx, sk.t,
+                                              (it + 1) * kTile, Tk, D, wk);
+            stage_rows<DP, kTile, kDqThreads>(v_s + nxt * L::kTileElems, vx, sv.t,
+                                              (it + 1) * kTile, Tk, D, wv);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // tile it has landed for every thread
+
+        const bf16* kt = k_s + (it & 1) * L::kTileElems;
+        const bf16* vt = v_s + (it & 1) * L::kTileElems;
+        if (wq0 < Tq) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int kh = 32 * half;       // the half's first key in the tile
+                const int k0 = it * kTile + kh;  // and in the slice
+                // a half past Tk, or wholly above the warp's rows, adds nothing
+                if (k0 >= Tk || (causal && k0 > wq0 + 15)) continue;
+                float s[4][4], dp[4][4];  // S and dP: 16 queries x 32 keys
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+                }
+#pragma unroll
+                for (int kk = 0; kk < L::kK; ++kk) {
+                    uint32_t qa[4], da[4];
+                    if constexpr (kQRegs) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            qa[e] = qf[kk][e];
+                            da[e] = df[kk][e];
+                        }
+                    } else {
+                        load_a<DP>(qa, q_s, 16 * warp, 16 * kk, lane);
+                        load_a<DP>(da, do_s, 16 * warp, 16 * kk, lane);
+                    }
+#pragma unroll
+                    for (int np = 0; np < 2; ++np) {
+                        uint32_t bb[4];
+                        load_b<DP>(bb, kt, kh + 16 * np, 16 * kk, lane);
+                        mma(s[2 * np], qa, bb[0], bb[1]);
+                        mma(s[2 * np + 1], qa, bb[2], bb[3]);
+                        load_b<DP>(bb, vt, kh + 16 * np, 16 * kk, lane);
+                        mma(dp[2 * np], da, bb[0], bb[1]);
+                        mma(dp[2 * np + 1], da, bb[2], bb[3]);
+                    }
+                }
+                // element masks only where the half crosses the end or the
+                // diagonal: key k0 + 2 t + 8 j + (e & 1) is visible to row r
+                // iff 8 j + (e & 1) <= lim[r] (a compare with an immediate);
+                // a masked score is -inf, whose ex2 is 0
+                if (k0 + 32 > Tk || (causal && k0 + 31 > wq0)) {
+                    int lim[2];
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        const int row = wq0 + g + 8 * r;
+                        lim[r] = (causal ? min(row, Tk - 1) : Tk - 1) - (k0 + 2 * t);
+                    }
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            if (8 * j + (e & 1) > lim[e >> 1]) s[j][e] = -CUDART_INF_F;
+                        }
+                    }
+                }
+                // P = 2^(S scale log2 e - lse log2 e), dS = P (dP - delta), in s
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float p = ex2(fmaf(s[j][e], scale_log2, -lse2[e >> 1]));
+                        s[j][e] = p * (dp[j][e] - dl[e >> 1]);
+                    }
+                }
+                // dq += dS k over the half's keys, dS rounded to bf16 as the A operand
+#pragma unroll
+                for (int kq = 0; kq < 2; ++kq) {
+                    uint32_t da[4];
+                    acc_to_a(da, s[2 * kq], s[2 * kq + 1]);
+#pragma unroll
+                    for (int np = 0; np < L::kK; ++np) {
+                        uint32_t bb[4];
+                        load_bt<DP>(bb, kt, kh + 16 * kq, 16 * np, lane);
+                        mma(acc[2 * np], da, bb[0], bb[1]);
+                        mma(acc[2 * np + 1], da, bb[2], bb[3]);
+                    }
+                }
+            }
+        }
+        __syncthreads();  // tile it has been read before its stage is refilled
+    }
+
+    const float mul[2] = {scale, scale};
+    store_rows<DP>(dq + rows_base, row_stride, acc, mul, wq0, Tq, D, lane);
+}
+
+// ---------------------------------------------------------------------------
 template <int DP>
 constexpr int fwd_smem_bytes() {
     return (kFwdRows + 4 * kTile) * Dims<DP>::kStride * static_cast<int>(sizeof(bf16));
+}
+template <int DP>
+constexpr int dq_smem_bytes() {
+    return (2 * kDqRows + 4 * kTile) * Dims<DP>::kStride * static_cast<int>(sizeof(bf16)) +
+           kDqRows * static_cast<int>(sizeof(float));
 }
 template <int DP>
 constexpr int dkv_smem_bytes() {
@@ -1045,6 +1250,282 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// float32 forward on the FMA units (the header's micro-tile design)
+namespace mt {
+
+// 4 warps a block.  (8, each taking 16 keys of 128-key tiles, ran 25%
+// faster at [4, 256, 2, 64], one block an SM, but 11% slower at [2, 1024,
+// 4, 64] and 70% slower at the learner's [8, 17, 16, 64], on an H100; its
+// ring would not fit at D = 128.)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;           // queries a block owns
+constexpr int kTile = 16 * kWarps;  // keys per ring stage, 16 a warp
+constexpr int kPad = 4;             // floats of padding per shared row
+constexpr int kPStride = 16 + kPad;  // floats per row of a warp's P tile
+// Blocks per SM the register budget must allow (at most 255 registers a
+// thread); a minimum keeps ptxas from trading registers for occupancy
+constexpr int kMinBlocks = 2;
+
+template <int DP>
+struct Dims {
+    static_assert(DP % 8 == 0 && DP >= 8 && DP <= 128, "8 lanes share a row's columns");
+    static constexpr int kStride = DP + kPad;           // floats per shared row
+    static constexpr int kTileElems = kTile * kStride;  // one [64][DP + 4] tile
+    static constexpr int kCols = DP / 8;                // o columns a lane holds
+    static constexpr int kVec = kCols < 4 ? kCols : 4;  // floats per vector read
+};
+
+// n consecutive floats from shared memory (n = 1, 2 or 4, aligned to n)
+template <int N>
+__device__ __forceinline__ void load_f(float (&x)[N], const float* p) {
+    if constexpr (N == 4) {
+        const float4 u = *reinterpret_cast<const float4*>(p);
+        x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w;
+    } else if constexpr (N == 2) {
+        const float2 u = *reinterpret_cast<const float2*>(p);
+        x[0] = u.x, x[1] = u.y;
+    } else {
+        x[0] = *p;
+    }
+}
+
+// forward: a 1-D grid of ceil(Tq / kRows) * H * B blocks, the last query
+// tiles first.  Lane 8 r + c of warp w: scores of rows q0 + r + 4 i against
+// keys 16 w + c + 8 j of each tile; o of rows q0 + r + 4 i at the columns
+// col(u, e) = 8 kVec u + kVec c + e.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, int H, int B, int D, Strides sq, Strides sk, Strides sv,
+                 float scale, int causal) {
+    using L = Dims<DP>;
+    constexpr int kS = L::kStride;
+    constexpr int kU = L::kCols / L::kVec;  // vector reads per o row
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* q_s = reinterpret_cast<float*>(smem);  // [kRows][DP + 4]
+    float* k_s = q_s + kRows * kS;                // 2 stages
+    float* v_s = k_s + 2 * L::kTileElems;         // 2 stages
+    float* p_s = v_s + 2 * L::kTileElems;         // [kWarps][16 keys][kPStride]
+    float* m_s = p_s + kWarps * 16 * kPStride;    // [kWarps][kRows] running max
+    float* l_s = m_s + kWarps * kRows;            // [kWarps][kRows] running sum
+    float* den_s = l_s + kWarps * kRows;          // [kRows] the rows' sums
+    float* part = k_s;  // [kWarps][kRows][DP]: the warps' o, once the ring is done
+
+    const int slices = H * B;
+    const int bh = blockIdx.x % slices;
+    const int h = bh % H, b = bh / H;
+    const int q0 = ((Tq + kRows - 1) / kRows - 1 - static_cast<int>(blockIdx.x / slices)) * kRows;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = lane >> 3, c = lane & 7;
+
+    const float* qx = q + b * sq.b + h * sq.h;
+    const float* kx = k + b * sk.b + h * sk.h;
+    const float* vx = v + b * sv.b + h * sv.h;
+    const int wk = tc::copy_width(kx, sk.t), wv = tc::copy_width(vx, sv.t);
+    // keys past the block's last query are above the diagonal of every row
+    const int k_end = causal ? min(Tk, min(q0 + kRows, Tq)) : Tk;
+    const int n_tiles = (k_end + kTile - 1) / kTile;
+
+    tc::stage_rows<DP, kRows, kThreads, kS>(q_s, qx, sq.t, q0, Tq, D, tc::copy_width(qx, sq.t));
+    tc::stage_rows<DP, kTile, kThreads, kS>(k_s, kx, sk.t, 0, Tk, D, wk);
+    tc::stage_rows<DP, kTile, kThreads, kS>(v_s, vx, sv.t, 0, Tk, D, wv);
+    tc::cp_async_commit();
+
+    float acc[4][L::kCols];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int n = 0; n < L::kCols; ++n) acc[i][n] = 0.0f;
+    }
+    // running max of this warp's visible scores and this lane's part of the
+    // running sum of exp(score - m), rows q0 + r + 4 i
+    float m[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[i] = -CUDART_INF_F, l[i] = 0.0f;
+    float* pw = p_s + warp * 16 * kPStride;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            const int nxt = (it + 1) & 1;
+            tc::stage_rows<DP, kTile, kThreads, kS>(k_s + nxt * L::kTileElems, kx, sk.t,
+                                                    (it + 1) * kTile, Tk, D, wk);
+            tc::stage_rows<DP, kTile, kThreads, kS>(v_s + nxt * L::kTileElems, vx, sv.t,
+                                                    (it + 1) * kTile, Tk, D, wv);
+        }
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+        __syncthreads();  // tile it has landed for every thread
+
+        const int kw = it * kTile + 16 * warp;  // the warp's first key
+        const float* kt = k_s + (it & 1) * L::kTileElems + 16 * warp * kS;
+        const float* vt = v_s + (it & 1) * L::kTileElems + 16 * warp * kS;
+        // keys past Tk, or wholly above the block's rows, add nothing
+        if (kw < Tk && (!causal || kw <= q0 + kRows - 1)) {
+            // S = q k^T, the 4 x 2 micro-tile, summed over D in order
+            float s[4][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.0f;
+#pragma unroll
+            for (int d = 0; d < DP; d += 4) {
+                float4 qv[4], kv[2];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    qv[i] = *reinterpret_cast<const float4*>(q_s + (r + 4 * i) * kS + d);
+                }
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    kv[j] = *reinterpret_cast<const float4*>(kt + (c + 8 * j) * kS + d);
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+                        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+                        s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+                        s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[i][0] *= scale, s[i][1] *= scale;
+            // element masks only where the warp's keys cross the end or the
+            // diagonal: key kw + c + 8 j is visible to row i iff 8 j <= lim[i]
+            if (kw + 16 > Tk || (causal && kw + 15 > q0)) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int row = q0 + r + 4 * i;
+                    const int lim = (causal ? min(row, Tk - 1) : Tk - 1) - (kw + c);
+                    if (0 > lim) s[i][0] = -CUDART_INF_F;
+                    if (8 > lim) s[i][1] = -CUDART_INF_F;
+                }
+            }
+            // online softmax: a row's max over its 8 lanes, then P = exp(s - m)
+            float p[4][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                float mx = fmaxf(s[i][0], s[i][1]);
+                mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+                mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+                mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+                const float m_new = fmaxf(m[i], mx);
+                // no visible key yet: exp(-inf - 0) = 0, never -inf - -inf
+                const float safe = m_new == -CUDART_INF_F ? 0.0f : m_new;
+                const float corr = expf(m[i] - safe);
+                p[i][0] = expf(s[i][0] - safe);
+                p[i][1] = expf(s[i][1] - safe);
+                l[i] = l[i] * corr + (p[i][0] + p[i][1]);
+                m[i] = m_new;
+#pragma unroll
+                for (int n = 0; n < L::kCols; ++n) acc[i][n] *= corr;
+            }
+            // P to the warp's tile, key-major: row 4 r + i of key c + 8 j
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                *reinterpret_cast<float4*>(pw + (c + 8 * j) * kPStride + 4 * r) =
+                    make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+            }
+            __syncwarp();
+            // o += P v over the warp's 16 keys, in key order
+#pragma unroll 4
+            for (int key = 0; key < 16; ++key) {
+                const float4 pv = *reinterpret_cast<const float4*>(pw + key * kPStride + 4 * r);
+                const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+                for (int u = 0; u < kU; ++u) {
+                    float vv[L::kVec];
+                    load_f<L::kVec>(vv, vt + key * kS + 8 * L::kVec * u + L::kVec * c);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                        for (int e = 0; e < L::kVec; ++e) {
+                            acc[i][L::kVec * u + e] = fmaf(pr[i], vv[e], acc[i][L::kVec * u + e]);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();  // tile it (and the P tiles) read before refilling
+    }
+
+    // combine the 4 warps' (m, l, o) in warp order
+    tc::cp_async_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        l[i] += __shfl_xor_sync(kFull, l[i], 1);
+        l[i] += __shfl_xor_sync(kFull, l[i], 2);
+        l[i] += __shfl_xor_sync(kFull, l[i], 4);
+        if (c == 0) {
+            m_s[warp * kRows + r + 4 * i] = m[i];
+            l_s[warp * kRows + r + 4 * i] = l[i];
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int row = r + 4 * i;
+        float mx = m_s[row];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * kRows + row]);
+        const float f = expf(m[i] - (mx == -CUDART_INF_F ? 0.0f : mx));
+        float* dst = part + (warp * kRows + row) * DP;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+#pragma unroll
+            for (int e = 0; e < L::kVec; ++e) {
+                dst[8 * L::kVec * u + L::kVec * c + e] = acc[i][L::kVec * u + e] * f;
+            }
+        }
+    }
+    if (threadIdx.x < kRows) {
+        const int row = threadIdx.x;
+        float mx = m_s[row];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * kRows + row]);
+        const float safe = mx == -CUDART_INF_F ? 0.0f : mx;
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+            sum += l_s[w * kRows + row] * expf(m_s[w * kRows + row] - safe);
+        }
+        const float denom = fmaxf(sum, 1e-30f);
+        den_s[row] = denom;
+        if (q0 + row < Tq) {
+            lse[(static_cast<long long>(b) * H + h) * Tq + q0 + row] =
+                sum > 0.0f ? mx + logf(denom) : -CUDART_INF_F;
+        }
+    }
+    __syncthreads();
+    const long long row_stride = static_cast<long long>(H) * D;
+    float* out = o + (static_cast<long long>(b) * Tq * H + h) * D;
+    // the block's [kRows][DP] outputs, consecutive threads on consecutive
+    // columns; DP is a constant, so the row and column cost no division
+    constexpr int kOut = kRows * DP;
+#pragma unroll
+    for (int i = 0; i < (kOut + kThreads - 1) / kThreads; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int row = idx / DP, col = idx % DP;
+        if ((kOut % kThreads != 0 && idx >= kOut) || col >= D || q0 + row >= Tq) continue;
+        float x = part[row * DP + col];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) x += part[(w * kRows + row) * DP + col];
+        // a division per element, as the plain version divides p by l: one
+        // rounded reciprocal would give every element of a row the same error
+        out[(q0 + row) * row_stride + col] = x / den_s[row];
+    }
+}
+
+template <int DP>
+constexpr int fwd_smem_bytes() {
+    return ((kRows + 4 * kTile) * Dims<DP>::kStride + kWarps * 16 * kPStride +
+            (2 * kWarps + 1) * kRows) * static_cast<int>(sizeof(float));
+}
+
+}  // namespace mt
+
+// ---------------------------------------------------------------------------
 struct Args {
     const void *q, *k, *v;
     int B, Tq, Tk, H, D;
@@ -1061,15 +1542,7 @@ dim3 grid_of(const Args& a, int rows) {
                 static_cast<unsigned>(a.B));
 }
 
-// The lane kernels (float32; bfloat16 dq)
-template <typename T, int DMAX>
-cudaError_t fwd(const Args& a, void* o, float* lse) {
-    flash_fwd_kernel<T, DMAX><<<grid_of<DMAX>(a, a.Tq), kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<T*>(o), lse, a.Tq, a.Tk, a.H, a.D, a.sq, a.sk, a.sv, a.scale, a.causal);
-    return cudaSuccess;
-}
-
+// The lane kernels (float32 dq and dk/dv)
 template <typename T, int DMAX>
 cudaError_t bwd_dq(const Args& a, const void* o, const void* d_o, const float* lse, void* dq,
                    float* delta) {
@@ -1109,6 +1582,21 @@ cudaError_t fwd(const Args& a, void* o, float* lse) {
 }
 
 template <int DP>
+cudaError_t bwd_dq(const Args& a, const void* o, const void* d_o, const float* lse, void* dq,
+                   float* delta) {
+    const unsigned blocks = grid_of(a.Tq, kDqRows, a.H, a.B);
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+    const cudaError_t err = allow_smem(flash_bwd_dq_kernel<DP>, dq_smem_bytes<DP>());
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<DP><<<blocks, kDqThreads, dq_smem_bytes<DP>(), a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(o), static_cast<const bf16*>(d_o),
+        lse, static_cast<bf16*>(dq), delta, a.Tq, a.Tk, a.H, a.B, a.D, a.sq, a.sk, a.sv, a.scale,
+        a.causal);
+    return cudaSuccess;
+}
+
+template <int DP>
 cudaError_t bwd_dkv(const Args& a, const void* d_o, const float* lse, const float* delta,
                     void* dk, void* dv) {
     const unsigned blocks = grid_of(a.Tk, kRows, a.H, a.B);
@@ -1124,6 +1612,23 @@ cudaError_t bwd_dkv(const Args& a, const void* d_o, const float* lse, const floa
 }
 
 }  // namespace tc
+
+namespace mt {
+
+template <int DP>
+cudaError_t fwd(const Args& a, void* o, float* lse) {
+    const unsigned blocks = tc::grid_of(a.Tq, kRows, a.H, a.B);
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+    const cudaError_t err = tc::allow_smem(flash_fwd_kernel<DP>, fwd_smem_bytes<DP>());
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<DP><<<blocks, kThreads, fwd_smem_bytes<DP>(), a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(o), lse, a.Tq, a.Tk, a.H, a.B, a.D,
+        a.sq, a.sk, a.sv, a.scale, a.causal);
+    return cudaSuccess;
+}
+
+}  // namespace mt
 
 // Pick the instantiation for the smallest built head dim DMAX >= D (8, 16,
 // 32, 64, 128) and set err = CALL(DMAX).  Columns D..DMAX-1 ride as zeros.
@@ -1192,7 +1697,7 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
                                           const long long* strides, float scale, int causal,
                                           int dtype, void* stream) {
     const Args a = make_args(q, k, v, B, Tq, Tk, H, D, strides, scale, causal, stream);
-#define CALL_FWD(DMAX) fwd<float, DMAX>(a, o, lse)
+#define CALL_FWD(DMAX) mt::fwd<DMAX>(a, o, lse)
 #define CALL_FWD_TC(DMAX) tc::fwd<tc::padded(DMAX)>(a, o, lse)
     FLASH_DISPATCH(a, dtype, CALL_FWD, CALL_FWD_TC);
 #undef CALL_FWD
@@ -1206,7 +1711,7 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const
                                              int causal, int dtype, void* stream) {
     const Args a = make_args(q, k, v, B, Tq, Tk, H, D, strides, scale, causal, stream);
 #define CALL_DQ(DMAX) bwd_dq<float, DMAX>(a, o, d_o, lse, dq, delta)
-#define CALL_DQ_BF16(DMAX) bwd_dq<__nv_bfloat16, DMAX>(a, o, d_o, lse, dq, delta)
+#define CALL_DQ_BF16(DMAX) tc::bwd_dq<tc::padded(DMAX)>(a, o, d_o, lse, dq, delta)
     FLASH_DISPATCH(a, dtype, CALL_DQ, CALL_DQ_BF16);
 #undef CALL_DQ
 #undef CALL_DQ_BF16

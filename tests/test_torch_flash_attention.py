@@ -11,9 +11,11 @@ inputs (5e-2).  Besides: top-left causal masking with Tq != Tk against a
 numpy oracle, lse against a direct log-sum-exp and against the Pallas
 forward's, and the inputs the op refuses.  The CUDA kernels run only on a
 card (``chip_smoke.py`` phase ``flash_attn``); their bfloat16 arithmetic
-(the tensor-core forward and dk/dv, which round P and dS to bfloat16
+(the tensor-core forward, dq and dk/dv, which round P and dS to bfloat16
 before their products) is emulated here tile by tile and held against the
-Pallas kernels and the float32 reference at the card check's tolerance.
+Pallas kernels and the float32 reference at the card check's tolerance, and
+so is the float32 forward's summation order (keys split across warps,
+combined in warp order).
 """
 
 import jax
@@ -217,11 +219,13 @@ def _tensor_core_emulation(q, k, v, do, causal, scale, tile=64):
     64, S = q k^T from exact bf16 products summed in float32, an online
     softmax on exp2 with the scale (times log2 e) applied to S in float32,
     P rounded to bf16 before P v, o = acc / l rounded to bf16, lse = m ln 2
-    + log l.  dq (the
-    lane kernel) in float32 with delta = sum do * o from the rounded o.
-    dk/dv (tc::flash_bwd_dkv_kernel): query tiles of 64, P^T = exp2(S^T
-    scale log2 e - lse log2 e), dS^T = P^T (dP^T - delta), both rounded to
-    bf16 before dv += P^T do and dk += dS^T q; scale times dk at the end.
+    + log l.  dq (tc::flash_bwd_dq_kernel): delta = sum do * o in float32
+    from the rounded o; key tiles of 64, P = exp2(S scale log2 e - lse
+    log2 e), dS = P (dP - delta) rounded to bf16 before dq += dS k, summed
+    over the tiles in float32; scale times dq at the end.  dk/dv
+    (tc::flash_bwd_dkv_kernel): query tiles of 64, the same P^T and dS^T,
+    both rounded to bf16 before dv += P^T do and dk += dS^T q; scale times
+    dk at the end.
     """
     q, k, v, do = (t.float() for t in (q, k, v, do))  # bf16 values, exactly
     B, Tq, H, D = q.shape
@@ -257,7 +261,11 @@ def _tensor_core_emulation(q, k, v, do, causal, scale, tile=64):
     p = torch.where(mask, torch.exp2(s * (scale * LOG2E) - row_lse[..., None] * LOG2E), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
     ds = p * (dp - delta[..., None])
-    dq = _bf16(torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale)
+    dq = torch.zeros(B, Tq, H, D)
+    for k0 in range(0, Tk, tile):
+        sl = slice(k0, k0 + tile)
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", _bf16(ds[..., sl]), k[:, sl])
+    dq = _bf16(dq * scale)
     dk = torch.zeros(B, Tk, H, D)
     dv = torch.zeros(B, Tk, H, D)
     for i0 in range(0, Tq, tile):
@@ -283,10 +291,13 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [
     (8, 17, 17, 16, 64, True),  # the transformer learner's attention
     (1, 70, 150, 2, 32, True),  # ragged, cross lengths, causal top-left
-], ids=["learner_8x17x16x64", "ragged_cross_70_150"])
+    (1, 80, 80, 1, 128, True),  # D = 128: the padded head dims' widest
+    (1, 100, 40, 2, 16, False),  # not causal, Tq > Tk, keys in one ragged tile
+], ids=["learner_8x17x16x64", "ragged_cross_70_150", "D128_T80", "full_cross_100_40"])
 def test_bf16_tensor_core_arithmetic_stays_inside_the_card_tolerance(B, Tq, Tk, H, D, causal):
     """Rounding P and dS to bf16 before their products, as the bf16 kernels
-    do, keeps o and every gradient within 2^-6 of the largest element of the
+    (forward, dq, dk/dv) do, keeps o and every gradient within 2^-6 of the
+    largest element of the
     float32 reference and of the Pallas kernels (interpret mode), and lse
     within 2e-5: the bounds of the card check, and well inside the 2^-4 the
     bf16 learner's gradients are held to."""
@@ -298,7 +309,8 @@ def test_bf16_tensor_core_arithmetic_stays_inside_the_card_tolerance(B, Tq, Tk, 
     emu = _tensor_core_emulation(q, k, v, do, causal, scale)
     ref = _float32_reference(q, k, v, do, causal, scale)
     names = ("o", "lse", "dq", "dk", "dv")
-    assert torch.equal(emu[0][:, 0], v.float()[:, 0]), "causal row 0 is v[0] exactly"
+    if causal:
+        assert torch.equal(emu[0][:, 0], v.float()[:, 0]), "causal row 0 is v[0] exactly"
     assert (emu[1] - ref[1]).abs().max().item() <= LSE_TOL
     for name, e, r in zip(names, emu, ref):
         if name != "lse":
@@ -315,3 +327,66 @@ def test_bf16_tensor_core_arithmetic_stays_inside_the_card_tolerance(B, Tq, Tk, 
     for name, e, j in zip(("o", "dq", "dk", "dv"), (emu[0],) + emu[2:], (jo,) + tuple(jgrads)):
         want = torch.tensor(np.asarray(j, np.float32))
         assert _rel_err(e, want) <= BF16_REL_TOL, (name, _rel_err(e, want))
+
+
+def _micro_tile_forward(q, k, v, causal, scale, tile=64, warps=4):
+    """The float32 forward's summation order in plain torch: o, lse.
+
+    csrc/flash_attention.cu, mt::flash_fwd_kernel: key tiles of 64, warp w
+    taking keys 16 w .. 16 w + 15 of each; a warp's scores q . k times
+    scale, masked to -inf, and its own online softmax in natural exp (m its
+    running max, l its sum, o its P v); the warps' partials combined in
+    warp order at the end: M = max m_w, o = sum_w exp(m_w - M) o_w / L (a
+    division per element), L = sum_w exp(m_w - M) l_w, lse = M + log L
+    (-inf where L = 0).
+    """
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    per = tile // warps
+    rows = torch.arange(Tq)[:, None]
+    neg_inf = torch.tensor(float("-inf"))
+    m = torch.full((warps, B, H, Tq), float("-inf"))
+    l = torch.zeros(warps, B, H, Tq)
+    acc = torch.zeros(warps, B, H, Tq, D)
+    for k0 in range(0, Tk, tile):
+        for w in range(warps):
+            lo = k0 + per * w
+            kt, vt = k[:, lo:lo + per], v[:, lo:lo + per]
+            if kt.shape[1] == 0:
+                continue
+            s = torch.einsum("bqhd,bkhd->bhqk", q, kt) * scale
+            if causal:
+                s = torch.where(torch.arange(lo, lo + kt.shape[1])[None, :] <= rows, s, neg_inf)
+            m_new = torch.maximum(m[w], s.amax(-1))
+            safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            corr = torch.exp(m[w] - safe)
+            p = torch.exp(s - safe[..., None])
+            l[w] = l[w] * corr + p.sum(-1)
+            acc[w] = acc[w] * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vt)
+            m[w] = m_new
+    mx = m.amax(0)
+    safe = torch.where(torch.isneginf(mx), 0.0, mx)
+    f = torch.exp(m - safe)
+    total = (l * f).sum(0)
+    denom = total.clamp(min=1e-30)
+    o = ((acc * f[..., None]).sum(0) / denom[..., None]).permute(0, 2, 1, 3)
+    lse = torch.where(total > 0, mx + torch.log(denom), neg_inf)
+    return o, lse
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal,block", [
+    (1, 100, 100, 2, 16, True, 32),  # ragged causal: two 64-key tiles, the last partial
+    (1, 24, 150, 2, 8, False, 16),  # cross lengths: three tiles, warps past Tk idle
+], ids=["ragged_causal_T100", "cross_24_150"])
+def test_float32_micro_tile_forward_matches_pallas(B, Tq, Tk, H, D, causal, block):
+    """The float32 forward's key split across warps and its warp-order
+    combine give the Pallas kernel's o (interpret mode) within the card
+    check's 2e-5, and the log-sum-exp of a float64 oracle."""
+    q, k, v = _inputs(21, B, Tq, Tk, H, D)
+    scale = 1.0 / np.sqrt(D)
+    o, lse = _micro_tile_forward(*(torch.tensor(x) for x in (q, k, v)), causal, scale)
+    want = _jax(q, k, v, causal, block=block)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=VALUE_TOL, rtol=VALUE_TOL)
+    want_o, want_lse = _oracle(q, k, v, causal)
+    np.testing.assert_allclose(o.numpy(), want_o, atol=VALUE_TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=LSE_TOL, rtol=0)
