@@ -106,14 +106,16 @@ no result line:
     (D = 128, causal and not, a ragged T = 200, bf16), cross lengths 24/56
     and 256/1024 (causal top-left aligned and not), D in {8, 16, 32}, a
     ``[1, 4096, 8, 64]`` bf16 context, float32 views whose rows sit 8 and 4
-    bytes off 16 (the micro-tile forward's narrower copies), and in bf16
-    (the tensor-core forward, dq and dk/dv) D in {8, 16, 32, 128}, T = 200,
-    both cross lengths causal and not, and views whose rows sit 8, 4 and 2
-    bytes off 16.  o, lse, dq, dk and dv each within ``FLASH_*_TOL``, two
-    runs bit-equal, causal row 0 equal to v[0]; the autograd function
-    bit-equal to the direct calls.  Each kernel's time by CUDA-graph replay
-    at five shapes (``FLASH_TIMED``) beside the plain version, SDPA, the
-    bound and its share of the bf16 operations bound.
+    bytes off 16 (the float32 micro-tile forward, dq and dk/dv's narrower
+    copies), and in bf16 (the tensor-core forward, dq and dk/dv) D in {8,
+    16, 32, 128}, T = 200, both cross lengths causal and not, and views
+    whose rows sit 8, 4 and 2 bytes off 16.  o, lse, dq, dk and dv each
+    within ``FLASH_*_TOL``, two runs bit-equal, causal row 0 equal to v[0];
+    the autograd function bit-equal to the direct calls.  Each kernel's time
+    by CUDA-graph replay at six shapes (``FLASH_TIMED``: the learner's in
+    bf16 and in float32, T = 256 in both, T = 1024 float32, T = 4096 bf16)
+    beside the plain version, SDPA, the bound and its share of the bf16
+    operations bound.
 18. ``transformer_learn``: the transformer-policy IMPALA learner at
     ``bench.py --mode sharded``'s width (d=1024, 8 layers, 16 heads, T=16,
     B=8, obs 64, 16 actions; 100.8M parameters): the flash model on the
@@ -132,8 +134,8 @@ no result line:
     three steps under ``torch.profiler`` (``transformer_train_profile``).
 20. ``flash_train_step``: the JAX package's compiled flash train-step check
     at T = 256 (d=128, 2 heads, 2 layers, one Adam step), flash against the
-    plain attention, in float32 (the micro-tile forward, the lane dq and
-    dk/dv; 2 launches of each).
+    plain attention, in float32 (the micro-tile forward, dq and dk/dv; 2
+    launches of each).
 
 Then a line with the card, a ``{"kernels": [...]}`` line (ten kernels; the
 three flash kernels at the learner's bf16 shape, through the tensor cores),
@@ -255,26 +257,42 @@ def phase_device(report: dict) -> None:
          capability=list(torch.cuda.get_device_capability(0)))
 
 
+def _kernel_name(mangled: str):
+    """A flash kernel instantiation's readable name from its mangled one
+    (``tc::flash_bwd_dq_kernel<64>``, ``mt::flash_bwd_dkv_kernel<128>``), or
+    None for another function."""
+    import re
+
+    m = re.search(r"(?:(\d)(tc|mt))?\d+(flash_\w+?_kernel)I(\w*?)EEv", mangled)
+    if m is None:
+        return None
+    args = (["float"] if m.group(4).startswith("f") else []) + re.findall(r"Li(\d+)E", m.group(4))
+    return f"{m.group(2) + '::' if m.group(2) else ''}{m.group(3)}<{', '.join(args)}>"
+
+
 def _registers(log: str) -> dict:
-    """ptxas's registers per flash kernel instantiation, by a readable name
-    (``tc::flash_bwd_dq_kernel<64>``, ``mt::flash_fwd_kernel<64>``, the lane
-    ``flash_bwd_dkv_kernel<float, 64>``)."""
+    """ptxas's registers per flash kernel instantiation, by ``_kernel_name``."""
     import re
 
     out, name = {}, None
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            mangled = ln.split("Function properties for", 1)[1].strip()
-            m = re.search(r"(?:(\d)(tc|mt))?\d+(flash_\w+?_kernel)I(\w*?)EEv", mangled)
-            if m is None:
-                name = None
-                continue
-            args = (["float"] if m.group(4).startswith("f") else []) + re.findall(r"Li(\d+)E",
-                                                                                 m.group(4))
-            name = f"{m.group(2) + '::' if m.group(2) else ''}{m.group(3)}<{', '.join(args)}>"
+            name = _kernel_name(ln.split("Function properties for", 1)[1].strip())
         elif name and "Used" in ln and "registers" in ln:
             out[name] = int(re.search(r"Used (\d+) registers", ln).group(1))
             name = None
+    return out
+
+
+def _spills(log: str) -> list:
+    """Each ptxas line that reports a spill, under the function it names
+    just before it."""
+    out, function = [], "?"
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            function = ln.split("Function properties for", 1)[1].strip()
+        elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
+            out.append(f"{function}: {ln.strip()}")
     return out
 
 
@@ -291,15 +309,7 @@ def phase_build(report: dict) -> None:
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
     }
-    # each spill line under the function ptxas names just before it
-    spills = []
-    for name, log in logs.items():
-        function = "?"
-        for ln in log.splitlines():
-            if "Function properties for" in ln:
-                function = ln.split("Function properties for", 1)[1].strip()
-            elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
-                spills.append(f"{name}: {function}: {ln.strip()}")
+    spills = [f"{name}: {line}" for name, log in logs.items() for line in _spills(log)]
     emit("build", seconds=seconds, sources=list(cuda_build.KERNEL_SOURCES), ptxas=ptxas,
          spill_free=not spills, flash_registers=_registers(logs.get("flash_attention", "")))
     if spills:
@@ -2027,16 +2037,17 @@ SHARD_HEAD_DIM = SHARD_D // SHARD_HEADS
 SHARD_TRAIN_S = 15.0
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # the flash kernels against the plain version.  float32: the same products
-# summed in another order (the forward's online softmax over each warp's 16
-# keys of a tile, its warps combined in order; dq's and dk/dv's lane
-# butterflies over D; against one softmax and two einsums); the JAX package
-# pins its kernel to its reference at 2e-5 on values.  lse is m + log(l) of
-# the same sums.  Gradients are held relative to each gradient's largest
-# element.  bfloat16 inputs: both sides accumulate in float32 (the plain
-# version on the upcast inputs); the kernel rounds o, dq, dk, dv to bfloat16
-# once (half a step is 2^-9 relative) and reads o and do rounded, so they may
-# differ by a step of the largest element (2^-7) and the plain version's own
-# float32 noise: 2^-6 of the largest.  The tensor-core forward, dq and dk/dv
+# summed in another order (each warp of the micro-tile kernels sums over its
+# 16 rows of a tile -- the forward's online softmax and dq over keys, dk/dv
+# over queries -- and the warps combine in order; against one softmax and
+# two einsums); the JAX package pins its kernel to its reference at 2e-5 on
+# values.  lse is m + log(l) of the same sums.  Gradients are held relative
+# to each gradient's largest element.  bfloat16 inputs: both sides
+# accumulate in float32 (the plain version on the upcast inputs); the kernel
+# rounds o, dq, dk, dv to bfloat16 once (half a step is 2^-9 relative) and
+# reads o and do rounded, so they may differ by a step of the largest
+# element (2^-7) and the plain version's own float32 noise: 2^-6 of the
+# largest.  The tensor-core forward, dq and dk/dv
 # also round P and dS to bfloat16 before their products (2^-9 relative each,
 # independent errors that average over the keys); the CPU test of that
 # arithmetic holds it inside the same 2^-6
@@ -2238,7 +2249,7 @@ FLASH_LAYOUTS = [
     ("bf16_D20_views_8B", (2, 40, 40, 4, 20), "bfloat16", True, True),
     ("bf16_D6_views_4B", (1, 20, 20, 2, 6), "bfloat16", True, True),
     ("bf16_D7_views_2B", (1, 20, 20, 3, 7), "bfloat16", True, True),
-    # the float32 micro-tile forward's narrower copies: the odd heads of a
+    # the float32 micro-tile kernels' narrower copies: the odd heads of a
     # D = 6 projection sit 8 bytes off 16, of D = 7 4 bytes
     ("f32_D6_views_8B", (1, 20, 20, 2, 6), "float32", True, True),
     ("f32_D7_views_4B", (1, 20, 20, 3, 7), "float32", True, True),
@@ -2247,10 +2258,12 @@ FLASH_LAYOUTS = [
 # launches per graph
 FLASH_TIMED = {
     "main_path": ((SHARD_B, SHARD_T + 1, SHARD_HEADS, SHARD_HEAD_DIM), "bfloat16", True, 200),
+    # the learner's float32 leg (bf16_params off, ImpalaArguments' default)
+    "main_path_f32": ((SHARD_B, SHARD_T + 1, SHARD_HEADS, SHARD_HEAD_DIM), "float32", True, 200),
     "T256_f32": ((4, 256, 2, 64), "float32", False, 50),
     "T256_bf16": ((4, 256, 2, 64), "bfloat16", False, 50),
     "long_T4096_bf16": ((1, 4096, 8, 64), "bfloat16", False, 10),
-    # the float32 forward where operations, not latency, bound it
+    # the float32 kernels where operations, not latency, bound them
     "T1024_f32": ((2, 1024, 4, 64), "float32", False, 10),
 }
 

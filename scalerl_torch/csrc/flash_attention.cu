@@ -14,46 +14,48 @@
 // The output is in q's type and lse [B, H, Tq] in float32.  A query with
 // no visible key gives exact zeros and lse = -inf.
 //
-// Three designs.  bfloat16 runs on the tensor cores (namespace tc): the
-// forward, dq and dk/dv.  The float32 forward runs the micro-tile design
-// (namespace mt); float32 dq and dk/dv run the lane design.  float32 stays
-// off the tensor cores on purpose: the kernels compute exact float32 (FMAs,
-// expf and logf), and a TF32 product would be another result.
+// Two designs.  bfloat16 runs on the tensor cores (namespace tc) and
+// float32 in register-blocked micro-tiles on the FMA units (namespace mt):
+// the forward, dq and dk/dv each.  float32 stays off the tensor cores on
+// purpose: the kernels compute exact float32 (FMAs, expf and logf), and a
+// TF32 product would be another result.
 //
-// Lane design (float32 dq and dk/dv): a block of kThreads = 128 threads
-// owns kRows consecutive rows of one (batch row, head) -- queries in the dq
-// kernel, keys in the dk/dv kernel -- and splits each row's head dim over
-// kLanes = DMAX / 8 neighbouring lanes of a warp, 8 elements a lane, so a
-// row vector costs each thread 8 registers whatever D is (one thread per
-// row spilled at D = 64 in csrc/segment_attention.cu).  A lane holds
-// elements 4 * sub + {0..3} and DMAX / 2 + 4 * sub + {0..3}, so the lanes
-// of a row read two runs of consecutive float4s from shared memory.  An
-// inner product is 8 FMAs and a butterfly of log2(kLanes) shuffles; the
-// butterfly adds the same two values on both lanes of every pair, so all
-// lanes of a row hold the same score bit for bit and take the same masking
-// and softmax decisions.  The other axis is walked in tiles of kTile = 32
-// rows staged in shared memory as float32 (rows past the end and columns
-// past D as zeros).  q enters both kernels multiplied by scale; dq gets the
-// second factor when it is stored and dk gets none.
-//
-// Micro-tile design (float32 forward; an SGEMM's register blocking on the
-// FMA units, for latency: the lane design's per-key chain of dot, butterfly,
-// expf and axpy left an SM idle between its few warps).  A block of 4 warps
-// owns 16 queries of one (batch row, head), stages them once, and streams
-// the keys through a 2-stage cp.async ring of 64-key tiles; warp w takes
-// keys 16 w .. 16 w + 15 of every tile.  Lane 8 r + c computes the 4 x 2
-// micro-tile of scores of rows r + 4 i (i < 4) against keys c and c + 8 of
-// its warp's 16: float4 reads of q and k rows from shared memory feed 32
-// independent FMAs per 4 columns of D, with no shuffle.  Shared rows are
-// padded by 4 floats, so the 4 q rows and 8 k rows a read touches fall in
-// distinct bank groups.  A row's max closes once per tile over its 8 lanes
-// (3 shuffles); P passes through a per-warp shared tile to the o += P v
-// micro-tile (rows r + 4 i by D / 8 columns of lane c).  Each warp keeps
-// its own running (m, l, o) over its keys; at the end the 4 partials are
-// combined through shared memory in warp order (so repeats stay bit-equal)
-// and o is divided by the row's sum element by element.
-// The short query tile gives [4, 256, 2, 64] 128 blocks on 132 SMs, and the
-// key split gives each block 4 warps of independent work along its walk.
+// Micro-tile design (float32; an SGEMM's register blocking on the FMA units,
+// for latency: a design with one row on D / 8 lanes of a warp ran a
+// dependent chain of dot, butterfly, expf and axpy per pair and left an SM
+// idle between its few warps).  A block of 4 warps owns 16 rows of one
+// (batch row, head) -- queries in the forward and dq, keys in dk/dv --
+// stages their operands once, and streams the other axis through a 2-stage
+// cp.async ring of 64-row tiles; warp w takes rows 16 w .. 16 w + 15 of
+// every tile.  Lane 8 r + c computes the 4 x 2 micro-tile of the block's
+// rows r + 4 i (i < 4) against rows c and c + 8 of its warp's 16: float4
+// reads of both sides from shared memory feed 32 independent FMAs per
+// product and 4 columns of D, with no shuffle.  Shared rows are padded by 4
+// floats, so the 4 rows of one side and the 8 of the other that a read
+// touches fall in distinct bank groups.  The probabilities (and dS) pass
+// through per-warp shared tiles into the accumulating products, which are
+// micro-tiled the other way: the block's rows r + 4 i by D / 8 columns of
+// lane c.  Each warp sums over its own rows of the streamed axis; at the
+// end the 4 partials are combined through shared memory (the ring, done by
+// then) in warp order, so repeats stay bit-equal.
+//   Forward: S = q k^T times scale; a row's max closes once per tile over
+//   its 8 lanes (3 shuffles); each warp keeps its own running (m, l, o),
+//   and the combine rescales them to the block's max and divides o by the
+//   row's sum element by element.
+//   dq: q and do stay resident, with each row's lse (-inf read as 0) and
+//   delta = sum_d do * o, which the block computes first from the staged
+//   do and the stored o (8 lanes a row in a fixed order, 3 shuffles) and
+//   writes for the dk/dv kernel.  Per key tile, S = q k^T and dP = do v^T
+//   in one pass over D, P = exp(S scale - lse) (masked to 0), and dS = P
+//   (dP - delta) through the warp's tile into dq += dS k; scale multiplies
+//   dq once, at the store.
+//   dk/dv: k and v stay resident; q, do, lse and delta tiles stream.  Per
+//   query tile, S^T = k q^T and dP^T = v do^T, P^T = exp(S^T scale - lse),
+//   dS^T = P^T (dP^T - delta), both through the warp's tiles into dv +=
+//   P^T do and dk += dS^T q; scale multiplies dk once, at the store.  S^T
+//   is dq's S, the same FMA chain, so both kernels see one P.
+// The short tile gives [4, 256, 2, 64] 128 blocks on 132 SMs, and the split
+// of the streamed axis gives each block 4 warps of independent work.
 //
 // Tensor-core design (bfloat16 forward, dq and dk/dv; FlashAttention-2 on
 // mma.sync.m16n8k16 bf16 -> f32): each warp owns 16 rows of one (batch row,
@@ -96,7 +98,7 @@
 //   Row addresses: a (batch row, head) slice whose rows are not 16-byte
 //   aligned (odd heads of a fused projection at D = 20) takes 8- or 4-byte
 //   cp.async copies, and a 2-byte aligned one plain loads, all in the
-//   kernel, never a copy in the wrapper.  The float32 forward stages the
+//   kernel, never a copy in the wrapper.  The float32 kernels stage the
 //   same way (float32 rows are 4-byte aligned at least).
 //   Grid: one dimension, the longest causal walk first (the forward's and
 //   dq's last query tiles, dk/dv's first key tiles), so the last wave is
@@ -120,8 +122,8 @@
 // row with no visible key keeps l = 0 -> o = 0, lse = -inf.  The backward
 // reads lse = -inf as 0, where every probability of that row is masked.
 //
-// No atomics: every sum runs in a fixed order inside one block (lane
-// butterflies, quad shuffles, mma accumulation, the float32 forward's
+// No atomics: every sum runs in a fixed order inside one block (8-lane
+// butterflies, quad shuffles, mma accumulation, the float32 kernels'
 // warp-order combine), dq over query tiles, dk and dv over key tiles, so
 // values and gradients repeat bit for bit.  delta =
 // sum_d do * o is computed by the dq kernel and written to a [B, H, Tq]
@@ -138,8 +140,7 @@
 // forward, 6 D for dq and 8 D for dk/dv: on bf16 inputs the tensor cores'
 // 989 TFLOP/s set the bound, which the tensor-core kernels approach through
 // mma.sync (wgmma with TMA is the later step); the float32 kernels run
-// outside the tensor cores (67 TFLOP/s), in FMAs (and shuffles in the lane
-// design).
+// outside the tensor cores (67 TFLOP/s), in FMAs.
 //
 // Numerics: expf and logf in the float32 kernels (no fast math); in the
 // tensor-core kernels the special-function unit's ex2.approx (about 2 ulp,
@@ -155,248 +156,15 @@
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kThreads = 128;  // threads per block
-// Blocks per SM the register budget must allow: 65536 / (4 * 128) = 128
-// registers a thread.  With no minimum, ptxas cut one head-dim-16
-// instantiation to 64 registers to keep 8 blocks resident, and spilled.
-constexpr int kMinBlocks = 4;
-constexpr int kVec = 8;        // elements of a row each lane holds
-constexpr int kTile = 32;      // rows of the other axis per shared-memory tile
 constexpr unsigned kFull = 0xffffffffu;
-
-static_assert(kTile <= kThreads, "a tile's stats stage in one pass");
 
 struct Strides {
     long long b, t, h;  // in elements; the stride along D is 1
 };
 
-template <int DMAX>
-struct Layout {
-    static constexpr int kLanes = DMAX / kVec;         // lanes per row
-    static constexpr int kRows = kThreads / kLanes;    // rows a block owns
-    static constexpr int kHalf = DMAX / 2;             // offset of a lane's second float4
-    static_assert(DMAX % kVec == 0 && kLanes >= 1 && kLanes <= kWarp && kWarp % kLanes == 0,
-                  "a row's lanes sit inside one warp");
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// the head-dim column of register slot r of lane `sub`
-template <int DMAX>
-__device__ __forceinline__ int col(int sub, int r) {
-    return (r >> 2) * Layout<DMAX>::kHalf + sub * 4 + (r & 3);
-}
-
-// sum over the kLanes lanes of a row; every lane gets the same total
-template <int LANES>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-    for (int off = LANES / 2; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-    return x;
-}
-
-// this lane's 8 elements of one row of x, times `mul` (zeros past D or off the end)
-template <typename T, int DMAX>
-__device__ __forceinline__ void load_vec(float (&reg)[kVec], const T* __restrict__ x,
-                                         long long offset, int sub, bool live, int D, float mul) {
-#pragma unroll
-    for (int r = 0; r < kVec; ++r) {
-        const int d = col<DMAX>(sub, r);
-        reg[r] = (live && d < D) ? to_float(x[offset + d]) * mul : 0.0f;
-    }
-}
-
-// rows [r0, r0 + kTile) of x into a float32 tile, times `mul`; rows past n
-// and columns past D read as zero
-template <typename T, int DMAX>
-__device__ __forceinline__ void stage_tile(float (*tile)[DMAX], const T* __restrict__ x,
-                                           long long base, long long stride_t, int r0, int n,
-                                           int D, float mul) {
-    for (int idx = threadIdx.x; idx < kTile * DMAX; idx += kThreads) {
-        const int r = idx / DMAX;
-        const int d = idx - r * DMAX;
-        const int row = r0 + r;
-        tile[r][d] = (row < n && d < D) ? to_float(x[base + row * stride_t + d]) * mul : 0.0f;
-    }
-}
-
-// this lane's part of reg . row
-template <int DMAX>
-__device__ __forceinline__ float dot_part(const float (&reg)[kVec], const float* row, int sub) {
-    const float4 a = *reinterpret_cast<const float4*>(row + sub * 4);
-    const float4 c = *reinterpret_cast<const float4*>(row + Layout<DMAX>::kHalf + sub * 4);
-    float acc = reg[0] * a.x;
-    acc += reg[1] * a.y;
-    acc += reg[2] * a.z;
-    acc += reg[3] * a.w;
-    acc += reg[4] * c.x;
-    acc += reg[5] * c.y;
-    acc += reg[6] * c.z;
-    acc += reg[7] * c.w;
-    return acc;
-}
-
-// reg += w * (this lane's part of row)
-template <int DMAX>
-__device__ __forceinline__ void axpy_part(float (&reg)[kVec], float w, const float* row, int sub) {
-    const float4 a = *reinterpret_cast<const float4*>(row + sub * 4);
-    const float4 c = *reinterpret_cast<const float4*>(row + Layout<DMAX>::kHalf + sub * 4);
-    reg[0] += w * a.x;
-    reg[1] += w * a.y;
-    reg[2] += w * a.z;
-    reg[3] += w * a.w;
-    reg[4] += w * c.x;
-    reg[5] += w * c.y;
-    reg[6] += w * c.z;
-    reg[7] += w * c.w;
-}
-
-// store this lane's 8 elements of a row (columns past D skipped)
-template <typename T, int DMAX>
-__device__ __forceinline__ void store_vec(T* __restrict__ out, const float (&reg)[kVec], int sub,
-                                          int D, float mul) {
-#pragma unroll
-    for (int r = 0; r < kVec; ++r) {
-        const int d = col<DMAX>(sub, r);
-        if (d < D) store(out + d, reg[r] * mul);
-    }
-}
-
 // ---------------------------------------------------------------------------
-// float32 dq (and delta): grid (ceil(Tq / kRows), H, B), one query per kLanes lanes
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ d_o,
-                    const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ delta,
-                    int Tq, int Tk, int H, int D, Strides sq, Strides sk, Strides sv, float scale,
-                    int causal) {
-    using L = Layout<DMAX>;
-    __shared__ __align__(16) float k_s[kTile][DMAX];
-    __shared__ __align__(16) float v_s[kTile][DMAX];
-
-    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * L::kRows;
-    const int sub = threadIdx.x % L::kLanes;
-    const int i = q0 + threadIdx.x / L::kLanes;
-    const bool live = i < Tq;
-
-    // o, do and dq rows; lse and delta entries (recomputed at the stores, so
-    // no 64-bit offset stays live through the key loop)
-    auto row_of = [&] { return ((static_cast<long long>(b) * Tq + i) * H + h) * D; };
-    auto stat_of = [&] { return (static_cast<long long>(b) * H + h) * Tq + i; };
-    float q_r[kVec], do_r[kVec], dq_r[kVec];
-    load_vec<T, DMAX>(q_r, q, b * sq.b + i * sq.t + h * sq.h, sub, live, D, scale);
-    load_vec<T, DMAX>(do_r, d_o, row_of(), sub, live, D, 1.0f);
-    float part = 0.0f;
-    {
-        float o_r[kVec];
-        load_vec<T, DMAX>(o_r, o, row_of(), sub, live, D, 1.0f);
-#pragma unroll
-        for (int r = 0; r < kVec; ++r) {
-            part += do_r[r] * o_r[r];
-            dq_r[r] = 0.0f;
-        }
-    }
-    const float my_delta = row_sum<L::kLanes>(part);
-    float my_lse = live ? lse[stat_of()] : 0.0f;
-    if (my_lse == -CUDART_INF_F) my_lse = 0.0f;  // no visible key: every p is masked anyway
-
-    const long long k_base = b * sk.b + h * sk.h;
-    const long long v_base = b * sv.b + h * sv.h;
-    const int k_end = causal ? min(Tk, min(q0 + L::kRows, Tq)) : Tk;
-    for (int k0 = 0; k0 < k_end; k0 += kTile) {
-        __syncthreads();
-        stage_tile<T, DMAX>(k_s, k, k_base, sk.t, k0, Tk, D, 1.0f);
-        stage_tile<T, DMAX>(v_s, v, v_base, sv.t, k0, Tk, D, 1.0f);
-        __syncthreads();
-
-#pragma unroll 4
-        for (int j = 0; j < kTile; ++j) {
-            const int key = k0 + j;
-            if (key >= k_end) break;  // the same in every thread
-            const float s = row_sum<L::kLanes>(dot_part<DMAX>(q_r, k_s[j], sub));
-            const float dp = row_sum<L::kLanes>(dot_part<DMAX>(do_r, v_s[j], sub));
-            const bool visible = live && key < Tk && (!causal || key <= i);
-            const float ds = visible ? expf(s - my_lse) * (dp - my_delta) : 0.0f;
-            axpy_part<DMAX>(dq_r, ds, k_s[j], sub);
-        }
-    }
-
-    if (!live) return;
-    store_vec<T, DMAX>(dq + row_of(), dq_r, sub, D, scale);
-    if (sub == 0) delta[stat_of()] = my_delta;
-}
-
-// ---------------------------------------------------------------------------
-// float32 dk and dv: grid (ceil(Tk / kRows), H, B), one key per kLanes lanes
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ d_o, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int Tq, int Tk, int H, int D, Strides sq, Strides sk, Strides sv,
-                     float scale, int causal) {
-    using L = Layout<DMAX>;
-    __shared__ __align__(16) float q_s[kTile][DMAX];  // scale * q
-    __shared__ __align__(16) float do_s[kTile][DMAX];
-    __shared__ float lse_s[kTile];
-    __shared__ float delta_s[kTile];
-
-    const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * L::kRows;
-    const int sub = threadIdx.x % L::kLanes;
-    const int j = key0 + threadIdx.x / L::kLanes;
-    const bool live = j < Tk;
-
-    float k_r[kVec], v_r[kVec], dk_r[kVec], dv_r[kVec];
-    load_vec<T, DMAX>(k_r, k, b * sk.b + j * sk.t + h * sk.h, sub, live, D, 1.0f);
-    load_vec<T, DMAX>(v_r, v, b * sv.b + j * sv.t + h * sv.h, sub, live, D, 1.0f);
-#pragma unroll
-    for (int r = 0; r < kVec; ++r) {
-        dk_r[r] = 0.0f;
-        dv_r[r] = 0.0f;
-    }
-
-    const long long q_base = b * sq.b + h * sq.h;
-    const long long do_base = (static_cast<long long>(b) * Tq * H + h) * D;  // token stride H * D
-    const long long stat_base = (static_cast<long long>(b) * H + h) * Tq;
-    // queries before the block's first key see none of its keys
-    for (int i0 = causal ? (key0 / kTile) * kTile : 0; i0 < Tq; i0 += kTile) {
-        __syncthreads();
-        stage_tile<T, DMAX>(q_s, q, q_base, sq.t, i0, Tq, D, scale);
-        stage_tile<T, DMAX>(do_s, d_o, do_base, static_cast<long long>(H) * D, i0, Tq, D, 1.0f);
-        if (threadIdx.x < kTile) {
-            const int i = i0 + threadIdx.x;
-            float row_lse = i < Tq ? lse[stat_base + i] : 0.0f;
-            if (row_lse == -CUDART_INF_F) row_lse = 0.0f;
-            lse_s[threadIdx.x] = row_lse;
-            delta_s[threadIdx.x] = i < Tq ? delta[stat_base + i] : 0.0f;
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int r = 0; r < kTile; ++r) {
-            const int i = i0 + r;
-            if (i >= Tq) break;  // the same in every thread
-            const float s = row_sum<L::kLanes>(dot_part<DMAX>(k_r, q_s[r], sub));
-            const float dp = row_sum<L::kLanes>(dot_part<DMAX>(v_r, do_s[r], sub));
-            const bool visible = live && (!causal || j <= i);
-            const float p = visible ? expf(s - lse_s[r]) : 0.0f;
-            const float ds = visible ? p * (dp - delta_s[r]) : 0.0f;
-            axpy_part<DMAX>(dv_r, p, do_s[r], sub);
-            axpy_part<DMAX>(dk_r, ds, q_s[r], sub);  // q_s holds scale * q
-        }
-    }
-
-    if (!live) return;
-    const long long row = ((static_cast<long long>(b) * Tk + j) * H + h) * D;
-    store_vec<T, DMAX>(dk + row, dk_r, sub, D, 1.0f);
-    store_vec<T, DMAX>(dv + row, dv_r, sub, D, 1.0f);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 forward and dk/dv on the tensor cores (the header's second design)
+// bfloat16 forward, dq and dk/dv on the tensor cores (the header's tensor-core
+// design)
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -533,19 +301,20 @@ __device__ __forceinline__ void copy_chunk(T* dst, const T* src, int valid, int 
 }
 
 // Rows [r0, r0 + ROWS) of a slice (x at its row 0, rows stride_t apart)
-// into a [ROWS][STRIDE] tile of DP columns, by a block of THREADS; rows at
-// or past n and columns at or past D land as zeros.  The caller commits the
-// cp.async group.
+// into a [ROWS][STRIDE] tile of DP columns, by a block of THREADS, its loop
+// over a thread's chunks unrolled UNROLL times; rows at or past n and
+// columns at or past D land as zeros.  The caller commits the cp.async group.
 template <int DP, int ROWS = kTile, int THREADS = kThreads, int STRIDE = Dims<DP>::kStride,
-          typename T>
+          int UNROLL = 0, typename T>
 __device__ __forceinline__ void stage_rows(T* tile, const T* __restrict__ x, long long stride_t,
                                            int r0, int n, int D, int width) {
     constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte chunk
     constexpr int kRowChunks = DP / kPer;
     constexpr int kChunks = ROWS * kRowChunks;
+    constexpr int kIters = (kChunks + THREADS - 1) / THREADS;
     static_assert(DP % kPer == 0 && STRIDE % kPer == 0, "rows of whole 16-byte chunks");
-#pragma unroll
-    for (int i = 0; i < (kChunks + THREADS - 1) / THREADS; ++i) {
+#pragma unroll(UNROLL > 0 ? UNROLL : kIters)  // UNROLL = 0: wholly
+    for (int i = 0; i < kIters; ++i) {
         const int idx = threadIdx.x + i * THREADS;
         if (kChunks % THREADS != 0 && idx >= kChunks) break;
         const int r = idx / kRowChunks;
@@ -562,11 +331,12 @@ __device__ __forceinline__ void stage_rows(T* tile, const T* __restrict__ x, lon
     }
 }
 
-// 64 floats (lse or delta) from rows [r0, r0 + kTile) of x, zero past n
-// (threads 0..63 of the block)
+// ROWS floats (lse or delta) from rows [r0, r0 + ROWS) of x, zero past n
+// (threads 0..ROWS-1 of the block)
+template <int ROWS = kTile>
 __device__ __forceinline__ void stage_stats(float* dst, const float* __restrict__ x, int r0,
                                             int n) {
-    if (threadIdx.x < kTile) {
+    if (threadIdx.x < ROWS) {
         const int row = r0 + threadIdx.x;
         cp_async_4(smem_u32(dst + threadIdx.x), row < n ? x + row : x, row < n ? 4 : 0);
     }
@@ -1250,29 +1020,41 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// float32 forward on the FMA units (the header's micro-tile design)
+// float32 forward, dq and dk/dv on the FMA units (the header's micro-tile
+// design)
 namespace mt {
 
-// 4 warps a block.  (8, each taking 16 keys of 128-key tiles, ran 25%
-// faster at [4, 256, 2, 64], one block an SM, but 11% slower at [2, 1024,
-// 4, 64] and 70% slower at the learner's [8, 17, 16, 64], on an H100; its
-// ring would not fit at D = 128.)
+// 4 warps a block.  (8, each taking 16 rows of 128-row tiles, ran the
+// forward, dq and dk/dv 16-24% faster at [4, 256, 2, 64], one block an SM,
+// but 8-9% slower at [2, 1024, 4, 64], 46-52% slower at the learner's
+// [8, 17, 16, 64] and 49-51% slower inside its learn step, on an H100; the
+// rings would not fit at D = 128.)
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16;           // queries a block owns
-constexpr int kTile = 16 * kWarps;  // keys per ring stage, 16 a warp
+constexpr int kRows = 16;           // rows a block owns (keys in dk/dv, else queries)
+constexpr int kTile = 16 * kWarps;  // rows of the streamed axis per ring stage, 16 a warp
 constexpr int kPad = 4;             // floats of padding per shared row
-constexpr int kPStride = 16 + kPad;  // floats per row of a warp's P tile
+constexpr int kPStride = 16 + kPad;  // floats per row of a warp's P (or dS) tile
 // Blocks per SM the register budget must allow (at most 255 registers a
 // thread); a minimum keeps ptxas from trading registers for occupancy
 constexpr int kMinBlocks = 2;
+// Unrolling: the loops over D kDotUnroll times, those over a warp's 16 rows
+// of a tile kRowUnroll times, a thread's chunks of a ring stage not at all.
+// Wholly unrolled, 7,600-8,000 instructions a kernel at DP = 64 -- run once
+// a block at the learner's T = 17 -- took twice their CUDA-graph replay time
+// inside the learn step, where other kernels had evicted them from the
+// instruction caches; most of it was the staging's three copy widths
+// unrolled over 8 chunks a thread (tools/flash_study.py on an H100)
+constexpr int kDotUnroll = 4;
+constexpr int kRowUnroll = 4;
+constexpr int kStageUnroll = 1;
 
 template <int DP>
 struct Dims {
     static_assert(DP % 8 == 0 && DP >= 8 && DP <= 128, "8 lanes share a row's columns");
     static constexpr int kStride = DP + kPad;           // floats per shared row
     static constexpr int kTileElems = kTile * kStride;  // one [64][DP + 4] tile
-    static constexpr int kCols = DP / 8;                // o columns a lane holds
+    static constexpr int kCols = DP / 8;                // accumulator columns a lane holds
     static constexpr int kVec = kCols < 4 ? kCols : 4;  // floats per vector read
 };
 
@@ -1287,6 +1069,47 @@ __device__ __forceinline__ void load_f(float (&x)[N], const float* p) {
         x[0] = u.x, x[1] = u.y;
     } else {
         x[0] = *p;
+    }
+}
+
+// rows [r0, r0 + kTile) of a slice into a ring stage (tc::stage_rows)
+template <int DP>
+__device__ __forceinline__ void stage_tile(float* tile, const float* __restrict__ x,
+                                           long long stride_t, int r0, int n, int D, int width) {
+    tc::stage_rows<DP, kTile, kThreads, Dims<DP>::kStride, kStageUnroll>(tile, x, stride_t, r0,
+                                                                         n, D, width);
+}
+
+// n < N: acc[n][i][j] += (row r + 4 i of a[n]) . (row c + 8 j of b[n]) over
+// DP columns in order, rows kS floats apart: 4 x 2 micro-tiles fed by float4
+// reads, N products in one pass over D
+template <int DP, int kS, int N>
+__device__ __forceinline__ void micro_tiles(float (*acc)[4][2], const float* const* a,
+                                            const float* const* b, int r, int c) {
+#pragma unroll(kDotUnroll)
+    for (int d = 0; d < DP; d += 4) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            float4 av[4], bv[2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                av[i] = *reinterpret_cast<const float4*>(a[n] + (r + 4 * i) * kS + d);
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                bv[j] = *reinterpret_cast<const float4*>(b[n] + (c + 8 * j) * kS + d);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    acc[n][i][j] = fmaf(av[i].x, bv[j].x, acc[n][i][j]);
+                    acc[n][i][j] = fmaf(av[i].y, bv[j].y, acc[n][i][j]);
+                    acc[n][i][j] = fmaf(av[i].z, bv[j].z, acc[n][i][j]);
+                    acc[n][i][j] = fmaf(av[i].w, bv[j].w, acc[n][i][j]);
+                }
+            }
+        }
     }
 }
 
@@ -1329,8 +1152,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int n_tiles = (k_end + kTile - 1) / kTile;
 
     tc::stage_rows<DP, kRows, kThreads, kS>(q_s, qx, sq.t, q0, Tq, D, tc::copy_width(qx, sq.t));
-    tc::stage_rows<DP, kTile, kThreads, kS>(k_s, kx, sk.t, 0, Tk, D, wk);
-    tc::stage_rows<DP, kTile, kThreads, kS>(v_s, vx, sv.t, 0, Tk, D, wv);
+    stage_tile<DP>(k_s, kx, sk.t, 0, Tk, D, wk);
+    stage_tile<DP>(v_s, vx, sv.t, 0, Tk, D, wv);
     tc::cp_async_commit();
 
     float acc[4][L::kCols];
@@ -1349,10 +1172,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int it = 0; it < n_tiles; ++it) {
         if (it + 1 < n_tiles) {
             const int nxt = (it + 1) & 1;
-            tc::stage_rows<DP, kTile, kThreads, kS>(k_s + nxt * L::kTileElems, kx, sk.t,
-                                                    (it + 1) * kTile, Tk, D, wk);
-            tc::stage_rows<DP, kTile, kThreads, kS>(v_s + nxt * L::kTileElems, vx, sv.t,
-                                                    (it + 1) * kTile, Tk, D, wv);
+            stage_tile<DP>(k_s + nxt * L::kTileElems, kx, sk.t, (it + 1) * kTile, Tk, D, wk);
+            stage_tile<DP>(v_s + nxt * L::kTileElems, vx, sv.t, (it + 1) * kTile, Tk, D, wv);
         }
         tc::cp_async_commit();
         tc::cp_async_wait<1>();
@@ -1367,28 +1188,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             float s[4][2];
 #pragma unroll
             for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.0f;
-#pragma unroll
-            for (int d = 0; d < DP; d += 4) {
-                float4 qv[4], kv[2];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    qv[i] = *reinterpret_cast<const float4*>(q_s + (r + 4 * i) * kS + d);
-                }
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    kv[j] = *reinterpret_cast<const float4*>(kt + (c + 8 * j) * kS + d);
-                }
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-#pragma unroll
-                    for (int j = 0; j < 2; ++j) {
-                        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-                        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-                        s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-                        s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-                    }
-                }
-            }
+            micro_tiles<DP, kS, 1>(&s, &q_s, &kt, r, c);
 #pragma unroll
             for (int i = 0; i < 4; ++i) s[i][0] *= scale, s[i][1] *= scale;
             // element masks only where the warp's keys cross the end or the
@@ -1429,7 +1229,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             }
             __syncwarp();
             // o += P v over the warp's 16 keys, in key order
-#pragma unroll 4
+#pragma unroll(kRowUnroll)
             for (int key = 0; key < 16; ++key) {
                 const float4 pv = *reinterpret_cast<const float4*>(pw + key * kPStride + 4 * r);
                 const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
@@ -1517,10 +1317,400 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+// dq (and delta): a 1-D grid of ceil(Tq / kRows) * H * B blocks, the last
+// query tiles first.  Lane 8 r + c of warp w: S and dP of rows q0 + r + 4 i
+// against keys 16 w + c + 8 j of each tile; dq of rows q0 + r + 4 i at the
+// columns col(u, e) = 8 kVec u + kVec c + e.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ d_o, const float* __restrict__ lse,
+                    float* __restrict__ dq, float* __restrict__ delta, int Tq, int Tk, int H,
+                    int B, int D, Strides sq, Strides sk, Strides sv, float scale, int causal) {
+    using L = Dims<DP>;
+    constexpr int kS = L::kStride;
+    constexpr int kU = L::kCols / L::kVec;  // vector reads per dq row
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* q_s = reinterpret_cast<float*>(smem);  // [kRows][DP + 4]
+    float* do_s = q_s + kRows * kS;               // [kRows][DP + 4]
+    float* k_s = do_s + kRows * kS;               // 2 stages
+    float* v_s = k_s + 2 * L::kTileElems;         // 2 stages
+    float* ds_s = v_s + 2 * L::kTileElems;        // [kWarps][16 keys][kPStride]
+    float* lse_s = ds_s + kWarps * 16 * kPStride;  // [kRows]
+    float* dl_s = lse_s + kRows;                  // [kRows] delta
+    float* part = k_s;  // [kWarps][kRows][DP]: the warps' dq, once the ring is done
+
+    const int slices = H * B;
+    const int bh = blockIdx.x % slices;
+    const int h = bh % H, b = bh / H;
+    const int q0 = ((Tq + kRows - 1) / kRows - 1 - static_cast<int>(blockIdx.x / slices)) * kRows;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = lane >> 3, c = lane & 7;
+
+    const float* qx = q + b * sq.b + h * sq.h;
+    const float* kx = k + b * sk.b + h * sk.h;
+    const float* vx = v + b * sv.b + h * sv.h;
+    const long long row_stride = static_cast<long long>(H) * D;  // of o, do and dq
+    const long long rows_base = (static_cast<long long>(b) * Tq * H + h) * D;
+    const long long stat_base = (static_cast<long long>(b) * H + h) * Tq;
+    const float* dox = d_o + rows_base;
+    const int wk = tc::copy_width(kx, sk.t), wv = tc::copy_width(vx, sv.t);
+    // keys past the block's last query are above the diagonal of every row
+    const int k_end = causal ? min(Tk, min(q0 + kRows, Tq)) : Tk;
+    const int n_tiles = (k_end + kTile - 1) / kTile;
+
+    tc::stage_rows<DP, kRows, kThreads, kS>(q_s, qx, sq.t, q0, Tq, D, tc::copy_width(qx, sq.t));
+    tc::stage_rows<DP, kRows, kThreads, kS>(do_s, dox, row_stride, q0, Tq, D,
+                                            tc::copy_width(dox, row_stride));
+    tc::cp_async_commit();
+    stage_tile<DP>(k_s, kx, sk.t, 0, Tk, D, wk);
+    stage_tile<DP>(v_s, vx, sv.t, 0, Tk, D, wv);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // q and do
+    __syncthreads();
+
+    // delta = sum_d do * o of row threadIdx.x / 8 from the staged do and the
+    // stored o: this lane's columns col(u, e) in order, then the row's 8
+    // lanes (3 shuffles); with lse (-inf read as 0: every probability of
+    // such a row is masked) into shared memory, and delta into its buffer
+    for (int row = threadIdx.x >> 3; row < kRows; row += kThreads / 8) {
+        const bool live = q0 + row < Tq;
+        float sum = 0.0f;
+        if (live) {
+            const float* orow = o + rows_base + (q0 + row) * row_stride;
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+#pragma unroll
+                for (int e = 0; e < L::kVec; ++e) {
+                    const int col = 8 * L::kVec * u + L::kVec * c + e;
+                    if (col < D) sum = fmaf(do_s[row * kS + col], orow[col], sum);
+                }
+            }
+        }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        sum += __shfl_xor_sync(kFull, sum, 4);
+        if (c == 0) {
+            dl_s[row] = sum;
+            const float x = live ? lse[stat_base + q0 + row] : 0.0f;
+            lse_s[row] = x == -CUDART_INF_F ? 0.0f : x;
+            if (live) delta[stat_base + q0 + row] = sum;
+        }
+    }
+    __syncthreads();
+    float lse_r[4], dl_r[4];  // rows q0 + r + 4 i
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lse_r[i] = lse_s[r + 4 * i], dl_r[i] = dl_s[r + 4 * i];
+
+    float acc[4][L::kCols];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int n = 0; n < L::kCols; ++n) acc[i][n] = 0.0f;
+    }
+    float* pw = ds_s + warp * 16 * kPStride;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) {
+            const int nxt = (it + 1) & 1;
+            stage_tile<DP>(k_s + nxt * L::kTileElems, kx, sk.t, (it + 1) * kTile, Tk, D, wk);
+            stage_tile<DP>(v_s + nxt * L::kTileElems, vx, sv.t, (it + 1) * kTile, Tk, D, wv);
+        }
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+        __syncthreads();  // tile it has landed for every thread
+
+        const int kw = it * kTile + 16 * warp;  // the warp's first key
+        const float* kt = k_s + (it & 1) * L::kTileElems + 16 * warp * kS;
+        const float* vt = v_s + (it & 1) * L::kTileElems + 16 * warp * kS;
+        // keys past Tk, or wholly above the block's rows, add nothing
+        if (kw < Tk && (!causal || kw <= q0 + kRows - 1)) {
+            // S = q k^T and dP = do v^T, the 4 x 2 micro-tiles, in one pass over D
+            float sd[2][4][2] = {};
+            const float* rows[2] = {q_s, do_s};
+            const float* cols[2] = {kt, vt};
+            micro_tiles<DP, kS, 2>(sd, rows, cols, r, c);
+            const float(&s)[4][2] = sd[0];
+            const float(&dp)[4][2] = sd[1];
+            // P = exp(S scale - lse), the scale rounded apart (as the
+            // forward's scores), masked to 0 only where the warp's keys
+            // cross the end or the diagonal: key kw + c + 8 j is visible to
+            // row i iff 8 j <= lim[i]
+            float p[4][2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                for (int j = 0; j < 2; ++j) p[i][j] = expf(__fmul_rn(s[i][j], scale) - lse_r[i]);
+            }
+            if (kw + 16 > Tk || (causal && kw + 15 > q0)) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int row = q0 + r + 4 * i;
+                    const int lim = (causal ? min(row, Tk - 1) : Tk - 1) - (kw + c);
+                    if (0 > lim) p[i][0] = 0.0f;
+                    if (8 > lim) p[i][1] = 0.0f;
+                }
+            }
+            // dS = P (dP - delta) to the warp's tile, key-major: row 4 r + i
+            // of key c + 8 j
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                float ds[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) ds[i] = p[i][j] * (dp[i][j] - dl_r[i]);
+                *reinterpret_cast<float4*>(pw + (c + 8 * j) * kPStride + 4 * r) =
+                    make_float4(ds[0], ds[1], ds[2], ds[3]);
+            }
+            __syncwarp();
+            // dq += dS k over the warp's 16 keys, in key order
+#pragma unroll(kRowUnroll)
+            for (int key = 0; key < 16; ++key) {
+                const float4 dv4 = *reinterpret_cast<const float4*>(pw + key * kPStride + 4 * r);
+                const float dr[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
+#pragma unroll
+                for (int u = 0; u < kU; ++u) {
+                    float kk[L::kVec];
+                    load_f<L::kVec>(kk, kt + key * kS + 8 * L::kVec * u + L::kVec * c);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                        for (int e = 0; e < L::kVec; ++e) {
+                            acc[i][L::kVec * u + e] = fmaf(dr[i], kk[e], acc[i][L::kVec * u + e]);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();  // tile it (and the dS tiles) read before refilling
+    }
+
+    // combine the 4 warps' dq in warp order; scale once, at the store
+    tc::cp_async_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float* dst = part + (warp * kRows + r + 4 * i) * DP;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+#pragma unroll
+            for (int e = 0; e < L::kVec; ++e) {
+                dst[8 * L::kVec * u + L::kVec * c + e] = acc[i][L::kVec * u + e];
+            }
+        }
+    }
+    __syncthreads();
+    float* out = dq + rows_base;
+    constexpr int kOut = kRows * DP;
+#pragma unroll
+    for (int i = 0; i < (kOut + kThreads - 1) / kThreads; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int row = idx / DP, col = idx % DP;
+        if ((kOut % kThreads != 0 && idx >= kOut) || col >= D || q0 + row >= Tq) continue;
+        float x = part[row * DP + col];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) x += part[(w * kRows + row) * DP + col];
+        out[(q0 + row) * row_stride + col] = x * scale;
+    }
+}
+
+// dk and dv: a 1-D grid of ceil(Tk / kRows) * H * B blocks, the first key
+// tiles first.  Lane 8 r + c of warp w: S^T and dP^T of keys k0 + r + 4 i
+// against queries 16 w + c + 8 j of each tile; dk and dv of keys
+// k0 + r + 4 i at the columns col(u, e) = 8 kVec u + kVec c + e.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ d_o,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk, int H,
+                     int B, int D, Strides sq, Strides sk, Strides sv, float scale, int causal) {
+    using L = Dims<DP>;
+    constexpr int kS = L::kStride;
+    constexpr int kU = L::kCols / L::kVec;  // vector reads per dk or dv row
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* k_s = reinterpret_cast<float*>(smem);  // [kRows][DP + 4]
+    float* v_s = k_s + kRows * kS;                // [kRows][DP + 4]
+    float* q_s = v_s + kRows * kS;                // 2 stages
+    float* do_s = q_s + 2 * L::kTileElems;        // 2 stages
+    float* p_s = do_s + 2 * L::kTileElems;        // [kWarps][16 queries][kPStride] P^T
+    float* ds_s = p_s + kWarps * 16 * kPStride;   // [kWarps][16 queries][kPStride] dS^T
+    float* lse_s = ds_s + kWarps * 16 * kPStride;  // 2 stages of kTile
+    float* dl_s = lse_s + 2 * kTile;              // 2 stages of kTile
+    float* part = q_s;  // [2][kWarps][kRows][DP]: the warps' dk and dv, once the ring is done
+
+    const int slices = H * B;
+    const int bh = blockIdx.x % slices;
+    const int h = bh % H, b = bh / H;
+    const int k0 = static_cast<int>(blockIdx.x / slices) * kRows;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = lane >> 3, c = lane & 7;
+
+    const float* qx = q + b * sq.b + h * sq.h;
+    const float* kx = k + b * sk.b + h * sk.h;
+    const float* vx = v + b * sv.b + h * sv.h;
+    const long long do_stride = static_cast<long long>(H) * D;
+    const float* dox = d_o + (static_cast<long long>(b) * Tq * H + h) * D;
+    const float* lse_x = lse + (static_cast<long long>(b) * H + h) * Tq;
+    const float* dl_x = delta + (static_cast<long long>(b) * H + h) * Tq;
+    const int wq = tc::copy_width(qx, sq.t), wdo = tc::copy_width(dox, do_stride);
+    // queries before the block's first key see none of its keys
+    const int i_begin = causal ? k0 : 0;
+    const int n_tiles = i_begin < Tq ? (Tq - i_begin + kTile - 1) / kTile : 0;
+
+    auto stage_queries = [&](int stage, int i0) {
+        stage_tile<DP>(q_s + stage * L::kTileElems, qx, sq.t, i0, Tq, D, wq);
+        stage_tile<DP>(do_s + stage * L::kTileElems, dox, do_stride, i0, Tq, D, wdo);
+        tc::stage_stats<kTile>(lse_s + stage * kTile, lse_x, i0, Tq);
+        tc::stage_stats<kTile>(dl_s + stage * kTile, dl_x, i0, Tq);
+    };
+    tc::stage_rows<DP, kRows, kThreads, kS>(k_s, kx, sk.t, k0, Tk, D, tc::copy_width(kx, sk.t));
+    tc::stage_rows<DP, kRows, kThreads, kS>(v_s, vx, sv.t, k0, Tk, D, tc::copy_width(vx, sv.t));
+    if (n_tiles > 0) stage_queries(0, i_begin);
+    tc::cp_async_commit();
+
+    float dk_acc[4][L::kCols], dv_acc[4][L::kCols];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int n = 0; n < L::kCols; ++n) dk_acc[i][n] = dv_acc[i][n] = 0.0f;
+    }
+    float* pw = p_s + warp * 16 * kPStride;
+    float* dw = ds_s + warp * 16 * kPStride;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) stage_queries((it + 1) & 1, i_begin + (it + 1) * kTile);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+        __syncthreads();  // tile it has landed for every thread
+
+        const int iw = i_begin + it * kTile + 16 * warp;  // the warp's first query
+        const float* qt = q_s + (it & 1) * L::kTileElems + 16 * warp * kS;
+        const float* gt = do_s + (it & 1) * L::kTileElems + 16 * warp * kS;
+        const float* lse_t = lse_s + (it & 1) * kTile + 16 * warp;
+        const float* dl_t = dl_s + (it & 1) * kTile + 16 * warp;
+        // queries past Tq add nothing (under causal no warp lies wholly
+        // before the block's keys: the walk starts at k0)
+        if (iw < Tq) {
+            // S^T = k q^T and dP^T = v do^T, the 4 x 2 micro-tiles (S^T is
+            // dq's S: the same products in the same order, and an FMA's
+            // product is exact whichever factor comes first)
+            float sd[2][4][2] = {};
+            const float* rows[2] = {k_s, v_s};
+            const float* cols[2] = {qt, gt};
+            micro_tiles<DP, kS, 2>(sd, rows, cols, r, c);
+            const float(&st)[4][2] = sd[0];
+            const float(&dpt)[4][2] = sd[1];
+            // P^T = exp(S^T scale - lse) (-inf read as 0), masked to 0 only
+            // where the warp's queries cross Tq or the diagonal: query
+            // iw + c + 8 j sees key k0 + r + 4 i iff lo[i] <= 8 j < hi
+            float p[4][2], dl[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                float row_lse = lse_t[c + 8 * j];
+                row_lse = row_lse == -CUDART_INF_F ? 0.0f : row_lse;
+                dl[j] = dl_t[c + 8 * j];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) p[i][j] = expf(__fmul_rn(st[i][j], scale) - row_lse);
+            }
+            if (iw + 16 > Tq || (causal && iw < k0 + kRows - 1)) {
+                const int hi = Tq - (iw + c);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int lo = causal ? k0 + r + 4 * i - (iw + c) : 0;
+                    if (0 < lo || 0 >= hi) p[i][0] = 0.0f;
+                    if (8 < lo || 8 >= hi) p[i][1] = 0.0f;
+                }
+            }
+            // P^T and dS^T = P^T (dP^T - delta) to the warp's tiles,
+            // query-major: row 4 r + i of query c + 8 j
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                float ds[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) ds[i] = p[i][j] * (dpt[i][j] - dl[j]);
+                *reinterpret_cast<float4*>(pw + (c + 8 * j) * kPStride + 4 * r) =
+                    make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+                *reinterpret_cast<float4*>(dw + (c + 8 * j) * kPStride + 4 * r) =
+                    make_float4(ds[0], ds[1], ds[2], ds[3]);
+            }
+            __syncwarp();
+            // dv += P^T do and dk += dS^T q over the warp's 16 queries, in order
+#pragma unroll(kRowUnroll)
+            for (int qi = 0; qi < 16; ++qi) {
+                const float4 pv = *reinterpret_cast<const float4*>(pw + qi * kPStride + 4 * r);
+                const float4 sv4 = *reinterpret_cast<const float4*>(dw + qi * kPStride + 4 * r);
+                const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+                const float sr[4] = {sv4.x, sv4.y, sv4.z, sv4.w};
+#pragma unroll
+                for (int u = 0; u < kU; ++u) {
+                    float gg[L::kVec], qq[L::kVec];
+                    load_f<L::kVec>(gg, gt + qi * kS + 8 * L::kVec * u + L::kVec * c);
+                    load_f<L::kVec>(qq, qt + qi * kS + 8 * L::kVec * u + L::kVec * c);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                        for (int e = 0; e < L::kVec; ++e) {
+                            const int n = L::kVec * u + e;
+                            dv_acc[i][n] = fmaf(pr[i], gg[e], dv_acc[i][n]);
+                            dk_acc[i][n] = fmaf(sr[i], qq[e], dk_acc[i][n]);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();  // tile it (and the P^T, dS^T tiles) read before refilling
+    }
+
+    // combine the 4 warps' dk and dv in warp order; scale on dk once, at the store
+    tc::cp_async_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float* dst_k = part + (warp * kRows + r + 4 * i) * DP;
+        float* dst_v = dst_k + kWarps * kRows * DP;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+#pragma unroll
+            for (int e = 0; e < L::kVec; ++e) {
+                dst_k[8 * L::kVec * u + L::kVec * c + e] = dk_acc[i][L::kVec * u + e];
+                dst_v[8 * L::kVec * u + L::kVec * c + e] = dv_acc[i][L::kVec * u + e];
+            }
+        }
+    }
+    __syncthreads();
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = (static_cast<long long>(b) * Tk * H + h) * D;
+    const float* part_v = part + kWarps * kRows * DP;
+    constexpr int kOut = kRows * DP;
+#pragma unroll
+    for (int i = 0; i < (kOut + kThreads - 1) / kThreads; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int row = idx / DP, col = idx % DP;
+        if ((kOut % kThreads != 0 && idx >= kOut) || col >= D || k0 + row >= Tk) continue;
+        float xk = part[row * DP + col], xv = part_v[row * DP + col];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) {
+            xk += part[(w * kRows + row) * DP + col];
+            xv += part_v[(w * kRows + row) * DP + col];
+        }
+        dk[base + (k0 + row) * row_stride + col] = xk * scale;
+        dv[base + (k0 + row) * row_stride + col] = xv;
+    }
+}
+
 template <int DP>
 constexpr int fwd_smem_bytes() {
     return ((kRows + 4 * kTile) * Dims<DP>::kStride + kWarps * 16 * kPStride +
             (2 * kWarps + 1) * kRows) * static_cast<int>(sizeof(float));
+}
+template <int DP>
+constexpr int dq_smem_bytes() {
+    return ((2 * kRows + 4 * kTile) * Dims<DP>::kStride + kWarps * 16 * kPStride + 2 * kRows) *
+           static_cast<int>(sizeof(float));
+}
+template <int DP>
+constexpr int dkv_smem_bytes() {
+    return ((2 * kRows + 4 * kTile) * Dims<DP>::kStride + 2 * kWarps * 16 * kPStride +
+            4 * kTile) * static_cast<int>(sizeof(float));
 }
 
 }  // namespace mt
@@ -1534,34 +1724,6 @@ struct Args {
     int causal;
     cudaStream_t stream;
 };
-
-template <int DMAX>
-dim3 grid_of(const Args& a, int rows) {
-    const int own = Layout<DMAX>::kRows;
-    return dim3(static_cast<unsigned>((rows + own - 1) / own), static_cast<unsigned>(a.H),
-                static_cast<unsigned>(a.B));
-}
-
-// The lane kernels (float32 dq and dk/dv)
-template <typename T, int DMAX>
-cudaError_t bwd_dq(const Args& a, const void* o, const void* d_o, const float* lse, void* dq,
-                   float* delta) {
-    flash_bwd_dq_kernel<T, DMAX><<<grid_of<DMAX>(a, a.Tq), kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(o), static_cast<const T*>(d_o), lse, static_cast<T*>(dq), delta,
-        a.Tq, a.Tk, a.H, a.D, a.sq, a.sk, a.sv, a.scale, a.causal);
-    return cudaSuccess;
-}
-
-template <typename T, int DMAX>
-cudaError_t bwd_dkv(const Args& a, const void* d_o, const float* lse, const float* delta,
-                    void* dk, void* dv) {
-    flash_bwd_dkv_kernel<T, DMAX><<<grid_of<DMAX>(a, a.Tk), kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        a.Tq, a.Tk, a.H, a.D, a.sq, a.sk, a.sv, a.scale, a.causal);
-    return cudaSuccess;
-}
 
 namespace tc {
 
@@ -1625,6 +1787,36 @@ cudaError_t fwd(const Args& a, void* o, float* lse) {
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(o), lse, a.Tq, a.Tk, a.H, a.B, a.D,
         a.sq, a.sk, a.sv, a.scale, a.causal);
+    return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t bwd_dq(const Args& a, const void* o, const void* d_o, const float* lse, void* dq,
+                   float* delta) {
+    const unsigned blocks = tc::grid_of(a.Tq, kRows, a.H, a.B);
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+    const cudaError_t err = tc::allow_smem(flash_bwd_dq_kernel<DP>, dq_smem_bytes<DP>());
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<DP><<<blocks, kThreads, dq_smem_bytes<DP>(), a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(o),
+        static_cast<const float*>(d_o), lse, static_cast<float*>(dq), delta, a.Tq, a.Tk, a.H,
+        a.B, a.D, a.sq, a.sk, a.sv, a.scale, a.causal);
+    return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t bwd_dkv(const Args& a, const void* d_o, const float* lse, const float* delta,
+                    void* dk, void* dv) {
+    const unsigned blocks = tc::grid_of(a.Tk, kRows, a.H, a.B);
+    if (blocks == 0) return cudaErrorInvalidConfiguration;
+    const cudaError_t err = tc::allow_smem(flash_bwd_dkv_kernel<DP>, dkv_smem_bytes<DP>());
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<DP><<<blocks, kThreads, dkv_smem_bytes<DP>(), a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(d_o), lse, delta,
+        static_cast<float*>(dk), static_cast<float*>(dv), a.Tq, a.Tk, a.H, a.B, a.D, a.sq, a.sk,
+        a.sv, a.scale, a.causal);
     return cudaSuccess;
 }
 
@@ -1710,7 +1902,7 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const
                                              int D, const long long* strides, float scale,
                                              int causal, int dtype, void* stream) {
     const Args a = make_args(q, k, v, B, Tq, Tk, H, D, strides, scale, causal, stream);
-#define CALL_DQ(DMAX) bwd_dq<float, DMAX>(a, o, d_o, lse, dq, delta)
+#define CALL_DQ(DMAX) mt::bwd_dq<DMAX>(a, o, d_o, lse, dq, delta)
 #define CALL_DQ_BF16(DMAX) tc::bwd_dq<tc::padded(DMAX)>(a, o, d_o, lse, dq, delta)
     FLASH_DISPATCH(a, dtype, CALL_DQ, CALL_DQ_BF16);
 #undef CALL_DQ
@@ -1724,7 +1916,7 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
                                               const long long* strides, float scale, int causal,
                                               int dtype, void* stream) {
     const Args a = make_args(q, k, v, B, Tq, Tk, H, D, strides, scale, causal, stream);
-#define CALL_DKV(DMAX) bwd_dkv<float, DMAX>(a, d_o, lse, delta, dk, dv)
+#define CALL_DKV(DMAX) mt::bwd_dkv<DMAX>(a, d_o, lse, delta, dk, dv)
 #define CALL_DKV_TC(DMAX) tc::bwd_dkv<tc::padded(DMAX)>(a, d_o, lse, delta, dk, dv)
     FLASH_DISPATCH(a, dtype, CALL_DKV, CALL_DKV_TC);
 #undef CALL_DKV

@@ -7,9 +7,9 @@ Replaces the three TPU kernels behind ``scalerl_tpu/ops/pallas_attention.py
 lse in float32.  Each kernel owns rows of one axis (queries in the forward
 and dq kernels, keys in the dk/dv kernel) and walks the other in
 shared-memory tiles, skipping the tiles above the causal diagonal: on
-bfloat16 all three run on the tensor cores; in float32 the forward runs
-register-blocked micro-tiles on the FMA units, and dq and dk/dv run on
-``D / 8`` lanes of a warp per row; the source says what bounds them.
+bfloat16 all three run on the tensor cores; in float32 all three run
+register-blocked micro-tiles on the FMA units; the source says what
+bounds them.
 No kernel uses atomics, so values and gradients repeat bit for bit.
 
 :func:`flash_attention` is differentiable in q, k and v (a

@@ -14,8 +14,8 @@ card (``chip_smoke.py`` phase ``flash_attn``); their bfloat16 arithmetic
 (the tensor-core forward, dq and dk/dv, which round P and dS to bfloat16
 before their products) is emulated here tile by tile and held against the
 Pallas kernels and the float32 reference at the card check's tolerance, and
-so is the float32 forward's summation order (keys split across warps,
-combined in warp order).
+so are the float32 kernels' summation orders (the forward's and dq's keys,
+dk/dv's queries split across warps, combined in warp order).
 """
 
 import jax
@@ -390,3 +390,109 @@ def test_float32_micro_tile_forward_matches_pallas(B, Tq, Tk, H, D, causal, bloc
     want_o, want_lse = _oracle(q, k, v, causal)
     np.testing.assert_allclose(o.numpy(), want_o, atol=VALUE_TOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=LSE_TOL, rtol=0)
+
+
+# chip_smoke.py's FLASH_GRAD_REL_TOL: the card check's bound on float32
+# gradients, relative to each gradient's largest element
+FLASH_GRAD_REL_TOL = 1e-4
+
+
+def _micro_tile_backward(q, k, v, do, o, lse, causal, scale, tile=64, warps=4, rows=16):
+    """The float32 dq and dk/dv kernels' summation order in plain torch.
+
+    csrc/flash_attention.cu, mt::flash_bwd_dq_kernel: delta = sum_d do * o;
+    key tiles of 64, warp w taking keys 16 w .. 16 w + 15 of each; S = q . k
+    times scale, P = exp(S - lse) (lse = -inf read as 0) masked to 0, dS = P
+    (dP - delta); each warp sums dS k over its keys, the warps' partials
+    combine in warp order, and scale multiplies dq at the end.
+    mt::flash_bwd_dkv_kernel: a block owns 16 keys and walks the queries in
+    tiles of 64 from its first key (from 0 without causal), warp w taking
+    queries 16 w .. 16 w + 15 of each; each warp sums P^T do and dS^T q over
+    its queries, the warps' partials combine in warp order, and scale
+    multiplies dk at the end.  Returns dq, dk, dv and delta.
+    """
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    per = tile // warps
+    delta = torch.einsum("bqhd,bqhd->bhq", do, o)
+    safe = torch.where(torch.isneginf(lse), 0.0, lse)
+
+    def probs(i0, i1, j0, j1):
+        """P and dS [B, H, i1 - i0, j1 - j0] of queries i0..i1 and keys j0..j1."""
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, i0:i1], k[:, j0:j1]) * scale
+        p = torch.exp(s - safe[:, :, i0:i1, None])
+        if causal:
+            visible = torch.arange(j0, j1)[None, :] <= torch.arange(i0, i1)[:, None]
+            p = torch.where(visible, p, 0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do[:, i0:i1], v[:, j0:j1])
+        return p, p * (dp - delta[:, :, i0:i1, None])
+
+    dq_w = torch.zeros(warps, B, Tq, H, D)
+    for k0 in range(0, Tk, tile):
+        for w in range(warps):
+            j0, j1 = k0 + per * w, min(k0 + per * (w + 1), Tk)
+            if j0 < j1:
+                _, ds = probs(0, Tq, j0, j1)
+                dq_w[w] += torch.einsum("bhqk,bkhd->bqhd", ds, k[:, j0:j1])
+    dk_w = torch.zeros(warps, B, Tk, H, D)
+    dv_w = torch.zeros(warps, B, Tk, H, D)
+    for r0 in range(0, Tk, rows):
+        r1 = min(r0 + rows, Tk)
+        for i0 in range(r0 if causal else 0, Tq, tile):
+            for w in range(warps):
+                a, b = i0 + per * w, min(i0 + per * (w + 1), Tq)
+                if a < b:
+                    p, ds = probs(a, b, r0, r1)
+                    dv_w[w, :, r0:r1] += torch.einsum("bhqk,bqhd->bkhd", p, do[:, a:b])
+                    dk_w[w, :, r0:r1] += torch.einsum("bhqk,bqhd->bkhd", ds, q[:, a:b])
+
+    def in_warp_order(parts):
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    return (in_warp_order(dq_w) * scale, in_warp_order(dk_w) * scale, in_warp_order(dv_w),
+            delta)
+
+
+def _oracle_grads(q, k, v, do, causal):
+    """dq, dk, dv of the float64 oracle's attention under the cotangent do."""
+    leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", leaves[0], leaves[1]) / np.sqrt(q.shape[-1])
+    if causal:
+        visible = torch.arange(k.shape[1])[None, :] <= torch.arange(q.shape[1])[:, None]
+        s = s.masked_fill(~visible, float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), leaves[2])
+    return torch.autograd.grad(out, leaves, torch.tensor(do, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [
+    (1, 100, 100, 2, 16, True),  # ragged causal: two key tiles, the last partial
+    (1, 24, 150, 2, 8, False),  # cross lengths: three key tiles, warps past Tk idle
+    (1, 200, 200, 1, 128, True),  # the widest head dim, ragged query tiles per key block
+], ids=["ragged_causal_T100_D16", "cross_24_150", "causal_T200_D128"])
+def test_float32_micro_tile_backward_matches_pallas(B, Tq, Tk, H, D, causal):
+    """The float32 dq and dk/dv kernels' tiling (keys or queries split across
+    warps, partials combined in warp order, delta from do and o, scale where
+    the kernels apply it) gives the Pallas backward's dq, dk and dv
+    (interpret mode) within the card check's 1e-4 of the largest gradient,
+    and the float64 oracle's."""
+    q, k, v = _inputs(31, B, Tq, Tk, H, D)
+    do = np.random.default_rng(32).normal(size=q.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(D)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    o, lse = _micro_tile_forward(tq, tk, tv, causal, scale)
+    dq, dk, dv, delta = _micro_tile_backward(tq, tk, tv, tdo, o, lse, causal, scale)
+    np.testing.assert_allclose(delta.numpy(), np.einsum("bqhd,bqhd->bhq", do, o.numpy()),
+                               atol=1e-5, rtol=0)
+
+    def loss(a, b, c):
+        return jnp.sum(jpa.flash_attention(a, b, c, causal=causal, block_q=32, block_k=32) * do)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*(jnp.asarray(x) for x in (q, k, v)))
+    oracle = _oracle_grads(q, k, v, do, causal)
+    for name, got, jw, ow in zip(("dq", "dk", "dv"), (dq, dk, dv), want, oracle):
+        jw = torch.tensor(np.asarray(jw))
+        assert _rel_err(got, jw) <= FLASH_GRAD_REL_TOL, (name, _rel_err(got, jw))
+        assert _rel_err(got, ow) <= FLASH_GRAD_REL_TOL, (name, _rel_err(got, ow))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Design comparisons of the port's flash attention kernels on one GPU.
 
-    python3 tools/flash_study.py [--other OLD.cu] [--seeds 8]
+    python3 tools/flash_study.py [--other OLD.cu] [--seeds 8] [--variants a,b]
 
 Builds ``scalerl_torch/csrc/flash_attention.cu`` as it stands, variants of
 it that undo one design choice each (``VARIANTS``), and optionally another
@@ -11,18 +11,26 @@ the build's own nvcc flags, and swaps them in under the kernel wrappers of
 ``scalerl_torch/ops/cuda_flash_attention.py``.  Three comparisons, each in
 turns (this source, the other, the other, this source) on one card:
 
-1. ``kernel_times``: the bf16 dq kernel and the float32 forward alone, by
-   CUDA-graph replay (``chip_smoke.gpu_time_ms``), at the learner's
-   ``[8, 17, 16, 64]`` views, ``[4, 256, 2, 64]``, ``[1, 4096, 8, 64]``
-   (dq) and ``[2, 1024, 4, 64]`` (forward).
-2. ``learner_step``: the flash kernels' device time inside the transformer
-   learner's bf16 learn step (``chip_smoke``'s sharded width) under
-   ``torch.profiler``, this source against ``--other``.
-3. ``learner_loss``: the float32 learner's loss through the flash kernels
-   against the plain attention, relative as ``chip_smoke.py``'s
-   ``transformer_learn`` holds it, over seeds (the check's own seed pair
-   first), for this source, the variants that change the float32 forward
-   and ``--other``.
+1. ``kernel_times``: each kernel a variant changes (all six against
+   ``--other``) alone, by CUDA-graph replay
+   (``chip_smoke.gpu_time_ms``), at the learner's ``[8, 17, 16, 64]``
+   views, ``[4, 256, 2, 64]``, by type ``[1, 4096, 8, 64]`` (bf16) or
+   ``[2, 1024, 4, 64]`` (float32), and ``[2, 256, 4, 128]`` for
+   ``--other`` and the variants at D = 128.  Each build reports ptxas's
+   registers and spills and each kernel's instructions in its SASS
+   (``cuobjdump -sass``).
+2. ``learner_step_f32`` and ``learner_step_bf16``: the flash kernels'
+   device time inside the transformer learner's learn step
+   (``chip_smoke``'s sharded width; float32 as ``ImpalaArguments``
+   defaults it, or ``bf16_params``) under ``torch.profiler``, this source
+   against ``--other`` (both) and each variant, by the type of the kernels
+   it changes.
+3. ``learner_loss``: the float32 learner's loss and gradients through the
+   flash kernels against the plain attention, relative as
+   ``chip_smoke.py``'s ``transformer_learn`` holds them (the loss over
+   max(|loss|, 1), each leaf's largest gradient error over its largest
+   element), over seeds (the check's own seed pair first), for this
+   source, the variants that change a float32 kernel and ``--other``.
 
 One JSON line per reading on stdout.
 A variant whose text no longer matches the source, or that does not build,
@@ -37,6 +45,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -45,28 +54,72 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# name -> (what it undoes, [(text in the source, replacement)])
+F32 = ("f32_forward", "f32_dq", "f32_dkv")
+BF16 = ("bf16_forward", "bf16_dq", "bf16_dkv")
+D128 = ((2, 256, 4, 128), False, 50)  # the JAX package's compiled-check shape
+
+# name -> (what it undoes, [(text in the source, replacement)], kernels it
+# changes, shapes it is timed at besides the learner's, T = 256 and the long one)
 VARIANTS = {
     "dq_4_warps": ("the bf16 dq kernel with 4 warps (64 queries) a block",
-                   [("constexpr int kDqWarps = 8;", "constexpr int kDqWarps = 4;")]),
-    "fwd32_8_warps": ("the float32 forward with 8 warps a block (128-key tiles; "
-                      "its ring does not fit at D = 128)",
-                      [("constexpr int kWarps = 4;\nconstexpr int kThreads = 32 * kWarps;",
-                        "constexpr int kWarps = 8;\nconstexpr int kThreads = 32 * kWarps;"),
-                       ("constexpr int kMinBlocks = 2;\n\ntemplate <int DP>\nstruct Dims {\n"
-                        "    static_assert(DP % 8 == 0",
-                        "constexpr int kMinBlocks = 1;\n\ntemplate <int DP>\nstruct Dims {\n"
-                        "    static_assert(DP % 8 == 0")]),
+                   [("constexpr int kDqWarps = 8;", "constexpr int kDqWarps = 4;")],
+                   ("bf16_dq",), ()),
+    "f32_8_warps": ("the float32 kernels with 8 warps a block (128-row tiles of the streamed "
+                    "axis; the rings do not fit at D = 128)",
+                    [("constexpr int kWarps = 4;\nconstexpr int kThreads = 32 * kWarps;",
+                      "constexpr int kWarps = 8;\nconstexpr int kThreads = 32 * kWarps;"),
+                     ("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;")],
+                    F32, ()),
     "fwd32_reciprocal": ("the float32 forward multiplying o by one rounded 1 / sum a row",
                          [("        den_s[row] = denom;", "        den_s[row] = 1.0f / denom;"),
-                          ("= x / den_s[row];", "= x * den_s[row];")]),
+                          ("= x / den_s[row];", "= x * den_s[row];")],
+                         ("f32_forward",), ()),
+    "dkv32_two_passes": ("float32 dk/dv computing S^T and dP^T in two passes over D (the way "
+                         "out of an 8-byte spill at DP = 128 while the kernels were unrolled "
+                         "wholly)",
+                         [("            micro_tiles<DP, kS, 2>(sd, rows, cols, r, c);\n"
+                           "            const float(&st)",
+                           "            micro_tiles<DP, kS, 1>(sd, rows, cols, r, c);\n"
+                           "            micro_tiles<DP, kS, 1>(sd + 1, rows + 1, cols + 1, r, c);\n"
+                           "            const float(&st)")],
+                         ("f32_dkv",), (D128,)),
+    "f32_unrolled": ("the float32 kernels with their loops over D unrolled wholly, over a "
+                     "warp's 16 rows 4 times, and their ring stages' staging wholly (the first "
+                     "design)",
+                     [("constexpr int kDotUnroll = 4;", "constexpr int kDotUnroll = 32;"),
+                      ("constexpr int kStageUnroll = 1;", "constexpr int kStageUnroll = 0;")],
+                     F32, ()),
+    "f32_stage_unrolled": ("the float32 kernels staging a ring stage with its loop over a "
+                           "thread's chunks unrolled wholly",
+                           [("constexpr int kStageUnroll = 1;", "constexpr int kStageUnroll = 0;")],
+                           F32, ()),
+    "f32_dot_unroll_2": ("the float32 kernels with their loops over D unrolled twice",
+                         [("constexpr int kDotUnroll = 4;", "constexpr int kDotUnroll = 2;")],
+                         F32, ()),
+    "f32_rows_rolled": ("the float32 kernels with their loops over a warp's 16 rows not "
+                        "unrolled",
+                        [("constexpr int kRowUnroll = 4;", "constexpr int kRowUnroll = 1;")],
+                        F32, ()),
+    "max_shared_carveout": ("every flash kernel asking for the largest shared-memory carveout",
+                            [("    if (bytes <= 48 * 1024) return cudaSuccess;\n",
+                              "    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemory"
+                              "Carveout, 100);\n    if (bytes <= 48 * 1024) return cudaSuccess;\n")],
+                            F32, ()),
+    "bf16_stage_rolled": ("the bf16 tensor-core kernels staging their tiles with the loop over "
+                          "a thread's chunks not unrolled, as the float32 kernels do",
+                          [("          int UNROLL = 0, typename T>",
+                            "          int UNROLL = 1, typename T>")],
+                          BF16, ()),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="another flash_attention.cu to compare with")
-    ap.add_argument("--seeds", type=int, default=8, help="seed pairs for learner_loss")
+    ap.add_argument("--seeds", type=int, default=8,
+                    help="seed pairs for learner_loss (0: skip it)")
+    ap.add_argument("--variants",
+                    help="a comma-separated subset of VARIANTS to build (none: no variant)")
     args = ap.parse_args()
 
     import torch
@@ -89,6 +142,20 @@ def main() -> int:
     build_dir = cuda_build.BUILD_DIR / "study"
     build_dir.mkdir(parents=True, exist_ok=True)
 
+    def sass_sizes(so):
+        """Instructions per flash kernel instantiation in the library's SASS."""
+        tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+        r = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True)
+        out, name = {}, None
+        for ln in r.stdout.splitlines():
+            if "Function :" in ln:
+                name = cs._kernel_name(ln.split("Function :", 1)[1].strip())
+            elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln):
+                out[name] = out.get(name, 0) + 1
+        return out
+
+    emit("sass", name="this", instructions=sass_sizes(cuda_build.library_path("flash_attention")))
+
     def build(name, text):
         cu = build_dir / f"flash_{name}.cu"
         cu.write_text(text)
@@ -99,10 +166,15 @@ def main() -> int:
             emit("skipped", name=name, reason=f"nvcc exit {r.returncode}",
                  log=(r.stdout + r.stderr)[-2000:])
             return None
-        emit("build", name=name, registers=cs._registers(r.stdout + r.stderr))
+        log = r.stdout + r.stderr
+        emit("build", name=name, registers=cs._registers(log), spills=cs._spills(log),
+             instructions=sass_sizes(so))
         return ctypes.CDLL(str(so))
 
-    for name, (what, subs) in VARIANTS.items():
+    chosen = args.variants.split(",") if args.variants else list(VARIANTS)
+    for name, (what, subs, _, _) in VARIANTS.items():
+        if name not in chosen:
+            continue
         text = src
         if not all(old in text for old, _ in subs):
             emit("skipped", name=name, reason="its text is not in the source")
@@ -130,44 +202,52 @@ def main() -> int:
 
     cs.set_tf32(False)
 
-    # 1. kernels alone
-    def dq_us(shape, strided, launches):
+    # 1. kernels alone, each on its inputs made once with this source
+    def kernel_us(kernel, shape, strided, launches):
         B, T, H, D = shape
-        q, k, v, do = cs._flash_case(B, T, T, H, D, torch.bfloat16, seed=100, strided=strided)
+        dtype = torch.bfloat16 if kernel.startswith("bf16") else torch.float32
+        q, k, v, do = cs._flash_case(B, T, T, H, D, dtype, seed=100, strided=strided)
         scale = 1.0 / math.sqrt(D)
         o, lse = cfa.flash_forward_kernel(q, k, v, scale, True)
-        return 1e3 * cs.gpu_time_ms(
-            lambda: cfa.flash_dq_kernel(q, k, v, o, lse, do, scale, True), launches)
+        _, delta = cfa.flash_dq_kernel(q, k, v, o, lse, do, scale, True)
+        call = {
+            "forward": lambda: cfa.flash_forward_kernel(q, k, v, scale, True),
+            "dq": lambda: cfa.flash_dq_kernel(q, k, v, o, lse, do, scale, True),
+            "dkv": lambda: cfa.flash_dkv_kernel(q, k, v, lse, delta, do, scale, True),
+        }[kernel[kernel.index("_") + 1:]]
+        return lambda: 1e3 * cs.gpu_time_ms(call, launches)
 
-    def fwd32_us(shape, strided, launches):
-        B, T, H, D = shape
-        q, k, v, _ = cs._flash_case(B, T, T, H, D, torch.float32, seed=100, strided=strided)
-        scale = 1.0 / math.sqrt(D)
-        return 1e3 * cs.gpu_time_ms(lambda: cfa.flash_forward_kernel(q, k, v, scale, True),
-                                    launches)
-
-    dq_shapes = [((8, 17, 16, 64), True, 200), ((4, 256, 2, 64), False, 50),
-                 ((1, 4096, 8, 64), False, 10)]
-    fwd_shapes = [((8, 17, 16, 64), True, 200), ((4, 256, 2, 64), False, 50),
-                  ((2, 1024, 4, 64), False, 10)]
+    shapes = [((8, 17, 16, 64), True, 200), ((4, 256, 2, 64), False, 50)]
+    long = {"bf16": ((1, 4096, 8, 64), False, 10), "f32": ((2, 1024, 4, 64), False, 10)}
+    changed = {name: kernels for name, (_, _, kernels, _) in VARIANTS.items()}
+    extra = {name: more for name, (_, _, _, more) in VARIANTS.items()}
+    changed["other"] = F32 + BF16
+    extra["other"] = (D128,)
     for name in libs:
         if name == "this":
             continue
-        for kernel, fn, shapes in (("bf16_dq", dq_us, dq_shapes),
-                                   ("f32_forward", fwd32_us, fwd_shapes)):
-            for shape, strided, launches in shapes:
+        for kernel in changed[name]:
+            for shape, strided, launches in (shapes + [long[kernel[:kernel.index("_")]]]
+                                             + list(extra[name])):
+                use("this")
+                measure = kernel_us(kernel, shape, strided, launches)
                 emit("kernel_times", against=name, kernel=kernel, shape=list(shape),
-                     us=turns(name, lambda: fn(shape, strided, launches)))
+                     us=turns(name, measure))
 
-    # 2. the flash kernels inside the bf16 learn step
-    if "other" in libs:
-        from scalerl_torch.agents.impala import ImpalaAgent
+    # 2. the flash kernels inside the learn step: float32 for --other and each
+    # variant that changes a float32 kernel, bf16 for those that change a bf16 one
+    from scalerl_torch.agents.impala import ImpalaAgent
 
-        agent = ImpalaAgent(cs._shard_args(bf16_params=True), (cs.SHARD_OBS,), cs.SHARD_A)
+    for dtype, kinds in (("f32", F32), ("bf16", BF16)):
+        names = [n for n in libs if any(k in kinds for k in changed.get(n, ()))]
+        if not names:
+            continue
+        agent = ImpalaAgent(cs._shard_args(bf16_params=dtype == "bf16"), (cs.SHARD_OBS,),
+                            cs.SHARD_A)
         traj = cs._shard_traj("cuda")
         steps = 5
 
-        def in_step():
+        def step_us():
             for _ in range(3):
                 agent.learn(traj)
             torch.cuda.synchronize()
@@ -178,36 +258,49 @@ def main() -> int:
                        for n in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                  "flash_bwd_dkv_kernel")}}
 
-        emit("learner_step", against="other", us_per_step=turns("other", in_step))
+        for name in names:
+            emit(f"learner_step_{dtype}", against=name, us_per_step=turns(name, step_us))
         del agent
         torch.cuda.empty_cache()
 
-    # 3. the float32 learner's loss, flash against plain, over seeds
+    # 3. the float32 learner's loss and gradients, flash against plain, over seeds
     from scalerl_torch.agents.impala import ImpalaAgent
 
-    compared = ["this"] + [n for n in libs if n in ("fwd32_8_warps", "fwd32_reciprocal", "other")]
+    compared = ["this"] + [n for n in libs if n == "other" or
+                           any(k in F32 for k in changed.get(n, ()))]
     rel = {n: [] for n in compared}
-    pairs = [(42, 0)] + [(s, s) for s in range(1, args.seeds)]
+    grad_rel = {n: [] for n in compared}
+    pairs = ([(42, 0)] + [(s, s) for s in range(1, args.seeds)]) if args.seeds > 0 else []
     for seed, traj_seed in pairs:
         sargs = cs._shard_args(seed=seed)
         traj = cs._shard_traj("cuda", seed=traj_seed)
         agents = {p: ImpalaAgent(dataclasses.replace(sargs, use_pallas=p), (cs.SHARD_OBS,),
                                  cs.SHARD_A) for p in (True, False)}
-        plain, _ = cs._loss_grads(agents[False].state.params, agents[False].model, traj, sargs)
-        row = {}
+        plain, plain_grads = cs._loss_grads(agents[False].state.params, agents[False].model,
+                                            traj, sargs)
+        row, grow = {}, {}
         for name in compared:
             use(name)
-            flash, _ = cs._loss_grads(agents[True].state.params, agents[True].model, traj, sargs)
+            flash, grads = cs._loss_grads(agents[True].state.params, agents[True].model, traj,
+                                          sargs)
             row[name] = abs(flash.item() - plain.item()) / max(abs(plain.item()), 1.0)
+            grow[name] = max(cs._leaf_rel(grads, plain_grads).values())
             rel[name].append(row[name])
+            grad_rel[name].append(grow[name])
         use("this")
         emit("learner_loss", seed=seed, traj_seed=traj_seed, loss_plain=plain.item(),
-             loss_rel=row)
+             loss_rel=row, grad_leaf_rel=grow)
         del agents
         torch.cuda.empty_cache()
-    emit("learner_loss_summary", limit=cs.SHARD_LEARN_TOL["loss_rel"],
-         **{n: {"median": statistics.median(v), "mean": statistics.mean(v), "max": max(v)}
-            for n, v in rel.items()})
+
+    def summary(values):
+        return {n: {"median": statistics.median(v), "mean": statistics.mean(v), "max": max(v)}
+                for n, v in values.items()}
+
+    if pairs:
+        emit("learner_loss_summary", limit=cs.SHARD_LEARN_TOL["loss_rel"], **summary(rel))
+        emit("learner_grad_summary", limit=cs.SHARD_LEARN_TOL["grad_leaf_rel"],
+             **summary(grad_rel))
     return 0
 
 
