@@ -11,7 +11,7 @@ no result line:
 2. ``build``: compiles every CUDA source of ``scalerl_torch/csrc`` with
    ``nvcc`` (one process per source, all started together); fails if
    ptxas reports a local-memory spill in any kernel; reports the
-   registers of each flash kernel instantiation.
+   registers of each flash, segment and paged kernel instantiation.
 3. ``vtrace``: the V-trace kernel against its plain PyTorch version on the
    card, at the fused loop's [20, 512] and at ragged shapes, for three clip
    settings (max abs error <= 1e-5); its time beside the plain version's
@@ -47,13 +47,17 @@ no result line:
    steps), with every kernel's launch count zeroed just before; then 20
    learn steps under ``torch.profiler`` (``dqn_profile``).
 10. ``paged_attn``: the paged decode attention kernel against its plain
-    PyTorch version on the card (max abs error <= ``PAGED_TOL``): at the
-    generation engine's shape (256 lanes, 8 heads of 32, pages of 16, 24
-    per lane, 6,145 pages; fragmented seeded tables with shared pages,
-    null or random junk past each length, lengths over [1, 384]), at the
-    small layouts of the JAX tests with a length-1 lane, and in bfloat16
+    PyTorch version on the card (max abs error <= ``PAGED_TOL``), each case
+    twice and bit-equal: at the generation engine's shape (256 lanes, 8
+    heads of 32, pages of 16, 24 per lane, 6,145 pages; fragmented seeded
+    tables with shared pages, null or random junk past each length, lengths
+    over [1, 384], and lengths on and beside the kernel's 16-token chunks
+    and 64-token splits, a full lane among them), at the small layouts of
+    the JAX tests with a length-1 lane, at pages of 4, 8 and 12, partial
+    head groups, head dims 5, 16, 18, 20, 64 and 128, and in bfloat16
     (``PAGED_BF16_TOL``).  Its time by CUDA-graph replay and eagerly, the
-    plain version's, the byte bound, and gather + SDPA as context.
+    plain version's, the byte bound, the size of its per-call scratch, and
+    gather + SDPA as context.
 11. ``genrl_model``: the full-width generation model (V=32, d=256, 8
     heads, 4 layers) on the card against the same weights on the host,
     float32 with TF32 off (``GEN_MODEL_TOL``): masked forward, paged
@@ -68,7 +72,10 @@ no result line:
     engine for ``GEN_TARGET_S`` under Poisson arrivals at twice the cohort's
     completion rate with the kernel's launch count zeroed just before
     (launches must equal 64 per dispatched macro step); 8 more macro steps
-    of the same traffic under ``torch.profiler`` (``genrl_profile``); a
+    of the same traffic under ``torch.profiler`` (``genrl_profile``, with
+    the paged kernel's time a call); the lanes' lengths as one decode call
+    hands them to the kernel, snapshotted once, and the kernel's time at
+    that mix beside its byte bound (``paged_attn_engine_mix``); a
     drain (every reservation returned); then at temperature 0 a handful of
     prompts through both engines, token-identical with logp within
     ``GEN_IDENTITY_LOGP_TOL`` (``genrl_identity``).
@@ -77,7 +84,10 @@ no result line:
     packed learn batch of ``bench.py`` (64 sequences of 2-128 tokens in
     rows of 256, 8 heads of 32), as strided views of one fused projection,
     at rows of 512 with 2-3 segments, at ragged S (333 and 19), with an
-    all-pad row, at head dim 64 and in bfloat16.  Values within
+    all-pad row and in bfloat16; at head dim 64 (the forward and dk/dv
+    kernels, float32 and bfloat16; dq builds 32 only, and a differentiable
+    call at 64 must be refused naming it) and 128 (the dk/dv kernel alone,
+    from the plain forward's lse and delta).  Values within
     ``SEG_VALUE_TOL``, gradients within ``SEG_GRAD_REL_TOL`` of the largest
     gradient (``SEG_BF16_REL_TOL`` in bfloat16), exact zeros on pad, two
     runs bit-equal.  Each kernel's time by CUDA-graph replay and eagerly,
@@ -258,20 +268,25 @@ def phase_device(report: dict) -> None:
 
 
 def _kernel_name(mangled: str):
-    """A flash kernel instantiation's readable name from its mangled one
-    (``tc::flash_bwd_dq_kernel<64>``, ``mt::flash_bwd_dkv_kernel<128>``), or
-    None for another function."""
+    """An attention kernel instantiation's readable name from its mangled
+    one (``tc::flash_bwd_dq_kernel<64>``, ``mt::seg_bwd_dkv_kernel<float,
+    128>``, ``paged_decode_kernel<bf16, 32>``), or None for another
+    function."""
     import re
 
-    m = re.search(r"(?:(\d)(tc|mt))?\d+(flash_\w+?_kernel)I(\w*?)EEv", mangled)
+    m = re.search(r"(?:(\d)(tc|mt))?\d+((?:flash|seg|paged)_\w+?_kernel)I(\w*?)EEv", mangled)
     if m is None:
         return None
-    args = (["float"] if m.group(4).startswith("f") else []) + re.findall(r"Li(\d+)E", m.group(4))
+    targs = m.group(4)
+    dtype = (["float"] if targs.startswith("f")
+             else ["bf16"] if targs.startswith("13__nv_bfloat16") else [])
+    args = dtype + re.findall(r"Li(\d+)E", targs)
     return f"{m.group(2) + '::' if m.group(2) else ''}{m.group(3)}<{', '.join(args)}>"
 
 
 def _registers(log: str) -> dict:
-    """ptxas's registers per flash kernel instantiation, by ``_kernel_name``."""
+    """ptxas's registers per attention kernel instantiation, by
+    ``_kernel_name``."""
     import re
 
     out, name = {}, None
@@ -311,7 +326,9 @@ def phase_build(report: dict) -> None:
     }
     spills = [f"{name}: {line}" for name, log in logs.items() for line in _spills(log)]
     emit("build", seconds=seconds, sources=list(cuda_build.KERNEL_SOURCES), ptxas=ptxas,
-         spill_free=not spills, flash_registers=_registers(logs.get("flash_attention", "")))
+         spill_free=not spills, flash_registers=_registers(logs.get("flash_attention", "")),
+         segment_registers=_registers(logs.get("segment_attention", "")),
+         paged_registers=_registers(logs.get("paged_attention", "")))
     if spills:
         raise AssertionError(f"ptxas reports local-memory spills: {spills}")
 
@@ -1040,6 +1057,69 @@ def _paged_case(B, H, D, ps, M, N, lengths, seed, dtype, junk=False, shared=0):
     )
 
 
+# Lengths on and around the kernel's 64-token context splits (and its
+# 16-token chunks), up to a full lane of 24 pages of 16
+PAGED_SPLIT_LENGTHS = (1, 2, 15, 16, 17, 63, 64, 65, 127, 128, 129, 191, 192, 193, 255, 256,
+                       257, 319, 320, 321, 383, 384)
+
+
+def _paged_lengths(B: int, cap: int, seed: int):
+    """B lengths cycling through ``PAGED_SPLIT_LENGTHS`` (those <= cap, and
+    cap itself), in a seeded order."""
+    import torch
+
+    pool = sorted({n for n in PAGED_SPLIT_LENGTHS if n <= cap} | {cap})
+    g = torch.Generator().manual_seed(seed)
+    return torch.tensor([pool[i % len(pool)] for i in range(B)])[torch.randperm(B, generator=g)]
+
+
+def _paged_layouts():
+    """(name, B, H, D, ps, M, dtype, junk, shared) of the split kernel's
+    edges, besides the engine's shape: pages of 4 and 12 (chunks that span
+    pages, splits that start mid-page), heads that leave a head group
+    partial (3; 12 at D = 128 in groups of 2), head dims padded up (5, 18,
+    20: 4-, 8- and 16-byte copies in float32; 5 in bf16: 2-byte), and every
+    padded width (16, 32, 64, 128) in both types."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("ps4_D16", 16, 8, 16, 4, 40, f32, True, 4),
+        ("ps12_D64_H3", 12, 3, 64, 12, 16, f32, False, 4),
+        ("ps16_D128_H12", 8, 12, 128, 16, 12, f32, True, 2),
+        ("ps16_D20", 12, 8, 20, 16, 10, f32, False, 0),
+        ("ps16_D18", 12, 8, 18, 16, 10, f32, True, 0),
+        ("ps8_D5", 12, 4, 5, 8, 20, f32, False, 0),
+        ("bf16_ps4_D16", 16, 8, 16, 4, 40, bf16, True, 4),
+        ("bf16_ps12_D64_H12", 12, 12, 64, 12, 16, bf16, False, 4),
+        ("bf16_ps16_D128_H3", 8, 3, 128, 16, 12, bf16, True, 2),
+        ("bf16_ps8_D5", 12, 4, 5, 8, 20, bf16, False, 0),
+    ]
+
+
+def _paged_timing(inp: dict, lengths, with_plain: bool) -> dict:
+    """The kernel's time by CUDA-graph replay and eagerly at these inputs,
+    beside the bound: the bytes the call must move (each live token's K and
+    V, q, the table, the lengths, the output; float32) and its operations."""
+    from scalerl_torch.ops import cuda_paged_attention
+    from scalerl_torch.ops.paged_attention import paged_attention_reference
+
+    B, _, H, D = inp["q"].shape
+    M = inp["page_table"].shape[1]
+    kernel = cuda_paged_attention.paged_decode_attention
+    live = int(lengths.sum())
+    moved = (live * 2 * H * D * 4 + 2 * B * H * D * 4 + B * M * 4 + B * 4)
+    ops = live * H * (4 * D + 6)  # q.k and p.v (2D each), the softmax's few
+    timing = dict(ms=gpu_time_ms(lambda: kernel(**inp), 200),
+                  eager_ms=eager_time_ms(lambda: kernel(**inp), 200), live_tokens=live)
+    if with_plain:
+        timing.update(plain_ms=gpu_time_ms(lambda: paged_attention_reference(**inp), 20),
+                      plain_eager_ms=eager_time_ms(lambda: paged_attention_reference(**inp), 20))
+    timing = _bound(moved, ops, timing)
+    timing["bound_share"] = timing["bound_ms"] / timing["ms"]
+    return timing
+
+
 def phase_paged_attn(report: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -1055,7 +1135,15 @@ def phase_paged_attn(report: dict) -> None:
     main_lengths = torch.randint(1, M * ps + 1, (B,), generator=g)
     main_lengths[0], main_lengths[1], main_lengths[2] = M * ps, 1, 17
     cases = []
-    worst = 0.0
+
+    def check(name, inp, tol, **extra):
+        """The kernel against the plain version (and twice: bit-equal)."""
+        got = kernel(**inp)
+        again = kernel(**inp)
+        err = (got.float() - paged_attention_reference(**inp).float()).abs().max().item()
+        cases.append({"shape": name, "dtype": str(inp["q"].dtype)[6:], "max_abs_err": err,
+                      "tol": tol, "repeat_bit_equal": bool(torch.equal(got, again)), **extra})
+
     layouts = [  # tests/test_paging.py:342-351, plus a length-1 lane
         ([[1, 2, 3], [4, 5, 6]], [12, 8]),
         ([[7, 1, 5], [3, 8, 2]], [12, 12]),
@@ -1065,27 +1153,31 @@ def phase_paged_attn(report: dict) -> None:
     for i, (table, lengths) in enumerate(layouts):
         inp = _paged_case(2, 2, 8, 4, 3, 9, lengths, seed=20 + i, dtype=torch.float32)
         inp["page_table"] = torch.tensor(table, dtype=torch.int32, device="cuda")
-        err = (kernel(**inp) - paged_attention_reference(**inp)).abs().max().item()
-        cases.append({"shape": "small", "table": table, "lengths": lengths, "max_abs_err": err})
-        worst = max(worst, err)
-    for name, kw in (("main", dict(shared=8)), ("main_junk_tail", dict(junk=True, shared=8))):
-        inp = _paged_case(B, H, D, ps, M, N, main_lengths, seed=12, dtype=torch.float32, **kw)
-        err = (kernel(**inp) - paged_attention_reference(**inp)).abs().max().item()
-        cases.append({"shape": name, "max_abs_err": err})
-        worst = max(worst, err)
+        check("small", inp, PAGED_TOL, table=table, lengths=lengths)
+    split_lengths = _paged_lengths(B, M * ps, seed=14)
+    for name, lengths, seed, dtype, kw in (
+        ("main", main_lengths, 12, torch.float32, dict(shared=8)),
+        ("main_junk_tail", main_lengths, 12, torch.float32, dict(junk=True, shared=8)),
+        ("main_split_boundaries", split_lengths, 15, torch.float32, dict(junk=True, shared=8)),
+        ("main_bf16", main_lengths, 13, torch.bfloat16, dict(shared=8)),
+        ("main_split_boundaries_bf16", split_lengths, 16, torch.bfloat16,
+         dict(junk=True, shared=8)),
+    ):
+        inp = _paged_case(B, H, D, ps, M, N, lengths, seed=seed, dtype=dtype, **kw)
+        check(name, inp, PAGED_TOL if dtype == torch.float32 else PAGED_BF16_TOL)
+    for name, b, h, d, pgs, m, dtype, junk, shared in _paged_layouts():
+        lengths = _paged_lengths(b, m * pgs, seed=len(cases))
+        inp = _paged_case(b, h, d, pgs, m, b * m + m + 2, lengths, seed=30 + len(cases),
+                          dtype=dtype, junk=junk, shared=shared)
+        check(name, inp, PAGED_TOL if dtype == torch.float32 else PAGED_BF16_TOL,
+              lanes=b, heads=h, head_dim=d, page_size=pgs, pages_per_lane=m)
     torch.cuda.synchronize()
-    bad = [c for c in cases if not c["max_abs_err"] <= PAGED_TOL]
-    inp16 = _paged_case(B, H, D, ps, M, N, main_lengths, seed=13, dtype=torch.bfloat16, shared=8)
-    bf16_err = (kernel(**inp16).float()
-                - paged_attention_reference(**inp16).float()).abs().max().item()
-    cases.append({"shape": "main_bf16", "max_abs_err": bf16_err, "tol": PAGED_BF16_TOL})
-    if bad or not bf16_err <= PAGED_BF16_TOL:
-        raise AssertionError(f"paged kernel off its plain version: {cases}")
+    bad = [c for c in cases if not (c["max_abs_err"] <= c["tol"] and c["repeat_bit_equal"])]
+    if bad:
+        raise AssertionError(f"paged kernel off its plain version or not repeatable: {bad}")
+    worst = max(c["max_abs_err"] for c in cases if c["dtype"] == "float32")
 
     inp = _paged_case(B, H, D, ps, M, N, main_lengths, seed=12, dtype=torch.float32, shared=8)
-    live = int(main_lengths.sum())
-    moved = (live * 2 * H * D * 4 + 2 * B * H * D * 4 + B * M * 4 + B * 4)
-    ops = live * H * (4 * D + 6)  # q.k and p.v (2D each), the softmax's few
     kflat = inp["k_pages"].view(N * ps, H, D)
     vflat = inp["v_pages"].view(N * ps, H, D)
     idx = (inp["page_table"].long()[:, :, None] * ps
@@ -1099,18 +1191,14 @@ def phase_paged_attn(report: dict) -> None:
         return F.scaled_dot_product_attention(inp["q"].transpose(1, 2), k, v, attn_mask=valid)
 
     lib_err = (gather_sdpa().transpose(1, 2) - paged_attention_reference(**inp)).abs().max().item()
-    timing = _bound(moved, ops, dict(
-        ms=gpu_time_ms(lambda: kernel(**inp), 200),
-        eager_ms=eager_time_ms(lambda: kernel(**inp), 200),
-        plain_ms=gpu_time_ms(lambda: paged_attention_reference(**inp), 20),
-        plain_eager_ms=eager_time_ms(lambda: paged_attention_reference(**inp), 20),
-        library_ms=gpu_time_ms(gather_sdpa, 20),
-        live_tokens=live,
-    ))
+    timing = _paged_timing(inp, main_lengths, with_plain=True)
+    timing["library_ms"] = gpu_time_ms(gather_sdpa, 20)
     report["paged_attention"] = {"max_abs_err": worst, **timing}
-    emit("paged_attn", tol=PAGED_TOL, max_abs_err=worst, cases=cases,
+    emit("paged_attn", tol=PAGED_TOL, bf16_tol=PAGED_BF16_TOL, max_abs_err=worst, cases=cases,
          shape={"lanes": B, "heads": H, "head_dim": D, "page_size": ps, "pages_per_lane": M,
                 "num_pages": N},
+         split_tokens=cuda_paged_attention.SPLIT_TOKENS,
+         scratch_bytes=4 * cuda_paged_attention.scratch_floats(B, H, D, M * ps),
          library="gather + F.scaled_dot_product_attention (context only; the port never "
                  "calls it)", library_max_abs_err=lib_err, card=report["card"], **timing)
 
@@ -1347,6 +1435,22 @@ def phase_genrl_continuous(report: dict) -> None:
     host_s, host_top = profile_host(more_cycles)
     hmacros = max(engine.macro_steps - macro1, 1)
 
+    # one length mix of the engine's lanes, as a decode call hands it to the
+    # kernel, snapshotted once; the kernel is timed at it after the drain
+    net, seen = engine._run.net, {}
+
+    def snapshot(q, k_pages, v_pages, page_table, lengths, scale=None):
+        seen.setdefault("lengths", lengths.clone())
+        return cuda_paged_attention.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                                           lengths, scale)
+
+    net.paged_attn_fn = snapshot
+    for _ in range(64):
+        if "lengths" in seen:
+            break
+        more_cycles(1)
+    net.paged_attn_fn = cuda_paged_attention.paged_decode_attention
+
     while engine.live_lanes or engine.pending or engine._inflight:  # drain
         done.extend(engine.step())
     lat = np.array([c.admit_time - c.submit_time for c in window]) * 1e3
@@ -1377,12 +1481,23 @@ def phase_genrl_continuous(report: dict) -> None:
          paged_kernel_share_of_device=paged_us / 1e6 / busy_s if kernels else None,
          top_kernels=[{"name": k[:90], "us_per_macro_step": us / pmacros,
                        "calls_per_macro_step": n / pmacros} for k, us, n in kernels[:12]],
+         paged_kernel_us_per_call=paged_us / (GEN_MACRO * GEN_LAYERS),
          cprofile_macro_step_s=host_s / hmacros,
          host_top=[{"function": f, "cumulative_ms_per_macro_step": ct / hmacros * 1e3,
                     "calls_per_macro_step": n / hmacros} for f, ct, n in host_top],
          card=report["card"])
     if launches != GEN_MACRO * GEN_LAYERS * macros or macros == 0:
         raise AssertionError(f"paged kernel launches {launches} for {macros} macro steps")
+    if "lengths" not in seen:
+        raise AssertionError("no decode call in 64 cycles to snapshot the lanes' lengths from")
+    mix = seen["lengths"].cpu()
+    B, H, D = GEN_LANES, GEN_HEADS, GEN_D // GEN_HEADS
+    inp = _paged_case(B, H, D, GEN_PAGE, GEN_PAGES_PER_LANE, GEN_NUM_PAGES, mix, seed=17,
+                      dtype=torch.float32, shared=8)
+    emit("paged_attn_engine_mix", lengths_mean=float(mix.float().mean()),
+         lengths_max=int(mix.max()), lanes_at_length_1=int((mix == 1).sum()),
+         in_path_us_per_call=paged_us / (GEN_MACRO * GEN_LAYERS),
+         **_paged_timing(inp, mix, with_plain=False), card=report["card"])
     if max(lens) > GEN_R or not tokens_ok or not logp_ok or engine.allocator.reserved != 0:
         raise AssertionError(f"bad completions: max len {max(lens)}, tokens in vocab {tokens_ok}, "
                              f"finite logp {logp_ok}, reserved {engine.allocator.reserved}")
@@ -1588,6 +1703,60 @@ def _seg_check(name, case, report_cases):
     return o_err, g_err[0], max(g_err[1:])  # by kernel: forward, dq, dk/dv
 
 
+def _seg_dkv_check(name, case, report_cases, forward: bool):
+    """The dk/dv kernel alone against the plain version's dk and dv (float32
+    autograd on the card), from lse and delta = sum_d do * o of the plain
+    forward in float32, or with ``forward`` of the forward kernel, whose o is
+    held to the plain version's too; exact zeros on pad; two runs
+    bit-equal."""
+    import torch
+
+    from scalerl_torch.models.transformer import packed_attention_mask
+    from scalerl_torch.ops import cuda_segment_attention as csa
+    from scalerl_torch.ops.attention import segment_attention_reference
+
+    q, k, v, seg, do = (case[n] for n in ("q", "k", "v", "seg", "do"))
+    bf16 = q.dtype == torch.bfloat16
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    leaves = [t.float().detach().requires_grad_(True) for t in (q, k, v)]
+    o = segment_attention_reference(*leaves, seg, scale)
+    _, dk_w, dv_w = torch.autograd.grad(o, leaves, do.float())
+    o = o.detach()
+    res = dict(case=name, kernels="forward, dk/dv" if forward else "dk/dv", shape=list(q.shape),
+               dtype=str(q.dtype)[6:], contiguous=q.is_contiguous())
+    if forward:
+        o_k, lse = csa.segment_forward_kernel(q, k, v, seg, scale)
+        o_k2, _ = csa.segment_forward_kernel(q, k, v, seg, scale)
+        res.update(o_max_abs_err=(o_k.float() - o).abs().max().item(),
+                   o_repeat_bit_equal=bool(torch.equal(o_k, o_k2)))
+        o_used = o_k.float()
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        s = s.masked_fill(~packed_attention_mask(seg)[:, None], float("-inf"))
+        lse = torch.logsumexp(s, dim=-1).contiguous()  # -inf where a query sees no key
+        o_used = o
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o_used).contiguous()
+    dk1, dv1 = csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do.contiguous(), scale)
+    dk2, dv2 = csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do.contiguous(), scale)
+    torch.cuda.synchronize()
+    pad = seg == 0
+    g_err = [(a.float() - b).abs().max().item() for a, b in ((dk1, dk_w), (dv1, dv_w))]
+    g_max = max(dk_w.abs().max().item(), dv_w.abs().max().item())
+    res.update(dk_max_abs_err=g_err[0], dv_max_abs_err=g_err[1], largest_gradient=g_max,
+               pad_tokens=int(pad.sum()),
+               pad_exact_zero=bool((dk1[pad] == 0).all() and (dv1[pad] == 0).all()),
+               repeat_bit_equal=bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+                                     and res.get("o_repeat_bit_equal", True)),
+               finite=bool(torch.isfinite(dk1).all() and torch.isfinite(dv1).all()))
+    report_cases.append(res)
+    tol = SEG_BF16_REL_TOL if bf16 else SEG_GRAD_REL_TOL
+    o_tol = SEG_BF16_REL_TOL * max(o.abs().max().item(), 1.0) if bf16 else SEG_VALUE_TOL
+    if not (max(g_err) <= tol * max(g_max, 1.0) and res.get("o_max_abs_err", 0.0) <= o_tol
+            and res["pad_exact_zero"] and res["repeat_bit_equal"] and res["finite"]):
+        raise AssertionError(f"segment kernels off their plain version: {res}")
+    return res.get("o_max_abs_err", 0.0), max(g_err)
+
+
 def _seg_times(seg_ids: np.ndarray, H: int, D: int, launches: int) -> dict:
     """The three segment kernels, each alone by CUDA-graph replay, at one
     packed batch (float32), beside the plain version, SDPA under the dense
@@ -1682,6 +1851,8 @@ def _seg_times(seg_ids: np.ndarray, H: int, D: int, launches: int) -> dict:
 def phase_segment_attn(report: dict) -> None:
     import torch
 
+    from scalerl_torch.ops import cuda_segment_attention as csa
+
     set_tf32(False)
     H, D = TRAIN_HEADS, TRAIN_HEAD_DIM
     pk, _, _ = _bench_learn_batches()
@@ -1711,6 +1882,26 @@ def phase_segment_attn(report: dict) -> None:
                           cases)
         if dtype == torch.float32:
             worst = [max(w, e) for w, e in zip(worst, errs)]
+    # wider heads: at 64 the forward and dk/dv kernels (dq builds 32 only,
+    # and a differentiable call past it is refused), at 128 dk/dv alone
+    for name, seg, heads, dim, dtype, strided in (
+        ("rows_of_512_D64", wide[:16], 4, 64, torch.float32, True),
+        ("ragged_S_333_D64_bf16", ragged, 4, 64, torch.bfloat16, False),
+        ("rows_of_512_D128", wide[:8], 2, 128, torch.float32, True),
+        ("all_pad_row_D128", all_pad, 2, 128, torch.float32, False),
+        ("ragged_S_333_D128_bf16", ragged, 2, 128, torch.bfloat16, False),
+    ):
+        case = _seg_case(seg, heads, dim, dtype, seed=len(cases), strided=strided)
+        o_err, g_err = _seg_dkv_check(name, case, cases, forward=dim <= csa.MAX_FWD_HEAD_DIM)
+        if dtype == torch.float32:
+            worst[0], worst[2] = max(worst[0], o_err), max(worst[2], g_err)
+    q64 = _seg_case(wide[:2], 4, 64, torch.float32, seed=99)["q"].requires_grad_(True)
+    try:
+        csa.segment_flash_attention(q64, q64, q64, torch.tensor(wide[:2]).cuda())
+        raise AssertionError("a differentiable call at head dim 64 was not refused")
+    except ValueError as exc:
+        if "segment dq" not in str(exc):
+            raise
 
     # times at the bench's packed batch and at the learn step's rows of 512
     main = _seg_times(main_seg, H, D, 50)

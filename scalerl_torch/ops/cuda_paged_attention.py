@@ -2,22 +2,28 @@
 
 Replaces the TPU kernel ``scalerl_tpu/ops/pallas_paged_attention.py::
 paged_decode_attention`` (``_decode_kernel``), with its signature.  The
-kernel runs one warp per (lane, head), walks the lane's live tokens in
-order through its page table and keeps an online softmax in registers;
-it is bound by bytes (each live token's K and V read once; the source
-says more).
+kernel splits each lane's context across blocks of :data:`SPLIT_TOKENS`
+tokens, one block per (lane, head group, split), streams each split's
+pages through shared memory with asynchronous copies, and keeps an online
+softmax per head; the last split of a lane to finish combines the splits'
+partials in split order, in the same launch.  It is bound by bytes (each
+live token's K and V read once; the source says more).
 
 :func:`paged_decode_attention` runs the plain version
 (``ops/paged_attention.py::paged_attention_reference``) for host tensors;
 for CUDA tensors it launches the kernel or raises.  It refuses inputs
 that require grad: decode is inference-only, as the TPU kernel (which has
-no vjp) is.  ``launches`` counts kernel launches and nothing else.
+no vjp) is.  The partials go to a float32 scratch buffer allocated per
+call; the arrival counters are one zeroed int32 buffer per (device,
+stream), which the kernel leaves zeroed, so launches on one stream share
+it in order (make the first call on a stream before capturing it in a CUDA
+graph).  ``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,7 +33,8 @@ from scalerl_torch.utils import cuda_build
 # Kernel launches since the last reset (a plain count; callers zero it).
 launches = 0
 
-MAX_HEAD_DIM = 128  # csrc/paged_attention.cu instantiates D <= 32, 64, 128
+MAX_HEAD_DIM = 128  # csrc/paged_attention.cu instantiates D <= 16, 32, 64, 128
+SPLIT_TOKENS = 64  # tokens of a lane's context per block (the source's kSplit)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _c_int = ctypes.c_int
@@ -39,11 +46,39 @@ def _lib():
     lib = cuda_build.load("paged_attention")
     if lib.paged_attention_launch.argtypes is None:
         lib.paged_attention_launch.argtypes = [
-            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_ptr,
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_ptr,
         ]
         lib.paged_attention_launch.restype = _c_int
     return lib
+
+
+# (device index, stream handle) -> int32 arrival counters, zero between launches
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def num_splits(max_tokens: int) -> int:
+    """Blocks a lane's context of up to ``max_tokens`` (M * ps) is split
+    across."""
+    return -(-max_tokens // SPLIT_TOKENS)
+
+
+def scratch_floats(B: int, H: int, D: int, max_tokens: int) -> int:
+    """float32 elements of the per-call scratch: (m, l, acc[D]) per (lane,
+    head, split)."""
+    return B * H * num_splits(max_tokens) * (D + 2)
+
+
+def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    counters = _counters.get(key)
+    if counters is None or counters.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged attention: call the kernel once on this stream before "
+                               "capturing it, so its arrival counters exist outside the graph")
+        counters = torch.zeros(n, dtype=torch.int32, device=device)
+        _counters[key] = counters
+    return counters
 
 
 def paged_decode_attention(
@@ -95,10 +130,13 @@ def paged_decode_attention(
     if B == 0 or H == 0:
         return out
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        scratch = torch.empty(scratch_floats(B, H, D, M * ps), dtype=torch.float32, device=device)
+        counters = _arrival_counters(device, stream, B * H)
         err = _lib().paged_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, H, D, N, ps, M, float(scale),
-            _DTYPES[q.dtype], torch.cuda.current_stream(device).cuda_stream,
+            lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+            SPLIT_TOKENS, B, H, D, N, ps, M, float(scale), _DTYPES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: cudaError {err}")

@@ -5,11 +5,18 @@ Replaces the three TPU kernels behind ``scalerl_tpu/ops/pallas_attention.py
 ::segment_flash_attention`` (``_seg_fwd_kernel``, ``_seg_bwd_dq_kernel``,
 ``_seg_bwd_dkv_kernel``), with its contract: causal self-attention within
 the packed segments of each row, exact zeros where a query has no live key.
-Each kernel gives one thread a query (forward, dq) or a key (dk/dv) and
-walks the other axis in shared-memory tiles, skipping tiles whose segment
-ids cannot meet the block's; at the learner's shapes they are bound by
-bytes (the source says more).  No kernel uses atomics, so values and
-gradients repeat bit for bit.
+The forward and dq kernels give one thread a query and walk the keys in
+shared-memory tiles, skipping tiles whose segment ids cannot meet the
+block's.  The dk/dv kernel is register-blocked: 4 warps own 16 keys, the
+queries stream through a ring of 64-query tiles filled by asynchronous
+copies (tiles whose ids cannot meet the keys' are never loaded), each lane
+computes 4 x 2 micro-tiles of the products in exact float32, and the warps'
+partials combine in warp order.  At the learner's rows of 512 the kernels
+are bound by float32 operations (the source says more).  No kernel uses
+atomics, so values and gradients repeat bit for bit.  The forward takes
+head dims up to :data:`MAX_FWD_HEAD_DIM`, dq up to
+:data:`MAX_DQ_HEAD_DIM` and dk/dv up to :data:`MAX_DKV_HEAD_DIM`; a call
+that needs gradients is refused past dq's limit before the forward runs.
 
 :func:`segment_flash_attention` is differentiable in q, k and v (a
 ``torch.autograd.Function``; the ids and the scale get no gradient).  For
@@ -39,7 +46,14 @@ fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
 
-MAX_HEAD_DIM = 32  # csrc/segment_attention.cu instantiates D <= 32 only
+# Head dims each kernel builds (csrc/segment_attention.cu): the forward at
+# 32 and 64, dq at 32 only (its one-row-per-thread design spills registers
+# at 64), dk/dv at 32, 64 and 128.  MAX_HEAD_DIM is what all three take, the
+# limit of a differentiable call.
+MAX_FWD_HEAD_DIM = 64
+MAX_DQ_HEAD_DIM = 32
+MAX_DKV_HEAD_DIM = 128
+MAX_HEAD_DIM = min(MAX_FWD_HEAD_DIM, MAX_DQ_HEAD_DIM, MAX_DKV_HEAD_DIM)
 MAX_GRID_YZ = 65535  # heads ride gridDim.y, batch rows gridDim.z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -101,14 +115,14 @@ def _launch(fn: Callable, pointers, q: torch.Tensor, strides, scale: float) -> N
         raise RuntimeError(f"segment attention kernel launch failed: cudaError {err}")
 
 
-def _check_cuda(q: torch.Tensor) -> None:
+def _check_cuda(q: torch.Tensor, kernel: str, max_head_dim: int) -> None:
     B, _, H, D = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"no segment attention kernel for device {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q, k, v must be float32 or bfloat16 on the card, got {q.dtype}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}, the kernels' limit")
+    if D > max_head_dim:
+        raise ValueError(f"head_dim {D} > {max_head_dim}, the {kernel} kernel's limit")
     if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
         raise ValueError(f"heads {H} and rows {B} must each be <= {MAX_GRID_YZ}")
 
@@ -118,7 +132,7 @@ def segment_forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, se
     """The forward kernel on CUDA tensors: ``(o [B, T, H, D] in q's dtype,
     lse [B, H, T] float32)``.  ``seg`` is contiguous int32."""
     global fwd_launches
-    _check_cuda(q)
+    _check_cuda(q, "segment forward", MAX_FWD_HEAD_DIM)
     B, S, H, D = q.shape
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -139,7 +153,7 @@ def segment_dq_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: to
     [B, H, T] float32)`` with ``delta = sum_d do * o``, which the dk/dv
     kernel reads.  ``d_o`` is contiguous, in q's dtype."""
     global dq_launches
-    _check_cuda(q)
+    _check_cuda(q, "segment dq", MAX_DQ_HEAD_DIM)
     B, S, H, D = q.shape
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -160,7 +174,7 @@ def segment_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: t
     """The dk/dv kernel on CUDA tensors: ``(dk, dv)``, contiguous, in q's
     dtype.  ``delta`` comes from :func:`segment_dq_kernel`."""
     global dkv_launches
-    _check_cuda(q)
+    _check_cuda(q, "segment dk/dv", MAX_DKV_HEAD_DIM)
     B, S, H, D = q.shape
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -225,6 +239,10 @@ def segment_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``i`` attends ``j <= i`` iff ``segment_ids[i] == segment_ids[j] != 0``;
     a query with no live key gives exact zeros."""
     check_segment_inputs(q, k, v, segment_ids)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if q.device.type == "cuda" and needs_grad and q.shape[-1] > MAX_DQ_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_DQ_HEAD_DIM}, the segment dq kernel's "
+                         f"limit: no gradient past it")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     seg = segment_ids.to(torch.int32).contiguous()

@@ -6,7 +6,10 @@ interpret mode) and through the port's plain version and its CUDA-kernel
 wrapper, which runs the plain version on host tensors.  The kernel itself
 is held against the plain version on the card by ``chip_smoke.py``.
 Tolerance: JAX's own pin of kernel against reference, 1e-5
-(tests/test_paging.py:362).
+(tests/test_paging.py:362).  The CUDA kernel's summation order (each lane's
+context split into 64-token blocks that walk 16-token chunks with an online
+softmax, the splits' partials combined in split order) is emulated here and
+held to the JAX reference and the Pallas kernel at the same tolerance.
 """
 
 import jax.numpy as jnp
@@ -158,3 +161,123 @@ def test_full_attention_matches_jax(causal):
     got = full_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                          causal=causal)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+
+
+def _split_kernel_emulation(q, k_pages, v_pages, table, lengths, chunk=16):
+    """csrc/paged_attention.cu's arithmetic in plain torch (float32).
+
+    Each lane's context is split into ``SPLIT_TOKENS``-token blocks; a split
+    walks its tokens in chunks of 16: s = (q * scale) . k, the chunk's max
+    m_c, m' = max(m, m_c), corr = exp(m - m'), p = exp(s - m') (0 past the
+    length), l = l corr + sum p, acc = acc corr + sum_j p_j v_j in token
+    order.  A lane whose length fits one split writes acc / max(l, 1e-30);
+    otherwise its splits' (m, l, acc) combine in split order: M = max m_s,
+    w_s = exp(m_s - M), l = sum l_s w_s, acc = sum acc_s w_s.  Table entries
+    are clamped into [0, N)."""
+    split = cuda_paged_attention.SPLIT_TOKENS
+    q, k_pages, v_pages = (torch.as_tensor(np.asarray(x, np.float32)) for x in (q, k_pages, v_pages))
+    table = torch.as_tensor(np.asarray(table, np.int64))
+    lengths = torch.as_tensor(np.asarray(lengths, np.int64))
+    B, _, H, D = q.shape
+    N, ps = k_pages.shape[:2]
+    M = table.shape[1]
+    lens = lengths.clamp(max=M * ps)
+    n_live = (lens + split - 1) // split  # [B]
+    qs = q[:, 0] * (1.0 / D ** 0.5)  # [B, H, D]
+    kflat = k_pages.reshape(N * ps, H, D)
+    vflat = v_pages.reshape(N * ps, H, D)
+    parts = []  # per split: (m [B, H], l [B, H], acc [B, H, D])
+    for s0 in range(0, M * ps, split):
+        m = torch.full((B, H), float("-inf"))
+        l = torch.zeros(B, H)
+        acc = torch.zeros(B, H, D)
+        for c0 in range(s0, s0 + split, chunk):
+            pos = torch.arange(c0, c0 + chunk)
+            live = pos[None, :] < lens[:, None]  # [B, chunk]
+            if not live.any():
+                break
+            pages = table[:, (pos // ps).clamp(max=M - 1)].clamp(0, N - 1)
+            slots = pages * ps + pos % ps  # [B, chunk]
+            kk, vv = kflat[slots], vflat[slots]  # [B, chunk, H, D]
+            score = torch.einsum("bhd,bthd->bht", qs, kk)
+            score = torch.where(live[:, None, :], score, float("-inf"))
+            m_new = torch.maximum(m, score.amax(-1))
+            m_new = torch.where(live.any(-1)[:, None], m_new, m)  # lanes done stay put
+            safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+            corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - safe))
+            p = torch.where(live[:, None, :], torch.exp(score - safe[..., None]), 0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None]
+            for j in range(chunk):  # p . V in token order
+                acc = acc + p[:, :, j, None] * vv[:, j]
+            m = m_new
+        parts.append((m, l, acc))
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        n = max(int(n_live[b]), 1)
+        if n == 1:
+            m, l, acc = parts[0]
+            out[b] = acc[b] / l[b].clamp(min=1e-30)[:, None]
+            continue
+        m_all = torch.stack([parts[s][0][b] for s in range(n)]).amax(0)
+        l_all = torch.zeros(H)
+        o = torch.zeros(H, D)
+        for s in range(n):  # in split order
+            w = torch.exp(parts[s][0][b] - m_all)
+            l_all = l_all + parts[s][1][b] * w
+            o = o + parts[s][2][b] * w[:, None]
+        out[b] = o / l_all.clamp(min=1e-30)[:, None]
+    return out[:, None].numpy()
+
+
+def _split_layout(kind, rng, B, M, N, ps):
+    """Lengths on and beside the 64-token splits (and 16-token chunks), a
+    length of 1 and a full lane; ``shared``: lanes 1.. map lane 0's first
+    pages (a forked group); ``junk``: random pages past each length."""
+    full = M * ps
+    lengths = np.array([1, 15, 16, 17, 63, 64, 65, 127, 128, 129, full - 1, full][:B], np.int32)
+    order = rng.permutation(np.arange(1, N))
+    table = np.zeros((B, M), np.int32)
+    cursor = 0
+    for b in range(B):
+        n = -(-int(lengths[b]) // ps)
+        table[b, :n] = order[cursor:cursor + n]
+        cursor += n
+        if kind == "junk" and n < M:
+            table[b, n:] = rng.integers(0, N, M - n)
+    if kind == "shared":
+        for b in range(1, B):
+            n = min(-(-int(lengths[b]) // ps), 3)
+            table[b, :n] = table[0, :n]
+    return table, lengths
+
+
+@pytest.mark.parametrize("kind", ["private", "shared", "junk"])
+def test_split_kernel_order_matches_jax_reference_and_pallas(kind):
+    """The CUDA kernel's split-and-combine summation order, emulated, gives
+    the JAX reference's and the Pallas kernel's (interpret mode) outputs
+    within 1e-5 at lengths of 1, on and beside the split and chunk
+    boundaries and a full lane (160 tokens: three splits, the last ragged),
+    in private, shared-prefix and junk-tailed tables."""
+    rng = np.random.default_rng({"private": 40, "shared": 41, "junk": 42}[kind])
+    B, H, D, ps, M = 12, 2, 8, 8, 20
+    N = B * M + 2
+    table, lengths = _split_layout(kind, rng, B, M, N, ps)
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    k = rng.normal(size=(N, ps, H, D)).astype(np.float32)
+    v = rng.normal(size=(N, ps, H, D)).astype(np.float32)
+    got = _split_kernel_emulation(q, k, v, table, lengths)
+    ref, pallas, plain, _ = _both(q, k, v, table, lengths)
+    np.testing.assert_allclose(got, ref, atol=TOL)
+    np.testing.assert_allclose(got, pallas, atol=TOL)
+    np.testing.assert_allclose(got, plain, atol=TOL)
+
+
+def test_split_scratch_sizes():
+    """The wrapper sizes the per-call scratch by the kernel's split: (m, l,
+    acc[D]) per (lane, head, split)."""
+    assert cuda_paged_attention.SPLIT_TOKENS == 64
+    assert cuda_paged_attention.num_splits(384) == 6
+    assert cuda_paged_attention.num_splits(385) == 7
+    assert cuda_paged_attention.num_splits(1) == 1
+    assert cuda_paged_attention.scratch_floats(256, 8, 32, 384) == 256 * 8 * 6 * 34

@@ -157,3 +157,153 @@ def test_make_segment_attn_fn(impl, kernel):
 def test_make_segment_attn_fn_refuses_unknown_impl():
     with pytest.raises(ValueError, match="auto | pallas | xla"):
         csa.make_segment_attn_fn("mosaic")
+
+
+
+# chip_smoke.py's SEG_GRAD_REL_TOL: the card check's bound on float32
+# gradients, relative to the largest gradient of the case
+SEG_GRAD_REL_TOL = 1e-4
+
+
+def _ranges_meet(a, b):
+    """Two sets of segment ids (0 = pad) can share a live pair: the
+    conservative test of csrc/segment_attention.cu on each side's (min
+    nonzero, max)."""
+    a, b = a[a > 0], b[b > 0]
+    return a.numel() > 0 and b.numel() > 0 and bool(a.min() <= b.max() and b.min() <= a.max())
+
+
+def _micro_tile_dkv(q, k, v, do, seg, lse, delta, scale, rows=16, tile=64, warps=4):
+    """mt::seg_bwd_dkv_kernel's summation order in plain torch (float32).
+
+    A block owns 16 keys of one row and walks the queries in tiles of 64
+    from its first key, skipping a tile whose ids cannot meet the keys';
+    warp w takes queries 16 w .. 16 w + 15 of a live tile and skips them
+    when their ids cannot meet the keys'.  P^T = exp(S^T scale - lse) (lse =
+    -inf read as 0) where query i sees key j (j <= i, seg[i] == seg[j] !=
+    0), dS^T = P^T (dP^T - delta); each warp sums P^T do and dS^T q over its
+    queries, the warps' partials add in warp order, and scale multiplies dk
+    at the end.  Returns dk, dv [B, S, H, D]."""
+    B, S, H, D = q.shape
+    per = tile // warps
+    safe = torch.where(torch.isneginf(lse), 0.0, lse)  # [B, H, S]
+    pos = torch.arange(S)
+    dk = torch.zeros(B, S, H, D)
+    dv = torch.zeros(B, S, H, D)
+    for b in range(B):
+        for k0 in range(0, S, rows):
+            k1 = min(k0 + rows, S)
+            kid = seg[b, k0:k1]
+            dk_w = torch.zeros(warps, k1 - k0, H, D)
+            dv_w = torch.zeros(warps, k1 - k0, H, D)
+            for i0 in range(k0, S, tile):
+                if not _ranges_meet(seg[b, i0:i0 + tile], kid):
+                    continue
+                for w in range(warps):
+                    a, z = i0 + per * w, min(i0 + per * (w + 1), S)
+                    if a >= z or not _ranges_meet(seg[b, a:z], kid):
+                        continue
+                    sees = ((pos[k0:k1, None] <= pos[None, a:z])
+                            & (kid[:, None] == seg[b, None, a:z]) & (kid[:, None] > 0))
+                    st = torch.einsum("khd,qhd->hkq", k[b, k0:k1], q[b, a:z])  # S^T
+                    p = torch.where(sees[None], torch.exp(st * scale - safe[b, :, None, a:z]), 0.0)
+                    dpt = torch.einsum("khd,qhd->hkq", v[b, k0:k1], do[b, a:z])  # dP^T
+                    ds = p * (dpt - delta[b, :, None, a:z])
+                    dv_w[w] += torch.einsum("hkq,qhd->khd", p, do[b, a:z])
+                    dk_w[w] += torch.einsum("hkq,qhd->khd", ds, q[b, a:z])
+            dk_sum, dv_sum = dk_w[0], dv_w[0]
+            for w in range(1, warps):  # warp order
+                dk_sum, dv_sum = dk_sum + dk_w[w], dv_sum + dv_w[w]
+            dk[b, k0:k1] = dk_sum * scale
+            dv[b, k0:k1] = dv_sum
+    return dk, dv
+
+
+def _lse_delta(q, k, v, do, seg, scale):
+    """lse [B, H, S] of the masked scores (-inf where a query sees no key)
+    and delta = sum_d do * o, from the plain version in float32."""
+    o = segment_attention_reference(q, k, v, seg, scale)
+    S = q.shape[1]
+    ar = torch.arange(S)
+    mask = ((ar[None, :, None] >= ar[None, None, :]) & (seg[:, :, None] == seg[:, None, :])
+            & (seg[:, :, None] > 0))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    lse = torch.logsumexp(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
+    return lse, torch.einsum("bqhd,bqhd->bhq", do, o)
+
+
+def _rel_err(got, want):
+    want = torch.tensor(np.array(want), dtype=torch.float64)
+    return ((got.double() - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+
+
+def _oracle_dkv(q, k, v, do, seg):
+    """dk, dv of the segment attention in float64 under the cotangent do."""
+    leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (q, k, v)]
+    out = segment_attention_reference(*leaves, torch.tensor(seg))
+    _, dk, dv = torch.autograd.grad(out, leaves, torch.tensor(do, dtype=torch.float64))
+    return dk, dv
+
+
+DKV_LAYOUTS = {
+    # S = 150: three query tiles, the last ragged; one segment spans keys
+    # 40..139, across the 64-key tile boundary and three 16-key blocks
+    "ragged_S_crossing_segment": (150, [[(0, 40, 1), (40, 140, 2), (140, 150, 3)],
+                                        [(0, 70, 1), (70, 131, 2)]]),
+    # a row all pad beside a row of one long segment and a pad tail
+    "all_pad_row": (130, [[], [(0, 121, 1)]]),
+    # short segments: tiles and warps whose ids meet no key's and are skipped
+    "many_short_segments": (140, [[(i, min(i + 9, 140), 1 + i // 9) for i in range(0, 140, 9)],
+                                  [(0, 5, 1), (5, 100, 2), (100, 104, 3)]]),
+}
+
+
+@pytest.mark.parametrize("name", list(DKV_LAYOUTS))
+def test_micro_tile_dkv_order_matches_pallas_and_float64(name):
+    """The dk/dv kernel's tiling (16 keys a block, 64-query tiles from the
+    first key with the range skip, 16 queries a warp with its own skip,
+    warp-order combine, scale on dk at the end) gives the Pallas segment
+    backward's dk and dv (interpret mode, blocks of 32) and a float64
+    oracle's within the card check's 1e-4 of the largest gradient."""
+    S, spans = DKV_LAYOUTS[name]
+    seg = _layout(S, spans)
+    B, H, D = len(spans), 2, 16
+    q, k, v = _inputs(50, B, S, H, D)
+    do = np.random.default_rng(51).normal(size=q.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(D)
+    tq, tk, tv, tdo, tseg = (torch.tensor(x) for x in (q, k, v, do, seg))
+    lse, delta = _lse_delta(tq, tk, tv, tdo, tseg, scale)
+    dk, dv = _micro_tile_dkv(tq, tk, tv, tdo, tseg, lse, delta, scale)
+
+    def loss(a, b, c):
+        return jnp.sum(jax_flash(a, b, c, jnp.asarray(seg), None, 32, 32, None) * do)
+
+    _, jdk, jdv = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*(jnp.asarray(x) for x in (q, k, v)))
+    odk, odv = _oracle_dkv(q, k, v, do, seg)
+    for label, got, jw, ow in (("dk", dk, jdk, odk), ("dv", dv, jdv, odv)):
+        assert _rel_err(got, jw) <= SEG_GRAD_REL_TOL, (label, _rel_err(got, jw))
+        assert _rel_err(got, ow.numpy()) <= SEG_GRAD_REL_TOL, (label, _rel_err(got, ow.numpy()))
+    pad = seg == 0
+    assert (dk.numpy()[pad] == 0).all() and (dv.numpy()[pad] == 0).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_plain_version_matches_pallas_at_wide_heads(D):
+    """Head dims 64 (the forward and dk/dv kernels' widest but one) and 128
+    (dk/dv's widest): the plain version, values and gradients, against the
+    Pallas segment kernel in interpret mode."""
+    T, spans = LAYOUTS["straddling_blocks"]
+    seg = _layout(T, spans)
+    q, k, v = _inputs(60 + D, len(spans), T, H=2, D=D)
+    out, grads = _torch_value_and_grads(segment_attention_reference, q, k, v, seg)
+    want, want_grads = _jax_value_and_grads(
+        lambda q, k, v, s: jax_flash(q, k, v, s, None, 8, 8, None), q, k, v, seg)
+    np.testing.assert_allclose(out, want, atol=VALUE_TOL, rtol=VALUE_TOL)
+    for got, exp in zip(grads, want_grads):
+        np.testing.assert_allclose(got, exp, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_kernel_head_dim_limits():
+    """What each kernel builds, and a differentiable call's limit: dq's."""
+    assert (csa.MAX_FWD_HEAD_DIM, csa.MAX_DQ_HEAD_DIM, csa.MAX_DKV_HEAD_DIM) == (64, 32, 128)
+    assert csa.MAX_HEAD_DIM == 32
