@@ -83,19 +83,21 @@ no result line:
     dq, dk/dv) against their plain PyTorch version on the card: at the
     packed learn batch of ``bench.py`` (64 sequences of 2-128 tokens in
     rows of 256, 8 heads of 32), as strided views of one fused projection,
-    at rows of 512 with 2-3 segments, at ragged S (333 and 19), with an
-    all-pad row and in bfloat16; at head dim 64 (the forward and dk/dv
-    kernels, float32 and bfloat16; dq builds 32 only, and a differentiable
-    call at 64 must be refused naming it) and 128 (the dk/dv kernel alone,
-    from the plain forward's lse and delta).  Values within
-    ``SEG_VALUE_TOL``, gradients within ``SEG_GRAD_REL_TOL`` of the largest
-    gradient (``SEG_BF16_REL_TOL`` in bfloat16), exact zeros on pad, two
-    runs bit-equal.  Each kernel's time by CUDA-graph replay and eagerly,
-    the plain version's, both bounds, and SDPA with the dense mask as
-    context, at the bench's batch and at the learn step's 64 rows of 512.
+    at rows of 512 with 2-3 segments, at ragged S (333 and 19, the latter
+    at head dim 8), with an all-pad row and in bfloat16; then at head dims
+    64 and 128 (rows of 512 as strided views, an all-pad row, bfloat16),
+    every layout through all three kernels with gradients, and a
+    differentiable call at 136, past the widest build, must be refused
+    naming the dq kernel.  Values within ``SEG_VALUE_TOL``, gradients
+    within ``SEG_GRAD_REL_TOL`` of the largest gradient
+    (``SEG_BF16_REL_TOL`` in bfloat16), exact zeros on pad, two runs
+    bit-equal.  Each kernel's time by CUDA-graph replay and eagerly, the
+    plain version's, both bounds, and SDPA with the dense mask as context,
+    at the bench's batch and at the learn step's 64 rows of 512.
 15. ``token_ppo_learn``: one full-width learn step (64 rows of 512,
     ``kl_cost`` on) from the same state and batch, through the kernels and
-    through the dense packed mask, float32 with TF32 off (``TOKEN_PPO_TOL``).
+    through the dense packed mask, float32 with TF32 off
+    (``TOKEN_PPO_TOL``), at 8 heads of 32 and again at 4 heads of 64.
 16. ``genrl_train``: the training slice's main path, ``SequenceRLTrainer``
     at ``bench.py --mode genrl``'s width (V=1024, d=256, 8 heads, 4 layers,
     64 lanes, prompts of 2-128 tokens, 128 new tokens) with the packed
@@ -1540,11 +1542,12 @@ TRAIN_COHORT_S = 20.0
 TRAIN_CONTINUOUS_ROUNDS = 3
 TRAIN_LEARN_RATE_S = 3.0
 # the segment kernels against the plain version in float32: the same
-# arithmetic summed in another order (an online softmax over chunks of 8
-# keys and thread-serial sums over up to 512 keys, against one softmax and
-# two einsums); the JAX package pins its kernel to its reference at 2e-5 on
-# values and 1e-5 on gradients of O(1) inputs.  Gradients here are held
-# relative to the largest reference gradient of the case
+# arithmetic summed in another order (each warp's online softmax and sums
+# over its 16 rows of a 64-row tile, the warps combined in order, against
+# one softmax and two einsums); the JAX package pins its kernel to its
+# reference at 2e-5 on values and 1e-5 on gradients of O(1) inputs.
+# Gradients here are held relative to the largest reference gradient of the
+# case
 SEG_VALUE_TOL = 2e-5
 SEG_GRAD_REL_TOL = 1e-4
 # bfloat16 inputs: both sides accumulate in float32 and round each output to
@@ -1703,60 +1706,6 @@ def _seg_check(name, case, report_cases):
     return o_err, g_err[0], max(g_err[1:])  # by kernel: forward, dq, dk/dv
 
 
-def _seg_dkv_check(name, case, report_cases, forward: bool):
-    """The dk/dv kernel alone against the plain version's dk and dv (float32
-    autograd on the card), from lse and delta = sum_d do * o of the plain
-    forward in float32, or with ``forward`` of the forward kernel, whose o is
-    held to the plain version's too; exact zeros on pad; two runs
-    bit-equal."""
-    import torch
-
-    from scalerl_torch.models.transformer import packed_attention_mask
-    from scalerl_torch.ops import cuda_segment_attention as csa
-    from scalerl_torch.ops.attention import segment_attention_reference
-
-    q, k, v, seg, do = (case[n] for n in ("q", "k", "v", "seg", "do"))
-    bf16 = q.dtype == torch.bfloat16
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    leaves = [t.float().detach().requires_grad_(True) for t in (q, k, v)]
-    o = segment_attention_reference(*leaves, seg, scale)
-    _, dk_w, dv_w = torch.autograd.grad(o, leaves, do.float())
-    o = o.detach()
-    res = dict(case=name, kernels="forward, dk/dv" if forward else "dk/dv", shape=list(q.shape),
-               dtype=str(q.dtype)[6:], contiguous=q.is_contiguous())
-    if forward:
-        o_k, lse = csa.segment_forward_kernel(q, k, v, seg, scale)
-        o_k2, _ = csa.segment_forward_kernel(q, k, v, seg, scale)
-        res.update(o_max_abs_err=(o_k.float() - o).abs().max().item(),
-                   o_repeat_bit_equal=bool(torch.equal(o_k, o_k2)))
-        o_used = o_k.float()
-    else:
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-        s = s.masked_fill(~packed_attention_mask(seg)[:, None], float("-inf"))
-        lse = torch.logsumexp(s, dim=-1).contiguous()  # -inf where a query sees no key
-        o_used = o
-    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o_used).contiguous()
-    dk1, dv1 = csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do.contiguous(), scale)
-    dk2, dv2 = csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do.contiguous(), scale)
-    torch.cuda.synchronize()
-    pad = seg == 0
-    g_err = [(a.float() - b).abs().max().item() for a, b in ((dk1, dk_w), (dv1, dv_w))]
-    g_max = max(dk_w.abs().max().item(), dv_w.abs().max().item())
-    res.update(dk_max_abs_err=g_err[0], dv_max_abs_err=g_err[1], largest_gradient=g_max,
-               pad_tokens=int(pad.sum()),
-               pad_exact_zero=bool((dk1[pad] == 0).all() and (dv1[pad] == 0).all()),
-               repeat_bit_equal=bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
-                                     and res.get("o_repeat_bit_equal", True)),
-               finite=bool(torch.isfinite(dk1).all() and torch.isfinite(dv1).all()))
-    report_cases.append(res)
-    tol = SEG_BF16_REL_TOL if bf16 else SEG_GRAD_REL_TOL
-    o_tol = SEG_BF16_REL_TOL * max(o.abs().max().item(), 1.0) if bf16 else SEG_VALUE_TOL
-    if not (max(g_err) <= tol * max(g_max, 1.0) and res.get("o_max_abs_err", 0.0) <= o_tol
-            and res["pad_exact_zero"] and res["repeat_bit_equal"] and res["finite"]):
-        raise AssertionError(f"segment kernels off their plain version: {res}")
-    return res.get("o_max_abs_err", 0.0), max(g_err)
-
-
 def _seg_times(seg_ids: np.ndarray, H: int, D: int, launches: int) -> dict:
     """The three segment kernels, each alone by CUDA-graph replay, at one
     packed batch (float32), beside the plain version, SDPA under the dense
@@ -1882,25 +1831,28 @@ def phase_segment_attn(report: dict) -> None:
                           cases)
         if dtype == torch.float32:
             worst = [max(w, e) for w, e in zip(worst, errs)]
-    # wider heads: at 64 the forward and dk/dv kernels (dq builds 32 only,
-    # and a differentiable call past it is refused), at 128 dk/dv alone
+    # wider heads, through all three kernels with gradients: 64 and 128 (DP
+    # = 64 and 128; D = 8 above runs as DP = 32), float32 with strided views
+    # and an all-pad row, and bfloat16
     for name, seg, heads, dim, dtype, strided in (
         ("rows_of_512_D64", wide[:16], 4, 64, torch.float32, True),
+        ("all_pad_row_D64", all_pad, 4, 64, torch.float32, False),
         ("ragged_S_333_D64_bf16", ragged, 4, 64, torch.bfloat16, False),
         ("rows_of_512_D128", wide[:8], 2, 128, torch.float32, True),
         ("all_pad_row_D128", all_pad, 2, 128, torch.float32, False),
         ("ragged_S_333_D128_bf16", ragged, 2, 128, torch.bfloat16, False),
     ):
-        case = _seg_case(seg, heads, dim, dtype, seed=len(cases), strided=strided)
-        o_err, g_err = _seg_dkv_check(name, case, cases, forward=dim <= csa.MAX_FWD_HEAD_DIM)
+        errs = _seg_check(name, _seg_case(seg, heads, dim, dtype, seed=len(cases), strided=strided),
+                          cases)
         if dtype == torch.float32:
-            worst[0], worst[2] = max(worst[0], o_err), max(worst[2], g_err)
-    q64 = _seg_case(wide[:2], 4, 64, torch.float32, seed=99)["q"].requires_grad_(True)
+            worst = [max(w, e) for w, e in zip(worst, errs)]
+    # past the widest build a differentiable call is refused before any launch
+    q136 = _seg_case(wide[:2], 1, 136, torch.float32, seed=99)["q"].requires_grad_(True)
     try:
-        csa.segment_flash_attention(q64, q64, q64, torch.tensor(wide[:2]).cuda())
-        raise AssertionError("a differentiable call at head dim 64 was not refused")
+        csa.segment_flash_attention(q136, q136, q136, torch.tensor(wide[:2]).cuda())
+        raise AssertionError("a differentiable call at head dim 136 was not refused")
     except ValueError as exc:
-        if "segment dq" not in str(exc):
+        if f"{csa.MAX_HEAD_DIM}, the segment dq kernel" not in str(exc):
             raise
 
     # times at the bench's packed batch and at the learn step's rows of 512
@@ -1920,23 +1872,23 @@ def phase_segment_attn(report: dict) -> None:
          "(context only; the port never calls it)", card=report["card"])
 
 
-def phase_token_ppo_learn(report: dict) -> None:
-    """Full-width learn steps from the same state and batch on the card,
-    through the segment kernels and through the dense packed mask: the
-    loss's gradients leaf by leaf, then the metrics and the parameters."""
+def _token_ppo_compare(heads: int) -> None:
+    """Full-width learn steps with ``heads`` heads of ``TRAIN_D // heads``
+    from the same state and batch on the card, through the segment kernels
+    and through the dense packed mask: the loss's gradients leaf by leaf,
+    then the metrics and the parameters after two steps."""
     import torch
 
     from scalerl_torch.agents.token_ppo import TokenPPOAgent, token_ppo_packed_loss
     from scalerl_torch.ops import cuda_segment_attention as csa
     from scalerl_torch.trainer.sequence_rl import build_genrl_model
 
-    set_tf32(False)
     fields = _learn_step_fields(np.random.default_rng(2))  # 64 rows of 512
     batch = {k: torch.tensor(v).cuda() for k, v in fields.items()}
     batch["is_weight"] = torch.rand(TRAIN_B, generator=torch.Generator().manual_seed(3)).cuda() * 0.7 + 0.3
     out = {}
     for impl in ("pallas", "xla"):
-        args = _train_args(learner_packed_attn=impl, kl_cost=0.05)
+        args = _train_args(learner_packed_attn=impl, kl_cost=0.05, n_heads=heads)
         agent = TokenPPOAgent(args, build_genrl_model(args))
         params = {k: v.detach().requires_grad_(True) for k, v in agent.state.params.items()}
         loss, _ = token_ppo_packed_loss(
@@ -1968,9 +1920,9 @@ def phase_token_ppo_learn(report: dict) -> None:
         "grad_leaf_rel": leaf_rel[worst_leaf],
         "update_rel_l2": ((k["update"] - p["update"]).norm() / p["update"].norm()).item(),
     }
-    emit("token_ppo_learn", rows=TRAIN_B, pack_len=TRAIN_PACK_LEN, kl_cost=0.05,
-         learn_steps=TOKEN_PPO_STEPS, **errs, grad_leaves=len(leaf_rel),
-         grad_leaf_worst=worst_leaf,
+    emit("token_ppo_learn", rows=TRAIN_B, pack_len=TRAIN_PACK_LEN, heads=heads,
+         head_dim=TRAIN_D // heads, kl_cost=0.05, learn_steps=TOKEN_PPO_STEPS, **errs,
+         grad_leaves=len(leaf_rel), grad_leaf_worst=worst_leaf,
          update_max_abs_err=(k["update"] - p["update"]).abs().max().item(),
          update_max_abs=p["update"].abs().max().item(), metrics_kernel=k["metrics"],
          metrics_dense=p["metrics"], kernel_launches=k["launches"], dense_launches=p["launches"],
@@ -1981,7 +1933,16 @@ def phase_token_ppo_learn(report: dict) -> None:
         raise AssertionError(f"segment kernel launches {k['launches']} / {p['launches']}")
     bad = {m: e for m, e in errs.items() if not e <= TOKEN_PPO_TOL[m]}
     if bad or k["metrics"]["skipped_steps"] != 0.0:
-        raise AssertionError(f"learn steps kernel vs dense off tolerance: {bad}")
+        raise AssertionError(f"learn steps kernel vs dense off tolerance at head dim "
+                             f"{TRAIN_D // heads}: {bad}")
+
+
+def phase_token_ppo_learn(report: dict) -> None:
+    """The learn-step comparison at the slice's 8 heads of 32, then at 4
+    heads of 64 (the segment kernels' DP = 64 builds)."""
+    set_tf32(False)
+    for heads in (TRAIN_HEADS, TRAIN_HEADS // 2):
+        _token_ppo_compare(heads)
 
 
 def _zero_launch_counts():

@@ -5,18 +5,16 @@ Replaces the three TPU kernels behind ``scalerl_tpu/ops/pallas_attention.py
 ::segment_flash_attention`` (``_seg_fwd_kernel``, ``_seg_bwd_dq_kernel``,
 ``_seg_bwd_dkv_kernel``), with its contract: causal self-attention within
 the packed segments of each row, exact zeros where a query has no live key.
-The forward and dq kernels give one thread a query and walk the keys in
-shared-memory tiles, skipping tiles whose segment ids cannot meet the
-block's.  The dk/dv kernel is register-blocked: 4 warps own 16 keys, the
-queries stream through a ring of 64-query tiles filled by asynchronous
-copies (tiles whose ids cannot meet the keys' are never loaded), each lane
-computes 4 x 2 micro-tiles of the products in exact float32, and the warps'
-partials combine in warp order.  At the learner's rows of 512 the kernels
-are bound by float32 operations (the source says more).  No kernel uses
-atomics, so values and gradients repeat bit for bit.  The forward takes
-head dims up to :data:`MAX_FWD_HEAD_DIM`, dq up to
-:data:`MAX_DQ_HEAD_DIM` and dk/dv up to :data:`MAX_DKV_HEAD_DIM`; a call
-that needs gradients is refused past dq's limit before the forward runs.
+All three kernels share one design: a block of 4 warps owns 16 rows of one
+(batch row, head) -- queries in the forward and dq, keys in dk/dv -- and
+the other axis streams through a ring of 64-row tiles filled by
+asynchronous copies (tiles whose segment ids cannot meet the block's are
+never loaded); each lane computes 4 x 2 micro-tiles of the products in
+exact float32, and the warps' partials combine in warp order.  At the
+learner's rows of 512 the kernels are bound by float32 operations (the
+source says more).  No kernel uses atomics, so values and gradients repeat
+bit for bit.  Every kernel takes head dims up to :data:`MAX_HEAD_DIM`; a
+call past it is refused, naming the kernel.
 
 :func:`segment_flash_attention` is differentiable in q, k and v (a
 ``torch.autograd.Function``; the ids and the scale get no gradient).  For
@@ -46,15 +44,13 @@ fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
 
-# Head dims each kernel builds (csrc/segment_attention.cu): the forward at
-# 32 and 64, dq at 32 only (its one-row-per-thread design spills registers
-# at 64), dk/dv at 32, 64 and 128.  MAX_HEAD_DIM is what all three take, the
-# limit of a differentiable call.
-MAX_FWD_HEAD_DIM = 64
-MAX_DQ_HEAD_DIM = 32
+# Head dims each kernel builds (csrc/segment_attention.cu): all three at 32,
+# 64 and 128.  MAX_HEAD_DIM is what all three take, the limit of a
+# differentiable call.
+MAX_FWD_HEAD_DIM = 128
+MAX_DQ_HEAD_DIM = 128
 MAX_DKV_HEAD_DIM = 128
 MAX_HEAD_DIM = min(MAX_FWD_HEAD_DIM, MAX_DQ_HEAD_DIM, MAX_DKV_HEAD_DIM)
-MAX_GRID_YZ = 65535  # heads ride gridDim.y, batch rows gridDim.z
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _c_int = ctypes.c_int
@@ -116,15 +112,13 @@ def _launch(fn: Callable, pointers, q: torch.Tensor, strides, scale: float) -> N
 
 
 def _check_cuda(q: torch.Tensor, kernel: str, max_head_dim: int) -> None:
-    B, _, H, D = q.shape
+    D = q.shape[-1]
     if q.device.type != "cuda":
         raise ValueError(f"no segment attention kernel for device {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q, k, v must be float32 or bfloat16 on the card, got {q.dtype}")
     if D > max_head_dim:
         raise ValueError(f"head_dim {D} > {max_head_dim}, the {kernel} kernel's limit")
-    if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
-        raise ValueError(f"heads {H} and rows {B} must each be <= {MAX_GRID_YZ}")
 
 
 def segment_forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,

@@ -8,7 +8,10 @@ several spans per row, a row entirely pad, boundaries straddling blocks,
 one full segment, and a ragged tail.  Values at 2e-5, dq, dk, dv at 1e-5.
 On host tensors the wrapper (``ops/cuda_segment_attention.py``) takes the
 plain version through its autograd function; the CUDA kernels run only on a
-card (``chip_smoke.py`` phase ``segment_attn``).
+card (``chip_smoke.py`` phase ``segment_attn``).  Their summation orders --
+the micro-tile forward, dq and dk/dv with their tile and warp skips and
+warp-order combines -- are emulated in torch and held to the Pallas kernel
+and a float64 oracle.
 """
 
 import jax
@@ -237,12 +240,18 @@ def _rel_err(got, want):
     return ((got.double() - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
 
 
-def _oracle_dkv(q, k, v, do, seg):
-    """dk, dv of the segment attention in float64 under the cotangent do."""
+def _oracle(q, k, v, do, seg):
+    """o, lse and dq, dk, dv of the segment attention in float64 under the
+    cotangent do."""
     leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (q, k, v)]
-    out = segment_attention_reference(*leaves, torch.tensor(seg))
-    _, dk, dv = torch.autograd.grad(out, leaves, torch.tensor(do, dtype=torch.float64))
-    return dk, dv
+    tseg = torch.tensor(seg)
+    out = segment_attention_reference(*leaves, tseg)
+    grads = torch.autograd.grad(out, leaves, torch.tensor(do, dtype=torch.float64))
+    sees = torch.stack([_sees(torch.arange(seg.shape[1]), row, torch.arange(seg.shape[1]), row)
+                        for row in tseg])
+    s = torch.einsum("bqhd,bkhd->bhqk", *leaves[:2]).detach() / np.sqrt(q.shape[-1])
+    lse = torch.logsumexp(s.masked_fill(~sees[:, None], float("-inf")), dim=-1)
+    return out.detach(), lse, grads
 
 
 DKV_LAYOUTS = {
@@ -279,7 +288,7 @@ def test_micro_tile_dkv_order_matches_pallas_and_float64(name):
         return jnp.sum(jax_flash(a, b, c, jnp.asarray(seg), None, 32, 32, None) * do)
 
     _, jdk, jdv = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*(jnp.asarray(x) for x in (q, k, v)))
-    odk, odv = _oracle_dkv(q, k, v, do, seg)
+    _, _, (_, odk, odv) = _oracle(q, k, v, do, seg)
     for label, got, jw, ow in (("dk", dk, jdk, odk), ("dv", dv, jdv, odv)):
         assert _rel_err(got, jw) <= SEG_GRAD_REL_TOL, (label, _rel_err(got, jw))
         assert _rel_err(got, ow.numpy()) <= SEG_GRAD_REL_TOL, (label, _rel_err(got, ow.numpy()))
@@ -304,6 +313,150 @@ def test_plain_version_matches_pallas_at_wide_heads(D):
 
 
 def test_kernel_head_dim_limits():
-    """What each kernel builds, and a differentiable call's limit: dq's."""
-    assert (csa.MAX_FWD_HEAD_DIM, csa.MAX_DQ_HEAD_DIM, csa.MAX_DKV_HEAD_DIM) == (64, 32, 128)
-    assert csa.MAX_HEAD_DIM == 32
+    """What each kernel builds (DP = 32, 64 and 128), and a differentiable
+    call's limit."""
+    assert (csa.MAX_FWD_HEAD_DIM, csa.MAX_DQ_HEAD_DIM, csa.MAX_DKV_HEAD_DIM) == (128, 128, 128)
+    assert csa.MAX_HEAD_DIM == 128
+
+
+def _sees(qpos, qid, kpos, kid):
+    """[queries, keys]: query i attends key j (j <= i, seg[i] == seg[j] != 0)."""
+    return (kpos[None, :] <= qpos[:, None]) & (kid[None, :] == qid[:, None]) & (qid[:, None] > 0)
+
+
+def _key_walk(seg_row, q0, q1, tile, warps):
+    """The key rows (warp w, first a, end z) that mt::seg_fwd_kernel and
+    mt::seg_bwd_dq_kernel read for the block of queries q0 .. q1 - 1: tiles
+    of 64 keys from key 0 to the last query, a tile skipped when its ids
+    cannot meet the queries', warp w taking keys 16 w .. 16 w + 15 of a live
+    tile and skipping them past the last query or when their ids cannot
+    meet the queries'."""
+    S = seg_row.numel()
+    per = tile // warps
+    qid = seg_row[q0:q1]
+    for j0 in range(0, q1, tile):
+        if not _ranges_meet(seg_row[j0:j0 + tile], qid):
+            continue
+        for w in range(warps):
+            a, z = j0 + per * w, min(j0 + per * (w + 1), S)
+            if a < min(z, q1) and _ranges_meet(seg_row[a:z], qid):
+                yield w, a, z
+
+
+def _in_warp_order(parts):
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _micro_tile_forward(q, k, v, seg, scale, rows=16, tile=64, warps=4):
+    """mt::seg_fwd_kernel's summation order in plain torch (float32).
+
+    A block owns 16 queries of one row and reads the keys of ``_key_walk``.
+    Each warp keeps its own online softmax (m its running max, l its sum, o
+    its P v) over the scores scale * q.k where the query sees the key (-inf
+    elsewhere); the warps' (m, l, o) combine in warp order: M = max m_w, L =
+    sum_w exp(m_w - M) l_w, o = sum_w exp(m_w - M) o_w / L (a division per
+    element), lse = M + log L (-inf where L = 0).  Returns o [B, S, H, D] and
+    lse [B, H, S]."""
+    B, S, H, D = q.shape
+    pos = torch.arange(S)
+    o = torch.zeros(B, S, H, D)
+    lse = torch.full((B, H, S), float("-inf"))
+    for b in range(B):
+        for q0 in range(0, S, rows):
+            q1 = min(q0 + rows, S)
+            m = torch.full((warps, H, q1 - q0), float("-inf"))
+            l = torch.zeros(warps, H, q1 - q0)
+            acc = torch.zeros(warps, H, q1 - q0, D)
+            for w, a, z in _key_walk(seg[b], q0, q1, tile, warps):
+                sees = _sees(pos[q0:q1], seg[b, q0:q1], pos[a:z], seg[b, a:z])
+                s = torch.einsum("qhd,khd->hqk", q[b, q0:q1], k[b, a:z]) * scale
+                s = torch.where(sees[None], s, float("-inf"))
+                m_new = torch.maximum(m[w], s.amax(-1))
+                safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+                corr = torch.exp(m[w] - safe)
+                p = torch.exp(s - safe[..., None])
+                l[w] = l[w] * corr + p.sum(-1)
+                acc[w] = acc[w] * corr[..., None] + torch.einsum("hqk,khd->hqd", p, v[b, a:z])
+                m[w] = m_new
+            mx = m.amax(0)
+            f = torch.exp(m - torch.where(torch.isneginf(mx), 0.0, mx))
+            total = _in_warp_order(l * f)
+            denom = total.clamp(min=1e-30)
+            o[b, q0:q1] = (_in_warp_order(acc * f[..., None]) / denom[..., None]).permute(1, 0, 2)
+            lse[b, :, q0:q1] = torch.where(total > 0, mx + torch.log(denom), float("-inf"))
+    return o, lse
+
+
+def _micro_tile_dq(q, k, v, do, o, seg, lse, scale, rows=16, tile=64, warps=4):
+    """mt::seg_bwd_dq_kernel's summation order in plain torch (float32).
+
+    delta = sum_d do * o.  A block owns 16 queries and reads the keys of
+    ``_key_walk``: P = exp(S scale - lse) (lse = -inf read as 0) where the
+    query sees the key, dS = P (dP - delta); each warp sums dS k over its
+    keys, the warps' partials add in warp order, and scale multiplies dq at
+    the end.  Returns dq [B, S, H, D] and delta [B, H, S]."""
+    B, S, H, D = q.shape
+    pos = torch.arange(S)
+    delta = torch.einsum("bqhd,bqhd->bhq", do, o)
+    safe = torch.where(torch.isneginf(lse), 0.0, lse)
+    dq = torch.zeros(B, S, H, D)
+    for b in range(B):
+        for q0 in range(0, S, rows):
+            q1 = min(q0 + rows, S)
+            dq_w = torch.zeros(warps, q1 - q0, H, D)
+            for w, a, z in _key_walk(seg[b], q0, q1, tile, warps):
+                sees = _sees(pos[q0:q1], seg[b, q0:q1], pos[a:z], seg[b, a:z])
+                s = torch.einsum("qhd,khd->hqk", q[b, q0:q1], k[b, a:z]) * scale
+                p = torch.where(sees[None], torch.exp(s - safe[b, :, q0:q1, None]), 0.0)
+                dp = torch.einsum("qhd,khd->hqk", do[b, q0:q1], v[b, a:z])
+                ds = p * (dp - delta[b, :, q0:q1, None])
+                dq_w[w] += torch.einsum("hqk,khd->qhd", ds, k[b, a:z])
+            dq[b, q0:q1] = _in_warp_order(dq_w) * scale
+    return dq, delta
+
+
+@pytest.mark.parametrize("D", [8, 32, 64, 128])
+@pytest.mark.parametrize("name", list(DKV_LAYOUTS))
+def test_micro_tile_forward_dq_dkv_orders_match_pallas_and_float64(name, D):
+    """The three kernels' summation orders held together: the forward's o
+    and lse, then dq and delta from that o and lse, then dk and dv from that
+    lse and delta (``_micro_tile_dkv``).  o against the Pallas segment
+    forward (interpret mode, blocks of 32) and a float64 oracle within 1e-5,
+    lse against the oracle's, delta within 1e-6 of its largest; dq, dk, dv
+    against the Pallas backward and the oracle's within the card check's
+    1e-4 of the largest gradient; exact zeros on pad.  D = 8 and 32 run as
+    DP = 32 on the card, 64 and 128 as themselves."""
+    S, spans = DKV_LAYOUTS[name]
+    seg = _layout(S, spans)
+    B, H = len(spans), 2
+    q, k, v = _inputs(70 + D, B, S, H, D)
+    do = np.random.default_rng(71 + D).normal(size=q.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(D)
+    tq, tk, tv, tdo, tseg = (torch.tensor(x) for x in (q, k, v, do, seg))
+    o, lse = _micro_tile_forward(tq, tk, tv, tseg, scale)
+    dq, delta = _micro_tile_dq(tq, tk, tv, tdo, o, tseg, lse, scale)
+    dk, dv = _micro_tile_dkv(tq, tk, tv, tdo, tseg, lse, delta, scale)
+
+    def fn(a, b, c):
+        return jax_flash(a, b, c, jnp.asarray(seg), None, 32, 32, None)
+
+    args = tuple(jnp.asarray(x) for x in (q, k, v))
+    jo = np.asarray(jax.jit(fn)(*args))
+    jgrads = jax.jit(jax.grad(lambda a, b, c: jnp.sum(fn(a, b, c) * do), argnums=(0, 1, 2)))(*args)
+    oo, olse, ograds = _oracle(q, k, v, do, seg)
+    np.testing.assert_allclose(o.numpy(), jo, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(o.numpy(), oo.numpy(), atol=1e-5, rtol=0)
+    live = torch.isfinite(olse)
+    assert torch.equal(torch.isneginf(lse), ~live)
+    np.testing.assert_allclose(lse[live].numpy(), olse[live].numpy(), atol=1e-5, rtol=0)
+    # delta sums D float32 products of O(1) terms, up to ~30 at D = 128
+    assert _rel_err(delta, np.einsum("bqhd,bqhd->bhq", do, oo.numpy())) <= 1e-6
+    for label, got, jw, ow in zip(("dq", "dk", "dv"), (dq, dk, dv), jgrads, ograds):
+        assert _rel_err(got, jw) <= SEG_GRAD_REL_TOL, (label, _rel_err(got, jw))
+        assert _rel_err(got, ow.numpy()) <= SEG_GRAD_REL_TOL, (label, _rel_err(got, ow.numpy()))
+    pad = seg == 0
+    for got in (o, dq, dk, dv):
+        assert (got.numpy()[pad] == 0).all()

@@ -34,9 +34,9 @@ TOL = 1e-5
 LOSS_KW = dict(clip_range=0.2, value_cost=0.5, entropy_cost=0.01, adv_norm=True)
 
 
-def _models(seg_fn=None, jax_seg_fn=None, layers=1):
-    kw = dict(num_actions=V, vocab_size=V, d_model=32, num_heads=2, num_layers=layers,
-              max_len=P + R)
+def _models(seg_fn=None, jax_seg_fn=None, layers=1, d_model=32, num_heads=2):
+    kw = dict(num_actions=V, vocab_size=V, d_model=d_model, num_heads=num_heads,
+              num_layers=layers, max_len=P + R)
     jm = JaxTransformerPolicy(**kw, segment_attn_fn=jax_seg_fn)
     params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 2), jnp.int32))
     tm = TransformerPolicy(**kw, segment_attn_fn=seg_fn, device="cpu")
@@ -56,9 +56,13 @@ def _grads_to_torch(jax_grads):
     return convert.transformer_to_torch(H.to_numpy(jax_grads))
 
 
-def test_packed_forward_through_the_segment_seam_matches_jax_pallas_kernel():
+# head dim 64: the width of the segment kernels' DP = 64 builds on the card
+@pytest.mark.parametrize("d_model,num_heads", [(32, 2), (128, 2)],
+                         ids=["head_dim_16", "head_dim_64"])
+def test_packed_forward_through_the_segment_seam_matches_jax_pallas_kernel(d_model, num_heads):
     jm, params, tm, tparams = _models(seg_fn=segment_flash_attention,
-                                      jax_seg_fn=jax_segment_flash, layers=2)
+                                      jax_seg_fn=jax_segment_flash, layers=2, d_model=d_model,
+                                      num_heads=num_heads)
     S = P + R
     rng = np.random.default_rng(2)
     tok = rng.integers(0, V, (2, S)).astype(np.int32)
@@ -72,8 +76,8 @@ def test_packed_forward_through_the_segment_seam_matches_jax_pallas_kernel():
                     segment_ids=jnp.asarray(seg))
     tm.load_state_dict(tparams)
     got = tm(torch.tensor(tok), positions=torch.tensor(pos), segment_ids=torch.tensor(seg))
-    dense = TransformerPolicy(num_actions=V, vocab_size=V, d_model=32, num_heads=2, num_layers=2,
-                              max_len=S, device="cpu")
+    dense = TransformerPolicy(num_actions=V, vocab_size=V, d_model=d_model, num_heads=num_heads,
+                              num_layers=2, max_len=S, device="cpu")
     dense.load_state_dict(tparams)
     got_dense = dense(torch.tensor(tok), positions=torch.tensor(pos), segment_ids=torch.tensor(seg))
     real = seg > 0

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Design comparisons of the port's paged decode and segment dk/dv kernels
-on one GPU.
+"""Design comparisons of the port's paged decode and segment attention
+kernels on one GPU.
 
     python3 tools/paged_segment_study.py [--old-paged OLD.cu] [--old-segment OLD.cu]
         [--variants a,b] [--path-for old,a]
@@ -17,15 +17,16 @@ other, the other, this source) on one card:
 1. ``paged_times``: the paged decode kernel alone by CUDA-graph replay
    (``chip_smoke.gpu_time_ms``) at ``chip_smoke.py``'s ``paged_attn`` shape
    (256 lanes, 8 heads of 32, lengths over [1, 384]), beside its byte bound.
-2. ``dkv_times``: the segment dk/dv kernel alone at the token-PPO learn
-   step's ``[64, 512, 8, 32]`` rows and the bench's packed ``[32, 256, 8,
-   32]``, beside its bounds.
+2. ``segment_times``: the segment forward, dq and dk/dv kernels, each alone,
+   at the token-PPO learn step's ``[64, 512, 8, 32]`` rows and the bench's
+   packed ``[32, 256, 8, 32]``, beside their operations bounds.
 3. ``paged_in_engine`` (for the builds named by ``--path-for``, by default
    the old source): the paged kernel's device time a call inside the
    continuous engine (``chip_smoke.py``'s generation setup, lanes filled by
    a warm-up), 8 macro steps under ``torch.profiler``.
-4. ``dkv_in_learn_step`` (the same builds): the segment kernels' device
-   time a call inside the token-PPO learn step (64 rows of 512) under ``torch.profiler``.
+4. ``segment_in_learn_step`` (the same builds): the three segment kernels'
+   device time a call, and the step's device time, inside the token-PPO
+   learn step (64 rows of 512) under ``torch.profiler``.
 
 An earlier paged source with the launch signature before the context split
 (no scratch, no counters) is called through its own signature.  One JSON
@@ -57,23 +58,55 @@ VARIANTS = {
     "paged_split_32": ("paged_attention", "32-token splits (2 chunks a block)",
                        [("constexpr int kSplitChunks = 4;", "constexpr int kSplitChunks = 2;")],
                        {"SPLIT_TOKENS": 32}),
-    "dkv_rows_in_registers": ("segment_attention",
-                              "dk/dv holding the streamed rows' addresses in registers (158 "
-                              "registers at D = 32: 3 blocks an SM)",
-                              [("    __syncthreads();\n\n    // the block's key ids",
-                                "    __syncthreads();\n    const Rows<T> rows_r = rows_s;\n\n"
-                                "    // the block's key ids"),
-                               ("        const Rows<T> x = rows_s;", "        const Rows<T> x = rows_r;")],
-                              {}),
-    "dkv_dot_unroll_2": ("segment_attention", "dk/dv's loops over D unrolled twice",
+    "queries_first_blocks_first": ("segment_attention",
+                                   "the forward and dq taking their query blocks from the start "
+                                   "of S first",
+                                   [("constexpr bool kQueriesLastFirst = true;",
+                                     "constexpr bool kQueriesLastFirst = false;")], {}),
+    "seg_dot_unroll_2": ("segment_attention", "the three kernels' loops over D unrolled twice",
                          [("constexpr int kDotUnroll = 4;", "constexpr int kDotUnroll = 2;")], {}),
-    "dkv_rows_unrolled": ("segment_attention", "dk/dv's loop over a warp's 16 queries unrolled",
+    "seg_rows_unrolled": ("segment_attention",
+                          "the three kernels' loops over a warp's 16 streamed rows unrolled",
                           [("constexpr int kRowUnroll = 4;", "constexpr int kRowUnroll = 16;")],
                           {}),
-    "dkv_no_warp_skip": ("segment_attention",
-                         "dk/dv without the skip of a warp whose queries meet no key's segment",
-                         [("        if (ranges_meet(w_lo, w_hi, k_lo, k_hi)) {",
-                           "        if (true) {")], {}),
+    "seg_no_warp_skip": ("segment_attention",
+                         "the three kernels without the skip of a warp whose rows meet no "
+                         "segment of the block's",
+                         [("    return ranges_meet(w_lo, w_hi, lo, hi);",
+                           "    return w_lo <= w_hi || true;")], {}),
+    "seg_no_tile_scan": ("segment_attention",
+                         "the three kernels staging every tile of their walk (no id-range scan; "
+                         "the warp skip stays)",
+                         [("    for (; it < n_tiles; ++it) {\n        const int i0 = r0 + it * kTile;",
+                           "    for (; false; ++it) {\n        const int i0 = r0 + it * kTile;")], {}),
+    "fwd_4_blocks": ("segment_attention",
+                     "the forward at DP = 32 at the others' 2-block minimum (114-116 registers, "
+                     "4 blocks an SM) and its loop over D unrolled 4 times",
+                     [("constexpr int kFwdMinBlocks = DP == 32 ? 5 : kMinBlocks;",
+                       "constexpr int kFwdMinBlocks = kMinBlocks;"),
+                      ("constexpr int kFwdDotUnroll = DP == 32 ? 2 : kDotUnroll;",
+                       "constexpr int kFwdDotUnroll = kDotUnroll;")], {}),
+    "dq_5_blocks": ("segment_attention",
+                    "dq at DP = 32 held to 5 blocks an SM: its dS tile in the warp's own v rows "
+                    "of the ring stage (read by then), 42 KB of shared memory, registers capped "
+                    "at 96, the loop over D unrolled twice (spills 4 bytes)",
+                    [("((2 * kRows + 4 * kTile) * Dims<DP>::kStride + kWarps * 16 * kPStride + "
+                      "2 * kRows)",
+                      "((2 * kRows + 4 * kTile) * Dims<DP>::kStride + 2 * kRows)"),
+                     ("    float* ds_s = v_s + 2 * L::kTileElems;        // [kWarps][16 keys]"
+                      "[kPStride] dS\n    float* lse_s = ds_s + kWarps * 16 * kPStride;  // [kRows]",
+                      "    float* lse_s = v_s + 2 * L::kTileElems;  // [kRows]"),
+                     ("    float* pw = ds_s + warp * 16 * kPStride;\n", ""),
+                     ("            put_weights(pw, ds, r, c);\n            __syncwarp();\n"
+                      "            // dq += dS k",
+                      "            float* pw = const_cast<float*>(vt);\n            __syncwarp();\n"
+                      "            put_weights(pw, ds, r, c);\n            __syncwarp();\n"
+                      "            // dq += dS k"),
+                     ("__launch_bounds__(kThreads, kMinBlocks)\nseg_bwd_dq_kernel(",
+                      "__launch_bounds__(kThreads, DP == 32 ? 5 : kMinBlocks)\nseg_bwd_dq_kernel("),
+                     ("const float* cols[2] = {kt, vt};\n            micro_tiles<DP, kS, 2>(",
+                      "const float* cols[2] = {kt, vt};\n            micro_tiles<DP, kS, 2, "
+                      "DP == 32 ? 2 : kDotUnroll>(")], {}),
 }
 
 
@@ -213,7 +246,7 @@ def main() -> int:
         emit("paged_times", against=name, shape=[B, H, D, ps, M], live_tokens=live,
              bound_us=bound_us, us=turns("paged_attention", name, measure))
 
-    # 2. the segment dk/dv kernel alone at the learn step's and the bench's batch
+    # 2. the three segment kernels alone at the learn step's and the bench's batch
     seg_shapes = {
         "learn_step": cs._learn_step_fields(np.random.default_rng(2))["segment_ids"],
         "bench_packed": cs._bench_learn_batches()[0].segment_ids,
@@ -226,12 +259,18 @@ def main() -> int:
         o, lse = csa.segment_forward_kernel(q, k, v, seg, scale)
         _, delta = csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale)
         pairs = cs._live_pairs(seg_ids) * q.shape[2]
-        ops_us = 8 * q.shape[-1] * pairs / cs.H100_F32_OPS_PER_S * 1e6
+        calls = {
+            "forward": (4, lambda: csa.segment_forward_kernel(q, k, v, seg, scale)),
+            "dq": (6, lambda: csa.segment_dq_kernel(q, k, v, seg, o, lse, do, scale)),
+            "dkv": (8, lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale)),
+        }
         for name in others["segment_attention"]:
-            emit("dkv_times", against=name, shape=shape_name, dims=list(q.shape),
-                 ops_bound_us=ops_us,
-                 us=turns("segment_attention", name, lambda _: 1e3 * cs.gpu_time_ms(
-                     lambda: csa.segment_dkv_kernel(q, k, v, seg, lse, delta, do, scale), 20)))
+            for kernel, (flops, call) in calls.items():
+                emit("segment_times", against=name, kernel=kernel, shape=shape_name,
+                     dims=list(q.shape),
+                     ops_bound_us=flops * q.shape[-1] * pairs / cs.H100_F32_OPS_PER_S * 1e6,
+                     us=turns("segment_attention", name,
+                              lambda _, call=call: 1e3 * cs.gpu_time_ms(call, 20)))
 
     in_path = set(filter(None, args.path_for.split(",")))
     path_others = {src: [n for n in names if n in in_path] for src, names in others.items()}
@@ -300,8 +339,8 @@ def main() -> int:
             return out
 
         for name in path_others["segment_attention"]:
-            emit("dkv_in_learn_step", against=name, us_per_call=turns("segment_attention",
-                                                                        name, learn_us))
+            emit("segment_in_learn_step", against=name,
+                 us_per_call=turns("segment_attention", name, learn_us))
     return 0
 
 
