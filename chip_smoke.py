@@ -11,7 +11,7 @@ no result line:
 2. ``build``: compiles every CUDA source of ``scalerl_torch/csrc`` with
    ``nvcc`` (one process per source, all started together); fails if
    ptxas reports a local-memory spill in any kernel; reports the
-   registers of each flash, segment and paged kernel instantiation.
+   registers of each flash, segment, paged and PER kernel (instantiation).
 3. ``vtrace``: the V-trace kernel against its plain PyTorch version on the
    card, at the fused loop's [20, 512] and at ragged shapes, for three clip
    settings (max abs error <= 1e-5); its time beside the plain version's
@@ -28,19 +28,29 @@ no result line:
    ("error")`` with every kernel's launch count zeroed just before; then
    two more chunks under ``torch.profiler`` for the device's busy share and
    the heaviest kernels (``impala_profile``).
-7. ``per_kernels``: the two prioritized-replay kernels against their plain
-   PyTorch versions on the card.  Sampling at N = 2^20 and a ragged
-   N = 1,000,003, S in {32, 512}: exact indices on integer priorities; on
-   ``uniform**0.6`` priorities every index brackets its target to within
-   ``PER_BRACKET_REL`` of its block's sum, and indices differ from the
-   plain version's only where the target lies within that margin of a
-   boundary.  The update at M = 512 with duplicates and same-block revisits,
-   with and without block sums: the plane exact (and equal to an ordered
-   host loop), the sums to ``PER_SUMS_RTOL``.  Times beside the byte bounds.
+7. ``per_kernels``: the prioritized-replay kernels against their plain
+   PyTorch versions on the card.  The sample (both kernels: block sums,
+   then the search) at N = 2^20 and a ragged N = 1,000,003, S in {32, 512},
+   and on the sequence replay's 128-slot plane with pad slots (never
+   drawn): each call twice, bit-equal, and equal to
+   ``ops/per.py::kernel_order_sample`` (their arithmetic in plain PyTorch);
+   on integer priorities equal to the plain version; on ``uniform**0.6``
+   priorities each index brackets its own residual to within
+   ``PER_BRACKET_REL`` of its block's sum, and its block and residual
+   differ from ``split_targets``' only within ``PER_PREFIX_REL`` of the
+   plane's total of a block boundary.  The update with and without block
+   sums at M = 512 (a few duplicates and revisits; each slot hit four
+   times) and at M = 3 x ``MAX_UPDATES`` (duplicates within and across its
+   chunks, one launch each): the plane exact and equal to an ordered host
+   loop, the sums within ``PER_SUMS_RTOL`` of the plain version's and
+   bit-equal to the kernels' own block-sum order, repeats bit-equal.  Times
+   by CUDA-graph replay and eagerly beside the byte bounds and the replay
+   floor of a one-element PyTorch op.
 8. ``dqn_learn``: one full-size learn step (sample -> learn -> priority
    update) from the same buffer contents and uniforms, once through the
-   kernels and once through the plain versions, float32 with TF32 off:
-   indices equal, priority plane and params within ``DQN_LEARN_TOL``.
+   kernels and once through the plain versions (the sample in the
+   kernels' order of sums, ``kernel_order_sample``), float32 with TF32
+   off: indices equal, priority plane and params within ``DQN_LEARN_TOL``.
 9. ``dqn_per``: the slice's main path, ``OffPolicyTrainer(...).run()`` for
    DQN with prioritized replay through both kernels on ``TensorCartPole``
    (16 envs, a 65,536 x 16 replay, batch 512, 3-step returns, 40,000 env
@@ -185,6 +195,12 @@ PER_NUM_ENVS, PER_CAPACITY, PER_BATCH, PER_N_STEP = 16, 65536, 512, 3
 # to a neighbour only where its target lies this close (relative to the
 # block's sum) to the boundary between them
 PER_BRACKET_REL = 1e-6
+# the sample kernels sum the plane's blocks and scan the block sums in their
+# own order, PyTorch in its own: two float32 prefixes of one total, each a
+# few dozen roundings of 2^-24 (relative to the total) from exact.  So a
+# target may change block, or its residual move, only this close (relative
+# to the plane's total) to a block boundary
+PER_PREFIX_REL = 1e-5
 PER_SUMS_RTOL = 1e-5
 # kernels vs plain versions in one learn step on the card: with equal
 # indices the batch, the learn step and the priorities are the same
@@ -286,15 +302,23 @@ def _kernel_name(mangled: str):
     return f"{m.group(2) + '::' if m.group(2) else ''}{m.group(3)}<{', '.join(args)}>"
 
 
-def _registers(log: str) -> dict:
-    """ptxas's registers per attention kernel instantiation, by
-    ``_kernel_name``."""
+def _per_kernel_name(mangled: str):
+    """A PER kernel's name from its mangled one, or None for another function."""
+    import re
+
+    m = re.search(r"\d(per_(?:block_sums|search|sample|update)_kernel)", mangled)
+    return m and m.group(1)
+
+
+def _registers(log: str, namer=_kernel_name) -> dict:
+    """ptxas's registers per kernel (instantiation), by ``namer``: by
+    default the attention kernels' ``_kernel_name``."""
     import re
 
     out, name = {}, None
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            name = _kernel_name(ln.split("Function properties for", 1)[1].strip())
+            name = namer(ln.split("Function properties for", 1)[1].strip())
         elif name and "Used" in ln and "registers" in ln:
             out[name] = int(re.search(r"Used (\d+) registers", ln).group(1))
             name = None
@@ -330,7 +354,8 @@ def phase_build(report: dict) -> None:
     emit("build", seconds=seconds, sources=list(cuda_build.KERNEL_SOURCES), ptxas=ptxas,
          spill_free=not spills, flash_registers=_registers(logs.get("flash_attention", "")),
          segment_registers=_registers(logs.get("segment_attention", "")),
-         paged_registers=_registers(logs.get("paged_attention", "")))
+         paged_registers=_registers(logs.get("paged_attention", "")),
+         per_registers=_registers(logs.get("per", ""), _per_kernel_name))
     if spills:
         raise AssertionError(f"ptxas reports local-memory spills: {spills}")
 
@@ -610,10 +635,10 @@ def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 
          card=card)
 
 
-def _per_bracket(p, b_idx, within_t, got, want, n):
-    """The bracket rule on real-valued priorities, against a float64 scan of
-    each chosen block: (samples whose index does not bracket its target,
-    samples that differ from the plain version away from a boundary)."""
+def _per_bracket(p, b_idx, within_t, got, n):
+    """Samples whose index does not bracket its residual target ``within_t``
+    in its block ``b_idx``, against a float64 scan of the block, to within
+    ``PER_BRACKET_REL`` of the block's sum."""
     import torch
 
     from scalerl_torch.ops import per
@@ -629,36 +654,61 @@ def _per_bracket(p, b_idx, within_t, got, want, n):
     clipped = (w == PER_BLOCK - 1) | (got == n - 1)
     lower_ok = (w == 0) | (cum_at(w - 1) <= t + tol)
     upper_ok = clipped | (t <= cum_at(w) + tol)
-    off_bracket = int((~(lower_ok & upper_ok)).sum())
-    lo = torch.minimum(got, want) - b_idx * PER_BLOCK
-    hi = torch.maximum(got, want) - b_idx * PER_BLOCK
-    near = ((cum_at(lo) - t).abs() <= tol) & ((cum_at(hi - 1) - t).abs() <= tol)
-    far_mismatch = int(((got != want) & ~near).sum())
-    return off_bracket, far_mismatch
+    inside = (w >= 0) & (w < PER_BLOCK)
+    return int((~(lower_ok & upper_ok & inside)).sum())
 
 
-def _update_case(n, g):
+def _per_sample_case(p, targets, case: dict) -> dict:
+    """The sample kernels on one plane, called twice (bit-equal), against
+    ``ops/per.py::kernel_order_sample`` (their arithmetic in plain PyTorch:
+    equal indices always) and the plain ``hierarchical_sample``: equal
+    indices on integer priorities; on real ones the kernel order's index
+    brackets its own residual (``_per_bracket``), and its block and residual
+    differ from ``split_targets``' only within ``PER_PREFIX_REL`` of the
+    plane's total of a block boundary.  Raises on a failure."""
     import torch
 
-    M = PER_BATCH
-    p0 = torch.rand(n, generator=g, device="cuda") * 2 + 0.1
-    idx = torch.randint(0, n, (M,), generator=g, device="cuda")
-    idx[10] = idx[3]  # duplicate slots: the last write wins
-    idx[20] = idx[3]
-    idx[30] = (idx[5] // PER_BLOCK) * PER_BLOCK + (idx[5] + 1) % PER_BLOCK  # revisit
-    idx[40] = n - 1  # the last lane of the plane
-    idx[41] = n + 7  # clipped to n - 1
-    new_p = torch.rand(M, generator=g, device="cuda") + 0.5
-    return p0, idx, new_p
+    from scalerl_torch.ops import cuda_per, per
+
+    n = p.shape[0]
+    got = cuda_per.sample_kernel(p, targets, PER_BLOCK)
+    again = cuda_per.sample_kernel(p, targets, PER_BLOCK)
+    order, b_k, within_k = per.kernel_order_sample(p, targets, PER_BLOCK)
+    want = per.hierarchical_sample(p, targets, PER_BLOCK)
+    torch.cuda.synchronize()
+    case.update(n=n, S=targets.shape[0], mismatches=int((got != want).sum()),
+                max_abs_err_vs_plain=int((got - want).abs().max()),
+                kernel_order_mismatches=int((got != order).sum()),
+                max_abs_err=int((got - order).abs().max()),
+                repeat_bit_equal=bool(torch.equal(got, again)))
+    bad = case["kernel_order_mismatches"] or not case["repeat_bit_equal"]
+    if case["priorities"] == "integer":
+        bad = bad or case["mismatches"]
+    else:
+        b_p, within_p = per.split_targets(p, targets, PER_BLOCK)
+        cum = p.double().cumsum(dim=0)
+        tol = PER_PREFIX_REL * cum[-1]
+        moved = b_k != b_p
+        boundary = cum[((torch.minimum(b_k, b_p) + 1) * PER_BLOCK).clamp(max=n) - 1]
+        case.update(off_bracket=_per_bracket(p, b_k, within_k, got, n),
+                    block_moves=int(moved.sum()),
+                    block_moves_away_from_boundary=int(
+                        (moved & ((targets.double() - boundary).abs() > tol)).sum()),
+                    residual_moves_past_margin=int(
+                        (~moved & ((within_k.double() - within_p.double()).abs() > tol)).sum()))
+        bad = (bad or case["off_bracket"] or case["block_moves_away_from_boundary"]
+               or case["residual_moves_past_margin"])
+    if bad:
+        raise AssertionError(f"sample kernels disagree: {case}")
+    return case
 
 
 def _per_replay_plane_cases(g) -> list:
-    """The sample kernel at the sequence replay's size: a plane of 2 *
-    TRAIN_B = 128 unit priorities (one ragged block, an eighth of a
-    1024-wide one) and TRAIN_B = 64 stratified targets, through the
-    dispatch the trainer calls.  Pad rows and empty slots carry priority 0
-    and may never be drawn; integer priorities must give the plain
-    version's indices exactly, real ones must bracket their targets."""
+    """The sample kernels at the sequence replay's size: a plane of 2 *
+    TRAIN_B = 128 priorities (one ragged block, an eighth of a 1024-wide
+    one) and TRAIN_B = 64 stratified targets, through the dispatch the
+    trainer calls.  Pad rows and empty slots carry priority 0 and may never
+    be drawn; otherwise ``_per_sample_case``'s rules."""
     import torch
 
     from scalerl_torch.ops import per
@@ -676,28 +726,89 @@ def _per_replay_plane_cases(g) -> list:
         p = torch.where(live, raw, 0.0)
         u = torch.rand(S, generator=g, device="cuda")
         targets = (torch.arange(S, device="cuda") + u) / S * p.sum()
+        case = _per_sample_case(p, targets, {"plane": "sequence replay", "priorities": kind,
+                                             "live_slots": int(live.sum())})
         got = per.proportional_sample(p, targets, method="pallas", block_size=PER_BLOCK)
-        want = per.proportional_sample(p, targets, method="hierarchical", block_size=PER_BLOCK)
-        torch.cuda.synchronize()
-        case = {"n": n, "S": S, "priorities": kind, "live_slots": int(live.sum()),
-                "mismatches": int((got != want).sum()),
-                "max_abs_err": int((got - want).abs().max()),
-                "pad_slots_drawn": int((~live[got]).sum())}
-        if kind == "real":
-            b_idx, within_t = per.split_targets(p, targets, PER_BLOCK)
-            off, far = _per_bracket(p, b_idx, within_t, got, want, n)
-            case.update(off_bracket=off, mismatch_away_from_boundary=far)
-            bad = off or far
-        else:
-            bad = case["mismatches"]
-        if bad or case["pad_slots_drawn"]:
-            raise AssertionError(f"sample kernel on the replay's plane: {case}")
+        case["pad_slots_drawn"] = int((~live[got]).sum())
+        if case["pad_slots_drawn"]:
+            raise AssertionError(f"sample kernels drew a pad slot: {case}")
         cases.append(case)
     return cases
 
 
-def phase_per_kernels(report: dict) -> None:
+def _update_case(n, g, kind="some", M=PER_BATCH):
+    """M updates: ``some`` with a few duplicates, a same-block revisit, the
+    plane's last lane and an index past it; ``heavy``: M / 4 slots hit 4
+    times each in shuffled order, and an index below 0; ``chunks``: M
+    indices over 3,000 slots, so duplicates fall within and across the
+    kernel's chunks of ``MAX_UPDATES``."""
+    import torch
+
+    if kind == "heavy":
+        slots = torch.randperm(n, generator=g, device="cuda")[:M // 4]
+        idx = slots.repeat(4)[torch.randperm(M, generator=g, device="cuda")]
+        idx[11] = -3  # clipped to 0
+    elif kind == "chunks":
+        idx = torch.randint(0, 3000, (M,), generator=g, device="cuda")
+    else:
+        idx = torch.randint(0, n, (M,), generator=g, device="cuda")
+        idx[10] = idx[3]  # duplicate slots: the last write wins
+        idx[20] = idx[3]
+        idx[30] = (idx[5] // PER_BLOCK) * PER_BLOCK + (idx[5] + 1) % PER_BLOCK  # revisit
+    idx[40] = n - 1  # the last lane of the plane
+    idx[41] = n + 7  # clipped to n - 1
+    p0 = torch.rand(n, generator=g, device="cuda") * 2 + 0.1
+    new_p = torch.rand(M, generator=g, device="cuda") + 0.5
+    return p0, idx, new_p
+
+
+def _per_update_check(p0, idx, new_p, with_sums: bool, case: dict) -> dict:
+    """The update kernel twice from one state (plane and sums bit-equal)
+    against the plain version and the JAX package's ordered loop (the plane
+    exact), the sums within ``PER_SUMS_RTOL`` of the plain version's and
+    bit-equal to ``kernel_block_sums`` of the new plane on every touched
+    block (the kernels sum a block in one order), and one launch a chunk of
+    ``MAX_UPDATES``.  Raises on a failure."""
     import numpy as np
+    import torch
+
+    from scalerl_torch.ops import cuda_per, per
+
+    n, M = p0.shape[0], idx.shape[0]
+    want = p0.cpu().numpy()
+    for i, v in zip(idx.clamp(0, n - 1).cpu().numpy(), new_p.cpu().numpy()):
+        want[i] = v  # the JAX package's ordered loop
+    runs = []
+    for _ in range(2):
+        pk = p0.clone()
+        sk = per.block_sums(p0, PER_BLOCK) if with_sums else None
+        before = cuda_per.update_launches
+        cuda_per.update_kernel(pk, idx, new_p, sk, PER_BLOCK)
+        runs.append((pk, sk, cuda_per.update_launches - before))
+    pp = p0.clone()
+    sp = per.block_sums(p0, PER_BLOCK) if with_sums else None
+    per.update_priorities_plain(pp, idx, new_p, sp, PER_BLOCK)
+    torch.cuda.synchronize()
+    (pk, sk, launches), (pk2, sk2, _) = runs
+    case.update(n=n, M=M, sums=with_sums, launches=launches,
+                plane_max_abs_err=float((pk - pp).abs().max()),
+                equals_ordered_loop=bool(np.array_equal(pk.cpu().numpy(), want)),
+                repeat_bit_equal=bool(torch.equal(pk, pk2) and (sk is None or torch.equal(sk, sk2))))
+    ok = (case["plane_max_abs_err"] == 0.0 and case["equals_ordered_loop"]
+          and case["repeat_bit_equal"] and launches == -(-M // cuda_per.MAX_UPDATES))
+    if with_sums:
+        touched = torch.unique(idx.clamp(0, n - 1) // PER_BLOCK)
+        case.update(touched_blocks=int(touched.numel()),
+                    sums_max_rel_err=float(((sk - sp).abs() / sp.abs()).max()),
+                    sums_equal_kernel_order=bool(torch.equal(
+                        sk[touched], per.kernel_block_sums(pk, PER_BLOCK)[touched])))
+        ok = ok and case["sums_max_rel_err"] <= PER_SUMS_RTOL and case["sums_equal_kernel_order"]
+    if not ok:
+        raise AssertionError(f"update kernel disagrees: {case}")
+    return case
+
+
+def phase_per_kernels(report: dict) -> None:
     import torch
 
     from scalerl_torch.ops import cuda_per, per
@@ -705,7 +816,6 @@ def phase_per_kernels(report: dict) -> None:
     set_tf32(False)
     g = torch.Generator(device="cuda").manual_seed(5)
     sample_cases = _per_replay_plane_cases(g)
-    worst_sample = max(c["max_abs_err"] for c in sample_cases)
     main = None
     for n in (1 << 20, 1_000_003):
         for kind in ("integer", "real"):
@@ -717,67 +827,36 @@ def phase_per_kernels(report: dict) -> None:
             for S in (32, PER_BATCH):
                 u = torch.rand(S, generator=g, device="cuda")
                 targets = (torch.arange(S, device="cuda") + u) / S * total
-                b_idx, within_t = per.split_targets(p, targets, PER_BLOCK)
-                got = cuda_per.within_block_kernel(p, b_idx, within_t, PER_BLOCK)
-                want = per.within_block_sample(p, b_idx, within_t, PER_BLOCK)
-                torch.cuda.synchronize()
-                mismatches = int((got != want).sum())
-                err = int((got - want).abs().max())
-                worst_sample = max(worst_sample, err)
-                case = {"n": n, "S": S, "priorities": kind, "mismatches": mismatches,
-                        "max_abs_err": err}
-                if kind == "integer":
-                    if mismatches:
-                        raise AssertionError(f"sample kernel: {mismatches} index mismatches {case}")
-                else:
-                    off, far = _per_bracket(p, b_idx, within_t, got, want, n)
-                    case.update(off_bracket=off, mismatch_away_from_boundary=far)
-                    if off or far:
-                        raise AssertionError(f"sample kernel off its bracket: {case}")
-                    if n == 1 << 20 and S == PER_BATCH:
-                        main = (p, targets, b_idx, within_t)
-                sample_cases.append(case)
+                sample_cases.append(_per_sample_case(p, targets, {"priorities": kind}))
+                if n == 1 << 20 and S == PER_BATCH and kind == "real":
+                    main = (p, targets)
 
-    update_cases, worst_update = [], 0.0
+    update_cases = []
     for n in (1 << 20, 1_000_003):
-        p0, idx, new_p = _update_case(n, g)
-        want_np = p0.cpu().numpy()
-        for i, v in zip(idx.clamp(0, n - 1).cpu().numpy(), new_p.cpu().numpy()):
-            want_np[i] = v  # the JAX package's ordered loop
-        for with_sums in (False, True):
-            pk, pp = p0.clone(), p0.clone()
-            sk = per.block_sums(p0, PER_BLOCK) if with_sums else None
-            sp = sk.clone() if with_sums else None
-            cuda_per.update_kernel(pk, idx, new_p, sk, PER_BLOCK)
-            per.update_priorities_plain(pp, idx, new_p, sp, PER_BLOCK)
-            torch.cuda.synchronize()
-            plane_err = float((pk - pp).abs().max())
-            loop_exact = bool(np.array_equal(pk.cpu().numpy(), want_np))
-            case = {"n": n, "M": PER_BATCH, "sums": with_sums, "plane_max_abs_err": plane_err,
-                    "equals_ordered_loop": loop_exact}
-            if with_sums:
-                case["sums_max_rel_err"] = float(((sk - sp).abs() / sp.abs()).max())
-            update_cases.append(case)
-            worst_update = max(worst_update, plane_err)
-            if plane_err != 0.0 or not loop_exact or case.get("sums_max_rel_err", 0.0) > PER_SUMS_RTOL:
-                raise AssertionError(f"update kernel disagrees: {case}")
+        for kind in ("some", "heavy"):
+            p0, idx, new_p = _update_case(n, g, kind)
+            for with_sums in (False, True):
+                update_cases.append(_per_update_check(p0, idx, new_p, with_sums, {"kind": kind}))
+    p0, idx, new_p = _update_case(1 << 20, g, "chunks", M=3 * cuda_per.MAX_UPDATES)
+    for with_sums in (False, True):
+        update_cases.append(_per_update_check(p0, idx, new_p, with_sums, {"kind": "chunks"}))
 
-    # times at the DQN slice's shapes: N = 2^20, S = M = 512, blocks of 1024
-    p, targets, b_idx, within_t = main
+    # times at the DQN slice's shapes: N = 2^20, S = M = 512, blocks of 1024,
+    # beside the replay floor: one one-element PyTorch op
+    one = torch.zeros(1, device="cuda")
+    floor = dict(replay_floor_ms=gpu_time_ms(lambda: one.add_(1.0), 200),
+                 eager_floor_ms=eager_time_ms(lambda: one.add_(1.0), 200))
+    p, targets = main
     n = p.shape[0]
-    distinct_blocks = int(torch.unique(b_idx).numel())
-    sample_bytes = distinct_blocks * PER_BLOCK * 4 + PER_BATCH * (8 + 4) + PER_BATCH * 8
-    sample_ops = 2 * PER_BATCH * PER_BLOCK  # a scan add and a compare per lane
+    sample_bytes = 4 * n + PER_BATCH * (4 + 8)  # the plane once; targets in, indices out
+    sample_ops = n + 2 * PER_BATCH * PER_BLOCK  # block sums' adds; a scan add, a compare a lane
     sample_timing = _bound(sample_bytes, sample_ops, dict(
-        ms=gpu_time_ms(lambda: cuda_per.within_block_kernel(p, b_idx, within_t, PER_BLOCK), 200),
-        eager_ms=eager_time_ms(lambda: cuda_per.within_block_kernel(p, b_idx, within_t, PER_BLOCK), 200),
-        plain_ms=gpu_time_ms(lambda: per.within_block_sample(p, b_idx, within_t, PER_BLOCK), 50),
-        plain_eager_ms=eager_time_ms(lambda: per.within_block_sample(p, b_idx, within_t, PER_BLOCK), 50),
-        with_phase1_ms=gpu_time_ms(lambda: cuda_per.sample_kernel(p, targets, PER_BLOCK), 50),
-        with_phase1_eager_ms=eager_time_ms(lambda: cuda_per.sample_kernel(p, targets, PER_BLOCK), 50),
-        plain_hierarchical_ms=gpu_time_ms(lambda: per.hierarchical_sample(p, targets, PER_BLOCK), 50),
+        ms=gpu_time_ms(lambda: cuda_per.sample_kernel(p, targets, PER_BLOCK), 200),
+        eager_ms=eager_time_ms(lambda: cuda_per.sample_kernel(p, targets, PER_BLOCK), 200),
+        plain_ms=gpu_time_ms(lambda: per.hierarchical_sample(p, targets, PER_BLOCK), 50),
+        plain_eager_ms=eager_time_ms(lambda: per.hierarchical_sample(p, targets, PER_BLOCK), 50),
         flat_cumsum_ms=gpu_time_ms(lambda: per.cumsum_sample(p, targets), 50),
-        distinct_blocks=distinct_blocks,
+        kernel_launches_per_call=2, **floor,
     ))
     p0, idx, new_p = _update_case(n, g)
     pk, pp = p0.clone(), p0.clone()
@@ -790,20 +869,28 @@ def phase_per_kernels(report: dict) -> None:
         eager_ms=eager_time_ms(lambda: cuda_per.update_kernel(pk, idx, new_p, None, PER_BLOCK), 200),
         plain_ms=gpu_time_ms(lambda: per.update_priorities_plain(pp, idx, new_p, None, PER_BLOCK), 50),
         plain_eager_ms=eager_time_ms(lambda: per.update_priorities_plain(pp, idx, new_p, None, PER_BLOCK), 50),
-        distinct_slots=slots, touched_blocks=touched,
+        distinct_slots=slots, touched_blocks=touched, **floor,
     ))
     sk = per.block_sums(p0, PER_BLOCK)
     sp = sk.clone()
     sums_bytes = update_bytes + touched * PER_BLOCK * 4 + touched * 4  # + blocks read, sums out
     sums_timing = _bound(sums_bytes, touched * PER_BLOCK, dict(
         ms=gpu_time_ms(lambda: cuda_per.update_kernel(pk, idx, new_p, sk, PER_BLOCK), 200),
+        eager_ms=eager_time_ms(lambda: cuda_per.update_kernel(pk, idx, new_p, sk, PER_BLOCK), 200),
         plain_ms=gpu_time_ms(lambda: per.update_priorities_plain(pp, idx, new_p, sp, PER_BLOCK), 50),
+        **floor,
     ))
+    # max_abs_err: the sample's index against its plain version of the
+    # kernels' arithmetic (kernel_order_sample), the update's plane against
+    # update_priorities_plain; both must be 0
+    worst_sample = max(c["max_abs_err"] for c in sample_cases)
     report["per_sample"] = {"max_abs_err": float(worst_sample), **sample_timing}
-    report["per_update"] = {"max_abs_err": worst_update, **update_timing}
+    report["per_update"] = {"max_abs_err": max(c["plane_max_abs_err"] for c in update_cases),
+                            **update_timing}
     emit("per_kernels", block=PER_BLOCK, sample_cases=sample_cases, update_cases=update_cases,
          sample=sample_timing, update=update_timing, update_with_sums=sums_timing,
-         bracket_rel=PER_BRACKET_REL, sums_rtol=PER_SUMS_RTOL, card=report["card"],
+         bracket_rel=PER_BRACKET_REL, prefix_rel=PER_PREFIX_REL, sums_rtol=PER_SUMS_RTOL,
+         max_updates_a_launch=cuda_per.MAX_UPDATES, card=report["card"],
          library_ms=None, library_note="no single PyTorch call computes either function: "
          "index_put_ does not promise last-wins; flat_cumsum_ms times cumsum + searchsorted")
 
@@ -832,9 +919,12 @@ def phase_dqn_learn(report: dict) -> None:
 
     import torch
 
+    from unittest import mock
+
     from scalerl_torch.agents.dqn import DQNAgent
     from scalerl_torch.data.prioritized import per_sample_from_uniforms
     from scalerl_torch.data.sampler import Sampler
+    from scalerl_torch.ops import per
 
     set_tf32(False)
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -863,8 +953,14 @@ def phase_dqn_learn(report: dict) -> None:
         # a full ring whose head has wrapped: the sample rolls the plane
         sampler.buffer.state = dataclasses.replace(
             state, replay=dataclasses.replace(state.replay, pos=12345, size=PER_CAPACITY))
-        batch = per_sample_from_uniforms(sampler.buffer.state, u, args.per_alpha, args.per_beta,
-                                         PER_N_STEP, args.gamma, sampler.buffer.sample_method)
+        # the plain leg samples in the kernels' order of sums (their plain
+        # version): on this real-valued plane hierarchical_sample's order
+        # picks other indices at a few boundaries (per_kernels bounds where)
+        with mock.patch.object(per, "hierarchical_sample",
+                               lambda p, t, bs: per.kernel_order_sample(p, t, bs)[0]):
+            batch = per_sample_from_uniforms(sampler.buffer.state, u, args.per_alpha,
+                                             args.per_beta, PER_N_STEP, args.gamma,
+                                             sampler.buffer.sample_method)
         metrics, td_abs = agent.learn_device(batch)
         sampler.update_priorities(batch["indices"], td_abs + 1e-6)
         torch.cuda.synchronize()
@@ -2827,7 +2923,7 @@ def main() -> int:
     # is gather + scaled_dot_product_attention, timed in phase_paged_attn)
     kernels = [
         ("vtrace", "scalerl_torch/csrc/vtrace.cu", "scalerl_tpu/ops/pallas_vtrace.py:36"),
-        ("per_sample", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:66"),
+        ("per_sample", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:79"),
         ("per_update", "scalerl_torch/csrc/per.cu", "scalerl_tpu/ops/pallas_per.py:225"),
         ("paged_attention", "scalerl_torch/csrc/paged_attention.cu",
          "scalerl_tpu/ops/pallas_paged_attention.py:108"),
