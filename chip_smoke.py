@@ -11,11 +11,18 @@ no result line:
 2. ``build``: compiles every CUDA source of ``scalerl_torch/csrc`` with
    ``nvcc`` (one process per source, all started together); fails if
    ptxas reports a local-memory spill in any kernel; reports the
-   registers of each flash, segment, paged and PER kernel (instantiation).
+   registers of each flash, segment, paged, PER and V-trace kernel
+   (instantiation).
 3. ``vtrace``: the V-trace kernel against its plain PyTorch version on the
-   card, at the fused loop's [20, 512] and at ragged shapes, for three clip
-   settings (max abs error <= 1e-5); its time beside the plain version's
-   and the byte bound.
+   card, for three clip settings (max abs error <= 1e-5, each call twice
+   and bit-equal), at the fused loop's [20, 512], ImpalaArguments'
+   defaults [80, 8], the transformer learner's [16, 8], ragged shapes
+   ([1, 1], [37, 5], [20, 1000], [70, 1001]: B not a multiple of 4, T not
+   a multiple of the kernel's chunks), a bandwidth probe [80, 4096], and
+   planes with NaN log-rhos (NaN at the plain version's positions); its
+   times by replay and eagerly at the four timed shapes beside their byte
+   bounds and the replay floor of a one-element op, and the plain
+   version's time at [20, 512].
 4. ``model``: full-width ``AtariNet`` on the card against the same weights
    on the host, float32 with TF32 off (atol 1e-4).
 5. ``impala_learn``: one full-width learn step with the kernel on the card
@@ -26,8 +33,9 @@ no result line:
    B=512, T=20, 5 iterations per chunk, V-trace through the kernel): one
    warm-up chunk, then 10 chunks under ``torch.cuda.set_sync_debug_mode
    ("error")`` with every kernel's launch count zeroed just before; then
-   two more chunks under ``torch.profiler`` for the device's busy share and
-   the heaviest kernels (``impala_profile``).
+   two more chunks under ``torch.profiler`` for the device's busy share,
+   the heaviest kernels and the V-trace kernel's own µs a call and calls a
+   chunk (``impala_profile``).
 7. ``per_kernels``: the prioritized-replay kernels against their plain
    PyTorch versions on the card.  The sample (both kernels: block sums,
    then the search) at N = 2^20 and a ragged N = 1,000,003, S in {32, 512},
@@ -310,6 +318,18 @@ def _per_kernel_name(mangled: str):
     return m and m.group(1)
 
 
+def _vtrace_kernel_name(mangled: str):
+    """The V-trace kernel's name from its mangled one (``vtrace_kernel<32,
+    4>``; a kernel that is no template, plain ``vtrace_kernel``), or None."""
+    import re
+
+    m = re.search(r"\d(vtrace_kernel)(?:I((?:Li\d+E)+)E)?", mangled)
+    if m is None:
+        return None
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return f"vtrace_kernel<{', '.join(args)}>" if args else "vtrace_kernel"
+
+
 def _registers(log: str, namer=_kernel_name) -> dict:
     """ptxas's registers per kernel (instantiation), by ``namer``: by
     default the attention kernels' ``_kernel_name``."""
@@ -355,12 +375,13 @@ def phase_build(report: dict) -> None:
          spill_free=not spills, flash_registers=_registers(logs.get("flash_attention", "")),
          segment_registers=_registers(logs.get("segment_attention", "")),
          paged_registers=_registers(logs.get("paged_attention", "")),
-         per_registers=_registers(logs.get("per", ""), _per_kernel_name))
+         per_registers=_registers(logs.get("per", ""), _per_kernel_name),
+         vtrace_registers=_registers(logs.get("vtrace", ""), _vtrace_kernel_name))
     if spills:
         raise AssertionError(f"ptxas reports local-memory spills: {spills}")
 
 
-def _vtrace_inputs(T, B, seed, device):
+def _vtrace_inputs(T, B, seed, device, nan_share=0.0):
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -371,10 +392,42 @@ def _vtrace_inputs(T, B, seed, device):
         values=torch.randn(T, B, generator=g),
         bootstrap_value=torch.randn(B, generator=g),
     )
+    if nan_share:
+        inp["log_rhos"][torch.rand(T, B, generator=g) < nan_share] = float("nan")
     return {k: v.to(device) for k, v in inp.items()}
 
 
+# [T, B] cases of the vtrace phase: the fused loop's main shape, ragged and
+# odd shapes (B not a multiple of 4, T not a multiple of the kernel's 32-row
+# chunks), ImpalaArguments' defaults [80, 8], the transformer learner's
+# [16, 8] and a bandwidth probe [80, 4096]
+VTRACE_CASES = [(MAIN_T, MAIN_B), (1, 1), (37, 5), (20, 1000), (80, 8), (16, 8), (70, 1001),
+                (80, 4096)]
+# planes with NaN log-rhos (about 2% of them): NaN must stay at the plain version's positions
+VTRACE_NAN_CASES = [(MAIN_T, MAIN_B), (70, 1001)]
+# shapes timed, by what calls the kernel there
+VTRACE_TIMED = {"fused_loop": (MAIN_T, MAIN_B), "impala_defaults": (80, 8),
+                "transformer_learner": (16, 8), "bandwidth_probe": (80, 4096)}
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _vtrace_bound(inp: dict) -> dict:
+    T, B = inp["log_rhos"].shape
+    moved = sum(x.numel() * x.element_size() for x in inp.values()) + 2 * T * B * 4
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = VTRACE_OPS_PER_ELEMENT * T * B / H100_F32_OPS_PER_S * 1e3
+    return {"bytes_moved": moved, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def phase_vtrace(report: dict) -> None:
+    import torch
+
     from scalerl_torch.ops.cuda_vtrace import vtrace_from_importance_weights_kernel
     from scalerl_torch.ops.vtrace import vtrace_scan
 
@@ -386,39 +439,44 @@ def phase_vtrace(report: dict) -> None:
     }
     cases = []
     worst = 0.0
-    for T, B in [(MAIN_T, MAIN_B), (1, 1), (37, 5), (20, 1000)]:
-        inp = _vtrace_inputs(T, B, seed=T * 1000 + B, device="cuda")
+    planes = [(T, B, 0.0) for T, B in VTRACE_CASES] + [(T, B, 0.02) for T, B in VTRACE_NAN_CASES]
+    for T, B, nan_share in planes:
+        inp = _vtrace_inputs(T, B, seed=T * 1000 + B, device="cuda", nan_share=nan_share)
         for clip_name, clip in clips.items():
             got = vtrace_from_importance_weights_kernel(**inp, **clip)
+            again = vtrace_from_importance_weights_kernel(**inp, **clip)
             want = vtrace_scan(**inp, **clip)
-            err = max(
-                (got.vs - want.vs).abs().max().item(),
-                (got.pg_advantages - want.pg_advantages).abs().max().item(),
-            )
-            cases.append({"shape": [T, B], "clips": clip_name, "max_abs_err": err})
+            repeat_equal = all(_bits_equal(x, y) for x, y in zip(got, again))
+            nan_equal = all(torch.equal(x.isnan(), y.isnan()) for x, y in zip(got, want))
+            err = max(((x - y)[~y.isnan()].abs().max().item() for x, y in zip(got, want)),
+                      default=0.0)
+            cases.append({"shape": [T, B], "clips": clip_name, "nan_share": nan_share,
+                          "max_abs_err": err, "repeat_bit_equal": repeat_equal,
+                          "nan_positions_equal": nan_equal,
+                          "nans": int(got.vs.isnan().sum().item())})
             worst = max(worst, err)
-            if not err <= VTRACE_TOL:
-                raise AssertionError(f"vtrace {T}x{B} {clip_name}: max abs err {err}")
+            if not (err <= VTRACE_TOL and repeat_equal and nan_equal):
+                raise AssertionError(f"vtrace {T}x{B} {clip_name} nan {nan_share}: max abs err "
+                                     f"{err}, repeat bit-equal {repeat_equal}, NaN positions "
+                                     f"equal {nan_equal}")
 
+    one = torch.zeros(1, device="cuda")
+    floor_ms = gpu_time_ms(lambda: one.add_(1.0), 200)
+    timed = {}
+    for name, (T, B) in VTRACE_TIMED.items():
+        inp = _vtrace_inputs(T, B, seed=0, device="cuda")
+        kernel = lambda: vtrace_from_importance_weights_kernel(**inp)  # noqa: E731
+        timed[name] = {"shape": [T, B], "ms": gpu_time_ms(kernel, 200),
+                       "eager_ms": eager_time_ms(kernel, 200), **_vtrace_bound(inp)}
     inp = _vtrace_inputs(MAIN_T, MAIN_B, seed=0, device="cuda")
-    kernel = lambda: vtrace_from_importance_weights_kernel(**inp)  # noqa: E731
     plain = lambda: vtrace_scan(**inp)  # noqa: E731
-    out_bytes = 2 * MAIN_T * MAIN_B * 4
-    moved = sum(x.numel() * x.element_size() for x in inp.values()) + out_bytes
-    bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    ops_ms = VTRACE_OPS_PER_ELEMENT * MAIN_T * MAIN_B / H100_F32_OPS_PER_S * 1e3
-    timing = dict(
-        ms=gpu_time_ms(kernel, 200),
-        plain_ms=gpu_time_ms(plain, 20),
-        eager_ms=eager_time_ms(kernel, 200),
-        plain_eager_ms=eager_time_ms(plain, 20),
-        bytes_moved=moved,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-    )
+    main = timed["fused_loop"]
+    timing = dict(ms=main["ms"], plain_ms=gpu_time_ms(plain, 20), eager_ms=main["eager_ms"],
+                  plain_eager_ms=eager_time_ms(plain, 20), bytes_moved=main["bytes_moved"],
+                  bound_ms=main["bound_ms"], bound_by=main["bound_by"])
     report["vtrace"] = {"max_abs_err": worst, **timing}
     emit("vtrace", tol=VTRACE_TOL, max_abs_err=worst, cases=cases, shape=[MAIN_T, MAIN_B],
-         card=report["card"], **timing)
+         timed=timed, replay_floor_ms=floor_ms, card=report["card"], **timing)
 
 
 def phase_model(report: dict) -> None:
@@ -625,6 +683,11 @@ def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 
     unprofiled chunk time, and the kernels that take the most of it."""
     profiled_s, kernels = profile_device(lambda: loop.run(state, carry, num_calls=chunks))
     busy_s = sum(us for _, us, _ in kernels) / 1e6 / chunks
+    vt = [(us, n) for k, us, n in kernels if "vtrace_kernel" in k]
+    if kernels and not vt:
+        raise AssertionError("the profile of the fused chunks shows no vtrace_kernel")
+    vtrace_row = {"us_per_call": sum(us for us, _ in vt) / sum(n for _, n in vt),
+                  "calls_per_chunk": sum(n for _, n in vt) / chunks} if vt else None
     emit("impala_profile", chunks=chunks, unprofiled_chunk_s=chunk_s,
          profiled_chunk_s=profiled_s / chunks,
          device_busy_s_per_chunk=busy_s if kernels else None,
@@ -632,7 +695,7 @@ def profile_chunks(loop, state, carry, chunk_s: float, card: str, chunks: int = 
          kernel_launches_per_chunk=sum(n for _, _, n in kernels) / chunks,
          top_kernels=[{"name": k[:90], "ms_per_chunk": us / 1e3 / chunks,
                        "calls_per_chunk": n / chunks} for k, us, n in kernels[:12]],
-         card=card)
+         vtrace_kernel=vtrace_row, card=card)
 
 
 def _per_bracket(p, b_idx, within_t, got, n):
@@ -2814,6 +2877,7 @@ def phase_transformer_train(report: dict) -> None:
     busy_s = sum(us for _, us, _ in kernels) / 1e6 / prof_steps
     flash_us = {n: sum(us for kk, us, _ in kernels if n in kk) / prof_steps
                 for n in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    vtrace_us = sum(us for kk, us, _ in kernels if "vtrace_kernel" in kk) / prof_steps
     emit("transformer_train", d_model=SHARD_D, layers=SHARD_LAYERS, heads=SHARD_HEADS,
          unroll=SHARD_T, batch=SHARD_B, obs_dim=SHARD_OBS, actions=SHARD_A, params=params,
          bf16_params=True, use_flash=True, use_pallas=True, warmup_s=warmup_s, steps=steps,
@@ -2831,7 +2895,7 @@ def phase_transformer_train(report: dict) -> None:
          device_busy_ms_per_step=busy_s * 1e3 if kernels else None,
          device_busy_share=busy_s / step_s if kernels else None,
          kernel_launches_per_step=sum(n for _, _, n in kernels) / prof_steps,
-         flash_us_per_step=flash_us,
+         flash_us_per_step=flash_us, vtrace_us_per_step=vtrace_us,
          flash_share_of_device_time=(sum(flash_us.values()) / 1e6 / busy_s if kernels else None),
          top_kernels=[{"name": kk[:90], "us_per_step": us / prof_steps,
                        "calls_per_step": n / prof_steps} for kk, us, n in kernels[:12]],

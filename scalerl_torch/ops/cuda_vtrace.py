@@ -1,20 +1,24 @@
 """V-trace targets through the hand-written CUDA kernel ``csrc/vtrace.cu``.
 
 Replaces the TPU kernel ``scalerl_tpu/ops/pallas_vtrace.py::
-vtrace_from_importance_weights_pallas`` (``_vtrace_kernel``).  One CUDA
-thread owns one batch column and walks the time axis backwards once, so the
-recursion lives in registers and every access to the ``[T, B]`` planes is
-coalesced; the source says more.
+vtrace_from_importance_weights_pallas`` (``_vtrace_kernel``).  A CTA owns a
+tile of batch columns and walks the time axis backwards in chunks that
+``cp.async`` stages through shared memory, double-buffered; the elementwise
+terms are computed over each chunk in parallel, and one thread per column
+runs the recursion over it from shared memory.  The source says more.
 
 What bounds it on an H100: it moves ``6*T*B*4 + 4*B`` bytes (about 0.25 MB
-at the fused loop's ``[20, 512]``, well under a microsecond at 3.35 TB/s),
-so one launch costs about the launch latency; the fused loop launches it
-once per learn step.
+at the fused loop's ``[20, 512]``, 0.074 us at 3.35 TB/s), so one launch
+costs about the launch latency plus one trip to memory a chunk; the fused
+loop launches it once per learn step.
 
 The wrapper takes the reference function's signature.  A host tensor runs
 the plain PyTorch version (``ops/vtrace.py::vtrace_scan``); a CUDA tensor
 launches the kernel or raises.  ``launches`` counts kernel launches, and
-nothing else.
+nothing else.  The eager path is kept short, since the main path calls it
+once a learn step: one chain of tests for inputs that pass, the launcher
+resolved once, ``empty_like`` for the outputs, the raw stream handle, and
+no device switch when the tensors are on the current device.
 """
 
 from __future__ import annotations
@@ -30,44 +34,60 @@ from scalerl_torch.utils import cuda_build
 # Kernel launches since the last reset (a plain count; callers zero it).
 launches = 0
 
-_c_float = ctypes.c_float
-_c_int = ctypes.c_int
-_c_ptr = ctypes.c_void_p
+_NAMES = ("log_rhos", "discounts", "rewards", "values", "bootstrap_value")
+_ARGTYPES = [ctypes.c_void_p] * 7 + [
+    ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p,
+]
+_launch = None  # vtrace_launch of the built library, resolved at the first launch
 
 
 def _launcher():
-    lib = cuda_build.load("vtrace")
-    fn = lib.vtrace_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_c_ptr] * 7 + [
-            _c_int, _c_int,
-            _c_float, _c_int, _c_float, _c_int, _c_float,
-            _c_ptr,
-        ]
-        fn.restype = _c_int
-    return fn
+    global _launch
+    if _launch is None:
+        fn = cuda_build.load("vtrace").vtrace_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
 
 
-def _check_inputs(log_rhos, discounts, rewards, values, bootstrap_value) -> None:
-    planes = {"log_rhos": log_rhos, "discounts": discounts,
-              "rewards": rewards, "values": values}
-    if log_rhos.dim() != 2:
-        raise ValueError(f"log_rhos must be [T, B], got {tuple(log_rhos.shape)}")
-    T, B = log_rhos.shape
+def _check_inputs(*inputs: torch.Tensor):
+    """Raises on what the kernel does not take; returns ``(T, B)``.  Inputs
+    that pass take one chain of tests; the first failure names its input."""
+    log_rhos, discounts, rewards, values, bootstrap_value = inputs
+    shape = log_rhos.shape
+    device = log_rhos.device
+    f32 = torch.float32
+    if (len(shape) == 2 and shape[0] >= 1 and shape[1] >= 1
+            and discounts.shape == shape and rewards.shape == shape and values.shape == shape
+            and bootstrap_value.shape == shape[1:]
+            and log_rhos.dtype is f32 and discounts.dtype is f32 and rewards.dtype is f32
+            and values.dtype is f32 and bootstrap_value.dtype is f32
+            and discounts.device == device and rewards.device == device
+            and values.device == device and bootstrap_value.device == device
+            and log_rhos.is_contiguous() and discounts.is_contiguous()
+            and rewards.is_contiguous() and values.is_contiguous()
+            and bootstrap_value.is_contiguous()):
+        return shape
+    if len(shape) != 2:
+        raise ValueError(f"log_rhos must be [T, B], got {tuple(shape)}")
+    T, B = shape
     if T < 1 or B < 1:
         raise ValueError(f"V-trace needs T >= 1 and B >= 1, got [{T}, {B}]")
-    for name, x in {**planes, "bootstrap_value": bootstrap_value}.items():
-        want = (B,) if name == "bootstrap_value" else (T, B)
-        if tuple(x.shape) != want:
+    for i, x in enumerate(inputs):
+        name = _NAMES[i]
+        want = (B,) if i == 4 else (T, B)
+        if x.shape != want:
             raise ValueError(f"{name} must have shape {want}, got {tuple(x.shape)}")
-        if x.dtype != torch.float32:
+        if x.dtype is not f32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != log_rhos.device:
-            raise ValueError(
-                f"{name} is on {x.device}, log_rhos on {log_rhos.device}"
-            )
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, log_rhos on {device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return T, B
 
 
 def vtrace_from_importance_weights_kernel(
@@ -82,39 +102,35 @@ def vtrace_from_importance_weights_kernel(
 ) -> VTraceOutput:
     """Same contract as ``ops.vtrace.vtrace_from_importance_weights``.
 
-    Inputs are detached; the outputs are constants.  float32, ``[T, B]``
+    The outputs are constants (no autograd history).  float32, ``[T, B]``
     planes and a ``[B]`` bootstrap row, contiguous, on one device.
     """
     global launches
-    inputs = tuple(
-        x.detach() for x in (log_rhos, discounts, rewards, values, bootstrap_value)
-    )
-    _check_inputs(*inputs)
-    clips = dict(
-        clip_rho_threshold=clip_rho_threshold,
-        clip_pg_rho_threshold=clip_pg_rho_threshold,
-        clip_c_threshold=clip_c_threshold,
-    )
-    device = inputs[0].device
+    inputs = (log_rhos, discounts, rewards, values, bootstrap_value)
+    T, B = _check_inputs(*inputs)
+    device = log_rhos.device
     if device.type == "cpu":
-        return vtrace_scan(*inputs, **clips)
+        return vtrace_scan(*inputs, clip_rho_threshold, clip_pg_rho_threshold,
+                           clip_c_threshold)
     if device.type != "cuda":
         raise ValueError(f"no V-trace kernel for device {device}")
-    T, B = inputs[0].shape
-    vs = torch.empty((T, B), dtype=torch.float32, device=device)
-    pg = torch.empty((T, B), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            *(x.data_ptr() for x in inputs), vs.data_ptr(), pg.data_ptr(),
-            T, B,
-            float(clip_rho_threshold or 0.0), int(clip_rho_threshold is not None),
-            float(clip_pg_rho_threshold or 0.0),
-            int(clip_pg_rho_threshold is not None),
-            float(clip_c_threshold),
-            stream,
-        )
+    launch = _launcher()
+    vs, pg = torch.empty_like(log_rhos), torch.empty_like(log_rhos)
+    args = (
+        log_rhos.data_ptr(), discounts.data_ptr(), rewards.data_ptr(), values.data_ptr(),
+        bootstrap_value.data_ptr(), vs.data_ptr(), pg.data_ptr(), T, B,
+        float(clip_rho_threshold or 0.0), clip_rho_threshold is not None,
+        float(clip_pg_rho_threshold or 0.0), clip_pg_rho_threshold is not None,
+        float(clip_c_threshold),
+    )
+    # the raw stream handle (as Triton reads it): torch.cuda.current_stream
+    # builds a Stream object and costs ~3 us more a call
+    if device.index == torch.cuda.current_device():
+        err = launch(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = launch(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"vtrace kernel launch failed: cudaError {err}")
     launches += 1
-    return VTraceOutput(vs=vs, pg_advantages=pg)
+    return VTraceOutput(vs, pg)

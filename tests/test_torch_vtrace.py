@@ -24,13 +24,17 @@ CLIPS = {
     "rho2_c1.5": {"clip_rho_threshold": 2.0, "clip_c_threshold": 1.5},
     "no_rho_clip": {"clip_rho_threshold": None, "clip_pg_rho_threshold": None},
 }
-SHAPES = [(20, 8), (1, 1), (37, 5)]
+# (80, 8): ImpalaArguments' defaults; (16, 8): the transformer learner's
+# trajectory; (70, 33): T and B past the CUDA kernel's chunks and tiles
+SHAPES = [(20, 8), (1, 1), (37, 5), (80, 8), (16, 8), (70, 33)]
 
 
-def _inputs(T, B, seed=0):
+def _inputs(T, B, seed=0, nan_share=0.0):
     rng = np.random.default_rng(seed)
+    log_rhos = (rng.normal(size=(T, B)) * 0.4).astype(np.float32)
+    log_rhos[rng.uniform(size=(T, B)) < nan_share] = np.nan
     return dict(
-        log_rhos=(rng.normal(size=(T, B)) * 0.4).astype(np.float32),
+        log_rhos=log_rhos,
         discounts=(0.99 * (rng.uniform(size=(T, B)) > 0.1)).astype(np.float32),
         rewards=rng.normal(size=(T, B)).astype(np.float32),
         values=rng.normal(size=(T, B)).astype(np.float32),
@@ -57,6 +61,21 @@ def test_vtrace_matches_jax(shape, clips, jax_impl):
     t_inp = {k: torch.from_numpy(v) for k, v in inp.items()}
     _close(tv.vtrace_from_importance_weights(**t_inp, **clips, impl="scan"), ref)
     _close(tv.vtrace_from_importance_weights(**t_inp, **clips, impl="kernel"), ref)
+
+
+@pytest.mark.parametrize("jax_impl", ["scan", "pallas"])
+def test_vtrace_keeps_nan_where_jax_does(jax_impl):
+    """A NaN log-rho stays NaN in the clipped rhos (jnp.minimum and
+    torch.clamp keep it), and reaches the same outputs on both sides."""
+    inp = _inputs(20, 8, seed=3, nan_share=0.05)
+    assert np.isnan(inp["log_rhos"]).sum() > 0
+    ref = jv.vtrace_from_importance_weights(
+        **{k: jnp.asarray(v) for k, v in inp.items()}, impl=jax_impl
+    )
+    assert np.isnan(np.asarray(ref.vs)).any()
+    t_inp = {k: torch.from_numpy(v) for k, v in inp.items()}
+    _close(tv.vtrace_from_importance_weights(**t_inp, impl="scan"), ref)
+    _close(tv.vtrace_from_importance_weights(**t_inp, impl="kernel"), ref)
 
 
 @pytest.mark.parametrize("impl", ["scan", "kernel"])
@@ -99,5 +118,15 @@ def test_kernel_wrapper_checks_its_inputs():
         fn(**{**inp, "values": inp["values"][:-1]})
     with pytest.raises(ValueError, match="contiguous"):
         fn(**{**inp, "discounts": inp["discounts"].t().contiguous().t()})
+    with pytest.raises(ValueError, match="values is on meta, log_rhos on cpu"):
+        fn(**{**inp, "values": inp["values"].to("meta")})
+    with pytest.raises(ValueError, match=r"bootstrap_value must have shape \(4,\)"):
+        fn(**{**inp, "bootstrap_value": inp["bootstrap_value"][None]})
+    with pytest.raises(ValueError, match=r"T >= 1 and B >= 1, got \[0, 4\]"):
+        fn(**{k: v[:0] if v.dim() == 2 else v for k, v in inp.items()})
+    with pytest.raises(ValueError, match=r"log_rhos must be \[T, B\]"):
+        fn(**{**inp, "log_rhos": inp["log_rhos"].reshape(-1)})
+    with pytest.raises(ValueError, match="no V-trace kernel for device meta"):
+        fn(**{k: v.to("meta") for k, v in inp.items()})
     with pytest.raises(ValueError, match="impl"):
         tv.vtrace_from_importance_weights(**inp, impl="pallas")
