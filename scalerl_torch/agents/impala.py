@@ -1,10 +1,11 @@
 """IMPALA: the V-trace actor-learner agent.
 
 Port of ``scalerl_tpu/agents/impala.py`` (with the parts of
-``agents/policy_value.py`` it needs) for pixel observations with the
-feed-forward ``AtariNet``, and for flat observations with the transformer
-actor-critic (``policy_arch="transformer"``,
-``models/transformer_policy.py``), in float32 or with ``bf16_params``.
+``agents/policy_value.py`` it needs) for pixel observations with
+``AtariNet`` (feed-forward or with its LSTM core), and for flat
+observations with ``MLPPolicyNet`` or the transformer actor-critic
+(``policy_arch="transformer"``, ``models/transformer_policy.py``), in
+float32 or with ``bf16_params``.
 
 The learn step is a function of an explicit ``ImpalaTrainState``, as in the
 JAX package: the model is called with the state's parameters through
@@ -15,8 +16,10 @@ the module's own parameters are only the initial ones.
 The optimizer is optax's ``chain(clip_by_global_norm, rmsprop)`` written
 out, because ``torch.optim.RMSprop`` is a different update: optax 0.2.6
 divides by ``sqrt(nu + eps)`` (eps inside the root) with ``nu`` starting at
-0, and clips by ``max_norm / norm`` only when ``norm > max_norm``, with no
-1e-6 in the denominator.
+0, clips by ``max_norm / norm`` only when ``norm > max_norm``, with no
+1e-6 in the denominator, and applies momentum after the learning rate, so
+the momentum buffer holds scaled updates (torch's holds unscaled ones,
+which differs once the learning rate follows a schedule).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch.func import functional_call
 from scalerl_torch.config import ImpalaArguments
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.models.atari import AtariNet
+from scalerl_torch.models.policy import MLPPolicyNet
 from scalerl_torch.models.transformer_policy import build_mp_policy
 from scalerl_torch.ops.losses import baseline_loss, entropy_loss, policy_gradient_loss
 from scalerl_torch.ops.vtrace import vtrace_from_logits
@@ -45,7 +49,7 @@ Schedule = Callable[[torch.Tensor], torch.Tensor]
 @dataclass
 class ImpalaTrainState:
     params: Params
-    opt_state: Dict[str, Any]  # {"nu": Params, "count": int32 tensor}
+    opt_state: Dict[str, Any]  # {"nu": Params, "count": int32 tensor[, "trace": Params]}
     step: torch.Tensor  # int32, learner updates
     env_frames: torch.Tensor  # int64, env frames consumed
 
@@ -87,10 +91,15 @@ def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
 
 
 class RMSPropOptimizer:
-    """``optax.chain(clip_by_global_norm(max_norm), rmsprop(lr, decay, eps))``.
+    """``optax.chain(clip_by_global_norm(max_norm), rmsprop(lr, decay, eps,
+    momentum))``.
 
-    State: ``{"nu": second moments, "count": updates}``; ``count`` feeds the
-    learning-rate schedule, as optax's ``ScaleByScheduleState`` does.
+    State: ``{"nu": second moments, "count": updates}``, and with a
+    non-zero ``momentum`` ``"trace"``, the last update; ``count`` feeds the
+    learning-rate schedule, as optax's ``ScaleByScheduleState`` does.  optax
+    adds ``momentum * trace`` to the update after scaling it by the learning
+    rate (``trace`` after ``scale_by_learning_rate`` in its chain).  At
+    momentum 0 its trace is the update itself, so the port keeps none.
     """
 
     def __init__(
@@ -99,18 +108,23 @@ class RMSPropOptimizer:
         decay: float,
         eps: float,
         max_norm: float,
+        momentum: float = 0.0,
     ) -> None:
         self.learning_rate = learning_rate
         self.decay = decay
         self.eps = eps
         self.max_norm = max_norm
+        self.momentum = momentum
 
     def init(self, params: Params) -> Dict[str, Any]:
         device = next(iter(params.values())).device
-        return {
+        state = {
             "nu": {k: torch.zeros_like(v) for k, v in params.items()},
             "count": torch.zeros((), dtype=torch.int32, device=device),
         }
+        if self.momentum:
+            state["trace"] = {k: torch.zeros_like(v) for k, v in params.items()}
+        return state
 
     def update(
         self, grads: Params, opt_state: Dict[str, Any]
@@ -127,7 +141,11 @@ class RMSPropOptimizer:
             k: step_size * (torch.rsqrt(nu[k] + self.eps) * g)
             for k, g in grads.items()
         }
-        return updates, {"nu": nu, "count": count + 1}
+        state = {"nu": nu, "count": count + 1}
+        if self.momentum:
+            updates = {k: u + self.momentum * opt_state["trace"][k] for k, u in updates.items()}
+            state["trace"] = updates
+        return updates, state
 
 
 def impala_loss(
@@ -239,13 +257,11 @@ def make_impala_learn_fn(
 
 
 def make_impala_optimizer(args: ImpalaArguments):
-    """RMSProp + global-norm clip; with ``total_steps > 0`` the learning
-    rate decays linearly to 0 over ``total_steps`` env frames, counted in
-    learner updates.  With ``bf16_params`` it is wrapped in
-    ``fp32_optimizer_state``: float32 moments and clipping, updates cast
-    back to each param's dtype."""
-    if args.rmsprop_momentum != 0.0:
-        raise NotImplementedError("RMSProp momentum is not ported; use 0.0")
+    """RMSProp (with ``args.rmsprop_momentum``) + global-norm clip; with
+    ``total_steps > 0`` the learning rate decays linearly to 0 over
+    ``total_steps`` env frames, counted in learner updates.  With
+    ``bf16_params`` it is wrapped in ``fp32_optimizer_state``: float32
+    moments and clipping, updates cast back to each param's dtype."""
     lr: Union[float, Schedule] = args.learning_rate
     if args.total_steps > 0:
         lr = linear_schedule(
@@ -254,7 +270,8 @@ def make_impala_optimizer(args: ImpalaArguments):
             max(args.total_steps // (args.rollout_length * args.batch_size), 1),
         )
     tx = RMSPropOptimizer(
-        lr, decay=args.rmsprop_alpha, eps=args.rmsprop_eps, max_norm=args.max_grad_norm
+        lr, decay=args.rmsprop_alpha, eps=args.rmsprop_eps, max_norm=args.max_grad_norm,
+        momentum=args.rmsprop_momentum,
     )
     return fp32_optimizer_state(tx) if args.bf16_params else tx
 
@@ -268,15 +285,14 @@ def build_model(
 ) -> torch.nn.Module:
     """``args.policy_arch`` first (``"transformer"`` ->
     ``TransformerPolicyNet``, as the JAX function dispatches through
-    ``build_mp_policy``); then pixel obs -> ``AtariNet``.  Flat obs under
-    ``"auto"`` need ``MLPPolicyNet``, which is not ported yet."""
+    ``build_mp_policy``); then pixel obs -> ``AtariNet``, flat obs ->
+    ``MLPPolicyNet`` with two hidden layers of ``hidden_size``."""
     mp_model = build_mp_policy(args, obs_shape, num_actions, device, generator)
     if mp_model is not None:
         return mp_model
     if len(obs_shape) != 3:
-        raise NotImplementedError(
-            "flat observations need MLPPolicyNet, which is not ported yet; use "
-            "policy_arch='transformer' or pixel observations [H, W, C]")
+        return MLPPolicyNet(num_actions, obs_shape[-1], (args.hidden_size, args.hidden_size),
+                            device=device, generator=generator)
     return AtariNet(
         num_actions=num_actions,
         use_lstm=args.use_lstm,

@@ -4,7 +4,16 @@ The Flax tree of ``AtariNet`` is ``params/{Conv_0,Conv_1,Conv_2,Dense_0,
 policy,baseline}/{kernel,bias}``.  Conv kernels are HWIO and become OIHW;
 dense kernels are ``[in, out]`` and become ``[out, in]``.  ``Dense_0``'s rows
 follow the NHWC flatten of the conv output, which is the order the port's
-``AtariNet`` flattens in, so they need no permutation.
+``AtariNet`` flattens in, so they need no permutation.  With the LSTM core
+the tree also holds ``Scan_LSTMCore_0/lstm_{i}/{ii,if,ig,io}/kernel``
+(``[in, H]``, no bias) and ``{hi,hf,hg,ho}/{kernel,bias}``; the port keeps
+each cell's four input kernels as one ``core.{i}.input.weight`` ``[4H, in]``
+and its four recurrent ones as ``core.{i}.hidden.{weight,bias}``, in the
+gate order i, f, g, o.
+
+``MLPPolicyNet``'s tree is ``params/{Dense_0 .. Dense_k, policy,
+baseline}/{kernel,bias}``, the port's ``dense.{i}``, ``policy`` and
+``baseline`` (:func:`mlp_policy_to_torch` and back).
 
 ``QNet``'s tree is ``params/Dense_{i}/{kernel,bias}``, the port's
 ``dense.{i}`` (:func:`dense_stack_to_torch`).
@@ -18,8 +27,9 @@ under ``transformer/``, the port's ``transformer.*``
 
 Any tree shaped like the params converts the same way, which covers the
 optimizer moments: :func:`rmsprop_state_to_torch` pulls RMSProp's ``nu``
-(and the schedule's update count) out of an optax chain state (a float32
-chain under ``fp32_optimizer_state`` has the same layout), and
+(the schedule's update count, and with momentum the trace) out of an optax
+chain state (a float32 chain under ``fp32_optimizer_state`` has the same
+layout), and
 :func:`adam_state_to_torch` Adam's ``mu``, ``nu`` and ``count``.
 :func:`token_ppo_state_to_torch` carries a whole token-PPO train state
 across (params, the frozen reference params, Adam's moments, both counters).
@@ -78,33 +88,96 @@ def _kernel_to_flax(weight: np.ndarray) -> np.ndarray:
     return weight.T
 
 
+LSTM_CORE = "Scan_LSTMCore_0"
+LSTM_GATES = "ifgo"
+
+
+def _dense_to_torch(
+    tree: Mapping[str, Any], names: Mapping[str, str], device: torch.device | str
+) -> Dict[str, torch.Tensor]:
+    """Flax ``{kernel, bias}`` layers named by ``names`` (Flax -> port) ->
+    ``{"<port>.weight", "<port>.bias"}``, float32."""
+    out: Dict[str, torch.Tensor] = {}
+    for flax_name, torch_name in names.items():
+        layer = tree[flax_name]
+        kernel = _kernel_to_torch(np.asarray(layer["kernel"], np.float32))
+        out[f"{torch_name}.weight"] = torch.tensor(np.ascontiguousarray(kernel), device=device)
+        out[f"{torch_name}.bias"] = torch.tensor(np.asarray(layer["bias"], np.float32),
+                                                 device=device)
+    return out
+
+
+def _dense_to_flax(state: Mapping[str, torch.Tensor], names: Mapping[str, str]) -> Dict[str, Any]:
+    """The inverse of :func:`_dense_to_torch`, as numpy arrays."""
+    params: Dict[str, Any] = {}
+    for flax_name, torch_name in names.items():
+        weight = state[f"{torch_name}.weight"].detach().cpu().numpy()
+        params[flax_name] = {
+            "kernel": np.ascontiguousarray(_kernel_to_flax(weight)),
+            "bias": state[f"{torch_name}.bias"].detach().cpu().numpy().copy(),
+        }
+    return params
+
+
 def flax_to_torch(
     tree: Mapping[str, Any], device: torch.device | str = "cpu"
 ) -> Dict[str, torch.Tensor]:
     """A Flax ``AtariNet`` param tree (with or without the top ``params``
-    level) -> the port's ``{name: tensor}`` state dict, float32."""
+    level; with or without the LSTM core) -> the port's ``{name: tensor}``
+    state dict, float32."""
     tree = tree.get("params", tree)
-    out: Dict[str, torch.Tensor] = {}
-    for flax_name, torch_name in ATARI_NAMES.items():
-        layer = tree[flax_name]
-        kernel = _kernel_to_torch(np.asarray(layer["kernel"], np.float32))
-        bias = np.asarray(layer["bias"], np.float32)
-        out[f"{torch_name}.weight"] = torch.tensor(np.ascontiguousarray(kernel), device=device)
-        out[f"{torch_name}.bias"] = torch.tensor(bias, device=device)
+    out = _dense_to_torch(tree, ATARI_NAMES, device)
+    for name, cell in tree.get(LSTM_CORE, {}).items():
+        i = int(name[len("lstm_"):])
+
+        def stacked(prefix: str, leaf: str) -> torch.Tensor:
+            arr = np.concatenate(
+                [np.asarray(cell[prefix + g][leaf], np.float32) for g in LSTM_GATES], axis=-1)
+            return torch.tensor(np.ascontiguousarray(arr.T), device=device)
+
+        out[f"core.{i}.input.weight"] = stacked("i", "kernel")
+        out[f"core.{i}.hidden.weight"] = stacked("h", "kernel")
+        out[f"core.{i}.hidden.bias"] = stacked("h", "bias")
     return out
 
 
 def torch_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's state dict -> ``{"params": {...}}`` of numpy arrays."""
-    params: Dict[str, Any] = {}
-    for flax_name, torch_name in ATARI_NAMES.items():
-        weight = state[f"{torch_name}.weight"].detach().cpu().numpy()
-        bias = state[f"{torch_name}.bias"].detach().cpu().numpy()
-        params[flax_name] = {
-            "kernel": np.ascontiguousarray(_kernel_to_flax(weight)),
-            "bias": bias.copy(),
-        }
+    """The port's ``AtariNet`` state dict -> ``{"params": {...}}`` of numpy
+    arrays (the inverse of :func:`flax_to_torch`)."""
+    params = _dense_to_flax(state, ATARI_NAMES)
+    layers = sorted({int(k.split(".")[1]) for k in state if k.startswith("core.")})
+    for i in layers:
+        cell: Dict[str, Any] = {}
+        for prefix, part in (("i", "input"), ("h", "hidden")):
+            weights = state[f"core.{i}.{part}.weight"].detach().cpu().numpy().T
+            for g, kernel in zip(LSTM_GATES, np.split(weights, 4, axis=-1)):
+                cell[prefix + g] = {"kernel": np.ascontiguousarray(kernel)}
+        biases = np.split(state[f"core.{i}.hidden.bias"].detach().cpu().numpy(), 4)
+        for g, bias in zip(LSTM_GATES, biases):
+            cell["h" + g]["bias"] = bias.copy()
+        params.setdefault(LSTM_CORE, {})[f"lstm_{i}"] = cell
     return {"params": params}
+
+
+def _mlp_policy_names(tree: Mapping[str, Any]) -> Dict[str, str]:
+    names = {name: f"dense.{name[len('Dense_'):]}" for name in tree if name.startswith("Dense_")}
+    return {**names, "policy": "policy", "baseline": "baseline"}
+
+
+def mlp_policy_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax ``MLPPolicyNet`` param tree (with or without the top
+    ``params`` level) -> the port's ``MLPPolicyNet`` state dict, float32."""
+    tree = tree.get("params", tree)
+    return _dense_to_torch(tree, _mlp_policy_names(tree), device)
+
+
+def torch_to_mlp_policy(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`mlp_policy_to_torch`: ``{"params": {...}}``."""
+    layers = {k.split(".")[1] for k in state if k.startswith("dense.")}
+    skeleton = {f"Dense_{i}": None for i in layers}
+    return {"params": _dense_to_flax(state, _mlp_policy_names(skeleton))}
 
 
 def dense_stack_to_torch(
@@ -113,15 +186,10 @@ def dense_stack_to_torch(
     """A Flax tree of ``Dense_0 .. Dense_k`` layers (``QNet``), with or
     without the top ``params`` level -> ``{"dense.{i}.weight": ...}``."""
     tree = tree.get("params", tree)
-    out: Dict[str, torch.Tensor] = {}
-    for name, layer in tree.items():
+    for name in tree:
         if not name.startswith("Dense_"):
             raise ValueError(f"expected Dense_<i> layers, got {name!r}")
-        i = int(name[len("Dense_"):])
-        kernel = _kernel_to_torch(np.asarray(layer["kernel"], np.float32))
-        out[f"dense.{i}.weight"] = torch.tensor(np.ascontiguousarray(kernel), device=device)
-        out[f"dense.{i}.bias"] = torch.tensor(np.asarray(layer["bias"], np.float32), device=device)
-    return out
+    return _dense_to_torch(tree, {name: f"dense.{name[len('Dense_'):]}" for name in tree}, device)
 
 
 def _transformer_names(tree: Mapping[str, Any]) -> Dict[Tuple[str, ...], str]:
@@ -234,23 +302,33 @@ def _find_field(state: Any, field: str) -> Optional[Any]:
 def rmsprop_state_to_torch(
     opt_state: Any, device: torch.device | str = "cpu",
     tree_to_torch: Callable[..., Dict[str, torch.Tensor]] = flax_to_torch,
+    momentum: bool = False,
 ) -> Dict[str, Any]:
     """An ``optax.chain(clip_by_global_norm, rmsprop)`` state (leaves as
-    numpy arrays) -> the port's RMSProp state ``{"nu": {...}, "count": t}``;
-    ``tree_to_torch`` converts ``nu`` like the params (``AtariNet``'s by
-    default).
+    numpy arrays) -> the port's RMSProp state ``{"nu": {...}, "count": t}``,
+    plus ``"trace"`` with ``momentum``; ``tree_to_torch`` converts each
+    tree like the params (``AtariNet``'s by default).
 
     ``count`` is the learning-rate schedule's update count, 0 when the chain
-    has a constant learning rate (it keeps no count then)."""
+    has a constant learning rate (it keeps no count then).  optax keeps a
+    trace even at momentum 0, where it is only the last update and is never
+    read; the port keeps one only for a non-zero momentum, so ``momentum``
+    says whether the chain's is wanted."""
     nu = _find_field(opt_state, "nu")
     if nu is None:
         raise ValueError("no ScaleByRmsState (field 'nu') in the optimizer state")
     count = _find_field(opt_state, "count")
     count = 0 if count is None else int(np.asarray(count))
-    return {
+    out = {
         "nu": tree_to_torch(nu, device),
         "count": torch.tensor(count, dtype=torch.int32, device=device),
     }
+    if momentum:
+        trace = _find_field(opt_state, "trace")
+        if trace is None:
+            raise ValueError("no TraceState (field 'trace') in the optimizer state")
+        out["trace"] = tree_to_torch(trace, device)
+    return out
 
 
 def adam_state_to_torch(

@@ -52,3 +52,31 @@ class TensorEnv:
         self, state: State, action: torch.Tensor, generator: torch.Generator
     ) -> Tuple[State, torch.Tensor, torch.Tensor, torch.Tensor]:
         raise NotImplementedError
+
+
+def make_tensor_vec_env(
+    env_id: str, num_envs: int, device: DeviceLike = "cuda", **kwargs
+) -> TensorEnv:
+    """``num_envs`` lanes of the env registered as ``env_id`` (the ids of
+    ``scalerl_tpu/envs/jax_envs/base.py::make_jax_vec_env``); ``kwargs`` go
+    to the env's constructor, except for CartPole, whose id fixes it."""
+    from scalerl_torch.envs.tensor_envs.breakout import TensorBreakout
+    from scalerl_torch.envs.tensor_envs.cartpole import TensorCartPole
+    from scalerl_torch.envs.tensor_envs.catch import TensorCatch
+    from scalerl_torch.envs.tensor_envs.recall import TensorRecall
+    from scalerl_torch.envs.tensor_envs.synthetic import SyntheticPixelEnv
+
+    registry = {
+        "CartPole-v1": lambda: TensorCartPole(num_envs, max_steps=500, device=device),
+        "CartPole-v0": lambda: TensorCartPole(num_envs, max_steps=200, device=device),
+        "SyntheticPixel-v0": lambda: SyntheticPixelEnv(num_envs, device=device, **kwargs),
+        "Catch-v0": lambda: TensorCatch(num_envs, device=device, **kwargs),
+        "Recall-v0": lambda: TensorRecall(num_envs, device=device, **kwargs),
+        "Breakout-v0": lambda: TensorBreakout(num_envs, device=device, **kwargs),
+    }
+    if env_id not in registry:
+        raise KeyError(
+            f"unknown jax env {env_id!r}; available: {sorted(registry)} "
+            "(use env_backend='gym' for host envs)"
+        )
+    return registry[env_id]()

@@ -1,9 +1,20 @@
-"""IMPALA Atari network: conv torso + linear heads (feed-forward).
+"""IMPALA Atari network: conv torso + optional done-masked LSTM core.
 
-Port of ``scalerl_tpu/models/atari.py::AtariNet`` with ``use_lstm=False``:
-three convs (32@8s4 / 64@4s2 / 64@3s1) -> fc(hidden) -> concat[fc, one-hot
-last action, clipped reward] -> policy-logits and baseline heads.  The
-done-masked LSTM core is not ported yet; ``use_lstm=True`` raises.
+Port of ``scalerl_tpu/models/atari.py::AtariNet``: three convs (32@8s4 /
+64@4s2 / 64@3s1) -> fc(hidden) -> concat[fc, one-hot last action, clipped
+reward] -> with ``use_lstm``, ``lstm_layers`` stacked LSTM cells of width
+``hidden + num_actions + 1`` whose carry is zeroed where ``done`` -> policy-
+logits and baseline heads.
+
+The LSTM core is flax's ``OptimizedLSTMCell`` under ``nn.scan``: gates in
+the order i, f, g, o, ``c' = f c + i g`` and ``h' = o tanh(c')`` with no
+forget-gate offset; each step first multiplies the carry of every layer by
+``~done``.  It runs in float32 whatever the torso's dtype.  The port runs
+it layer by layer: one GEMM projects all T inputs of a layer against its
+four input kernels at once, then a loop over T does the one product that
+needs the previous step, ``[B, H] x [H, 4H]``.  That is flax's arithmetic
+(a layer's step t reads only its own carry and the step-t output of the
+layer below) with fewer launches.
 
 Layout traps the port keeps exact:
 
@@ -16,7 +27,8 @@ Layout traps the port keeps exact:
   the smaller half on the left: (2, 2) for 8s4 at 84, (1, 2) for 4s2 at 21,
   (1, 1) for 3s1.  ``F.pad`` then ``conv2d`` with no padding.
 - ``compute_dtype=bfloat16`` casts the f32 params to bf16 for the conv and
-  fc layers (the concat too, as Flax does); the heads compute in f32.
+  fc layers (the concat too, as Flax does); the core and the heads compute
+  in f32.
 """
 
 from __future__ import annotations
@@ -29,6 +41,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
+
+
+# The recurrent carry: ((c, h),) per LSTM layer, each [B, core_size]
+# float32; () without the LSTM.
+LSTMState = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
 
 
 class AtariNetOutput(NamedTuple):
@@ -54,6 +71,43 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
 CONVS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
 
 
+class LSTMLayer(nn.Module):
+    """One cell of the core: ``input`` holds the kernels ``ii|if|ig|io``
+    (no bias), ``hidden`` the kernels ``hi|hf|hg|ho`` and their biases,
+    each stacked along the output axis in flax's gate order."""
+
+    def __init__(self, in_features: int, hidden: int) -> None:
+        super().__init__()
+        self.hidden_size = hidden
+        self.input = nn.Linear(in_features, 4 * hidden, bias=False)
+        self.hidden = nn.Linear(hidden, 4 * hidden)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        # flax's defaults: LeCun-normal input kernels, each recurrent kernel
+        # orthogonal on its own, zero biases
+        lecun_normal_(self.input.weight, self.input.in_features, generator)
+        for gate in self.hidden.weight.split(self.hidden_size):
+            nn.init.orthogonal_(gate, generator=generator)
+        self.hidden.bias.zero_()
+
+    def forward(self, x: torch.Tensor, keep: torch.Tensor, c: torch.Tensor, h: torch.Tensor):
+        """``x`` [T, B, in], ``keep`` [T, B, 1] (1 - done) -> (the [T, B, H]
+        outputs, the last (c, h))."""
+        gates_x = F.linear(x, self.input.weight) + self.hidden.bias
+        weight_h = self.hidden.weight.t()
+        outputs = []
+        for t in range(x.shape[0]):
+            c, h = c * keep[t], h * keep[t]
+            # chunk, not slices: its backward is one cat, where each slice's
+            # would zero-fill a [B, 4H] gradient
+            i, f, g, o = torch.addmm(gates_x[t], h, weight_h).chunk(4, dim=1)
+            c = torch.addcmul(torch.sigmoid(f) * c, torch.sigmoid(i), torch.tanh(g))
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outputs.append(h)
+        return torch.stack(outputs), (c, h)
+
+
 class AtariNet(nn.Module):
     """Conv actor-critic for 84x84 pixel observations."""
 
@@ -62,21 +116,20 @@ class AtariNet(nn.Module):
         num_actions: int,
         use_lstm: bool = True,
         hidden_size: int = 512,
+        lstm_layers: int = 2,
         obs_shape: Tuple[int, int, int] = (84, 84, 4),
         dtype: torch.dtype = torch.float32,
         device: DeviceLike = "cuda",
         generator: torch.Generator | None = None,
     ) -> None:
         """``generator``: a host ``torch.Generator`` for the initial weights
-        (Flax's defaults: truncated LeCun-normal kernels, zero biases)."""
+        (Flax's defaults: truncated LeCun-normal kernels, orthogonal
+        recurrent kernels, zero biases)."""
         super().__init__()
-        if use_lstm:
-            raise NotImplementedError(
-                "the LSTM core of AtariNet is not ported yet; use use_lstm=False"
-            )
         device = resolve_device(device)
         self.num_actions = num_actions
         self.hidden_size = hidden_size
+        self.use_lstm = use_lstm
         self.dtype = dtype
         height, width, channels = obs_shape
         convs = []
@@ -86,6 +139,8 @@ class AtariNet(nn.Module):
             height, width = -(-height // stride), -(-width // stride)
         self.convs = nn.ModuleList(convs)
         self.fc = nn.Linear(height * width * channels, hidden_size)
+        layers = lstm_layers if use_lstm else 0
+        self.core = nn.ModuleList(LSTMLayer(self.core_size, self.core_size) for _ in range(layers))
         self.policy = nn.Linear(self.core_size, num_actions)
         self.baseline = nn.Linear(self.core_size, 1)
         # initialised on the host, so one seed gives the same weights on
@@ -103,9 +158,13 @@ class AtariNet(nn.Module):
             fan_in = layer.weight[0].numel()
             lecun_normal_(layer.weight, fan_in, generator)
             layer.bias.zero_()
+        for layer in self.core:
+            layer.reset_parameters(generator)
 
-    def initial_state(self, batch_size: int) -> tuple:
-        return ()
+    def initial_state(self, batch_size: int) -> LSTMState:
+        shape, device = (batch_size, self.core_size), self.policy.weight.device
+        return tuple((torch.zeros(shape, device=device), torch.zeros(shape, device=device))
+                     for _ in self.core)
 
     def forward(
         self,
@@ -113,8 +172,8 @@ class AtariNet(nn.Module):
         last_action: torch.Tensor,  # [T, B] int
         reward: torch.Tensor,  # [T, B] float
         done: torch.Tensor,  # [T, B] bool (read by the LSTM core only)
-        core_state: tuple = (),
-    ) -> Tuple[AtariNetOutput, tuple]:
+        core_state: LSTMState = (),
+    ) -> Tuple[AtariNetOutput, LSTMState]:
         T, B = frame.shape[0], frame.shape[1]
         dt = self.dtype
         x = frame.to(dt) / 255.0
@@ -134,6 +193,17 @@ class AtariNet(nn.Module):
         core_output = torch.cat([x, one_hot_action, clipped_reward], dim=-1)
 
         core_output = core_output.to(torch.float32)
+        if self.use_lstm:
+            if not core_state:
+                core_state = self.initial_state(B)
+            keep = (~done).to(torch.float32).reshape(T, B, 1)
+            core_output = core_output.reshape(T, B, -1)
+            new_state = []
+            for layer, (c, h) in zip(self.core, core_state):
+                core_output, carry = layer(core_output, keep, c, h)
+                new_state.append(carry)
+            core_state = tuple(new_state)
+            core_output = core_output.reshape(T * B, -1)
         policy_logits = self.policy(core_output)
         baseline = self.baseline(core_output)
         return (

@@ -77,3 +77,15 @@ class QNet(nn.Module):
             val = self.dense[self.num_hidden + 1](x)
             return val + adv - adv.mean(dim=-1, keepdim=True)
         return self.dense[self.num_hidden](x)
+
+
+def normalized_columns_init_(
+    weight: torch.Tensor, std: float, generator: torch.Generator | None = None
+) -> None:
+    """The A3C head init (``scalerl_tpu/models/mlp.py::normalized_columns_init``):
+    normal noise rescaled so each output unit's weights have L2 norm
+    ``std``.  Flax kernels are ``[in, out]``; here a unit is a row of the
+    ``[out, in]`` weight."""
+    with torch.no_grad():
+        weight.normal_(generator=generator)
+        weight.mul_(std / (weight.norm(dim=1, keepdim=True) + 1e-12))

@@ -16,9 +16,15 @@ the loop's own ``torch.Generator`` (Gumbel-max, replacing
 ``jax.random.categorical``), so the stream differs from JAX's for the same
 seed.
 
-Not ported yet: ``run_until``, the mesh (``shard_map``) path,
-``train_superchunk`` / ``run_anakin``, ``iter_mode`` (a Python loop needs
-none) and the telemetry/supervision hooks.
+:meth:`DeviceActorLearnerLoop.run_until` drives chunks until the windowed
+mean episode return reaches a threshold; the reference's learning curves
+(``examples/curves/common.py``) run on it.
+
+Not ported yet: the mesh (``shard_map``) path, ``train_superchunk`` /
+``run_anakin`` (one program for N chunks), ``iter_mode`` (a Python loop
+needs none), and the ``progress`` / ``instrument`` hooks of ``run`` and
+``run_until``, which feed the supervisor's stall watchdog and the telemetry
+registry, neither of which is ported.
 """
 
 from __future__ import annotations
@@ -26,13 +32,15 @@ from __future__ import annotations
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import math
+
 import torch
 from torch.func import functional_call
 
 from scalerl_torch.agents.impala import ImpalaTrainState, sample_categorical
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.envs.tensor_envs.base import TensorEnv
-from scalerl_torch.runtime.dispatch import MetricsPipeline, steady_state_guard
+from scalerl_torch.runtime.dispatch import MetricsPipeline, get_metrics, steady_state_guard
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
 
 LearnFn = Callable[[ImpalaTrainState, Trajectory], Tuple[ImpalaTrainState, Dict]]
@@ -202,3 +210,69 @@ class DeviceActorLearnerLoop:
         metrics["chunks_done"] = float(num_calls)
         metrics["nonfinite_chunks"] = float(nonfinite_chunks)
         return state, carry, metrics
+
+    # ------------------------------------------------------------------
+    def run_until(
+        self,
+        state: ImpalaTrainState,
+        carry: ActorCarry,
+        threshold: float,
+        max_calls: int,
+        on_metrics: Optional[Callable[[int, float, Dict[str, float]], None]] = None,
+        chunks_in_flight: int = 2,
+        should_stop: Optional[Callable[[], bool]] = None,
+    ) -> Tuple[ImpalaTrainState, ActorCarry, Dict[str, Any]]:
+        """Drive chunks until the *windowed* mean episode return (over the
+        episodes completed since the previous chunk that completed any)
+        reaches ``threshold``, or ``max_calls`` chunks have run.
+
+        ``should_stop`` is polled before each dispatch; True stops cleanly.
+        Metrics are read ``chunks_in_flight - 1`` chunks behind the
+        dispatch, so a hit stops further dispatch but the chunks already in
+        flight still land: they count in ``frames`` and in the returned
+        state.  The metric stream (chunk order, values, and the frames
+        passed to ``on_metrics(frames, windowed_return, chunk_metrics)``) is
+        the same for every ``chunks_in_flight``.  Returns ``(state, carry,
+        summary)``, the summary with ``windowed_return`` / ``frames`` /
+        ``hit`` / ``nonfinite_chunks``."""
+        frames_per_call = self.unroll_length * self.venv.num_envs * self.iters_per_call
+        init = get_metrics({"s": carry.return_sum.sum(), "c": carry.episode_count.sum()})
+        prev_sum, prev_cnt = init["s"], init["c"]
+        windowed = math.nan
+        frames = 0
+        hit = False
+        nonfinite_chunks = 0
+        pipe = MetricsPipeline(depth=chunks_in_flight)
+
+        def consume(ready) -> None:
+            nonlocal windowed, prev_sum, prev_cnt, hit, nonfinite_chunks
+            for i, m in ready:
+                if m.get("skipped_steps", 0.0) > 0.0:
+                    nonfinite_chunks += 1
+                s, c = m["episode_return_sum"], m["episode_count_sum"]
+                if c > prev_cnt:
+                    windowed = (s - prev_sum) / (c - prev_cnt)
+                    prev_sum, prev_cnt = s, c
+                if on_metrics is not None:
+                    on_metrics((i + 1) * frames_per_call, windowed, dict(m))
+                if windowed >= threshold:
+                    hit = True
+
+        for i in range(max_calls):
+            if should_stop is not None and should_stop():
+                break
+            with self._guard():
+                state, carry, dev_metrics = self.train_chunk(state, carry)
+                frames += frames_per_call
+                consume(pipe.push(i, dev_metrics))
+            self._warm = True
+            if hit:
+                break
+        consume(pipe.drain())
+        summary = {
+            "windowed_return": windowed,
+            "frames": float(frames),
+            "hit": hit,
+            "nonfinite_chunks": float(nonfinite_chunks),
+        }
+        return state, carry, summary

@@ -6,7 +6,15 @@
 - The port's loop runs a few chunks on the host and returns the JAX loop's
   metric keys, with one batched metric copy per chunk.
 - The port's trajectories follow the row convention of ``Trajectory``.
+- ``ImpalaArguments``' own LSTM model learns on a JAX unroll as the JAX
+  step does, and the port's loop carries its state across chunks.
+- ``run_until``: the windowed return against a hand-computed sequence, the
+  stop at a hit with the in-flight chunks landing, ``should_stop``, and the
+  same stream for one chunk in flight or more.
 """
+
+import math
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -110,3 +118,186 @@ def test_trajectory_follows_the_row_convention():
     cell = (traj.obs[:-1, :, 0, :, 0] == 255).int().argmax(-1)  # stripe column
     correct = traj.action[1:] == cell % A
     torch.testing.assert_close(traj.reward[1:], correct.float())
+
+
+def _core_to_torch(core):
+    return tuple(tuple(torch.tensor(np.asarray(x)) for x in layer) for layer in core)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["scan", "kernel"])
+def test_lstm_learn_on_a_jax_unroll_matches_jax(use_pallas):
+    """``ImpalaArguments``' own model (conv + 2-layer LSTM) learns from the
+    JAX loop's second unroll: a carried, non-zero core state and episodes
+    that end mid-sequence (episodes of 3 steps in a T=5 unroll)."""
+    jargs, targs = args_pair(rollout_length=T, batch_size=B, use_pallas=use_pallas,
+                             use_lstm=True)
+    env = JaxSyntheticPixelEnv(size=SIZE, episode_length=3)
+    jagent = jimpala.ImpalaAgent(jargs, obs_shape=env.observation_shape,
+                                 num_actions=env.num_actions)
+    jloop = JaxLoop(jagent.model, JaxVecEnv(env, num_envs=B), jagent.make_learn_fn(),
+                    unroll_length=T, iters_per_call=1)
+    unroll = jax.jit(jloop._unroll)
+    carry, _ = unroll(jagent.state.params, jloop.init_carry(jax.random.PRNGKey(0)),
+                      jax.random.PRNGKey(1))
+    _, jtraj = unroll(jagent.state.params, carry, jax.random.PRNGKey(2))
+    done = np.asarray(jtraj.done)
+    assert done[1:-1].any() and len(jtraj.core_state) == 2
+    assert float(np.abs(np.asarray(jtraj.core_state[1][1])).sum()) > 0
+    model = timpala.build_model(targs, (SIZE, SIZE, 4), env.num_actions, device="cpu")
+    tlearn = timpala.make_impala_learn_fn(model, timpala.make_impala_optimizer(targs), targs)
+    tstate = state_to_torch(jagent.state)
+    ttraj = Trajectory(**{
+        k: torch.tensor(np.asarray(v)) for k, v in vars(to_numpy(jtraj)).items()
+        if k != "core_state"
+    }, core_state=_core_to_torch(jtraj.core_state))
+    jstate, jm = jax.jit(jagent.make_learn_fn())(jagent.state, jtraj)
+    tstate, tm = tlearn(tstate, ttraj)
+    assert_params_close(tstate.params, jstate.params)
+    assert any(k.startswith("core.") for k in tstate.params)
+    for k in ("total_loss", "grad_norm"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-5, rtol=1e-5)
+
+
+def test_port_loop_carries_the_lstm_state_across_chunks():
+    _, targs = args_pair(rollout_length=T, batch_size=B, use_lstm=True)
+    agent, loop = _port_loop(targs)
+    carry = loop.init_carry()
+    assert len(carry.core_state) == 2 and not carry.core_state[0][0].any()
+    carry, traj = loop._unroll(agent.state.params, carry)
+    assert traj.core_state[0][0].shape == (B, 32 + 6 + 1) and not traj.core_state[0][0].any()
+    carry2, traj2 = loop._unroll(agent.state.params, carry)
+    assert traj2.core_state is carry.core_state and bool(carry.core_state[1][1].any())
+    state, carry3, metrics = loop.run(agent.state, carry2, num_calls=1)
+    assert int(state.step) == ITERS and all(np.isfinite(v) for v in metrics.values())
+
+
+# ---------------------------------------------------------------------------
+# run_until
+
+
+class _ScriptedLoop(DeviceActorLearnerLoop):
+    """A loop whose chunks return scripted episode sums (return, count)."""
+
+    def __init__(self, sums, **kw):
+        env = SyntheticPixelEnv(num_envs=B, size=SIZE, device="cpu")
+        super().__init__(torch.nn.Linear(1, 1), env, None, unroll_length=T, iters_per_call=ITERS,
+                         device="cpu")
+        self.sums = sums
+        self.dispatched = 0
+
+    def train_chunk(self, state, carry):
+        s, c = self.sums[self.dispatched]
+        self.dispatched += 1
+        return state + 1, carry, {"total_loss": torch.tensor(float(self.dispatched)),
+                                  "episode_return_sum": torch.tensor(float(s)),
+                                  "episode_count_sum": torch.tensor(float(c))}
+
+
+def _carry0():
+    zeros = torch.zeros(B)
+    return SimpleNamespace(return_sum=zeros, episode_count=zeros)
+
+
+# cumulative (return sum, episode count) after each chunk, and the windowed
+# return each must give: the mean over the episodes completed since the last
+# chunk that completed any (none yet: NaN; none this chunk: unchanged)
+SCRIPT = [(0, 0), (3, 2), (3, 2), (10, 4), (10, 4), (13, 7), (40, 10), (41, 11), (50, 12)]
+WINDOWED = [math.nan, 1.5, 1.5, 3.5, 3.5, 1.0, 9.0, 1.0, 9.0]
+
+
+@pytest.mark.parametrize("in_flight", [1, 2, 3])
+def test_run_until_windowed_return_and_stream(in_flight):
+    loop = _ScriptedLoop(SCRIPT)
+    seen = []
+    state, _, summary = loop.run_until(0, _carry0(), threshold=1e9, max_calls=len(SCRIPT),
+                                       on_metrics=lambda f, w, m: seen.append((f, w, m)),
+                                       chunks_in_flight=in_flight)
+    frames_per_call = T * B * ITERS
+    assert [f for f, _, _ in seen] == [(i + 1) * frames_per_call for i in range(len(SCRIPT))]
+    np.testing.assert_array_equal([w for _, w, _ in seen], WINDOWED)
+    assert [m["total_loss"] for _, _, m in seen] == [float(i + 1) for i in range(len(SCRIPT))]
+    assert summary == {"windowed_return": 9.0, "frames": float(len(SCRIPT) * frames_per_call),
+                       "hit": False, "nonfinite_chunks": 0.0}
+    assert state == len(SCRIPT)
+
+
+@pytest.mark.parametrize("in_flight", [1, 2])
+def test_run_until_stops_dispatch_at_a_hit(in_flight):
+    """The windowed return first reaches 3.5 at chunk 3: no chunk is
+    dispatched after the read that saw it, and the chunks already in
+    flight land and count."""
+    loop = _ScriptedLoop(SCRIPT)
+    seen = []
+    state, _, summary = loop.run_until(0, _carry0(), threshold=3.5, max_calls=len(SCRIPT),
+                                       on_metrics=lambda f, w, m: seen.append(w),
+                                       chunks_in_flight=in_flight)
+    assert summary["hit"] and loop.dispatched == state == 4 + in_flight - 1
+    assert summary["frames"] == loop.dispatched * T * B * ITERS
+    np.testing.assert_array_equal(seen, WINDOWED[:loop.dispatched])
+
+
+def test_run_until_should_stop_and_carried_counts():
+    """``should_stop`` is polled before every dispatch; the window starts
+    from the episodes the carry already counts."""
+    loop = _ScriptedLoop(SCRIPT)
+    carry = SimpleNamespace(return_sum=torch.tensor([2.0, 1.0]), episode_count=torch.ones(2))
+    polls = []
+    _, _, summary = loop.run_until(0, carry, threshold=1e9, max_calls=len(SCRIPT),
+                                   should_stop=lambda: polls.append(1) or len(polls) > 4)
+    assert loop.dispatched == 4 and len(polls) == 5
+    assert summary["windowed_return"] == (10 - 3) / (4 - 2)  # from (3, 2) carried
+
+
+def test_run_until_drives_the_port_loop_in_both_pipelines():
+    """The real loop on the host: the same seed gives the same metric
+    stream and frames with one chunk in flight or two."""
+    _, targs = args_pair(rollout_length=T, batch_size=B, use_pallas=True)
+    streams, summaries = [], []
+    for in_flight in (1, 2):
+        agent, loop = _port_loop(targs, seed=5)
+        seen = []
+        state, _, summary = loop.run_until(
+            agent.state, loop.init_carry(), threshold=1e9, max_calls=3,
+            on_metrics=lambda f, w, m: seen.append((f, w, m["total_loss"])),
+            chunks_in_flight=in_flight)
+        streams.append(seen)
+        summaries.append(summary)
+        assert int(state.step) == 3 * ITERS and not summary["hit"]
+    assert streams[0] == streams[1] and summaries[0] == summaries[1]
+    assert summaries[0]["frames"] == 3 * T * B * ITERS
+
+
+def test_learning_recipe_runs_on_the_host():
+    """``tools/torch_learning_curves.py``'s scaffold, cut to a few chunks:
+    the row the reference's recipe returns, with the loop's learner steps."""
+    from tools.torch_learning_curves import run_fused_to_threshold
+
+    from scalerl_torch.envs.tensor_envs import TensorRecall
+
+    seen = []
+    row = run_fused_to_threshold(
+        lambda n: TensorRecall(n, size=8, delay=2, device="cpu"), threshold=0.8,
+        max_frames=3 * 4 * 3 * 2, learning_rate=1e-3, num_envs=4, unroll=3, iters_per_call=2,
+        use_lstm=True, hidden_size=16, device="cpu",
+        on_chunk=lambda f, w, m: seen.append(f))
+    assert seen == [24, 48, 72] and row["frames"] == 72 and row["learner_steps"] == 6
+    assert set(row) >= {"threshold", "final_return", "frames_to_threshold", "seconds",
+                        "frames_per_s", "passed", "seed", "nonfinite_chunks"}
+    assert row["passed"] == (row["frames_to_threshold"] is not None)
+
+
+def test_synthetic_probe_reads_the_policy_in_every_cell():
+    from tools.torch_learning_curves import synthetic_action_probs
+
+    _, targs = args_pair(rollout_length=T, batch_size=B)
+    agent, loop = _port_loop(targs)
+    params = dict(agent.state.params)
+    out = synthetic_action_probs(agent.model, params, loop.venv)
+    probs = torch.tensor(out["action_probs"])
+    assert probs.shape == (loop.venv.num_states, loop.venv.num_actions)
+    torch.testing.assert_close(probs.sum(-1), torch.ones(loop.venv.num_states))
+    assert out["dead_actions"] == []
+    # a policy head that never picks action 2 has it dead in every cell
+    params["policy.bias"] = params["policy.bias"].clone()
+    params["policy.bias"][2] = -50.0
+    assert synthetic_action_probs(agent.model, params, loop.venv)["dead_actions"] == [2]

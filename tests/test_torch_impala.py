@@ -94,6 +94,8 @@ LEARN_CASES = {
     "lr_schedule": {"max_timesteps": 3 * T * B},
     "entropy_anneal": {"entropy_cost_end": 0.001, "entropy_anneal_frames": 4 * T * B},
     "kernel_vtrace": {"use_pallas": True},
+    "momentum": {"rmsprop_momentum": 0.9},
+    "momentum_lr_schedule": {"rmsprop_momentum": 0.9, "max_timesteps": 3 * T * B},
 }
 
 
@@ -105,21 +107,27 @@ def test_learn_step_matches_jax(case):
     jlearn = jax.jit(jimpala.make_impala_learn_fn(jagent.model, jagent.optimizer, jargs))
     tlearn = timpala.make_impala_learn_fn(model, timpala.make_impala_optimizer(targs), targs)
     jstate = jagent.state
+    momentum = "rmsprop_momentum" in case
     for step, seed in enumerate((4, 5)):
         fields = random_traj(T, B, OBS, A, seed=seed)
-        tstate = state_to_torch(jstate)
+        tstate = state_to_torch(jstate, momentum=momentum)
         jstate, jm = jlearn(jstate, jax_traj(fields))
         tstate, tm = tlearn(tstate, torch_traj(fields))
         assert_params_close(tstate.params, jstate.params)
         _assert_metrics_close(tm, jm, LOSS_KEYS + ("grad_norm", "skipped_steps"))
         assert int(tstate.step) == int(jstate.step) == step + 1
         assert int(tstate.env_frames) == int(jstate.env_frames)
-        want = convert.rmsprop_state_to_torch(to_numpy(jstate.opt_state))
+        want = convert.rmsprop_state_to_torch(to_numpy(jstate.opt_state), momentum=momentum)
         if "max_timesteps" in case:  # optax keeps a count only for a schedule
             assert int(tstate.opt_state["count"]) == int(want["count"]) == step + 1
+        assert set(tstate.opt_state) == set(want)
         for k, v in want["nu"].items():
             np.testing.assert_allclose(
                 tstate.opt_state["nu"][k].numpy(), v.numpy(), atol=1e-8, rtol=1e-4
+            )
+        for k, v in want.get("trace", {}).items():
+            np.testing.assert_allclose(
+                tstate.opt_state["trace"][k].numpy(), v.numpy(), atol=1e-9, rtol=1e-4
             )
 
 
@@ -153,6 +161,97 @@ def test_optimizer_step_matches_optax(scale, nonzero_nu):
         g = grads["a"]
         torch_form = -6e-4 * g / (np.sqrt(0.01 * g * g) + 0.01)
         assert np.all(np.abs(torch_form) > 5 * np.abs(np.asarray(jupd["a"])))
+
+
+def _flat_tree_to_torch(tree, device="cpu"):
+    return {k: torch.tensor(np.asarray(v), device=device) for k, v in tree.items()}
+
+
+def _optax_state_to_torch(state, momentum):
+    return convert.rmsprop_state_to_torch(to_numpy(state), tree_to_torch=_flat_tree_to_torch,
+                                          momentum=momentum)
+
+
+@pytest.mark.parametrize("schedule", [False, True], ids=["constant_lr", "lr_schedule"])
+@pytest.mark.parametrize("momentum", [0.0, 0.5, 0.9])
+def test_optimizer_steps_with_momentum_match_optax(momentum, schedule):
+    """optax 0.2.6 adds ``momentum * trace`` after the learning rate, so its
+    trace holds scaled updates; the port's steps, its trace and the
+    converted optax state agree over several steps, the lr falling each
+    step under the schedule."""
+    rng = np.random.default_rng(int(momentum * 10) + schedule)
+    shapes = {"a": (4, 3), "b": (5,), "c": (2, 2, 2)}
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    kw = dict(rmsprop_momentum=momentum, max_timesteps=4 * 80 * 8 if schedule else 0)
+    tx = jimpala.make_impala_optimizer(jconfig.ImpalaArguments(**kw))
+    topt = timpala.make_impala_optimizer(tconfig.ImpalaArguments(**kw))
+    jstate = tx.init(params)
+    tstate = topt.init({k: torch.tensor(v) for k, v in params.items()})
+    assert ("trace" in tstate) == (momentum != 0.0)
+    update = jax.jit(tx.update)
+    for step in range(4):
+        grads = {k: (rng.normal(size=s) * (30.0 if step == 1 else 1e-2)).astype(np.float32)
+                 for k, s in shapes.items()}  # step 1 is clipped
+        jupd, jstate = update(grads, jstate, params)
+        tupd, tstate = topt.update({k: torch.tensor(v) for k, v in grads.items()}, tstate)
+        for k in shapes:
+            np.testing.assert_allclose(tupd[k].numpy(), np.asarray(jupd[k]), rtol=1e-5,
+                                       atol=1e-12, err_msg=f"step {step} {k}")
+        want = _optax_state_to_torch(jstate, momentum != 0.0)
+        assert set(want) == set(tstate)
+        for name in set(want) - {"count"}:
+            for k in shapes:
+                np.testing.assert_allclose(tstate[name][k].numpy(), want[name][k].numpy(),
+                                           rtol=1e-5, atol=1e-12, err_msg=f"{name} {k}")
+    # a run resumed from the converted optax state takes the same next step
+    grads = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    jupd, _ = update(grads, jstate, params)
+    tupd, _ = topt.update({k: torch.tensor(v) for k, v in grads.items()},
+                          _optax_state_to_torch(jstate, momentum != 0.0))
+    for k in shapes:
+        np.testing.assert_allclose(tupd[k].numpy(), np.asarray(jupd[k]), rtol=1e-5, atol=1e-12)
+
+
+FLAT_OBS = (7,)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["scan", "kernel"])
+def test_flat_obs_learn_step_matches_jax(use_pallas):
+    """Flat observations under ``policy_arch="auto"``: both packages build
+    ``MLPPolicyNet(hidden, hidden)``, and two learn steps agree."""
+    jargs, targs = args_pair(rollout_length=T, batch_size=B, use_pallas=use_pallas)
+    jagent = jimpala.ImpalaAgent(jargs, obs_shape=FLAT_OBS, num_actions=A,
+                                 obs_dtype=np.float32)
+    model = timpala.build_model(targs, FLAT_OBS, A, device="cpu")
+    jlearn = jax.jit(jimpala.make_impala_learn_fn(jagent.model, jagent.optimizer, jargs))
+    tlearn = timpala.make_impala_learn_fn(model, timpala.make_impala_optimizer(targs), targs)
+    jstate = jagent.state
+    tstate = state_to_torch(jstate, tree_to_torch=convert.mlp_policy_to_torch)
+    for seed in (6, 7):
+        fields = random_traj(T, B, FLAT_OBS, A, seed=seed)
+        fields["obs"] = fields["obs"].astype(np.float32) / 64.0
+        jstate, jm = jlearn(jstate, jax_traj(fields))
+        tstate, tm = tlearn(tstate, torch_traj(fields))
+        assert_params_close(tstate.params, jstate.params, tree_to_torch=convert.mlp_policy_to_torch)
+        _assert_metrics_close(tm, jm, LOSS_KEYS + ("grad_norm",))
+
+
+def test_lstm_agent_acts_with_its_carry():
+    _, targs = args_pair(rollout_length=T, batch_size=B, use_lstm=True)
+    agent = timpala.ImpalaAgent(targs, OBS, A, device="cpu")
+    fields = random_traj(T, B, OBS, A, seed=10)
+    core = agent.model.initial_state(B)
+    done = torch.ones(B, dtype=torch.bool)
+    for t in range(2):
+        action, logits, core = agent.act(torch.tensor(fields["obs"][t]),
+                                         torch.zeros(B, dtype=torch.long), torch.zeros(B),
+                                         done, core)
+        done = torch.zeros(B, dtype=torch.bool)
+        assert action.shape == (B,) and logits.shape == (B, A)
+        assert len(core) == 2 and all(x.shape == (B, 32 + A + 1) for layer in core for x in layer)
+    assert bool(core[1][1].abs().sum() > 0)
+    metrics = agent.learn(torch_traj(fields))
+    assert all(np.isfinite(v) for v in metrics.values())
 
 
 @pytest.mark.parametrize("check_every", [1, 2])

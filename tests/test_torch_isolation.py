@@ -60,7 +60,8 @@ def _imported_roots(path: Path):
 
 
 def test_no_port_source_imports_jax():
-    sources = sorted((REPO / "scalerl_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = sorted((REPO / "scalerl_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "torch_learning_curves.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -153,6 +154,32 @@ def test_transformer_learner_entry_points_refuse_the_default_device_without_a_ca
         with pytest.raises(RuntimeError, match="cuda"):
             make()
     ImpalaAgent(args, (8,), 3, device="cpu")
+
+
+def test_learning_slice_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.envs.tensor_envs import (
+        TensorBreakout,
+        TensorCatch,
+        TensorRecall,
+        make_tensor_vec_env,
+    )
+    from scalerl_torch.models.atari import AtariNet
+    from scalerl_torch.models.policy import MLPPolicyNet
+    from tools import torch_learning_curves
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: TensorCatch(num_envs=2),
+        lambda: TensorRecall(num_envs=2),
+        lambda: TensorBreakout(num_envs=2),
+        lambda: make_tensor_vec_env("Catch-v0", 2),
+        lambda: MLPPolicyNet(3, 4),
+        lambda: AtariNet(num_actions=6, use_lstm=True),
+        lambda: torch_learning_curves.impala_catch(),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert torch_learning_curves.main(["--tasks", "catch", "--seeds", "0"]) == 1
 
 
 def test_sequence_rl_entry_points_refuse_the_default_device_without_a_card(monkeypatch):

@@ -24,6 +24,7 @@ from scalerl_torch import config as tconfig
 from scalerl_torch import convert
 from scalerl_torch.agents import impala as timpala
 from scalerl_torch.data.trajectory import Trajectory
+from scalerl_torch.models.policy import MLPPolicyNet
 from scalerl_torch.models.transformer_policy import TransformerPolicyNet, build_mp_policy
 from scalerl_torch.parallel.train_step import fp32_optimizer_state
 from scalerl_tpu import config as jconfig
@@ -121,8 +122,10 @@ def test_build_mp_policy_dispatch():
     assert build_mp_policy(dataclasses.replace(targs, policy_arch="auto"), OBS, A) is None
     with pytest.raises(NotImplementedError, match="A6"):
         build_mp_policy(dataclasses.replace(targs, policy_arch="moe"), OBS, A)
-    with pytest.raises(NotImplementedError, match="MLPPolicyNet"):
-        timpala.build_model(dataclasses.replace(targs, policy_arch="auto"), OBS, A, device="cpu")
+    flat = timpala.build_model(dataclasses.replace(targs, policy_arch="auto"), OBS, A,
+                               device="cpu")
+    assert isinstance(flat, MLPPolicyNet)
+    assert [layer.out_features for layer in flat.dense] == [targs.hidden_size] * 2
 
 
 @pytest.mark.parametrize("use_flash", [False, True], ids=["full_attention", "flash"])

@@ -29,11 +29,16 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def state_to_torch(jax_state) -> ImpalaTrainState:
-    """A JAX ``ImpalaTrainState`` -> the port's, on the host."""
+def state_to_torch(jax_state, tree_to_torch=convert.flax_to_torch,
+                   momentum=False) -> ImpalaTrainState:
+    """A JAX ``ImpalaTrainState`` -> the port's, on the host; ``tree_to_torch``
+    converts the params' tree (``AtariNet``'s by default), ``momentum``
+    carries RMSProp's trace."""
     return ImpalaTrainState(
-        params=convert.flax_to_torch(to_numpy(jax_state.params)),
-        opt_state=convert.rmsprop_state_to_torch(to_numpy(jax_state.opt_state)),
+        params=tree_to_torch(to_numpy(jax_state.params)),
+        opt_state=convert.rmsprop_state_to_torch(to_numpy(jax_state.opt_state),
+                                                 tree_to_torch=tree_to_torch,
+                                                 momentum=momentum),
         step=torch.tensor(int(jax_state.step), dtype=torch.int32),
         env_frames=torch.tensor(int(jax_state.env_frames), dtype=torch.int64),
     )
@@ -63,8 +68,9 @@ def torch_traj(fields) -> Trajectory:
     )
 
 
-def assert_params_close(port_params, jax_params, atol=1e-5, rtol=1e-5):
-    want = convert.flax_to_torch(to_numpy(jax_params))
+def assert_params_close(port_params, jax_params, atol=1e-5, rtol=1e-5,
+                        tree_to_torch=convert.flax_to_torch):
+    want = tree_to_torch(to_numpy(jax_params))
     assert set(port_params) == set(want)
     for k, v in want.items():
         np.testing.assert_allclose(

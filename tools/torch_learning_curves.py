@@ -1,0 +1,231 @@
+#!/usr/bin/env python3
+"""The port's fused IMPALA loop trained to the reference's learning thresholds.
+
+    python3 tools/torch_learning_curves.py [--tasks synthetic,catch,recall,breakout]
+        [--seeds 0,1,2] [--device cuda]
+
+Each task is a recipe of the JAX package's learning curves
+(``examples/curves/impala.py``, scaffold ``examples/curves/common.py:43-109``)
+run on ``scalerl_torch``: ``DeviceActorLearnerLoop.run_until`` over a
+device env, with the reference's hyperparameters (16 envs, T=20, 5
+iterations a chunk, hidden 256, lr 6e-4 or 1e-3, unless the recipe says
+otherwise), float32, and V-trace through the CUDA kernel
+(``use_pallas=True``).  The thresholds and frame budgets are the
+reference's (``docs/LEARNING_CURVES.md``):
+
+- ``synthetic``: ``SyntheticPixelEnv`` 24x24x4, 4 states, 4 actions,
+  episodes of 64: 54.4 (0.85 of optimal) within 500,000 frames;
+- ``catch``: ``TensorCatch(24)``: 0.85 within 600,000 frames;
+- ``recall``: ``TensorRecall(16, delay 6, 4 cues)`` with the LSTM, hidden
+  64, 32 envs, T=8, entropy 0.02: 0.8 within 400,000 frames; then the
+  feed-forward control for the LSTM run's frames must end below 0;
+- ``breakout``: ``TensorBreakout(10)``: 20.0 within 2,000,000 frames.
+
+``seed`` seeds the loop's generator (env draws and actions), as the
+reference's ``seed`` keys its loop; the weights come from
+``ImpalaArguments.seed`` (42 by default) in both.  One JSON row a task
+and seed on stdout, misses included; ``passed`` says whether it crossed.
+Needs a card unless ``--device cpu``; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
+
+if __package__ in (None, ""):
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import torch
+from torch.func import functional_call
+
+from scalerl_torch.agents.impala import ImpalaAgent
+from scalerl_torch.config import ImpalaArguments
+from scalerl_torch.envs.tensor_envs import (
+    SyntheticPixelEnv,
+    TensorBreakout,
+    TensorCatch,
+    TensorEnv,
+    TensorRecall,
+)
+from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
+
+
+def run_fused_to_threshold(
+    make_env: Callable[[int], TensorEnv],
+    threshold: float,
+    max_frames: int,
+    learning_rate: float,
+    num_envs: int = 16,
+    unroll: int = 20,
+    iters_per_call: int = 5,
+    seed: int = 0,
+    use_lstm: bool = False,
+    hidden_size: int = 256,
+    entropy_cost: float = 0.01,
+    device: str = "cuda",
+    on_chunk: Optional[Callable[[int, float, Dict[str, float]], None]] = None,
+    probe: Optional[Callable[[torch.nn.Module, Dict[str, torch.Tensor], TensorEnv],
+                             Dict[str, Any]]] = None,
+) -> Dict[str, Any]:
+    """``examples/curves/common.py::_run_fused_to_threshold`` on the port:
+    an ``ImpalaAgent`` and the fused loop over ``make_env(num_envs)``,
+    driven by ``run_until`` until the windowed return reaches
+    ``threshold`` or ``max_frames`` frames have run.  ``on_chunk(frames,
+    windowed, metrics)`` sees every chunk's metrics; ``probe(model,
+    params, env)`` reads the trained policy into the row.  Returns the
+    summary row, with the loop's V-trace learner steps
+    (``learner_steps``)."""
+    args = ImpalaArguments(
+        use_lstm=use_lstm, hidden_size=hidden_size, rollout_length=unroll,
+        batch_size=num_envs, max_timesteps=0, learning_rate=learning_rate,
+        entropy_cost=entropy_cost, use_pallas=True,
+    )
+    env = make_env(num_envs)
+    agent = ImpalaAgent(args, env.observation_shape, env.num_actions, device=device)
+    loop = DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), unroll,
+                                  iters_per_call=iters_per_call, seed=seed, device=device)
+    frames_per_call = unroll * num_envs * iters_per_call
+    curve = []
+
+    def on_metrics(frames: int, windowed: float, m: Dict[str, float]) -> None:
+        curve.append((frames, windowed))
+        if on_chunk is not None:
+            on_chunk(frames, windowed, m)
+
+    t0 = time.perf_counter()
+    state, _, summary = loop.run_until(agent.state, loop.init_carry(), threshold=threshold,
+                                       max_calls=max_frames // frames_per_call,
+                                       on_metrics=on_metrics)
+    if state.step.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    crossing = next((f for f, w in curve if w >= threshold), None)
+    probed = probe(agent.model, state.params, env) if probe is not None else {}
+    return {**probed, 
+        "threshold": threshold,
+        "final_return": summary["windowed_return"],
+        "frames": int(summary["frames"]),
+        "frames_to_threshold": crossing,
+        "seconds": wall,
+        "frames_per_s": summary["frames"] / wall,
+        "learner_steps": int(state.step),
+        "nonfinite_chunks": summary["nonfinite_chunks"],
+        "passed": bool(summary["hit"]),
+        "seed": seed,
+    }
+
+
+# task -> (reference frames to threshold, docs/LEARNING_CURVES.md)
+REFERENCE_FRAMES = {"synthetic": 36_800, "catch": 227_200, "recall": 120_320,
+                    "breakout": 996_800}
+
+
+@torch.no_grad()
+def synthetic_action_probs(model, params, env: SyntheticPixelEnv) -> Dict[str, Any]:
+    """The trained policy in each cell of the synthetic env (``[cell][action]``)
+    and its dead actions: those below 1e-3 in every cell.  One dead action
+    holds the return near 0.6 x 64 = 38.4 (one cell of 4 always wrong
+    teleports the walk), two near 27.4."""
+    cells = torch.arange(env.num_states, device=env.device)
+    zeros = torch.zeros((1, env.num_states), dtype=torch.long, device=env.device)
+    out, _ = functional_call(model, params, (env._render(cells)[None], zeros,
+                                             zeros.to(torch.float32), zeros.to(torch.bool), ()))
+    probs = torch.softmax(out.policy_logits[0], dim=-1)
+    dead = (probs.max(dim=0).values < 1e-3).nonzero().flatten()
+    return {"action_probs": probs.tolist(), "dead_actions": dead.tolist()}
+
+
+def impala_synthetic(seed: int = 0, device: str = "cuda", **kw) -> Dict[str, Any]:
+    """``examples/curves/impala.py:13-47``."""
+    return run_fused_to_threshold(
+        lambda n: SyntheticPixelEnv(n, size=24, num_states=4, num_actions=4, episode_length=64,
+                                    device=device),
+        threshold=0.85 * 64, max_frames=500_000, learning_rate=6e-4, seed=seed, device=device,
+        probe=synthetic_action_probs, **kw)
+
+
+def impala_catch(seed: int = 0, device: str = "cuda", **kw) -> Dict[str, Any]:
+    """``examples/curves/impala.py:97-123``."""
+    return run_fused_to_threshold(
+        lambda n: TensorCatch(n, size=24, device=device),
+        threshold=0.85, max_frames=600_000, learning_rate=1e-3, seed=seed, device=device, **kw)
+
+
+RECALL = dict(threshold=0.8, learning_rate=1e-3, num_envs=32, unroll=8, iters_per_call=5,
+              hidden_size=64, entropy_cost=0.02)
+
+
+def impala_recall_lstm(seed: int = 0, device: str = "cuda", **kw) -> Dict[str, Any]:
+    """``examples/curves/impala.py:328-373``: the LSTM run, then the
+    feed-forward control for the LSTM run's frames, which must end below 0
+    (a memoryless policy expects 2/4 - 1 = -0.5)."""
+    def make_env(n: int) -> TensorRecall:
+        return TensorRecall(n, size=16, delay=6, num_cues=4, device=device)
+
+    row = run_fused_to_threshold(make_env, max_frames=400_000, use_lstm=True, seed=seed,
+                                 device=device, **RECALL, **kw)
+    ff = run_fused_to_threshold(make_env, max_frames=row["frames"], use_lstm=False, seed=seed,
+                                device=device, **RECALL)
+    row["ff_control_return"] = ff["final_return"]
+    row["ff_control_frames"] = ff["frames"]
+    row["ff_control_seconds"] = ff["seconds"]
+    row["ff_control_learner_steps"] = ff["learner_steps"]
+    row["lstm_passed"] = row["passed"]
+    row["passed"] = bool(row["passed"] and ff["final_return"] < 0.0)
+    return row
+
+
+def impala_breakout(seed: int = 0, device: str = "cuda", **kw) -> Dict[str, Any]:
+    """``examples/curves/impala.py:376-401``."""
+    return run_fused_to_threshold(
+        lambda n: TensorBreakout(n, size=10, device=device),
+        threshold=20.0, max_frames=2_000_000, learning_rate=1e-3, seed=seed, device=device, **kw)
+
+
+TASKS = {"synthetic": impala_synthetic, "catch": impala_catch, "recall": impala_recall_lstm,
+         "breakout": impala_breakout}
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    import subprocess
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tasks", default=",".join(TASKS))
+    parser.add_argument("--seeds", default="0,1,2")
+    parser.add_argument("--device", default="cuda")
+    opts = parser.parse_args(argv)
+    tasks = opts.tasks.split(",")
+    unknown = sorted(set(tasks) - set(TASKS))
+    if unknown:
+        parser.error(f"unknown tasks {unknown}; choose from {sorted(TASKS)}")
+    if opts.device == "cuda":
+        if not torch.cuda.is_available():
+            print("no GPU: torch.cuda.is_available() is False", file=sys.stderr)
+            return 1
+        where = {"card": card(), "kind": torch.cuda.get_device_name(0)}
+    else:
+        where = {"card": None, "kind": "cpu"}
+    print(json.dumps(where), flush=True)
+    for seed in (int(s) for s in opts.seeds.split(",")):
+        for task in tasks:
+            row = TASKS[task](seed=seed, device=opts.device)
+            print(json.dumps({"task": task, **row, "reference_frames": REFERENCE_FRAMES[task],
+                              **where}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
