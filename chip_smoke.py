@@ -58,10 +58,11 @@ no result line:
    cross 0.85 on ``TensorCatch(24)`` within 600,000 frames, and 0.8 on
    ``TensorRecall(16, delay 6)`` with the LSTM within 400,000, whose
    feed-forward control for the same frames must end below 0; on the
-   synthetic 24x24x4 env the crossing of 54.4 within 500,000 frames is
-   reported, not required (the reference's own recipe misses it at seed 0,
-   with the same dead action); one V-trace launch per learn step, every
-   chunk finite.
+   synthetic 24x24x4 env the crossing of 54.4 is reported, not required
+   (the reference's own recipe misses it at seed 0, with the same dead
+   action), over ``SYNTHETIC_FRAMES`` = 100,000 frames (the recipe's
+   500,000 stay in ``tools/torch_learning_curves.py``); one V-trace launch
+   per learn step, every chunk finite.
 12. ``per_kernels``: the prioritized-replay kernels against their plain
    PyTorch versions on the card.  The sample (both kernels: block sums,
    then the search) at N = 2^20 and a ragged N = 1,000,003, S in {32, 512},
@@ -193,6 +194,47 @@ no result line:
     plain attention, in float32 (the micro-tile forward, dq and dk/dv; 2
     launches of each).
 
+26. ``impala_trainer_device``: ``examples/train_impala_torch.py``'s
+    ``main()`` with ``--env-backend jax --env-id SyntheticPixel-v0`` at
+    ``ImpalaArguments``' defaults (LSTM ``AtariNet``, hidden 512, T=80, 8
+    envs, 10 iterations a call, ``--use-pallas``, ``--logger-backend
+    none``, the telemetry export every 2 s): 2 calls and a save; the
+    trainer's restore of that checkpoint bit-equal to what was saved
+    (agent state and ``env_frames``); a second ``main()`` with
+    ``--resume`` to a budget of 4 calls (V-trace launches = calls x 10, a
+    manifest under ``model_dir/resume``, a ``.prev`` with
+    ``checkpoint_keep_last`` 1); then a run stopped by SIGTERM from a
+    thread a few chunks after the trainer's guard is installed, whose
+    checkpoint holds ``chunks_done`` < the budget, resumed for 2 calls
+    more.  Frames/s and the JSONL exporter's last snapshot.
+27. ``impala_trainer_host``: ``HostActorLearnerTrainer`` in threads mode at
+    ``ImpalaArguments``' defaults (8 actors of one ``PixelRingEnv``
+    84x84x4 each through ``SyncVectorView``, batch 8, 32 slots, LSTM,
+    hidden 512, T=80, the V-trace kernel) for ``HOST_TRAIN_S``, with a
+    5 s wall-clock ``CheckpointCadence``: V-trace launches = learn steps,
+    finite losses, 0 skipped steps, 0 actor errors, at least one cadence
+    save; env frames/s, learn steps/s, the rollout queue's ``stats``, the
+    actors' and learner's phase times; then ``HOST_PROFILE_STEPS`` learn
+    steps of a fresh run under ``torch.profiler``
+    (``impala_trainer_host_profile``: the device's busy share).
+28. ``learn_cartpole_host``: the reference's ``impala_cartpole`` recipe on
+    the host plane (``tools/torch_learning_curves.py``'s
+    ``cartpole_host``: 2 actors x 8 ``TensorCartPole`` envs on the CPU,
+    T=16, batch 16, hidden 64, lr 2e-3, the learner on the card): must
+    cross 400 within 400,000 frames; V-trace launches = learn steps.
+29. ``dqn_resume``: ``OffPolicyTrainer`` for DQN+PER at ``dqn_per``'s
+    configuration: ``DQN_RESUME_STEPS`` env steps and a save; a trainer
+    with ``--resume`` restores the agent and the replay (plane,
+    priorities, cursors) and counters bit-equal to what was saved, then
+    runs ``DQN_RESUME_MORE`` more with the divergence tripwire at K = 3
+    while K batches in a row carry NaN rewards: one trip back to the last
+    good checkpoint, K skipped steps, finite parameters, PER launches =
+    learn steps.
+
+Host-side phases use no gymnasium and no tensorboardX (the card's machine
+may have neither): their envs are the port's numpy and tensor envs behind
+``envs/gym_env.py``'s views, their logger ``none``.
+
 Then a line with the card, a ``{"kernels": [...]}`` line (ten kernels; the
 three flash kernels at the learner's bf16 shape, through the tensor cores),
 and last
@@ -204,6 +246,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -657,6 +700,8 @@ def phase_impala_fused(report: dict) -> None:
                                           report["card"])
 
 
+SYNTHETIC_FRAMES = 100_000
+
 # ImpalaArguments' own defaults (T=80, B=8, conv + 2-layer LSTM, hidden 512,
 # float32, the lr schedule over 30M frames), as the fused loop runs them
 LSTM_ITERS, LSTM_CHUNKS = 5, 10
@@ -858,11 +903,12 @@ def profile_lstm_iteration(loop, state, carry, iter_s: float, ff: dict, card: st
          vtrace_us_per_call_20x512=(ff["vtrace_kernel"] or {}).get("us_per_call"), card=card)
 
 
-def _learning_phase(report: dict, task: str, required: bool = True) -> None:
+def _learning_phase(report: dict, task: str, required: bool = True, **kw) -> None:
     """``tools/torch_learning_curves.py``'s recipe for ``task`` at seed 0 on
     the card: ``run_until`` must cross the reference's threshold within its
     frame budget (reported only, where not ``required``), every learn step
-    launching the V-trace kernel once, every chunk finite."""
+    launching the V-trace kernel once, every chunk finite.  ``kw`` goes to
+    the recipe."""
     import torch
 
     from scalerl_torch.ops import cuda_vtrace
@@ -871,7 +917,7 @@ def _learning_phase(report: dict, task: str, required: bool = True) -> None:
     set_tf32(True)  # PyTorch's defaults: TF32 convs, float32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_vtrace.launches = 0
-    row = TASKS[task](seed=0)
+    row = TASKS[task](seed=0, **kw)
     launches = cuda_vtrace.launches
     steps = row["learner_steps"] + row.get("ff_control_learner_steps", 0)
     emit(f"learn_{task}", **row, required=required, reference_frames=REFERENCE_FRAMES[task],
@@ -885,8 +931,10 @@ def _learning_phase(report: dict, task: str, required: bool = True) -> None:
 def phase_learn_synthetic(report: dict) -> None:
     """Reported, not required: at seed 0 the reference's own recipe in the
     JAX package does not reach 54.4 within its budget either; both end with
-    an action whose probability is ~0 in every cell (PERF.md §6)."""
-    _learning_phase(report, "synthetic", required=False)
+    an action whose probability is ~0 in every cell (PERF.md §6).  Cut to
+    ``SYNTHETIC_FRAMES`` (the recipe's budget is 500,000 frames, which
+    ``tools/torch_learning_curves.py`` keeps)."""
+    _learning_phase(report, "synthetic", required=False, max_frames=SYNTHETIC_FRAMES)
 
 
 def phase_learn_catch(report: dict) -> None:
@@ -1355,7 +1403,9 @@ def phase_dqn_per(report: dict) -> None:
 
     set_tf32(False)
     args = _dqn_args(use_pallas=True, warmup_learn_steps=2000, train_frequency=PER_NUM_ENVS,
-                     max_timesteps=40_000, eval_frequency=10**9)
+                     max_timesteps=40_000, eval_frequency=10**9, save_model=False,
+                     logger_backend="none", telemetry_interval_s=0.0,
+                     work_dir=_work_dir("dqn_per"))
     envs = CartPoleVectorView(PER_NUM_ENVS)
     agent = DQNAgent(args, envs.single_observation_space.shape, envs.single_action_space.n)
     trainer = OffPolicyTrainer(args, agent, envs)
@@ -3215,12 +3265,391 @@ def phase_flash_train_step(report: dict) -> None:
                              f"launches {k['launches']} / {p['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# The IMPALA entry point and the host plane (phases 26-29)
+TRAINER_ITERS = 10  # DeviceActorLearnerTrainer's iterations a call
+HOST_TRAIN_S = 20.0
+HOST_PROFILE_STEPS = 1  # its trace holds ~70,000 kernels a learn step
+DQN_RESUME_STEPS, DQN_RESUME_MORE, DQN_TRIP_K = 6_000, 4_000, 3
+
+
+def _work_dir(name: str) -> str:
+    """A fresh run root for ``name`` under the checkout's git-ignored
+    ``work_dirs/``."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / "work_dirs" / "chip_smoke" / name
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    return str(root)
+
+
+def _example():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_impala_torch", Path(__file__).resolve().parent / "examples" / "train_impala_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _host_tree(tree) -> dict:
+    """A tree's leaves as host copies, keyed by path (for bit comparisons)."""
+    import torch
+
+    from scalerl_torch.utils.checkpoint import flatten_tree
+
+    return {p: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for p, v in flatten_tree(tree)}
+
+
+def _trees_bit_equal(a: dict, b: dict) -> list:
+    """Paths where two ``_host_tree`` results differ (value, dtype or shape)."""
+    import torch
+
+    bad = sorted(set(a) ^ set(b))
+    for p in set(a) & set(b):
+        x, y = a[p], b[p]
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)):
+                bad.append(p)
+        elif not np.array_equal(x, y) or np.asarray(x).dtype != np.asarray(y).dtype:
+            bad.append(p)
+    return bad
+
+
+def _last_snapshot(run_dir: str) -> dict:
+    with open(Path(run_dir) / "telemetry" / "telemetry.jsonl") as f:
+        lines = f.read().splitlines()
+    snap = json.loads(lines[-1])["snapshot"]
+    return {"writes": len(lines), "rates": snap.get("rates"), "train": snap.get("train"),
+            "checkpoint": snap.get("checkpoint"), "queue": snap.get("queue")}
+
+
+def phase_impala_trainer_device(report: dict) -> None:
+    """``examples/train_impala_torch.py``'s ``main()`` with ``--env-backend
+    jax --env-id SyntheticPixel-v0`` at ImpalaArguments' defaults (the LSTM
+    AtariNet, hidden 512, T=80, 8 envs, 10 iterations a call, the V-trace
+    kernel): 2 calls and a save; the trainer's restore of that checkpoint
+    bit-equal to what was saved; a second ``main()`` with ``--resume`` to a
+    budget of 4 calls (20 V-trace launches, a ``.prev`` under
+    ``checkpoint_keep_last`` 1); then a run stopped by SIGTERM from a timer
+    thread, whose checkpoint holds the chunks done, resumed for 2 more."""
+    import signal
+    import threading
+
+    import torch
+
+    from scalerl_torch.config import ImpalaArguments, parse_args
+    from scalerl_torch.envs.tensor_envs import make_tensor_vec_env
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.trainer.actor_learner import DeviceActorLearnerTrainer
+
+    set_tf32(True)  # PyTorch's defaults: TF32 convs, float32 matmuls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    example = _example()
+    root = _work_dir("impala_trainer_device")
+    args0 = _default_args()
+    per_call = args0.rollout_length * args0.num_envs * TRAINER_ITERS
+    base = ["--env-backend", "jax", "--env-id", "SyntheticPixel-v0", "--use-pallas",
+            "--logger-backend", "none", "--telemetry-interval-s", "2", "--work-dir", root,
+            "--checkpoint-keep-last", "1", "--save-frequency", str(10**9)]
+
+    def run(argv):
+        cuda_vtrace.launches = 0
+        t0 = time.perf_counter()
+        out = example.main(base + argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, cuda_vtrace.launches
+
+    out1, s1, launches1 = run(["--max-timesteps", str(2 * per_call)])
+    run_dir, agent1 = out1["trainer"].work_dir, out1["agent"]
+    saved = _host_tree({"agent": agent1.state, "env_frames": np.asarray(2 * per_call)})
+    manifest = Path(out1["trainer"].resume_ckpt_path) / "integrity_manifest.json"
+
+    # the trainer's own restore, as train() runs it, before the resumed run
+    rargs = parse_args(ImpalaArguments, base + ["--resume", run_dir])
+    venv = make_tensor_vec_env(rargs.env_id, rargs.num_envs)
+    probe = DeviceActorLearnerTrainer(rargs, ImpalaAgent(rargs, venv.observation_shape,
+                                                         venv.num_actions), venv)
+    restored = _host_tree(probe.load_resume_checkpoint(probe._resume_pytree()))
+    probe.close()
+    restore_diff = _trees_bit_equal(restored, saved)
+
+    out2, s2, launches2 = run(["--max-timesteps", str(4 * per_call), "--resume", run_dir])
+    prev = Path(out2["trainer"].resume_ckpt_path + ".prev")
+    snapshot = _last_snapshot(run_dir)
+
+    # SIGTERM mid-run, a few chunks after the trainer's guard is in place:
+    # the checkpoint records the chunks done
+    done = threading.Event()
+
+    def kill_when_guarded() -> None:
+        while signal.getsignal(signal.SIGTERM) == signal.SIG_DFL:
+            if done.wait(0.05):
+                return
+        if not done.wait(8.0):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    killer = threading.Thread(target=kill_when_guarded, daemon=True)
+    killer.start()
+    try:
+        out3, s3, launches3 = run(["--max-timesteps", str(40 * per_call)])
+    finally:
+        done.set()
+        killer.join()
+    chunks3 = int(out3["result"]["chunks_done"])
+    out4, s4, launches4 = run(["--max-timesteps", str((chunks3 + 2) * per_call), "--resume",
+                               out3["trainer"].work_dir])
+    frames = {"run": out1["result"]["env_frames"], "resumed": out2["result"]["env_frames"],
+              "sigterm": out3["result"]["env_frames"], "sigterm_resumed":
+              out4["result"]["env_frames"]}
+    emit("impala_trainer_device", per_call=per_call, iters_per_call=TRAINER_ITERS,
+         seconds={"run": s1, "resumed": s2, "sigterm": s3, "sigterm_resumed": s4},
+         vtrace_launches={"run": launches1, "resumed": launches2, "sigterm": launches3,
+                          "sigterm_resumed": launches4},
+         env_frames=frames, resumed_env_frames_per_s=2 * per_call / s2,
+         resumed_train_sps=out2["result"]["sps"], restore_mismatches=restore_diff,
+         manifest=manifest.exists(), prev_after_resume=prev.exists(),
+         sigterm_chunks_done=chunks3, learner_steps=int(out4["agent"].state.step),
+         last_chunk=out2["result"], telemetry_last_snapshot=snapshot, card=report["card"])
+    checks = {
+        "restore bit-equal": not restore_diff,
+        "manifest": manifest.exists(),
+        "prev": prev.exists(),
+        "launches = calls x iterations": (launches1, launches2, launches4)
+        == (2 * TRAINER_ITERS, 2 * TRAINER_ITERS, 2 * TRAINER_ITERS),
+        "frames": (frames["run"], frames["resumed"]) == (2 * per_call, 4 * per_call),
+        "sigterm stopped early": 0 < chunks3 < 40 and launches3 == chunks3 * TRAINER_ITERS,
+        "sigterm resumed": frames["sigterm_resumed"] == (chunks3 + 2) * per_call
+        and int(out4["agent"].state.step) == (chunks3 + 2) * TRAINER_ITERS,
+        "finite": all(math.isfinite(out2["result"][k]) for k in ("total_loss", "grad_norm"))
+        and out2["result"]["skipped_steps"] == 0.0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"impala_trainer_device: {failed}")
+
+
+def _pixel_ring_fns(n_actors: int):
+    from scalerl_torch.envs.gym_env import SyncVectorView
+    from scalerl_torch.envs.synthetic_gym import PixelRingEnv
+
+    return [lambda: SyncVectorView([PixelRingEnv]) for _ in range(n_actors)]
+
+
+def phase_impala_trainer_host(report: dict) -> None:
+    """``HostActorLearnerTrainer`` in threads mode at ImpalaArguments'
+    defaults (8 actors of 1 ``PixelRingEnv`` 84x84x4 each, batch 8, 32
+    slots, the LSTM AtariNet, hidden 512, T=80, the V-trace kernel) for
+    about ``HOST_TRAIN_S`` (stopped at the first log boundary past it), with
+    the wall-clock ``CheckpointCadence`` at 5 s; then ``HOST_PROFILE_STEPS``
+    learn steps of a fresh run under ``torch.profiler`` for the device's
+    busy share."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.runtime import telemetry
+    from scalerl_torch.trainer.actor_learner import HostActorLearnerTrainer
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = _work_dir("impala_trainer_host")
+    args = _default_args(env_id="PixelRing-v0", logger_backend="none", work_dir=root,
+                         telemetry_interval_s=2.0, checkpoint_interval_s=5.0,
+                         save_frequency=10**9, logger_frequency=640)
+    if (args.num_actors, args.num_buffers) != (8, 32):
+        raise AssertionError(f"ImpalaArguments' host-plane defaults moved: {args}")
+    reg = telemetry.get_registry()
+    errors0 = reg.counter("queue.actor_errors").value
+    agent = ImpalaAgent(args, (84, 84, 4), 6)
+    trainer = HostActorLearnerTrainer(args, agent, _pixel_ring_fns(args.num_actors))
+    saves = []
+    save_resume = trainer.save_resume
+    trainer.save_resume = lambda: (saves.append(trainer.stop_event.is_set()), save_resume())
+    log = trainer.log
+    t0 = time.perf_counter()
+
+    def log_and_stop(step, kind, m):
+        log(step, kind, m)
+        if time.perf_counter() - t0 >= HOST_TRAIN_S:
+            trainer.stop_event.set()
+
+    trainer.log = log_and_stop
+    cuda_vtrace.launches = 0
+    result = trainer.train(total_frames=10**9)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = cuda_vtrace.launches
+    stats = trainer.queue.stats()
+    trainer.close()
+    losses = [m["total_loss"] for _, kind, m in trainer.log_history if kind == "train"]
+    actor_timings = {k: v * 1e3 for k, v in trainer.actors[0].timings.means().items()}
+    learn_timings = {k: v * 1e3 for k, v in trainer.learn_timings.means().items()}
+
+    # the device's busy share over a few learn steps of the same plane
+    args_p = _default_args(env_id="PixelRing-v0", logger_backend="none", work_dir=root,
+                           telemetry_interval_s=0.0, save_model=False)
+    agent_p = ImpalaAgent(args_p, (84, 84, 4), 6)
+    agent_p.state = agent.state
+    prof_trainer = HostActorLearnerTrainer(args_p, agent_p, _pixel_ring_fns(args_p.num_actors))
+    frames = HOST_PROFILE_STEPS * args_p.rollout_length * args_p.batch_size
+    profiled_s, kernels = profile_device(lambda: prof_trainer.train(total_frames=frames))
+    prof_trainer.close()
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    vt = [(us, n) for k, us, n in kernels if "vtrace_kernel" in k]
+    emit("impala_trainer_host", actors=args.num_actors, envs_per_actor=1, T=args.rollout_length,
+         batch=args.batch_size, num_buffers=args.num_buffers, seconds=seconds,
+         env_frames=result["env_frames"], env_frames_per_s=result["env_frames"] / seconds,
+         learn_steps=trainer.learn_steps, learn_steps_per_s=trainer.learn_steps / seconds,
+         vtrace_launches=launches, skipped_steps=result.get("skipped_steps"),
+         actor_errors=reg.counter("queue.actor_errors").value - errors0,
+         actor_restarts=trainer.actor_restarts, cadence_saves=saves.count(False),
+         final_saves=saves.count(True), queue_stats=stats, logged_losses=len(losses),
+         actor_ms_per_slot=actor_timings, learner_ms_per_step=learn_timings,
+         episodes=result.get("episodes"), return_mean=result.get("return_mean"),
+         telemetry_last_snapshot=_last_snapshot(trainer.work_dir), card=report["card"])
+    emit("impala_trainer_host_profile", learn_steps=HOST_PROFILE_STEPS, profiled_s=profiled_s,
+         device_busy_s=busy_s, device_busy_share=busy_s / profiled_s if kernels else None,
+         kernel_launches=sum(n for _, _, n in kernels),
+         vtrace_us_per_call=sum(us for us, _ in vt) / sum(n for _, n in vt) if vt else None,
+         top_kernels=[{"name": k[:90], "ms": us / 1e3, "calls": n} for k, us, n in kernels[:10]],
+         card=report["card"])
+    checks = {
+        "launches = learn steps": launches == trainer.learn_steps > 0,
+        "finite losses": bool(losses) and all(math.isfinite(x) for x in losses),
+        "no skipped steps": result.get("skipped_steps") == 0.0,
+        "no actor errors": reg.counter("queue.actor_errors").value == errors0
+        and trainer.actor_restarts == 0,
+        "a cadence save": saves.count(False) >= 1,
+        "profile shows V-trace": bool(vt),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"impala_trainer_host: {failed}")
+
+
+def phase_learn_cartpole_host(report: dict) -> None:
+    """The reference's ``impala_cartpole`` recipe on the host plane
+    (``tools/torch_learning_curves.py``'s ``cartpole_host``: 2 actors x 8
+    ``TensorCartPole`` envs on the CPU, the learner and central inference on
+    the card, the V-trace kernel): 400 within 400,000 frames at seed 0."""
+    import torch
+
+    from scalerl_torch.ops import cuda_vtrace
+    from tools.torch_learning_curves import REFERENCE_FRAMES, TASKS
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_vtrace.launches = 0
+    row = TASKS["cartpole_host"](seed=0, work_dir=_work_dir("learn_cartpole_host"))
+    launches = cuda_vtrace.launches
+    emit("learn_cartpole_host", **row, required=True,
+         reference_frames=REFERENCE_FRAMES["cartpole_host"], vtrace_launches=launches,
+         card=report["card"])
+    if launches != row["learner_steps"] or row["skipped_steps"] != 0.0 or not row["passed"]:
+        raise AssertionError(f"cartpole_host: launches {launches}, {row}")
+
+
+def phase_dqn_resume(report: dict) -> None:
+    """``OffPolicyTrainer`` for DQN with PER at ``dqn_per``'s configuration:
+    ``DQN_RESUME_STEPS`` env steps and a save; a second trainer with
+    ``--resume`` restores the agent and the replay (plane, priorities,
+    cursors) bit-equal to what was saved and runs ``DQN_RESUME_MORE`` more
+    with the divergence tripwire on (K = ``DQN_TRIP_K``), where K batches in
+    a row get NaN rewards: the guard skips them and the tripwire restores
+    the last good checkpoint, with finite parameters after."""
+    import torch
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.ops import cuda_per
+    from scalerl_torch.trainer.off_policy import OffPolicyTrainer
+
+    set_tf32(False)
+    root = _work_dir("dqn_resume")
+    kw = dict(use_pallas=True, warmup_learn_steps=2000, train_frequency=PER_NUM_ENVS,
+              eval_frequency=10**9, logger_backend="none", telemetry_interval_s=0.0,
+              save_frequency=10**9, work_dir=root)
+    args_a = _dqn_args(max_timesteps=DQN_RESUME_STEPS, **kw)
+    envs = CartPoleVectorView(PER_NUM_ENVS)
+    agent_a = DQNAgent(args_a, envs.single_observation_space.shape, envs.single_action_space.n)
+    trainer_a = OffPolicyTrainer(args_a, agent_a, envs)
+    t0 = time.perf_counter()
+    trainer_a.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    saved = _host_tree(trainer_a._resume_pytree())
+    trainer_a.close()
+
+    args_b = _dqn_args(max_timesteps=DQN_RESUME_STEPS + DQN_RESUME_MORE, resume=trainer_a.work_dir,
+                       divergence_rollback_steps=DQN_TRIP_K, **kw)
+    agent_b = DQNAgent(args_b, envs.single_observation_space.shape, envs.single_action_space.n)
+    trainer_b = OffPolicyTrainer(args_b, agent_b, CartPoleVectorView(PER_NUM_ENVS))
+    t0 = time.perf_counter()
+    restored_ok = trainer_b.try_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    steps_restored = trainer_b.global_step
+    trainer_b.resuming = False  # restored above
+    restore_diff = _trees_bit_equal(_host_tree(trainer_b._resume_pytree()), saved)
+    learn0 = trainer_b.learn_steps
+
+    sample = trainer_b.sampler.sample
+    poison = {"left": 0, "calls": 0}
+
+    def poisoned(*a, **k):
+        batch = sample(*a, **k)
+        poison["calls"] += 1
+        if poison["calls"] == 50:
+            poison["left"] = DQN_TRIP_K
+        if poison["left"] > 0:
+            poison["left"] -= 1
+            batch = dict(batch, reward=batch["reward"] * float("nan"))
+        return batch
+
+    trainer_b.sampler.sample = poisoned
+    cuda_per.sample_launches = cuda_per.update_launches = 0
+    t0 = time.perf_counter()
+    trainer_b.run()
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t0
+    steps_b = poison["calls"]
+    finite = all(bool(torch.isfinite(v).all()) for v in agent_b.state.params.values())
+    trainer_b.close()
+    emit("dqn_resume", env_steps_saved=int(saved["['global_step']"]),
+         learn_steps_saved=int(saved["['learn_steps']"]), run_s=run_s, restore_s=restore_s,
+         continue_s=cont_s, restored=restored_ok, restore_mismatches=restore_diff,
+         replay_leaves=sum(1 for p in saved if p.startswith("['replay']")),
+         learn_steps_continued=steps_b, trips=trainer_b.tripwire.trips,
+         skipped_steps=float(trainer_b.skipped_steps), params_finite=finite,
+         final_env_steps=trainer_b.global_step,
+         per_launches={"sample": cuda_per.sample_launches, "update": cuda_per.update_launches},
+         card=report["card"])
+    checks = {
+        "restored": restored_ok and steps_restored == int(saved["['global_step']"])
+        and learn0 == int(saved["['learn_steps']"]),
+        "bit-equal": not restore_diff,
+        "tripwire": trainer_b.tripwire.trips == 1
+        and float(trainer_b.skipped_steps) == float(DQN_TRIP_K),
+        "finite": finite,
+        "kernels": cuda_per.sample_launches == cuda_per.update_launches == steps_b > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dqn_resume: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
           phase_paged_attn, phase_genrl_model, phase_genrl_decode, phase_genrl_continuous,
           phase_segment_attn, phase_token_ppo_learn, phase_genrl_train, phase_flash_attn,
-          phase_transformer_learn, phase_transformer_train, phase_flash_train_step]
+          phase_transformer_learn, phase_transformer_train, phase_flash_train_step,
+          phase_impala_trainer_device, phase_impala_trainer_host, phase_learn_cartpole_host,
+          phase_dqn_resume]
 
 
 def main() -> int:

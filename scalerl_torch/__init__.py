@@ -14,7 +14,11 @@ score -> pack -> replay -> learn -> push, and the transformer-policy IMPALA
 learner (``policy_arch="transformer"``, optionally with bf16 params) whose
 attention runs through the flash attention kernels (forward, dq, dk/dv)
 behind ``TransformerPolicy(use_flash=True)``.  Every TPU kernel of the JAX
-package now has a hand-written CUDA counterpart.
+package now has a hand-written CUDA counterpart.  The JAX package's IMPALA
+entry point has its twin, ``examples/train_impala_torch.py``: the fused
+trainer and the host actor plane (``trainer/actor_learner.py``) with a run
+directory, loggers, telemetry export, resume checkpoints
+(``utils/checkpoint.py``) and supervision (``runtime/supervisor.py``).
 
 It imports ``torch`` and numpy only.  Entry points default to
 ``device="cuda"`` and raise when no card is present; pass ``device="cpu"``

@@ -11,7 +11,9 @@ The learn step is a function of an explicit ``ImpalaTrainState``, as in the
 JAX package: the model is called with the state's parameters through
 ``torch.func.functional_call``, so the guard can keep or drop a whole update
 with a device-side select.  ``agent.state.params`` holds the live weights;
-the module's own parameters are only the initial ones.
+the module's own parameters are only the initial ones.  Every update builds
+new tensors, so actor threads acting through ``agents/policy_value.py`` read
+whole parameter sets while the learner trains.
 
 The optimizer is optax's ``chain(clip_by_global_norm, rmsprop)`` written
 out, because ``torch.optim.RMSprop`` is a different update: optax 0.2.6
@@ -31,6 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 from torch.func import functional_call
 
+from scalerl_torch.agents.policy_value import PolicyValueAgent, sample_categorical  # noqa: F401
 from scalerl_torch.config import ImpalaArguments
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.models.atari import AtariNet
@@ -52,16 +55,6 @@ class ImpalaTrainState:
     opt_state: Dict[str, Any]  # {"nu": Params, "count": int32 tensor[, "trace": Params]}
     step: torch.Tensor  # int32, learner updates
     env_frames: torch.Tensor  # int64, env frames consumed
-
-
-def sample_categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One action per row of ``logits`` by the Gumbel-max trick, on the
-    device and without a host sync (``torch.multinomial`` checks its input
-    on the host)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=logits.dtype)
-    u = u.clamp_min(torch.finfo(u.dtype).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Schedule:
@@ -304,8 +297,9 @@ def build_model(
     )
 
 
-class ImpalaAgent:
-    """Host-facing IMPALA agent: act, learn and weight get/set."""
+class ImpalaAgent(PolicyValueAgent):
+    """Host-facing IMPALA agent: act (thread-safe, ``agents/policy_value.py``),
+    learn, weight get/set and checkpoints."""
 
     def __init__(
         self,
@@ -332,21 +326,11 @@ class ImpalaAgent:
             env_frames=torch.zeros((), dtype=torch.int64, device=self.device),
         )
         self._learn = self.make_learn_fn()
-        self.generator = torch.Generator(device=self.device).manual_seed(args.seed)
+        self._setup_host(args.seed)
 
     def make_learn_fn(self):
         """The learn step of this agent's model, optimizer and args."""
         return make_impala_learn_fn(self.model, self.optimizer, self.args)
-
-    @torch.no_grad()
-    def act(self, obs, last_action, reward, done, core_state=()):
-        """One acting step over ``[B, ...]`` lanes -> (actions, logits, core)."""
-        out, new_core = functional_call(
-            self.model, self.state.params,
-            (obs[None], last_action[None], reward[None], done[None], core_state),
-        )
-        logits = out.policy_logits[0]
-        return sample_categorical(logits, self.generator), logits, new_core
 
     def learn_device(self, traj: Trajectory) -> Dict[str, torch.Tensor]:
         """One train step; metrics stay on the device."""
@@ -361,3 +345,4 @@ class ImpalaAgent:
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))
+        self._eval_state.reset()  # a carried core came from the old weights

@@ -1,0 +1,161 @@
+"""The host surface of a policy-value agent (IMPALA's, in the port).
+
+Port of the host half of ``scalerl_tpu/agents/policy_value.py::
+PolicyValueAgent``: ``initial_state``, a thread-safe ``act`` for actor
+threads, ``get_action``/``predict`` with a carried recurrent core, and
+checkpoints.  A subclass sets ``model``, ``state`` (with ``params``),
+``device`` and ``num_actions`` and calls :meth:`_setup_host`.
+
+Several actor threads call :meth:`act` while the learner thread trains:
+
+- the learn step builds new parameter tensors and the agent swaps
+  ``self.state`` in one assignment, so an actor reads either the old or
+  the new parameters, never a half-written mix;
+- ``torch.func.functional_call`` runs a model by swapping the module's
+  parameters in place for the call, which two threads must not do to one
+  module: each thread acts through its own copy of the model (made at its
+  first act, from a template nobody runs), and the learner keeps
+  ``self.model``;
+- the sampling generator is drawn from under a lock (the reference's
+  ``_key_lock``): unguarded, two actors could take the same draws.
+
+:meth:`act` on host (numpy) inputs makes one host-to-device copy of the
+step's inputs (the frames, last actions, rewards and done flags packed into
+one byte buffer) and one device-to-host copy of the actions and logits,
+which it returns as numpy; on tensors it returns tensors on the device.
+"""
+
+from __future__ import annotations
+
+import copy
+import threading
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from scalerl_torch.agents.base import BaseAgent, RecurrentEvalState
+
+
+def sample_categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One action per row of ``logits`` by the Gumbel-max trick, on the
+    device and without a host sync (``torch.multinomial`` checks its input
+    on the host)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=logits.dtype)
+    u = u.clamp_min(torch.finfo(u.dtype).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def pack_host_inputs(obs, last_action, reward, done, device: torch.device):
+    """One acting step's host inputs -> device tensors with ONE copy: the
+    frames' bytes (padded to 4), int32 last actions, float32 rewards and
+    the done bytes in one ``uint8`` buffer, cut into typed views on the
+    device."""
+    obs = np.ascontiguousarray(obs)
+    B = obs.shape[0]
+    raw = obs.reshape(-1).view(np.uint8)
+    n_obs = raw.size
+    o = n_obs + (-n_obs) % 4
+    buf = np.empty(o + 9 * B, np.uint8)
+    buf[:n_obs] = raw
+    buf[o:o + 4 * B] = np.asarray(last_action, np.int32).reshape(B).view(np.uint8)
+    buf[o + 4 * B:o + 8 * B] = np.asarray(reward, np.float32).reshape(B).view(np.uint8)
+    buf[o + 8 * B:] = np.asarray(done, bool).reshape(B).view(np.uint8)
+    dev = torch.from_numpy(buf).to(device)
+    return (
+        dev[:n_obs].view(_torch_dtype(obs.dtype)).reshape(obs.shape),
+        dev[o:o + 4 * B].view(torch.int32),
+        dev[o + 4 * B:o + 8 * B].view(torch.float32),
+        dev[o + 8 * B:].view(torch.bool),
+    )
+
+
+class PolicyValueAgent(BaseAgent):
+    """Host-facing agent over a recurrent policy-value model."""
+
+    model: torch.nn.Module
+    device: torch.device
+    num_actions: int
+
+    def _setup_host(self, seed: int) -> None:
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._gen_lock = threading.Lock()
+        # actor threads copy this module, taken at the first act; it is
+        # never run, so never swapped
+        self._act_template = None
+        self._template_lock = threading.Lock()
+        self._local = threading.local()
+        self._eval_state = RecurrentEvalState(self.initial_state)
+
+    # ------------------------------------------------------------------
+    def initial_state(self, batch_size: int):
+        return self.model.initial_state(batch_size)
+
+    def _thread_model(self) -> torch.nn.Module:
+        model = getattr(self._local, "model", None)
+        if model is None:
+            with self._template_lock:
+                if self._act_template is None:
+                    self._act_template = copy.deepcopy(self.model)
+                model = copy.deepcopy(self._act_template)
+            self._local.model = model
+        return model
+
+    def _forward(self, obs, last_action, reward, done, core_state):
+        params = self.state.params  # one read: the learner swaps the state whole
+        out, new_core = functional_call(
+            self._thread_model(), params,
+            (obs[None], last_action[None], reward[None], done[None], core_state),
+        )
+        return out.policy_logits[0], new_core
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        with self._gen_lock:
+            return sample_categorical(logits, self.generator)
+
+    @torch.no_grad()
+    def act(self, obs, last_action, reward, done, core_state=()) -> Tuple[Any, Any, Any]:
+        """One acting step over ``[B, ...]`` lanes -> ``(actions, logits,
+        core)``: numpy actions (int32) and logits for numpy inputs, device
+        tensors for tensor inputs; the core stays on the device."""
+        if isinstance(obs, torch.Tensor):
+            logits, new_core = self._forward(obs, last_action, reward, done, core_state)
+            return self._sample(logits), logits, new_core
+        inputs = pack_host_inputs(obs, last_action, reward, done, self.device)
+        logits, new_core = self._forward(*inputs, core_state)
+        action = self._sample(logits)
+        host = torch.cat([logits.float(), action[:, None].float()], dim=1).cpu().numpy()
+        return host[:, -1].astype(np.int32), host[:, :-1], new_core
+
+    @torch.no_grad()
+    def _greedy(self, obs, last_action, reward, done, core_state):
+        inputs = pack_host_inputs(obs, last_action, reward, done, self.device)
+        logits, new_core = self._forward(*inputs, core_state)
+        return logits.argmax(-1).cpu().numpy().astype(np.int32), new_core
+
+    def get_action(self, obs, *, done=None) -> np.ndarray:
+        """Sampled actions with a persistent recurrent core (rows reset where
+        the previous step's ``done`` is True)."""
+        B = np.asarray(obs).shape[0]
+        core, prev_a, prev_r, done_in = self._eval_state.step_inputs("explore", B, done)
+        a, _, new_core = self.act(np.asarray(obs), prev_a, prev_r, done_in, core)
+        self._eval_state.update("explore", a, new_core)
+        return a
+
+    def predict(self, obs, *, done=None) -> np.ndarray:
+        """Greedy actions, with the same persistent core as ``get_action``."""
+        B = np.asarray(obs).shape[0]
+        core, prev_a, prev_r, done_in = self._eval_state.step_inputs("greedy", B, done)
+        a, new_core = self._greedy(np.asarray(obs), prev_a, prev_r, done_in, core)
+        self._eval_state.update("greedy", a, new_core)
+        return a
+
+    def load_checkpoint(self, path: str) -> None:
+        super().load_checkpoint(path)
+        self._eval_state.reset()  # a carried core came from the old weights

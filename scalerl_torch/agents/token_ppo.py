@@ -19,8 +19,8 @@ through ``torch.func.functional_call`` and every update builds new tensors,
 so the guard can keep the old state with a device-side select, the frozen
 ``ref_params`` are never written, and the weights handed to an engine stay
 what they were.  The optimizer is ``optax.chain(clip_by_global_norm, adam)``
-written out (``agents/dqn.py::AdamOptimizer``).  ``enable_mesh`` and
-checkpoints are not ported yet and raise.
+written out (``agents/dqn.py::AdamOptimizer``).  Checkpoints go through
+``utils/checkpoint.py``; ``enable_mesh`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from scalerl_torch.models.transformer import (
 )
 from scalerl_torch.parallel.train_step import maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
+from scalerl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 Params = Dict[str, torch.Tensor]
 Batch = Mapping[str, torch.Tensor]
@@ -309,7 +310,7 @@ class TokenPPOAgent:
         self.state = dataclasses.replace(self.state, params=dict(weights))
 
     def save_checkpoint(self, path: str) -> str:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A1.6)")
+        return save_checkpoint(path, self.state)
 
     def load_checkpoint(self, path: str) -> None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A1.6)")
+        self.state = load_checkpoint(path, self.state)

@@ -1,29 +1,42 @@
-"""Argument schemas the ported slices read.
+"""Argument schemas the ported slices read, and a dataclass-driven CLI.
 
-The port's own copies of the ``scalerl_tpu/config.py`` fields that the fused
-IMPALA loop, the DQN off-policy trainer and the sequence-RL trainer read,
-with the same names and defaults, so an argument set means the same thing to both packages.  Fields
-that no module of the port reads yet are left out; they arrive with the
-modules that read them.  Among them are the checkpoint fields
-(``save_model``, ``save_frequency``, ...) and the telemetry fields, whose
-JAX defaults switch those features on: until they are ported, asking for
-them is a ``TypeError``.  ``resume`` and ``divergence_rollback_steps`` are
-kept with their JAX defaults (off), and :meth:`RLArguments.validate` raises
-if either is set.
+The port's own copies of the ``scalerl_tpu/config.py`` fields that the
+fused IMPALA loop, the actor-learner trainers, the DQN off-policy trainer
+and the sequence-RL trainer read, with the same names and defaults, so an
+argument set means the same thing to both packages: among them the run
+identity and directory, the logging, checkpoint, supervision and telemetry
+fields.  Fields that no module of the port reads yet are left out; they
+arrive with the modules that read them.  :func:`parse_args` gives each
+field an option under the JAX package's spelling (``--max-timesteps``,
+``--env-backend``, ``--save-model false``).
 """
 
 from __future__ import annotations
 
+import argparse
+import typing
 from dataclasses import dataclass, fields
-from typing import Optional
+from typing import Optional, Sequence, Type, TypeVar
+
+T = TypeVar("T")
 
 
 @dataclass
 class RLArguments:
     """Common arguments (``scalerl_tpu.config.RLArguments``)."""
 
+    # Run identity: the run directory is
+    # work_dir/project/env_id/algo_name/<run name> (trainer/base.py)
+    project: str = "scalerl_tpu"
+    algo_name: str = "dqn"
     seed: int = 42
+
+    # Environment: env_backend "jax" runs the fused loop over the port's
+    # tensor envs (the JAX package's device-native envs), "gym" host envs
+    # behind gym's vector API
+    env_id: str = "CartPole-v1"
     num_envs: int = 8
+    env_backend: str = "gym"
     buffer_size: int = 10000
     batch_size: int = 32
     rollout_length: int = 20
@@ -36,14 +49,53 @@ class RLArguments:
     eval_episodes: int = 5
     eval_frequency: int = 1000
     logger_frequency: int = 500
-    # Not ported yet (trainer/base.py resume checkpoints): must stay "".
+
+    # Actors (the host actor plane, trainer/actor_learner.py)
+    num_actors: int = 4
+
+    # Logging and checkpoints (trainer/base.py, utils/loggers.py,
+    # utils/checkpoint.py)
+    work_dir: str = "work_dirs"
+    logger_backend: str = "tensorboard"  # tensorboard | wandb | none
+    save_model: bool = True
+    save_frequency: int = 10_000
+    disable_checkpoint: bool = False
+    # A previous run directory (the one holding model_dir and tb_log) to
+    # resume from: train state, replay, counters and the logger's gates.
     resume: str = ""
+
+    # Supervision (runtime/supervisor.py)
+    # Wall-clock resume-save cadence beside the frame-gated save_frequency:
+    # whichever fires first; <= 0 turns the wall-clock gate off.
+    checkpoint_interval_s: float = 600.0
+    # Displaced resume checkpoints kept (resume.prev, resume.prev2, ...);
+    # a load falls back through them when the latest is corrupt.
+    checkpoint_keep_last: int = 1
+    # Stall watchdog deadline in seconds; <= 0 turns it off.
+    watchdog_timeout_s: float = 0.0
+    # SIGTERM/SIGINT write the resume checkpoint at the next safe point
+    # and end the run cleanly; a second signal force-quits.
+    handle_preemption: bool = True
+
+    # Observability (runtime/telemetry.py, utils/profiling.py)
+    # A torch.profiler trace of the training run into this directory
+    # (empty: none).
+    profile_dir: str = ""
+    # Where the telemetry export loop writes telemetry.jsonl and
+    # metrics.prom; empty means <run dir>/telemetry.
+    telemetry_dir: str = ""
+    # Export cadence in seconds; <= 0 turns the export loop and every
+    # registry write of the trainers off.
+    telemetry_interval_s: float = 30.0
+
     # All-finite update guard (parallel/train_step.py): a learn step whose
     # result holds NaN/Inf is skipped and counted as skipped_steps.
     nonfinite_guard: bool = True
     # Run the guard's check only on steps where step % K == 0.
     nonfinite_check_every: int = 1
-    # Not ported yet (the divergence tripwire's rollback): must stay 0.
+    # Divergence tripwire: after this many consecutive skipped learn steps
+    # the trainer restores the agent from its last good resume checkpoint;
+    # <= 0 turns the rollback off (the guard still skips bad steps).
     divergence_rollback_steps: int = 0
     # Route the hand-written CUDA kernels in: V-trace (ops/cuda_vtrace.py),
     # both halves of prioritized replay, sampling and the priority update
@@ -79,12 +131,6 @@ class RLArguments:
                 f"buffer_size ({self.buffer_size}) must be >= batch_size "
                 f"({self.batch_size})"
             )
-        if self.resume:
-            raise NotImplementedError("resume checkpoints are not ported yet; leave resume empty")
-        if self.divergence_rollback_steps > 0:
-            raise NotImplementedError(
-                "the divergence tripwire is not ported yet; leave divergence_rollback_steps at 0"
-            )
         if self.nonfinite_check_every < 1:
             raise ValueError(
                 "nonfinite_check_every must be >= 1, got "
@@ -109,12 +155,22 @@ class RLArguments:
 class ImpalaArguments(RLArguments):
     """IMPALA options (``scalerl_tpu.config.ImpalaArguments``)."""
 
+    algo_name: str = "impala"
     use_lstm: bool = True
     hidden_size: int = 512
     # Compute dtype of the conv/dense torso ("float32" | "bfloat16"); params,
     # heads, V-trace and the optimizer stay float32.
     compute_dtype: str = "float32"
     rollout_length: int = 80
+    num_actors: int = 8
+    # Host actor topology: "threads" = SEED-style central inference
+    # (HostActorLearnerTrainer); "process" and "serving" need
+    # trainer/process_actor_learner.py and serving/server.py, which are not
+    # ported: the trainer refuses them.
+    actor_mode: str = "threads"
+    num_buffers: int = 32  # rollout slots of the host plane's queue
+    # >= 2 adds num_learner_threads - 1 batch-assembly threads
+    num_learner_threads: int = 1
     batch_size: int = 8
     reward_clipping: str = "abs_one"  # abs_one | none
     baseline_cost: float = 0.5
@@ -139,6 +195,23 @@ class ImpalaArguments(RLArguments):
     @property
     def total_steps(self) -> int:
         return self.max_timesteps
+
+    def validate(self) -> None:
+        super().validate()
+        # num_buffers counts slots (one actor's vector-env lanes each), so
+        # only the shape-free minimum holds here; the trainer checks the
+        # floor that needs the env fleet's shape (check_queue_depth)
+        if self.num_buffers < max(2, self.num_actors):
+            raise ValueError(
+                "num_buffers (slot count) must be at least "
+                "max(2, num_actors) "
+                f"(got {self.num_buffers}, num_actors={self.num_actors})"
+            )
+        if self.actor_mode not in ("threads", "process", "serving"):
+            raise ValueError(
+                "actor_mode must be threads | process | serving, got "
+                f"{self.actor_mode!r}"
+            )
 
 
 @dataclass
@@ -192,7 +265,8 @@ class GenRLArguments(RLArguments):
     (speculative decoding; its ``spec_k`` and ``spec_ngram`` are left out until
     then), ``bf16_params`` (the token-PPO bf16 path), the sharded learner's
     ``dp_size``/``mp_size`` (refused by :class:`RLArguments`), and the
-    ``disagg_*`` fields, which only the disaggregated trainer reads.
+    ``disagg_*`` fields, which only the disaggregated trainer reads, and
+    ``resume``, which only that trainer reads in the JAX package.
     ``genrl_iter_mode`` is accepted and has no effect: the port runs eagerly
     with one loop form.
     """
@@ -261,6 +335,8 @@ class GenRLArguments(RLArguments):
     def validate(self) -> None:
         super().validate()
         unported = {
+            "resume": "a resume path in the sequence-RL trainer (the JAX package resumes "
+                      "only its disaggregated trainer, through genrl/ledger.py)",
             "spec_enable": "speculative decoding (ROADMAP A5)",
             "bf16_params": "bf16 parameters on the token-PPO learner (ROADMAP A6)",
             **{f.name: "the disaggregated trainer (ROADMAP A5)"
@@ -342,3 +418,51 @@ class GenRLArguments(RLArguments):
                 f"sequence (prompt_len + max_new_tokens = {self.prompt_len + self.max_new_tokens}) "
                 "or every full-length completion would be shed"
             )
+
+
+_BOOL_TRUE = ("1", "true", "yes", "y", "on")
+_BOOL_FALSE = ("0", "false", "no", "n", "off")
+
+
+def _str2bool(v: str) -> bool:
+    if v.lower() in _BOOL_TRUE:
+        return True
+    if v.lower() in _BOOL_FALSE:
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+def build_parser(
+    cls: Type[T], parser: Optional[argparse.ArgumentParser] = None
+) -> argparse.ArgumentParser:
+    """An argparse parser with one ``--field-name`` option per field of the
+    dataclass ``cls``; a boolean takes ``--flag`` (true) or ``--flag
+    false``; an ``Optional[float]`` field takes a float."""
+    parser = parser or argparse.ArgumentParser(description=cls.__doc__)
+    hints = typing.get_type_hints(cls)
+    for f in fields(cls):  # type: ignore[arg-type]
+        if not f.init:
+            continue
+        name = "--" + f.name.replace("_", "-")
+        hint = hints[f.name]
+        args = [a for a in typing.get_args(hint) if a is not type(None)]
+        ftype = args[0] if typing.get_origin(hint) is typing.Union and args else hint
+        if ftype is bool:
+            parser.add_argument(name, type=_str2bool, nargs="?", const=True,
+                                default=f.default)
+        else:
+            parser.add_argument(name, type=ftype, default=f.default)
+    return parser
+
+
+def parse_args(
+    cls: Type[T] = RLArguments,  # type: ignore[assignment]
+    argv: Optional[Sequence[str]] = None,
+    parser: Optional[argparse.ArgumentParser] = None,
+) -> T:
+    """Parse ``argv`` into a validated instance of ``cls``.  Options a
+    caller added to ``parser`` beforehand are parsed too and ignored here."""
+    ns = build_parser(cls, parser).parse_args(argv)
+    args = cls(**{f.name: getattr(ns, f.name) for f in fields(cls) if f.init})  # type: ignore[arg-type]
+    args.validate()  # type: ignore[attr-defined]
+    return args

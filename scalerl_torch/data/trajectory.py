@@ -1,6 +1,10 @@
-"""The time-major trajectory chunk ``[T+1, B, ...]``.
+"""The time-major trajectory chunk ``[T+1, B, ...]``, its host staging
+buffers and their assembly.
 
-Port of the ``Trajectory`` container of ``scalerl_tpu/data/trajectory.py``.
+Port of ``scalerl_tpu/data/trajectory.py``: ``Trajectory``,
+``TrajectorySpec`` (with ``host_zeros``, one rollout slot of numpy staging
+buffers for the host actor plane) and ``batch_to_trajectory`` (a drained
+batch of slots onto the device).
 Row convention (the reference's env-output layout):
 
 - ``obs[t]``: observation at step t.
@@ -20,8 +24,9 @@ So the T valid transitions are
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 
@@ -33,3 +38,56 @@ class Trajectory:
     done: torch.Tensor  # [T+1, B] bool
     logits: torch.Tensor  # [T+1, B, A] float32
     core_state: Any = ()
+
+
+@dataclass(frozen=True)
+class TrajectorySpec:
+    """Static description of a trajectory chunk."""
+
+    unroll_length: int  # T
+    batch_size: int  # B
+    obs_shape: Tuple[int, ...]
+    num_actions: int
+    obs_dtype: Any = np.uint8  # a numpy dtype
+    core_state_shapes: Tuple[Tuple[int, ...], ...] = ()  # per-layer [B, ...] shapes
+
+    def host_zeros(self) -> Dict[str, np.ndarray]:
+        """One rollout slot of numpy staging buffers.  Recurrent core-state
+        leaves are flat ``core_{i}_{c|h}`` keys with a leading batch axis
+        (row 0's state, no time axis): ``RolloutQueue.get_batch``
+        concatenates them on axis 0 and the time-major fields on axis 1."""
+        T1 = self.unroll_length + 1
+        B = self.batch_size
+        out = {
+            "obs": np.zeros((T1, B) + tuple(self.obs_shape), np.dtype(self.obs_dtype)),
+            "action": np.zeros((T1, B), np.int32),
+            "reward": np.zeros((T1, B), np.float32),
+            "done": np.ones((T1, B), bool),
+            "logits": np.zeros((T1, B, self.num_actions), np.float32),
+        }
+        for i, s in enumerate(self.core_state_shapes):
+            out[f"core_{i}_c"] = np.zeros(s, np.float32)
+            out[f"core_{i}_h"] = np.zeros(s, np.float32)
+        return out
+
+
+def batch_to_trajectory(batch: Dict[str, np.ndarray], device: torch.device) -> Trajectory:
+    """A host batch (``RolloutQueue.get_batch``'s output) as a Trajectory on
+    ``device``; actions widen to int64, as the learner indexes with them."""
+
+    def put(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    core = []
+    i = 0
+    while f"core_{i}_c" in batch:
+        core.append((put(batch[f"core_{i}_c"]), put(batch[f"core_{i}_h"])))
+        i += 1
+    return Trajectory(
+        obs=put(batch["obs"]),
+        action=put(batch["action"]).long(),
+        reward=put(batch["reward"]),
+        done=put(batch["done"]),
+        logits=put(batch["logits"]),
+        core_state=tuple(core),
+    )

@@ -18,13 +18,17 @@ seed.
 
 :meth:`DeviceActorLearnerLoop.run_until` drives chunks until the windowed
 mean episode return reaches a threshold; the reference's learning curves
-(``examples/curves/common.py``) run on it.
+(``examples/curves/common.py``) run on it.  Both take the
+reference's supervision hooks: ``progress`` (a supervisor
+``ProgressCounter`` bumped per dispatched chunk, the stall watchdog's
+source), ``should_stop`` (polled before each dispatch; the preemption
+guard's flag) and ``instrument`` (feed each chunk's host metrics and the
+``rates.fps`` / ``rates.chunks_per_s`` meters into the telemetry registry),
+and mark each chunk for ``utils/profiling.py``'s traces.
 
 Not ported yet: the mesh (``shard_map``) path, ``train_superchunk`` /
-``run_anakin`` (one program for N chunks), ``iter_mode`` (a Python loop
-needs none), and the ``progress`` / ``instrument`` hooks of ``run`` and
-``run_until``, which feed the supervisor's stall watchdog and the telemetry
-registry, neither of which is ported.
+``run_anakin`` (one program for N chunks) and ``iter_mode`` (a Python loop
+needs none).
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ from torch.func import functional_call
 from scalerl_torch.agents.impala import ImpalaTrainState, sample_categorical
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.envs.tensor_envs.base import TensorEnv
+from scalerl_torch.runtime import telemetry
 from scalerl_torch.runtime.dispatch import MetricsPipeline, get_metrics, steady_state_guard
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
+from scalerl_torch.utils.profiling import step_marker
 
 LearnFn = Callable[[ImpalaTrainState, Trajectory], Tuple[ImpalaTrainState, Dict]]
 
@@ -178,21 +184,30 @@ class DeviceActorLearnerLoop:
         num_calls: int,
         on_metrics: Optional[Callable[[int, Dict[str, float]], None]] = None,
         chunks_in_flight: int = 2,
+        progress=None,
+        should_stop: Optional[Callable[[], bool]] = None,
+        instrument: bool = True,
     ) -> Tuple[ImpalaTrainState, ActorCarry, Dict[str, float]]:
         """Drive ``num_calls`` chunks, each read back with ONE batched copy
         ``chunks_in_flight - 1`` chunks behind the dispatch (1 reads after
         every chunk).  ``on_metrics(i, metrics)`` fires once per chunk, in
-        order.  The returned metrics are the last chunk's, with
-        ``episodes`` / ``return_mean`` / ``chunks_done`` /
+        order.  ``progress`` / ``should_stop`` / ``instrument``: the
+        supervision and telemetry hooks (module docstring); after an early
+        stop the chunks already in flight still land and count.  The
+        returned metrics are the last chunk's, with ``episodes`` /
+        ``return_mean`` / ``chunks_done`` (the chunks dispatched: a
+        preemption checkpoint records these, not ``num_calls``) /
         ``nonfinite_chunks``."""
         metrics: Dict[str, float] = {}
         nonfinite_chunks = 0
         pipe = MetricsPipeline(depth=chunks_in_flight)
+        observe = self._observer(instrument)
 
         def consume(ready) -> None:
             nonlocal metrics, nonfinite_chunks
             for i, host_m in ready:
                 m = dict(host_m)
+                observe(m)
                 if m.get("skipped_steps", 0.0) > 0.0:
                     nonfinite_chunks += 1
                 m["episodes"] = m.pop("episode_count_sum")
@@ -201,15 +216,36 @@ class DeviceActorLearnerLoop:
                 if on_metrics is not None:
                     on_metrics(i, m)
 
+        chunks_done = 0
         for i in range(num_calls):
-            with self._guard():
+            if should_stop is not None and should_stop():
+                break
+            with self._guard(), step_marker(i):
                 state, carry, dev_metrics = self.train_chunk(state, carry)
+                chunks_done += 1
+                if progress is not None:
+                    progress.bump()
                 consume(pipe.push(i, dev_metrics))
             self._warm = True
         consume(pipe.drain())
-        metrics["chunks_done"] = float(num_calls)
+        metrics["chunks_done"] = float(chunks_done)
         metrics["nonfinite_chunks"] = float(nonfinite_chunks)
         return state, carry, metrics
+
+    def _observer(self, instrument: bool) -> Callable[[Dict[str, float]], None]:
+        """Per-chunk registry feed (host floats only), or nothing."""
+        if not instrument:
+            return lambda m: None
+        reg = telemetry.get_registry()
+        chunk_meter, fps_meter = reg.meter("rates.chunks_per_s"), reg.meter("rates.fps")
+        frames_per_call = self.unroll_length * self.venv.num_envs * self.iters_per_call
+
+        def observe(m: Dict[str, float]) -> None:
+            telemetry.observe_train_metrics(m)
+            chunk_meter.mark()
+            fps_meter.mark(frames_per_call)
+
+        return observe
 
     # ------------------------------------------------------------------
     def run_until(
@@ -221,12 +257,15 @@ class DeviceActorLearnerLoop:
         on_metrics: Optional[Callable[[int, float, Dict[str, float]], None]] = None,
         chunks_in_flight: int = 2,
         should_stop: Optional[Callable[[], bool]] = None,
+        progress=None,
+        instrument: bool = True,
     ) -> Tuple[ImpalaTrainState, ActorCarry, Dict[str, Any]]:
         """Drive chunks until the *windowed* mean episode return (over the
         episodes completed since the previous chunk that completed any)
         reaches ``threshold``, or ``max_calls`` chunks have run.
 
-        ``should_stop`` is polled before each dispatch; True stops cleanly.
+        ``should_stop`` is polled before each dispatch; True stops cleanly;
+        ``progress`` and ``instrument`` as in :meth:`run`.
         Metrics are read ``chunks_in_flight - 1`` chunks behind the
         dispatch, so a hit stops further dispatch but the chunks already in
         flight still land: they count in ``frames`` and in the returned
@@ -243,10 +282,12 @@ class DeviceActorLearnerLoop:
         hit = False
         nonfinite_chunks = 0
         pipe = MetricsPipeline(depth=chunks_in_flight)
+        observe = self._observer(instrument)
 
         def consume(ready) -> None:
             nonlocal windowed, prev_sum, prev_cnt, hit, nonfinite_chunks
             for i, m in ready:
+                observe(m)
                 if m.get("skipped_steps", 0.0) > 0.0:
                     nonfinite_chunks += 1
                 s, c = m["episode_return_sum"], m["episode_count_sum"]
@@ -261,9 +302,11 @@ class DeviceActorLearnerLoop:
         for i in range(max_calls):
             if should_stop is not None and should_stop():
                 break
-            with self._guard():
+            with self._guard(), step_marker(i):
                 state, carry, dev_metrics = self.train_chunk(state, carry)
                 frames += frames_per_call
+                if progress is not None:
+                    progress.bump()
                 consume(pipe.push(i, dev_metrics))
             self._warm = True
             if hit:

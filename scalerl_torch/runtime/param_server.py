@@ -11,14 +11,17 @@ device, with a monotonic generation bump and no host transfer;
 
 Quantized pushes (``quantize="int8" | "bf16"``) need the port of
 ``runtime/quantize.py`` and raise ``NotImplementedError`` until then.
-The fleet's pull endpoint (``ParameterServer``) is not ported yet.
+
+:class:`ParameterServer` is the pull endpoint over the same plane: pullers
+get numpy weights with a version, fetched to the host once a version.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
@@ -81,3 +84,60 @@ class ParamSnapshotPlane:
             newest = self._latest_learner_step
             served = self._gen_steps.get(int(served_generation), int(served_generation))
         return float(max(newest - served, 0))
+
+
+def _to_host(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+class ParameterServer(ParamSnapshotPlane):
+    """The pull endpoint (``scalerl_tpu/runtime/param_server.py::
+    ParameterServer``): ``version`` is the plane's generation, and pullers
+    always receive host (numpy) weights."""
+
+    def __init__(self) -> None:
+        self._init_param_plane(None, torch.device("cpu"))
+        self._is_host = True
+
+    @property
+    def version(self) -> int:
+        with self._param_lock:
+            return self.generation
+
+    def push(self, weights: Mapping[str, torch.Tensor], to_host: bool = True) -> int:
+        """Publish new weights; returns the new version.
+
+        ``to_host=True`` fetches them to numpy here, once for every pull.
+        A learner whose actors act on the device pushes with
+        ``to_host=False``: a device-side copy (detached from the live
+        parameters) and a version bump, no host sync; the numpy copy is made
+        at the first pull of that version."""
+        if to_host:
+            snapshot: Any = _to_host(weights)
+        else:
+            snapshot = {k: v.detach().clone() for k, v in weights.items()}
+        with self._param_lock:
+            self.generation += 1
+            self._params = snapshot
+            self._is_host = to_host
+            self._latest_learner_step = self.generation
+            self._gen_steps[self.generation] = self.generation
+            while len(self._gen_steps) > self._GEN_STEPS_CAP:
+                self._gen_steps.pop(min(self._gen_steps))
+            return self.generation
+
+    def pull(self, have_version: int = -1) -> Tuple[Optional[Dict[str, np.ndarray]], int]:
+        """``(numpy weights, version)``, or ``(None, version)`` when the
+        caller already has this version.  A device push is fetched outside
+        the lock, so a slow pull never holds up the next push."""
+        with self._param_lock:
+            if self._params is None or have_version == self.generation:
+                return None, self.generation
+            weights, version, is_host = self._params, self.generation, self._is_host
+        if not is_host:
+            weights = _to_host(weights)
+            with self._param_lock:
+                if self.generation == version:
+                    self._params = weights
+                    self._is_host = True
+        return weights, version

@@ -1,21 +1,32 @@
-"""Process-local metrics: counters, gauges, histograms and rate meters.
+"""Process-local metrics: counters, gauges, histograms and rate meters,
+and their export.
 
-The part of ``scalerl_tpu/runtime/telemetry.py`` that the generation plane
-calls: the four instruments, :class:`MetricsRegistry` (named instruments
-plus snapshot-time bindings, nested into one tree by :meth:`snapshot`) and
-the process-wide default registry.  The exporters, the aggregator, the
-flight recorder and the digest-backed histogram are not ported yet.
-Plain Python; instruments are bumped once per macro step or admission,
-never per token.
+Port of the parts of ``scalerl_tpu/runtime/telemetry.py`` that the
+generation plane and the trainers call: the four instruments,
+:class:`MetricsRegistry` (named instruments plus snapshot-time bindings,
+nested into one tree by :meth:`snapshot`, flattened by :meth:`scalars`),
+the process-wide default registry, and the export half the trainers start
+by default: :class:`JsonlExporter` (one snapshot a line),
+:class:`PrometheusExporter` (a text exposition file), the
+:class:`TelemetryExportLoop` thread that drives both,
+:func:`write_final_snapshot` and :func:`observe_train_metrics`.  The
+flight recorder, the fleet aggregator and the digest-backed histogram are
+not ported yet.  Plain Python; instruments are bumped once per chunk, learn
+step or admission, never per token, and no device value enters one.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import math
+import os
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Mapping, Optional, Tuple
+
+logger = logging.getLogger(__name__)
 
 
 class Counter:
@@ -212,6 +223,20 @@ class MetricsRegistry:
         with self._lock:
             self._bindings.pop(name, None)
 
+    def set_gauges(self, values: Mapping[str, float], prefix: str = "") -> None:
+        """Bulk gauge write of a host metric dict: every finite number lands
+        as ``<prefix><key>``; a name already held by another instrument
+        kind keeps that instrument."""
+        for k, v in values.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            if isinstance(v, float) and not math.isfinite(v):
+                continue
+            try:
+                self.gauge(prefix + k).set(float(v))
+            except TypeError:
+                continue
+
     def _values(self) -> Dict[str, Any]:
         with self._lock:
             instruments = dict(self._instruments)
@@ -244,6 +269,129 @@ class MetricsRegistry:
         return tree
 
 
+    def scalars(self, prefix: str = "") -> Dict[str, float]:
+        """Flat ``{dotted.name: float}`` view; histograms and meters expand
+        to their summary fields (the loggers' and the exposition's input)."""
+        out: Dict[str, float] = {}
+
+        def emit(name: str, value: Any) -> None:
+            if isinstance(value, dict):
+                for k, v in value.items():
+                    emit(f"{name}.{k}", v)
+            elif isinstance(value, (bool, int, float)):
+                out[name] = float(value)
+
+        for name, value in self._values().items():
+            emit(prefix + name, value)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# exporters
+
+
+class JsonlExporter:
+    """Append one ``{"t": ..., "snapshot": {...}}`` line per write."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def write(self, snapshot: Mapping[str, Any]) -> None:
+        line = json.dumps({"t": time.time(), "snapshot": snapshot}, default=str)
+        with open(self.path, "a") as f:
+            f.write(line + "\n")
+
+
+class PrometheusExporter:
+    """A Prometheus text-exposition file, replaced atomically (tmp +
+    rename); names sanitized to ``[a-zA-Z_][a-zA-Z0-9_]*`` under the
+    ``scalerl_`` prefix, as the JAX package writes them."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    @staticmethod
+    def _sanitize(name: str) -> str:
+        s = "".join(ch if ch.isalnum() or ch == "_" else "_" for ch in name)
+        if not s or not (s[0].isalpha() or s[0] == "_"):
+            s = "_" + s
+        return "scalerl_" + s
+
+    def write(self, scalars: Mapping[str, float]) -> None:
+        lines = []
+        for name in sorted(scalars):
+            v = scalars[name]
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            if isinstance(v, float) and not math.isfinite(v):
+                v = 0.0
+            lines.append(f"{self._sanitize(name)} {v}")
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        os.replace(tmp, self.path)
+
+
+class TelemetryExportLoop:
+    """A thread writing ``telemetry.jsonl`` and ``metrics.prom`` into
+    ``out_dir`` every ``interval_s`` seconds from one registry;
+    :meth:`flush` writes at once, :meth:`stop` flushes a last time so the
+    files hold the final state."""
+
+    def __init__(
+        self,
+        out_dir: str,
+        interval_s: float = 30.0,
+        registry: Optional[MetricsRegistry] = None,
+    ) -> None:
+        self.out_dir = out_dir
+        self.interval_s = float(interval_s)
+        self.registry = registry
+        self.jsonl = JsonlExporter(os.path.join(out_dir, "telemetry.jsonl"))
+        self.prom = PrometheusExporter(os.path.join(out_dir, "metrics.prom"))
+        self.writes = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _registry(self) -> MetricsRegistry:
+        return self.registry if self.registry is not None else get_registry()
+
+    def flush(self) -> None:
+        reg = self._registry()
+        try:
+            self.jsonl.write(reg.snapshot())
+            self.prom.write(reg.scalars())
+            self.writes += 1
+        except Exception:  # noqa: BLE001 — an exporter must never kill the run
+            logger.exception("telemetry export failed")
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.flush()
+
+    def start(self) -> "TelemetryExportLoop":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._loop, name="telemetry-export",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        self.flush()
+
+    def __enter__(self) -> "TelemetryExportLoop":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
 _LOCK = threading.Lock()
 _REGISTRY: Optional[MetricsRegistry] = None
 
@@ -262,3 +410,41 @@ def reset() -> None:
     global _REGISTRY
     with _LOCK:
         _REGISTRY = MetricsRegistry()
+
+
+def write_final_snapshot(out_dir: str) -> str:
+    """Write ``final_snapshot.json`` (the merged tree) into ``out_dir``;
+    returns its path.  (The JAX package adds the flight recorder's tail,
+    which is not ported.)"""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "final_snapshot.json")
+    payload = {"t": time.time(), "pid": os.getpid(), "snapshot": get_registry().snapshot()}
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, default=str)
+    os.replace(tmp, path)
+    return path
+
+
+def observe_train_metrics(host_metrics: Optional[Mapping[str, Any]]) -> None:
+    """Fold one chunk's or learn step's host metric dict into the registry:
+    the all-finite guard's ``skipped_steps`` and ``nonfinite_grads`` add
+    to the ``train.`` counters.  Host floats only (the output of
+    ``runtime.dispatch.get_metrics``), so it never adds a device copy."""
+    if not host_metrics:
+        return
+    reg = get_registry()
+
+    def _num(key: str) -> float:
+        try:
+            f = float(host_metrics.get(key, 0.0))
+        except (TypeError, ValueError):
+            return 0.0
+        return f if math.isfinite(f) else 0.0
+
+    skipped = _num("skipped_steps")
+    nonfinite = _num("nonfinite_grads")
+    if skipped > 0.0:
+        reg.counter("train.skipped_steps").inc(skipped)
+    if nonfinite > 0.0:
+        reg.counter("train.nonfinite_grads").inc(nonfinite)

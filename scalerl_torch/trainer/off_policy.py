@@ -13,13 +13,19 @@ its rewards and done flags to the host once, for the episode accounting;
 the learn step's metrics stay on the device until a log interval reads
 them in one batched copy.
 
-Not ported yet: telemetry, chaos injection, the divergence tripwire and
-checkpoint/resume.  Their arguments are absent from ``scalerl_torch.
-config`` or refused by its ``validate``, so a run cannot ask for them.
+Resume checkpoints hold the agent's state, the replay (plane, priorities
+and cursors) and the step counters (``save_resume`` / ``try_resume``);
+``ckpt_{step}`` and ``ckpt_final`` hold the agent's state.  The divergence
+tripwire (``divergence_rollback_steps`` > 0) restores the agent from the
+last good resume checkpoint after that many consecutive skipped learn
+steps; only then does each learn step read its ``skipped_steps`` to the
+host.  Telemetry goes to the registry at log boundaries.  Chaos injection
+(``runtime/chaos.py``) is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -29,7 +35,10 @@ import torch
 from scalerl_torch.agents.dqn import DQNAgent
 from scalerl_torch.config import DQNArguments
 from scalerl_torch.data.sampler import Sampler
+from scalerl_torch.parallel.train_step import tensor_leaves
+from scalerl_torch.runtime import telemetry
 from scalerl_torch.runtime.dispatch import get_metrics
+from scalerl_torch.runtime.supervisor import DivergenceTripwire
 from scalerl_torch.trainer.base import BaseTrainer
 from scalerl_torch.utils.metrics import EpisodeMetrics
 from scalerl_torch.utils.schedulers import LinearDecayScheduler
@@ -60,8 +69,9 @@ class OffPolicyTrainer(BaseTrainer):
         agent: DQNAgent,
         train_envs,
         eval_envs=None,
+        run_name: Optional[str] = None,
     ) -> None:
-        super().__init__(args)
+        super().__init__(args, run_name=run_name)
         self.agent = agent
         self.train_envs = train_envs
         self.eval_envs = eval_envs
@@ -88,6 +98,15 @@ class OffPolicyTrainer(BaseTrainer):
         self.generator = torch.Generator(device=agent.device).manual_seed(args.seed + 0x53A1)
         # learn steps the all-finite guard skipped, summed on the device
         self.skipped_steps = torch.zeros((), dtype=torch.float32, device=agent.device)
+        # meters are fed once a log interval (telemetry_interval_s <= 0: none)
+        self._learn_marked = 0
+        if self._instrument:
+            reg = telemetry.get_registry()
+            self._fps_meter = reg.meter("rates.fps")
+            self._learn_meter = reg.meter("rates.learn_steps_per_s")
+            reg.bind("replay.size", lambda: len(self.sampler))
+        self.tripwire = DivergenceTripwire(args.divergence_rollback_steps,
+                                           self._divergence_rollback)
 
     def store_experience(
         self, obs, next_obs, action, reward, terminated, infos, truncated=None
@@ -117,7 +136,63 @@ class OffPolicyTrainer(BaseTrainer):
         if "skipped_steps" in metrics:
             self.skipped_steps = self.skipped_steps + metrics["skipped_steps"]
         self.learn_steps += 1
+        if self.tripwire.enabled:
+            # the one per-step host read, only with the tripwire on
+            self.tripwire.observe(get_metrics({"skipped_steps": metrics.get(
+                "skipped_steps", torch.zeros(()))}))
         return metrics
+
+    def _divergence_rollback(self) -> None:
+        """Restore the agent from the last good resume checkpoint after the
+        tripwire's K consecutive skipped learn steps, and check once that the
+        restored parameters are finite.  Env steps and the replay stay: the
+        divergence spoiled the parameters, not the experience."""
+        try:
+            state = self.load_resume_checkpoint(self._resume_pytree())
+        except FileNotFoundError:
+            state = None
+        if state is None:
+            self.text_logger.warning(
+                "divergence tripwire fired but no resume checkpoint exists; "
+                "continuing with the current (guard-protected) state")
+            return
+        self.agent.state = state["agent"]
+        self.learn_steps = int(state["learn_steps"])
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tensor_leaves(self.agent.state) if x.is_floating_point())
+        self.text_logger.warning(
+            "divergence tripwire: restored agent state from %s (learn_steps=%d, params "
+            "finite=%s, rollback #%d)", self.resume_ckpt_path, self.learn_steps, finite,
+            self.tripwire.trips)
+
+    # ------------------------------------------------------------------
+    def _resume_pytree(self) -> Dict:
+        return {
+            "agent": self.agent.state,
+            "replay": self.sampler.buffer.state,
+            "global_step": np.asarray(self.global_step, np.int64),
+            "learn_steps": np.asarray(self.learn_steps, np.int64),
+        }
+
+    def save_resume(self) -> None:
+        self.save_resume_checkpoint(self._resume_pytree(), self.global_step, self.learn_steps)
+
+    def try_resume(self) -> bool:
+        """Restore the agent, the replay, the counters and the exploration
+        schedule's position from ``args.resume``; True when restored."""
+        state = self.load_resume_checkpoint(self._resume_pytree())
+        if state is None:
+            return False
+        self.agent.state = state["agent"]
+        self.sampler.buffer.state = state["replay"]
+        self.global_step = int(state["global_step"])
+        self.learn_steps = int(state["learn_steps"])
+        self.agent.eps_scheduler.cur_step = self.global_step
+        self.agent.eps = self.agent.eps_scheduler.value(self.global_step)
+        if self.is_main_process:
+            self.text_logger.info(f"resumed from {self.resume_ckpt_path}: step "
+                                  f"{self.global_step}, learn_steps {self.learn_steps}")
+        return True
 
     def run_evaluate_episodes(self, n_episodes: Optional[int] = None) -> Dict[str, float]:
         """Greedy rollouts on the eval envs (else the train envs) until
@@ -152,11 +227,19 @@ class OffPolicyTrainer(BaseTrainer):
 
     def run(self) -> Dict[str, float]:
         args = self.args
+        saving = args.save_model and not args.disable_checkpoint
+        if self.resuming:
+            self.try_resume()
+        if (self.tripwire.enabled and self.is_main_process and saving
+                and not os.path.exists(self.resume_ckpt_path)):
+            # a rollback needs a last good state from step 0 on
+            self.save_resume()
         obs, _ = self.train_envs.reset(seed=args.seed)
         start = time.time()
         start_step = self.global_step
         last_log = self.global_step
         last_eval = self.global_step
+        last_save = self.global_step
         train_info: Dict[str, Any] = {}
 
         prev_done = np.ones(self.num_envs, bool)
@@ -177,14 +260,23 @@ class OffPolicyTrainer(BaseTrainer):
                 train_info = self.train_step()
 
             if self.global_step - last_log >= args.logger_frequency:
+                frames_delta = self.global_step - last_log
                 last_log = self.global_step
                 fps = int((self.global_step - start_step) / max(time.time() - start, 1e-8))
                 summary = self.metrics.summary()
                 train_info = get_metrics(train_info)  # one batched device->host copy
-                self.log(self.global_step, "train", {
-                    **train_info, **summary, "fps": float(fps),
-                    "learn_steps": float(self.learn_steps), "rpm_size": float(len(self.sampler)),
-                })
+                counters = {"fps": float(fps), "learn_steps": float(self.learn_steps),
+                            "rpm_size": float(len(self.sampler))}
+                self.log(self.global_step, "train", {**train_info, **summary, **counters})
+                if self._instrument:
+                    telemetry.observe_train_metrics(train_info)
+                    reg = telemetry.get_registry()
+                    reg.set_gauges({**train_info, **summary, **counters}, prefix="train.")
+                    self._fps_meter.mark(frames_delta)
+                    self._learn_meter.mark(self.learn_steps - self._learn_marked)
+                    self._learn_marked = self.learn_steps
+                    self.logger.log_registry(self.global_step, step_type="train",
+                                             include_prefixes=("train.",))
                 self.text_logger.info(
                     f"step {self.global_step} | fps {fps} | return "
                     f"{summary.get('return_mean', float('nan')):.1f} | eps {self.agent.eps:.3f} "
@@ -195,8 +287,19 @@ class OffPolicyTrainer(BaseTrainer):
                 last_eval = self.global_step
                 eval_info = self.run_evaluate_episodes()
                 self.log(self.global_step, "eval", eval_info)
+                self.logger.log_test_data(eval_info, self.global_step)
                 self.text_logger.info(
                     f"eval @ {self.global_step}: return "
                     f"{eval_info['reward_mean']:.1f} +- {eval_info['reward_std']:.1f}"
                 )
+
+            if saving and self.global_step - last_save >= args.save_frequency:
+                last_save = self.global_step
+                if self.is_main_process:
+                    self.agent.save_checkpoint(f"{self.model_save_dir}/ckpt_{self.global_step}")
+                    self.save_resume()
+
+        if saving and self.is_main_process:
+            self.agent.save_checkpoint(f"{self.model_save_dir}/ckpt_final")
+            self.save_resume()
         return self.metrics.summary()

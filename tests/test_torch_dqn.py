@@ -108,12 +108,9 @@ def test_config_defaults_match_jax():
 
 
 def test_unported_features_are_refused():
-    with pytest.raises(NotImplementedError, match="resume"):
-        tconfig.DQNArguments(resume="runs/x").validate()
-    with pytest.raises(NotImplementedError, match="tripwire"):
-        tconfig.DQNArguments(divergence_rollback_steps=3).validate()
-    with pytest.raises(TypeError):
-        tconfig.DQNArguments(save_frequency=100)  # checkpoints are not ported
+    # resume, the tripwire and the checkpoint fields are ported: accepted
+    tconfig.DQNArguments(resume="runs/x", divergence_rollback_steps=3,
+                         save_frequency=100).validate()
     with pytest.raises(NotImplementedError, match="NoisyDense"):
         tdqn.DQNAgent(tconfig.DQNArguments(noisy_dqn=True), OBS, A, device="cpu")
 

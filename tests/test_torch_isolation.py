@@ -5,6 +5,8 @@
   them in an import.
 - The entry points default to ``device="cuda"`` and raise without a card
   instead of running on the host.
+- A spawned env worker of the port loads neither JAX nor the JAX package,
+  nor initializes CUDA.
 - ``chip_smoke.py`` fails, printing no result, without a card, and in a
   directory that holds nothing else of the repo.
 """
@@ -61,7 +63,8 @@ def _imported_roots(path: Path):
 
 def test_no_port_source_imports_jax():
     sources = sorted((REPO / "scalerl_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "torch_learning_curves.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "torch_learning_curves.py",
+        REPO / "examples" / "train_impala_torch.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -198,6 +201,57 @@ def test_sequence_rl_entry_points_refuse_the_default_device_without_a_card(monke
         with pytest.raises(RuntimeError, match="cuda"):
             make()
     SequenceRLTrainer(args, device="cpu").train_round()
+
+
+def test_actor_learner_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    import importlib.util
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+    from scalerl_torch.envs.tensor_envs import make_tensor_vec_env
+    from scalerl_torch.trainer.actor_learner import (
+        DeviceActorLearnerTrainer,
+        HostActorLearnerTrainer,
+    )
+    from tools import torch_learning_curves
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location(
+        "train_impala_torch", REPO / "examples" / "train_impala_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    args = ImpalaArguments(use_lstm=False, hidden_size=16, logger_backend="none",
+                           telemetry_interval_s=0.0, save_model=False, work_dir="/nonexistent")
+    for make in (
+        lambda: make_tensor_vec_env("CartPole-v1", 4),
+        lambda: ImpalaAgent(args, (4,), 2),
+        lambda: DeviceActorLearnerTrainer(args, ImpalaAgent(args, (4,), 2),
+                                          make_tensor_vec_env("CartPole-v1", 4)),
+        lambda: HostActorLearnerTrainer(args, ImpalaAgent(args, (4,), 2), []),
+        lambda: example.main(["--env-backend", "jax", "--env-id", "CartPole-v1"]),
+        lambda: example.main(["--env-id", "CartPole-v1"]),
+        lambda: torch_learning_curves.impala_cartpole_host(),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+def test_spawned_env_workers_load_no_jax_and_no_cuda():
+    import gymnasium as gym
+    import numpy as np
+
+    from scalerl_torch.envs.gym_env import make_vect_envs
+
+    envs = make_vect_envs("torch_env_probe:ModulesEnv", num_envs=2, seed=0, async_envs=True)
+    try:
+        assert isinstance(envs, gym.vector.AsyncVectorEnv)
+        envs.reset(seed=0)
+        envs.step(np.zeros(2, np.int64))
+        for roots in envs.get_attr("loaded_roots"):
+            assert "scalerl_torch" in roots and not set(FORBIDDEN) & set(roots)
+        assert envs.get_attr("cuda_initialized") == (False, False)
+    finally:
+        envs.close()
 
 
 def _run_smoke(cwd: Path):

@@ -9,6 +9,8 @@ agent's new parameters and moments.  On the host the port's segment seam
 runs the kernels' plain version.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -269,15 +271,18 @@ def test_reference_params_are_a_copy_and_weights_survive_learning():
     assert all(torch.equal(agent.get_weights()[k], v) for k, v in initial.items())
 
 
-def test_unported_parts_raise_and_feature_models_are_refused():
+def test_unported_parts_raise_and_feature_models_are_refused(tmp_path):
     _, targs = H.genrl_args_pair()
     agent = tppo.TokenPPOAgent(targs, build_genrl_model(targs, device="cpu"))
     with pytest.raises(NotImplementedError, match="A6"):
         agent.enable_mesh("dp=2")
-    with pytest.raises(NotImplementedError, match="A1.6"):
-        agent.save_checkpoint("x")
-    with pytest.raises(NotImplementedError, match="A1.6"):
-        agent.load_checkpoint("x")
+    # checkpoints are ported: a save and a load round-trip the state
+    saved = agent.save_checkpoint(str(tmp_path / "ckpt"))
+    before = {k: v.clone() for k, v in agent.state.params.items()}
+    agent.state = dataclasses.replace(
+        agent.state, params={k: torch.zeros_like(v) for k, v in before.items()})
+    agent.load_checkpoint(saved)
+    assert all(torch.equal(agent.state.params[k], v) for k, v in before.items())
     feature = TransformerPolicy(num_actions=3, obs_dim=4, d_model=16, num_heads=2, num_layers=1,
                                 device="cpu")
     with pytest.raises(ValueError, match="token-mode"):

@@ -19,7 +19,12 @@ reference's (``docs/LEARNING_CURVES.md``):
 - ``recall``: ``TensorRecall(16, delay 6, 4 cues)`` with the LSTM, hidden
   64, 32 envs, T=8, entropy 0.02: 0.8 within 400,000 frames; then the
   feed-forward control for the LSTM run's frames must end below 0;
-- ``breakout``: ``TensorBreakout(10)``: 20.0 within 2,000,000 frames.
+- ``breakout``: ``TensorBreakout(10)``: 20.0 within 2,000,000 frames;
+- ``cartpole_host``: the host actor plane (``HostActorLearnerTrainer``, 2
+  actors x 8 ``TensorCartPole`` envs stepped on the CPU, the learner on
+  ``--device``), T=16, batch 16, feed-forward hidden 64, lr 2e-3: 400.0
+  within 400,000 frames (``examples/curves/impala.py:125-171``); the run
+  stops at the first logged crossing.
 
 ``seed`` seeds the loop's generator (env draws and actions), as the
 reference's ``seed`` keys its loop; the weights come from
@@ -122,7 +127,7 @@ def run_fused_to_threshold(
 
 # task -> (reference frames to threshold, docs/LEARNING_CURVES.md)
 REFERENCE_FRAMES = {"synthetic": 36_800, "catch": 227_200, "recall": 120_320,
-                    "breakout": 996_800}
+                    "breakout": 996_800, "cartpole_host": 292_096}
 
 
 @torch.no_grad()
@@ -140,13 +145,14 @@ def synthetic_action_probs(model, params, env: SyntheticPixelEnv) -> Dict[str, A
     return {"action_probs": probs.tolist(), "dead_actions": dead.tolist()}
 
 
-def impala_synthetic(seed: int = 0, device: str = "cuda", **kw) -> Dict[str, Any]:
+def impala_synthetic(seed: int = 0, device: str = "cuda", max_frames: int = 500_000,
+                     **kw) -> Dict[str, Any]:
     """``examples/curves/impala.py:13-47``."""
     return run_fused_to_threshold(
         lambda n: SyntheticPixelEnv(n, size=24, num_states=4, num_actions=4, episode_length=64,
                                     device=device),
-        threshold=0.85 * 64, max_frames=500_000, learning_rate=6e-4, seed=seed, device=device,
-        probe=synthetic_action_probs, **kw)
+        threshold=0.85 * 64, max_frames=max_frames, learning_rate=6e-4, seed=seed,
+        device=device, probe=synthetic_action_probs, **kw)
 
 
 def impala_catch(seed: int = 0, device: str = "cuda", **kw) -> Dict[str, Any]:
@@ -187,8 +193,63 @@ def impala_breakout(seed: int = 0, device: str = "cuda", **kw) -> Dict[str, Any]
         threshold=20.0, max_frames=2_000_000, learning_rate=1e-3, seed=seed, device=device, **kw)
 
 
+def impala_cartpole_host(seed: int = 0, device: str = "cuda", num_actors: int = 2,
+                         envs_per_actor: int = 8, max_frames: int = 400_000,
+                         threshold: float = 400.0, work_dir: str = "work_dirs",
+                         **kw) -> Dict[str, Any]:
+    """``examples/curves/impala.py:125-171`` on the port's host plane: the
+    envs are ``TensorCartPole`` on the CPU behind ``TensorVectorView``, the
+    learner and the central inference on ``device``.  The crossing is the
+    first logged ``return_mean`` (the last 20 episodes of each actor, every
+    5,000 frames, as the reference reads it from its event file) at or
+    above ``threshold``; the run stops there.  ``kw`` overrides arguments
+    (``logger_backend``, ``telemetry_interval_s``, ...)."""
+    from scalerl_torch.envs.gym_env import TensorVectorView
+    from scalerl_torch.envs.tensor_envs import TensorCartPole
+    from scalerl_torch.trainer.actor_learner import HostActorLearnerTrainer
+
+    fields = dict(env_id="CartPole-v1", rollout_length=16, batch_size=16,
+                  num_actors=num_actors, num_buffers=32, use_lstm=False, hidden_size=64,
+                  learning_rate=2e-3, entropy_cost=0.01, gamma=0.99, seed=seed,
+                  logger_backend="none", logger_frequency=5_000, work_dir=work_dir,
+                  save_model=False, max_timesteps=max_frames, use_pallas=True)
+    args = ImpalaArguments(**{**fields, **kw})
+    agent = ImpalaAgent(args, (4,), 2, device=device)
+    env_fns = [lambda: TensorVectorView(TensorCartPole(envs_per_actor, device="cpu"))
+               for _ in range(num_actors)]
+    trainer = HostActorLearnerTrainer(args, agent, env_fns, run_name=f"impala_cartpole_{seed}")
+    log = trainer.log
+
+    def log_and_stop(step: int, kind: str, m: Dict[str, float]) -> None:
+        log(step, kind, m)
+        if kind == "train" and m.get("return_mean", float("nan")) >= threshold:
+            trainer.stop_event.set()
+
+    trainer.log = log_and_stop
+    t0 = time.perf_counter()
+    try:
+        result = trainer.train(total_frames=max_frames)
+    finally:
+        trainer.close()
+    wall = time.perf_counter() - t0
+    curve = [(f, m["return_mean"]) for f, kind, m in trainer.log_history if kind == "train"]
+    crossing = next((f for f, r in curve if r >= threshold), None)
+    return {
+        "threshold": threshold,
+        "final_return": curve[-1][1] if curve else float("nan"),
+        "frames": int(result["env_frames"]),
+        "frames_to_threshold": crossing,
+        "seconds": wall,
+        "frames_per_s": result["env_frames"] / wall,
+        "learner_steps": trainer.learn_steps,
+        "skipped_steps": result.get("skipped_steps"),
+        "passed": crossing is not None and crossing <= max_frames,
+        "seed": seed,
+    }
+
+
 TASKS = {"synthetic": impala_synthetic, "catch": impala_catch, "recall": impala_recall_lstm,
-         "breakout": impala_breakout}
+         "breakout": impala_breakout, "cartpole_host": impala_cartpole_host}
 
 
 def card() -> str:
