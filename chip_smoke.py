@@ -66,8 +66,9 @@ no result line:
 12. ``per_kernels``: the prioritized-replay kernels against their plain
    PyTorch versions on the card.  The sample (both kernels: block sums,
    then the search) at N = 2^20 and a ragged N = 1,000,003, S in {32, 512},
-   and on the sequence replay's 128-slot plane with pad slots (never
-   drawn): each call twice, bit-equal, and equal to
+   on the sequence-RL replay's 128-slot plane with pad slots and on R2D2's
+   2,048-slot plane at its batch of 16, filled to 1,500 and full (empty
+   slots never drawn): each call twice, bit-equal, and equal to
    ``ops/per.py::kernel_order_sample`` (their arithmetic in plain PyTorch);
    on integer priorities equal to the plain version; on ``uniform**0.6``
    priorities each index brackets its own residual to within
@@ -230,6 +231,37 @@ no result line:
     while K batches in a row carry NaN rewards: one trip back to the last
     good checkpoint, K skipped steps, finite parameters, PER launches =
     learn steps.
+
+30. ``dqn_rainbow_learn``: one full-width learn step (QNet 128,128, batch
+    512 from a 65,536 x 16 replay) for C51 and for noisy dueling DQN, each
+    with ``use_pallas`` on and off and on the host, one fixed noise draw
+    in every leg: indices equal, loss within ``RAINBOW_TOL["loss_rel"]``,
+    each leaf's gradient within ``grad_leaf_rel`` of its largest, card
+    against host within ``host_rel``; one launch of each PER kernel in the
+    kernel leg, none in the plain one.
+31. ``apex_train``: ``examples/train_apex_torch.py``'s ``main()`` at
+    ``ApexArguments``' defaults with 3-step returns and ``--use-pallas``
+    (4 actor threads x 16 ``TensorCartPole`` envs on the CPU, slabs of 288,
+    a 2^20-transition replay, batch 512), SIGTERM after ``APEX_TRAIN_S``:
+    both PER kernels' launches = learn steps, weights pushed, finite
+    losses, 0 actor errors; a trainer with ``--resume`` restores what the
+    guard saved bit-equal; env and learn steps/s, the actors' and the
+    learner's phase ms.
+32. ``r2d2_device``: ``DeviceR2D2Trainer`` at ``R2D2Arguments``' defaults
+    (conv + LSTM, hidden 256, T=20, burn-in 8, batch 16, 2,048 sequences of
+    84x84x4 frames) on 16 synthetic lanes, ``R2D2_DEVICE_ITERS``
+    iterations, warm ones under sync debug mode "error": sample launches =
+    learn steps; frames/s, learn steps/s; ``R2D2_PROFILE_ITERS`` iterations
+    under ``torch.profiler`` (``r2d2_device_profile``).
+33. ``learn_r2d2_recall_device``: the reference's ``r2d2_recall_device``
+    recipe at seed 0: the LSTM arm must reach 0.6, its feed-forward control
+    stay below 0.3; sample launches = both arms' learn steps.
+34. ``r2d2_host``: ``examples/train_r2d2_torch.py``'s ``main()`` on
+    ``RecallGym-v0`` (the port's numpy env, 2 actors x 4 envs) with
+    ``--use-pallas`` for ``R2D2_HOST_S``: sample launches = learn steps, 0
+    actor errors, and a trainer with ``--resume`` restoring the agent, the
+    sequence replay with its stored cores, the frames and the max priority
+    bit-equal.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -1084,36 +1116,48 @@ def _per_sample_case(p, targets, case: dict) -> dict:
     return case
 
 
+R2D2_SLOTS, R2D2_BATCH = 2048, 16  # R2D2Arguments' replay_capacity and batch_size
+
+
 def _per_replay_plane_cases(g) -> list:
-    """The sample kernels at the sequence replay's size: a plane of 2 *
-    TRAIN_B = 128 priorities (one ragged block, an eighth of a 1024-wide
-    one) and TRAIN_B = 64 stratified targets, through the dispatch the
-    trainer calls.  Pad rows and empty slots carry priority 0 and may never
-    be drawn; otherwise ``_per_sample_case``'s rules."""
+    """The sample kernels at the sequence replays' sizes, through the
+    dispatch the trainers call: the sequence-RL plane of 2 * TRAIN_B = 128
+    priorities (one ragged block, an eighth of a 1024-wide one) with TRAIN_B
+    = 64 stratified targets, and R2D2's plane of 2,048 slots (two whole
+    blocks) with its batch of 16, filled to 1,500 (the ring not yet
+    wrapped) and full.  Pad rows and empty slots carry priority 0 and may
+    never be drawn; otherwise ``_per_sample_case``'s rules."""
     import torch
 
     from scalerl_torch.ops import per
 
-    n, S = 2 * TRAIN_B, TRAIN_B
-    live = torch.zeros(n, dtype=torch.bool, device="cuda")
+    planes = []
+    live = torch.zeros(2 * TRAIN_B, dtype=torch.bool, device="cuda")
     live[:41] = True  # two inserts of bucketed rows, each with a pad tail,
     live[64:93] = True  # and the rest of the ring still empty
+    planes.append(("sequence replay", live, TRAIN_B))
+    for filled in (1500, R2D2_SLOTS):
+        live = torch.zeros(R2D2_SLOTS, dtype=torch.bool, device="cuda")
+        live[:filled] = True
+        planes.append((f"r2d2 replay, {filled} of {R2D2_SLOTS} slots", live, R2D2_BATCH))
     cases = []
-    for kind in ("integer", "real"):
-        if kind == "integer":
-            raw = torch.randint(1, 17, (n,), generator=g, device="cuda").float()
-        else:  # the trainer's own form: priority ** alpha
-            raw = (torch.rand(n, generator=g, device="cuda") * 2 + 1e-3) ** 0.6
-        p = torch.where(live, raw, 0.0)
-        u = torch.rand(S, generator=g, device="cuda")
-        targets = (torch.arange(S, device="cuda") + u) / S * p.sum()
-        case = _per_sample_case(p, targets, {"plane": "sequence replay", "priorities": kind,
-                                             "live_slots": int(live.sum())})
-        got = per.proportional_sample(p, targets, method="pallas", block_size=PER_BLOCK)
-        case["pad_slots_drawn"] = int((~live[got]).sum())
-        if case["pad_slots_drawn"]:
-            raise AssertionError(f"sample kernels drew a pad slot: {case}")
-        cases.append(case)
+    for plane, live, S in planes:
+        n = live.shape[0]
+        for kind in ("integer", "real"):
+            if kind == "integer":
+                raw = torch.randint(1, 17, (n,), generator=g, device="cuda").float()
+            else:  # the trainers' own form: priority ** alpha
+                raw = (torch.rand(n, generator=g, device="cuda") * 2 + 1e-3) ** 0.6
+            p = torch.where(live, raw, 0.0)
+            u = torch.rand(S, generator=g, device="cuda")
+            targets = (torch.arange(S, device="cuda") + u) / S * p.sum()
+            case = _per_sample_case(p, targets, {"plane": plane, "priorities": kind,
+                                                 "live_slots": int(live.sum())})
+            got = per.proportional_sample(p, targets, method="pallas", block_size=PER_BLOCK)
+            case["pad_slots_drawn"] = int((~live[got]).sum())
+            if case["pad_slots_drawn"]:
+                raise AssertionError(f"sample kernels drew a pad slot: {case}")
+            cases.append(case)
     return cases
 
 
@@ -3642,6 +3686,416 @@ def phase_dqn_resume(report: dict) -> None:
         raise AssertionError(f"dqn_resume: {failed}")
 
 
+RAINBOW_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4, "host_rel": 1e-4}
+APEX_TRAIN_S, R2D2_HOST_S = 20.0, 15.0
+R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 300, 5
+
+
+def _leaf_rel_err(got: dict, want: dict) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    return max(float((got[k].cpu() - w.cpu()).abs().max() / w.abs().max().clamp_min(1e-30))
+               for k, w in want.items())
+
+
+def phase_dqn_rainbow_learn(report: dict) -> None:
+    """One full-width learn step (QNet 128,128, batch 512 from a 65,536 x 16
+    replay) for C51 and for noisy dueling DQN, each with ``use_pallas`` on
+    (the PER kernels sample and write back) and off (the plain versions, the
+    sample in the kernels' order of sums), and on the host from the same
+    batch; one fixed noise draw in every leg.  Indices equal; the loss within
+    ``RAINBOW_TOL["loss_rel"]`` and each leaf's gradient (Adam's first moment
+    after one step) within ``grad_leaf_rel`` of its largest between the
+    card's legs, and within ``host_rel`` card against host."""
+    import dataclasses
+
+    import torch
+
+    from unittest import mock
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.data.prioritized import per_sample_from_uniforms
+    from scalerl_torch.data.sampler import Sampler
+    from scalerl_torch.ops import cuda_per, per
+
+    set_tf32(False)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shape = (PER_CAPACITY, PER_NUM_ENVS)
+    done = torch.rand(shape, generator=g, device="cuda") < 0.05
+    contents = dict(
+        obs=torch.randn(shape + (4,), generator=g, device="cuda"),
+        next_obs=torch.randn(shape + (4,), generator=g, device="cuda"),
+        action=torch.randint(0, 2, shape, generator=g, device="cuda"),
+        reward=torch.rand(shape, generator=g, device="cuda") * 2,
+        done=done, boundary=done | (torch.rand(shape, generator=g, device="cuda") < 0.01))
+    priorities = torch.rand(shape, generator=g, device="cuda") * 2 + 0.05
+    u = torch.rand(PER_BATCH, generator=g, device="cuda")
+    variants = {"c51": dict(categorical_dqn=True, num_atoms=51, v_min=0.0, v_max=200.0),
+                "noisy_dueling": dict(noisy_dqn=True, dueling_dqn=True)}
+    results = {}
+    for variant, kw in variants.items():
+        legs = {}
+        for leg, use_pallas in (("plain", False), ("kernel", True)):
+            args = _dqn_args(use_pallas=use_pallas, **kw)
+            agent = DQNAgent(args, (4,), 2)
+            noise = agent.network.sample_noise(torch.Generator(device="cuda").manual_seed(3))
+            agent.network.sample_noise = lambda _g, noise=noise: noise
+            sampler = Sampler((4,), PER_CAPACITY, PER_NUM_ENVS, use_per=True,
+                              per_alpha=args.per_alpha, n_step=PER_N_STEP, gamma=args.gamma,
+                              use_pallas=use_pallas)
+            state = sampler.buffer.state
+            for k, v in contents.items():
+                state.replay.storage[k].copy_(v)
+            state.priorities.copy_(priorities)
+            sampler.buffer.state = dataclasses.replace(
+                state, replay=dataclasses.replace(state.replay, pos=4321, size=PER_CAPACITY))
+            cuda_per.sample_launches = cuda_per.update_launches = 0
+            with mock.patch.object(per, "hierarchical_sample",
+                                   lambda p, t, bs: per.kernel_order_sample(p, t, bs)[0]):
+                batch = per_sample_from_uniforms(sampler.buffer.state, u, args.per_alpha,
+                                                 args.per_beta, PER_N_STEP, args.gamma,
+                                                 sampler.buffer.sample_method)
+            metrics, td_abs = agent.learn_device(batch)
+            sampler.update_priorities(batch["indices"], td_abs + 1e-6)
+            torch.cuda.synchronize()
+            legs[leg] = dict(batch=batch, loss=float(metrics["loss"]),
+                             grads={k: v / 0.1 for k, v in agent.state.opt_state["mu"].items()},
+                             plane=sampler.buffer.state.priorities.clone(),
+                             launches=(cuda_per.sample_launches, cuda_per.update_launches),
+                             noise=noise, args=args)
+        plain, kern = legs["plain"], legs["kernel"]
+        host = DQNAgent(plain["args"], (4,), 2, device="cpu")
+        host_noise = [tuple(e.cpu() for e in pair) for pair in plain["noise"]]
+        host.network.sample_noise = lambda _g: host_noise
+        h_metrics, _ = host.learn_device({k: v.cpu() for k, v in plain["batch"].items()})
+        h_grads = {k: v / 0.1 for k, v in host.state.opt_state["mu"].items()}
+        res = {
+            "index_mismatches": int((plain["batch"]["indices"] != kern["batch"]["indices"]).sum()),
+            "loss": {"plain": plain["loss"], "kernel": kern["loss"],
+                     "host": float(h_metrics["loss"])},
+            "loss_rel_kernel_vs_plain": abs(kern["loss"] - plain["loss"]) / abs(plain["loss"]),
+            "grad_leaf_rel_kernel_vs_plain": _leaf_rel_err(kern["grads"], plain["grads"]),
+            "plane_max_abs_err": float((kern["plane"] - plain["plane"]).abs().max()),
+            "loss_rel_card_vs_host": abs(plain["loss"] - float(h_metrics["loss"]))
+            / abs(float(h_metrics["loss"])),
+            "grad_leaf_rel_card_vs_host": _leaf_rel_err(plain["grads"], h_grads),
+            "launches_kernel_leg": kern["launches"], "launches_plain_leg": plain["launches"],
+            "leaves": len(plain["grads"]),
+        }
+        results[variant] = res
+    emit("dqn_rainbow_learn", batch=PER_BATCH, replay=list(shape), tol=RAINBOW_TOL,
+         variants=results, tf32=False, card=report["card"])
+    bad = {v: r for v, r in results.items() if (
+        r["index_mismatches"] or r["loss_rel_kernel_vs_plain"] > RAINBOW_TOL["loss_rel"]
+        or r["grad_leaf_rel_kernel_vs_plain"] > RAINBOW_TOL["grad_leaf_rel"]
+        or r["plane_max_abs_err"] > DQN_LEARN_TOL
+        or r["loss_rel_card_vs_host"] > RAINBOW_TOL["host_rel"]
+        or r["grad_leaf_rel_card_vs_host"] > RAINBOW_TOL["host_rel"]
+        or r["launches_kernel_leg"] != (1, 1) or r["launches_plain_leg"] != (0, 0))}
+    if bad:
+        raise AssertionError(f"dqn_rainbow_learn: {bad}")
+
+
+def _example_module(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sigterm_after(seconds: float, started):
+    """A thread that sends SIGTERM ``seconds`` after ``started`` is set and
+    the trainer's guard is installed; returns (thread, done event)."""
+    import signal
+    import threading
+
+    done = threading.Event()
+
+    def kill() -> None:
+        while not started.is_set() or signal.getsignal(signal.SIGTERM) == signal.SIG_DFL:
+            if done.wait(0.05):
+                return
+        if not done.wait(seconds):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    thread = threading.Thread(target=kill, daemon=True)
+    thread.start()
+    return thread, done
+
+
+def phase_apex_train(report: dict) -> None:
+    """``examples/train_apex_torch.py``'s ``main()`` at ``ApexArguments``'
+    defaults (4 actors, QNet 128,128, T=20) with 3-step returns
+    (``--n-steps 3``; the default is 1) and ``--use-pallas``,
+    16 ``TensorCartPole`` envs an actor stepped on the CPU (slabs of 288),
+    ``--buffer-size`` 2^20 (3,640 rows of 288 = 1,048,320 transitions, the
+    plane the PER kernels are timed on) and batch 512, stopped by SIGTERM
+    after ``APEX_TRAIN_S`` (the guard saves the resume checkpoint); every
+    kernel's launch count zeroed just before.  Then a trainer with
+    ``--resume`` restores the agent, the replay and the counters bit-equal
+    to what was saved."""
+    import threading
+    from unittest import mock
+
+    import torch
+
+    from scalerl_torch.config import ApexArguments, parse_args
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.envs.gym_env import make_host_envs
+    from scalerl_torch.trainer.apex import ApexTrainer
+
+    set_tf32(False)
+    root = _work_dir("apex_train")
+    argv = ["--use-pallas", "--env-backend", "jax", "--num-envs", "16", "--n-steps", "3",
+            "--buffer-size", str(1 << 20), "--batch-size", str(PER_BATCH),
+            "--max-timesteps", str(10**9), "--eval-frequency", str(10**9),
+            "--logger-frequency", "5000", "--save-frequency", str(10**9),
+            "--logger-backend", "none", "--telemetry-interval-s", "0", "--work-dir", root]
+    args0 = parse_args(ApexArguments, argv)
+    if (args0.num_actors, args0.hidden_sizes, args0.rollout_length) != (4, "128,128", 20):
+        raise AssertionError(f"ApexArguments' defaults moved: {args0}")
+    saves, started = [], threading.Event()
+    save_checkpoint, run = ApexTrainer.save_resume_checkpoint, ApexTrainer.run
+
+    def recording_save(self, state, env_step, grad_step):
+        # the tree as written: actor threads move global_step meanwhile
+        saves.append(_host_tree(state))
+        save_checkpoint(self, state, env_step, grad_step)
+
+    def timed_run(self):
+        self.t0 = time.perf_counter()
+        started.set()
+        try:
+            return run(self)
+        finally:
+            self.t1 = time.perf_counter()
+
+    killer, done = _sigterm_after(APEX_TRAIN_S, started)
+    _zero_launch_counts()
+    try:
+        with mock.patch.object(ApexTrainer, "save_resume_checkpoint", recording_save), \
+                mock.patch.object(ApexTrainer, "run", timed_run):
+            out = _example_module("train_apex_torch").main(argv)
+    finally:
+        done.set()
+        killer.join()
+    torch.cuda.synchronize()
+    trainer = out["trainer"]
+    seconds = trainer.t1 - trainer.t0
+    launches = _launch_counts()
+    losses = [m["loss"] for _, kind, m in trainer.log_history if kind == "train" and "loss" in m]
+    actor_ms = {k: v * 1e3 for k, v in trainer.actors[0].timings.means().items()}
+    learner_ms = {k: v * 1e3 for k, v in trainer.timings.means().items()}
+
+    # the resumed trainer's restore, against the tree saved at SIGTERM
+    rargs = parse_args(ApexArguments, argv + ["--resume", trainer.work_dir])
+    renvs = make_host_envs(rargs.env_id, rargs.num_envs, rargs.seed, "jax")
+    ragent = DQNAgent(rargs, renvs.single_observation_space.shape,
+                      renvs.single_action_space.n)
+    resumed = ApexTrainer(rargs, ragent, lambda i: renvs)
+    t0 = time.perf_counter()
+    restored = resumed.try_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_diff = _trees_bit_equal(_host_tree(resumed._resume_pytree()), saves[-1]) \
+        if saves else ["no save"]
+    resumed.close()
+    emit("apex_train", actors=trainer.args.num_actors, envs_per_actor=trainer.envs_per_actor,
+         slab=trainer.buffer.num_envs, replay=[trainer.buffer.capacity, trainer.buffer.num_envs],
+         batch=PER_BATCH, seconds=seconds, env_steps=trainer.global_step,
+         env_steps_per_s=trainer.global_step / seconds, learn_steps=trainer.learn_steps,
+         learn_steps_per_s=trainer.learn_steps / seconds, launches=launches,
+         weight_version=trainer.param_server.version, logged_losses=len(losses),
+         last_loss=losses[-1] if losses else None, replay_size=len(trainer.buffer),
+         actor_errors=sum(a.error is not None for a in trainer.actors),
+         actor_ms_per_slab=actor_ms, learner_ms_per_step=learner_ms, saves=len(saves),
+         restored=restored, restore_s=restore_s, restore_mismatches=restore_diff,
+         result=out["result"], eval=out["eval"], card=report["card"])
+    checks = {
+        "learn steps": trainer.learn_steps > 0,
+        "sample launches = learn steps": launches["per_sample"] == trainer.learn_steps,
+        "update launches = learn steps": launches["per_update"] == trainer.learn_steps,
+        "weights pushed": trainer.param_server.version >= 1,
+        "finite losses": bool(losses) and all(math.isfinite(x) for x in losses),
+        "no actor errors": all(a.error is None for a in trainer.actors),
+        "resume bit-equal": restored and not restore_diff,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"apex_train: {failed}")
+
+
+def phase_r2d2_device(report: dict) -> None:
+    """``DeviceR2D2Trainer`` at ``R2D2Arguments``' defaults (conv torso,
+    hidden 256, one LSTM layer, dueling, T=20, burn-in 8, 3-step, batch 16,
+    2,048 sequences: ~1.2 GB of frames) on 16 lanes of the 84x84x4 uint8
+    synthetic env with ``use_pallas``: ``R2D2_DEVICE_ITERS`` iterations,
+    every warm one under sync debug mode "error", every kernel's launch
+    count zeroed just before (sample launches = learn steps); frames/s and
+    learn steps/s; then ``R2D2_PROFILE_ITERS`` iterations under
+    ``torch.profiler`` (``r2d2_device_profile``)."""
+    import torch
+
+    from scalerl_torch.agents.r2d2 import R2D2Agent
+    from scalerl_torch.config import R2D2Arguments
+    from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.trainer.r2d2_device import DeviceR2D2Trainer
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = R2D2Arguments(env_id="SyntheticPixel-v0", use_pallas=True, logger_backend="none",
+                         telemetry_interval_s=0.0, save_model=False, logger_frequency=10**9,
+                         work_dir=_work_dir("r2d2_device"))
+    env = SyntheticPixelEnv(16)
+    agent = R2D2Agent(args, env.observation_shape, env.num_actions)
+    trainer = DeviceR2D2Trainer(args, agent, env)
+    frames_per_iter = args.rollout_length * env.num_envs
+    replay_gib = sum(v.numel() * v.element_size() for v in trainer.replay.storage.values()) / 2**30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(total_frames=R2D2_DEVICE_ITERS * frames_per_iter)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    learn_steps = int(agent.state.step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frames0 = trainer.env_frames
+    profiled_s, kernels = profile_device(lambda: trainer.train(
+        total_frames=frames0 + R2D2_PROFILE_ITERS * frames_per_iter))
+    trainer.close()
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    sample = [(us, n) for k, us, n in kernels if "per_search" in k or "per_block_sums" in k]
+    emit("r2d2_device", envs=env.num_envs, obs=list(env.observation_shape), T=args.rollout_length,
+         burn_in=args.burn_in, batch=args.batch_size, replay_slots=args.replay_capacity,
+         replay_gib=replay_gib, peak_mem_gib=peak, iterations=R2D2_DEVICE_ITERS,
+         seconds=seconds, env_frames=result["env_frames"],
+         env_frames_per_s=result["env_frames"] / seconds, learn_steps=learn_steps,
+         learn_steps_per_s=learn_steps / seconds, launches=launches,
+         total_loss=result.get("total_loss"), skipped_steps=result.get("skipped_steps"),
+         card=report["card"])
+    emit("r2d2_device_profile", iterations=R2D2_PROFILE_ITERS, profiled_s=profiled_s,
+         device_busy_s=busy_s, device_busy_share=busy_s / profiled_s if kernels else None,
+         kernel_launches=sum(n for _, _, n in kernels),
+         per_sample_kernels_us=sum(us for us, _ in sample), per_sample_kernel_calls=sum(
+             n for _, n in sample),
+         top_kernels=[{"name": k[:90], "ms": us / 1e3, "calls": n} for k, us, n in kernels[:10]],
+         card=report["card"])
+    checks = {
+        "learn steps": learn_steps > 0,
+        "sample launches = learn steps": launches["per_sample"] == learn_steps,
+        "plain write-back": launches["per_update"] == 0,
+        "finite": math.isfinite(result.get("total_loss", float("nan")))
+        and result.get("skipped_steps") == 0.0,
+        "profile shows the sample kernels": bool(sample),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"r2d2_device: {failed}")
+
+
+def phase_learn_r2d2_recall_device(report: dict) -> None:
+    """The reference's ``r2d2_recall_device`` recipe
+    (``tools/torch_learning_curves.py``: ``TensorRecall`` 12x12, delay 3, 2
+    cues, 16 envs, hidden 64, 50,000 frames an arm) at seed 0 on the card:
+    the LSTM arm's windowed return must reach 0.6 and the feed-forward
+    control's stay below 0.3; sample launches = both arms' learn steps."""
+    import torch
+
+    from tools.torch_learning_curves import REFERENCE_FRAMES, TASKS
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _zero_launch_counts()
+    row = TASKS["r2d2_recall_device"](seed=0, work_dir=_work_dir("learn_r2d2_recall_device"))
+    launches = _launch_counts()["per_sample"]
+    steps = row["learner_steps"] + row["ff_control_learner_steps"]
+    emit("learn_r2d2_recall_device", **row, required=True,
+         reference_frames=REFERENCE_FRAMES["r2d2_recall_device"], per_sample_launches=launches,
+         card=report["card"])
+    if launches != steps or not row["passed"]:
+        raise AssertionError(f"r2d2_recall_device: launches {launches} for {steps} steps, {row}")
+
+
+def phase_r2d2_host(report: dict) -> None:
+    """``examples/train_r2d2_torch.py``'s ``main()`` at ``R2D2Arguments``'
+    defaults on ``RecallGym-v0`` (the port's numpy env: 2 actors x 4 envs
+    16x16x1, conv torso, LSTM, T=20) with ``--use-pallas`` for about
+    ``R2D2_HOST_S`` (stopped at the first log boundary past it), every
+    kernel's launch count zeroed just before: sample launches = learn
+    steps, 0 actor errors; then a trainer with ``--resume`` restores the
+    agent, the sequence replay (stored cores included), the frame count and
+    the max priority bit-equal to what the run saved."""
+    from unittest import mock
+
+    import torch
+
+    from scalerl_torch.agents.r2d2 import R2D2Agent
+    from scalerl_torch.config import R2D2Arguments, parse_args
+    from scalerl_torch.envs.gym_env import make_host_envs
+    from scalerl_torch.runtime import telemetry
+    from scalerl_torch.trainer.r2d2 import R2D2Trainer
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = _work_dir("r2d2_host")
+    argv = ["--env-id", "RecallGym-v0", "--use-pallas", "--max-timesteps", str(10**9),
+            "--logger-frequency", "2000", "--save-frequency", str(10**9),
+            "--logger-backend", "none", "--telemetry-interval-s", "0", "--work-dir", root]
+    reg = telemetry.get_registry()
+    errors0 = reg.counter("queue.actor_errors").value
+    log = R2D2Trainer.log
+    t0 = time.perf_counter()
+
+    def log_and_stop(self, step, kind, m):
+        log(self, step, kind, m)
+        if time.perf_counter() - t0 >= R2D2_HOST_S:
+            self.stop_event.set()
+
+    _zero_launch_counts()
+    with mock.patch.object(R2D2Trainer, "log", log_and_stop):
+        out = _example_module("train_r2d2_torch").main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trainer = out["trainer"]
+    launches = _launch_counts()
+    saved = _host_tree(trainer._resume_pytree())
+    returns = [m["return_mean"] for _, kind, m in trainer.log_history if kind == "train"]
+
+    rargs = parse_args(R2D2Arguments, argv + ["--resume", trainer.work_dir])
+    fns = [lambda: make_host_envs("RecallGym-v0", trainer.envs_per_actor, 0)] * 2
+    resumed = R2D2Trainer(rargs, R2D2Agent(rargs, trainer.spec.obs_shape,
+                                           trainer.spec.num_actions), fns)
+    restored = resumed.try_resume()
+    restore_diff = _trees_bit_equal(_host_tree(resumed._resume_pytree()), saved)
+    resumed.close()
+    actor_ms = {k: v * 1e3 for k, v in trainer.actors[0].timings.means().items()}
+    emit("r2d2_host", actors=trainer.args.num_actors, envs_per_actor=trainer.envs_per_actor,
+         obs=list(trainer.spec.obs_shape), T=trainer.args.rollout_length, seconds=seconds,
+         env_frames=trainer.env_frames, env_frames_per_s=trainer.env_frames / seconds,
+         learn_steps=trainer.learn_steps, learn_steps_per_s=trainer.learn_steps / seconds,
+         launches=launches, actor_errors=reg.counter("queue.actor_errors").value - errors0,
+         actor_restarts=trainer.actor_restarts, queue_stats=trainer.queue.stats(),
+         actor_ms_per_slot=actor_ms, logged_returns=returns[-5:], result=out["result"],
+         restored=restored, restore_mismatches=restore_diff,
+         replay_leaves=sum(1 for p in saved if p.startswith("['replay']")), card=report["card"])
+    checks = {
+        "learn steps": trainer.learn_steps > 0,
+        "sample launches = learn steps": launches["per_sample"] == trainer.learn_steps,
+        "no actor errors": reg.counter("queue.actor_errors").value == errors0
+        and trainer.actor_restarts == 0,
+        "finite": out["result"]["skipped_steps"] == 0.0
+        and math.isfinite(out["result"]["total_loss"]),
+        "resume bit-equal": restored and not restore_diff,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"r2d2_host: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
@@ -3649,7 +4103,8 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_segment_attn, phase_token_ppo_learn, phase_genrl_train, phase_flash_attn,
           phase_transformer_learn, phase_transformer_train, phase_flash_train_step,
           phase_impala_trainer_device, phase_impala_trainer_host, phase_learn_cartpole_host,
-          phase_dqn_resume]
+          phase_dqn_resume, phase_dqn_rainbow_learn, phase_apex_train, phase_r2d2_device,
+          phase_learn_r2d2_recall_device, phase_r2d2_host]
 
 
 def main() -> int:

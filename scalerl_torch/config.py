@@ -1,8 +1,8 @@
 """Argument schemas the ported slices read, and a dataclass-driven CLI.
 
 The port's own copies of the ``scalerl_tpu/config.py`` fields that the
-fused IMPALA loop, the actor-learner trainers, the DQN off-policy trainer
-and the sequence-RL trainer read, with the same names and defaults, so an
+fused IMPALA loop, the actor-learner trainers, the DQN, Ape-X and R2D2
+trainers and the sequence-RL trainer read, with the same names and defaults, so an
 argument set means the same thing to both packages: among them the run
 identity and directory, the logging, checkpoint, supervision and telemetry
 fields.  Fields that no module of the port reads yet are left out; they
@@ -218,18 +218,27 @@ class ImpalaArguments(RLArguments):
 class DQNArguments(RLArguments):
     """DQN options (``scalerl_tpu.config.DQNArguments``)."""
 
+    # Architecture flags
     double_dqn: bool = True
     dueling_dqn: bool = False
-    noisy_dqn: bool = False  # NoisyDense is not ported yet: QNet raises
+    noisy_dqn: bool = False
+    noisy_std: float = 0.5
+    # Categorical (C51) distributional head
+    categorical_dqn: bool = False
+    num_atoms: int = 51
+    v_min: float = 0.0
+    v_max: float = 200.0
     hidden_sizes: str = "128,128"
     # Exploration: epsilon decays linearly over exploration_fraction of
-    # max_timesteps.
+    # max_timesteps.  eps_greedy_scheduler is the JAX package's field; the
+    # agents of both packages decay linearly whatever it says.
     eps_greedy_start: float = 1.0
     eps_greedy_end: float = 0.05
+    eps_greedy_scheduler: str = "linear"  # linear | piecewise
     exploration_fraction: float = 0.5
     # Learning-rate schedule: "linear" decays to min_learning_rate over the
     # learn steps of the run; anything else keeps it constant.
-    lr_scheduler: str = "none"
+    lr_scheduler: str = "none"  # none | linear | multistep
     min_learning_rate: float = 1e-5
     # Target network
     target_update_frequency: int = 100
@@ -248,6 +257,88 @@ class DQNArguments(RLArguments):
             raise ValueError(f"n_steps must be >= 1, got {self.n_steps}")
         if not (0.0 <= self.per_alpha <= 1.0):
             raise ValueError(f"per_alpha must be in [0, 1], got {self.per_alpha}")
+        if self.categorical_dqn:
+            if self.num_atoms < 2:
+                raise ValueError(f"num_atoms must be >= 2, got {self.num_atoms}")
+            if not self.v_max > self.v_min:
+                raise ValueError(f"v_max ({self.v_max}) must exceed v_min ({self.v_min})")
+
+
+@dataclass
+class ApexArguments(DQNArguments):
+    """Ape-X options (``scalerl_tpu.config.ApexArguments``): N actor threads
+    fold n-step transitions and prioritise them; one learner owns the PER."""
+
+    algo_name: str = "apex"
+    use_per: bool = True
+    num_actors: int = 4
+    actor_update_frequency: int = 100  # publish a weight snapshot every N learn steps
+    priority_update_frequency: int = 1
+    eps_greedy_base: float = 0.4
+    eps_greedy_alpha: float = 7.0  # per-actor eps = base ** (1 + i/(N-1) * alpha)
+
+    def validate(self) -> None:
+        super().validate()
+        if self.rollout_length < self.n_steps:
+            raise ValueError(
+                f"rollout_length ({self.rollout_length}) must be >= n_steps "
+                f"({self.n_steps}): actors fold n-step windows inside each chunk"
+            )
+
+
+@dataclass
+class R2D2Arguments(RLArguments):
+    """R2D2 options (``scalerl_tpu.config.R2D2Arguments``): sequences of
+    ``rollout_length`` steps stored with the actor's entering LSTM state;
+    the learner burns in ``burn_in`` rows without gradient, trains on the
+    rest with n-step double-Q targets under the h-rescaling, and writes back
+    per-sequence priorities ``eta * max|td| + (1 - eta) * mean|td|``."""
+
+    algo_name: str = "r2d2"
+    # Model
+    use_lstm: bool = True
+    hidden_size: int = 256
+    lstm_layers: int = 1
+    dueling_dqn: bool = True
+    # Sequence pipeline (actor side = the host actor plane's [T+1, B] slots)
+    rollout_length: int = 20
+    burn_in: int = 8
+    num_actors: int = 2
+    num_buffers: int = 16
+    # Exploration: per-actor eps ladder (Ape-X convention)
+    eps_base: float = 0.4
+    eps_alpha: float = 7.0
+    # Learning
+    n_steps: int = 3
+    batch_size: int = 16  # sequences per update
+    replay_capacity: int = 2048  # sequences
+    warmup_sequences: int = 64
+    train_intensity: int = 1  # learn steps per inserted slot batch
+    target_update_frequency: int = 400
+    # PER over sequences
+    per_alpha: float = 0.6
+    per_beta: float = 0.4
+    priority_eta: float = 0.9
+    # Value rescaling h(x) = sign(x)(sqrt(|x|+1)-1) + eps*x
+    value_rescale_eps: float = 1e-3
+
+    def validate(self) -> None:
+        super().validate()
+        if not 0 <= self.burn_in < self.rollout_length:
+            raise ValueError(
+                f"burn_in ({self.burn_in}) must be in [0, rollout_length="
+                f"{self.rollout_length})"
+            )
+        if self.n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {self.n_steps}")
+        if self.burn_in + self.n_steps >= self.rollout_length + 1:
+            raise ValueError(
+                "rollout_length must leave at least one trainable row: need "
+                f"burn_in ({self.burn_in}) + n_steps ({self.n_steps}) <= "
+                f"rollout_length ({self.rollout_length})"
+            )
+        if not 0.0 <= self.priority_eta <= 1.0:
+            raise ValueError(f"priority_eta must be in [0, 1], got {self.priority_eta}")
 
 
 @dataclass

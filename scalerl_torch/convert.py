@@ -15,8 +15,16 @@ gate order i, f, g, o.
 baseline}/{kernel,bias}``, the port's ``dense.{i}``, ``policy`` and
 ``baseline`` (:func:`mlp_policy_to_torch` and back).
 
-``QNet``'s tree is ``params/Dense_{i}/{kernel,bias}``, the port's
-``dense.{i}`` (:func:`dense_stack_to_torch`).
+``QNet``'s and ``C51QNet``'s tree is ``params/Dense_{i}/{kernel,bias}``,
+the port's ``dense.{i}``; with noisy layers ``params/NoisyDense_{i}/{w_mu,
+b_mu,w_sigma,b_sigma}``, the port's ``dense.{i}.*`` with the two weights
+transposed (:func:`dense_stack_to_torch`).
+
+``RecurrentQNet``'s tree is ``Conv_{0,1,2}`` (pixels only), ``Dense_0``, the
+LSTM core as in ``AtariNet``, and the heads ``value_h``, ``value``,
+``advantage_h``, ``advantage`` (dueling) or ``q``: the port's ``convs.i``,
+``fc``, ``core.i`` and the heads under their own names
+(:func:`recurrent_q_to_torch`).
 
 ``TransformerPolicy``'s tree converts through :func:`transformer_to_torch`
 and back through :func:`torch_to_transformer` (names in
@@ -119,14 +127,9 @@ def _dense_to_flax(state: Mapping[str, torch.Tensor], names: Mapping[str, str]) 
     return params
 
 
-def flax_to_torch(
-    tree: Mapping[str, Any], device: torch.device | str = "cpu"
-) -> Dict[str, torch.Tensor]:
-    """A Flax ``AtariNet`` param tree (with or without the top ``params``
-    level; with or without the LSTM core) -> the port's ``{name: tensor}``
-    state dict, float32."""
-    tree = tree.get("params", tree)
-    out = _dense_to_torch(tree, ATARI_NAMES, device)
+def _lstm_core_to_torch(tree: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
+    """``Scan_LSTMCore_0/lstm_{i}`` -> ``core.{i}.{input,hidden}.*``."""
+    out: Dict[str, torch.Tensor] = {}
     for name, cell in tree.get(LSTM_CORE, {}).items():
         i = int(name[len("lstm_"):])
 
@@ -139,6 +142,31 @@ def flax_to_torch(
         out[f"core.{i}.hidden.weight"] = stacked("h", "kernel")
         out[f"core.{i}.hidden.bias"] = stacked("h", "bias")
     return out
+
+
+def flax_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax ``AtariNet`` param tree (with or without the top ``params``
+    level; with or without the LSTM core) -> the port's ``{name: tensor}``
+    state dict, float32."""
+    tree = tree.get("params", tree)
+    return {**_dense_to_torch(tree, ATARI_NAMES, device), **_lstm_core_to_torch(tree, device)}
+
+
+RECURRENT_Q_HEADS = ("value_h", "value", "advantage_h", "advantage", "q")
+
+
+def recurrent_q_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax ``RecurrentQNet`` param tree (with or without the top
+    ``params`` level; pixels or vectors, with or without the LSTM, dueling
+    or not) -> the port's ``RecurrentQNet`` state dict, float32."""
+    tree = tree.get("params", tree)
+    names = {k: v for k, v in ATARI_NAMES.items() if k in tree and k.startswith(("Conv", "Dense"))}
+    names.update({head: head for head in RECURRENT_Q_HEADS if head in tree})
+    return {**_dense_to_torch(tree, names, device), **_lstm_core_to_torch(tree, device)}
 
 
 def torch_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -180,16 +208,30 @@ def torch_to_mlp_policy(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": _dense_to_flax(state, _mlp_policy_names(skeleton))}
 
 
+NOISY_LEAVES = ("w_mu", "b_mu", "w_sigma", "b_sigma")
+
+
 def dense_stack_to_torch(
     tree: Mapping[str, Any], device: torch.device | str = "cpu"
 ) -> Dict[str, torch.Tensor]:
-    """A Flax tree of ``Dense_0 .. Dense_k`` layers (``QNet``), with or
-    without the top ``params`` level -> ``{"dense.{i}.weight": ...}``."""
+    """A Flax tree of ``Dense_0 .. Dense_k`` or ``NoisyDense_0 ..
+    NoisyDense_k`` layers (``QNet``, ``C51QNet``), with or without the top
+    ``params`` level -> ``{"dense.{i}.weight": ...}`` or
+    ``{"dense.{i}.w_mu": ...}``, float32."""
     tree = tree.get("params", tree)
-    for name in tree:
-        if not name.startswith("Dense_"):
-            raise ValueError(f"expected Dense_<i> layers, got {name!r}")
-    return _dense_to_torch(tree, {name: f"dense.{name[len('Dense_'):]}" for name in tree}, device)
+    out: Dict[str, torch.Tensor] = {}
+    for name, layer in tree.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "Dense":
+            out.update(_dense_to_torch(tree, {name: f"dense.{i}"}, device))
+        elif kind == "NoisyDense":
+            for leaf in NOISY_LEAVES:
+                arr = np.asarray(layer[leaf], np.float32)
+                arr = np.ascontiguousarray(arr.T if arr.ndim == 2 else arr)
+                out[f"dense.{i}.{leaf}"] = torch.tensor(arr, device=device)
+        else:
+            raise ValueError(f"expected Dense_<i> or NoisyDense_<i> layers, got {name!r}")
+    return out
 
 
 def _transformer_names(tree: Mapping[str, Any]) -> Dict[Tuple[str, ...], str]:

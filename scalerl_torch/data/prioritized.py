@@ -13,8 +13,9 @@ The sample is split in two so a test can feed both packages the same
 uniform draw: :func:`per_sample` draws ``u`` from a ``torch.Generator``
 and :func:`per_sample_from_uniforms` is the rest.
 
-Not ported yet: the Ape-X insert path (``per_add_with_priorities``,
-``add_with_priorities``) and ``extra_fields``.
+Ape-X inserts through :func:`per_add_with_priorities` (the actors'
+priorities, not the running max) and stores each transition's realised
+window length as an ``extra_fields`` plane.
 """
 
 from __future__ import annotations
@@ -68,6 +69,20 @@ def per_add(state: PrioritizedState, step) -> PrioritizedState:
     replay = replay_add(state.replay, step)
     state.priorities[pos].copy_(state.max_priority.expand(state.priorities.shape[1]))
     return dataclasses.replace(state, replay=replay)
+
+
+def per_add_with_priorities(
+    state: PrioritizedState, step, priorities: torch.Tensor
+) -> PrioritizedState:
+    """Add one vector step with caller-supplied raw priorities ``[num_envs]``
+    (the Ape-X protocol: actors prioritise their own transitions): clamped
+    to 1e-6, written at the row, and the running max raised to them."""
+    pos = state.replay.pos
+    replay = replay_add(state.replay, step)
+    priorities = priorities.to(torch.float32).clamp_min(1e-6)
+    state.priorities[pos].copy_(priorities)
+    new_max = torch.maximum(state.max_priority, priorities.max())
+    return dataclasses.replace(state, replay=replay, max_priority=new_max)
 
 
 def per_sample_from_uniforms(
@@ -164,8 +179,11 @@ class PrioritizedReplayBuffer:
         update_method: str = "xla",
         action_shape: Tuple[int, ...] = (),
         action_dtype: torch.dtype = torch.int64,
+        extra_fields: Optional[Dict[str, Tuple[Tuple[int, ...], torch.dtype]]] = None,
         device: DeviceLike = "cuda",
     ) -> None:
+        """``extra_fields``: name -> (per-transition shape, dtype) planes
+        stored beside the transition and returned at the window head."""
         if sample_method not in SAMPLE_METHODS:
             raise ValueError(f"sample_method must be one of {SAMPLE_METHODS}, got {sample_method!r}")
         if update_method not in UPDATE_METHODS:
@@ -174,6 +192,7 @@ class PrioritizedReplayBuffer:
             obs_shape, obs_dtype, action_dtype=action_dtype,
             action_shape=action_shape, include_boundary=n_step > 1,
         )
+        self.spec.update(extra_fields or {})
         self.capacity = capacity
         self.num_envs = num_envs
         self.alpha = alpha
@@ -193,6 +212,13 @@ class PrioritizedReplayBuffer:
             boundary=boundary,
         ))
         self.state = per_add(self.state, step)
+
+    def add_with_priorities(self, step: Dict[str, object], priorities) -> None:
+        """Add one vector step (every field of the spec, ``[num_envs, ...]``
+        each) with actor-computed priorities: the Ape-X insert path."""
+        step = as_step(self.spec, self.num_envs, self.device, step)
+        self.state = per_add_with_priorities(
+            self.state, step, torch.as_tensor(priorities, device=self.device))
 
     def sample(
         self, batch_size: int, beta: float = 0.4, generator: Optional[torch.Generator] = None

@@ -12,7 +12,8 @@ have none: :class:`SyncVectorView` steps a list of the port's numpy envs
 (``envs/synthetic_gym.py``) in the calling thread, with the same SAME_STEP
 semantics, and :class:`TensorVectorView` wraps one of the port's tensor
 envs (``envs/tensor_envs``) and hands numpy in and out.  Nothing here picks
-an env stack by what is installed: the caller names one.
+an env stack by what is installed: the caller names one
+(:func:`make_host_envs` by ``env_backend`` and id).
 """
 
 from __future__ import annotations
@@ -176,3 +177,34 @@ class TensorVectorView:
 
     def close(self) -> None:
         pass
+
+
+# the port's own host envs, by the ids register_synthetic_envs gives them
+NUMPY_ENVS = {"PixelRing-v0": "PixelRingEnv", "RecallGym-v0": "RecallGymEnv",
+              "BreakoutGym-v0": "BreakoutGymEnv"}
+
+
+def make_host_envs(env_id: str, num_envs: int, seed: int = 42, env_backend: str = "gym",
+                   async_envs: bool = False, **env_kwargs):
+    """A host vector env for the host-plane trainers (DQN, Ape-X, R2D2), by
+    ``env_backend``: ``"jax"`` is the port's tensor env of that id stepped on
+    the CPU behind :class:`TensorVectorView`; ``"gym"`` is the port's numpy
+    env behind :class:`SyncVectorView` for its own ids (``NUMPY_ENVS``), any
+    other id through gymnasium (:func:`make_vect_envs`).  ``env_kwargs`` go
+    to the env's constructor."""
+    if env_backend == "jax":
+        from scalerl_torch.envs.tensor_envs import make_tensor_vec_env
+
+        return TensorVectorView(make_tensor_vec_env(env_id, num_envs, device="cpu",
+                                                    **env_kwargs))
+    if env_backend != "gym":
+        raise ValueError(f"env_backend must be gym | jax, got {env_backend!r}")
+    if env_id in NUMPY_ENVS:
+        import functools
+
+        from scalerl_torch.envs import synthetic_gym
+
+        cls = getattr(synthetic_gym, NUMPY_ENVS[env_id])
+        return SyncVectorView([functools.partial(cls, **env_kwargs)] * num_envs)
+    return make_vect_envs(env_id, num_envs=num_envs, seed=seed, async_envs=async_envs,
+                          **env_kwargs)

@@ -1,17 +1,23 @@
-"""MLP Q-network.
+"""MLP Q-networks: ``QNet``, ``C51QNet`` and the NoisyNet layer.
 
-Port of ``QNet`` of ``scalerl_tpu/models/mlp.py``: dense layers with ReLU
-and a plain or dueling head.  The layers sit in ``self.dense`` in the
-order Flax names them (``Dense_0``, ``Dense_1``, ...; the dueling head's
-advantage layer before its value layer), so ``convert.py`` maps
-``Dense_i`` to ``dense.i``.  NoisyNet layers (``noisy=True``) are not
-ported yet and raise.
+Port of ``QNet``, ``C51QNet`` and ``NoisyDense`` of
+``scalerl_tpu/models/mlp.py``: dense layers with ReLU and a plain or
+dueling head, of ``nn.Linear`` or, with ``noisy=True``, of
+:class:`NoisyDense`.  The layers sit in ``self.dense`` in the order Flax
+names them (``Dense_0``, ``Dense_1``, ... or ``NoisyDense_0``, ...; the
+dueling head's advantage layer before its value layer), so ``convert.py``
+maps layer ``i`` to ``dense.i``.
+
+Noise is an argument, not module state: ``forward(obs, noise)`` takes one
+``(eps_in, eps_out)`` pair per noisy layer (:meth:`QNet.sample_noise` draws
+them from a ``torch.Generator``), and with ``noise=None`` the noisy layers
+use their mean weights, as the Flax layer does without a ``noise`` rng.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -19,6 +25,49 @@ import torch.nn.functional as F
 
 from scalerl_torch.models.atari import lecun_normal_
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
+
+# One (eps_in [in], eps_out [out]) pair per noisy layer, in layer order.
+Noise = Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
+
+
+class NoisyDense(nn.Module):
+    """Factorised-Gaussian NoisyNet linear layer (Fortunato et al. 2018).
+
+    ``w = w_mu + w_sigma * f(eps_out) f(eps_in)^T`` and ``b = b_mu +
+    b_sigma * f(eps_out)`` with ``f(e) = sign(e) sqrt(|e|)``; the weights
+    are ``[out, in]`` (Flax's ``w_mu`` is ``[in, out]``)."""
+
+    def __init__(self, in_features: int, out_features: int, sigma0: float = 0.5) -> None:
+        super().__init__()
+        self.in_features, self.out_features, self.sigma0 = in_features, out_features, sigma0
+        self.w_mu = nn.Parameter(torch.empty(out_features, in_features))
+        self.b_mu = nn.Parameter(torch.empty(out_features))
+        self.w_sigma = nn.Parameter(torch.empty(out_features, in_features))
+        self.b_sigma = nn.Parameter(torch.empty(out_features))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        # Flax's: means uniform in [-1/sqrt(in), 1/sqrt(in)), sigmas constant
+        bound = 1.0 / math.sqrt(self.in_features)
+        for mu in (self.w_mu, self.b_mu):
+            mu.uniform_(-bound, bound, generator=generator)
+        for sigma in (self.w_sigma, self.b_sigma):
+            sigma.fill_(self.sigma0 / math.sqrt(self.in_features))
+
+    def sample_noise(self, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(eps_in, eps_out)`` standard normals on the layer's device."""
+        device = self.w_mu.device
+        eps_in = torch.randn(self.in_features, generator=generator, device=device)
+        eps_out = torch.randn(self.out_features, generator=generator, device=device)
+        return eps_in, eps_out
+
+    def forward(self, x: torch.Tensor,
+                eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        if eps is None:
+            return F.linear(x, self.w_mu, self.b_mu)
+        f_in, f_out = (torch.sign(e) * torch.sqrt(torch.abs(e)) for e in eps)
+        w = self.w_mu + self.w_sigma * torch.outer(f_out, f_in)
+        return F.linear(x, w, self.b_mu + self.b_sigma * f_out)
 
 
 def parse_hidden(hidden_sizes: Union[str, Sequence[int]]) -> Tuple[int, ...]:
@@ -38,45 +87,97 @@ class QNet(nn.Module):
         hidden_sizes: Union[str, Sequence[int]] = (128, 128),
         dueling: bool = False,
         noisy: bool = False,
+        noisy_std: float = 0.5,
         device: DeviceLike = "cuda",
         generator: torch.Generator | None = None,
     ) -> None:
         """``generator``: a host ``torch.Generator`` for the initial weights
-        (Flax's ``Dense`` defaults: truncated LeCun-normal kernels, zero
-        biases)."""
+        (Flax's defaults: truncated LeCun-normal kernels and zero biases for
+        ``Dense``, :meth:`NoisyDense.reset_parameters` for noisy layers)."""
         super().__init__()
-        if noisy:
-            raise NotImplementedError("NoisyDense is not ported yet; use noisy=False")
         device = resolve_device(device)
         self.action_dim = action_dim
         self.dueling = dueling
+        self.noisy = noisy
         widths = [math.prod(obs_shape), *parse_hidden(hidden_sizes)]
-        layers = [nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])]
+
+        def dense(a: int, b: int) -> nn.Module:
+            return NoisyDense(a, b, noisy_std) if noisy else nn.Linear(a, b)
+
+        layers = [dense(a, b) for a, b in zip(widths[:-1], widths[1:])]
         self.num_hidden = len(layers)
-        layers.append(nn.Linear(widths[-1], action_dim))
+        layers.append(dense(widths[-1], self.head_width))
         if dueling:
-            layers.append(nn.Linear(widths[-1], 1))
+            layers.append(dense(widths[-1], self.head_width // action_dim))
         self.dense = nn.ModuleList(layers)
         self.reset_parameters(generator)  # on the host: one seed, same weights
         self.to(device)
 
+    @property
+    def head_width(self) -> int:
+        return self.action_dim
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for layer in self.dense:
-            lecun_normal_(layer.weight, layer.in_features, generator)
-            layer.bias.zero_()
+            if isinstance(layer, NoisyDense):
+                layer.reset_parameters(generator)
+            else:
+                lecun_normal_(layer.weight, layer.in_features, generator)
+                layer.bias.zero_()
 
-    def forward(self, obs: torch.Tensor) -> torch.Tensor:
-        x = obs.to(torch.float32)
+    def sample_noise(self, generator: torch.Generator) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """One noise draw for every noisy layer, in layer order (empty
+        without ``noisy``)."""
+        return [layer.sample_noise(generator) for layer in self.dense
+                if isinstance(layer, NoisyDense)]
+
+    def _layer(self, i: int, x: torch.Tensor, noise: Noise) -> torch.Tensor:
+        if self.noisy:
+            return self.dense[i](x, None if noise is None else noise[i])
+        return self.dense[i](x)
+
+    def _head(self, x: torch.Tensor, noise: Noise) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The flattened torso's advantage (or Q) head and, dueling, its
+        value head."""
+        x = x.to(torch.float32)
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
-        for layer in self.dense[: self.num_hidden]:
-            x = F.relu(layer(x))
+        for i in range(self.num_hidden):
+            x = F.relu(self._layer(i, x, noise))
+        adv = self._layer(self.num_hidden, x, noise)
+        val = self._layer(self.num_hidden + 1, x, noise) if self.dueling else None
+        return adv, val
+
+    def forward(self, obs: torch.Tensor, noise: Noise = None) -> torch.Tensor:
+        adv, val = self._head(obs, noise)
         if self.dueling:
-            adv = self.dense[self.num_hidden](x)
-            val = self.dense[self.num_hidden + 1](x)
             return val + adv - adv.mean(dim=-1, keepdim=True)
-        return self.dense[self.num_hidden](x)
+        return adv
+
+
+class C51QNet(QNet):
+    """Categorical (C51) Q-network: ``obs -> atom logits [B, A, N]``, with
+    QNet's dueling and noisy composition (value ``[B, 1, N]`` plus the
+    advantage less its mean over actions); expectations against the
+    support live in ``ops/losses.py::categorical_q_values``."""
+
+    def __init__(self, obs_shape: Tuple[int, ...], action_dim: int, num_atoms: int = 51,
+                 **kw) -> None:
+        self.num_atoms = num_atoms
+        super().__init__(obs_shape, action_dim, **kw)
+
+    @property
+    def head_width(self) -> int:
+        return self.action_dim * self.num_atoms
+
+    def forward(self, obs: torch.Tensor, noise: Noise = None) -> torch.Tensor:
+        adv, val = self._head(obs, noise)
+        adv = adv.reshape(-1, self.action_dim, self.num_atoms)
+        if self.dueling:
+            val = val.reshape(-1, 1, self.num_atoms)
+            return val + adv - adv.mean(dim=1, keepdim=True)
+        return adv
 
 
 def normalized_columns_init_(

@@ -1,8 +1,8 @@
 """Loss terms (port of ``scalerl_tpu/ops/losses.py``).
 
 The IMPALA terms (``losses.py:21-41``) SUM over ``[T, B]``, the reference's
-convention; the DQN TD loss (``losses.py:76-93,167-188``) averages over the
-batch, as the JAX package's does.
+convention; the DQN TD loss (``losses.py:76-93,167-188``) and the C51 terms
+(``losses.py:96-164``) average over the batch, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -68,3 +68,62 @@ def dqn_loss(
     if weights is not None:
         per_elem = per_elem * weights
     return torch.mean(per_elem), torch.abs(td_error.detach())
+
+
+def make_support(v_min: float, v_max: float, num_atoms: int, device=None) -> torch.Tensor:
+    """The fixed C51 atom grid ``z_i = v_min + i * dz``, float32."""
+    return torch.linspace(v_min, v_max, num_atoms, dtype=torch.float32, device=device)
+
+
+def categorical_q_values(logits: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    """Expected Q per action from atom logits: ``[B, A, N] -> [B, A]``."""
+    return torch.sum(torch.softmax(logits, dim=-1) * support, dim=-1)
+
+
+def categorical_projection(
+    next_probs: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    support: torch.Tensor,
+) -> torch.Tensor:
+    """C51 projected Bellman target (Bellemare et al. 2017, Alg. 1), detached.
+
+    Shifts the next-state atom distribution by ``r + discount * z``, clips it
+    to the support, and splits each shifted atom's mass linearly between its
+    two neighbouring grid points; where a shifted atom lands exactly on a
+    grid point (``low == up``) all its mass goes there.  As in the JAX
+    package, the split is a dense ``[B, N, N]`` interpolation tensor
+    contracted with the probabilities.
+
+    Shapes: next_probs ``[B, N]``, rewards/discounts ``[B]``, support ``[N]``;
+    returns ``[B, N]``."""
+    num_atoms = support.shape[0]
+    v_min, v_max = support[0], support[-1]
+    dz = (v_max - v_min) / (num_atoms - 1)
+    tz = torch.clamp(rewards[:, None] + discounts[:, None] * support[None, :], v_min, v_max)
+    b = (tz - v_min) / dz  # fractional grid coordinates
+    low, up = torch.floor(b), torch.ceil(b)
+    w_low = torch.where(low == up, 1.0, up - b)
+    w_up = b - low
+    grid = torch.arange(num_atoms, dtype=b.dtype, device=b.device)
+    w = w_low[..., None] * (low[..., None] == grid) + w_up[..., None] * (up[..., None] == grid)
+    return torch.einsum("bs,bsd->bd", next_probs, w).detach()
+
+
+def c51_loss(
+    logits: torch.Tensor,
+    actions: torch.Tensor,
+    target_probs: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy between the projected target and the predicted
+    distribution of the chosen actions; returns (the batch-mean loss, the
+    detached per-sample cross-entropy, the PER priority signal).
+
+    Shapes: logits ``[B, A, N]``, actions ``[B]``, target_probs ``[B, N]``."""
+    log_p = F.log_softmax(logits, dim=-1)
+    index = actions.long()[:, None, None].expand(-1, 1, logits.shape[-1])
+    log_p_a = torch.gather(log_p, 1, index)[:, 0]  # [B, N]
+    ce = -torch.sum(target_probs * log_p_a, dim=-1)
+    per_elem = ce if weights is None else ce * weights
+    return torch.mean(per_elem), ce.detach()

@@ -104,11 +104,15 @@ def _host(x) -> np.ndarray:
 class _ActorThread(threading.Thread):
     """One actor: owns a vector env, fills trajectory slots."""
 
-    def __init__(self, actor_id: int, trainer, envs) -> None:
+    def __init__(self, actor_id: int, trainer, envs, policy=None) -> None:
+        """``policy``: the acting facade (``act`` + ``initial_state``);
+        the trainer's agent by default (R2D2 passes an epsilon-greedy
+        view)."""
         super().__init__(name=f"actor-{actor_id}", daemon=True)
         self.actor_id = actor_id
         self.trainer = trainer
         self.envs = envs
+        self.policy = policy if policy is not None else trainer.agent
         self.timings = Timings()
 
     def run(self) -> None:
@@ -136,7 +140,7 @@ class _ActorThread(threading.Thread):
 
     def _act_loop(self) -> None:
         tr = self.trainer
-        agent = tr.agent
+        agent = self.policy
         q = tr.queue
         T = tr.args.rollout_length
         B = self.envs.num_envs

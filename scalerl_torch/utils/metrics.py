@@ -19,18 +19,21 @@ class EpisodeMetrics:
         self.episode_returns: List[float] = []
         self.episode_lengths: List[int] = []
 
-    def step(self, rewards: np.ndarray, dones: np.ndarray) -> int:
+    def step(self, rewards: np.ndarray, dones: np.ndarray, lane0: int = 0) -> int:
         """Accumulate one vector step; returns the number of episodes that
-        finished."""
+        finished.  ``lane0``: the first of the lanes this step updates (an
+        Ape-X actor's own block; actors touch disjoint lanes)."""
         rewards = np.asarray(rewards, dtype=np.float64).ravel()
-        dones = np.asarray(dones).reshape(rewards.shape[0]).astype(bool)
-        self._returns += rewards
-        self._lengths += 1
+        width = rewards.shape[0]
+        dones = np.asarray(dones).reshape(width).astype(bool)
+        lanes = slice(lane0, lane0 + width)
+        self._returns[lanes] += rewards
+        self._lengths[lanes] += 1
         for i in np.nonzero(dones)[0]:
-            self.episode_returns.append(float(self._returns[i]))
-            self.episode_lengths.append(int(self._lengths[i]))
-        self._returns[dones] = 0.0
-        self._lengths[dones] = 0
+            self.episode_returns.append(float(self._returns[lane0 + i]))
+            self.episode_lengths.append(int(self._lengths[lane0 + i]))
+        self._returns[lanes][dones] = 0.0
+        self._lengths[lanes][dones] = 0
         return int(dones.sum())
 
     @property

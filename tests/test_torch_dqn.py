@@ -108,11 +108,42 @@ def test_config_defaults_match_jax():
 
 
 def test_unported_features_are_refused():
+    """NoisyNet and C51 are ported; what the replay family still refuses is
+    its multi-device paths, each naming the module it needs, and C51 in
+    Ape-X, as the JAX package refuses it."""
+    from scalerl_torch.agents.r2d2 import R2D2Agent
+    from scalerl_torch.envs.gym_env import TensorVectorView
+    from scalerl_torch.envs.tensor_envs import TensorCartPole, TensorRecall
+    from scalerl_torch.trainer.apex import ApexTrainer
+    from scalerl_torch.trainer.r2d2_device import DeviceR2D2Trainer
+
     # resume, the tripwire and the checkpoint fields are ported: accepted
     tconfig.DQNArguments(resume="runs/x", divergence_rollback_steps=3,
                          save_frequency=100).validate()
-    with pytest.raises(NotImplementedError, match="NoisyDense"):
-        tdqn.DQNAgent(tconfig.DQNArguments(noisy_dqn=True), OBS, A, device="cpu")
+    tdqn.DQNAgent(tconfig.DQNArguments(noisy_dqn=True, categorical_dqn=True), OBS, A,
+                  device="cpu")
+
+    def envs(_):
+        return TensorVectorView(TensorCartPole(2, device="cpu"))
+
+    apex = dict(logger_backend="none", telemetry_interval_s=0.0, save_model=False, num_actors=1,
+                buffer_size=512, batch_size=8)
+    c51 = tconfig.ApexArguments(categorical_dqn=True, **apex)
+    with pytest.raises(ValueError, match="categorical_dqn"):
+        ApexTrainer(c51, tdqn.DQNAgent(c51, OBS, A, device="cpu"), envs)
+    args = tconfig.ApexArguments(**apex)
+    meshed = tdqn.DQNAgent(args, OBS, A, device="cpu")
+    meshed.mesh = "dp=2"
+    with pytest.raises(NotImplementedError, match="data/sharded_replay.py"):
+        ApexTrainer(args, meshed, envs)
+    rargs = tconfig.R2D2Arguments(hidden_size=8, logger_backend="none", save_model=False,
+                                  telemetry_interval_s=0.0)
+    env = TensorRecall(2, device="cpu")
+    agent = R2D2Agent(rargs, env.observation_shape, env.num_actions, device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+        agent.enable_mesh("dp=2")
+    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+        DeviceR2D2Trainer(rargs, agent, env, mesh="dp=2")
 
 
 @pytest.mark.parametrize("dueling", [False, True])

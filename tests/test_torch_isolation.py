@@ -64,7 +64,8 @@ def _imported_roots(path: Path):
 def test_no_port_source_imports_jax():
     sources = sorted((REPO / "scalerl_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "torch_learning_curves.py",
-        REPO / "examples" / "train_impala_torch.py"]
+        REPO / "examples" / "train_impala_torch.py", REPO / "examples" / "train_dqn_torch.py",
+        REPO / "examples" / "train_apex_torch.py", REPO / "examples" / "train_r2d2_torch.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -231,6 +232,48 @@ def test_actor_learner_entry_points_refuse_the_default_device_without_a_card(mon
         lambda: example.main(["--env-backend", "jax", "--env-id", "CartPole-v1"]),
         lambda: example.main(["--env-id", "CartPole-v1"]),
         lambda: torch_learning_curves.impala_cartpole_host(),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_replay_family_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.agents.r2d2 import R2D2Agent
+    from scalerl_torch.config import DQNArguments, R2D2Arguments
+    from scalerl_torch.envs.tensor_envs import TensorRecall
+    from scalerl_torch.models.mlp import C51QNet
+    from scalerl_torch.models.recurrent_q import RecurrentQNet
+    from scalerl_torch.trainer.r2d2_device import DeviceR2D2Trainer
+    from tools import torch_learning_curves
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    quiet = ["--logger-backend", "none", "--telemetry-interval-s", "0", "--save-model", "false",
+             "--work-dir", "/nonexistent"]
+    r2d2 = R2D2Arguments(hidden_size=8, logger_backend="none", telemetry_interval_s=0.0,
+                         save_model=False, work_dir="/nonexistent")
+    for make in (
+        lambda: DQNAgent(DQNArguments(categorical_dqn=True, noisy_dqn=True), (4,), 2),
+        lambda: C51QNet((4,), 2, 11, noisy=True),
+        lambda: RecurrentQNet((12, 12, 1), 2),
+        lambda: R2D2Agent(r2d2, (5,), 2),
+        lambda: DeviceR2D2Trainer(r2d2, R2D2Agent(r2d2, (12, 12, 1), 2), TensorRecall(2)),
+        lambda: _example("train_dqn_torch").main(["--env-backend", "jax"] + quiet),
+        lambda: _example("train_apex_torch").main(["--env-backend", "jax"] + quiet),
+        lambda: _example("train_r2d2_torch").main(["--env-id", "RecallGym-v0"] + quiet),
+        lambda: _example("train_r2d2_torch").main(["--env-backend", "jax", "--env-id",
+                                                   "Recall-v0"] + quiet),
+        lambda: torch_learning_curves.dqn_cartpole(work_dir="/nonexistent"),
+        lambda: torch_learning_curves.r2d2_recall_device(work_dir="/nonexistent"),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             make()

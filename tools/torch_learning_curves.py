@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The port's fused IMPALA loop trained to the reference's learning thresholds.
+"""The port's learners trained to the reference's learning thresholds.
 
     python3 tools/torch_learning_curves.py [--tasks synthetic,catch,recall,breakout]
         [--seeds 0,1,2] [--device cuda]
@@ -24,7 +24,19 @@ reference's (``docs/LEARNING_CURVES.md``):
   actors x 8 ``TensorCartPole`` envs stepped on the CPU, the learner on
   ``--device``), T=16, batch 16, feed-forward hidden 64, lr 2e-3: 400.0
   within 400,000 frames (``examples/curves/impala.py:125-171``); the run
-  stops at the first logged crossing.
+  stops at the first logged crossing;
+- ``dqn_cartpole``: double + dueling 3-step DQN through ``OffPolicyTrainer``
+  on 4 ``TensorCartPole`` envs stepped on the CPU, 300,000 frames; passes
+  when the final greedy evaluation over 10 episodes reaches 450
+  (``examples/curves/dqn.py``);
+- ``r2d2_recall``: R2D2 on the host plane (2 actors x 8 ``RecallGymEnv``
+  12x12, delay 3, 2 cues), 60,000 frames with the LSTM and the same with the
+  feed-forward control: the LSTM arm's mean return must reach 0.6 and the
+  control's stay below 0.3 (``examples/curves/r2d2.py:11-59``);
+- ``r2d2_recall_device``: the same task as ``TensorRecall`` on the device
+  under ``DeviceR2D2Trainer`` (16 envs), 50,000 frames an arm, held to the
+  windowed return of the run's last quarter (``examples/curves/r2d2.py:
+  69-144``).
 
 ``seed`` seeds the loop's generator (env draws and actions), as the
 reference's ``seed`` keys its loop; the weights come from
@@ -126,8 +138,10 @@ def run_fused_to_threshold(
 
 
 # task -> (reference frames to threshold, docs/LEARNING_CURVES.md)
+# (the R2D2 rows record both arms' frames and no crossing)
 REFERENCE_FRAMES = {"synthetic": 36_800, "catch": 227_200, "recall": 120_320,
-                    "breakout": 996_800, "cartpole_host": 292_096}
+                    "breakout": 996_800, "cartpole_host": 292_096, "dqn_cartpole": 238_000,
+                    "r2d2_recall": 120_576, "r2d2_recall_device": 100_224}
 
 
 @torch.no_grad()
@@ -248,8 +262,154 @@ def impala_cartpole_host(seed: int = 0, device: str = "cuda", num_actors: int = 
     }
 
 
+def dqn_cartpole(seed: int = 3, device: str = "cuda", num_envs: int = 4,
+                 max_frames: int = 300_000, threshold: float = 450.0,
+                 work_dir: str = "work_dirs", **kw) -> Dict[str, Any]:
+    """``examples/curves/dqn.py``: double + dueling 3-step DQN, hard target
+    updates every 500 learn steps, lr decaying 5e-4 -> 5e-5, on
+    ``TensorCartPole`` envs stepped on the CPU (the reference's gymnasium
+    CartPole-v1: same dynamics; a time limit ends an episode as a
+    termination here).  ``passed``: the final greedy evaluation over 10
+    episodes reaches ``threshold``; ``frames_to_threshold``: the first logged
+    ``return_mean`` (every 2,000 frames) at or above it."""
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.config import DQNArguments
+    from scalerl_torch.envs.gym_env import TensorVectorView
+    from scalerl_torch.envs.tensor_envs import TensorCartPole
+    from scalerl_torch.trainer.off_policy import OffPolicyTrainer
+
+    fields = dict(env_id="CartPole-v1", num_envs=num_envs, buffer_size=50_000, batch_size=128,
+                  max_timesteps=max_frames, warmup_learn_steps=1_000, train_frequency=4,
+                  learning_rate=5e-4, double_dqn=True, dueling_dqn=True, n_steps=3,
+                  use_soft_update=False, target_update_frequency=500, lr_scheduler="linear",
+                  min_learning_rate=5e-5, exploration_fraction=0.25, eps_greedy_end=0.02,
+                  eval_frequency=25_000, eval_episodes=5, logger_frequency=2_000,
+                  save_frequency=10**9, seed=seed, work_dir=work_dir, logger_backend="none",
+                  telemetry_interval_s=0.0, save_model=False)
+    args = DQNArguments(**{**fields, **kw})
+    train_envs = TensorVectorView(TensorCartPole(num_envs, device="cpu"))
+    eval_envs = TensorVectorView(TensorCartPole(4, device="cpu"))
+    agent = DQNAgent(args, (4,), 2, device=device)
+    trainer = OffPolicyTrainer(args, agent, train_envs, eval_envs, run_name=f"dqn_cartpole_{seed}")
+    t0 = time.perf_counter()
+    try:
+        trainer.run()
+        ev = trainer.run_evaluate_episodes(n_episodes=10)
+    finally:
+        trainer.close()
+    wall = time.perf_counter() - t0
+    curve = [(f, m["return_mean"]) for f, kind, m in trainer.log_history
+             if kind == "train" and "return_mean" in m]
+    return {
+        "threshold": threshold,
+        "final_return": ev["reward_mean"],
+        "frames": trainer.global_step,
+        "frames_to_threshold": next((f for f, r in curve if r >= threshold), None),
+        "seconds": wall,
+        "frames_per_s": trainer.global_step / wall,
+        "learner_steps": trainer.learn_steps,
+        "skipped_steps": float(trainer.skipped_steps),
+        "passed": ev["reward_mean"] >= threshold,
+        "seed": seed,
+    }
+
+
+R2D2_RECALL = dict(rollout_length=12, burn_in=2, n_steps=1, batch_size=16, replay_capacity=512,
+                   warmup_sequences=32, target_update_frequency=200, hidden_size=64,
+                   lstm_layers=1, learning_rate=1e-3, logger_backend="none",
+                   logger_frequency=10**9, save_model=False, telemetry_interval_s=0.0,
+                   use_pallas=True)
+RECALL_TASK = dict(size=12, delay=3, num_cues=2)
+
+
+def run_r2d2_recall(use_lstm: bool, frames: int = 60_000, seed: int = 0, device: str = "cuda",
+                    work_dir: str = "work_dirs") -> Dict[str, Any]:
+    """One arm of ``examples/curves/r2d2.py::run_r2d2_recall`` on the port's
+    host plane: 2 actors x 8 ``RecallGymEnv`` (numpy, behind
+    ``SyncVectorView``), ``train_intensity`` 2, the Ape-X ladder from
+    ``eps_base`` 0.3; returns the trainer's summary."""
+    from scalerl_torch.agents.r2d2 import R2D2Agent
+    from scalerl_torch.config import R2D2Arguments
+    from scalerl_torch.envs.gym_env import make_host_envs
+    from scalerl_torch.trainer.r2d2 import R2D2Trainer
+
+    args = R2D2Arguments(env_id="RecallGym-v0", num_actors=2, num_buffers=16, train_intensity=2,
+                         use_lstm=use_lstm, eps_base=0.3, eps_alpha=7.0, seed=seed,
+                         work_dir=work_dir, **R2D2_RECALL)
+    agent = R2D2Agent(args, (12, 12, 1), 2, device=device)
+    env_fns = [(lambda i=i: make_host_envs("RecallGym-v0", 8, seed + i, **RECALL_TASK))
+               for i in range(2)]
+    trainer = R2D2Trainer(args, agent, env_fns, run_name=f"r2d2_recall_{int(use_lstm)}_{seed}")
+    try:
+        return trainer.train(total_frames=frames)
+    finally:
+        trainer.close()
+
+
+def run_r2d2_recall_device(use_lstm: bool, frames: int = 50_000, seed: int = 0,
+                           device: str = "cuda", work_dir: str = "work_dirs") -> Dict[str, Any]:
+    """One arm of ``examples/curves/r2d2.py::run_r2d2_recall_device`` on the
+    port: ``DeviceR2D2Trainer`` over 16 ``TensorRecall`` lanes on
+    ``device``, ``eps_base`` 0.05; returns the trainer's summary."""
+    from scalerl_torch.agents.r2d2 import R2D2Agent
+    from scalerl_torch.config import R2D2Arguments
+    from scalerl_torch.trainer.r2d2_device import DeviceR2D2Trainer
+
+    args = R2D2Arguments(env_id="Recall-v0", train_intensity=1, use_lstm=use_lstm,
+                         eps_base=0.05, seed=seed, work_dir=work_dir, **R2D2_RECALL)
+    env = TensorRecall(16, device=device, **RECALL_TASK)
+    agent = R2D2Agent(args, env.observation_shape, env.num_actions, device=device)
+    trainer = DeviceR2D2Trainer(args, agent, env, run_name=f"r2d2_recall_device_{int(use_lstm)}")
+    try:
+        return trainer.train(total_frames=frames)
+    finally:
+        trainer.close()
+
+
+def _r2d2_pair(run: Callable[..., Dict[str, Any]], key: str, frames: int, seed: int,
+               device: str, **kw) -> Dict[str, Any]:
+    """The LSTM arm, then the feed-forward control on the same budget; the
+    LSTM arm's ``key`` return must reach 0.6, the control's stay below 0.3."""
+    t0 = time.perf_counter()
+    lstm = run(True, frames, seed, device, **kw)
+    ff = run(False, frames, seed, device, **kw)
+    wall = time.perf_counter() - t0
+    threshold = 0.6
+    total = lstm["env_frames"] + ff["env_frames"]
+    return {
+        "threshold": threshold,
+        "final_return": lstm[key],
+        "ff_control_return": ff[key],
+        "frames": int(total),
+        "frames_to_threshold": None,
+        "seconds": wall,
+        "frames_per_s": total / wall,
+        "learner_steps": lstm["learn_steps"],
+        "ff_control_learner_steps": ff["learn_steps"],
+        "nonfinite": {"lstm": lstm.get("skipped_steps"), "ff": ff.get("skipped_steps")},
+        "passed": bool(lstm[key] >= threshold and ff[key] < threshold / 2),
+        "seed": seed,
+    }
+
+
+def r2d2_recall(seed: int = 0, device: str = "cuda", frames: int = 60_000,
+                **kw) -> Dict[str, Any]:
+    """``examples/curves/r2d2.py::r2d2_recall``: held to the mean return of
+    each arm's last 100 episodes."""
+    return _r2d2_pair(run_r2d2_recall, "return_mean", frames, seed, device, **kw)
+
+
+def r2d2_recall_device(seed: int = 0, device: str = "cuda", frames: int = 50_000,
+                       **kw) -> Dict[str, Any]:
+    """``examples/curves/r2d2.py::r2d2_recall_device``: held to the
+    windowed return of each arm's last quarter."""
+    return _r2d2_pair(run_r2d2_recall_device, "return_windowed", frames, seed, device, **kw)
+
+
 TASKS = {"synthetic": impala_synthetic, "catch": impala_catch, "recall": impala_recall_lstm,
-         "breakout": impala_breakout, "cartpole_host": impala_cartpole_host}
+         "breakout": impala_breakout, "cartpole_host": impala_cartpole_host,
+         "dqn_cartpole": dqn_cartpole, "r2d2_recall": r2d2_recall,
+         "r2d2_recall_device": r2d2_recall_device}
 
 
 def card() -> str:
