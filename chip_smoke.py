@@ -263,6 +263,32 @@ no result line:
     sequence replay with its stored cores, the frames and the max priority
     bit-equal.
 
+35. ``shm_ring``: the process plane's ring.  Builds the port's C++ ring
+    (``scalerl_torch/csrc/shm_ring.cpp``, g++; its seconds), then, on the
+    process-IMPALA slot at ``ImpalaArguments``' defaults (one actor's
+    81 x 84x84x4 uint8 frames, logits, LSTM core; ``RING_SLOTS`` slots),
+    ``RING_PRODUCERS`` spawned producers into one consumer on both legs
+    (native and Python queues): every payload intact, slots/s and the
+    bytes moved; a producer under a seeded ``slot_tear`` plan: torn reads
+    = the plan's tears, every intact slot delivered in order; and
+    ``gather_batch`` of a learn step's 8 slots, natively and by the Python
+    copy (GB/s).  Host work: it joins no kernel row.
+36. ``parallel_dqn``: ``ParallelDQNTrainer`` at ``DQNArguments``' defaults
+    (QNet 128,128, T=20, batch 32) with PER through both kernels, 4 spawned
+    actors on ``TensorCartPole`` on the CPU through ``make_host_envs``,
+    stopped after ``PDQN_TRAIN_S``: sample launches = update launches =
+    learn steps > 0, finite losses, 0 torn reads, every child exited 0 and
+    reported no CUDA, the segment unlinked; env and learn steps/s, episodes,
+    the newest weight version a drained slab acted on.
+37. ``process_impala``: ``ProcessActorLearnerTrainer`` at
+    ``ImpalaArguments``' defaults (LSTM ``AtariNet``, hidden 512, T=80,
+    batch 8, 32 slots) with 8 spawned actors of one ``PixelRingEnv``
+    84x84x4 each, one torch thread a child, for ``PROC_TRAIN_S``, then a
+    save: V-trace launches = learn steps > 0, finite losses, children
+    without CUDA, the segment unlinked, and a trainer with ``--resume``
+    restoring what was saved bit-equal; env frames/s, learn steps/s, and
+    one learn step under ``torch.profiler`` for the device's busy share.
+
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
 ``envs/gym_env.py``'s views, their logger ``none``.
@@ -4096,6 +4122,373 @@ def phase_r2d2_host(report: dict) -> None:
         raise AssertionError(f"r2d2_host: {failed}")
 
 
+# The process plane (phases 35-37)
+RING_PRODUCERS, RING_SLOTS, RING_PER_PRODUCER = 4, 32, 40
+RING_TEAR_SPEC, RING_TEAR_SLOTS = "16:slot_tear=0.25", 40
+PDQN_TRAIN_S = 20.0
+PROC_TRAIN_S = 20.0
+# seconds a training phase may take to reach its first learn step
+FIRST_LEARN_DEADLINE_S = 240.0
+
+
+def _ring_producer(ring, actor_id: int, n: int, spec: str = "") -> None:
+    """A spawned producer: ``n`` slots stamped ``(actor_id, seq)`` in
+    ``meta`` and the first and last obs byte, under the chaos plan
+    ``spec`` when one is given."""
+    from scalerl_torch.runtime import chaos
+
+    if spec:
+        chaos.install(chaos.FaultInjector(chaos.ChaosPlan.parse(spec)))
+    for i in range(n):
+        idx = ring.acquire(timeout=30.0)
+        if idx is None:
+            raise RuntimeError("acquire timed out")
+        views = ring.slot(idx)
+        views["obs"].reshape(-1)[[0, -1]] = (actor_id * 50 + i) % 251
+        views["meta"][:] = (actor_id, i)
+        views = None
+        ring.commit(idx)
+    ring.detach()
+
+
+def _process_impala_slot(device: str = "cpu"):
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.trainer.process_actor_learner import slot_fields
+
+    args = _default_args()
+    agent = ImpalaAgent(args, (84, 84, 4), 6, device=device)
+    return slot_fields(agent, args.rollout_length, args.num_envs // args.num_actors)
+
+
+def _drain_ring(ring, expect: int, deadline_s: float = 120.0):
+    """Pop, verify and release ``expect`` slots; returns their stamps and
+    the seconds from the first slot to the last (children's start-up
+    excluded)."""
+    got = []
+    first = None
+    deadline = time.monotonic() + deadline_s
+    while len(got) + ring.torn_reads < expect and time.monotonic() < deadline:
+        idx = ring.pop_full_verified(timeout=0.5)
+        if idx is None:
+            continue
+        first = first or time.perf_counter()
+        views = ring.slot(idx)
+        got.append((int(views["meta"][0]), int(views["meta"][1]),
+                    int(views["obs"].reshape(-1)[0]), int(views["obs"].reshape(-1)[-1])))
+        views = None
+        ring.release(idx)
+    return got, time.perf_counter() - first if first else 0.0
+
+
+def phase_shm_ring(report: dict) -> None:
+    import multiprocessing as mp
+
+    from scalerl_torch.native import build as native_build
+    from scalerl_torch.runtime import chaos
+    from scalerl_torch.runtime.shm_ring import ShmRolloutRing, SlotSpec
+
+    fresh = not native_build.library_path().exists()
+    t0 = time.perf_counter()
+    native_build.load_ring_lib()
+    build_s = time.perf_counter() - t0
+    spec = SlotSpec(_process_impala_slot())
+    ctx = mp.get_context("spawn")
+    legs = {}
+    for native in (True, False):
+        ring = ShmRolloutRing(spec, num_slots=RING_SLOTS, use_native=native)
+        procs = [ctx.Process(target=_ring_producer, args=(ring, a, RING_PER_PRODUCER))
+                 for a in range(RING_PRODUCERS)]
+        try:
+            for p in procs:
+                p.start()
+            got, seconds = _drain_ring(ring, RING_PRODUCERS * RING_PER_PRODUCER)
+            for p in procs:
+                p.join(timeout=30.0)
+            exits = [p.exitcode for p in procs]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            ring.unlink()
+        want = sorted((a, i, (a * 50 + i) % 251, (a * 50 + i) % 251)
+                      for a in range(RING_PRODUCERS) for i in range(RING_PER_PRODUCER))
+        in_order = all([x for x in got if x[0] == a] == [x for x in want if x[0] == a]
+                       for a in range(RING_PRODUCERS))
+        legs["native" if native else "queues"] = dict(
+            slots=len(got), seconds=seconds, slots_per_s=len(got) / seconds,
+            payload_mb_per_s=len(got) * spec.slot_bytes / seconds / 1e6, exits=exits,
+            intact=sorted(got) == want, in_order_per_producer=in_order,
+            torn_reads=ring.torn_reads)
+
+    # a seeded tear plan in the producer: every torn slot detected, skipped
+    ring = ShmRolloutRing(spec, num_slots=RING_SLOTS)
+    plan_inj = chaos.FaultInjector(chaos.ChaosPlan.parse(RING_TEAR_SPEC))
+    torn = [plan_inj.tear_slot(bytearray(spec.slot_bytes)) for _ in range(RING_TEAR_SLOTS)]
+    proc = ctx.Process(target=_ring_producer, args=(ring, 0, RING_TEAR_SLOTS, RING_TEAR_SPEC))
+    try:
+        proc.start()
+        got, _ = _drain_ring(ring, RING_TEAR_SLOTS)
+        proc.join(timeout=30.0)
+        tear = dict(injected=sum(torn), torn_reads=ring.torn_reads, delivered=len(got),
+                    exit=proc.exitcode,
+                    intact_in_order=[g[1] for g in got] == [i for i in range(RING_TEAR_SLOTS)
+                                                            if not torn[i]])
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+        ring.unlink()
+
+    # gather_batch of one learn step's slots (batch 8 = 8 slots of 1 env)
+    timing = {}
+    for native in (True, False):
+        ring = ShmRolloutRing(spec, num_slots=RING_SLOTS, use_native=native)
+        try:
+            idxs = [ring.acquire(timeout=1.0) for _ in range(8)]
+            out = {name: np.empty((8,) + shape, dtype)
+                   for name, (shape, dtype) in spec.fields.items()}
+            ring.gather_batch(idxs, out)
+            reps = 20
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ring.gather_batch(idxs, out)
+            sec = (time.perf_counter() - t0) / reps
+        finally:
+            out = None
+            ring.unlink()
+        moved = 8 * sum(int(np.prod(shape)) * dtype.itemsize
+                        for shape, dtype in spec.fields.values())
+        timing["native" if native else "python_copy"] = dict(ms=sec * 1e3,
+                                                             gb_per_s=moved / sec / 1e9)
+    emit("shm_ring", build_s=build_s, built_fresh=fresh,
+         library=native_build.library_path().name, slot_bytes=spec.slot_bytes,
+         slot_fields={k: [list(s), str(d)] for k, (s, d) in spec.fields.items()},
+         producers=RING_PRODUCERS, slots=RING_SLOTS, legs=legs, tear=tear,
+         gather_batch_8_slots=dict(bytes=moved, **timing), card=report["card"])
+    checks = {
+        "both legs intact": all(leg["intact"] and leg["in_order_per_producer"]
+                                and leg["exits"] == [0] * RING_PRODUCERS
+                                and leg["torn_reads"] == 0 for leg in legs.values()),
+        "torn reads = injected tears": 0 < tear["injected"] == tear["torn_reads"]
+        and tear["delivered"] == RING_TEAR_SLOTS - tear["injected"]
+        and tear["intact_in_order"] and tear["exit"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"shm_ring: {failed}")
+
+
+def _counter(name: str) -> float:
+    from scalerl_torch.runtime import telemetry
+
+    return telemetry.get_registry().counter(name).value
+
+
+def _segment_gone(ring) -> bool:
+    return not Path("/dev/shm", ring.shm.name.lstrip("/")).exists()
+
+
+def _stop_after(trainer, seconds: float, started, counters) -> dict:
+    """Set ``trainer.stop_event`` ``seconds`` after the first learn step;
+    returns a dict that then holds the window's start (``t0`` and
+    ``counters()``), for rates past the children's start-up and warm-up.
+    With no learn step within ``FIRST_LEARN_DEADLINE_S`` it stops the
+    trainer and leaves the window unopened, which fails the phase."""
+    import threading
+
+    window: dict = {}
+
+    def stop() -> None:
+        deadline = time.monotonic() + FIRST_LEARN_DEADLINE_S
+        while not started() and not trainer.stop_event.is_set():
+            if time.monotonic() > deadline:
+                trainer.stop_event.set()
+                return
+            time.sleep(0.05)
+        window.update(t0=time.perf_counter(), start=counters())
+        trainer.stop_event.wait(seconds)
+        trainer.stop_event.set()
+
+    threading.Thread(target=stop, daemon=True).start()
+    return window
+
+
+def _window_rates(window: dict, end: dict) -> dict:
+    """Rates over the steady window that ``_stop_after`` opened."""
+    if "t0" not in window:
+        raise AssertionError(f"no learn step within {FIRST_LEARN_DEADLINE_S:.0f} s")
+    sec = time.perf_counter() - window["t0"]
+    return {"window_s": sec, **{f"{k}_per_s": (end[k] - window["start"][k]) / sec
+                                for k in end}}
+
+
+def phase_parallel_dqn(report: dict) -> None:
+    import torch
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.config import DQNArguments
+    from scalerl_torch.ops import cuda_per, cuda_vtrace
+    from scalerl_torch.trainer.parallel_dqn import ParallelDQNTrainer
+
+    set_tf32(False)
+    args = DQNArguments(use_per=True, use_pallas=True, env_backend="jax", logger_backend="none",
+                        telemetry_interval_s=0.0, save_model=False, logger_frequency=2000,
+                        max_timesteps=10**9, work_dir=_work_dir("parallel_dqn"))
+    if (args.hidden_sizes, args.rollout_length, args.batch_size) != ("128,128", 20, 32):
+        raise AssertionError(f"DQNArguments' defaults moved: {args}")
+    agent = DQNAgent(args, (4,), 2)
+    trainer = ParallelDQNTrainer(args, agent, env_id="CartPole-v1", obs_shape=(4,),
+                                 num_actors=4)
+    packed0 = _counter("codec.bytes_packed")
+
+    def counters() -> dict:
+        return {"env_steps": trainer.env_steps, "learn_steps": trainer.learn_steps}
+
+    window = _stop_after(trainer, PDQN_TRAIN_S, lambda: trainer.learn_steps > 0, counters)
+    cuda_vtrace.launches = 0
+    cuda_per.sample_launches = cuda_per.update_launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train(total_steps=10**9)
+    torch.cuda.synchronize()
+    steady = _window_rates(window, counters())
+    seconds = time.perf_counter() - t0
+    launches = {"per_sample": cuda_per.sample_launches, "per_update": cuda_per.update_launches}
+    trainer.close()
+    losses = [m["loss"] for _, kind, m in trainer.log_history if kind == "train" and "loss" in m]
+    reports = trainer.child_reports
+    emit("parallel_dqn", actors=trainer.num_actors, T=args.rollout_length,
+         batch=args.batch_size, replay=args.buffer_size, seconds=seconds,
+         env_steps=trainer.env_steps, env_steps_per_s=trainer.env_steps / seconds,
+         learn_steps=trainer.learn_steps, learn_steps_per_s=trainer.learn_steps / seconds,
+         steady=steady, learner_ms={k: v * 1e3 for k, v in trainer.learn_timings.means().items()},
+         launches=launches, episodes=result["episodes"],
+         return_mean=result["return_mean"],
+         weight_version=trainer.param_server.version,
+         actor_weight_version=trainer.max_actor_version, torn_reads=trainer.ring.torn_reads,
+         logged_losses=len(losses), last_loss=losses[-1] if losses else None,
+         skipped_steps=result.get("skipped_steps"),
+         child_exits=[p.exitcode for p in trainer.procs],
+         children_cuda=[reports[i]["cuda_initialized"] for i in sorted(reports)],
+         segment_unlinked=_segment_gone(trainer.ring),
+         weight_service_mb_sent=(_counter("codec.bytes_packed") - packed0) / 1e6,
+         card=report["card"])
+    checks = {
+        "PER launches = learn steps": launches == {"per_sample": trainer.learn_steps,
+                                                   "per_update": trainer.learn_steps}
+        and trainer.learn_steps > 0,
+        "finite losses": bool(losses) and all(math.isfinite(x) for x in losses),
+        "no torn reads": trainer.ring.torn_reads == 0,
+        "children exited": [p.exitcode for p in trainer.procs] == [0] * trainer.num_actors,
+        "no CUDA in the children": len(reports) == trainer.num_actors
+        and not any(r["cuda_initialized"] for r in reports.values()),
+        "segment unlinked": _segment_gone(trainer.ring),
+        "actors acted on pushed weights": trainer.max_actor_version >= 2,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"parallel_dqn: {failed}")
+
+
+def phase_process_impala(report: dict) -> None:
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.trainer.process_actor_learner import ProcessActorLearnerTrainer
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = _work_dir("process_impala")
+    args = _default_args(env_id="PixelRing-v0", actor_mode="process", logger_backend="none",
+                         telemetry_interval_s=0.0, save_frequency=10**9, logger_frequency=640,
+                         work_dir=root)
+    if (args.num_actors, args.num_buffers, args.num_envs) != (8, 32, 8):
+        raise AssertionError(f"ImpalaArguments' host-plane defaults moved: {args}")
+    agent = ImpalaAgent(args, (84, 84, 4), 6)
+    trainer = ProcessActorLearnerTrainer(args, agent)
+    last = {}
+    learn_device = agent.learn_device
+
+    def keep_last(traj):
+        last["traj"] = traj
+        return learn_device(traj)
+
+    agent.learn_device = keep_last
+
+    def counters() -> dict:
+        return {"env_frames": trainer.env_frames, "learn_steps": trainer.learn_steps,
+                "weight_mb_sent": _counter("codec.bytes_packed") / 1e6}
+
+    window = _stop_after(trainer, PROC_TRAIN_S, lambda: trainer.learn_steps > 0, counters)
+    packed0, frames0 = _counter("codec.bytes_packed"), _counter("codec.frames_packed")
+    cuda_vtrace.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train(total_frames=10**9)  # saves its resume checkpoint at the end
+    torch.cuda.synchronize()
+    steady = _window_rates(window, counters())
+    seconds = time.perf_counter() - t0
+    launches = cuda_vtrace.launches
+    weight_mb = (_counter("codec.bytes_packed") - packed0) / 1e6
+    frames_sent = _counter("codec.frames_packed") - frames0
+    agent.learn_device = learn_device
+    saved = _host_tree({"agent": agent.state,
+                        "env_frames": np.asarray(trainer.env_frames, np.int64)})
+    trainer.close()
+    losses = [m["total_loss"] for _, kind, m in trainer.log_history if kind == "train"]
+    reports = trainer.child_reports
+    actor_t = trainer.actor_timings
+
+    args_b = _default_args(env_id="PixelRing-v0", actor_mode="process", logger_backend="none",
+                           telemetry_interval_s=0.0, save_model=False, work_dir=root,
+                           resume=trainer.work_dir)
+    agent_b = ImpalaAgent(args_b, (84, 84, 4), 6)
+    trainer_b = ProcessActorLearnerTrainer(args_b, agent_b)
+    resumed = trainer_b.try_resume()
+    bad = _trees_bit_equal(saved, _host_tree({
+        "agent": agent_b.state, "env_frames": np.asarray(trainer_b.env_frames, np.int64)}))
+    trainer_b.stop()  # no actor was started: this only unlinks its ring
+    trainer_b.close()
+
+    # one learn step's window on the card
+    traj = last["traj"]
+    profiled_s, kernels = profile_device(lambda: agent.learn_device(traj))
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    emit("process_impala", actors=args.num_actors, envs_per_actor=trainer.envs_per_actor,
+         T=args.rollout_length, batch=args.batch_size, num_buffers=args.num_buffers,
+         seconds=seconds, env_frames=result["env_frames"],
+         env_frames_per_s=result["env_frames"] / seconds, learn_steps=trainer.learn_steps,
+         learn_steps_per_s=trainer.learn_steps / seconds, steady=steady,
+         actor_ms_per_slot={k: 1e3 * statistics.mean(t[k] for t in actor_t.values())
+                            for k in next(iter(actor_t.values()), {})},
+         learner_ms_per_step={k: v * 1e3 for k, v in trainer.learn_timings.means().items()},
+         vtrace_launches=launches, child_torch_threads=sorted({r["torch_threads"] for r in reports.values()}),
+         children_cuda=[reports[i]["cuda_initialized"] for i in sorted(reports)],
+         child_exits=[p.exitcode for p in trainer.procs], torn_reads=trainer.ring.torn_reads,
+         skipped_steps=result.get("skipped_steps"), logged_losses=len(losses),
+         episodes=result.get("episodes"), return_mean=result.get("return_mean"),
+         resumed=resumed, resume_mismatches=bad, segment_unlinked=_segment_gone(trainer.ring),
+         learn_step_profile=dict(
+             profiled_s=profiled_s, device_busy_s=busy_s,
+             device_busy_share=busy_s / profiled_s if kernels else None,
+             kernel_launches=sum(n for _, _, n in kernels),
+             vtrace_calls=sum(n for k, _, n in kernels if "vtrace_kernel" in k)),
+         weight_service=dict(mb_sent=weight_mb, frames_sent=frames_sent,
+                             mb_per_s=weight_mb / seconds),
+         card=report["card"])
+    checks = {
+        "V-trace launches = learn steps": launches == trainer.learn_steps > 0,
+        "finite losses": bool(losses) and all(math.isfinite(x) for x in losses),
+        "no skipped steps": result.get("skipped_steps") == 0.0,
+        "no CUDA in the children": len(reports) == args.num_actors
+        and not any(r["cuda_initialized"] for r in reports.values()),
+        "one torch thread a child": {r["torch_threads"] for r in reports.values()} == {1},
+        "segment unlinked": _segment_gone(trainer.ring),
+        "resume bit-equal": resumed and not bad,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"process_impala: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
@@ -4104,7 +4497,8 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_transformer_learn, phase_transformer_train, phase_flash_train_step,
           phase_impala_trainer_device, phase_impala_trainer_host, phase_learn_cartpole_host,
           phase_dqn_resume, phase_dqn_rainbow_learn, phase_apex_train, phase_r2d2_device,
-          phase_learn_r2d2_recall_device, phase_r2d2_host]
+          phase_learn_r2d2_recall_device, phase_r2d2_host, phase_shm_ring,
+          phase_parallel_dqn, phase_process_impala]
 
 
 def main() -> int:

@@ -10,7 +10,12 @@ Two backends, as in the JAX package's entry point:
 - ``--env-backend gym`` (the default) with ``--actor-mode threads`` (the
   default): SEED-style host actors stepping gymnasium envs (or the
   registered ``PixelRing-v0``, ``RecallGym-v0``, ``BreakoutGym-v0``), every
-  policy forward a central batched call on the card.
+  policy forward a central batched call on the card;
+- ``--actor-mode process``: the reference's monobeast topology, actor
+  processes with their own CPU policy over the shared-memory ring
+  (``ProcessActorLearnerTrainer``); the learner on the card.  They build
+  their envs through ``make_host_envs`` (the port's own numpy envs for
+  their ids, no gymnasium needed).
 
 Every field of ``scalerl_torch.config.ImpalaArguments`` is an option under
 the JAX package's spelling (``--max-timesteps``, ``--env-id``,
@@ -19,6 +24,9 @@ raises without one; ``--device cpu`` runs on the host.  Host smoke run::
 
     python examples/train_impala_torch.py --device cpu --env-backend jax \
         --env-id CartPole-v1 --max-timesteps 20000 --use-lstm false
+    python examples/train_impala_torch.py --device cpu --actor-mode process \
+        --env-id CartPole-v1 --num-actors 2 --num-envs 4 --num-buffers 8 \
+        --max-timesteps 20000 --use-lstm false
 """
 
 import argparse
@@ -46,7 +54,7 @@ def main(argv=None) -> dict:
         agent = ImpalaAgent(args, venv.observation_shape, venv.num_actions, device=device)
         trainer = DeviceActorLearnerTrainer(args, agent, venv)
     else:
-        from scalerl_torch.envs.gym_env import make_gym_env, make_vect_envs
+        from scalerl_torch.envs.gym_env import make_host_envs, make_vect_envs
         from scalerl_torch.trainer.actor_learner import HostActorLearnerTrainer
 
         envs_per_actor = max(args.num_envs // args.num_actors, 1)
@@ -57,11 +65,17 @@ def main(argv=None) -> dict:
                                         atari=atari))
             for i in range(args.num_actors)
         ]
-        probe = make_gym_env(args.env_id, seed=args.seed, atari=atari)()
-        obs_shape, num_actions = probe.observation_space.shape, probe.action_space.n
+        probe = make_host_envs(args.env_id, 1, args.seed, **({"atari": True} if atari else {}))
+        obs_shape = probe.single_observation_space.shape
+        num_actions = probe.single_action_space.n
         probe.close()
         agent = ImpalaAgent(args, obs_shape, num_actions, device=device)
-        trainer = HostActorLearnerTrainer(args, agent, env_fns)
+        if args.actor_mode == "process":
+            from scalerl_torch.trainer.process_actor_learner import ProcessActorLearnerTrainer
+
+            trainer = ProcessActorLearnerTrainer(args, agent)
+        else:
+            trainer = HostActorLearnerTrainer(args, agent, env_fns)
 
     print("device:", agent.device)
     try:

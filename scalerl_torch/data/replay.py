@@ -252,6 +252,28 @@ class ReplayBuffer:
         ))
         self.state = replay_add(self.state, step)
 
+    def save_chunk(self, **chunk) -> None:
+        """Add a ``[T, num_envs, ...]`` chunk of vector steps (numpy or
+        tensors; fields as :meth:`save_to_memory` takes them), oldest first:
+        one host->device copy a field and one indexed write a plane, the
+        same contents as ``T`` single adds."""
+        T = len(next(iter(chunk.values())))
+        if T > self.capacity:
+            raise ValueError(f"chunk of {T} steps exceeds the capacity {self.capacity}")
+        if "boundary" in self.spec:
+            if chunk.get("boundary") is None:
+                chunk["boundary"] = chunk["done"]
+        else:
+            chunk.pop("boundary", None)
+        rows = (self.state.pos + torch.arange(T, device=self.device)) % self.capacity
+        for name, arr in self.state.storage.items():
+            shape, dtype = self.spec[name]
+            value = torch.as_tensor(chunk[name], device=self.device).to(dtype)
+            arr[rows] = value.reshape((T, self.num_envs) + tuple(shape))
+        self.state = dataclasses.replace(
+            self.state, pos=(self.state.pos + T) % self.capacity,
+            size=min(self.state.size + T, self.capacity))
+
     def sample(
         self, batch_size: int, generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:

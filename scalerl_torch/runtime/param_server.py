@@ -26,6 +26,11 @@ import torch
 
 Params = Dict[str, torch.Tensor]
 
+# seconds a puller over a pipe waits for the weight service's reply before
+# it gives up (a learner that died without closing the pipe must not hang
+# its actors)
+PULL_TIMEOUT_S = 120.0
+
 
 def _copy_params(params: Mapping[str, torch.Tensor], device: torch.device) -> Params:
     return {k: v.detach().to(device, copy=True) for k, v in params.items()}

@@ -21,11 +21,11 @@ that the trainers use (jax-free there too):
 - ``exp_backoff`` / ``LivenessTracker``: capped exponential delays and a
   last-seen table.
 
-The fleet's ping/pong/drain message helpers come with the fleet, and the
-chaos hook (``PreemptionGuard.poll_chaos``) with ``runtime/chaos.py``;
-neither is ported.  The JAX package also dumps its flight recorder beside a
-stall report, a signal or a trip; the port has no flight recorder yet, so
-its reports hold the rest.
+``PreemptionGuard.poll_chaos`` is the chaos ``preempt`` hook
+(``runtime/chaos.py``): a seeded draw at a safe point that delivers a real
+SIGTERM.  The fleet's ping/pong/drain message helpers come with the fleet
+and are not ported.  The JAX package also dumps its flight recorder beside
+a stall report, a signal or a trip; the port's reports do not yet.
 """
 
 from __future__ import annotations
@@ -398,10 +398,27 @@ class PreemptionGuard:
         self._installed = False
 
     def simulate(self, signum: int = signal.SIGTERM) -> None:
-        """Trip the guard as if ``signum`` arrived: threads that cannot own
-        signal handlers use this, so every consumer sees one shape of
-        preemption, the flag."""
+        """Trip the guard as if ``signum`` arrived: the chaos ``preempt``
+        hook and the threads that cannot own signal handlers use this, so
+        every consumer sees one shape of preemption, the flag."""
         self._handler(signum, None)
+
+    def poll_chaos(self, site: str) -> bool:
+        """One seeded ``preempt`` draw at a safe point.  When the stream
+        fires, the preemption arrives as a REAL ``SIGTERM`` to this process
+        when the handler is installed (the seeded fault walks the genuine
+        signal path), else through :meth:`simulate`.  Returns ``triggered``
+        either way: ``if guard.poll_chaos("learner"): save_and_exit()``."""
+        if not self._event.is_set():
+            from scalerl_torch.runtime import chaos
+
+            inj = chaos.active()
+            if inj is not None and inj.preempt_victim(1, site=site) is not None:
+                if self._installed:
+                    signal.raise_signal(signal.SIGTERM)
+                else:
+                    self.simulate()
+        return self._event.is_set()
 
     def __enter__(self) -> "PreemptionGuard":
         return self.install()

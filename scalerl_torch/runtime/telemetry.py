@@ -1,18 +1,21 @@
 """Process-local metrics: counters, gauges, histograms and rate meters,
-and their export.
+their export, and the flight recorder.
 
 Port of the parts of ``scalerl_tpu/runtime/telemetry.py`` that the
-generation plane and the trainers call: the four instruments,
-:class:`MetricsRegistry` (named instruments plus snapshot-time bindings,
-nested into one tree by :meth:`snapshot`, flattened by :meth:`scalars`),
-the process-wide default registry, and the export half the trainers start
-by default: :class:`JsonlExporter` (one snapshot a line),
+generation plane, the trainers and the process plane call: the four
+instruments, :class:`MetricsRegistry` (named instruments plus snapshot-time
+bindings, nested into one tree by :meth:`snapshot`, flattened by
+:meth:`scalars`), the process-wide default registry, the export half the
+trainers start by default: :class:`JsonlExporter` (one snapshot a line),
 :class:`PrometheusExporter` (a text exposition file), the
 :class:`TelemetryExportLoop` thread that drives both,
-:func:`write_final_snapshot` and :func:`observe_train_metrics`.  The
-flight recorder, the fleet aggregator and the digest-backed histogram are
-not ported yet.  Plain Python; instruments are bumped once per chunk, learn
-step or admission, never per token, and no device value enters one.
+:func:`write_final_snapshot` and :func:`observe_train_metrics`; and the
+:class:`FlightRecorder` (a bounded tail of structured events that the ring,
+the transport, chaos and checkpoints write to, with :func:`record_event`,
+:func:`get_recorder` and :func:`flight_dump_path`).  The fleet aggregator
+and the digest-backed histogram are not ported yet.  Plain Python;
+instruments are bumped once per chunk, learn step or admission, never per
+token, and no device value enters one.
 """
 
 from __future__ import annotations
@@ -27,6 +30,27 @@ from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Mapping, Optional, Tuple
 
 logger = logging.getLogger(__name__)
+
+ENV_DIR = "SCALERL_TELEMETRY_DIR"
+ENV_HOST_ID = "SCALERL_HOST_ID"
+
+_HOST_ID: Optional[str] = None
+
+
+def host_id() -> str:
+    """A stable identity of this process for merged artifacts (flight
+    events order on ``(host_id, seq)``): ``SCALERL_HOST_ID`` when set, else
+    ``<hostname>-<pid>``."""
+    global _HOST_ID
+    if _HOST_ID is None:
+        env = os.environ.get(ENV_HOST_ID, "")
+        if env:
+            _HOST_ID = env
+        else:
+            import socket
+
+            _HOST_ID = f"{socket.gethostname()}-{os.getpid()}"
+    return _HOST_ID
 
 
 class Counter:
@@ -392,8 +416,75 @@ class TelemetryExportLoop:
         self.stop()
 
 
+# ---------------------------------------------------------------------------
+# flight recorder
+
+
+class FlightRecorder:
+    """Bounded ring buffer of recent structured events.
+
+    ``record(kind, **fields)`` is a deque append under a lock, safe from
+    any thread; only the newest ``capacity`` events are kept, so a long run
+    still dumps a readable tail on failure."""
+
+    def __init__(self, capacity: int = 256) -> None:
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._events: Deque[Dict[str, Any]] = deque(maxlen=self.capacity)
+        self.total_recorded = 0
+
+    def record(self, kind: str, **fields: Any) -> None:
+        evt = {"t_wall": time.time(), "t_mono": time.monotonic(), "kind": kind,
+               "host_id": host_id()}
+        if fields:
+            evt.update(fields)
+        with self._lock:
+            evt["seq"] = self.total_recorded  # monotonic per process
+            self._events.append(evt)
+            self.total_recorded += 1
+
+    def events(self, kind: Optional[str] = None) -> List[Dict[str, Any]]:
+        """The retained tail, oldest first; ``kind`` filters to one kind."""
+        with self._lock:
+            evts = list(self._events)
+        if kind is None:
+            return evts
+        return [e for e in evts if e.get("kind") == kind]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+
+    def dump_text(self) -> str:
+        evts = self.events()
+        if not evts:
+            return "<flight recorder empty>"
+        lines = [f"flight recorder: last {len(evts)} events "
+                 f"({self.total_recorded} total recorded, capacity {self.capacity})"]
+        for e in evts:
+            extra = {k: v for k, v in e.items()
+                     if k not in ("t_wall", "t_mono", "kind", "host_id", "seq")}
+            stamp = time.strftime("%H:%M:%S", time.localtime(e["t_wall"]))
+            lines.append(f"  [{stamp}] {e['kind']} {extra}" if extra
+                         else f"  [{stamp}] {e['kind']}")
+        return "\n".join(lines)
+
+    def dump_json(self, path: str) -> str:
+        """Write the tail as ``{"events": [...]}``; returns the path.  A
+        failure is logged, never raised: dumps run on failure paths."""
+        try:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "w") as f:
+                json.dump({"total_recorded": self.total_recorded, "capacity": self.capacity,
+                           "events": self.events()}, f, default=str)
+        except Exception as e:  # noqa: BLE001 — a dump failure must not mask the crash
+            logger.warning("flight recorder dump to %s failed: %r", path, e)
+        return path
+
+
 _LOCK = threading.Lock()
 _REGISTRY: Optional[MetricsRegistry] = None
+_RECORDER: Optional[FlightRecorder] = None
 
 
 def get_registry() -> MetricsRegistry:
@@ -405,20 +496,47 @@ def get_registry() -> MetricsRegistry:
     return _REGISTRY
 
 
+def get_recorder() -> FlightRecorder:
+    """The process-wide flight recorder (``SCALERL_FLIGHT_EVENTS`` events,
+    256 by default)."""
+    global _RECORDER
+    if _RECORDER is None:
+        with _LOCK:
+            if _RECORDER is None:
+                _RECORDER = FlightRecorder(
+                    int(os.environ.get("SCALERL_FLIGHT_EVENTS", "256") or 256))
+    return _RECORDER
+
+
 def reset() -> None:
-    """A fresh default registry (tests)."""
-    global _REGISTRY
+    """A fresh default registry and flight recorder (tests)."""
+    global _REGISTRY, _RECORDER
     with _LOCK:
         _REGISTRY = MetricsRegistry()
+        _RECORDER = FlightRecorder()
+
+
+def record_event(kind: str, **fields: Any) -> None:
+    """Record one structured event on the default flight recorder."""
+    get_recorder().record(kind, **fields)
+
+
+def flight_dump_path(tag: str) -> str:
+    """Where failure-path flight dumps land: ``SCALERL_TELEMETRY_DIR`` when
+    set, else the system tempdir."""
+    import tempfile
+
+    out_dir = os.environ.get(ENV_DIR, "") or tempfile.gettempdir()
+    return os.path.join(out_dir, f"scalerl_flight_{tag}_{os.getpid()}.json")
 
 
 def write_final_snapshot(out_dir: str) -> str:
-    """Write ``final_snapshot.json`` (the merged tree) into ``out_dir``;
-    returns its path.  (The JAX package adds the flight recorder's tail,
-    which is not ported.)"""
+    """Write ``final_snapshot.json`` (the merged tree and the flight
+    recorder's tail) into ``out_dir``; returns its path."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "final_snapshot.json")
-    payload = {"t": time.time(), "pid": os.getpid(), "snapshot": get_registry().snapshot()}
+    payload = {"t": time.time(), "pid": os.getpid(), "snapshot": get_registry().snapshot(),
+               "flight_recorder": get_recorder().events()}
     tmp = path + f".tmp{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(payload, f, default=str)

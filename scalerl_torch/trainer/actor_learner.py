@@ -15,9 +15,9 @@ Port of ``scalerl_tpu/trainer/actor_learner.py``:
   each step for off-host consumers.  A crashed actor rebuilds its env from
   its factory within the ``max_actor_restarts`` budget; past it the error
   re-raises in the learner.  ``num_learner_threads >= 2`` assembles batches
-  in prefetch threads.  ``actor_mode="serving"`` and ``"process"`` need
-  ``serving/server.py`` and ``trainer/process_actor_learner.py`` and are
-  refused.
+  in prefetch threads.  ``actor_mode="serving"`` needs
+  ``serving/server.py`` and is refused; ``"process"`` is
+  ``trainer/process_actor_learner.py``'s and refused here.
 - :class:`DeviceActorLearnerTrainer`: IMPALA over the port's tensor envs
   through ``DeviceActorLearnerLoop.run``; a preemption stops dispatch at the
   next chunk boundary and the checkpoint records the chunks done.
@@ -230,11 +230,15 @@ def check_queue_depth(args, envs_per_actor: int) -> None:
 
 
 def _refuse_unported_actor_modes(args) -> None:
-    unported = {"serving": "serving/server.py", "process": "trainer/process_actor_learner.py"}
-    if args.actor_mode in unported:
+    if args.actor_mode == "serving":
         raise NotImplementedError(
-            f"actor_mode={args.actor_mode!r} needs {unported[args.actor_mode]}, which is not "
-            "ported yet; use actor_mode='threads'"
+            "actor_mode='serving' needs serving/server.py, which is not ported yet; "
+            "use actor_mode='threads'"
+        )
+    if args.actor_mode == "process":
+        raise ValueError(
+            "actor_mode='process' is ProcessActorLearnerTrainer's "
+            "(trainer/process_actor_learner.py), not this trainer's"
         )
 
 

@@ -19,8 +19,10 @@ and cursors) and the step counters (``save_resume`` / ``try_resume``);
 tripwire (``divergence_rollback_steps`` > 0) restores the agent from the
 last good resume checkpoint after that many consecutive skipped learn
 steps; only then does each learn step read its ``skipped_steps`` to the
-host.  Telemetry goes to the registry at log boundaries.  Chaos injection
-(``runtime/chaos.py``) is not ported.
+host.  Telemetry goes to the registry at log boundaries.  Under a chaos
+plan with ``grad_nan``/``grad_inf`` (``runtime/chaos.py``) a sampled batch
+(not the buffer) is poisoned on its device, for the guard and the tripwire
+to absorb.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from scalerl_torch.agents.dqn import DQNAgent
 from scalerl_torch.config import DQNArguments
 from scalerl_torch.data.sampler import Sampler
 from scalerl_torch.parallel.train_step import tensor_leaves
-from scalerl_torch.runtime import telemetry
+from scalerl_torch.runtime import chaos, telemetry
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.runtime.supervisor import DivergenceTripwire
 from scalerl_torch.trainer.base import BaseTrainer
@@ -130,6 +132,12 @@ class OffPolicyTrainer(BaseTrainer):
         come back on the device."""
         beta = self.per_beta.value(self.global_step)
         batch = self.sampler.sample(self.args.batch_size, beta=beta, generator=self.generator)
+        inj = chaos.active()
+        if inj is not None:
+            # seeded NaN/Inf bursts land in the sampled batch, not the
+            # buffer, so the guarded learn step and the tripwire absorb them
+            batch = dict(batch)
+            inj.poison_batch(batch, site="offpolicy.batch")
         metrics, td_abs = self.agent.learn_device(batch)
         if self.args.use_per:
             self.sampler.update_priorities(batch["indices"], td_abs + 1e-6)

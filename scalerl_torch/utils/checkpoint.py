@@ -23,8 +23,10 @@ the leaf's bytes, so the same array has the same digest in both packages
 Restores load with ``weights_only=True`` onto the target's device and
 return the target's tree with its devices, dtypes and leaf types.
 
-The chaos hooks of the reference's ``save_checkpoint`` (a seeded partial
-write after a save) come with ``runtime/chaos.py``, which is not ported.
+Under a chaos plan with ``ckpt_partial`` (``runtime/chaos.py``), a save
+leaves its fresh checkpoint partial, as a preemption mid-flush would, so a
+restore must fall back through ``.prev``.  Saves, restores and fallbacks
+are counted under ``checkpoint.`` and recorded on the flight recorder.
 """
 
 from __future__ import annotations
@@ -126,10 +128,13 @@ def _host_array(leaf: Any) -> Tuple[str, np.ndarray]:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
-            return "<V2", t.view(torch.int16).numpy()
+            return "<V2", np.ascontiguousarray(t.view(torch.int16).numpy())
         arr = t.numpy()
     else:
-        arr = np.ascontiguousarray(np.asarray(leaf))
+        arr = np.asarray(leaf)
+    # as the JAX formula: ascontiguousarray lifts a 0-d leaf to shape (1,),
+    # for tensors and numpy alike, so a restore without a target verifies
+    arr = np.ascontiguousarray(arr)
     return arr.dtype.str, arr
 
 
@@ -259,7 +264,15 @@ def save_checkpoint(path: str, state: Any, keep_last: int = 1) -> str:
         prev = _prev_path(path, 1)
         if os.path.exists(prev):
             shutil.rmtree(prev)
-    _registry().counter("checkpoint.saves").inc()
+    from scalerl_torch.runtime import chaos, telemetry
+
+    inj = chaos.active()
+    if inj is not None:
+        # chaos: leave the freshly landed checkpoint partial (a preemption
+        # mid-flush); restores must fall back through the .prev chain
+        inj.corrupt_checkpoint(path)
+    telemetry.record_event("checkpoint_save", path=path)
+    telemetry.get_registry().counter("checkpoint.saves").inc()
     return path
 
 
@@ -273,16 +286,20 @@ def load_checkpoint(path: str, target: Optional[Any] = None, fallback: bool = Tr
     path = os.path.abspath(path)
     candidates = [path] + (checkpoint_fallbacks(path) if fallback else [])
     first_err: Optional[Exception] = None
+    from scalerl_torch.runtime import telemetry
+
     for i, cand in enumerate(candidates):
         try:
             restored = _restore(cand, target)
-            _registry().counter("checkpoint.restores").inc()
+            telemetry.record_event("checkpoint_restore", path=cand, fallback=cand != path)
+            telemetry.get_registry().counter("checkpoint.restores").inc()
             return restored
         except Exception as e:  # noqa: BLE001 — try the retained predecessor
             if first_err is None:
                 first_err = e
             if i + 1 < len(candidates):
-                _registry().counter("checkpoint.fallbacks").inc()
+                telemetry.record_event("checkpoint_fallback", path=cand, error=repr(e))
+                telemetry.get_registry().counter("checkpoint.fallbacks").inc()
                 logger.warning("checkpoint %s failed to restore (%r); falling back to %s",
                                cand, e, candidates[i + 1])
     assert first_err is not None
@@ -314,9 +331,3 @@ def _restore(path: str, target: Optional[Any]) -> Any:
     verify_manifest(path, restored)
     return restored
 
-
-def _registry():
-    # lazy: the telemetry module must not load when this one is imported
-    from scalerl_torch.runtime.telemetry import get_registry
-
-    return get_registry()

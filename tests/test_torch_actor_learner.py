@@ -364,11 +364,13 @@ def test_host_trainer_on_tensor_env_views_and_sigterm_resume(tmp_path):
 
 
 def test_unported_actor_modes_name_their_modules(tmp_path):
-    for mode, module in (("serving", "serving/server.py"),
-                         ("process", "trainer/process_actor_learner.py")):
+    # serving is not ported; process is ported, in its own trainer's module
+    for mode, module, error in (
+            ("serving", "serving/server.py", NotImplementedError),
+            ("process", "trainer/process_actor_learner.py", ValueError)):
         args = _host_args(tmp_path, actor_mode=mode)
         agent = ImpalaAgent(args, (4,), 2, device="cpu")
-        with pytest.raises(NotImplementedError, match=module):
+        with pytest.raises(error, match=module):
             tal.HostActorLearnerTrainer(args, agent, _cartpole_fns(2, 2))
 
 

@@ -61,6 +61,18 @@ def test_leaf_digests_match_jax(dtype):
         assert jckpt._leaf_digest(jnp.asarray(x)) == want
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int64", "int32"])
+def test_scalar_leaf_digests_match_jax_and_verify_without_a_target(dtype, tmp_path):
+    x = np.asarray(7, dtype)
+    want = jckpt._leaf_digest(x)
+    assert tckpt.leaf_digest(torch.from_numpy(x.copy())) == want
+    assert tckpt.leaf_digest(x) == want
+    path = str(tmp_path / "ck")
+    tckpt.save_checkpoint(path, {"n": x, "t": torch.tensor(3, dtype=getattr(torch, dtype))})
+    out = tckpt.load_checkpoint(path, fallback=False)  # verifies the manifest
+    assert int(out["n"]) == 7 and int(out["t"]) == 3
+
+
 def test_manifests_list_the_same_digests():
     tree = {"w": _leaf("float32"), "b": {"c": _leaf("int32", 1)}, "n": _leaf("uint8", 2)}
     jd = sorted((d["path"], d["sha256"]) for d in jckpt._tree_digests(tree))

@@ -6,7 +6,8 @@
 - The entry points default to ``device="cuda"`` and raise without a card
   instead of running on the host.
 - A spawned env worker of the port loads neither JAX nor the JAX package,
-  nor initializes CUDA.
+  nor initializes CUDA; nor do the spawned actors of the process plane
+  (parallel DQN and process-actor IMPALA).
 - ``chip_smoke.py`` fails, printing no result, without a card, and in a
   directory that holds nothing else of the repo.
 """
@@ -49,7 +50,8 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_submodules()) >= 60  # the IMPALA, DQN, generation and sequence-RL training slices
+    # the IMPALA, DQN, generation, sequence-RL training, replay and process-plane slices
+    assert len(_submodules()) >= 94
 
 
 def _imported_roots(path: Path):
@@ -65,7 +67,8 @@ def test_no_port_source_imports_jax():
     sources = sorted((REPO / "scalerl_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "torch_learning_curves.py",
         REPO / "examples" / "train_impala_torch.py", REPO / "examples" / "train_dqn_torch.py",
-        REPO / "examples" / "train_apex_torch.py", REPO / "examples" / "train_r2d2_torch.py"]
+        REPO / "examples" / "train_apex_torch.py", REPO / "examples" / "train_r2d2_torch.py",
+        REPO / "examples" / "train_parallel_dqn_torch.py", REPO / "tests" / "torch_ring_helpers.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -277,6 +280,47 @@ def test_replay_family_entry_points_refuse_the_default_device_without_a_card(mon
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+
+
+def test_process_plane_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    quiet = ["--logger-backend", "none", "--telemetry-interval-s", "0", "--save-model", "false",
+             "--work-dir", "/nonexistent"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: _example("train_parallel_dqn_torch").main(["--env-backend", "jax"] + quiet),
+        lambda: _example("train_impala_torch").main(["--actor-mode", "process", "--env-id",
+                                                     "PixelRing-v0"] + quiet),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+def test_spawned_process_plane_actors_load_no_jax_and_no_cuda(tmp_path):
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import DQNArguments, ImpalaArguments
+    from scalerl_torch.trainer.parallel_dqn import ParallelDQNTrainer
+    from scalerl_torch.trainer.process_actor_learner import ProcessActorLearnerTrainer
+
+    quiet = dict(logger_backend="none", telemetry_interval_s=0.0, save_model=False,
+                 work_dir=str(tmp_path))
+    dqn_args = DQNArguments(hidden_sizes="8", warmup_learn_steps=40, env_backend="jax", **quiet)
+    dqn = ParallelDQNTrainer(dqn_args, DQNAgent(dqn_args, (4,), 2, device="cpu"), "CartPole-v1",
+                             (4,), num_actors=2, num_slots=4)
+    dqn.train(total_steps=400)
+    impala_args = ImpalaArguments(env_id="PixelRing-v0", num_envs=2, num_actors=2,
+                                  num_buffers=4, rollout_length=4, batch_size=2,
+                                  use_lstm=False, hidden_size=8, **quiet)
+    impala = ProcessActorLearnerTrainer(impala_args, ImpalaAgent(impala_args, (84, 84, 4), 6,
+                                                                 device="cpu"))
+    impala.train(total_frames=32)
+    for trainer in (dqn, impala):
+        assert trainer.child_reports and all(not p.is_alive() for p in trainer.procs)
+        for report in trainer.child_reports.values():
+            assert report["cuda_initialized"] is False
+            assert "scalerl_torch" in report["modules"]
+            assert not set(FORBIDDEN) & set(report["modules"])
+        trainer.close()
 
 
 def test_spawned_env_workers_load_no_jax_and_no_cuda():
