@@ -288,6 +288,37 @@ no result line:
     without CUDA, the segment unlinked, and a trainer with ``--resume``
     restoring what was saved bit-equal; env frames/s, learn steps/s, and
     one learn step under ``torch.profiler`` for the device's busy share.
+38. ``impact_learn``: one IMPACT learn step at ``ImpactArguments``'
+    defaults (LSTM ``AtariNet``, hidden 512, T=80, B=8, 84x84x4) from a
+    state whose target network is a perturbed copy of the learner, float32
+    with TF32 off: the V-trace kernel against the plain V-trace on the card
+    and against the plain step on the host (``LEARN_TOL``); V-trace
+    launches 1 a surrogate update (``replay_times`` for one ``learn()``).
+39. ``impact_train``: ``examples/train_impact_torch.py``'s ``main()`` with
+    ``--use-pallas`` on ``PixelRing-v0`` (8 actors of 1 env, the thread
+    plane's fleet) for ``IMPACT_TRAIN_S``, stopped by SIGTERM: V-trace
+    launches = ``replay_times`` x learn calls > 0, finite losses, no
+    skipped step, the circular buffer's stats, and a ``--resume`` restore
+    bit-equal to what was saved; env frames/s and learn calls/s.
+40. ``onpolicy_train``: A3C (LSTM ``AtariNet`` 256) and PPO (its own
+    defaults, the lane shuffle injected on both sides) learn steps at
+    T=20, B=8, card against host (``MODEL_TOL``, ``LEARN_TOL``); then
+    ``examples/train_{a3c,ppo}_torch.py`` on ``TensorCartPole``
+    (``--env-backend jax``) for ``ONPOLICY_EXAMPLE_STEPS`` env steps; then
+    PPO inside ``DeviceActorLearnerLoop`` on ``TensorRecall`` (the
+    ``ppo_recall_lstm`` recipe) for ``ONPOLICY_RECALL_CHUNKS`` chunks under
+    sync debug mode "error"; no kernel launch in any (neither runs V-trace
+    or PER).
+41. ``continuous_learn``: SAC (one step) and TD3 (two: the delayed actor
+    update skipped, then applied) at their defaults with PER from a
+    65,536 x 16 replay, through both PER kernels and through their plain
+    versions with the same noise injected: indices equal, loss and each
+    gradient leaf within ``RAINBOW_TOL``, the card against the host.
+42. ``continuous_train``: ``OffPolicyTrainer`` with SAC, then TD3, PER
+    through both kernels, on ``PendulumVectorView`` (gymnasium's
+    ``Pendulum-v1`` dynamics in numpy) for ``CONTINUOUS_TRAIN_STEPS`` env
+    steps: sample launches = update launches = learn steps > 0, finite
+    losses; env and learn steps/s.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -3338,7 +3369,10 @@ def phase_flash_train_step(report: dict) -> None:
 # ---------------------------------------------------------------------------
 # The IMPALA entry point and the host plane (phases 26-29)
 TRAINER_ITERS = 10  # DeviceActorLearnerTrainer's iterations a call
-HOST_TRAIN_S = 20.0
+# the host-plane windows (HOST_TRAIN_S, APEX_TRAIN_S, R2D2_HOST_S, PDQN_TRAIN_S,
+# PROC_TRAIN_S) were 20, 20, 15, 20, 20 s; shortened so the whole script,
+# with the remaining learners' phases, stays well inside its time limit
+HOST_TRAIN_S = 12.0
 HOST_PROFILE_STEPS = 1  # its trace holds ~70,000 kernels a learn step
 DQN_RESUME_STEPS, DQN_RESUME_MORE, DQN_TRIP_K = 6_000, 4_000, 3
 
@@ -3713,7 +3747,7 @@ def phase_dqn_resume(report: dict) -> None:
 
 
 RAINBOW_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4, "host_rel": 1e-4}
-APEX_TRAIN_S, R2D2_HOST_S = 20.0, 15.0
+APEX_TRAIN_S, R2D2_HOST_S = 12.0, 10.0
 R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 300, 5
 
 
@@ -4125,8 +4159,8 @@ def phase_r2d2_host(report: dict) -> None:
 # The process plane (phases 35-37)
 RING_PRODUCERS, RING_SLOTS, RING_PER_PRODUCER = 4, 32, 40
 RING_TEAR_SPEC, RING_TEAR_SLOTS = "16:slot_tear=0.25", 40
-PDQN_TRAIN_S = 20.0
-PROC_TRAIN_S = 20.0
+PDQN_TRAIN_S = 12.0
+PROC_TRAIN_S = 12.0
 # seconds a training phase may take to reach its first learn step
 FIRST_LEARN_DEADLINE_S = 240.0
 
@@ -4489,6 +4523,662 @@ def phase_process_impala(report: dict) -> None:
         raise AssertionError(f"process_impala: {failed}")
 
 
+IMPACT_TRAIN_S = 20.0
+ONPOLICY_EXAMPLE_STEPS = 16_000
+ONPOLICY_RECALL_CHUNKS = 30
+CONTINUOUS_TRAIN_STEPS = 6_000
+# card vs host for the on-policy learn steps: the loss, the gradient at the
+# initial params and one optimizer step of it as LEARN_TOL holds IMPALA's.
+# A whole PPO learn step is 16 Adam steps (4 epochs x 4 minibatches); Adam
+# moves a weight whose gradient sits at rounding level by about lr * sign(g)
+# on one side only (the R2D2 case, ROADMAP §C), and the steps compound: 2.0e-2
+# relative L2 measured on an H100, against 1.7e-3 for one Adam step (A3C) and
+# 2.6e-6 for IMPACT's RMSProp step, whose eps inside the root damps it
+ONPOLICY_GRAD_LEAF_REL = 1e-4
+PPO_SCHEDULE_UPDATE_REL_L2 = 5e-2
+
+
+def _to_device(tree, device):
+    """A train state, trajectory or batch (dataclasses, dicts, tuples of
+    tensors) with every tensor moved to ``device``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: _to_device(getattr(tree, f.name), device)
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, device) for v in tree)
+    return tree
+
+
+def _flat_update(after: dict, before: dict):
+    import torch
+
+    return torch.cat([(after[k].cpu() - v.cpu()).reshape(-1) for k, v in before.items()])
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1.0)
+
+
+def phase_impact_learn(report: dict) -> None:
+    """One IMPACT learn step at ``ImpactArguments``' defaults (``AtariNet``
+    with its 2-layer LSTM, hidden 512, T=80, B=8, 84x84x4 frames) on a
+    trajectory the fused loop collects from the synthetic env with a carried
+    core, from a state whose target network is a perturbed copy of the
+    learner (so the ratio and V-trace's rhos move off 1), float32 with TF32
+    off: the V-trace kernel on the card against the plain V-trace on the
+    card (``LEARN_TOL``'s loss and grad-norm bounds, each gradient leaf
+    within 1e-4 of its largest) and against the plain step on the host
+    (``LEARN_TOL``'s, the update's relative L2 included); one kernel launch
+    per surrogate update, none in the plain steps, and ``replay_times``
+    launches for one ``learn()``."""
+    import torch
+
+    from scalerl_torch.agents.impact import ImpactAgent, impact_loss
+    from scalerl_torch.config import ImpactArguments
+    from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
+
+    set_tf32(False)
+    args = ImpactArguments(use_pallas=True)
+    if not (args.use_lstm and args.hidden_size == 512 and (args.rollout_length, args.batch_size)
+            == (80, 8) and args.replay_times == 2):
+        raise AssertionError(f"ImpactArguments' defaults moved: {args}")
+    T, B = args.rollout_length, args.batch_size
+    env = SyntheticPixelEnv(num_envs=B)
+    A = env.num_actions
+    agent = ImpactAgent(args, env.observation_shape, A)
+    loop = DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), T, iters_per_call=1,
+                                  seed=5)
+    carry, _ = loop._unroll(agent.state.params, loop.init_carry())
+    _, traj = loop._unroll(agent.state.params, carry)  # enters with a non-zero carry
+    g = torch.Generator(device="cuda").manual_seed(6)
+    target = {k: v + 0.2 * v.std(correction=0) * torch.randn(v.shape, generator=g,
+                                                              device="cuda")
+              for k, v in agent.state.params.items()}
+    state = dataclasses.replace(agent.state, target_params=target)
+    params = state.params
+
+    def loss_grads(model, st, tr, impl):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in st.params.items()}
+        loss, metrics = impact_loss(leaves, st.target_params, model, tr, args.discounting,
+                                    args.baseline_cost, args.entropy_cost, args.impact_clip,
+                                    vtrace_impl=impl)
+        return loss, metrics, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    loss_k, _, grads_k = loss_grads(agent.model, state, traj, "kernel")
+    loss_p, _, grads_p = loss_grads(agent.model, state, traj, "scan")
+    steps = {}
+    for name, use_pallas, device in (("kernel", True, "cuda"), ("plain", False, "cuda"),
+                                     ("host", False, "cpu")):
+        a = ImpactAgent(dataclasses.replace(args, use_pallas=use_pallas),
+                        env.observation_shape, A, device=device)
+        cuda_vtrace.launches = 0
+        st, metrics = a.make_learn_fn()(_to_device(state, device), _to_device(traj, device))
+        torch.cuda.synchronize()
+        steps[name] = ({k: float(v) for k, v in metrics.items()}, cuda_vtrace.launches,
+                       _flat_update(st.params, params))
+    (m_k, launches_k, upd_k), (m_p, launches_p, upd_p) = steps["kernel"], steps["plain"]
+    m_h, _, upd_h = steps["host"]
+    # one learn(): replay_times surrogate updates, one launch each
+    agent.state = state
+    cuda_vtrace.launches = 0
+    agent.learn(traj)
+    launches_learn = cuda_vtrace.launches
+    leaf_rel = _leaf_rel(grads_k, grads_p)
+    errs = {
+        "loss_rel": max(_rel(loss_k.item(), loss_p.item()),
+                        _rel(m_k["total_loss"], m_p["total_loss"])),
+        "grad_leaf_rel": max(leaf_rel.values()),
+        "grad_norm_rel": _rel(m_k["grad_norm"], m_p["grad_norm"]),
+        "card_vs_host_loss_rel": _rel(m_p["total_loss"], m_h["total_loss"]),
+        "card_vs_host_grad_norm_rel": _rel(m_p["grad_norm"], m_h["grad_norm"]),
+        "card_vs_host_update_rel_l2": ((upd_k - upd_h).norm() / upd_h.norm()).item(),
+    }
+    tol = {"loss_rel": LEARN_TOL["loss_rel"], "grad_leaf_rel": 1e-4,
+           "grad_norm_rel": LEARN_TOL["grad_norm_rel"],
+           "card_vs_host_loss_rel": LEARN_TOL["loss_rel"],
+           "card_vs_host_grad_norm_rel": LEARN_TOL["grad_norm_rel"],
+           "card_vs_host_update_rel_l2": LEARN_TOL["card_vs_host_update_rel_l2"]}
+    emit("impact_learn", T=T, B=B, hidden=args.hidden_size, lstm_layers=len(agent.model.core),
+         replay_times=args.replay_times, params=sum(v.numel() for v in params.values()),
+         **errs, tol=tol, worst_grad_leaf=max(leaf_rel, key=leaf_rel.get),
+         kernel_vs_plain_update_max_abs=(upd_k - upd_p).abs().max().item(),
+         update_max_abs=upd_p.abs().max().item(), total_loss=m_k["total_loss"],
+         mean_ratio=m_k["mean_ratio"], mean_clip_frac=m_k["mean_clip_frac"],
+         grad_norm=m_k["grad_norm"], skipped_steps=m_k["skipped_steps"],
+         vtrace_launches_kernel=launches_k, vtrace_launches_plain=launches_p,
+         vtrace_launches_learn=launches_learn,
+         dones_inside=int(traj.done[1:-1].sum()), tf32=False, card=report["card"])
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    if (bad or (launches_k, launches_p) != (1, 0) or launches_learn != args.replay_times
+            or m_k["skipped_steps"] != 0.0 or m_k["mean_ratio"] == 1.0):
+        raise AssertionError(f"impact_learn: {bad}, launches {launches_k}/{launches_p}/"
+                             f"{launches_learn}, skipped {m_k['skipped_steps']}, "
+                             f"ratio {m_k['mean_ratio']}")
+
+
+def phase_impact_train(report: dict) -> None:
+    """``examples/train_impact_torch.py``'s ``main()`` with ``--use-pallas``
+    on ``PixelRing-v0`` (the port's numpy env, 84x84x4) at
+    ``ImpactArguments``' defaults: 8 actor threads of 1 env each, the LSTM
+    ``AtariNet``, hidden 512, T=80, batch 8, 2 replays a chunk, stopped by
+    SIGTERM after ``IMPACT_TRAIN_S`` (the guard saves the resume checkpoint),
+    every kernel's launch count zeroed just before.  V-trace launches =
+    ``replay_times`` x ``learn()`` calls > 0, finite losses, no skipped
+    step, the circular buffer's stats (one insert a ``learn()``, 2 samples
+    each, no overdraw), and a trainer with ``--resume`` restoring the agent
+    and the frames bit-equal to what was saved."""
+    import threading
+    from unittest import mock
+
+    import torch
+
+    from scalerl_torch.agents.impact import ImpactAgent
+    from scalerl_torch.config import ImpactArguments, parse_args
+    from scalerl_torch.envs.gym_env import make_host_envs
+    from scalerl_torch.trainer.actor_learner import HostActorLearnerTrainer
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = _work_dir("impact_train")
+    argv = ["--env-id", "PixelRing-v0", "--use-pallas", "--max-timesteps", str(10**9),
+            "--logger-frequency", "640", "--save-frequency", str(10**9),
+            "--logger-backend", "none", "--telemetry-interval-s", "0", "--work-dir", root]
+    args0 = parse_args(ImpactArguments, argv)
+    if (args0.num_actors, args0.num_envs, args0.replay_times, args0.rollout_length,
+            args0.batch_size) != (8, 8, 2, 80, 8):
+        raise AssertionError(f"ImpactArguments' defaults moved: {args0}")
+    saves, started = [], threading.Event()
+    save_checkpoint, train = HostActorLearnerTrainer.save_resume_checkpoint, \
+        HostActorLearnerTrainer.train
+
+    def recording_save(self, state, env_step, grad_step):
+        saves.append(_host_tree(state))
+        save_checkpoint(self, state, env_step, grad_step)
+
+    def timed_train(self, total_frames=None):
+        self.t0 = time.perf_counter()
+        started.set()
+        try:
+            return train(self, total_frames)
+        finally:
+            self.t1 = time.perf_counter()
+
+    killer, done = _sigterm_after(IMPACT_TRAIN_S, started)
+    _zero_launch_counts()
+    try:
+        with mock.patch.object(HostActorLearnerTrainer, "save_resume_checkpoint",
+                               recording_save), \
+                mock.patch.object(HostActorLearnerTrainer, "train", timed_train):
+            out = _example_module("train_impact_torch").main(argv)
+    finally:
+        done.set()
+        killer.join()
+    torch.cuda.synchronize()
+    trainer, agent, result = out["trainer"], out["agent"], out["result"]
+    seconds = trainer.t1 - trainer.t0
+    launches = _launch_counts()
+    stats = agent.surrogate.stats()
+    losses = [m["total_loss"] for _, kind, m in trainer.log_history if kind == "train"]
+
+    rargs = parse_args(ImpactArguments, argv + ["--resume", trainer.work_dir])
+    ragent = ImpactAgent(rargs, (84, 84, 4), 6)
+    resumed = HostActorLearnerTrainer(
+        rargs, ragent, [lambda: make_host_envs("PixelRing-v0", 1)] * rargs.num_actors)
+    t0 = time.perf_counter()
+    restored = resumed.try_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_diff = _trees_bit_equal(_host_tree(resumed._resume_pytree()), saves[-1]) \
+        if saves else ["no save"]
+    resumed.close()
+    emit("impact_train", actors=trainer.args.num_actors, envs_per_actor=trainer.envs_per_actor,
+         T=trainer.args.rollout_length, batch=trainer.args.batch_size,
+         replay_times=trainer.args.replay_times, seconds=seconds,
+         env_frames=result["env_frames"], env_frames_per_s=result["env_frames"] / seconds,
+         learn_calls=trainer.learn_steps, learn_calls_per_s=trainer.learn_steps / seconds,
+         surrogate_updates=int(agent.state.step),
+         surrogate_updates_per_s=int(agent.state.step) / seconds,
+         agent_env_frames=int(agent.state.env_frames), launches=launches, buffer=stats,
+         logged_losses=len(losses), last_loss=losses[-1] if losses else None,
+         skipped_steps=result.get("skipped_steps"), return_mean=result.get("return_mean"),
+         saves=len(saves), restored=restored, restore_s=restore_s,
+         restore_mismatches=restore_diff, card=report["card"])
+    calls = trainer.learn_steps
+    checks = {
+        "learn calls": calls > 0,
+        "V-trace launches = replay_times x learn calls":
+            launches["vtrace"] == trainer.args.replay_times * calls == int(agent.state.step),
+        "no PER launches": launches["per_sample"] == launches["per_update"] == 0,
+        "finite losses": bool(losses) and all(math.isfinite(x) for x in losses),
+        "no skipped steps": result.get("skipped_steps") == 0.0,
+        "buffer": stats["inserted"] == calls and stats["sampled"] == 2 * calls
+        and stats["overdraws"] == 0 and stats["size"] == min(calls, 16),
+        "frames once a chunk": int(agent.state.env_frames) == calls * 80 * 8,
+        "resume bit-equal": restored and not restore_diff,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"impact_train: {failed}")
+
+
+def _onpolicy_compare(name: str, args, T: int, B: int, A: int, perms=None) -> dict:
+    """An on-policy learner's model, loss, gradients and one learn step on
+    the card against the same weights, trajectory (and lane shuffle) on the
+    host, float32 with TF32 off."""
+    import torch
+    from torch.func import functional_call
+
+    from scalerl_torch.agents.a3c import A3CAgent, a3c_loss
+    from scalerl_torch.agents.ppo import PPOAgent, ppo_loss
+    from scalerl_torch.data.trajectory import Trajectory
+    from scalerl_torch.ops import cuda_per, cuda_vtrace
+
+    cls = A3CAgent if name == "a3c" else PPOAgent
+    g = torch.Generator().manual_seed(13)
+    traj = Trajectory(
+        obs=torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=g, dtype=torch.uint8),
+        action=torch.randint(0, A, (T + 1, B), generator=g),
+        reward=torch.randn(T + 1, B, generator=g),
+        done=torch.rand(T + 1, B, generator=g) < 0.1,
+        logits=torch.randn(T + 1, B, A, generator=g))
+    out = {}
+    for device in ("cuda", "cpu"):
+        agent = cls(args, (84, 84, 4), A, device=device)
+        core = tuple((0.1 * torch.randn(c.shape, generator=torch.Generator().manual_seed(i)),
+                      0.1 * torch.randn(h.shape, generator=torch.Generator().manual_seed(i + 9)))
+                     for i, (c, h) in enumerate(agent.initial_state(B)))
+        tr = _to_device(dataclasses.replace(traj, core_state=core), device)
+        params = agent.state.params
+        with torch.no_grad():
+            model_out, _ = functional_call(agent.model, params,
+                                           (tr.obs, tr.action, tr.reward, tr.done, tr.core_state))
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        if name == "a3c":
+            loss, _ = a3c_loss(leaves, agent.model, tr, args.gamma, args.gae_lambda,
+                               args.value_loss_coef, args.entropy_coef)
+        else:  # the first minibatch's loss of the schedule, at the initial params
+            mb = dict(obs=tr.obs, action=tr.action, reward=tr.reward, done=tr.done,
+                      core_state=tr.core_state, advantages=tr.reward[1:],
+                      value_targets=tr.reward[1:], behavior_logp=-tr.reward[1:].abs(),
+                      old_values=tr.reward[:-1])
+            loss, _ = ppo_loss(leaves, agent.model, mb, args.clip_range, args.clip_range_vf,
+                               args.value_loss_coef, args.entropy_coef,
+                               args.normalize_advantage, args.loss_reduction)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        one_step, _ = agent.optimizer.update(grads, agent.state.opt_state)
+        learn = agent.make_learn_fn()
+        cuda_vtrace.launches = cuda_per.sample_launches = 0
+        state, metrics = (learn(agent.state, tr) if perms is None
+                          else learn(agent.state, tr, perms.to(device)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = dict(logits=model_out.policy_logits.cpu(), values=model_out.baseline.cpu(),
+                           loss=loss.item(), grads={k: v.cpu() for k, v in grads.items()},
+                           metrics={k: float(v) for k, v in metrics.items()},
+                           one_step=torch.cat([u.reshape(-1).cpu() for u in one_step.values()]),
+                           update=_flat_update(state.params, params),
+                           launches=cuda_vtrace.launches + cuda_per.sample_launches,
+                           params=sum(v.numel() for v in params.values()))
+    c, h = out["cuda"], out["cpu"]
+    return {
+        "params": c["params"],
+        "model_max_abs_err": max((c["logits"] - h["logits"]).abs().max().item(),
+                                 (c["values"] - h["values"]).abs().max().item()),
+        "loss_rel": _rel(c["loss"], h["loss"]),
+        "grad_leaf_rel": max(_leaf_rel(c["grads"], h["grads"]).values()),
+        "update_rel_l2": ((c["one_step"] - h["one_step"]).norm() / h["one_step"].norm()).item(),
+        "learn_step_update_rel_l2": ((c["update"] - h["update"]).norm()
+                                     / h["update"].norm()).item(),
+        "grad_norm": c["metrics"]["grad_norm"], "total_loss": c["metrics"]["total_loss"],
+        "skipped_steps": c["metrics"]["skipped_steps"], "kernel_launches": c["launches"],
+    }
+
+
+def phase_onpolicy_train(report: dict) -> None:
+    """A3C and PPO.  First their learn steps at the pixel width, T=20, B=8:
+    A3C with ``AtariNet`` and its LSTM of 256 (``A3CArguments``' defaults),
+    PPO at its own (feed-forward ``AtariNet``, hidden 256, 4 epochs of 4
+    minibatches, the JAX step's lane shuffle injected on both sides): the
+    model on the card against the host within ``MODEL_TOL``, the loss and
+    each gradient leaf at the initial params within ``LEARN_TOL["loss_rel"]``
+    and 1e-4 of its largest, one optimizer step of that gradient and A3C's
+    whole learn step within ``LEARN_TOL``'s relative L2, PPO's whole learn
+    step (16 Adam steps) within ``PPO_SCHEDULE_UPDATE_REL_L2`` (its reason
+    beside it); no kernel launches (neither runs V-trace or PER).  Then
+    ``examples/train_{a3c,ppo}_torch.py`` at their CartPole defaults on
+    ``TensorCartPole`` (``--env-backend jax``, stepped on the CPU, the
+    learner on the card) for ``ONPOLICY_EXAMPLE_STEPS`` env steps: finite
+    losses and env steps/s.  Then PPO's learn step inside
+    ``DeviceActorLearnerLoop`` on ``TensorRecall`` as the
+    ``ppo_recall_lstm`` recipe runs it (LSTM hidden 64, 32 lanes, T=8, 2
+    iterations a chunk) for ``ONPOLICY_RECALL_CHUNKS`` chunks, every chunk
+    after the first under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from scalerl_torch.agents.ppo import PPOAgent
+    from scalerl_torch.config import A3CArguments, PPOArguments
+    from scalerl_torch.envs.tensor_envs import TensorRecall
+    from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
+
+    set_tf32(False)
+    a3c_args, ppo_args = A3CArguments(max_timesteps=0), PPOArguments(max_timesteps=0)
+    if (a3c_args.use_lstm, a3c_args.hidden_size, a3c_args.rollout_length, a3c_args.num_workers,
+            ppo_args.use_lstm, ppo_args.hidden_size, ppo_args.ppo_epochs,
+            ppo_args.num_minibatches) != (True, 256, 20, 8, False, 256, 4, 4):
+        raise AssertionError(f"A3C/PPO defaults moved: {a3c_args}, {ppo_args}")
+    T, B, A = 20, 8, 6
+    perms = torch.stack([torch.randperm(B, generator=torch.Generator().manual_seed(e))
+                         for e in range(ppo_args.ppo_epochs)])
+    learn = {"a3c": _onpolicy_compare("a3c", a3c_args, T, B, A),
+             "ppo": _onpolicy_compare("ppo", ppo_args, T, B, A, perms)}
+    tol = {"model_max_abs_err": MODEL_TOL, "loss_rel": LEARN_TOL["loss_rel"],
+           "grad_leaf_rel": ONPOLICY_GRAD_LEAF_REL,
+           "update_rel_l2": LEARN_TOL["card_vs_host_update_rel_l2"],
+           "learn_step_update_rel_l2": LEARN_TOL["card_vs_host_update_rel_l2"]}
+    ppo_tol = {**tol, "learn_step_update_rel_l2": PPO_SCHEDULE_UPDATE_REL_L2}
+    emit("onpolicy_learn", T=T, B=B, **learn, tol={"a3c": tol, "ppo": ppo_tol}, tf32=False,
+         card=report["card"])
+    bad = {(n, k): r[k] for n, r in learn.items()
+           for k, bound in (tol if n == "a3c" else ppo_tol).items() if not r[k] <= bound}
+    bad.update({(n, "launches"): r["kernel_launches"] for n, r in learn.items()
+                if r["kernel_launches"] or r["skipped_steps"]})
+
+    examples = {}
+    for name in ("a3c", "ppo"):
+        argv = ["--env-backend", "jax", "--env-id", "CartPole-v1", "--max-timesteps",
+                str(ONPOLICY_EXAMPLE_STEPS), "--logger-frequency", "2000", "--eval-frequency",
+                str(10**9), "--eval-episodes", "4", "--logger-backend", "none",
+                "--telemetry-interval-s", "0", "--save-model", "false",
+                "--work-dir", _work_dir(f"{name}_train")]
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        out = _example_module(f"train_{name}_torch").main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        trainer = out["trainer"]
+        losses = [m["total_loss"] for _, kind, m in trainer.log_history if kind == "train"]
+        examples[name] = dict(
+            seconds=seconds, env_steps=trainer.global_step,
+            env_steps_per_s=trainer.global_step / seconds, learn_steps=trainer.learn_steps,
+            learn_steps_per_s=trainer.learn_steps / seconds, logged_losses=len(losses),
+            last_loss=losses[-1] if losses else None, launches=_launch_counts(),
+            return_mean=out["result"].get("return_mean"), eval=out["eval"],
+            skipped_steps=trainer.last_train_info.get("skipped_steps"))
+        if not (losses and all(math.isfinite(x) for x in losses)
+                and trainer.last_train_info.get("skipped_steps") == 0.0
+                and not any(_launch_counts().values())):
+            bad[(name, "example")] = examples[name]
+    emit("onpolicy_examples", **examples, card=report["card"])
+
+    Bp, Tp, iters = 32, 8, 2
+    env = TensorRecall(Bp, size=16, delay=6, num_cues=4)
+    args = PPOArguments(use_lstm=True, hidden_size=64, rollout_length=Tp, num_workers=Bp,
+                        num_minibatches=2, ppo_epochs=2, max_timesteps=0, learning_rate=1e-3,
+                        entropy_coef=0.02, gae_lambda=0.95)
+    agent = PPOAgent(args, env.observation_shape, env.num_actions)
+    loop = DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), Tp,
+                                  iters_per_call=iters, seed=0)
+    state, carry, _ = loop.run(agent.state, loop.init_carry(), 1, instrument=False)  # warm-up
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    state, carry, m = loop.run(state, carry, ONPOLICY_RECALL_CHUNKS, instrument=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    frames = ONPOLICY_RECALL_CHUNKS * Bp * Tp * iters
+    emit("onpolicy_device_loop", task="TensorRecall(16, delay 6, 4 cues)", lanes=Bp, T=Tp,
+         iters_per_call=iters, chunks=ONPOLICY_RECALL_CHUNKS, seconds=seconds,
+         env_frames_per_s=frames / seconds, learn_steps=int(state.step),
+         learn_steps_per_s=ONPOLICY_RECALL_CHUNKS * iters / seconds,
+         sync_guarded_chunks=ONPOLICY_RECALL_CHUNKS, last_chunk=m, launches=_launch_counts(),
+         card=report["card"])
+    if (int(state.step) != (ONPOLICY_RECALL_CHUNKS + 1) * iters
+            or not math.isfinite(m["total_loss"]) or m["nonfinite_chunks"]
+            or any(_launch_counts().values())):
+        bad["device_loop"] = m
+    if bad:
+        raise AssertionError(f"onpolicy_train: {bad}")
+
+
+class PendulumVectorView:
+    """gym's vector-env API over ``num_envs`` copies of gymnasium's
+    ``Pendulum-v1`` dynamics in numpy (the card's machine has no
+    gymnasium): obs ``[cos th, sin th, thdot]``, torque in [-2, 2], reward
+    ``-(th^2 + 0.1 thdot^2 + 0.001 u^2)`` with th normalised to [-pi, pi),
+    episodes truncated at 200 steps, SAME_STEP autoreset with the last
+    observation in ``infos["final_obs"]``.  Harness code, not a port
+    feature."""
+
+    MAX_SPEED, MAX_TORQUE, DT, G, M, L, STEPS = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0, 200
+
+    def __init__(self, num_envs: int) -> None:
+        self.num_envs = num_envs
+        high = np.array([self.MAX_TORQUE], np.float32)
+        self.single_observation_space = SimpleNamespace(shape=(3,))
+        self.single_action_space = SimpleNamespace(shape=(1,), low=-high, high=high)
+
+    def _obs(self) -> np.ndarray:
+        th, thdot = self.state[:, 0], self.state[:, 1]
+        return np.stack([np.cos(th), np.sin(th), thdot], axis=1).astype(np.float32)
+
+    def _reset_rows(self, rows) -> None:
+        self.state[rows] = self.rng.uniform([-np.pi, -1.0], [np.pi, 1.0], (len(rows), 2))
+        self.t[rows] = 0
+
+    def reset(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.state = np.zeros((self.num_envs, 2))
+        self.t = np.zeros(self.num_envs, int)
+        self._reset_rows(np.arange(self.num_envs))
+        return self._obs(), {}
+
+    def step(self, actions):
+        u = np.clip(np.asarray(actions, np.float64).reshape(self.num_envs), -self.MAX_TORQUE,
+                    self.MAX_TORQUE)
+        th, thdot = self.state[:, 0], self.state[:, 1]
+        angle = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = angle**2 + 0.1 * thdot**2 + 0.001 * u**2
+        thdot = np.clip(thdot + (3 * self.G / (2 * self.L) * np.sin(th)
+                                 + 3.0 / (self.M * self.L**2) * u) * self.DT,
+                        -self.MAX_SPEED, self.MAX_SPEED)
+        self.state = np.stack([th + thdot * self.DT, thdot], axis=1)
+        self.t += 1
+        truncated = self.t >= self.STEPS
+        infos = {}
+        if truncated.any():
+            infos = {"final_obs": self._obs(), "_final_obs": truncated.copy()}
+            self._reset_rows(np.nonzero(truncated)[0])
+        return self._obs(), -costs, np.zeros(self.num_envs, bool), truncated, infos
+
+    def close(self) -> None:
+        pass
+
+
+def _continuous_agent(name: str, use_pallas: bool, device: str = "cuda"):
+    from scalerl_torch.agents.sac import SACAgent
+    from scalerl_torch.agents.td3 import TD3Agent
+    from scalerl_torch.config import SACArguments, TD3Arguments
+
+    cls, acls = (SACArguments, SACAgent) if name == "sac" else (TD3Arguments, TD3Agent)
+    args = cls(use_per=True, use_pallas=use_pallas, max_timesteps=0)
+    high = np.array([2.0], np.float32)
+    return acls(args, (3,), -high, high, device=device)
+
+
+def phase_continuous_learn(report: dict) -> None:
+    """SAC and TD3 learn steps at their defaults (hidden 256,256, batch 32
+    as in ``RLArguments``) with PER on the card, from a 65,536 x 16 replay
+    of Pendulum-shaped transitions (obs 3, one float32 action): with
+    ``use_pallas`` (both PER kernels sample and write the new priorities
+    back) and without (the plain versions, the sample in the kernels' order
+    of sums), the same noise injected in both legs; TD3 for two steps, so
+    one delayed actor update is skipped and one applied.  Indices equal; the
+    loss within ``RAINBOW_TOL["loss_rel"]`` and each leaf's gradient (Adam's
+    first moment) within ``grad_leaf_rel`` of its largest between the legs,
+    the priority plane within ``DQN_LEARN_TOL``; the card against the host
+    within ``host_rel``; one sample and one update launch a step."""
+    from unittest import mock
+
+    import torch
+
+    from scalerl_torch.data.prioritized import per_sample_from_uniforms
+    from scalerl_torch.data.sampler import Sampler
+    from scalerl_torch.ops import cuda_per, per
+
+    set_tf32(False)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    shape = (PER_CAPACITY, PER_NUM_ENVS)
+    done = torch.rand(shape, generator=g, device="cuda") < 0.02
+    contents = dict(
+        obs=torch.randn(shape + (3,), generator=g, device="cuda"),
+        next_obs=torch.randn(shape + (3,), generator=g, device="cuda"),
+        action=torch.rand(shape + (1,), generator=g, device="cuda") * 4 - 2,
+        reward=-torch.rand(shape, generator=g, device="cuda") * 16, done=done)
+    priorities = torch.rand(shape, generator=g, device="cuda") * 2 + 0.05
+    results = {}
+    for name, steps in (("sac", 1), ("td3", 2)):
+        B = 32
+        u = [torch.rand(B, generator=g, device="cuda") for _ in range(steps)]
+        noise = [({"next": torch.randn(B, 1, generator=g, device="cuda"),
+                   "pi": torch.randn(B, 1, generator=g, device="cuda")} if name == "sac"
+                  else torch.randn(B, 1, generator=g, device="cuda")) for _ in range(steps)]
+        legs = {}
+        for leg, use_pallas in (("plain", False), ("kernel", True)):
+            agent = _continuous_agent(name, use_pallas)
+            args = agent.args
+            sampler = Sampler((3,), PER_CAPACITY, PER_NUM_ENVS, use_per=True,
+                              per_alpha=args.per_alpha, gamma=args.gamma, action_shape=(1,),
+                              action_dtype=torch.float32, use_pallas=use_pallas)
+            state = sampler.buffer.state
+            for k, v in contents.items():
+                state.replay.storage[k].copy_(v)
+            state.priorities.copy_(priorities)
+            sampler.buffer.state = dataclasses.replace(
+                state, replay=dataclasses.replace(state.replay, pos=777, size=PER_CAPACITY))
+            cuda_per.sample_launches = cuda_per.update_launches = 0
+            batches, losses = [], []
+            for i in range(steps):
+                with mock.patch.object(per, "hierarchical_sample",
+                                       lambda p, t, bs: per.kernel_order_sample(p, t, bs)[0]):
+                    batch = per_sample_from_uniforms(sampler.buffer.state, u[i], args.per_alpha,
+                                                     args.per_beta, 1, args.gamma,
+                                                     sampler.buffer.sample_method)
+                agent.state, metrics, td_abs = agent._learn(agent.state, batch, noise[i])
+                sampler.update_priorities(batch["indices"], td_abs + 1e-6)
+                batches.append(batch)
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            legs[leg] = dict(
+                batches=batches, losses=losses, state=agent.state,
+                grads={f"{grp}.{k}": v / 0.1 for grp in ("critic_opt", "actor_opt")
+                       for k, v in getattr(agent.state, grp)["mu"].items()},
+                plane=sampler.buffer.state.priorities.clone(),
+                launches=(cuda_per.sample_launches, cuda_per.update_launches))
+        plain, kern = legs["plain"], legs["kernel"]
+        host = _continuous_agent(name, False, device="cpu")
+        h_losses = []
+        for i in range(steps):
+            host.state, hm, _ = host._learn(host.state, _to_device(plain["batches"][i], "cpu"),
+                                            _to_device(noise[i], "cpu"))
+            h_losses.append(float(hm["loss"]))
+        h_grads = {f"{grp}.{k}": v / 0.1 for grp in ("critic_opt", "actor_opt")
+                   for k, v in getattr(host.state, grp)["mu"].items()}
+        actor_counts = (int(plain["state"].actor_opt["count"]),
+                        int(kern["state"].actor_opt["count"]))
+        results[name] = {
+            "steps": steps,
+            "index_mismatches": sum(int((p["indices"] != k["indices"]).sum())
+                                    for p, k in zip(plain["batches"], kern["batches"])),
+            "losses": {"plain": plain["losses"], "kernel": kern["losses"], "host": h_losses},
+            "loss_rel_kernel_vs_plain": max(abs(k - p) / abs(p) for k, p in
+                                            zip(kern["losses"], plain["losses"])),
+            "grad_leaf_rel_kernel_vs_plain": _leaf_rel_err(kern["grads"], plain["grads"]),
+            "plane_max_abs_err": float((kern["plane"] - plain["plane"]).abs().max()),
+            "loss_rel_card_vs_host": max(abs(p - h) / abs(h) for p, h in
+                                         zip(plain["losses"], h_losses)),
+            "grad_leaf_rel_card_vs_host": _leaf_rel_err(plain["grads"], h_grads),
+            "launches_kernel_leg": kern["launches"], "launches_plain_leg": plain["launches"],
+            "actor_adam_count": actor_counts, "leaves": len(plain["grads"]),
+        }
+    emit("continuous_learn", batch=32, replay=list(shape), tol=RAINBOW_TOL, variants=results,
+         tf32=False, card=report["card"])
+    bad = {v: r for v, r in results.items() if (
+        r["index_mismatches"] or r["loss_rel_kernel_vs_plain"] > RAINBOW_TOL["loss_rel"]
+        or r["grad_leaf_rel_kernel_vs_plain"] > RAINBOW_TOL["grad_leaf_rel"]
+        or r["plane_max_abs_err"] > DQN_LEARN_TOL
+        or r["loss_rel_card_vs_host"] > RAINBOW_TOL["host_rel"]
+        or r["grad_leaf_rel_card_vs_host"] > RAINBOW_TOL["host_rel"]
+        or r["launches_kernel_leg"] != (r["steps"], r["steps"])
+        or r["launches_plain_leg"] != (0, 0)
+        or r["actor_adam_count"] != (1, 1))}
+    if bad:
+        raise AssertionError(f"continuous_learn: {bad}")
+
+
+def phase_continuous_train(report: dict) -> None:
+    """``OffPolicyTrainer`` with SAC, then with TD3, at their defaults
+    (hidden 256,256) with the Pendulum recipe's replay (``tools/
+    torch_learning_curves.py``: 4 envs, buffer 100,000, batch 128, warm-up
+    1,000, a learn step every 2 env steps) and PER through both kernels
+    (``use_per``, ``use_pallas``), on ``PendulumVectorView`` for
+    ``CONTINUOUS_TRAIN_STEPS`` env steps: sample launches = update launches
+    = learn steps > 0, finite losses, no skipped step; env and learn
+    steps/s."""
+    import torch
+
+    from scalerl_torch.agents.sac import SACAgent
+    from scalerl_torch.agents.td3 import TD3Agent
+    from scalerl_torch.config import SACArguments, TD3Arguments
+    from scalerl_torch.trainer.off_policy import OffPolicyTrainer
+    from tools.torch_learning_curves import PENDULUM
+
+    set_tf32(False)
+    out, bad = {}, {}
+    for name, cls, acls in (("sac", SACArguments, SACAgent), ("td3", TD3Arguments, TD3Agent)):
+        args = cls(**{**PENDULUM, "max_timesteps": CONTINUOUS_TRAIN_STEPS, "use_per": True,
+                      "use_pallas": True, "logger_frequency": 1000,
+                      "work_dir": _work_dir(f"{name}_train")})
+        envs = PendulumVectorView(args.num_envs)
+        space = envs.single_action_space
+        agent = acls(args, (3,), space.low, space.high)
+        trainer = OffPolicyTrainer(args, agent, envs)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            summary = trainer.run()
+        finally:
+            trainer.close()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        losses = [m["loss"] for _, kind, m in trainer.log_history if kind == "train" and "loss" in m]
+        out[name] = dict(
+            seconds=seconds, env_steps=trainer.global_step,
+            env_steps_per_s=trainer.global_step / seconds, learn_steps=trainer.learn_steps,
+            learn_steps_per_s=trainer.learn_steps / seconds,
+            per_sample_launches=launches["per_sample"],
+            per_update_launches=launches["per_update"], logged_losses=len(losses),
+            last_loss=losses[-1] if losses else None,
+            skipped_steps=float(trainer.skipped_steps), episodes=summary.get("episodes"),
+            return_mean=summary.get("return_mean"))
+        if not (launches["per_sample"] == launches["per_update"] == trainer.learn_steps > 0
+                and launches["vtrace"] == 0 and losses
+                and all(math.isfinite(x) for x in losses)
+                and float(trainer.skipped_steps) == 0.0):
+            bad[name] = out[name]
+    emit("continuous_train", envs=4, batch=128, buffer=100_000, **out, card=report["card"])
+    if bad:
+        raise AssertionError(f"continuous_train: {bad}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
@@ -4498,7 +5188,8 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_impala_trainer_device, phase_impala_trainer_host, phase_learn_cartpole_host,
           phase_dqn_resume, phase_dqn_rainbow_learn, phase_apex_train, phase_r2d2_device,
           phase_learn_r2d2_recall_device, phase_r2d2_host, phase_shm_ring,
-          phase_parallel_dqn, phase_process_impala]
+          phase_parallel_dqn, phase_process_impala, phase_impact_learn, phase_impact_train,
+          phase_onpolicy_train, phase_continuous_learn, phase_continuous_train]
 
 
 def main() -> int:

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import copy
 import threading
-from typing import Any, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,32 +48,34 @@ def sample_categorical(logits: torch.Tensor, generator: torch.Generator) -> torc
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
-def _torch_dtype(dtype: np.dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, dtype)).dtype
+def pack_to_device(arrays: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
+    """Host arrays -> device tensors of the same dtypes and shapes with ONE
+    host-to-device copy: their bytes, each padded to 4, in one ``uint8``
+    buffer cut into typed views on the device."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += a.nbytes + (-a.nbytes) % 4
+    buf = np.empty(total, np.uint8)
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(buf).to(device)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(np.empty(0, a.dtype)).dtype).reshape(a.shape)
+            for a, o in zip(arrays, offsets)]
 
 
 def pack_host_inputs(obs, last_action, reward, done, device: torch.device):
-    """One acting step's host inputs -> device tensors with ONE copy: the
-    frames' bytes (padded to 4), int32 last actions, float32 rewards and
-    the done bytes in one ``uint8`` buffer, cut into typed views on the
-    device."""
-    obs = np.ascontiguousarray(obs)
-    B = obs.shape[0]
-    raw = obs.reshape(-1).view(np.uint8)
-    n_obs = raw.size
-    o = n_obs + (-n_obs) % 4
-    buf = np.empty(o + 9 * B, np.uint8)
-    buf[:n_obs] = raw
-    buf[o:o + 4 * B] = np.asarray(last_action, np.int32).reshape(B).view(np.uint8)
-    buf[o + 4 * B:o + 8 * B] = np.asarray(reward, np.float32).reshape(B).view(np.uint8)
-    buf[o + 8 * B:] = np.asarray(done, bool).reshape(B).view(np.uint8)
-    dev = torch.from_numpy(buf).to(device)
-    return (
-        dev[:n_obs].view(_torch_dtype(obs.dtype)).reshape(obs.shape),
-        dev[o:o + 4 * B].view(torch.int32),
-        dev[o + 4 * B:o + 8 * B].view(torch.float32),
-        dev[o + 8 * B:].view(torch.bool),
-    )
+    """One acting step's host inputs -> device tensors with one copy
+    (:func:`pack_to_device`): the frames, int32 last actions, float32
+    rewards and bool done flags."""
+    B = np.asarray(obs).shape[0]
+    return tuple(pack_to_device([
+        np.asarray(obs),
+        np.asarray(last_action, np.int32).reshape(B),
+        np.asarray(reward, np.float32).reshape(B),
+        np.asarray(done, bool).reshape(B),
+    ], device))
 
 
 class PolicyValueAgent(BaseAgent):

@@ -291,7 +291,8 @@ class TokenPPOAgent:
 
     def enable_mesh(self, mesh_or_spec, batch_example=None) -> None:
         raise NotImplementedError(
-            "the dp x mp sharded learn step is not ported yet (ROADMAP A6)"
+            "the dp x mp sharded learn step needs parallel/mesh.py and "
+            "parallel/sharding.py, which are not ported yet"
         )
 
     def learn_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 The port's own copies of the ``scalerl_tpu/config.py`` fields that the
 fused IMPALA loop, the actor-learner trainers, the DQN, Ape-X and R2D2
-trainers and the sequence-RL trainer read, with the same names and defaults, so an
+trainers, the sequence-RL trainer, and the A3C, PPO, IMPACT, SAC and TD3
+learners read, with the same names and defaults, so an
 argument set means the same thing to both packages: among them the run
 identity and directory, the logging, checkpoint, supervision and telemetry
 fields.  Fields that no module of the port reads yet are left out; they
@@ -102,8 +103,8 @@ class RLArguments:
     # (ops/cuda_per.py), and the transformer policy's attention
     # (ops/cuda_flash_attention.py).  On host tensors their plain versions run.
     use_pallas: bool = False
-    # The sharded learner's mesh (ROADMAP A6, not ported): must stay at
-    # mp_size 1 and dp_size 0.
+    # The sharded learner's mesh (parallel/mesh.py and parallel/sharding.py,
+    # not ported): must stay at mp_size 1 and dp_size 0.
     mp_size: int = 1
     dp_size: int = 0
     # Policy architecture for the actor-learner agents: "transformer" picks
@@ -147,7 +148,8 @@ class RLArguments:
         if self.mp_size != 1 or self.dp_size != 0:
             raise NotImplementedError(
                 f"mp_size={self.mp_size}, dp_size={self.dp_size} need the sharded learner "
-                "(ROADMAP A6), which is not ported yet; leave them at 1 and 0"
+                "of parallel/mesh.py and parallel/sharding.py, which is not ported yet; "
+                "leave them at 1 and 0"
             )
 
 
@@ -212,6 +214,190 @@ class ImpalaArguments(RLArguments):
                 "actor_mode must be threads | process | serving, got "
                 f"{self.actor_mode!r}"
             )
+
+
+@dataclass
+class ImpactArguments(ImpalaArguments):
+    """IMPACT options (``scalerl_tpu.config.ImpactArguments``, arxiv
+    1912.00167): a target network refreshed every
+    ``target_update_frequency`` learner steps anchors a clipped surrogate,
+    and a circular buffer replays each trajectory chunk ``replay_times``
+    times on the IMPALA actor plane."""
+
+    algo_name: str = "impact"
+    # learner steps between target-network refreshes (pi_target <- pi)
+    target_update_frequency: int = 16
+    # how many learner updates each inserted chunk participates in
+    replay_times: int = 2
+    # circular surrogate buffer depth, in trajectory chunks
+    surrogate_capacity: int = 16
+    # PPO-style clip width for the pi/pi_target surrogate ratio
+    impact_clip: float = 0.3
+
+    def validate(self) -> None:
+        super().validate()
+        if self.target_update_frequency < 1:
+            raise ValueError(
+                "target_update_frequency must be >= 1, got "
+                f"{self.target_update_frequency}"
+            )
+        if self.replay_times < 1:
+            raise ValueError(
+                f"replay_times must be >= 1, got {self.replay_times}"
+            )
+        if self.surrogate_capacity < 1:
+            raise ValueError(
+                f"surrogate_capacity must be >= 1, got {self.surrogate_capacity}"
+            )
+        if not 0.0 < self.impact_clip < 1.0:
+            raise ValueError(
+                f"impact_clip must be in (0, 1), got {self.impact_clip}"
+            )
+
+
+@dataclass
+class A3CArguments(RLArguments):
+    """A3C options (``scalerl_tpu.config.A3CArguments``): synchronous batched
+    advantage actor-critic over ``num_workers`` env lanes; the unroll is
+    ``rollout_length``."""
+
+    algo_name: str = "a3c"
+    num_workers: int = 8
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.01
+    gae_lambda: float = 1.0
+    hidden_sizes: str = "128,128"  # MLP torso (flat obs)
+    use_lstm: bool = True  # pixel obs: conv+LSTM
+    hidden_size: int = 256  # pixel obs: LSTM width
+    max_episode_steps: int = 500
+    max_grad_norm: float = 50.0
+    # running mean/std obs normalization (envs/atari.py::NormalizedEnv) and
+    # normalized-columns head init
+    normalize_obs: bool = False
+    normalized_init: bool = False
+
+
+@dataclass
+class PPOArguments(RLArguments):
+    """PPO options (``scalerl_tpu.config.PPOArguments``): the clipped
+    surrogate on the on-policy runtime A3C uses, ``ppo_epochs`` passes of
+    ``num_minibatches`` lane minibatches per chunk.
+
+    Learning-rate convention: with ``loss_reduction="sum"`` the losses sum
+    over ``[T, b]``, so the gradient scale grows with ``rollout_length``
+    and the lanes of a minibatch; ``"mean"`` divides by that count."""
+
+    algo_name: str = "ppo"
+    num_workers: int = 8
+    # Clipped-surrogate objective
+    clip_range: float = 0.2
+    clip_range_vf: float = 0.0  # 0 disables value clipping
+    ppo_epochs: int = 4
+    num_minibatches: int = 4  # minibatches per epoch, split over env lanes
+    gae_lambda: float = 0.95
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.01
+    normalize_advantage: bool = True
+    loss_reduction: str = "sum"  # sum | mean
+    # Model (same zoo as A3C: MLP for flat obs, conv[+LSTM] for pixels)
+    hidden_sizes: str = "128,128"
+    use_lstm: bool = False
+    hidden_size: int = 256
+    max_episode_steps: int = 500
+    max_grad_norm: float = 0.5
+    normalize_obs: bool = False
+    normalized_init: bool = False
+
+    def validate(self) -> None:
+        super().validate()
+        if self.num_minibatches <= 0:
+            raise ValueError(
+                f"num_minibatches must be positive, got {self.num_minibatches}"
+            )
+        if self.num_workers % self.num_minibatches != 0:
+            raise ValueError(
+                "minibatches split over env lanes (full sequences, so LSTM "
+                f"carries stay valid): num_workers ({self.num_workers}) must "
+                f"divide by num_minibatches ({self.num_minibatches})"
+            )
+        if self.loss_reduction not in ("sum", "mean"):
+            raise ValueError(
+                f"loss_reduction must be 'sum' or 'mean', got {self.loss_reduction!r}"
+            )
+        if self.ppo_epochs <= 0:
+            raise ValueError(f"ppo_epochs must be positive, got {self.ppo_epochs}")
+
+
+@dataclass
+class SACArguments(RLArguments):
+    """SAC options (``scalerl_tpu.config.SACArguments``): squashed-Gaussian
+    actor, clipped double-Q critics, a learned entropy temperature and
+    polyak target updates, on the off-policy trainer's replay."""
+
+    algo_name: str = "sac"
+    env_id: str = "Pendulum-v1"  # continuous algo -> continuous default env
+    hidden_sizes: str = "256,256"
+    # Soft target update
+    soft_update_tau: float = 0.005
+    # Entropy temperature: alpha auto-tunes toward target entropy
+    # (= -action_dim * target_entropy_scale)
+    auto_alpha: bool = True
+    init_alpha: float = 0.2
+    target_entropy_scale: float = 1.0
+    alpha_learning_rate: float = 3e-4
+    actor_learning_rate: float = 3e-4  # critics use the base learning_rate
+    # Replay (uniform or PER, sharing the DQN pipeline fields)
+    use_per: bool = False
+    per_alpha: float = 0.6
+    per_beta: float = 0.4
+    per_beta_final: float = 1.0
+    n_steps: int = 1
+
+    def validate(self) -> None:
+        super().validate()
+        if not 0.0 < self.soft_update_tau <= 1.0:
+            raise ValueError(
+                f"soft_update_tau must be in (0, 1], got {self.soft_update_tau}"
+            )
+        if self.init_alpha <= 0.0:
+            raise ValueError(f"init_alpha must be positive, got {self.init_alpha}")
+        if self.n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {self.n_steps}")
+
+
+@dataclass
+class TD3Arguments(RLArguments):
+    """TD3 options (``scalerl_tpu.config.TD3Arguments``): deterministic tanh
+    actor with exploration noise, clipped double-Q, target policy smoothing,
+    actor and target updates every ``policy_delay`` critic steps."""
+
+    algo_name: str = "td3"
+    env_id: str = "Pendulum-v1"
+    hidden_sizes: str = "256,256"
+    soft_update_tau: float = 0.005
+    policy_delay: int = 2
+    explore_noise_std: float = 0.1  # fraction of action scale
+    target_noise_std: float = 0.2
+    target_noise_clip: float = 0.5
+    actor_learning_rate: float = 3e-4
+    use_per: bool = False
+    per_alpha: float = 0.6
+    per_beta: float = 0.4
+    per_beta_final: float = 1.0
+    n_steps: int = 1
+
+    def validate(self) -> None:
+        super().validate()
+        if self.policy_delay < 1:
+            raise ValueError(
+                f"policy_delay must be >= 1, got {self.policy_delay}"
+            )
+        if not 0.0 < self.soft_update_tau <= 1.0:
+            raise ValueError(
+                f"soft_update_tau must be in (0, 1], got {self.soft_update_tau}"
+            )
+        if self.n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {self.n_steps}")
 
 
 @dataclass
@@ -428,9 +614,10 @@ class GenRLArguments(RLArguments):
         unported = {
             "resume": "a resume path in the sequence-RL trainer (the JAX package resumes "
                       "only its disaggregated trainer, through genrl/ledger.py)",
-            "spec_enable": "speculative decoding (ROADMAP A5)",
-            "bf16_params": "bf16 parameters on the token-PPO learner (ROADMAP A6)",
-            **{f.name: "the disaggregated trainer (ROADMAP A5)"
+            "spec_enable": "speculative decoding (genrl/drafter.py)",
+            "bf16_params": "bf16 parameters on the token-PPO learner (the bf16 path of "
+                           "agents/token_ppo.py)",
+            **{f.name: "the disaggregated trainer (genrl/disagg.py)"
                for f in fields(self) if f.name.startswith("disagg_")},
         }
         defaults = {f.name: f.default for f in fields(self)}

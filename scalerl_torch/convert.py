@@ -20,6 +20,15 @@ the port's ``dense.{i}``; with noisy layers ``params/NoisyDense_{i}/{w_mu,
 b_mu,w_sigma,b_sigma}``, the port's ``dense.{i}.*`` with the two weights
 transposed (:func:`dense_stack_to_torch`).
 
+The actor-critic heads of ``models/mlp.py`` (``ActorNet``, ``CriticNet``,
+``ActorCriticNet``, ``TanhGaussianActor``, ``DeterministicActor``,
+``TwinQNet``) keep their layers under Flax's names, ``layers.<name>``
+(:func:`flax_mlp_to_torch` and back); SAC's three Adam states (actor,
+critics, temperature) and TD3's two convert through
+:func:`adam_state_to_torch` with that converter (a scalar tree, the
+temperature's, a scalar), and :func:`sac_state_to_torch` and
+:func:`td3_state_to_torch` carry whole train states across.
+
 ``RecurrentQNet``'s tree is ``Conv_{0,1,2}`` (pixels only), ``Dense_0``, the
 LSTM core as in ``AtariNet``, and the heads ``value_h``, ``value``,
 ``advantage_h``, ``advantage`` (dueling) or ``q``: the port's ``convs.i``,
@@ -234,6 +243,23 @@ def dense_stack_to_torch(
     return out
 
 
+def flax_mlp_to_torch(
+    tree: Mapping[str, Any], device: torch.device | str = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """A Flax tree of ``{kernel, bias}`` layers (``ActorNet``, ``CriticNet``,
+    ``ActorCriticNet``, ``TanhGaussianActor``, ``DeterministicActor``,
+    ``TwinQNet``; with or without the top ``params`` level) -> the port's
+    ``DenseNet`` state dict, ``layers.<Flax name>.{weight,bias}``, float32."""
+    tree = tree.get("params", tree)
+    return _dense_to_torch(tree, {name: f"layers.{name}" for name in tree}, device)
+
+
+def torch_to_flax_mlp(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`flax_mlp_to_torch`: ``{"params": {...}}``."""
+    names = {k.split(".")[1] for k in state if k.startswith("layers.")}
+    return {"params": _dense_to_flax(state, {name: f"layers.{name}" for name in names})}
+
+
 def _transformer_names(tree: Mapping[str, Any]) -> Dict[Tuple[str, ...], str]:
     """Flax ``TransformerPolicy`` param path -> the port's state_dict name.
 
@@ -406,4 +432,43 @@ def token_ppo_state_to_torch(state: Any, device: torch.device | str = "cpu"):
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
         tokens_seen=torch.tensor(int(np.asarray(state.tokens_seen)), dtype=torch.int32,
                                  device=device),
+    )
+
+
+def _log_alpha_to_torch(arr: Any, device: torch.device | str = "cpu") -> Dict[str, torch.Tensor]:
+    """SAC's temperature (a scalar leaf) as the port's one-entry param dict."""
+    return {"log_alpha": torch.tensor(np.asarray(arr, np.float32), device=device)}
+
+
+def sac_state_to_torch(state: Any, device: torch.device | str = "cpu"):
+    """A JAX ``SACTrainState`` (leaves as numpy arrays) -> the port's
+    ``agents/sac.py::SACTrainState``: the actor's, the critics' and the
+    temperature's Adam states through :func:`adam_state_to_torch`."""
+    from scalerl_torch.agents.sac import SACTrainState
+
+    return SACTrainState(
+        actor_params=flax_mlp_to_torch(state.actor_params, device),
+        critic_params=flax_mlp_to_torch(state.critic_params, device),
+        target_critic_params=flax_mlp_to_torch(state.target_critic_params, device),
+        log_alpha=_log_alpha_to_torch(state.log_alpha, device),
+        actor_opt=adam_state_to_torch(state.actor_opt, flax_mlp_to_torch, device),
+        critic_opt=adam_state_to_torch(state.critic_opt, flax_mlp_to_torch, device),
+        alpha_opt=adam_state_to_torch(state.alpha_opt, _log_alpha_to_torch, device),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
+    )
+
+
+def td3_state_to_torch(state: Any, device: torch.device | str = "cpu"):
+    """A JAX ``TD3TrainState`` (leaves as numpy arrays) -> the port's
+    ``agents/td3.py::TD3TrainState``, both Adam states included."""
+    from scalerl_torch.agents.td3 import TD3TrainState
+
+    return TD3TrainState(
+        actor_params=flax_mlp_to_torch(state.actor_params, device),
+        target_actor_params=flax_mlp_to_torch(state.target_actor_params, device),
+        critic_params=flax_mlp_to_torch(state.critic_params, device),
+        target_critic_params=flax_mlp_to_torch(state.target_critic_params, device),
+        actor_opt=adam_state_to_torch(state.actor_opt, flax_mlp_to_torch, device),
+        critic_opt=adam_state_to_torch(state.critic_opt, flax_mlp_to_torch, device),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
     )

@@ -91,3 +91,18 @@ def batch_to_trajectory(batch: Dict[str, np.ndarray], device: torch.device) -> T
         logits=put(batch["logits"]),
         core_state=tuple(core),
     )
+
+
+def host_chunk_to_trajectory(fields: Dict[str, np.ndarray], core_state: Any,
+                             device: torch.device) -> Trajectory:
+    """A chunk of host staging buffers (``obs``, ``action``, ``reward``,
+    ``done``, ``logits``) as a Trajectory on ``device`` with ONE
+    host-to-device copy (``agents/policy_value.py::pack_to_device``);
+    ``core_state`` (the entering recurrent state) is already on the device
+    and is kept as it is."""
+    from scalerl_torch.agents.policy_value import pack_to_device
+
+    obs, action, reward, done, logits = pack_to_device(
+        [fields[k] for k in ("obs", "action", "reward", "done", "logits")], device)
+    return Trajectory(obs=obs, action=action.long(), reward=reward, done=done, logits=logits,
+                      core_state=core_state)

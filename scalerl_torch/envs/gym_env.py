@@ -30,20 +30,17 @@ def make_gym_env(
     capture_video: bool = False,
     video_dir: Optional[str] = None,
     atari: bool = False,
+    normalize_obs: bool = False,
     wrappers: Optional[Sequence[Callable[[Any], Any]]] = None,
     **env_kwargs,
 ) -> Callable[[], Any]:
     """A thunk building one gymnasium env (what vector constructors take).
 
     ``env_id`` is a gymnasium registry id or a ``"pkg.module:ClassName"``
-    path, constructed with ``env_kwargs``.  ``wrappers`` apply outermost
-    last (picklable ones, for async pools).  Atari wrappers need the port of
-    ``envs/atari.py``: ``atari=True`` raises."""
-    if atari:
-        raise NotImplementedError(
-            f"{env_id!r} needs the DeepMind Atari wrappers of envs/atari.py, which is "
-            "not ported yet"
-        )
+    path, constructed with ``env_kwargs``.  ``atari`` applies the DeepMind
+    stack (``envs/atari.py::wrap_deepmind``), ``normalize_obs`` the running
+    mean and std (``NormalizedEnv``), then ``wrappers``, outermost last
+    (picklable ones, for async pools)."""
 
     def thunk():
         import gymnasium as gym
@@ -64,6 +61,14 @@ def make_gym_env(
         if capture_video and idx == 0 and video_dir is not None:
             env = gym.wrappers.RecordVideo(env, video_dir)
         env = gym.wrappers.RecordEpisodeStatistics(env)
+        if atari:
+            from scalerl_torch.envs.atari import wrap_deepmind
+
+            env = wrap_deepmind(env)
+        if normalize_obs:
+            from scalerl_torch.envs.atari import NormalizedEnv
+
+            env = NormalizedEnv(env)
         for wrap in wrappers or ():
             env = wrap(env)
         env.action_space.seed(seed + idx)

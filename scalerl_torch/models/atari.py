@@ -121,13 +121,16 @@ class AtariNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: DeviceLike = "cuda",
         generator: torch.Generator | None = None,
+        normalized_init: bool = False,
     ) -> None:
         """``generator``: a host ``torch.Generator`` for the initial weights
         (Flax's defaults: truncated LeCun-normal kernels, orthogonal
-        recurrent kernels, zero biases)."""
+        recurrent kernels, zero biases; with ``normalized_init`` the A3C
+        heads, norm 0.01 for the policy and 1.0 for the baseline)."""
         super().__init__()
         device = resolve_device(device)
         self.num_actions = num_actions
+        self.normalized_init = normalized_init
         self.hidden_size = hidden_size
         self.use_lstm = use_lstm
         self.dtype = dtype
@@ -160,6 +163,11 @@ class AtariNet(nn.Module):
             layer.bias.zero_()
         for layer in self.core:
             layer.reset_parameters(generator)
+        if self.normalized_init:
+            from scalerl_torch.models.mlp import normalized_columns_init_
+
+            normalized_columns_init_(self.policy.weight, 0.01, generator)
+            normalized_columns_init_(self.baseline.weight, 1.0, generator)
 
     def initial_state(self, batch_size: int) -> LSTMState:
         shape, device = (batch_size, self.core_size), self.policy.weight.device

@@ -1,4 +1,5 @@
-"""MLP Q-networks: ``QNet``, ``C51QNet`` and the NoisyNet layer.
+"""MLP networks: the Q-networks ``QNet`` and ``C51QNet``, the NoisyNet layer,
+and the actor-critic heads of A3C, SAC and TD3.
 
 Port of ``QNet``, ``C51QNet`` and ``NoisyDense`` of
 ``scalerl_tpu/models/mlp.py``: dense layers with ReLU and a plain or
@@ -12,6 +13,10 @@ Noise is an argument, not module state: ``forward(obs, noise)`` takes one
 ``(eps_in, eps_out)`` pair per noisy layer (:meth:`QNet.sample_noise` draws
 them from a ``torch.Generator``), and with ``noise=None`` the noisy layers
 use their mean weights, as the Flax layer does without a ``noise`` rng.
+
+``ActorNet``, ``CriticNet``, ``ActorCriticNet``, ``TanhGaussianActor``,
+``DeterministicActor`` and ``TwinQNet`` (``mlp.py:151-269``) keep their
+layers in ``self.layers`` under Flax's own names (:class:`DenseNet`).
 """
 
 from __future__ import annotations
@@ -190,3 +195,164 @@ def normalized_columns_init_(
     with torch.no_grad():
         weight.normal_(generator=generator)
         weight.mul_(std / (weight.norm(dim=1, keepdim=True) + 1e-12))
+
+
+class DenseNet(nn.Module):
+    """Base of the actor-critic heads below: ``nn.Linear`` layers kept in
+    ``self.layers`` under their Flax names (``Dense_0``, ``mean``,
+    ``q0_dense1``, ...), so ``convert.flax_mlp_to_torch`` maps each Flax
+    layer to ``layers.<name>``; initialised as Flax's ``Dense`` is
+    (truncated LeCun-normal kernels, zero biases) from a host generator,
+    then moved to ``device``."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.layers = nn.ModuleDict()
+
+    def _finish(self, device: DeviceLike, generator: torch.Generator | None) -> None:
+        self.reset_parameters(generator)  # on the host: one seed, same weights
+        self.to(resolve_device(device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for layer in self.layers.values():
+            lecun_normal_(layer.weight, layer.in_features, generator)
+            layer.bias.zero_()
+
+    def _stack(self, in_dim: int, hidden: Tuple[int, ...], prefix: str = "Dense_") -> int:
+        """Declare the hidden layers ``prefix{i}``; returns the last width."""
+        for i, h in enumerate(hidden):
+            self.layers[f"{prefix}{i}"] = nn.Linear(in_dim, h)
+            in_dim = h
+        return in_dim
+
+    def _torso(self, x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+        x = x.to(torch.float32)
+        for name in names:
+            x = F.relu(self.layers[name](x))
+        return x
+
+
+class ActorNet(DenseNet):
+    """Categorical policy head: ``obs [..., D] -> logits [..., A]``
+    (``scalerl_tpu/models/mlp.py::ActorNet``)."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden_sizes: Union[str, Sequence[int]] = (128, 128),
+                 device: DeviceLike = "cuda", generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        hidden = parse_hidden(hidden_sizes)
+        width = self._stack(obs_dim, hidden)
+        self.hidden = [f"Dense_{i}" for i in range(len(hidden))]
+        self.layers[f"Dense_{len(hidden)}"] = nn.Linear(width, action_dim)
+        self.head = f"Dense_{len(hidden)}"
+        self._finish(device, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.layers[self.head](self._torso(obs, self.hidden))
+
+
+class CriticNet(ActorNet):
+    """State-value head: ``obs [..., D] -> value [...]``
+    (``scalerl_tpu/models/mlp.py::CriticNet``)."""
+
+    def __init__(self, obs_dim: int, hidden_sizes: Union[str, Sequence[int]] = (128, 128),
+                 device: DeviceLike = "cuda", generator: torch.Generator | None = None) -> None:
+        super().__init__(obs_dim, 1, hidden_sizes, device, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return super().forward(obs).squeeze(-1)
+
+
+class ActorCriticNet(DenseNet):
+    """Shared-torso actor-critic: ``obs -> (logits, value)``
+    (``scalerl_tpu/models/mlp.py::ActorCriticNet``).  With
+    ``normalized_init`` the heads take the A3C init (norm 0.01 for the
+    policy, 1.0 for the value)."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden_sizes: Union[str, Sequence[int]] = (128, 128),
+                 normalized_init: bool = False, device: DeviceLike = "cuda",
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        hidden = parse_hidden(hidden_sizes)
+        width = self._stack(obs_dim, hidden)
+        self.hidden = [f"Dense_{i}" for i in range(len(hidden))]
+        self.logits_head, self.value_head = f"Dense_{len(hidden)}", f"Dense_{len(hidden) + 1}"
+        self.layers[self.logits_head] = nn.Linear(width, action_dim)
+        self.layers[self.value_head] = nn.Linear(width, 1)
+        self.normalized_init = normalized_init
+        self._finish(device, generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        super().reset_parameters(generator)
+        if self.normalized_init:
+            normalized_columns_init_(self.layers[self.logits_head].weight, 0.01, generator)
+            normalized_columns_init_(self.layers[self.value_head].weight, 1.0, generator)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self._torso(obs, self.hidden)
+        return self.layers[self.logits_head](x), self.layers[self.value_head](x).squeeze(-1)
+
+
+class TanhGaussianActor(DenseNet):
+    """SAC's squashed-Gaussian policy: ``obs -> (mean_u, log_std)`` in
+    pre-squash space, ``log_std`` clipped to ``[log_std_min, log_std_max]``
+    (``scalerl_tpu/models/mlp.py::TanhGaussianActor``); sampling and the
+    log-probability live in ``agents/sac.py``."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden_sizes: Union[str, Sequence[int]] = (256, 256),
+                 log_std_min: float = -20.0, log_std_max: float = 2.0,
+                 device: DeviceLike = "cuda", generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        hidden = parse_hidden(hidden_sizes)
+        width = self._stack(obs_dim, hidden)
+        self.hidden = [f"Dense_{i}" for i in range(len(hidden))]
+        self.layers["mean"] = nn.Linear(width, action_dim)
+        self.layers["log_std"] = nn.Linear(width, action_dim)
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+        self._finish(device, generator)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self._torso(obs, self.hidden)
+        log_std = torch.clamp(self.layers["log_std"](x), self.log_std_min, self.log_std_max)
+        return self.layers["mean"](x), log_std
+
+
+class DeterministicActor(ActorNet):
+    """TD3's actor: ``obs -> tanh(MLP(obs))`` in ``[-1, 1]^d``, scaled by
+    the caller (``scalerl_tpu/models/mlp.py::DeterministicActor``)."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden_sizes: Union[str, Sequence[int]] = (256, 256),
+                 device: DeviceLike = "cuda", generator: torch.Generator | None = None) -> None:
+        super().__init__(obs_dim, action_dim, hidden_sizes, device, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(super().forward(obs))
+
+
+class TwinQNet(DenseNet):
+    """Two independent critics ``Q(s, a)`` in one module, ``(obs, action) ->
+    (q1, q2)`` (``scalerl_tpu/models/mlp.py::TwinQNet``); the layers are
+    ``q{i}_dense{j}`` and ``q{i}_out``, Flax's names."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden_sizes: Union[str, Sequence[int]] = (256, 256),
+                 device: DeviceLike = "cuda", generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        hidden = parse_hidden(hidden_sizes)
+        self.hidden = []
+        for i in range(2):
+            width = self._stack(obs_dim + action_dim, hidden, prefix=f"q{i}_dense")
+            self.hidden.append([f"q{i}_dense{j}" for j in range(len(hidden))])
+            self.layers[f"q{i}_out"] = nn.Linear(width, 1)
+        self._finish(device, generator)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x0 = torch.cat([obs.to(torch.float32), action.to(torch.float32)], dim=-1)
+        q1, q2 = (self.layers[f"q{i}_out"](self._torso(x0, self.hidden[i])).squeeze(-1)
+                  for i in range(2))
+        return q1, q2

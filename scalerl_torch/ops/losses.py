@@ -1,13 +1,13 @@
 """Loss terms (port of ``scalerl_tpu/ops/losses.py``).
 
-The IMPALA terms (``losses.py:21-41``) SUM over ``[T, B]``, the reference's
-convention; the DQN TD loss (``losses.py:76-93,167-188``) and the C51 terms
+The IMPALA terms (``losses.py:21-41``) and the PPO clipped surrogate
+(``losses.py:44-73``) SUM over ``[T, B]``, the reference's convention; the DQN TD loss (``losses.py:76-93,167-188``) and the C51 terms
 (``losses.py:96-164``) average over the batch, as the JAX package's do.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +34,31 @@ def policy_gradient_loss(
     log_policy = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(log_policy, -1, actions.long().unsqueeze(-1)).squeeze(-1)
     return torch.sum(nll * advantages.detach())
+
+
+def clipped_surrogate_loss(
+    new_logp: torch.Tensor,
+    behavior_logp: torch.Tensor,
+    advantages: torch.Tensor,
+    clip_range: float,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """PPO's clipped surrogate objective (Schulman et al. 2017, eq. 7),
+    summed over ``[T, B]``; the behaviour log-probabilities and the
+    advantages are detached.  Returns ``(loss, aux)`` with the detached
+    diagnostics ``mean_ratio``, ``mean_approx_kl`` (the k3 estimator
+    ``E[(r - 1) - log r]``) and ``mean_clip_frac``."""
+    log_ratio = new_logp - behavior_logp.detach()
+    ratio = torch.exp(log_ratio)
+    adv = advantages.detach()
+    unclipped = ratio * adv
+    clipped = torch.clamp(ratio, 1.0 - clip_range, 1.0 + clip_range) * adv
+    loss = -torch.sum(torch.minimum(unclipped, clipped))
+    aux = {
+        "mean_ratio": torch.mean(ratio),
+        "mean_approx_kl": torch.mean((ratio - 1.0) - log_ratio),
+        "mean_clip_frac": torch.mean((torch.abs(ratio - 1.0) > clip_range).to(torch.float32)),
+    }
+    return loss, {k: v.detach() for k, v in aux.items()}
 
 
 def double_dqn_targets(

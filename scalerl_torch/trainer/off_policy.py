@@ -1,7 +1,8 @@
 """Off-policy trainer: vector-env steps feeding a device replay and a learner.
 
-Port of ``scalerl_tpu/trainer/off_policy.py`` for discrete actions (DQN):
-the buffer and sampler wiring (uniform or PER, one-step or n-step), the
+Port of ``scalerl_tpu/trainer/off_policy.py`` for discrete actions (DQN)
+and continuous ones (SAC, TD3: a ``Box`` action space gives a float32
+action plane of its shape): the buffer and sampler wiring (uniform or PER, one-step or n-step), the
 warm-up and ``train_frequency`` gating, the PER beta schedule, episode
 accounting, periodic logging and greedy evaluation.
 
@@ -79,8 +80,10 @@ class OffPolicyTrainer(BaseTrainer):
         self.eval_envs = eval_envs
         self.num_envs = getattr(train_envs, "num_envs", 1)
         act_space = train_envs.single_action_space
-        if not hasattr(act_space, "n"):
-            raise NotImplementedError("continuous actions (SAC, TD3) are not ported yet")
+        if hasattr(act_space, "n"):  # Discrete
+            action_shape, action_dtype = (), torch.int64
+        else:  # Box (continuous control: SAC, TD3)
+            action_shape, action_dtype = tuple(act_space.shape), torch.float32
         self.sampler = Sampler(
             obs_shape=train_envs.single_observation_space.shape,
             capacity=args.buffer_size,
@@ -90,6 +93,8 @@ class OffPolicyTrainer(BaseTrainer):
             n_step=args.n_steps,
             gamma=args.gamma,
             use_pallas=args.use_pallas,
+            action_shape=action_shape,
+            action_dtype=action_dtype,
             device=agent.device,
         )
         self.per_beta = LinearDecayScheduler(args.per_beta, args.per_beta_final, args.max_timesteps)
@@ -195,8 +200,9 @@ class OffPolicyTrainer(BaseTrainer):
         self.sampler.buffer.state = state["replay"]
         self.global_step = int(state["global_step"])
         self.learn_steps = int(state["learn_steps"])
-        self.agent.eps_scheduler.cur_step = self.global_step
-        self.agent.eps = self.agent.eps_scheduler.value(self.global_step)
+        if hasattr(self.agent, "eps_scheduler"):  # epsilon-greedy agents only
+            self.agent.eps_scheduler.cur_step = self.global_step
+            self.agent.eps = self.agent.eps_scheduler.value(self.global_step)
         if self.is_main_process:
             self.text_logger.info(f"resumed from {self.resume_ckpt_path}: step "
                                   f"{self.global_step}, learn_steps {self.learn_steps}")
@@ -259,7 +265,8 @@ class OffPolicyTrainer(BaseTrainer):
             self.metrics.step(reward_h, prev_done)
             obs = next_obs
             self.global_step += self.num_envs
-            self.agent.update_exploration(self.num_envs)
+            if hasattr(self.agent, "update_exploration"):
+                self.agent.update_exploration(self.num_envs)
 
             if (
                 len(self.sampler) >= args.warmup_learn_steps
@@ -287,7 +294,8 @@ class OffPolicyTrainer(BaseTrainer):
                                              include_prefixes=("train.",))
                 self.text_logger.info(
                     f"step {self.global_step} | fps {fps} | return "
-                    f"{summary.get('return_mean', float('nan')):.1f} | eps {self.agent.eps:.3f} "
+                    f"{summary.get('return_mean', float('nan')):.1f} "
+                    f"| eps {getattr(self.agent, 'eps', float('nan')):.3f} "
                     f"| loss {train_info.get('loss', float('nan')):.4f}"
                 )
 

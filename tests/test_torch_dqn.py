@@ -319,9 +319,18 @@ def test_off_policy_trainer_per_nstep_smoke(use_pallas):
 
 
 def test_trainer_refuses_continuous_actions():
+    """The refusal is lifted (SAC and TD3 are ported): a ``Box`` action
+    space gives a float32 action plane of its shape, as in the JAX trainer,
+    and a ``Discrete`` one an int64 plane of scalars."""
     envs = gym.vector.SyncVectorEnv([lambda: gym.make("Pendulum-v1")])
     args = tconfig.DQNArguments(num_envs=1, batch_size=8, buffer_size=64)
     agent = tdqn.DQNAgent(args, (3,), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="continuous"):
-        OffPolicyTrainer(args, agent, envs)
+    trainer = OffPolicyTrainer(args, agent, envs)
+    assert trainer.sampler.buffer.spec["action"] == ((1,), torch.float32)
+    trainer.close()
+    envs.close()
+    envs = gym.vector.SyncVectorEnv([lambda: gym.make("CartPole-v1")])
+    trainer = OffPolicyTrainer(args, tdqn.DQNAgent(args, (4,), 2, device="cpu"), envs)
+    assert trainer.sampler.buffer.spec["action"] == ((), torch.int64)
+    trainer.close()
     envs.close()

@@ -20,6 +20,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,8 +51,9 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # the IMPALA, DQN, generation, sequence-RL training, replay and process-plane slices
-    assert len(_submodules()) >= 94
+    # the IMPALA, DQN, generation, sequence-RL training, replay and process-plane
+    # slices, and the remaining learners (A3C, PPO, IMPACT, SAC, TD3)
+    assert len(_submodules()) >= 104
 
 
 def _imported_roots(path: Path):
@@ -68,7 +70,8 @@ def test_no_port_source_imports_jax():
         REPO / "chip_smoke.py", REPO / "tools" / "torch_learning_curves.py",
         REPO / "examples" / "train_impala_torch.py", REPO / "examples" / "train_dqn_torch.py",
         REPO / "examples" / "train_apex_torch.py", REPO / "examples" / "train_r2d2_torch.py",
-        REPO / "examples" / "train_parallel_dqn_torch.py", REPO / "tests" / "torch_ring_helpers.py"]
+        REPO / "examples" / "train_parallel_dqn_torch.py", REPO / "tests" / "torch_ring_helpers.py",
+        *(REPO / "examples" / f"train_{n}_torch.py" for n in ("a3c", "ppo", "impact", "sac", "td3"))]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -290,6 +293,59 @@ def test_process_plane_entry_points_refuse_the_default_device_without_a_card(mon
         lambda: _example("train_parallel_dqn_torch").main(["--env-backend", "jax"] + quiet),
         lambda: _example("train_impala_torch").main(["--actor-mode", "process", "--env-id",
                                                      "PixelRing-v0"] + quiet),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+def test_remaining_learners_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.agents.a3c import A3CAgent
+    from scalerl_torch.agents.impact import ImpactAgent
+    from scalerl_torch.agents.ppo import PPOAgent
+    from scalerl_torch.agents.sac import SACAgent
+    from scalerl_torch.agents.td3 import TD3Agent
+    from scalerl_torch.config import (
+        A3CArguments,
+        ImpactArguments,
+        PPOArguments,
+        SACArguments,
+        TD3Arguments,
+    )
+    from scalerl_torch.models.mlp import (
+        ActorCriticNet,
+        ActorNet,
+        CriticNet,
+        DeterministicActor,
+        TanhGaussianActor,
+        TwinQNet,
+    )
+    from tools import torch_learning_curves
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    quiet = ["--logger-backend", "none", "--telemetry-interval-s", "0", "--save-model", "false",
+             "--work-dir", "/nonexistent"]
+    cartpole = ["--env-backend", "jax", "--env-id", "CartPole-v1"] + quiet
+    box = (np.array([-2.0], np.float32), np.array([2.0], np.float32))
+    for make in (
+        lambda: A3CAgent(A3CArguments(), (4,), 2),
+        lambda: PPOAgent(PPOArguments(), (84, 84, 4), 6),
+        lambda: ImpactAgent(ImpactArguments(use_lstm=False, hidden_size=8), (4,), 2),
+        lambda: SACAgent(SACArguments(), (3,), *box),
+        lambda: TD3Agent(TD3Arguments(), (3,), *box),
+        lambda: ActorNet(4, 2),
+        lambda: CriticNet(4),
+        lambda: ActorCriticNet(4, 2),
+        lambda: TanhGaussianActor(3, 1),
+        lambda: DeterministicActor(3, 1),
+        lambda: TwinQNet(3, 1),
+        lambda: _example("train_a3c_torch").main(cartpole),
+        lambda: _example("train_ppo_torch").main(cartpole),
+        lambda: _example("train_impact_torch").main(cartpole + ["--use-lstm", "false"]),
+        lambda: _example("train_sac_torch").main(quiet),
+        lambda: _example("train_td3_torch").main(quiet),
+        lambda: torch_learning_curves.a3c_cartpole(work_dir="/nonexistent"),
+        lambda: torch_learning_curves.ppo_recall_lstm(),
+        lambda: torch_learning_curves.sac_pendulum(work_dir="/nonexistent"),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             make()

@@ -274,7 +274,7 @@ def test_reference_params_are_a_copy_and_weights_survive_learning():
 def test_unported_parts_raise_and_feature_models_are_refused(tmp_path):
     _, targs = H.genrl_args_pair()
     agent = tppo.TokenPPOAgent(targs, build_genrl_model(targs, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
         agent.enable_mesh("dp=2")
     # checkpoints are ported: a save and a load round-trip the state
     saved = agent.save_checkpoint(str(tmp_path / "ckpt"))

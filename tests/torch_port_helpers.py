@@ -140,3 +140,45 @@ def to_jax_batch(batch):
 
 def to_torch_batch(batch):
     return {k: torch.tensor(np.asarray(v)) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# on-policy learners (A3C, PPO): clip-then-Adam train states
+
+def onpolicy_state_to_torch(jax_state, tree_to_torch=convert.mlp_policy_to_torch):
+    """A JAX ``A3CTrainState`` / ``PPOTrainState`` -> the port's, on the host."""
+    from scalerl_torch.agents.a3c import A3CTrainState
+
+    return A3CTrainState(
+        params=tree_to_torch(to_numpy(jax_state.params)),
+        opt_state=convert.adam_state_to_torch(to_numpy(jax_state.opt_state), tree_to_torch),
+        step=torch.tensor(int(jax_state.step), dtype=torch.int32),
+        env_frames=torch.tensor(int(jax_state.env_frames), dtype=torch.int64),
+    )
+
+
+def assert_onpolicy_state_close(tstate, jstate, tree_to_torch=convert.mlp_policy_to_torch,
+                                atol=1e-5, conv_atol=1e-5):
+    """Params, Adam's moments and counters at ``atol``; ``conv_atol`` for
+    the conv weights (``convs.*``), whose gradients at rounding level move
+    them by about lr * sign(g) under Adam (the R2D2 case, ROADMAP §C)."""
+    want = onpolicy_state_to_torch(jstate, tree_to_torch)
+    for k, v in want.params.items():
+        tol = conv_atol if k.startswith("convs.") else atol
+        np.testing.assert_allclose(tstate.params[k].detach().numpy(), v.numpy(), atol=tol,
+                                   rtol=1e-5, err_msg=k)
+    for moment in ("mu", "nu"):
+        for k, v in want.opt_state[moment].items():
+            np.testing.assert_allclose(tstate.opt_state[moment][k].numpy(), v.numpy(),
+                                       atol=atol, rtol=1e-5, err_msg=f"{moment}.{k}")
+    assert int(tstate.opt_state["count"]) == int(want.opt_state["count"])
+    assert int(tstate.step) == int(want.step)
+    assert int(tstate.env_frames) == int(want.env_frames)
+
+
+def flat_traj(seed, T, B, A, obs_dim=4):
+    """numpy fields of a [T+1, B] trajectory over flat float32 observations."""
+    fields = random_traj(T, B, (), A, seed)
+    fields["obs"] = np.random.default_rng(seed + 100).normal(
+        size=(T + 1, B, obs_dim)).astype(np.float32)
+    return fields

@@ -36,7 +36,18 @@ reference's (``docs/LEARNING_CURVES.md``):
 - ``r2d2_recall_device``: the same task as ``TensorRecall`` on the device
   under ``DeviceR2D2Trainer`` (16 envs), 50,000 frames an arm, held to the
   windowed return of the run's last quarter (``examples/curves/r2d2.py:
-  69-144``).
+  69-144``);
+- ``a3c_cartpole`` / ``ppo_cartpole``: ``OnPolicyTrainer`` on 8
+  ``TensorCartPole`` lanes stepped on the CPU, 300,000 frames; the final
+  greedy evaluation over 10 episodes must reach 400
+  (``examples/curves/onpolicy.py``);
+- ``ppo_recall_lstm``: the PPO learn step inside the fused loop with the
+  LSTM on ``TensorRecall(16, delay 6, 4 cues)``: 0.8 within 200,000 frames;
+- ``sac_pendulum`` / ``td3_pendulum``: ``OffPolicyTrainer`` on gymnasium's
+  ``Pendulum-v1`` (needs gymnasium; the card's machine has none, so these
+  run with ``--device cpu`` on a host that has it), 24,000 steps, the
+  greedy evaluation over 6 episodes against -400
+  (``examples/curves/continuous.py``).
 
 ``seed`` seeds the loop's generator (env draws and actions), as the
 reference's ``seed`` keys its loop; the weights come from
@@ -141,7 +152,11 @@ def run_fused_to_threshold(
 # (the R2D2 rows record both arms' frames and no crossing)
 REFERENCE_FRAMES = {"synthetic": 36_800, "catch": 227_200, "recall": 120_320,
                     "breakout": 996_800, "cartpole_host": 292_096, "dqn_cartpole": 238_000,
-                    "r2d2_recall": 120_576, "r2d2_recall_device": 100_224}
+                    "r2d2_recall": 120_576, "r2d2_recall_device": 100_224,
+                    "a3c_cartpole": 251_904, "ppo_cartpole": 139_264, "ppo_recall_lstm": 18_944,
+                    "sac_pendulum": None, "td3_pendulum": None}
+# the Pendulum rows run a fixed 24,000 steps: the reference's final eval return
+REFERENCE_RETURN = {"sac_pendulum": -182.2, "td3_pendulum": -256.8}
 
 
 @torch.no_grad()
@@ -406,10 +421,189 @@ def r2d2_recall_device(seed: int = 0, device: str = "cuda", frames: int = 50_000
     return _r2d2_pair(run_r2d2_recall_device, "return_windowed", frames, seed, device, **kw)
 
 
+def _onpolicy_cartpole(agent_cls, args, seed: int, device: str, threshold: float,
+                       name: str) -> Dict[str, Any]:
+    """``examples/curves/onpolicy.py``'s CartPole harness on the port:
+    ``OnPolicyTrainer`` over ``num_workers`` ``TensorCartPole`` lanes
+    stepped on the CPU (the reference's gymnasium CartPole-v1: same
+    dynamics; a time limit ends an episode as a termination here), the
+    learner and the central inference on ``device``.  ``passed``: the
+    final greedy evaluation over 10 episodes (4 eval envs) reaches
+    ``threshold``; ``frames_to_threshold``: the first logged ``return_mean``
+    (every 2,000 frames) at or above it."""
+    from scalerl_torch.envs.gym_env import TensorVectorView
+    from scalerl_torch.envs.tensor_envs import TensorCartPole
+    from scalerl_torch.trainer.on_policy import OnPolicyTrainer
+
+    train_envs = TensorVectorView(TensorCartPole(args.num_workers, device="cpu"))
+    eval_envs = TensorVectorView(TensorCartPole(4, device="cpu"))
+    agent = agent_cls(args, (4,), 2, device=device)
+    trainer = OnPolicyTrainer(args, agent, train_envs, eval_envs, run_name=f"{name}_{seed}")
+    t0 = time.perf_counter()
+    try:
+        trainer.run()
+        ev = trainer.run_evaluate_episodes(n_episodes=10)
+    finally:
+        trainer.close()
+    wall = time.perf_counter() - t0
+    curve = [(f, m["return_mean"]) for f, kind, m in trainer.log_history
+             if kind == "train" and "return_mean" in m]
+    return {
+        "threshold": threshold,
+        "final_return": ev["reward_mean"],
+        "frames": trainer.global_step,
+        "frames_to_threshold": next((f for f, r in curve if r >= threshold), None),
+        "seconds": wall,
+        "frames_per_s": trainer.global_step / wall,
+        "learner_steps": trainer.learn_steps,
+        "skipped_steps": trainer.last_train_info.get("skipped_steps"),
+        "passed": ev["reward_mean"] >= threshold,
+        "seed": seed,
+    }
+
+
+ONPOLICY_CARTPOLE = dict(env_id="CartPole-v1", num_workers=8, hidden_sizes="64,64",
+                         entropy_coef=0.01, gae_lambda=0.95, gamma=0.99, max_timesteps=300_000,
+                         eval_frequency=10**9, logger_frequency=2_000, logger_backend="none",
+                         telemetry_interval_s=0.0, save_model=False, normalize_obs=False)
+
+
+def a3c_cartpole(seed: int = 0, device: str = "cuda", work_dir: str = "work_dirs",
+                 **kw) -> Dict[str, Any]:
+    """``examples/curves/onpolicy.py::a3c_cartpole``: the synchronous A2C
+    runtime, 8 lanes, T=16, hidden 64,64, lr 1e-3, 300,000 frames, to 400."""
+    from scalerl_torch.agents.a3c import A3CAgent
+    from scalerl_torch.config import A3CArguments
+
+    args = A3CArguments(**{**ONPOLICY_CARTPOLE, "rollout_length": 16, "learning_rate": 1e-3,
+                           "seed": seed, "work_dir": work_dir, **kw})
+    return _onpolicy_cartpole(A3CAgent, args, seed, device, 400.0, "a3c_cartpole")
+
+
+def ppo_cartpole(seed: int = 0, device: str = "cuda", work_dir: str = "work_dirs",
+                 **kw) -> Dict[str, Any]:
+    """``examples/curves/onpolicy.py::ppo_cartpole``: 8 lanes, T=32, 4
+    epochs of 4 minibatches, hidden 64,64, lr 3e-4, 300,000 frames, to 400."""
+    from scalerl_torch.agents.ppo import PPOAgent
+    from scalerl_torch.config import PPOArguments
+
+    args = PPOArguments(**{**ONPOLICY_CARTPOLE, "rollout_length": 32, "num_minibatches": 4,
+                           "ppo_epochs": 4, "learning_rate": 3e-4, "seed": seed,
+                           "work_dir": work_dir, **kw})
+    return _onpolicy_cartpole(PPOAgent, args, seed, device, 400.0, "ppo_cartpole")
+
+
+def ppo_recall_lstm(seed: int = 0, device: str = "cuda", max_frames: int = 200_000,
+                    threshold: float = 0.8) -> Dict[str, Any]:
+    """``examples/curves/onpolicy.py::ppo_recall_lstm``: the PPO learn step
+    inside ``DeviceActorLearnerLoop`` with the LSTM (hidden 64) on
+    ``TensorRecall(16, delay 6, 4 cues)``, 32 lanes, T=8, 2 iterations a
+    chunk, 2 epochs of 2 minibatches, lr 1e-3, entropy 0.02: the windowed
+    return reaches 0.8 within 200,000 frames."""
+    from scalerl_torch.agents.ppo import PPOAgent
+    from scalerl_torch.config import PPOArguments
+
+    B, T, iters = 32, 8, 2
+    env = TensorRecall(B, size=16, delay=6, num_cues=4, device=device)
+    args = PPOArguments(use_lstm=True, hidden_size=64, rollout_length=T, num_workers=B,
+                        num_minibatches=2, ppo_epochs=2, max_timesteps=0, learning_rate=1e-3,
+                        entropy_coef=0.02, gae_lambda=0.95)
+    agent = PPOAgent(args, env.observation_shape, env.num_actions, device=device)
+    loop = DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), T,
+                                  iters_per_call=iters, seed=seed, device=device)
+    curve = []
+    t0 = time.perf_counter()
+    state, _, summary = loop.run_until(
+        agent.state, loop.init_carry(), threshold=threshold,
+        max_calls=max_frames // (B * T * iters),
+        on_metrics=lambda frames, windowed, m: curve.append((frames, windowed)))
+    if state.step.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {
+        "threshold": threshold,
+        "final_return": summary["windowed_return"],
+        "frames": int(summary["frames"]),
+        "frames_to_threshold": next((f for f, w in curve if w >= threshold), None),
+        "seconds": wall,
+        "frames_per_s": summary["frames"] / wall,
+        "learner_steps": int(state.step),
+        "nonfinite_chunks": summary["nonfinite_chunks"],
+        "passed": bool(summary["hit"]),
+        "seed": seed,
+    }
+
+
+def _pendulum(agent_cls, args, seed: int, device: str) -> Dict[str, Any]:
+    """``examples/curves/continuous.py``'s Pendulum harness on the port:
+    ``OffPolicyTrainer`` over 4 gymnasium ``Pendulum-v1`` envs (needs
+    gymnasium), 24,000 env steps, then the greedy evaluation over 6
+    episodes (2 eval envs) against -400."""
+    from scalerl_torch.envs.gym_env import make_vect_envs
+    from scalerl_torch.trainer.off_policy import OffPolicyTrainer
+
+    envs = make_vect_envs("Pendulum-v1", num_envs=4, seed=seed, async_envs=False)
+    eval_envs = make_vect_envs("Pendulum-v1", num_envs=2, seed=seed + 1, async_envs=False)
+    space = envs.single_action_space
+    agent = agent_cls(args, (3,), space.low, space.high, device=device)
+    trainer = OffPolicyTrainer(args, agent, envs, eval_envs,
+                               run_name=f"{args.algo_name}_pendulum_{seed}")
+    t0 = time.perf_counter()
+    try:
+        trainer.run()
+        ev = trainer.run_evaluate_episodes(n_episodes=6)
+    finally:
+        trainer.close()
+        envs.close()
+        eval_envs.close()
+    wall = time.perf_counter() - t0
+    threshold = -400.0
+    return {
+        "threshold": threshold,
+        "final_return": ev["reward_mean"],
+        "frames": trainer.global_step,
+        "frames_to_threshold": None,
+        "seconds": wall,
+        "frames_per_s": trainer.global_step / wall,
+        "learner_steps": trainer.learn_steps,
+        "skipped_steps": float(trainer.skipped_steps),
+        "passed": ev["reward_mean"] >= threshold,
+        "seed": seed,
+    }
+
+
+PENDULUM = dict(env_id="Pendulum-v1", num_envs=4, buffer_size=100_000, batch_size=128,
+                warmup_learn_steps=1000, train_frequency=2, max_timesteps=24_000,
+                logger_backend="none", logger_frequency=10**9, save_model=False,
+                eval_frequency=10**9, telemetry_interval_s=0.0)
+
+
+def sac_pendulum(seed: int = 0, device: str = "cuda", work_dir: str = "work_dirs",
+                 **kw) -> Dict[str, Any]:
+    """``examples/curves/continuous.py::sac_pendulum``."""
+    from scalerl_torch.agents.sac import SACAgent
+    from scalerl_torch.config import SACArguments
+
+    args = SACArguments(**{**PENDULUM, "seed": seed, "work_dir": work_dir, **kw})
+    return _pendulum(SACAgent, args, seed, device)
+
+
+def td3_pendulum(seed: int = 0, device: str = "cuda", work_dir: str = "work_dirs",
+                 **kw) -> Dict[str, Any]:
+    """``examples/curves/continuous.py::td3_pendulum``."""
+    from scalerl_torch.agents.td3 import TD3Agent
+    from scalerl_torch.config import TD3Arguments
+
+    args = TD3Arguments(**{**PENDULUM, "seed": seed, "work_dir": work_dir, **kw})
+    return _pendulum(TD3Agent, args, seed, device)
+
+
 TASKS = {"synthetic": impala_synthetic, "catch": impala_catch, "recall": impala_recall_lstm,
          "breakout": impala_breakout, "cartpole_host": impala_cartpole_host,
          "dqn_cartpole": dqn_cartpole, "r2d2_recall": r2d2_recall,
-         "r2d2_recall_device": r2d2_recall_device}
+         "r2d2_recall_device": r2d2_recall_device, "a3c_cartpole": a3c_cartpole,
+         "ppo_cartpole": ppo_cartpole, "ppo_recall_lstm": ppo_recall_lstm,
+         "sac_pendulum": sac_pendulum, "td3_pendulum": td3_pendulum}
 
 
 def card() -> str:
@@ -443,8 +637,10 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in opts.seeds.split(",")):
         for task in tasks:
             row = TASKS[task](seed=seed, device=opts.device)
-            print(json.dumps({"task": task, **row, "reference_frames": REFERENCE_FRAMES[task],
-                              **where}), flush=True)
+            ref = {"reference_frames": REFERENCE_FRAMES[task]}
+            if task in REFERENCE_RETURN:
+                ref["reference_return"] = REFERENCE_RETURN[task]
+            print(json.dumps({"task": task, **row, **ref, **where}), flush=True)
     return 0
 
 
