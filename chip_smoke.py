@@ -319,12 +319,37 @@ no result line:
     ``Pendulum-v1`` dynamics in numpy) for ``CONTINUOUS_TRAIN_STEPS`` env
     steps: sample launches = update launches = learn steps > 0, finite
     losses; env and learn steps/s.
+43. ``serving_flush``: an ``InferenceServer`` holding the LSTM ``AtariNet``
+    at ``ImpalaArguments``' defaults (hidden 512, 84x84x4, 6 actions,
+    ``serve_max_batch`` 64), with its sync guard armed (it has the card to
+    itself): flushes of 1, 3, 8, 17, 33 and 64 lanes (buckets 1-64), each
+    cold then warm under ``steady_state_guard()``; logits and cores against
+    the agent's own act on the card within ``SERVE_TOL``, actions equal to
+    the argmax of the agent's logits plus the same injected Gumbel draws,
+    one put and one get a flush; then each flush's host µs.
+44. ``impala_serving``: ``HostActorLearnerTrainer(actor_mode="serving")``
+    at ``impala_trainer_host``'s defaults for ``SERVE_TRAIN_S``: env frames/s
+    and learn steps/s beside the thread plane's from the same run, the
+    server's SLO (latency p50/p95/p99, batch occupancy, requests/s),
+    flushes, sheds, copies and the staleness gauge; then one learn step of
+    the same run under ``torch.profiler`` (``impala_serving_profile``: busy
+    share, V-trace µs a call).  V-trace launches = learn steps > 0, no
+    client fallback, finite losses, no actor error or restart, every
+    admitted request answered or shed.
+45. ``serving_traffic``: the twin of ``bench.py --mode traffic``: 3 replicas
+    of the obs-64, 16-action, hidden-256 MLP policy behind
+    ``ServingRouter``, 16 clients of open-loop Poisson traffic (and bursts)
+    at 200 requests/s of 4 lanes for 10 s, every request traced into a
+    ``TierLedger``: goodput under the 100 ms SLO, p50/p95/p99, the tier with
+    the most attributed time; ``admitted == answered + shed + orphaned``
+    exactly.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
 ``envs/gym_env.py``'s views, their logger ``none``.
 
-Then a line with the card, a ``{"kernels": [...]}`` line (ten kernels; the
+Then the seconds of each phase (``phase_seconds``), a line with the card, a
+``{"kernels": [...]}`` line (ten kernels; the
 three flash kernels at the learner's bf16 shape, through the tensor cores),
 and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1038,7 +1063,6 @@ def profile_device(fn):
     """Run ``fn()`` under ``torch.profiler``; returns the wall seconds it
     took there and ``[(kernel, device us, calls)]``, heaviest first."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1046,16 +1070,22 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
+    return profiled_s, _kernel_table(prof)
+
+
+def _kernel_table(prof):
+    """A finished profiler's ``[(kernel, device us, calls)]``, heaviest
+    first."""
+    from torch.autograd import DeviceType
 
     def device_us(e) -> float:
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
-    kernels = sorted(
+    return sorted(
         ((e.key, device_us(e), e.count) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and device_us(e) > 0),
         key=lambda k: -k[1],
     )
-    return profiled_s, kernels
 
 
 def profile_host(fn, top: int = 12):
@@ -1569,7 +1599,7 @@ GEN_PAGE, GEN_MACRO, GEN_MIN_FREE = 16, 16, 32
 GEN_MAX_LEN = 2 * (GEN_P + GEN_R)
 GEN_PAGES_PER_LANE = (GEN_P + GEN_R) // GEN_PAGE  # 24
 GEN_NUM_PAGES = GEN_LANES * GEN_PAGES_PER_LANE + 1  # 6,145 with the null page
-GEN_TARGET_S = 10.0
+GEN_TARGET_S = 8.0  # 10 s before the serving phases joined the script
 # the kernel against its plain version: the same float32 arithmetic summed
 # in another order (an online softmax over chunks of 16 tokens against one
 # softmax and an einsum); JAX pins its kernel to its reference at 1e-5
@@ -2118,7 +2148,7 @@ TRAIN_V, TRAIN_D, TRAIN_HEADS, TRAIN_LAYERS = 1024, 256, 8, 4
 TRAIN_P, TRAIN_R, TRAIN_B = 128, 128, 64
 TRAIN_PACK_LEN = 512
 TRAIN_HEAD_DIM = TRAIN_D // TRAIN_HEADS
-TRAIN_COHORT_S = 15.0
+TRAIN_COHORT_S = 10.0  # 15 s before the serving phases joined the script
 TRAIN_CONTINUOUS_ROUNDS = 3
 TRAIN_LEARN_RATE_S = 3.0
 # the segment kernels against the plain version in float32: the same
@@ -2766,7 +2796,7 @@ def phase_genrl_train(report: dict) -> None:
 SHARD_D, SHARD_LAYERS, SHARD_HEADS = 1024, 8, 16
 SHARD_T, SHARD_B, SHARD_OBS, SHARD_A = 16, 8, 64, 16
 SHARD_HEAD_DIM = SHARD_D // SHARD_HEADS
-SHARD_TRAIN_S = 15.0
+SHARD_TRAIN_S = 10.0  # 15 s before the serving phases joined the script
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # the flash kernels against the plain version.  float32: the same products
 # summed in another order (each warp of the micro-tile kernels sums over its
@@ -3370,8 +3400,10 @@ def phase_flash_train_step(report: dict) -> None:
 # The IMPALA entry point and the host plane (phases 26-29)
 TRAINER_ITERS = 10  # DeviceActorLearnerTrainer's iterations a call
 # the host-plane windows (HOST_TRAIN_S, APEX_TRAIN_S, R2D2_HOST_S, PDQN_TRAIN_S,
-# PROC_TRAIN_S) were 20, 20, 15, 20, 20 s; shortened so the whole script,
-# with the remaining learners' phases, stays well inside its time limit
+# PROC_TRAIN_S) were 20, 20, 15, 20, 20 s, then 12, 12, 10, 12, 12 s beside the
+# remaining learners' phases; APEX_TRAIN_S, R2D2_HOST_S, PDQN_TRAIN_S and
+# PROC_TRAIN_S are 8 s beside the serving phases, so the whole script stays
+# inside its time limit
 HOST_TRAIN_S = 12.0
 HOST_PROFILE_STEPS = 1  # its trace holds ~70,000 kernels a learn step
 DQN_RESUME_STEPS, DQN_RESUME_MORE, DQN_TRIP_K = 6_000, 4_000, 3
@@ -3605,6 +3637,11 @@ def phase_impala_trainer_host(report: dict) -> None:
     prof_trainer.close()
     busy_s = sum(us for _, us, _ in kernels) / 1e6
     vt = [(us, n) for k, us, n in kernels if "vtrace_kernel" in k]
+    # the serving trainer's phase prints its rates beside these
+    report["impala_trainer_host"] = dict(
+        env_frames_per_s=result["env_frames"] / seconds,
+        learn_steps_per_s=trainer.learn_steps / seconds,
+        device_busy_share=busy_s / profiled_s if kernels else None)
     emit("impala_trainer_host", actors=args.num_actors, envs_per_actor=1, T=args.rollout_length,
          batch=args.batch_size, num_buffers=args.num_buffers, seconds=seconds,
          env_frames=result["env_frames"], env_frames_per_s=result["env_frames"] / seconds,
@@ -3747,7 +3784,7 @@ def phase_dqn_resume(report: dict) -> None:
 
 
 RAINBOW_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4, "host_rel": 1e-4}
-APEX_TRAIN_S, R2D2_HOST_S = 12.0, 10.0
+APEX_TRAIN_S, R2D2_HOST_S = 8.0, 8.0
 R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 300, 5
 
 
@@ -4159,8 +4196,8 @@ def phase_r2d2_host(report: dict) -> None:
 # The process plane (phases 35-37)
 RING_PRODUCERS, RING_SLOTS, RING_PER_PRODUCER = 4, 32, 40
 RING_TEAR_SPEC, RING_TEAR_SLOTS = "16:slot_tear=0.25", 40
-PDQN_TRAIN_S = 12.0
-PROC_TRAIN_S = 12.0
+PDQN_TRAIN_S = 8.0
+PROC_TRAIN_S = 8.0
 # seconds a training phase may take to reach its first learn step
 FIRST_LEARN_DEADLINE_S = 240.0
 
@@ -5179,6 +5216,457 @@ def phase_continuous_train(report: dict) -> None:
         raise AssertionError(f"continuous_train: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# The serving plane: the inference server, its clients, the router
+
+# lane counts of the flush check: buckets 1, 4, 8, 32 and 64 of the ladder
+# (1, 2, 4, ..., 64) that ServingConfig's max_batch of 64 builds
+SERVE_LANES = (1, 3, 8, 17, 33, 64)
+SERVE_TIMED_REPS = 20
+# the server runs a bucket's padded batch, the agent the request's lanes:
+# cuDNN and cuBLAS may pick other algorithms for other batch sizes, so the
+# two agree to rounding, not bit for bit (float32, TF32 off)
+SERVE_TOL = 1e-4
+SERVE_TRAIN_S = HOST_TRAIN_S
+SERVE_PROFILE_STEPS = 1
+# bench.py --mode traffic on an accelerator (bench.py:589-590)
+TRAFFIC_REPLICAS, TRAFFIC_CLIENTS, TRAFFIC_RPS, TRAFFIC_S, TRAFFIC_SLO_MS = 3, 16, 200.0, 10.0, 100.0
+TRAFFIC_OBS, TRAFFIC_ACTIONS, TRAFFIC_LANES = 64, 16, 4
+
+
+def _serve_payload(rng, lanes: int, A: int, core_size: int) -> dict:
+    return {
+        "obs": rng.integers(0, 256, (lanes, 84, 84, 4)).astype(np.uint8),
+        "last_action": rng.integers(0, A, lanes).astype(np.int32),
+        "reward": rng.normal(size=lanes).astype(np.float32),
+        "done": rng.uniform(size=lanes) < 0.2,
+        "core": tuple((0.5 * rng.normal(size=(lanes, core_size))).astype(np.float32)
+                      for _ in range(4)),
+    }
+
+
+def phase_serving_flush(report: dict) -> None:
+    """An ``InferenceServer`` holding ``ImpalaArguments``' LSTM ``AtariNet``
+    (hidden 512, 84x84x4, 6 actions) at ``serve_max_batch`` 64, with its
+    sync guard armed (it has the card to itself here): each of
+    ``SERVE_LANES`` flushed cold, then warm under ``steady_state_guard()``.
+    Each reply's logits and cores against the agent's own act on the card
+    on the same inputs (``SERVE_TOL``), its actions against the argmax of the
+    agent's logits plus the same injected Gumbel draws; one put and one get
+    a flush, counted at the module seams; then each bucket's flush timed
+    ``SERVE_TIMED_REPS`` times (host µs, the reply's read included)."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.agents.policy_value import pack_host_inputs
+    from scalerl_torch.serving import InferenceServer, ServingConfig, ServingRequest, local_pair
+    from scalerl_torch.serving import server as serving_server
+
+    set_tf32(False)
+    args = _default_args(env_id="PixelRing-v0", logger_backend="none")
+    A = 6
+    agent = ImpalaAgent(args, (84, 84, 4), A)
+    cfg = ServingConfig.from_args(args)
+    if (cfg.max_batch, cfg.max_wait_s, cfg.max_pending) != (64, 0.005, 256):
+        raise AssertionError(f"ImpalaArguments' serving defaults moved: {cfg}")
+    server = InferenceServer(agent, cfg, guard_warm_flushes=True)
+    c_end, s_end = local_pair()
+    server.hub.add_connection(s_end)
+    counts = {"put": 0, "get": 0}
+    put, get = serving_server._device_put, serving_server._device_get
+
+    def counting_put(*a, **k):
+        counts["put"] += 1
+        return put(*a, **k)
+
+    def counting_get(*a, **k):
+        counts["get"] += 1
+        return get(*a, **k)
+
+    serving_server._device_put, serving_server._device_get = counting_put, counting_get
+    noise: dict = {}
+    server._gumbel = lambda logits: noise["g"]
+    draws = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(0)
+    core_size = agent.initial_state(1)[0][0].shape[-1]
+    cases, req = [], 0
+    try:
+        for lanes in SERVE_LANES:
+            bucket = serving_server.bucket_for(lanes, server.batcher.buckets)
+            for warm in (False, True):
+                p = _serve_payload(rng, lanes, A, core_size)
+                u = torch.rand((bucket, A), generator=draws, device="cuda").clamp_min(1e-38)
+                noise["g"] = -torch.log(-torch.log(u))
+                core = ((p["core"][0], p["core"][1]), (p["core"][2], p["core"][3]))
+                server._flush([ServingRequest(conn=s_end, req_id=req, lanes=lanes,
+                                              payload={**p, "core": core})])
+                reply = c_end.recv(timeout=120.0)
+                if reply.get("req") != req or "error" in reply:
+                    raise AssertionError(f"serving_flush: reply {reply.get('req')} to {req}: "
+                                         f"{reply.get('error')}")
+                req += 1
+                with torch.no_grad():
+                    inputs = pack_host_inputs(p["obs"], p["last_action"], p["reward"], p["done"],
+                                              agent.device)
+                    dev_core = tuple((torch.from_numpy(c).cuda(), torch.from_numpy(h).cuda())
+                                     for c, h in core)
+                    logits, new_core = agent._forward(*inputs, dev_core)
+                    scored = logits + noise["g"][:lanes]
+                    top2 = torch.topk(scored, 2, dim=-1).values
+                    want = scored.argmax(-1).cpu().numpy()
+                    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+                logit_err = float(np.abs(reply["logits"] - logits.cpu().numpy()).max())
+                core_err = max(float(np.abs(got - w.cpu().numpy()).max())
+                               for pair_got, pair_want in zip(reply["core"], new_core)
+                               for got, w in zip(pair_got, pair_want))
+                clear = margin > 2 * SERVE_TOL
+                cases.append(dict(lanes=lanes, bucket=bucket, warm=warm, logit_err=logit_err,
+                                  core_err=core_err,
+                                  actions_equal=bool((reply["action"] == want)[clear].all()),
+                                  near_ties=int((~clear).sum()),
+                                  action_dtype=str(reply["action"].dtype)))
+        flushes_checked = server.flushes
+        timed = {}
+        for lanes in SERVE_LANES:
+            bucket = serving_server.bucket_for(lanes, server.batcher.buckets)
+            p = _serve_payload(rng, lanes, A, core_size)
+            core = ((p["core"][0], p["core"][1]), (p["core"][2], p["core"][3]))
+            noise["g"] = torch.zeros((bucket, A), device="cuda")
+            us = []
+            for _ in range(SERVE_TIMED_REPS):
+                t = time.perf_counter()
+                server._flush([ServingRequest(conn=s_end, req_id=req, lanes=lanes,
+                                              payload={**p, "core": core})])
+                us.append((time.perf_counter() - t) * 1e6)
+                c_end.recv(timeout=120.0)
+                req += 1
+            timed[f"{lanes} lanes"] = dict(bucket=bucket, flush_us_median=statistics.median(us),
+                                           flush_us_min=min(us))
+    finally:
+        serving_server._device_put, serving_server._device_get = put, get
+        server.hub.close()
+    emit("serving_flush", model="AtariNet LSTM hidden 512, 84x84x4, 6 actions",
+         config=dict(max_batch=cfg.max_batch, max_wait_s=cfg.max_wait_s,
+                     max_pending=cfg.max_pending, buckets=list(server.batcher.buckets)),
+         tolerance=SERVE_TOL, tf32=False, cases=cases, flushes=server.flushes,
+         flushes_checked=flushes_checked, device_puts=counts["put"], device_gets=counts["get"],
+         warm_buckets=sorted(server._warm_buckets), guarded_flushes=server.flushes - len(
+             {c["bucket"] for c in cases}), flush_us=timed, card=report["card"])
+    checks = {
+        "logits within SERVE_TOL": all(c["logit_err"] <= SERVE_TOL for c in cases),
+        "cores within SERVE_TOL": all(c["core_err"] <= SERVE_TOL for c in cases),
+        "actions equal under injected draws": all(c["actions_equal"] for c in cases),
+        "int32 actions": {c["action_dtype"] for c in cases} == {"int32"},
+        "one put and one get a flush": counts["put"] == counts["get"] == server.flushes
+        == server.device_puts == server.device_gets,
+        "two buckets or more": len({c["bucket"] for c in cases}) >= 2,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serving_flush: {failed}")
+
+
+def phase_impala_serving(report: dict) -> None:
+    """``HostActorLearnerTrainer(actor_mode="serving")`` at
+    ``impala_trainer_host``'s defaults (8 actors of 1 ``PixelRingEnv``
+    84x84x4, batch 8, 32 slots, the LSTM AtariNet, hidden 512, T=80, the
+    V-trace kernel, ``serve_max_batch`` 64, 5 ms, 256): rates over about
+    ``SERVE_TRAIN_S`` (to the first log boundary past it), then
+    ``SERVE_PROFILE_STEPS`` learn steps of the same run under
+    ``torch.profiler`` (the device's busy share, V-trace µs a call) before
+    the stop.  The server's SLO, flushes, sheds, copies and staleness gauge;
+    V-trace launches = learn steps, no client fallback, finite losses, no
+    actor error or restart, and every admitted request answered or shed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.runtime import telemetry
+    from scalerl_torch.trainer.actor_learner import HostActorLearnerTrainer
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = _work_dir("impala_serving")
+    args = _default_args(env_id="PixelRing-v0", logger_backend="none", work_dir=root,
+                         telemetry_interval_s=0.0, save_model=False, logger_frequency=640,
+                         actor_mode="serving")
+    if (args.num_actors, args.num_buffers, args.serve_max_batch, args.serve_max_wait_ms,
+            args.serve_max_pending) != (8, 32, 64, 5.0, 256):
+        raise AssertionError(f"ImpalaArguments' serving defaults moved: {args}")
+    reg = telemetry.get_registry()
+    errors0 = reg.counter("queue.actor_errors").value
+    fallbacks0 = reg.counter("serving_client.fallbacks").value
+    client_sheds0 = reg.counter("serving_client.sheds").value
+    reg.gauge("serving.staleness").set(-1.0)
+    agent = ImpalaAgent(args, (84, 84, 4), 6)
+    trainer = HostActorLearnerTrainer(args, agent, _pixel_ring_fns(args.num_actors))
+    server = trainer.inference_server
+    log = trainer.log
+    state: dict = {}
+    t0 = time.perf_counter()
+
+    def log_and_stop(step, kind, m):
+        log(step, kind, m)
+        now = time.perf_counter()
+        if "prof" in state:
+            if trainer.learn_steps >= state["prof_from"] + SERVE_PROFILE_STEPS:
+                torch.cuda.synchronize()
+                state["prof"].stop()
+                state["profiled_s"] = time.perf_counter() - state["prof_t0"]
+                trainer.stop_event.set()
+        elif now - t0 >= SERVE_TRAIN_S:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            state["rates"] = dict(seconds=now - t0, env_frames=trainer.env_frames,
+                                  learn_steps=trainer.learn_steps,
+                                  answered=server.answered, flushes=server.flushes)
+            state["prof_from"] = trainer.learn_steps
+            state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            state["prof"].start()
+            state["prof_t0"] = time.perf_counter()
+
+    trainer.log = log_and_stop
+    cuda_vtrace.launches = 0
+    result = trainer.train(total_frames=10**9)
+    torch.cuda.synchronize()
+    launches = cuda_vtrace.launches
+    trainer.close()
+    if "profiled_s" not in state:
+        raise AssertionError("impala_serving: the run stopped before its profile window closed")
+    kernels = _kernel_table(state["prof"])
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    vt = [(us, n) for k, us, n in kernels if "vtrace_kernel" in k]
+    rates = state["rates"]
+    sec = rates["seconds"]
+    losses = [m["total_loss"] for _, kind, m in trainer.log_history if kind == "train"]
+    acc = server.accounting()
+    slo = server.slo()
+    host = report.get("impala_trainer_host", {})
+    emit("impala_serving", actors=args.num_actors, envs_per_actor=1, T=args.rollout_length,
+         batch=args.batch_size, num_buffers=args.num_buffers, seconds=sec,
+         env_frames=rates["env_frames"], env_frames_per_s=rates["env_frames"] / sec,
+         learn_steps=rates["learn_steps"], learn_steps_per_s=rates["learn_steps"] / sec,
+         threads_plane=host, requests_per_s=rates["answered"] / sec,
+         flushes_per_s=rates["flushes"] / sec, slo=slo, accounting=acc,
+         flushes=server.flushes, device_puts=server.device_puts,
+         device_gets=server.device_gets, generation=server.generation,
+         server_sheds=acc["shed"] + server.hub.shed_total,
+         client_sheds=reg.counter("serving_client.sheds").value - client_sheds0,
+         staleness=reg.gauge("serving.staleness").value,
+         fallbacks=reg.counter("serving_client.fallbacks").value - fallbacks0,
+         total_learn_steps=trainer.learn_steps, vtrace_launches=launches,
+         skipped_steps=result.get("skipped_steps"), logged_losses=len(losses),
+         actor_errors=reg.counter("queue.actor_errors").value - errors0,
+         actor_restarts=trainer.actor_restarts,
+         actor_ms_per_slot={k: v * 1e3 for k, v in trainer.actors[0].timings.means().items()},
+         learner_ms_per_step={k: v * 1e3 for k, v in trainer.learn_timings.means().items()},
+         card=report["card"])
+    emit("impala_serving_profile", learn_steps=SERVE_PROFILE_STEPS,
+         profiled_s=state["profiled_s"], device_busy_s=busy_s,
+         device_busy_share=busy_s / state["profiled_s"] if kernels else None,
+         kernel_launches=sum(n for _, _, n in kernels),
+         vtrace_us_per_call=sum(us for us, _ in vt) / sum(n for _, n in vt) if vt else None,
+         top_kernels=[{"name": k[:90], "ms": us / 1e3, "calls": n} for k, us, n in kernels[:10]],
+         card=report["card"])
+    checks = {
+        "V-trace launches = learn steps": launches == trainer.learn_steps > 0,
+        "no client fallback": reg.counter("serving_client.fallbacks").value == fallbacks0
+        and not any(c.fallen_back for c in trainer._serving_clients),
+        "finite losses": bool(losses) and all(math.isfinite(x) for x in losses),
+        "no skipped steps": result.get("skipped_steps") == 0.0,
+        "no actor errors": reg.counter("queue.actor_errors").value == errors0
+        and trainer.actor_restarts == 0,
+        "every admitted request answered or shed": acc["balanced"] and acc["pending"] == 0
+        and acc["errors"] == 0 and acc["answered"] > 0,
+        "one put and one get a flush": server.device_puts == server.device_gets
+        == server.flushes > 0,
+        "a generation a learn step": server.generation == trainer.learn_steps,
+        "staleness gauge set": reg.gauge("serving.staleness").value >= 0.0,
+        "profile shows V-trace": bool(vt),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"impala_serving: {failed}")
+
+
+def phase_serving_traffic(report: dict) -> None:
+    """The twin of ``bench.py --mode traffic`` on an accelerator
+    (bench.py:545-780): ``TRAFFIC_REPLICAS`` servers of the obs-64,
+    16-action, hidden-256 MLP policy behind ``ServingRouter``;
+    ``TRAFFIC_CLIENTS`` clients fire open-loop Poisson arrivals (plus a
+    burst a second) at ``TRAFFIC_RPS`` in all for ``TRAFFIC_S``, each request
+    of 4 lanes traced (a ``traffic.request`` root, the router's and the
+    replica's spans under it) into a ``TierLedger`` on the tracer.  Goodput
+    under the ``TRAFFIC_SLO_MS`` SLO, latency from the scheduled arrival,
+    the tier with the most attributed time and the p95 bottleneck; the
+    router's ``admitted == answered + shed + orphaned`` must hold exactly."""
+    import queue as queue_mod
+    import threading
+
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+    from scalerl_torch.runtime import tracing
+    from scalerl_torch.runtime.attribution import TierLedger
+    from scalerl_torch.serving import (
+        InferenceServer,
+        RemotePolicyClient,
+        RouterConfig,
+        ServingConfig,
+        ServingRouter,
+        connect_replica,
+        local_pair,
+    )
+
+    set_tf32(True)
+    args = ImpalaArguments(use_lstm=False, hidden_size=256, rollout_length=8, batch_size=4,
+                           num_actors=1, num_buffers=2, max_timesteps=0, logger_backend="none")
+    agent = ImpalaAgent(args, (TRAFFIC_OBS,), TRAFFIC_ACTIONS)
+    servers = [InferenceServer(agent, ServingConfig(max_batch=32, max_wait_s=0.002))
+               for _ in range(TRAFFIC_REPLICAS)]
+    for srv in servers:
+        srv.start()
+    router = ServingRouter([connect_replica(srv, f"replica{i}") for i, srv in enumerate(servers)],
+                           RouterConfig(hedge_budget=2, probe_backoff_s=0.05, seed=0))
+    router.start()
+    tracing.reset(sample_rate=1.0)
+    ledger = TierLedger().attach(tracing.get_tracer())
+    clients = []
+    for _ in range(TRAFFIC_CLIENTS):
+        c_end, r_end = local_pair()
+        router.add_client(r_end)
+        clients.append(RemotePolicyClient(conn=c_end, request_timeout_s=60.0))
+    lanes = TRAFFIC_LANES
+    rng = np.random.default_rng(0)
+    la, rew, done = np.zeros(lanes, np.int32), np.zeros(lanes, np.float32), np.zeros(lanes, bool)
+    try:
+        # warm-up: until every replica has flushed (affinity can pin early
+        # traffic to one replica, whose first flush would land in the window)
+        warm_deadline = time.monotonic() + 120.0
+        while any(srv.flushes == 0 for srv in servers) and time.monotonic() < warm_deadline:
+            for c in clients:
+                c.act(rng.normal(size=(lanes, TRAFFIC_OBS)).astype(np.float32), la, rew, done, ())
+        if any(srv.flushes == 0 for srv in servers):
+            raise AssertionError("serving_traffic: a replica never flushed in the warm-up")
+        admitted0 = router.stats()["admitted"]
+        per_client_rps = TRAFFIC_RPS / TRAFFIC_CLIENTS
+        burst_every_s, burst_n = 1.0, max(2, int(per_client_rps // 4))
+        stop = threading.Event()
+        lat_s = [[] for _ in range(TRAFFIC_CLIENTS)]
+        sheds = [0] * TRAFFIC_CLIENTS
+        lost = [0] * TRAFFIC_CLIENTS
+
+        def open_loop(i: int) -> None:
+            local = np.random.default_rng(1000 + i)
+            c = clients[i]
+            inflight: queue_mod.Queue = queue_mod.Queue()
+
+            def drain() -> None:
+                while True:
+                    item = inflight.get()
+                    if item is None:
+                        return
+                    pending, t_sched, span = item
+                    try:
+                        reply = pending.result(timeout=30.0)
+                    except (TimeoutError, ConnectionError):
+                        lost[i] += 1
+                        span.end(outcome="lost")
+                        continue
+                    t_done = time.perf_counter()
+                    if reply.get("shed"):
+                        sheds[i] += 1
+                        span.end(outcome="shed")
+                    else:
+                        lat_s[i].append(t_done - t_sched)
+                        span.end(outcome="ok")
+
+            drainer = threading.Thread(target=drain, daemon=True)
+            drainer.start()
+
+            def fire(t_sched: float) -> None:
+                span = tracing.start_span("traffic.request", kind="serving")
+                msg = c._act_msg(local.normal(size=(lanes, TRAFFIC_OBS)).astype(np.float32),
+                                 la, rew, done, ())
+                tracing.inject(msg, span)
+                inflight.put((c._submit(msg), t_sched, span))
+
+            t_start = time.perf_counter()
+            next_poisson = t_start + local.exponential(1.0 / per_client_rps)
+            next_burst = t_start + burst_every_s
+            while not stop.is_set():
+                now = time.perf_counter()
+                while next_poisson <= now:
+                    fire(next_poisson)
+                    next_poisson += local.exponential(1.0 / per_client_rps)
+                if next_burst <= now:
+                    for _ in range(burst_n):
+                        fire(next_burst)
+                    next_burst += burst_every_s
+                time.sleep(min(0.002, max(next_poisson - now, 0.0)))
+            inflight.put(None)
+            drainer.join(timeout=60.0)
+
+        threads = [threading.Thread(target=open_loop, args=(i,), daemon=True)
+                   for i in range(TRAFFIC_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(TRAFFIC_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=90.0)
+        elapsed = time.perf_counter() - t0
+        deadline = time.monotonic() + 30.0
+        while router.stats()["inflight"] > 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        stats = router.stats()
+        ledger.drain()
+        bn = ledger.bottleneck()
+    finally:
+        ledger.detach(tracing.get_tracer())
+        tracing.reset(sample_rate=0.0)
+        for c in clients:
+            c.close()
+        router.stop()
+        for srv in servers:
+            srv.stop()
+    balanced = stats["answered"] + stats["shed"] + stats["orphaned"] == stats["admitted"]
+    lat = np.sort(np.concatenate([np.asarray(v) for v in lat_s]) if any(lat_s) else np.zeros(0))
+    good = int(np.searchsorted(lat, TRAFFIC_SLO_MS / 1e3, side="right"))
+
+    def q(x: float) -> float:
+        return float(lat[min(int(x * lat.size), lat.size - 1)]) * 1e3 if lat.size else 0.0
+
+    top_tier = max(bn["tiers"], key=lambda t: bn["tiers"][t]["total_s"], default="")
+    emit("serving_traffic", replicas=TRAFFIC_REPLICAS, clients=TRAFFIC_CLIENTS,
+         lanes=lanes, offered_rps_target=TRAFFIC_RPS, slo_ms=TRAFFIC_SLO_MS,
+         measured_s=elapsed, goodput_rps=good / elapsed,
+         offered_rps=(lat.size + sum(sheds)) / elapsed, answered=int(lat.size), good=good,
+         shed=sum(sheds), lost=sum(lost), p50_ms=q(0.50), p95_ms=q(0.95), p99_ms=q(0.99),
+         router=dict(admitted=stats["admitted"], admitted_in_window=stats["admitted"] - admitted0,
+                     answered=stats["answered"], shed=stats["shed"], orphaned=stats["orphaned"],
+                     retries=stats["retries"], ejections=stats["ejections"],
+                     duplicate_replies=stats["duplicate_replies"]),
+         accounting_balanced=balanced, flushes=[srv.flushes for srv in servers],
+         top_tier_by_time=top_tier, bottleneck_tier_p95=bn["bottleneck_tier"], tiers=bn["tiers"],
+         attribution=dict(decomposed=bn["decomposed"], orphans=bn["orphans"],
+                          late_spans=bn["late_spans"], max_sum_err_s=bn["max_sum_err_s"]),
+         card=report["card"])
+    checks = {
+        "admitted == answered + shed + orphaned": balanced,
+        "answers in the window": lat.size > 0,
+        "no request lost": sum(lost) == 0,
+        "tiers attributed": bn["decomposed"] > 0 and bn["max_sum_err_s"] < 1e-6,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serving_traffic: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
@@ -5189,19 +5677,24 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_dqn_resume, phase_dqn_rainbow_learn, phase_apex_train, phase_r2d2_device,
           phase_learn_r2d2_recall_device, phase_r2d2_host, phase_shm_ring,
           phase_parallel_dqn, phase_process_impala, phase_impact_learn, phase_impact_train,
-          phase_onpolicy_train, phase_continuous_learn, phase_continuous_train]
+          phase_onpolicy_train, phase_continuous_learn, phase_continuous_train,
+          phase_serving_flush, phase_impala_serving, phase_serving_traffic]
 
 
 def main() -> int:
     report: dict = {}
+    seconds: dict = {}
+    t_all = time.perf_counter()
     for phase in PHASES:
         name = phase.__name__[len("phase_"):]
+        t_phase = time.perf_counter()
         try:
             phase(report)
         except Exception as exc:  # noqa: BLE001 — report the phase and fail
             traceback.print_exc()
             emit(name, ok=False, error=f"{type(exc).__name__}: {exc}")
             return 1
+        seconds[name] = round(time.perf_counter() - t_phase, 1)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "scalerl_tpu"))
     if leaked:
         emit("isolation", ok=False, error=f"imported {leaked}")
@@ -5231,6 +5724,8 @@ def main() -> int:
         ("flash_attention_bwd_dkv", "scalerl_torch/csrc/flash_attention.cu",
          "scalerl_tpu/ops/pallas_attention.py:220"),
     ]
+    emit("phase_seconds", total=round(time.perf_counter() - t_all, 1), by_phase=seconds,
+         card=report["card"])
     print(report["card"], flush=True)
     print(json.dumps({"kernels": [{
         "name": name,

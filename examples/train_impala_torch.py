@@ -15,7 +15,14 @@ Two backends, as in the JAX package's entry point:
   processes with their own CPU policy over the shared-memory ring
   (``ProcessActorLearnerTrainer``); the learner on the card.  They build
   their envs through ``make_host_envs`` (the port's own numpy envs for
-  their ids, no gymnasium needed).
+  their ids, no gymnasium needed);
+- ``--actor-mode serving``: the inference plane (``scalerl_torch/serving/``):
+  actor threads act through ``RemotePolicyClient``s against one
+  ``InferenceServer`` holding the policy on the card, with dynamic batching
+  (``--serve-max-batch``, ``--serve-max-wait-ms``), bounded admission
+  (``--serve-max-pending``) and generation-tagged parameters; the serving
+  SLO (latency p50/p95/p99, requests, batch occupancy) is printed at the
+  end.
 
 Every field of ``scalerl_torch.config.ImpalaArguments`` is an option under
 the JAX package's spelling (``--max-timesteps``, ``--env-id``,
@@ -25,6 +32,9 @@ raises without one; ``--device cpu`` runs on the host.  Host smoke run::
     python examples/train_impala_torch.py --device cpu --env-backend jax \
         --env-id CartPole-v1 --max-timesteps 20000 --use-lstm false
     python examples/train_impala_torch.py --device cpu --actor-mode process \
+        --env-id CartPole-v1 --num-actors 2 --num-envs 4 --num-buffers 8 \
+        --max-timesteps 20000 --use-lstm false
+    python examples/train_impala_torch.py --device cpu --actor-mode serving \
         --env-id CartPole-v1 --num-actors 2 --num-envs 4 --num-buffers 8 \
         --max-timesteps 20000 --use-lstm false
 """
@@ -81,6 +91,9 @@ def main(argv=None) -> dict:
     try:
         result = trainer.train(total_frames=args.total_steps)
         print("final:", {k: round(float(v), 3) for k, v in result.items()})
+        if getattr(trainer, "inference_server", None) is not None:
+            slo = trainer.inference_server.slo()
+            print("serving SLO:", {k: round(float(v), 3) for k, v in slo.items()})
         if args.save_model and not args.disable_checkpoint:
             path = agent.save_checkpoint(os.path.join(trainer.model_save_dir, "ckpt_final"))
             print("checkpoint:", path)

@@ -23,6 +23,8 @@ Several actor threads call :meth:`act` while the learner thread trains:
 step's inputs (the frames, last actions, rewards and done flags packed into
 one byte buffer) and one device-to-host copy of the actions and logits,
 which it returns as numpy; on tensors it returns tensors on the device.
+A core given as numpy (one an inference server answered with, when the
+agent is a serving client's local fallback) goes up in one more copy.
 """
 
 from __future__ import annotations
@@ -130,6 +132,12 @@ class PolicyValueAgent(BaseAgent):
             logits, new_core = self._forward(obs, last_action, reward, done, core_state)
             return self._sample(logits), logits, new_core
         inputs = pack_host_inputs(obs, last_action, reward, done, self.device)
+        if core_state and not isinstance(core_state[0][0], torch.Tensor):
+            # a host core (one the inference server answered with, when this
+            # agent stands in as a serving client's fallback)
+            core_state = tuple(pack_to_device([np.asarray(c, np.float32) for pair in core_state
+                                               for c in pair], self.device))
+            core_state = tuple(zip(core_state[0::2], core_state[1::2]))
         logits, new_core = self._forward(*inputs, core_state)
         action = self._sample(logits)
         host = torch.cat([logits.float(), action[:, None].float()], dim=1).cpu().numpy()

@@ -165,11 +165,21 @@ class ImpalaArguments(RLArguments):
     compute_dtype: str = "float32"
     rollout_length: int = 80
     num_actors: int = 8
-    # Host actor topology: "threads" = SEED-style central inference
-    # (HostActorLearnerTrainer); "process" and "serving" need
-    # trainer/process_actor_learner.py and serving/server.py, which are not
-    # ported: the trainer refuses them.
+    # Host actor topology: "threads" = SEED-style central inference through
+    # the agent (HostActorLearnerTrainer); "process" = monobeast-style actor
+    # processes with their own CPU policy over the shared-memory ring
+    # (ProcessActorLearnerTrainer); "serving" = the inference plane of
+    # serving/: actors act through RemotePolicyClients against one
+    # InferenceServer (dynamic batching, generation tags, latency SLOs)
     actor_mode: str = "threads"
+    # Inference-plane knobs (ServingConfig.from_args; read when
+    # actor_mode="serving"): flush a serve batch at this many pending lanes
+    serve_max_batch: int = 64
+    # ... or once the oldest pending request has waited this long
+    serve_max_wait_ms: float = 5.0
+    # bounded admission: shed act requests beyond this queue depth; 0
+    # disables shedding
+    serve_max_pending: int = 256
     num_buffers: int = 32  # rollout slots of the host plane's queue
     # >= 2 adds num_learner_threads - 1 batch-assembly threads
     num_learner_threads: int = 1
@@ -214,6 +224,12 @@ class ImpalaArguments(RLArguments):
                 "actor_mode must be threads | process | serving, got "
                 f"{self.actor_mode!r}"
             )
+        if self.serve_max_batch < 1:
+            raise ValueError(f"serve_max_batch must be >= 1, got {self.serve_max_batch}")
+        if self.serve_max_wait_ms < 0:
+            raise ValueError(f"serve_max_wait_ms must be >= 0, got {self.serve_max_wait_ms}")
+        if self.serve_max_pending < 0:
+            raise ValueError(f"serve_max_pending must be >= 0, got {self.serve_max_pending}")
 
 
 @dataclass

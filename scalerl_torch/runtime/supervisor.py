@@ -20,12 +20,15 @@ that the trainers use (jax-free there too):
   calls the trainer's rollback to the last good checkpoint.
 - ``exp_backoff`` / ``LivenessTracker``: capped exponential delays and a
   last-seen table.
+- The heartbeat and drain vocabulary of the wire (``make_ping``,
+  ``make_pong``, ``is_heartbeat``, ``make_drain``, ``is_drain``): the hub
+  answers pings in its receive pump and feeds each pong's stamps to the
+  tracer's clock-skew estimator (``runtime/tracing.py::observe_pong``).
 
 ``PreemptionGuard.poll_chaos`` is the chaos ``preempt`` hook
 (``runtime/chaos.py``): a seeded draw at a safe point that delivers a real
-SIGTERM.  The fleet's ping/pong/drain message helpers come with the fleet
-and are not ported.  The JAX package also dumps its flight recorder beside
-a stall report, a signal or a trip; the port's reports do not yet.
+SIGTERM.  The JAX package also dumps its flight recorder beside a stall
+report, a signal or a trip; the port's reports do not yet.
 """
 
 from __future__ import annotations
@@ -44,6 +47,46 @@ from scalerl_torch.runtime import telemetry
 from scalerl_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+# Heartbeat frame kinds of the wire: transport-level filters and protocol
+# handlers agree on one vocabulary.
+PING = "ping"
+PONG = "pong"
+
+# Drain control frames: the server tells a peer to stop starting work,
+# return what it has not started, flush what it holds and close cleanly
+# (the deliberate scale-down path; kill-and-respawn is the crash path).
+DRAIN = "drain"
+DRAIN_DONE = "drain_done"
+
+
+def make_ping() -> Dict[str, Any]:
+    return {"kind": PING, "t": time.time()}
+
+
+def make_pong(ping_msg: Dict[str, Any]) -> Dict[str, Any]:
+    """Echo the ping's send time and add the responder's wall clock and
+    host id: the pinger gets ``(t_send, t_peer, t_recv)`` a heartbeat, the
+    sample ``tracing.ClockSkewEstimator`` needs."""
+    return {
+        "kind": PONG,
+        "t": ping_msg.get("t", 0.0),
+        "rt": time.time(),
+        "host": telemetry.host_id(),
+    }
+
+
+def is_heartbeat(msg: Any) -> bool:
+    return isinstance(msg, dict) and msg.get("kind") in (PING, PONG)
+
+
+def make_drain() -> Dict[str, Any]:
+    return {"kind": DRAIN, "t": time.time()}
+
+
+def is_drain(msg: Any) -> bool:
+    return isinstance(msg, dict) and msg.get("kind") == DRAIN
+
 
 def exp_backoff(
     attempt: int,

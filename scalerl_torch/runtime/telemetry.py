@@ -12,10 +12,16 @@ trainers start by default: :class:`JsonlExporter` (one snapshot a line),
 :func:`write_final_snapshot` and :func:`observe_train_metrics`; and the
 :class:`FlightRecorder` (a bounded tail of structured events that the ring,
 the transport, chaos and checkpoints write to, with :func:`record_event`,
-:func:`get_recorder` and :func:`flight_dump_path`).  The fleet aggregator
-and the digest-backed histogram are not ported yet.  Plain Python;
-instruments are bumped once per chunk, learn step or admission, never per
-token, and no device value enters one.
+:func:`get_recorder` and :func:`flight_dump_path`; an event recorded while
+a span is active carries its trace id, through
+:func:`set_trace_id_provider`).  A histogram keeps its quantiles in a
+256-sample reservoir, or with ``backend="digest"`` in
+``runtime/attribution.py``'s mergeable ``LatencyDigest``, which holds its
+relative error at any count (the serving plane's latency SLOs).
+:func:`observe_staleness` sets the one ``staleness`` gauge every
+distribution path reports.  The fleet's ``TelemetryAggregator`` is not
+ported.  Plain Python; instruments are bumped once per chunk, learn step,
+flush or admission, never per token, and no device value enters one.
 """
 
 from __future__ import annotations
@@ -51,6 +57,17 @@ def host_id() -> str:
 
             _HOST_ID = f"{socket.gethostname()}-{os.getpid()}"
     return _HOST_ID
+
+
+# runtime/tracing.py registers its current-trace lookup here, so a flight
+# event recorded while a span is active carries the trace id, without this
+# module importing the tracer
+_TRACE_ID_PROVIDER: Optional[Callable[[], Optional[str]]] = None
+
+
+def set_trace_id_provider(fn: Optional[Callable[[], Optional[str]]]) -> None:
+    global _TRACE_ID_PROVIDER
+    _TRACE_ID_PROVIDER = fn
 
 
 class Counter:
@@ -98,16 +115,27 @@ class Gauge:
 
 
 class Histogram:
-    """Count/sum/min/max plus a bounded reservoir for quantiles:
-    deterministic systematic sampling (every k-th observation once full),
-    so snapshots are reproducible."""
+    """Count/sum/min/max plus a bounded quantile estimator, one of two
+    backends:
+
+    - ``"reservoir"`` (default): deterministic systematic sampling (every
+      k-th observation once full), so snapshots are reproducible; fine for
+      small counts, biased at the tail once the count dwarfs 256;
+    - ``"digest"``: ``runtime/attribution.LatencyDigest``, whose quantiles
+      stay within ``relative_error`` of the truth at any count and whose
+      merge is exact; :meth:`read` adds a ``p999``.
+    """
 
     kind = "histogram"
     __slots__ = ("name", "_lock", "count", "sum", "min", "max", "_reservoir",
-                 "_cap", "_stride")
+                 "_cap", "_stride", "backend", "_digest")
 
-    def __init__(self, name: str, reservoir_size: int = 256) -> None:
+    def __init__(self, name: str, reservoir_size: int = 256,
+                 backend: str = "reservoir", relative_error: float = 0.01) -> None:
+        if backend not in ("reservoir", "digest"):
+            raise ValueError(f"unknown histogram backend {backend!r}")
         self.name = name
+        self.backend = backend
         self._lock = threading.Lock()
         self.count = 0
         self.sum = 0.0
@@ -116,9 +144,23 @@ class Histogram:
         self._reservoir: List[float] = []
         self._cap = int(reservoir_size)
         self._stride = 1
+        self._digest = None
+        if backend == "digest":
+            # deferred: attribution's module is not needed by reservoir users
+            from scalerl_torch.runtime.attribution import LatencyDigest
+
+            self._digest = LatencyDigest(relative_error=relative_error)
 
     def observe(self, v: float) -> None:
         v = float(v)
+        if self._digest is not None:
+            with self._lock:
+                self.count += 1
+                self.sum += v
+                self.min = min(self.min, v)
+                self.max = max(self.max, v)
+            self._digest.observe(v)
+            return
         with self._lock:
             self.count += 1
             self.sum += v
@@ -132,6 +174,8 @@ class Histogram:
                     self._reservoir[self.count % self._cap] = v
 
     def quantile(self, q: float) -> float:
+        if self._digest is not None:
+            return self._digest.quantile(q)
         with self._lock:
             if not self._reservoir:
                 return 0.0
@@ -154,7 +198,14 @@ class Histogram:
         out["p50"] = self.quantile(0.50)
         out["p95"] = self.quantile(0.95)
         out["p99"] = self.quantile(0.99)
+        if self._digest is not None:
+            out["p999"] = self.quantile(0.999)
         return out
+
+    def digest_wire(self) -> Optional[Dict[str, Any]]:
+        """The mergeable digest as a JSON-safe dict, or None on the
+        reservoir backend."""
+        return self._digest.to_wire() if self._digest is not None else None
 
 
 class RateMeter:
@@ -232,8 +283,10 @@ class MetricsRegistry:
     def gauge(self, name: str) -> Gauge:
         return self._get(name, Gauge, Gauge)
 
-    def histogram(self, name: str) -> Histogram:
-        return self._get(name, Histogram, Histogram)
+    def histogram(self, name: str, reservoir_size: int = 256,
+                  backend: str = "reservoir", relative_error: float = 0.01) -> Histogram:
+        return self._get(name, Histogram, lambda n: Histogram(
+            n, reservoir_size, backend=backend, relative_error=relative_error))
 
     def meter(self, name: str) -> RateMeter:
         return self._get(name, RateMeter, RateMeter)
@@ -436,6 +489,13 @@ class FlightRecorder:
     def record(self, kind: str, **fields: Any) -> None:
         evt = {"t_wall": time.time(), "t_mono": time.monotonic(), "kind": kind,
                "host_id": host_id()}
+        if _TRACE_ID_PROVIDER is not None:
+            try:
+                tid = _TRACE_ID_PROVIDER()
+            except Exception:  # noqa: BLE001 — stamping must never fail a record
+                tid = None
+            if tid:
+                evt["trace"] = tid
         if fields:
             evt.update(fields)
         with self._lock:
@@ -566,3 +626,17 @@ def observe_train_metrics(host_metrics: Optional[Mapping[str, Any]]) -> None:
         reg.counter("train.skipped_steps").inc(skipped)
     if nonfinite > 0.0:
         reg.counter("train.nonfinite_grads").inc(nonfinite)
+
+
+def observe_staleness(lag_steps: float, plane: str = "") -> float:
+    """Set the unified ``staleness`` gauge: learner steps behind the newest
+    generation, the one staleness definition every distribution path
+    reports (computed by ``ParamSnapshotPlane.staleness_steps``).  ``plane``
+    also stamps ``staleness_plane.<plane>``, so a process with several
+    planes can tell the reporters apart."""
+    lag = float(max(lag_steps, 0.0))
+    reg = get_registry()
+    reg.gauge("staleness").set(lag)
+    if plane:
+        reg.gauge(f"staleness_plane.{plane}").set(lag)
+    return lag

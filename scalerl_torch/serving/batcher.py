@@ -122,11 +122,13 @@ class DynamicBatcher:
     def next_batch(self, poll_s: float = 0.05) -> Optional[List[ServingRequest]]:
         """Block until a flush is due; returns the FIFO request batch
         (None once closed and drained).  A flush takes whole requests up to
-        ``max_batch`` lanes — a request is never split across flushes."""
+        ``max_batch`` lanes — a request is never split across flushes.  A
+        closed batcher hands over what it still holds at once (the JAX copy
+        waits out each deadline), so a stopping server answers it."""
         with self._cond:
             while True:
                 if self._pending:
-                    if self._pending_lanes >= self.config.max_batch:
+                    if self._pending_lanes >= self.config.max_batch or self._closed:
                         return self._take_locked()
                     deadline = self._pending[0].t_enqueue + self.config.max_wait_s
                     remaining = deadline - time.monotonic()

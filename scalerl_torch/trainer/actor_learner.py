@@ -15,8 +15,15 @@ Port of ``scalerl_tpu/trainer/actor_learner.py``:
   each step for off-host consumers.  A crashed actor rebuilds its env from
   its factory within the ``max_actor_restarts`` budget; past it the error
   re-raises in the learner.  ``num_learner_threads >= 2`` assembles batches
-  in prefetch threads.  ``actor_mode="serving"`` needs
-  ``serving/server.py`` and is refused; ``"process"`` is
+  in prefetch threads.  ``actor_mode="serving"``: the one policy lives in
+  an ``InferenceServer`` (``serving/server.py``) on the agent's device and
+  each actor thread acts through its own ``RemotePolicyClient`` over an
+  in-process codec link (``local_pair``), the wire a remote env shell
+  speaks over a socket; the learner pushes its parameters to the server
+  after each learn step, reports the staleness of the oldest client's last
+  served generation at each log, and closes the clients before the server
+  at teardown.  The agent is each client's local fallback
+  (``serving_client.fallbacks`` counts its use).  ``"process"`` is
   ``trainer/process_actor_learner.py``'s and refused here.
 - :class:`DeviceActorLearnerTrainer`: IMPALA over the port's tensor envs
   through ``DeviceActorLearnerLoop.run``; a preemption stops dispatch at the
@@ -229,12 +236,7 @@ def check_queue_depth(args, envs_per_actor: int) -> None:
         )
 
 
-def _refuse_unported_actor_modes(args) -> None:
-    if args.actor_mode == "serving":
-        raise NotImplementedError(
-            "actor_mode='serving' needs serving/server.py, which is not ported yet; "
-            "use actor_mode='threads'"
-        )
+def _refuse_process_mode(args) -> None:
     if args.actor_mode == "process":
         raise ValueError(
             "actor_mode='process' is ProcessActorLearnerTrainer's "
@@ -254,7 +256,7 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
         """``max_actor_restarts``: how many times, across all actors, a
         crashed actor may rebuild its env and go on (0: the crash re-raises
         in the learner)."""
-        _refuse_unported_actor_modes(args)
+        _refuse_process_mode(args)
         super().__init__(args, run_name=run_name)
         self.agent = agent
         self.env_fns = env_fns
@@ -287,6 +289,38 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
         self.learn_timings = Timings()
         self.learn_steps = 0
 
+        # actor_mode="serving": the inference plane.  A server that cannot
+        # start raises here; the agent is only each client's fallback.
+        self.inference_server = None
+        self._serving_clients: list = []
+        if args.actor_mode == "serving":
+            from scalerl_torch.serving import (
+                InferenceServer,
+                RemotePolicyClient,
+                ServingConfig,
+                local_pair,
+            )
+
+            self.inference_server = InferenceServer(agent, ServingConfig.from_args(args))
+            self.inference_server.start()
+            for _ in env_fns:
+                client_end, server_end = local_pair()
+                self.inference_server.add_connection(server_end)
+                self._serving_clients.append(RemotePolicyClient(conn=client_end, fallback=agent))
+
+    def _stop_serving(self) -> None:
+        """Clients first: closing one wakes its blocked actor, which ends
+        its slot on the local fallback without a degraded-mode flip; then
+        the server.  Idempotent."""
+        for c in self._serving_clients:
+            c.close()
+        if self.inference_server is not None:
+            self.inference_server.stop()
+
+    def close(self) -> None:
+        self._stop_serving()
+        super().close()
+
     def _assemble_batch(self, n_slots: int, timings: Optional[Timings] = None):
         """Drain ``n_slots`` full slots into one device trajectory (the one
         assembly path of the inline loop and the prefetch threads)."""
@@ -304,7 +338,8 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
         total_frames = total_frames or args.total_steps
         if self.resuming:
             self.try_resume()
-        actors = [_ActorThread(i, self, self._probe_env if i == 0 else fn())
+        actors = [_ActorThread(i, self, self._probe_env if i == 0 else fn(),
+                               policy=self._serving_clients[i] if self._serving_clients else None)
                   for i, fn in enumerate(self.env_fns)]
         self.actors = actors
         # installed after the envs are built, so a failing factory cannot
@@ -402,6 +437,11 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
                 if learn_progress is not None:
                     learn_progress.bump()
                 self.param_server.push(self.agent.get_weights(), to_host=False)
+                if self.inference_server is not None:
+                    # a new generation: every reply from here on is tagged
+                    # with it (a flush in flight keeps its old tag)
+                    self.inference_server.push_params(self.agent.get_weights(),
+                                                      learner_step=learn_steps_done)
 
                 if saving and cadence.due(self.env_frames):
                     cadence.mark_saved(self.env_frames)
@@ -413,6 +453,12 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
                     rets = [r for m in self.episode_metrics for r in m.episode_returns[-20:]]
                     ret_mean = float(np.mean(rets)) if rets else float("nan")
                     host_metrics = get_metrics(metrics)  # one batched copy
+                    if self.inference_server is not None:
+                        # the lag between the newest push and the oldest
+                        # client's last served generation: the staleness
+                        # V-trace corrects
+                        self.inference_server.observe_staleness(
+                            min(c.generation for c in self._serving_clients))
                     self.log(self.env_frames, "train", {**host_metrics, "sps": sps,
                                                         "return_mean": ret_mean,
                                                         "learn_steps": learn_steps_done})
@@ -440,6 +486,7 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
             if guard is not None:
                 guard.restore()
             self.queue.close()
+            self._stop_serving()
             # joins share one wall-clock budget a group (a wedged env must
             # not multiply the teardown), shorter after a diagnosed stall
             stalled = watchdog is not None and watchdog.stalled is not None

@@ -302,7 +302,7 @@ class SequenceRLTrainer:
             t_learn1 = time.monotonic()
             root = tracing.record_span("genrl.round", None, t_gen0, t_learn1, kind="genrl",
                                        step=self.learn_steps + 1)
-            if root is not None:
+            if root.sampled:
                 tracing.record_span("round.generate", root, t_gen0, t_add0, kind="genrl",
                                     decode_tokens=float(decode_tokens))
                 tracing.record_span("round.seq_add", root, t_add0, t_learn0, kind="genrl")

@@ -52,8 +52,9 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # the IMPALA, DQN, generation, sequence-RL training, replay and process-plane
-    # slices, and the remaining learners (A3C, PPO, IMPACT, SAC, TD3)
-    assert len(_submodules()) >= 104
+    # slices, the remaining learners (A3C, PPO, IMPACT, SAC, TD3), and the
+    # serving plane (server, client, router, hub, attribution)
+    assert len(_submodules()) >= 109
 
 
 def _imported_roots(path: Path):
@@ -296,6 +297,27 @@ def test_process_plane_entry_points_refuse_the_default_device_without_a_card(mon
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+
+
+def test_serving_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.serving import InferenceServer
+
+    quiet = ["--logger-backend", "none", "--telemetry-interval-s", "0", "--save-model", "false",
+             "--work-dir", "/nonexistent"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        _example("train_impala_torch").main(["--actor-mode", "serving", "--env-id",
+                                             "PixelRing-v0"] + quiet)
+    # the server lives on its agent's device, which the caller chose
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+
+    agent = ImpalaAgent(ImpalaArguments(use_lstm=False, hidden_size=8), (4,), 2, device="cpu")
+    server = InferenceServer(agent)
+    try:
+        assert server.device.type == "cpu" and server._generator.device.type == "cpu"
+    finally:
+        server.stop()
 
 
 def test_remaining_learners_entry_points_refuse_the_default_device_without_a_card(monkeypatch):

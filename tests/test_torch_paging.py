@@ -188,15 +188,16 @@ def test_spans_are_off_by_default_and_sampled_when_on(monkeypatch):
     monkeypatch.delenv(ttracing.ENV_SAMPLE, raising=False)
     ttracing.reset()
     assert not ttracing.sampling_enabled()
-    assert ttracing.record_span("genrl.macro_step", None, 1.0, 2.0) is None
+    assert ttracing.record_span("genrl.macro_step", None, 1.0, 2.0) is ttracing.NOOP_SPAN
     ttracing.reset(sample_rate=1.0)
     try:
         root = ttracing.record_span("genrl.macro_step", None, 1.0, 2.0, kind="genrl", lanes=4)
         child = ttracing.record_span("seq.verify", root, 1.5, 2.0)
         spans = ttracing.get_tracer().finished()
         assert [s["name"] for s in spans] == ["genrl.macro_step", "seq.verify"]
-        assert child["trace_id"] == root["trace_id"] and child["parent_id"] == root["span_id"]
-        assert root["attrs"] == {"lanes": 4}
+        assert child.trace_id == root.trace_id and child.parent_id == root.span_id
+        assert spans[1]["trace"] == spans[0]["trace"] and spans[1]["parent"] == spans[0]["span"]
+        assert root.attrs == {"lanes": 4} and spans[0]["dur"] == 1.0
     finally:
         ttracing.reset(sample_rate=0.0)
 
