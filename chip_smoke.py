@@ -343,6 +343,35 @@ no result line:
     ``TierLedger``: goodput under the 100 ms SLO, p50/p95/p99, the tier with
     the most attributed time; ``admitted == answered + shed + orphaned``
     exactly.
+46. ``fleet_impala``: ``examples/train_fleet_impala_torch.py`` at the JAX
+    example's width (MLP hidden 64, T=16, 8 lanes a batch, 4 spawned
+    workers of 2 ``TensorCartPole`` lanes with numpy inference): one learn
+    step on a fleet batch, the V-trace kernel against the plain V-trace on
+    the card and the plain step on the host (``LEARN_TOL``); then the twin
+    with ``use_pallas`` for ``FLEET_TRAIN_S`` from its first answer, and its
+    drain: V-trace launches = learn calls, every issued task answered
+    exactly once; env frames/s, learn steps/s, policy lag, the ``fleet.*``
+    telemetry tree.
+47. ``fleet_elastic``: ``tools/elastic_soak.py``'s scenario with the
+    learner on the card: the same twin (4 one-worker gathers) under a
+    seeded ``mass_kill`` wave, drawn only once the learner has stepped,
+    with the autoscaler's floor rule backfilling through
+    ``ClusterExecutor``: in-flight tasks requeued, lost 0, the workers back
+    at 4, the autoscaler's decisions.
+48. ``a3c_fleet``: one worker gradient applied card vs host
+    (``LEARN_TOL``'s relative L2), then ``examples/train_a3c_fleet_torch.py``
+    with 2 workers for ``A3C_FLEET_S``: applied gradients/s, env frames/s.
+49. ``marl_dqn``: each agent's DQN learn step card vs host, then
+    ``examples/train_marl_dqn_torch.py`` over 8 env processes of
+    ``AsyncMultiAgentVecEnv`` for ``MARL_STEPS`` steps a lane: env
+    steps/s.
+50. ``fleet_dqn``: the same fleet episodes saved in the uniform replay on
+    the card and on the host hold the same transitions, one DQN learn step
+    card vs host (``LEARN_TOL``), then ``examples/train_fleet_dqn_torch.py``
+    with 4 workers for ``FLEET_DQN_EPISODES`` episodes into the replay on
+    the card: each episode answered once, env steps/s, learn steps/s.
+    Phases 46-50 give every spawned child a deadline: a hung fleet fails
+    its phase.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -5667,6 +5696,391 @@ def phase_serving_traffic(report: dict) -> None:
         raise AssertionError(f"serving_traffic: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# the fleet: host CPU actors feeding the learner on the card
+
+FLEET_TRAIN_S = 8.0
+FLEET_ELASTIC_S = 20.0
+A3C_FLEET_S = 6.0
+MARL_STEPS = 1_000  # env steps a lane, 8 lanes: ~8 s on the card's host
+FLEET_DQN_EPISODES = 200
+# the elastic wave: the supervisor draws from this seed's mass_kill stream
+# every 0.5 s once the learner has taken its first step, and the stream
+# first fires at its 10th draw, ~5 s into the window; at most one wave,
+# half the gathers
+FLEET_CHAOS = "62:mass_kill=0.1@1,kills=0"
+
+
+def _fleet_example(name: str):
+    """An entry-point twin imported by name (``examples/`` on ``sys.path``),
+    so that the gathers it spawns unpickle its runners."""
+    import importlib
+
+    examples = str(Path(__file__).resolve().parent / "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    return importlib.import_module(name)
+
+
+def _fleet_accounting(name: str, out: dict) -> dict:
+    """Every issued rollout task answered exactly once after the drain."""
+    acct = {k: out[k] for k in ("issued", "answered", "answered_unique", "answered_twice",
+                                "unanswered", "requeued_tasks", "duplicate_results",
+                                "duplicate_tasks", "dropped_results", "worker_errors_total")}
+    if not (acct["issued"] == acct["answered"] == acct["answered_unique"] > 0
+            and acct["answered_twice"] == 0 and acct["unanswered"] == 0):
+        raise AssertionError(f"{name}: task accounting {acct}")
+    return acct
+
+
+def phase_fleet_impala(report: dict) -> None:
+    """``examples/train_fleet_impala_torch.py`` at the JAX example's width
+    (MLP hidden 64, no LSTM, T=16, 8 lanes a batch from 4 chunks of 2 lanes,
+    4 spawned workers on ``TensorCartPole`` on the CPU, numpy inference).
+    First one learn step on a fleet batch (the workers' chunk runner at the
+    initial weights) with the V-trace kernel on the card against the plain
+    V-trace on the card and the plain step on the host, float32 with TF32
+    off (``LEARN_TOL``); one launch in the kernel step, none in the plain.
+    Then the twin with ``use_pallas`` for ``FLEET_TRAIN_S``, followed by its
+    drain: V-trace launches = learn calls (the learn steps and the warm-up
+    that builds the kernel before the workers start), every issued task
+    answered exactly once (requeues and dropped duplicates reported), finite
+    losses; env frames/s, learn steps/s, policy lag and the ``fleet.*``
+    telemetry tree."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.data.trajectory import batch_to_trajectory
+    from scalerl_torch.ops import cuda_vtrace
+
+    ex = _fleet_example("train_fleet_impala_torch")
+    set_tf32(False)
+    args = ex.fleet_impala_args(use_pallas=True)
+    runner = ex.ChunkRunner(num_lanes=2, rollout_length=16)
+    base = ImpalaAgent(args, (ex.OBS_DIM,), ex.NUM_ACTIONS, device="cpu")
+    weights = {k: v.numpy() for k, v in base.get_weights().items()}
+    batch = ex.fleet_batch([runner({"role": "rollout", "seed": s}, weights, 0)
+                            for s in range(4)])
+    steps = {}
+    for name, use_pallas, device in (("kernel", True, "cuda"), ("plain", False, "cuda"),
+                                     ("host", False, "cpu")):
+        agent = ImpalaAgent(dataclasses.replace(args, use_pallas=use_pallas), (ex.OBS_DIM,),
+                            ex.NUM_ACTIONS, device=device)
+        agent.state = _to_device(base.state, device)
+        cuda_vtrace.launches = 0
+        metrics = agent.learn(batch_to_trajectory(batch, agent.device))
+        torch.cuda.synchronize()
+        steps[name] = (metrics, cuda_vtrace.launches,
+                       _flat_update(agent.state.params, base.state.params))
+    (m_k, l_k, u_k), (m_p, l_p, u_p), (m_h, _, u_h) = (steps[k] for k in ("kernel", "plain",
+                                                                          "host"))
+    learn = {
+        "loss_rel": _rel(m_k["total_loss"], m_p["total_loss"]),
+        "grad_norm_rel": _rel(m_k["grad_norm"], m_p["grad_norm"]),
+        "kernel_vs_plain_update_abs": (u_k - u_p).abs().max().item(),
+        "card_vs_host_loss_rel": _rel(m_p["total_loss"], m_h["total_loss"]),
+        "card_vs_host_update_rel_l2": ((u_k - u_h).norm() / u_h.norm()).item(),
+    }
+    tol = {"loss_rel": LEARN_TOL["loss_rel"], "grad_norm_rel": LEARN_TOL["grad_norm_rel"],
+           "kernel_vs_plain_update_abs": LEARN_TOL["kernel_vs_plain_update_abs"],
+           "card_vs_host_loss_rel": LEARN_TOL["loss_rel"],
+           "card_vs_host_update_rel_l2": LEARN_TOL["card_vs_host_update_rel_l2"]}
+    bad = {k: v for k, v in learn.items() if not v <= tol[k]}
+    if bad or (l_k, l_p) != (1, 0):
+        raise AssertionError(f"fleet_impala learn step: {bad}, launches {l_k}/{l_p}")
+
+    set_tf32(True)
+    _zero_launch_counts()
+    out = ex.train_fleet_impala(total_frames=10**9, num_workers=4, use_pallas=True,
+                                device="cuda", max_seconds=FLEET_TRAIN_S, log_every=0)
+    launches = _launch_counts()
+    acct = _fleet_accounting("fleet_impala", out)
+    loss = out["metrics"].get("total_loss", float("nan"))
+    emit("fleet_impala", T=16, B=8, hidden=64, workers=4, lanes_per_worker=2,
+         learn_step=learn, tol=tol, vtrace_launches_kernel_step=l_k,
+         vtrace_launches_plain_step=l_p, window_s=round(out["wall_s"], 2),
+         env_frames=out["env_frames"], learn_steps=out["learn_steps"],
+         learn_calls=out["learn_calls"], vtrace_launches=launches["vtrace"],
+         env_frames_per_s=out["env_frames_per_s"],
+         learn_steps_per_s=out["learn_steps_per_s"], policy_lag_mean=out["lag_mean"],
+         policy_lag_max=out["lag_max"], episodes=out["episodes"],
+         return_last50=out["return_last50"], total_loss=loss, tasks=acct,
+         drained_frames=out["drained_frames"], weight_version=out["weight_version"],
+         boot_s=round(out["boot_s"], 2),
+         fleet_telemetry=out["fleet_telemetry"], card=report["card"])
+    others = {k: v for k, v in launches.items() if k != "vtrace" and v}
+    if (launches["vtrace"] != out["learn_calls"] or out["learn_steps"] <= 0 or others
+            or not math.isfinite(loss) or out["worker_errors_total"]):
+        raise AssertionError(f"fleet_impala: launches {launches} for {out['learn_calls']} "
+                             f"learn calls, loss {loss}, errors {out['worker_errors_total']}")
+
+
+def phase_fleet_elastic(report: dict) -> None:
+    """``tools/elastic_soak.py``'s scenario with the learner on the card: the
+    fleet IMPALA twin (4 workers, one a gather, ``use_pallas``) under the
+    seeded ``mass_kill`` wave of ``FLEET_CHAOS`` (half the gathers killed
+    once), with the autoscaler on (the floor rule backfills through
+    ``ClusterExecutor``; the starved rule off, as the soak has it) for
+    ``FLEET_ELASTIC_S``, then the drain.  The wave's stream is held shut
+    until the learner's first step in this run, so the wave lands on a
+    fleet that is answering.  Checks: the wave came after the first learn
+    step, in-flight tasks were requeued, ``lost`` = 0 (every issued task
+    answered exactly once), the autoscaler scaled up, the spawned workers
+    are back at 4 when the window closes, and V-trace launches = learn
+    calls.  Reports the autoscaler's decisions, the wave's time and the
+    fleet's boot time."""
+    from scalerl_torch.runtime import chaos, telemetry
+
+    learns = telemetry.get_registry().meter("rates.learn_steps_per_s")
+
+    class AfterFirstLearn(chaos.FaultInjector):
+        """Draws no wave until the learner has stepped in this run."""
+
+        def __init__(self, plan):
+            super().__init__(plan)
+            self.learns_before = learns.total
+            self.opened_at = None
+
+        def mass_kill_victims(self, n_peers, site="fleet"):
+            if learns.total <= self.learns_before:
+                return []
+            if self.opened_at is None:
+                self.opened_at = time.monotonic()
+            return super().mass_kill_victims(n_peers, site)
+
+    ex = _fleet_example("train_fleet_impala_torch")
+    plan = FLEET_CHAOS
+    injector = AfterFirstLearn(chaos.ChaosPlan.parse(plan))
+    chaos.install(injector)
+    recorder = telemetry.get_recorder()
+    seq0 = recorder.total_recorded
+    _zero_launch_counts()
+    t_start = time.monotonic()
+    try:
+        out = ex.train_fleet_impala(
+            total_frames=10**9, num_workers=4, workers_per_gather=1, use_pallas=True,
+            device="cuda", max_seconds=FLEET_ELASTIC_S, log_every=0, autoscale=True,
+            autoscale_config=dict(interval_s=0.25, cooldown_s=1.0, up_hysteresis=1,
+                                  down_hysteresis=2, low_occupancy=-1.0))
+    finally:
+        chaos.clear()
+    launches = _launch_counts()
+    events = [e for e in recorder.events() if e["seq"] >= seq0]
+    waves = [e for e in events if e["kind"] == "mass_kill"]
+    decisions = [{k: e.get(k) for k in ("action", "delta", "reason", "workers")}
+                 for e in events if e["kind"] == "autoscale_decision"]
+    killed = sum(len(e.get("victims", [])) for e in waves)
+    acct = _fleet_accounting("fleet_elastic", out)
+    lost = acct["issued"] - acct["answered_unique"]
+    scaler = out["autoscaler"]
+    opened = injector.opened_at
+    wave_after_learn = [round(e["t_mono"] - opened, 2) for e in waves] if opened else []
+    emit("fleet_elastic", chaos=plan, workers_target=4, workers_at_end=out["workers_at_end"],
+         waves=len(waves), gathers_killed=killed, lost=lost,
+         wave_s_after_start=[round(e["t_mono"] - t_start, 2) for e in waves],
+         wave_s_after_first_learn=wave_after_learn, boot_s=round(out["boot_s"], 2),
+         duplicates_delivered=acct["answered_twice"], tasks=acct, autoscaler=scaler,
+         decisions=decisions, learn_steps=out["learn_steps"],
+         vtrace_launches=launches["vtrace"], learn_calls=out["learn_calls"],
+         env_frames_per_s=out["env_frames_per_s"], learn_steps_per_s=out["learn_steps_per_s"],
+         window_s=round(out["wall_s"], 2), card=report["card"])
+    if (lost != 0 or not waves or killed == 0 or min(wave_after_learn, default=-1.0) < 0
+            or acct["requeued_tasks"] <= 0
+            or scaler["scale_ups"] < 1 or out["workers_at_end"] != 4
+            or launches["vtrace"] != out["learn_calls"] or out["learn_steps"] <= 0):
+        raise AssertionError(f"fleet_elastic: lost {lost}, waves {len(waves)} at "
+                             f"{wave_after_learn} s after the first learn step, killed "
+                             f"{killed}, requeued {acct['requeued_tasks']}, autoscaler "
+                             f"{scaler}, workers {out['workers_at_end']}, "
+                             f"launches {launches['vtrace']} / {out['learn_calls']}")
+
+
+def phase_a3c_fleet(report: dict) -> None:
+    """``examples/train_a3c_fleet_torch.py``.  First one applied gradient: a
+    worker's A2C gradient (a 32-step rollout of 4 ``TensorCartPole`` lanes
+    on the CPU at the initial weights, MLP 128,128) applied with the A3C
+    optimizer (clip, then Adam) on the card and on the host, float32 with
+    TF32 off: the update within ``LEARN_TOL``'s card-vs-host relative L2,
+    as the on-policy phase holds A3C's.  Then the twin with 2 spawned
+    workers for ``A3C_FLEET_S``: every gradient applied and republished
+    (weight version = applied + 1), no kernel launch (A3C runs no V-trace);
+    applied gradients/s and env frames/s."""
+    import torch
+
+    from scalerl_torch.agents.a3c import build_model, make_a3c_optimizer
+    from scalerl_torch.config import A3CArguments
+    from scalerl_torch.envs.tensor_envs import make_tensor_vec_env
+
+    ex = _fleet_example("train_a3c_fleet_torch")
+    set_tf32(False)
+    args = A3CArguments(hidden_sizes="128,128", learning_rate=3e-3, entropy_coef=0.01, seed=0)
+    model = build_model(args, (4,), 2, device="cpu", generator=torch.Generator().manual_seed(0))
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    venv = make_tensor_vec_env("CartPole-v1", 4, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    state, obs = venv.reset(g)
+    carry = (state, obs, torch.zeros(4, dtype=torch.int64), torch.zeros(4),
+             torch.ones(4, dtype=torch.bool), torch.zeros(4))
+    _, traj, _, _ = ex.rollout(params, model, venv, carry, 32, g)
+    loss, grads = ex.a3c_fleet_grads({k: v.numpy() for k, v in params.items()}, model, traj,
+                                     args)
+    optimizer = make_a3c_optimizer(args)
+    updates = {}
+    for device in ("cuda", "cpu"):
+        p = _to_device(params, device)
+        new, _ = ex.apply_fleet_grads(optimizer, p, optimizer.init(p), grads)
+        updates[device] = _flat_update(new, params)
+    u_c, u_h = updates["cuda"], updates["cpu"]
+    applied = {"update_rel_l2": ((u_c - u_h).norm() / u_h.norm()).item(),
+               "update_max_abs_err": (u_c - u_h).abs().max().item(), "loss": loss}
+    set_tf32(True)
+    _zero_launch_counts()
+    out = ex.train_a3c_fleet(num_workers=2, total_frames=10**9, seed=0, device="cuda",
+                             max_seconds=A3C_FLEET_S)
+    launches = _launch_counts()
+    emit("a3c_fleet", workers=2, lanes_per_worker=4, T=32, hidden="128,128",
+         applied_gradient=applied, tol=LEARN_TOL["card_vs_host_update_rel_l2"],
+         applied_updates=out["applied_updates"], applied_per_s=out["applied_per_s"],
+         env_frames=out["env_frames"], env_frames_per_s=out["env_frames_per_s"],
+         env_frames_per_s_whole_run=out["fps"],
+         windowed_return=out["windowed_return"], weight_version=out["weight_version"],
+         window_s=out["wall_s"], kernel_launches=sum(launches.values()), card=report["card"])
+    if (not applied["update_rel_l2"] <= LEARN_TOL["card_vs_host_update_rel_l2"]
+            or out["applied_updates"] <= 0 or sum(launches.values())
+            or out["weight_version"] != out["applied_updates"] + 1):
+        raise AssertionError(f"a3c_fleet: {applied}, applied {out['applied_updates']}, "
+                             f"version {out['weight_version']}, launches {launches}")
+
+
+def phase_marl_dqn(report: dict) -> None:
+    """``examples/train_marl_dqn_torch.py``: independent DQN for both agents
+    of ``PursuitToyEnv`` over ``AsyncMultiAgentVecEnv`` (8 env processes on
+    the host, the learners on the card).  First each agent's learn step on a
+    batch from a replay of PursuitToy steps, card against host from the same
+    state, float32 with TF32 off: the loss within ``LEARN_TOL["loss_rel"]``
+    and the update within its card-vs-host relative L2.  Then the twin for
+    ``MARL_STEPS`` steps a lane: finite losses, env steps/s, and the learned
+    policies against random opponents (reported; the learning row is
+    ``tools/torch_learning_curves.py``'s ``marl_pursuit_iql``)."""
+    import torch
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.data.sampler import Sampler
+    from scalerl_torch.envs.multi_agent import PursuitToyEnv
+
+    ex = _fleet_example("train_marl_dqn_torch")
+    set_tf32(False)
+    env = PursuitToyEnv()
+    rng = np.random.default_rng(0)
+    samplers = {a: Sampler((4,), 4096, device="cpu") for a in env.possible_agents}
+    obs, _ = env.reset(seed=0)
+    for _ in range(600):
+        acts = {a: int(rng.integers(3)) for a in env.possible_agents}
+        nxt, rew, term, trunc, _ = env.step(acts)
+        for a in env.possible_agents:
+            samplers[a].add(obs[a][None], nxt[a][None], np.array([acts[a]]),
+                            np.array([rew[a]], np.float32), np.array([term[a]]))
+        obs = env.reset()[0] if (term["chaser"] or trunc["chaser"]) else nxt
+    learn = {}
+    for i, a in enumerate(env.possible_agents):
+        args = ex.marl_agent_args(i, a, 32_000, 64, 0)
+        batch = samplers[a].sample(64, generator=torch.Generator().manual_seed(i))
+        base = DQNAgent(args, (4,), 3, device="cpu")
+        out = {}
+        for device in ("cuda", "cpu"):
+            agent = DQNAgent(args, (4,), 3, device=device)
+            agent.state = _to_device(base.state, device)
+            metrics = agent.learn(_to_device(batch, device))
+            out[device] = (float(metrics["loss"]),
+                           _flat_update(agent.state.params, base.state.params))
+        (l_c, u_c), (l_h, u_h) = out["cuda"], out["cpu"]
+        learn[a] = {"loss_rel": _rel(l_c, l_h),
+                    "update_rel_l2": ((u_c - u_h).norm() / u_h.norm()).item()}
+    tol = {"loss_rel": LEARN_TOL["loss_rel"],
+           "update_rel_l2": LEARN_TOL["card_vs_host_update_rel_l2"]}
+    bad = {(a, k): v for a, r in learn.items() for k, v in r.items() if not v <= tol[k]}
+    set_tf32(True)
+    _zero_launch_counts()
+    s = ex.run_marl(num_envs=8, max_steps=MARL_STEPS, seed=0, device="cuda", eval_episodes=100)
+    launches = _launch_counts()
+    emit("marl_dqn", agents=list(learn), learn_step=learn, tol=tol, num_envs=8,
+         env_frames=s["env_frames"], env_steps_per_s=s["fps"], window_s=s["wall_s"],
+         learn_steps=s["learn_steps"], final_returns=s["final_returns"],
+         matchups={k: s[k] for k in ("trained_chaser_vs_random", "random_vs_random",
+                                     "random_vs_trained_runner")},
+         kernel_launches=sum(launches.values()), card=report["card"])
+    if bad or s["learn_steps"] <= 0 or sum(launches.values()):
+        raise AssertionError(f"marl_dqn: {bad}, learn steps {s['learn_steps']}, "
+                             f"launches {launches}")
+
+
+def phase_fleet_dqn(report: dict) -> None:
+    """``examples/train_fleet_dqn_torch.py``: epsilon-greedy CartPole
+    episodes from spawned fleet workers (numpy inference on the CPU) into
+    the uniform ``ReplayBuffer`` on the card that ``DQNAgent`` samples with
+    a generator on the card.  First the replay: the same fleet episodes
+    saved on the card and on the host hold the same transitions, and one
+    learn step on a batch drawn from the host's, card against host from the
+    same state, float32 with TF32 off (``LEARN_TOL``'s loss and relative
+    L2).  Then the twin with its 4 workers for ``FLEET_DQN_EPISODES``
+    episodes: each episode answered once, learn steps on the card, finite
+    loss, no kernel launch (the replay is uniform); env steps/s and learn
+    steps/s."""
+    import torch
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.config import DQNArguments
+    from scalerl_torch.data.replay import ReplayBuffer
+
+    ex = _fleet_example("train_fleet_dqn_torch")
+    set_tf32(False)
+    args = DQNArguments(hidden_sizes="128,128", learning_rate=1e-3)
+    base = DQNAgent(args, (ex.OBS_DIM,), ex.NUM_ACTIONS, device="cpu")
+    weights = {k: v.numpy() for k, v in base.get_weights().items()}
+    episodes = [ex.episode_runner({"seed": s, "eps": 0.2}, weights, 0) for s in range(1, 9)]
+    chunk = {k: np.concatenate([e[k] for e in episodes])[:, None] for k in ex.TRANSITION_KEYS}
+    replays = {}
+    for device in ("cuda", "cpu"):
+        replays[device] = ReplayBuffer(obs_shape=(ex.OBS_DIM,), capacity=50_000, num_envs=1,
+                                       device=device)
+        replays[device].save_chunk(**chunk)
+    rc, rh = replays["cuda"].state, replays["cpu"].state
+    same_replay = ((rc.pos, rc.size) == (rh.pos, rh.size)
+                   and all(torch.equal(rc.storage[k].cpu(), v) for k, v in rh.storage.items()))
+    batch = replays["cpu"].sample(64, torch.Generator().manual_seed(0))
+    steps = {}
+    for device in ("cuda", "cpu"):
+        agent = DQNAgent(args, (ex.OBS_DIM,), ex.NUM_ACTIONS, device=device)
+        agent.state = _to_device(base.state, device)
+        metrics = agent.learn(_to_device(batch, device))
+        steps[device] = (float(metrics["loss"]),
+                         _flat_update(agent.state.params, base.state.params))
+    (l_c, u_c), (l_h, u_h) = steps["cuda"], steps["cpu"]
+    learn = {"loss_rel": _rel(l_c, l_h), "update_rel_l2": ((u_c - u_h).norm() / u_h.norm()).item()}
+    tol = {"loss_rel": LEARN_TOL["loss_rel"],
+           "update_rel_l2": LEARN_TOL["card_vs_host_update_rel_l2"]}
+    bad = {k: v for k, v in learn.items() if not v <= tol[k]}
+    set_tf32(True)
+    _zero_launch_counts()
+    out = ex.train_fleet_dqn(episodes=FLEET_DQN_EPISODES, device="cuda", log_every=0)
+    launches = _launch_counts()
+    loss = out["metrics"].get("loss", float("nan"))
+    emit("fleet_dqn", workers=4, hidden="128,128", batch=64, replay_transitions=len(chunk["action"]),
+         same_replay=same_replay, learn_step=learn, tol=tol, episodes=out["episodes"],
+         unique_episodes=out["unique_episodes"], transitions=out["transitions"],
+         learn_steps=out["learn_steps"], env_steps_per_s=out["env_steps_per_s"],
+         learn_steps_per_s=out["learn_steps_per_s"], window_s=round(out["wall_s"], 2),
+         learner_device=str(out["agent"].device), weight_version=out["weight_version"],
+         return_first20=out["return_first20"], return_last20=out["return_last20"], loss=loss,
+         kernel_launches=sum(launches.values()), card=report["card"])
+    if (bad or not same_replay or out["unique_episodes"] != FLEET_DQN_EPISODES
+            or out["learn_steps"] <= 0 or not math.isfinite(loss)
+            or out["agent"].device.type != "cuda" or sum(launches.values())):
+        raise AssertionError(f"fleet_dqn: {bad}, same replay {same_replay}, episodes "
+                             f"{out['unique_episodes']}, learn steps {out['learn_steps']}, "
+                             f"loss {loss}, launches {launches}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
@@ -5678,7 +6092,9 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_learn_r2d2_recall_device, phase_r2d2_host, phase_shm_ring,
           phase_parallel_dqn, phase_process_impala, phase_impact_learn, phase_impact_train,
           phase_onpolicy_train, phase_continuous_learn, phase_continuous_train,
-          phase_serving_flush, phase_impala_serving, phase_serving_traffic]
+          phase_serving_flush, phase_impala_serving, phase_serving_traffic,
+          phase_fleet_impala, phase_fleet_elastic, phase_a3c_fleet, phase_marl_dqn,
+          phase_fleet_dqn]
 
 
 def main() -> int:

@@ -19,6 +19,8 @@ entry point has its twin, ``examples/train_impala_torch.py``: the fused
 trainer and the host actor plane (``trainer/actor_learner.py``) with a run
 directory, loggers, telemetry export, resume checkpoints
 (``utils/checkpoint.py``) and supervision (``runtime/supervisor.py``).
+The fleet (``fleet/cluster.py``, ``runtime/autoscaler.py``) feeds learners
+on the card from worker processes on the host, over pipes or TCP.
 
 It imports ``torch`` and numpy only.  Entry points default to
 ``device="cuda"`` and raise when no card is present; pass ``device="cpu"``

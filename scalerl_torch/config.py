@@ -98,6 +98,34 @@ class RLArguments:
     # the trainer restores the agent from its last good resume checkpoint;
     # <= 0 turns the rollback off (the guard still skips bad steps).
     divergence_rollback_steps: int = 0
+
+    # Elastic fleet (runtime/autoscaler.py, fleet/cluster.py's admission and
+    # drain): the autoscaler reads the fleet's signals (actor production vs
+    # learner consumption vs queue occupancy, and the sheds) and scales the
+    # fleet up or drains it, with hysteresis and a cooldown.  The fleet entry
+    # points wire it when on.
+    autoscale: bool = False
+    # Hard floor: a fleet below it is backfilled at once (no hysteresis, no
+    # cooldown).
+    autoscale_min_workers: int = 1
+    # Hard ceiling for scale-up.
+    autoscale_max_workers: int = 32
+    # Evaluation cadence of the control loop, seconds.
+    autoscale_interval_s: float = 5.0
+    # Hold window after any scale action, seconds.
+    autoscale_cooldown_s: float = 30.0
+    # Consecutive same-direction verdicts before acting (scale-down needs one
+    # more than scale-up).
+    autoscale_hysteresis: int = 2
+    # Generation-tier guard: consumed data staler than this many learner
+    # steps is scale-up pressure; 0 turns the rule off.
+    autoscale_max_staleness: float = 0.0
+    # Serving-tier capacity rules (serving/router.py's replicas): aggregate
+    # p95 past the up threshold adds a replica, under the down threshold
+    # drains one; 0 turns either side off.
+    autoscale_serving_up_p95_ms: float = 0.0
+    autoscale_serving_down_p95_ms: float = 0.0
+
     # Route the hand-written CUDA kernels in: V-trace (ops/cuda_vtrace.py),
     # both halves of prioritized replay, sampling and the priority update
     # (ops/cuda_per.py), and the transformer policy's attention
@@ -144,6 +172,26 @@ class RLArguments:
         if self.policy_arch not in ("auto", "transformer", "moe"):
             raise ValueError(
                 f"policy_arch must be auto | transformer | moe, got {self.policy_arch!r}"
+            )
+        if self.autoscale_min_workers < 0:
+            raise ValueError(
+                "autoscale_min_workers must be >= 0, got "
+                f"{self.autoscale_min_workers}"
+            )
+        if self.autoscale_max_workers < self.autoscale_min_workers:
+            raise ValueError(
+                f"autoscale_max_workers ({self.autoscale_max_workers}) must "
+                f"be >= autoscale_min_workers ({self.autoscale_min_workers})"
+            )
+        if self.autoscale and self.autoscale_interval_s <= 0:
+            raise ValueError(
+                "autoscale_interval_s must be positive with autoscale on, "
+                f"got {self.autoscale_interval_s}"
+            )
+        if self.autoscale_hysteresis < 1:
+            raise ValueError(
+                "autoscale_hysteresis must be >= 1, got "
+                f"{self.autoscale_hysteresis}"
             )
         if self.mp_size != 1 or self.dp_size != 0:
             raise NotImplementedError(

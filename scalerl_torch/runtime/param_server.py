@@ -91,8 +91,11 @@ class ParamSnapshotPlane:
         return float(max(newest - served, 0))
 
 
-def _to_host(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def _to_host(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """numpy copies of tensors; numpy leaves (a fleet publishing host
+    weights) pass through."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in params.items()}
 
 
 class ParameterServer(ParamSnapshotPlane):

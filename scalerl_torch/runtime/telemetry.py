@@ -19,8 +19,9 @@ a span is active carries its trace id, through
 ``runtime/attribution.py``'s mergeable ``LatencyDigest``, which holds its
 relative error at any count (the serving plane's latency SLOs).
 :func:`observe_staleness` sets the one ``staleness`` gauge every
-distribution path reports.  The fleet's ``TelemetryAggregator`` is not
-ported.  Plain Python; instruments are bumped once per chunk, learn step,
+distribution path reports.  :meth:`MetricsRegistry.compact` is the fleet's
+piggyback snapshot, and :class:`TelemetryAggregator` merges those snapshots
+on the learner (``fleet/cluster.py`` binds its tree under ``fleet.*``).  Plain Python; instruments are bumped once per chunk, learn step,
 flush or admission, never per token, and no device value enters one.
 """
 
@@ -362,6 +363,107 @@ class MetricsRegistry:
             emit(prefix + name, value)
         return out
 
+    def compact(self, prefix: str = "") -> Dict[str, float]:
+        """The fleet's piggyback view: :meth:`scalars` less the histograms'
+        quantile, min, max and sum fields (counters, gauges, meter totals
+        and rates, histogram count and mean), small enough to ride every
+        heartbeat pong."""
+        return {name: value for name, value in self.scalars(prefix).items()
+                if not name.endswith((".p50", ".p95", ".p99", ".p999", ".min",
+                                      ".max", ".sum"))}
+
+
+# ---------------------------------------------------------------------------
+# fleet aggregation (learner side)
+
+
+class TelemetryAggregator:
+    """Merge compact per-source snapshots into per-source and aggregate
+    series (``scalerl_tpu/runtime/telemetry.py::TelemetryAggregator``).
+
+    Sources are fleet peers: ``gather:<base_worker_id>`` uplinks and the
+    ``worker:<id>`` payloads they relay.  :meth:`absorb` keeps the newest
+    snapshot of a source (cumulative counters, so the newest is the series
+    value) and its last-seen stamp; :meth:`aggregate` sums each key over the
+    sources; :meth:`tree` is what the fleet binds under ``fleet.*``.  With
+    ``max_sources > 0`` the stalest source is evicted when a new one would
+    pass the cap (elastic churn mints a fresh source a respawn), and
+    :meth:`evict_stale` drops every source silent past ``max_age_s``.
+    """
+
+    def __init__(self, max_sources: int = 0) -> None:
+        self._lock = threading.Lock()
+        self._latest: Dict[str, Dict[str, float]] = {}
+        self._seen: Dict[str, float] = {}
+        self.frames_absorbed = 0
+        self.max_sources = int(max_sources)
+        self.evicted = 0
+
+    def absorb(self, source: str, compact: Mapping[str, Any]) -> None:
+        if not isinstance(compact, Mapping):
+            return
+        clean = {k: float(v) for k, v in compact.items()
+                 if isinstance(v, (int, float)) and not isinstance(v, bool)}
+        with self._lock:
+            self._latest[str(source)] = clean
+            self._seen[str(source)] = time.monotonic()
+            self.frames_absorbed += 1
+            while self.max_sources > 0 and len(self._latest) > self.max_sources:
+                stalest = min(self._seen, key=self._seen.get)
+                self._latest.pop(stalest, None)
+                self._seen.pop(stalest, None)
+                self.evicted += 1
+
+    def evict_stale(self, max_age_s: float) -> int:
+        """Drop every source silent for longer than ``max_age_s``; returns
+        how many went."""
+        horizon = time.monotonic() - max_age_s
+        with self._lock:
+            stale = [s for s, t in self._seen.items() if t < horizon]
+            for src in stale:
+                self._latest.pop(src, None)
+                self._seen.pop(src, None)
+            self.evicted += len(stale)
+        return len(stale)
+
+    def absorb_payload(self, payload: Any) -> None:
+        """Absorb one piggybacked ``{"src": ..., "v": {...}, "workers": {id:
+        {...}}}`` payload (the fleet's wire shape)."""
+        if not isinstance(payload, Mapping):
+            return
+        src = payload.get("src")
+        if src is not None:
+            self.absorb(str(src), payload.get("v") or {})
+        for wid, wsnap in (payload.get("workers") or {}).items():
+            self.absorb(f"worker:{wid}", wsnap)
+
+    def sources(self) -> List[str]:
+        with self._lock:
+            return sorted(self._latest)
+
+    def aggregate(self) -> Dict[str, float]:
+        with self._lock:
+            snaps = list(self._latest.values())
+        agg: Dict[str, float] = {}
+        for snap in snaps:
+            for k, v in snap.items():
+                agg[k] = agg.get(k, 0.0) + v
+        return agg
+
+    def tree(self) -> Dict[str, Any]:
+        with self._lock:
+            per_source = {src: dict(snap) for src, snap in self._latest.items()}
+            seen = dict(self._seen)
+        now = time.monotonic()
+        return {
+            "sources": len(per_source),
+            "frames_absorbed": self.frames_absorbed,
+            "evicted": self.evicted,
+            "aggregate": self.aggregate(),
+            "per_worker": {src: {**snap, "age_s": round(now - seen.get(src, now), 3)}
+                           for src, snap in per_source.items()},
+        }
+
 
 # ---------------------------------------------------------------------------
 # exporters
@@ -579,6 +681,11 @@ def reset() -> None:
 def record_event(kind: str, **fields: Any) -> None:
     """Record one structured event on the default flight recorder."""
     get_recorder().record(kind, **fields)
+
+
+def snapshot() -> Dict[str, Any]:
+    """The merged tree of the default registry."""
+    return get_registry().snapshot()
 
 
 def flight_dump_path(tag: str) -> str:

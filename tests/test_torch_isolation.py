@@ -52,9 +52,10 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # the IMPALA, DQN, generation, sequence-RL training, replay and process-plane
-    # slices, the remaining learners (A3C, PPO, IMPACT, SAC, TD3), and the
-    # serving plane (server, client, router, hub, attribution)
-    assert len(_submodules()) >= 109
+    # slices, the remaining learners (A3C, PPO, IMPACT, SAC, TD3), the
+    # serving plane (server, client, router, hub, attribution), and the fleet
+    # (cluster, generation, autoscaler, the multi-agent env and vector envs)
+    assert len(_submodules()) >= 116
 
 
 def _imported_roots(path: Path):
@@ -72,7 +73,10 @@ def test_no_port_source_imports_jax():
         REPO / "examples" / "train_impala_torch.py", REPO / "examples" / "train_dqn_torch.py",
         REPO / "examples" / "train_apex_torch.py", REPO / "examples" / "train_r2d2_torch.py",
         REPO / "examples" / "train_parallel_dqn_torch.py", REPO / "tests" / "torch_ring_helpers.py",
-        *(REPO / "examples" / f"train_{n}_torch.py" for n in ("a3c", "ppo", "impact", "sac", "td3"))]
+        *(REPO / "examples" / f"train_{n}_torch.py" for n in ("a3c", "ppo", "impact", "sac", "td3",
+                                                               "fleet_impala", "fleet_dqn",
+                                                               "a3c_fleet", "marl_dqn")),
+        REPO / "tests" / "torch_fleet_helpers.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

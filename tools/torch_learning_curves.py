@@ -43,6 +43,18 @@ reference's (``docs/LEARNING_CURVES.md``):
   (``examples/curves/onpolicy.py``);
 - ``ppo_recall_lstm``: the PPO learn step inside the fused loop with the
   LSTM on ``TensorRecall(16, delay 6, 4 cues)``: 0.8 within 200,000 frames;
+- ``a3c_fleet_cartpole``: ``examples/train_a3c_fleet_torch.py``, the
+  async-gradient A3C over the actor fleet (2 workers, each 4
+  ``TensorCartPole`` lanes on the CPU computing A2C gradients, T=32; the
+  learner applies each on ``--device``): the windowed return (every 20
+  applied gradients) must reach 150 within 250,000 frames
+  (``examples/curves/onpolicy.py:208-255``);
+- ``marl_pursuit_iql``: ``examples/train_marl_dqn_torch.py``, independent
+  DQN for both agents of ``PursuitToyEnv`` over ``AsyncMultiAgentVecEnv``
+  (8 env processes, 4,000 steps: 32,000 frames); passes when the trained
+  runner is caught under 0.5x as often as a random one and the trained
+  chaser catches in under 0.6x a random chaser's time
+  (``examples/curves/marl.py:17-90``);
 - ``sac_pendulum`` / ``td3_pendulum``: ``OffPolicyTrainer`` on gymnasium's
   ``Pendulum-v1`` (needs gymnasium; the card's machine has none, so these
   run with ``--device cpu`` on a host that has it), 24,000 steps, the
@@ -154,9 +166,12 @@ REFERENCE_FRAMES = {"synthetic": 36_800, "catch": 227_200, "recall": 120_320,
                     "breakout": 996_800, "cartpole_host": 292_096, "dqn_cartpole": 238_000,
                     "r2d2_recall": 120_576, "r2d2_recall_device": 100_224,
                     "a3c_cartpole": 251_904, "ppo_cartpole": 139_264, "ppo_recall_lstm": 18_944,
-                    "sac_pendulum": None, "td3_pendulum": None}
-# the Pendulum rows run a fixed 24,000 steps: the reference's final eval return
-REFERENCE_RETURN = {"sac_pendulum": -182.2, "td3_pendulum": -256.8}
+                    "sac_pendulum": None, "td3_pendulum": None,
+                    "a3c_fleet_cartpole": 94_720, "marl_pursuit_iql": None}
+# the Pendulum rows run a fixed 24,000 steps: the reference's final eval return;
+# the pursuit row's is its two ratios against random
+REFERENCE_RETURN = {"sac_pendulum": -182.2, "td3_pendulum": -256.8,
+                    "marl_pursuit_iql": "caught 0.06x, catch-time 0.41x"}
 
 
 @torch.no_grad()
@@ -598,12 +613,85 @@ def td3_pendulum(seed: int = 0, device: str = "cuda", work_dir: str = "work_dirs
     return _pendulum(TD3Agent, args, seed, device)
 
 
+def _example(name: str):
+    """An entry-point twin under ``examples/``, imported by name so that its
+    fleet runners unpickle in spawned workers."""
+    import importlib
+
+    examples = str(Path(__file__).resolve().parent.parent / "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    return importlib.import_module(name)
+
+
+def a3c_fleet_cartpole(seed: int = 0, device: str = "cuda", num_workers: int = 2,
+                       max_frames: int = 250_000, threshold: float = 150.0) -> Dict[str, Any]:
+    """``examples/curves/onpolicy.py::a3c_fleet_cartpole``: passes at the
+    first window at or above ``threshold``."""
+    from scalerl_torch.utils.platform import resolve_device
+
+    resolve_device(device)
+    crossing: Dict[str, Any] = {"frames": None, "best": float("-inf")}
+
+    def on_window(frames, windowed):
+        crossing["best"] = max(crossing["best"], windowed)
+        if crossing["frames"] is None and windowed >= threshold:
+            crossing["frames"] = frames
+
+    s = _example("train_a3c_fleet_torch").train_a3c_fleet(
+        num_workers=num_workers, total_frames=max_frames, seed=seed, on_window=on_window,
+        device=device)
+    return {
+        "threshold": threshold,
+        "final_return": s["windowed_return"],
+        "best_window": crossing["best"],
+        "frames": s["env_frames"],
+        "frames_to_threshold": crossing["frames"],
+        "seconds": s["wall_s"],
+        "frames_per_s": s["fps"],
+        "applied_updates": s["applied_updates"],
+        "applied_per_s": s["applied_per_s"],
+        "passed": crossing["frames"] is not None,
+        "seed": seed,
+    }
+
+
+def marl_pursuit_iql(seed: int = 0, device: str = "cuda", max_steps: int = 4000,
+                     num_envs: int = 8) -> Dict[str, Any]:
+    """``examples/curves/marl.py::marl_pursuit_iql``: both learned policies
+    against random opponents, held to the two ratios."""
+    from scalerl_torch.utils.platform import resolve_device
+
+    resolve_device(device)
+    s = _example("train_marl_dqn_torch").run_marl(max_steps=max_steps, num_envs=num_envs,
+                                                  seed=seed, device=device)
+    rr = s["random_vs_random"]
+    caught = s["random_vs_trained_runner"]["catch_rate"] / max(rr["catch_rate"], 1e-9)
+    catch_time = s["trained_chaser_vs_random"]["mean_len"] / max(rr["mean_len"], 1e-9)
+    return {
+        "threshold": "caught<0.5x AND catch-time<0.6x random",
+        "final_return": f"caught {caught:.2f}x, catch-time {catch_time:.2f}x",
+        "caught_ratio": caught,
+        "catch_time_ratio": catch_time,
+        "frames": s["env_frames"],
+        "frames_to_threshold": None,
+        "seconds": s["wall_s"],
+        "frames_per_s": s["fps"],
+        "learn_steps": s["learn_steps"],
+        "matchups": {k: s[k] for k in ("trained_chaser_vs_random", "random_vs_random",
+                                       "random_vs_trained_runner")},
+        "passed": bool(caught < 0.5 and catch_time < 0.6),
+        "seed": seed,
+    }
+
+
 TASKS = {"synthetic": impala_synthetic, "catch": impala_catch, "recall": impala_recall_lstm,
          "breakout": impala_breakout, "cartpole_host": impala_cartpole_host,
          "dqn_cartpole": dqn_cartpole, "r2d2_recall": r2d2_recall,
          "r2d2_recall_device": r2d2_recall_device, "a3c_cartpole": a3c_cartpole,
          "ppo_cartpole": ppo_cartpole, "ppo_recall_lstm": ppo_recall_lstm,
-         "sac_pendulum": sac_pendulum, "td3_pendulum": td3_pendulum}
+         "sac_pendulum": sac_pendulum, "td3_pendulum": td3_pendulum,
+         "a3c_fleet_cartpole": a3c_fleet_cartpole, "marl_pursuit_iql": marl_pursuit_iql}
 
 
 def card() -> str:
