@@ -31,7 +31,7 @@ no result line:
 6. ``impala_fused``: the main path as ``bench.py`` sets it up (synthetic
    84x84x4 env, feed-forward AtariNet with hidden 512 and a bf16 torso,
    B=512, T=20, 5 iterations per chunk, V-trace through the kernel): one
-   warm-up chunk, then 10 chunks under ``torch.cuda.set_sync_debug_mode
+   warm-up chunk, then ``MAIN_CHUNKS`` chunks under ``torch.cuda.set_sync_debug_mode
    ("error")`` with every kernel's launch count zeroed just before; then
    one more chunk under ``torch.profiler`` for the device's busy share,
    the heaviest kernels and the V-trace kernel's own µs a call and calls a
@@ -47,7 +47,7 @@ no result line:
    step).
 8. ``impala_lstm_fused``: the fused loop at those defaults (the lr
    schedule over 30M frames included), 5 iterations a chunk: one warm-up
-   chunk, 10 chunks under sync debug mode "error" (V-trace launches =
+   chunk, ``LSTM_CHUNKS`` chunks under sync debug mode "error" (V-trace launches =
    chunks x iterations), then one iteration's unroll and learn step under
    ``torch.profiler`` (``impala_lstm_profile``), and its launches, busy
    share and V-trace µs a call at [80, 8] beside the feed-forward chunk's
@@ -60,7 +60,7 @@ no result line:
    feed-forward control for the same frames must end below 0; on the
    synthetic 24x24x4 env the crossing of 54.4 is reported, not required
    (the reference's own recipe misses it at seed 0, with the same dead
-   action), over ``SYNTHETIC_FRAMES`` = 100,000 frames (the recipe's
+   action), over ``SYNTHETIC_FRAMES`` = 40,000 frames (the recipe's
    500,000 stay in ``tools/torch_learning_curves.py``); one V-trace launch
    per learn step, every chunk finite.
 12. ``per_kernels``: the prioritized-replay kernels against their plain
@@ -114,10 +114,10 @@ no result line:
     ``GEN_DECODE_TOL``.
 18. ``genrl_continuous``: the main path as ``bench.py --mode genrl
     --continuous`` sets it up on an accelerator: the cohort engine for
-    ``GEN_TARGET_S``, a warm-up of six lane-fills, then the continuous
+    ``GEN_TARGET_S``, a warm-up of two lane-fills, then the continuous
     engine for ``GEN_TARGET_S`` under Poisson arrivals at twice the cohort's
     completion rate with the kernel's launch count zeroed just before
-    (launches must equal 64 per dispatched macro step); 8 more macro steps
+    (launches must equal 64 per dispatched macro step); 4 more macro steps
     of the same traffic under ``torch.profiler`` (``genrl_profile``, with
     the paged kernel's time a call); the lanes' lengths as one decode call
     hands them to the kernel, snapshotted once, and the kernel's time at
@@ -372,6 +372,45 @@ no result line:
     the card: each episode answered once, env steps/s, learn steps/s.
     Phases 46-50 give every spawned child a deadline: a hung fleet fails
     its phase.
+51. ``genrl_spec``: the continuous engine at ``bench.py``'s speculative A/B
+    width (V=64, d=256, 4 layers, 8 heads, prompts of 32, 64 lanes, pages
+    of 16, responses of 512, ``spec_k`` 24, n-gram 3), greedy, speculation
+    off and on over the same prompts, rounds interleaved: identical tokens,
+    behaviour logp within ``GEN_IDENTITY_LOGP_TOL``, paged kernel launches
+    0 with speculation on and 8 x 4 a macro step with it off; acceptance
+    rate, accepted tokens/s on and off, rollback pages, draft and verify
+    seconds.
+52. ``quantize_push``: ``runtime/quantize.py`` on the card against the
+    host at the sequence-RL learner's width: int8 payloads and scales bit
+    for bit, bf16 bit for bit, every dequantized int8 leaf within half its
+    scale of the source; snapshot bytes per format, the card's time, and a
+    quantized push through the param plane read back dequantized.
+53. ``disagg_train``: the slice's main path, ``DisaggSequenceRLTrainer`` at
+    ``genrl_train``'s width with the packed learner, 2 thread hosts running
+    the cohort engine on the card and int8 snapshots, for
+    ``DISAGG_TRAIN_S`` after two warm-up rounds with every launch count
+    zeroed just before: segment launches a learn step equal to
+    ``genrl_train``'s, PER sample launches = learn steps, every lease
+    answered once, finite losses, no skipped step; rounds/s, learn
+    tokens/s, wire sequences/s beside ``genrl_train``'s cohort rate,
+    staleness and snapshot MB.  Then ``DISAGG_CONT_ROUNDS`` rounds with
+    continuous-engine hosts (paged kernel launches > 0), and one learn step
+    with ``bf16_params``, segment kernels against the dense mask (loss
+    within ``DISAGG_BF16_LOSS_REL``; the optimizer state stays float32).
+54. ``disagg_soak``: ``tools/disagg_soak.py``'s scenario with the learner's
+    plane on the card: the trainer with 2 spawned scripted hosts, a
+    seeded ``mass_kill`` wave once the first sequence was accepted and
+    every host holds leases mid-decode, the autoscaler's floor rule
+    backfilling through
+    ``GenerationTierExecutor``: the wave requeued leases, lost 0, no
+    duplicate reaches the trainer, every payload its lease's.
+55. ``disagg_preempt``: ``tools/preempt_soak.py``'s scenario through the
+    trainer: a seeded ``preempt`` draw trips the guard at the round
+    boundary, ``save_resume`` writes the ledger, and a new trainer against
+    the same ledger dir resumes at the same learn step under epoch 2, with
+    the weights and the replay bit-equal, the lease cursor continuing,
+    every lease answered once, and the guard's flight dump written.
+    Phases 53-55 join every thread and child with a deadline.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -406,7 +445,7 @@ VTRACE_OPS_PER_ELEMENT = 16  # exp, 3 clips, delta (4), recursion (3), vs (1), p
 VTRACE_TOL = 1e-5
 MODEL_TOL = 1e-4
 
-MAIN_T, MAIN_B, MAIN_ITERS, MAIN_CHUNKS = 20, 512, 5, 10
+MAIN_T, MAIN_B, MAIN_ITERS, MAIN_CHUNKS = 20, 512, 5, 4  # 10 chunks before phases 51-55 joined the script
 
 # Prioritized replay (phases 7-9): the DQN slice's configuration
 PER_BLOCK = 1024
@@ -843,11 +882,11 @@ def phase_impala_fused(report: dict) -> None:
                                           report["card"])
 
 
-SYNTHETIC_FRAMES = 100_000
+SYNTHETIC_FRAMES = 40_000  # 100,000 before phases 51-55 joined the script
 
 # ImpalaArguments' own defaults (T=80, B=8, conv + 2-layer LSTM, hidden 512,
 # float32, the lr schedule over 30M frames), as the fused loop runs them
-LSTM_ITERS, LSTM_CHUNKS = 5, 10
+LSTM_ITERS, LSTM_CHUNKS = 5, 4  # 10 chunks before phases 51-55 joined the script
 
 
 def _default_args(**kw):
@@ -1628,7 +1667,7 @@ GEN_PAGE, GEN_MACRO, GEN_MIN_FREE = 16, 16, 32
 GEN_MAX_LEN = 2 * (GEN_P + GEN_R)
 GEN_PAGES_PER_LANE = (GEN_P + GEN_R) // GEN_PAGE  # 24
 GEN_NUM_PAGES = GEN_LANES * GEN_PAGES_PER_LANE + 1  # 6,145 with the null page
-GEN_TARGET_S = 8.0  # 10 s before the serving phases joined the script
+GEN_TARGET_S = 4.0  # 8 s before phases 51-55 joined the script, 10 before 43-45
 # the kernel against its plain version: the same float32 arithmetic summed
 # in another order (an online softmax over chunks of 16 tokens against one
 # softmax and an einsum); JAX pins its kernel to its reference at 1e-5
@@ -2013,7 +2052,7 @@ def phase_genrl_continuous(report: dict) -> None:
     engine = ContinuousEngine(model, params, _gen_config())
     rate = 2.0 * cohort_seq_per_s
     t_warm = time.perf_counter()
-    prompts, lengths = _prompts(rng, 6 * GEN_LANES)  # six lane-fills
+    prompts, lengths = _prompts(rng, 2 * GEN_LANES)  # two lane-fills (six before phases 51-55)
     for i in range(len(lengths)):
         engine.submit(prompts[i], lengths[i])
     while engine.live_lanes or engine.pending or engine._inflight:
@@ -2061,7 +2100,7 @@ def phase_genrl_continuous(report: dict) -> None:
     # where the time goes: more macro steps of the same traffic (arrivals
     # timed from each window's own start) under torch.profiler, against the
     # unprofiled macro step time above; then the host's side under cProfile
-    def more_cycles(k=8):
+    def more_cycles(k=4):  # 8 cycles before phases 51-55 joined the script
         clock["t0"] = time.perf_counter()
         clock["next"] = rng.exponential(1.0 / rate)
         for _ in range(k):
@@ -2177,9 +2216,9 @@ TRAIN_V, TRAIN_D, TRAIN_HEADS, TRAIN_LAYERS = 1024, 256, 8, 4
 TRAIN_P, TRAIN_R, TRAIN_B = 128, 128, 64
 TRAIN_PACK_LEN = 512
 TRAIN_HEAD_DIM = TRAIN_D // TRAIN_HEADS
-TRAIN_COHORT_S = 10.0  # 15 s before the serving phases joined the script
-TRAIN_CONTINUOUS_ROUNDS = 3
-TRAIN_LEARN_RATE_S = 3.0
+TRAIN_COHORT_S = 4.0  # 10 s before phases 51-55 joined the script, 15 before 43-45
+TRAIN_CONTINUOUS_ROUNDS = 2  # 3 before phases 51-55 joined the script
+TRAIN_LEARN_RATE_S = 1.5  # 3 s before phases 51-55 joined the script
 # the segment kernels against the plain version in float32: the same
 # arithmetic summed in another order (each warp's online softmax and sums
 # over its 16 rows of a 64-row tile, the warps combined in order, against
@@ -2715,6 +2754,7 @@ def phase_genrl_train(report: dict) -> None:
     _check_train_window("cohort", cohort, continuous=False)
     for k in ("segment_attention_fwd", "segment_attention_bwd_dq", "segment_attention_bwd_dkv"):
         report["launches"][k] = cohort["launches"][k]
+    report["genrl_train_cohort"] = cohort
     round_s = cohort["seconds"] / cohort["rounds"]
 
     # where a round's time goes: two more rounds under torch.profiler, and
@@ -2810,13 +2850,13 @@ def phase_genrl_train(report: dict) -> None:
     finals = []
     for _ in range(2):
         t = make_trainer(seed=11)
-        for _ in range(3):
+        for _ in range(2):
             m = t.train_round()
         finals.append((torch.cat([v.reshape(-1) for v in t.agent.get_weights().values()]).cpu(),
                        m["total_loss"]))
         del t
     diff = (finals[0][0] - finals[1][0]).abs().max().item()
-    emit("genrl_train_repeat", rounds=3, seed=11, params_bit_equal=diff == 0.0,
+    emit("genrl_train_repeat", rounds=2, seed=11, params_bit_equal=diff == 0.0,
          params_max_abs_diff=diff, last_loss=[finals[0][1], finals[1][1]])
 
 
@@ -2825,7 +2865,7 @@ def phase_genrl_train(report: dict) -> None:
 SHARD_D, SHARD_LAYERS, SHARD_HEADS = 1024, 8, 16
 SHARD_T, SHARD_B, SHARD_OBS, SHARD_A = 16, 8, 64, 16
 SHARD_HEAD_DIM = SHARD_D // SHARD_HEADS
-SHARD_TRAIN_S = 10.0  # 15 s before the serving phases joined the script
+SHARD_TRAIN_S = 4.0  # 10 s before phases 51-55 joined the script, 15 before 43-45
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # the flash kernels against the plain version.  float32: the same products
 # summed in another order (each warp of the micro-tile kernels sums over its
@@ -3432,8 +3472,9 @@ TRAINER_ITERS = 10  # DeviceActorLearnerTrainer's iterations a call
 # PROC_TRAIN_S) were 20, 20, 15, 20, 20 s, then 12, 12, 10, 12, 12 s beside the
 # remaining learners' phases; APEX_TRAIN_S, R2D2_HOST_S, PDQN_TRAIN_S and
 # PROC_TRAIN_S are 8 s beside the serving phases, so the whole script stays
-# inside its time limit
-HOST_TRAIN_S = 12.0
+# inside its time limit; beside phases 51-55 HOST_TRAIN_S is 6 s (12 before)
+# and PDQN_TRAIN_S and PROC_TRAIN_S 5 s
+HOST_TRAIN_S = 6.0
 HOST_PROFILE_STEPS = 1  # its trace holds ~70,000 kernels a learn step
 DQN_RESUME_STEPS, DQN_RESUME_MORE, DQN_TRIP_K = 6_000, 4_000, 3
 
@@ -3814,7 +3855,7 @@ def phase_dqn_resume(report: dict) -> None:
 
 RAINBOW_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4, "host_rel": 1e-4}
 APEX_TRAIN_S, R2D2_HOST_S = 8.0, 8.0
-R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 300, 5
+R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 120, 5  # 300 iterations before phases 51-55 joined the script
 
 
 def _leaf_rel_err(got: dict, want: dict) -> float:
@@ -4225,8 +4266,8 @@ def phase_r2d2_host(report: dict) -> None:
 # The process plane (phases 35-37)
 RING_PRODUCERS, RING_SLOTS, RING_PER_PRODUCER = 4, 32, 40
 RING_TEAR_SPEC, RING_TEAR_SLOTS = "16:slot_tear=0.25", 40
-PDQN_TRAIN_S = 8.0
-PROC_TRAIN_S = 8.0
+PDQN_TRAIN_S = 5.0
+PROC_TRAIN_S = 5.0
 # seconds a training phase may take to reach its first learn step
 FIRST_LEARN_DEADLINE_S = 240.0
 
@@ -4589,10 +4630,10 @@ def phase_process_impala(report: dict) -> None:
         raise AssertionError(f"process_impala: {failed}")
 
 
-IMPACT_TRAIN_S = 20.0
-ONPOLICY_EXAMPLE_STEPS = 16_000
-ONPOLICY_RECALL_CHUNKS = 30
-CONTINUOUS_TRAIN_STEPS = 6_000
+IMPACT_TRAIN_S = 10.0  # 20 s before phases 51-55 joined the script
+ONPOLICY_EXAMPLE_STEPS = 8_000  # 16,000 before phases 51-55 joined the script
+ONPOLICY_RECALL_CHUNKS = 12  # 30 before phases 51-55 joined the script
+CONTINUOUS_TRAIN_STEPS = 3_000  # 6,000 before phases 51-55 joined the script
 # card vs host for the on-policy learn steps: the loss, the gradient at the
 # initial params and one optimizer step of it as LEARN_TOL holds IMPALA's.
 # A whole PPO learn step is 16 Adam steps (4 epochs x 4 minibatches); Adam
@@ -5699,11 +5740,11 @@ def phase_serving_traffic(report: dict) -> None:
 # ---------------------------------------------------------------------------
 # the fleet: host CPU actors feeding the learner on the card
 
-FLEET_TRAIN_S = 8.0
+FLEET_TRAIN_S = 5.0  # 8 s before phases 51-55 joined the script
 FLEET_ELASTIC_S = 20.0
-A3C_FLEET_S = 6.0
+A3C_FLEET_S = 4.0  # 6 s before phases 51-55 joined the script
 MARL_STEPS = 1_000  # env steps a lane, 8 lanes: ~8 s on the card's host
-FLEET_DQN_EPISODES = 200
+FLEET_DQN_EPISODES = 100  # 200 before phases 51-55 joined the script
 # the elastic wave: the supervisor draws from this seed's mass_kill stream
 # every 0.5 s once the learner has taken its first step, and the stream
 # first fires at its 10th draw, ~5 s into the window; at most one wave,
@@ -6081,6 +6122,486 @@ def phase_fleet_dqn(report: dict) -> None:
                              f"loss {loss}, launches {launches}")
 
 
+# The rest of sequence RL (phases 51-55): speculative decoding at
+# bench.py's A/B width (bench.py:1351-1354), quantized snapshots, and the
+# disaggregated trainer at genrl_train's width
+SPEC_V, SPEC_D, SPEC_LAYERS, SPEC_HEADS = 64, 256, 4, 8
+SPEC_P, SPEC_R, SPEC_LANES, SPEC_PAGE, SPEC_MACRO = 32, 512, 64, 16, 8
+SPEC_K, SPEC_NGRAM = 24, 3
+SPEC_ROUNDS = 1  # measured (off, on) round pairs after one warm-up pair
+DISAGG_TRAIN_S = 10.0
+DISAGG_CONT_ROUNDS = 2
+# one bf16 learn step, segment kernels against the dense mask: both sides
+# compute in bf16 and round in other places, held as the bf16 flash
+# learner check holds it (transformer_learn)
+DISAGG_BF16_LOSS_REL = 2.0 ** -5
+# a dequantized int8 element lies within half a scale of its source in exact
+# arithmetic; in float32 the division x / s may round |x/s - q| past 0.5 by
+# up to 127 * 2^-24, and the product q * s rounds by up to 2^-24 of itself
+# (|q| <= 127), so the bound is s * (0.5 + 2 * 127 * 2^-24)
+INT8_DEQ_SLACK = 2 * 127 * 2.0 ** -24
+SOAK_HOSTS, SOAK_LANES, SOAK_RESPONSE, SOAK_VOCAB = 2, 8, 8, 32
+SOAK_ROUNDS = 8  # learn rounds the soak's lease budget covers
+PREEMPT_WARM_ROUNDS, PREEMPT_ROUNDS = 2, 3
+THREAD_JOIN_S = 10.0
+
+
+def phase_genrl_spec(report: dict) -> None:
+    """Speculative decoding A/B at bench.py's accelerator width: the same
+    greedy rounds with speculation off and on, interleaved."""
+    import torch
+
+    from scalerl_torch.genrl.continuous import ContinuousConfig, ContinuousEngine
+    from scalerl_torch.genrl.task import TokenRecallTask
+    from scalerl_torch.models.transformer import TransformerPolicy
+    from scalerl_torch.ops import cuda_paged_attention
+
+    set_tf32(False)
+    model = TransformerPolicy(num_actions=SPEC_V, vocab_size=SPEC_V, d_model=SPEC_D,
+                              num_heads=SPEC_HEADS, num_layers=SPEC_LAYERS,
+                              max_len=2 * (SPEC_P + SPEC_R), device="cuda",
+                              generator=torch.Generator().manual_seed(2))
+    params = model.state_dict()
+    base = dict(vocab_size=SPEC_V, max_prompt_len=SPEC_P, max_new_tokens=SPEC_R,
+                temperature=0.0, eos_token=-1, seed=0, lanes=SPEC_LANES, page_size=SPEC_PAGE,
+                steps_per_macro=SPEC_MACRO, prompt_buckets=(SPEC_P,))
+    engines = {"off": ContinuousEngine(model, params, ContinuousConfig(**base)),
+               "on": ContinuousEngine(model, params,
+                                      ContinuousConfig(spec_k=SPEC_K, spec_ngram=SPEC_NGRAM, **base))}
+    task = TokenRecallTask(vocab_size=SPEC_V, prompt_len=SPEC_P, response_len=SPEC_R)
+    rng = np.random.default_rng(0)
+
+    def round_once(name, prompts, lengths):
+        eng = engines[name]
+        for i in range(SPEC_LANES):
+            eng.submit(prompts[i], int(lengths[i]), tag=i)
+        torch.cuda.synchronize()
+        macro0 = eng.macro_steps
+        cuda_paged_attention.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run_until(SPEC_LANES, max_macro_steps=4 * SPEC_R)
+        while eng._inflight:  # the plain engine's last read
+            done.extend(eng.step())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, {c.tag: c for c in done},
+                cuda_paged_attention.launches, eng.macro_steps - macro0)
+
+    round_once("off", *task.sample_prompts(SPEC_LANES, rng))  # warm-up pair
+    round_once("on", *task.sample_prompts(SPEC_LANES, rng))
+    st0 = engines["on"].stats()
+    secs, toks, launches, macros = {"off": 0.0, "on": 0.0}, {"off": 0, "on": 0}, {}, {}
+    mismatched, logp_err = 0, 0.0
+    for _ in range(SPEC_ROUNDS):
+        prompts, lengths = task.sample_prompts(SPEC_LANES, rng)
+        out = {}
+        for name in ("off", "on"):
+            s, out[name], n_launch, n_macro = round_once(name, prompts, lengths)
+            secs[name] += s
+            toks[name] += sum(len(c.response_tokens) for c in out[name].values())
+            launches.setdefault(name, []).append(n_launch)
+            macros.setdefault(name, []).append(n_macro)
+        for tag, a in out["off"].items():
+            b = out["on"][tag]
+            if not np.array_equal(a.response_tokens, b.response_tokens):
+                mismatched += 1
+            else:
+                logp_err = max(logp_err, float(np.abs(a.behavior_logp - b.behavior_logp).max()))
+    st = engines["on"].stats()
+    proposed = st["spec_proposed"] - st0["spec_proposed"]
+    accepted = st["spec_accepted"] - st0["spec_accepted"]
+    want_off = [SPEC_MACRO * SPEC_LAYERS * m for m in macros["off"]]
+    emit("genrl_spec", vocab=SPEC_V, d_model=SPEC_D, layers=SPEC_LAYERS, heads=SPEC_HEADS,
+         prompt_len=SPEC_P, response_len=SPEC_R, lanes=SPEC_LANES, page_size=SPEC_PAGE,
+         spec_k=SPEC_K, spec_ngram=SPEC_NGRAM, rounds=SPEC_ROUNDS,
+         accepted_tokens_per_s_on=toks["on"] / secs["on"],
+         accepted_tokens_per_s_off=toks["off"] / secs["off"],
+         speedup=(toks["on"] / secs["on"]) / (toks["off"] / secs["off"]),
+         seconds_on=secs["on"], seconds_off=secs["off"], tokens_on=toks["on"],
+         tokens_off=toks["off"], acceptance_rate=accepted / max(proposed, 1),
+         proposed=proposed, accepted=accepted, verify_passes=macros["on"],
+         plain_macro_steps=macros["off"],
+         rollback_pages=st["spec_rollback_pages"] - st0["spec_rollback_pages"],
+         draft_s=st["spec_draft_s"] - st0["spec_draft_s"],
+         verify_s=st["spec_verify_s"] - st0["spec_verify_s"],
+         paged_launches_on=launches["on"], paged_launches_off=launches["off"],
+         paged_launches_off_want=want_off, mismatched_sequences=mismatched,
+         logp_max_abs_err=logp_err, tol=GEN_IDENTITY_LOGP_TOL, card=report["card"])
+    if mismatched or not logp_err <= GEN_IDENTITY_LOGP_TOL:
+        raise AssertionError(f"genrl_spec: {mismatched} sequences differ, logp {logp_err}")
+    if any(launches["on"]) or launches["off"] != want_off or not all(want_off):
+        raise AssertionError(f"genrl_spec: paged launches on {launches['on']}, off "
+                             f"{launches['off']} (want {want_off})")
+    if accepted <= 0:
+        raise AssertionError(f"genrl_spec: no draft accepted ({proposed} proposed)")
+
+
+def phase_quantize_push(report: dict) -> None:
+    """Quantized snapshots on the card against the host, at the sequence-RL
+    learner's width."""
+    import torch
+
+    from scalerl_torch.runtime.param_server import ParamSnapshotPlane
+    from scalerl_torch.runtime.quantize import (
+        QuantizedLeaf,
+        dequantize_tree,
+        quantize_tree,
+        tree_wire_bytes,
+    )
+    from scalerl_torch.trainer.sequence_rl import build_genrl_model
+
+    params = {k: v.detach() for k, v in build_genrl_model(_train_args(), "cuda").state_dict().items()}
+    host = {k: v.cpu() for k, v in params.items()}
+    out = {"f32_bytes": tree_wire_bytes(params)}
+    bad = []
+    worst_int8 = 0.0
+    for mode in ("int8", "bf16"):
+        dev = quantize_tree(params, mode)
+        ref = quantize_tree(host, mode)
+        for k, leaf in ref.items():
+            got = dev[k]
+            if not isinstance(leaf, QuantizedLeaf):
+                continue
+            if not torch.equal(got.q.cpu(), leaf.q):
+                bad.append((mode, k, "payload"))
+            if mode == "int8":
+                if got.scale.cpu().view(torch.int32).item() != leaf.scale.view(torch.int32).item():
+                    bad.append((mode, k, "scale"))
+                deq = dequantize_tree({k: got})[k]
+                err = float((deq.double() - params[k].double()).abs().max())
+                worst_int8 = max(worst_int8, err / float(got.scale.double()))
+        out[f"{mode}_bytes"] = tree_wire_bytes(dev)
+        out[f"{mode}_ms"] = eager_time_ms(lambda: quantize_tree(params, mode), launches=1)
+    plane = type("Plane", (ParamSnapshotPlane,), {})()
+    plane._init_param_plane(params, torch.device("cuda"))
+    plane.push_params(params, learner_step=1, quantize="int8")
+    read, gen = plane._snapshot_params()
+    want = dequantize_tree(quantize_tree(params, "int8"))
+    plane_equal = gen == 1 and all(torch.equal(read[k], want[k]) for k in want)
+    emit("quantize_push", leaves=len(params),
+         quantized_leaves=sum(v.ndim >= 2 for v in params.values()),
+         snapshot_mb={k[:-6]: v / 2**20 for k, v in out.items() if k.endswith("_bytes")},
+         quantize_ms={k[:-3]: v for k, v in out.items() if k.endswith("_ms")},
+         mismatches=bad[:8], int8_err_over_scale_max=worst_int8,
+         int8_err_bound_over_scale=0.5 + INT8_DEQ_SLACK,
+         plane_read_equals_dequantized=plane_equal, card=report["card"])
+    if bad or worst_int8 > 0.5 + INT8_DEQ_SLACK or not plane_equal:
+        raise AssertionError(f"quantize_push: mismatches {bad[:8]}, int8 error "
+                             f"{worst_int8} scales, plane read equal {plane_equal}")
+
+
+def _disagg_task():
+    from scalerl_torch.genrl.task import TokenRecallTask
+
+    return TokenRecallTask(vocab_size=TRAIN_V, prompt_len=(2, TRAIN_P), response_len=TRAIN_R)
+
+
+def _join_hosts(trainer, name: str) -> None:
+    """After the trainer's ``close()``: give its hosts ``THREAD_JOIN_S``
+    more to end, then fail the phase on any that did not."""
+    trainer.fleet.join(timeout=THREAD_JOIN_S)
+    alive = [p for p in trainer.fleet.procs if p.is_alive()]
+    if alive:
+        raise AssertionError(f"{name}: {len(alive)} generation hosts alive past their "
+                             f"{THREAD_JOIN_S:.0f} s join deadline")
+
+
+def phase_disagg_train(report: dict) -> None:
+    """The slice's main path: the disaggregated trainer on the card, its
+    learner through the segment and PER kernels, its hosts running the
+    cohort engine (then the continuous one) on the card in threads."""
+    import torch
+
+    from scalerl_torch.agents.token_ppo import TokenPPOAgent
+    from scalerl_torch.trainer.sequence_rl import DisaggSequenceRLTrainer, build_genrl_model
+
+    set_tf32(False)
+    trainer = DisaggSequenceRLTrainer(_train_args(disagg_hosts=2), task=_disagg_task())
+    try:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_round()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        seqs0, dup0 = trainer.learner.total_sequences, trainer.learner.duplicate_sequences
+        stats = _train_window(trainer, DISAGG_TRAIN_S, 3)
+        wire = trainer.learner.total_sequences - seqs0
+        dups = trainer.learner.duplicate_sequences - dup0
+        snapshot_mb = trainer.learner.snapshot_wire_bytes / 2**20
+        epoch, gen = trainer.learner.learner_epoch, trainer.learner.generation
+    finally:
+        trainer.close()
+    _join_hosts(trainer, "disagg_train")
+    ref = report.get("genrl_train_cohort", {})
+    emit("disagg_train", hosts=2, lanes_per_host=trainer.config.lanes_per_host,
+         snapshot_quantize=trainer.config.snapshot_quantize, engine="cohort",
+         warmup_s=warmup_s, **stats, wire_sequences=wire, wire_sequences_per_s=wire / stats["seconds"],
+         duplicate_sequences=dups, snapshot_mb=snapshot_mb, learner_epoch=epoch, generation=gen,
+         genrl_train_cohort_rounds_per_s=ref.get("rounds_per_s"),
+         genrl_train_cohort_learn_tokens_per_s=ref.get("learn_tokens_per_s"),
+         card=report["card"])
+    _check_train_window("disagg_train", stats, continuous=False)
+    if dups != 0 or wire < stats["rounds"] * TRAIN_B:
+        raise AssertionError(f"disagg_train: {dups} duplicate sequences, {wire} wire sequences "
+                             f"for {stats['rounds']} rounds of {TRAIN_B}")
+    torch.cuda.empty_cache()
+
+    trainer = DisaggSequenceRLTrainer(_train_args(disagg_hosts=2, genrl_engine="continuous",
+                                                  genrl_page_size=GEN_PAGE,
+                                                  genrl_macro_steps=GEN_MACRO),
+                                      task=_disagg_task())
+    try:
+        trainer.train_round()
+        cont = _train_window(trainer, 0.0, DISAGG_CONT_ROUNDS)
+    finally:
+        trainer.close()
+    _join_hosts(trainer, "disagg_train continuous")
+    emit("disagg_train", hosts=2, engine="continuous", page_size=GEN_PAGE,
+         steps_per_macro=GEN_MACRO, **cont, card=report["card"])
+    _check_train_window("disagg_train continuous", cont, continuous=True)
+    torch.cuda.empty_cache()
+
+    # bf16_params: one learn step, segment kernels against the dense mask
+    batch = {k: torch.tensor(v).cuda() for k, v in _learn_step_fields(np.random.default_rng(5)).items()}
+    losses, dtypes, moments = {}, {}, set()
+    for attn in ("pallas", "xla"):
+        args = _train_args(bf16_params=True, learner_packed_attn=attn)
+        agent = TokenPPOAgent(args, build_genrl_model(args))
+        _zero_launch_counts()
+        m = agent.learn(batch)
+        launches = _launch_counts()
+        losses[attn] = (m["total_loss"], m["skipped_steps"], launches["segment_attention_fwd"])
+        dtypes[attn] = {str(v.dtype) for v in agent.state.params.values()}
+        moments |= {str(v.dtype) for mom in ("mu", "nu") for v in agent.state.opt_state[mom].values()}
+        del agent
+    rel = abs(losses["pallas"][0] - losses["xla"][0]) / max(abs(losses["xla"][0]), 1e-12)
+    emit("disagg_bf16_learn", loss_kernel=losses["pallas"][0], loss_plain=losses["xla"][0],
+         loss_rel=rel, tol=DISAGG_BF16_LOSS_REL, seg_fwd_launches=losses["pallas"][2],
+         param_dtypes=sorted(dtypes["pallas"]), moment_dtypes=sorted(moments),
+         card=report["card"])
+    if (rel > DISAGG_BF16_LOSS_REL or losses["pallas"][2] != TRAIN_LAYERS
+            or losses["xla"][2] != 0 or moments != {"torch.float32"}
+            or "torch.bfloat16" not in dtypes["pallas"]
+            or losses["pallas"][1] != 0.0 or losses["xla"][1] != 0.0):
+        raise AssertionError(f"disagg_bf16_learn: losses {losses}, rel {rel}, moments {moments}")
+
+
+class _Budgeted:
+    """Mixin: the trainer's lease cursor stops at ``budget`` leases, so the
+    soaks can account for every lease issued."""
+
+    budget = 0
+
+    def _next_lease(self):
+        with self._lease_lock:
+            if self._lease_seq >= self.budget:
+                return None
+        return super()._next_lease()
+
+
+def _recording(learner, seen: list) -> None:
+    """Record every sequence the trainer takes from ``learner``."""
+    get = learner.get_sequence
+
+    def get_sequence(timeout=None):
+        s = get(timeout=timeout)
+        if s is not None:
+            seen.append({k: s[k] for k in ("lease_id", "seed", "generation", "prompt",
+                                           "response_tokens", "behavior_logp", "values")})
+        return s
+
+    learner.get_sequence = get_sequence
+
+
+def _soak_accounting(seen: list, budget: int) -> dict:
+    from scalerl_torch.genrl.disagg import scripted_sequence_payload
+
+    ids = [s["lease_id"] for s in seen]
+    mismatches = 0
+    for s in seen:
+        want = scripted_sequence_payload(s["seed"], SOAK_RESPONSE, SOAK_VOCAB, s["generation"])
+        if not all(np.array_equal(s[k], want[k]) for k in ("prompt", "response_tokens",
+                                                           "behavior_logp", "values")):
+            mismatches += 1
+    return dict(expected=budget, received=len(seen), unique=len(set(ids)),
+                lost=budget - len(set(ids)), duplicates=len(ids) - len(set(ids)),
+                payload_mismatches=mismatches)
+
+
+def phase_disagg_soak(report: dict) -> None:
+    """The disagg soak's wave with the learner's plane on the card: spawned
+    scripted hosts, a seeded mass_kill after the first accepted sequence,
+    the floor rule's backfill."""
+    from scalerl_torch.genrl.disagg import (
+        GenerationTierExecutor,
+        ScriptedEngineFactory,
+        disagg_signal_source,
+    )
+    from scalerl_torch.runtime import chaos, telemetry
+    from scalerl_torch.runtime.autoscaler import Autoscaler, AutoscalerConfig
+    from scalerl_torch.trainer.sequence_rl import DisaggSequenceRLTrainer
+
+    class Trainer(_Budgeted, DisaggSequenceRLTrainer):
+        budget = SOAK_ROUNDS * TRAIN_B
+
+    plan = "1234:mass_kill=1.0@1,kills=0"
+    recorder = telemetry.get_recorder()
+    seq0 = recorder.total_recorded
+    factory = ScriptedEngineFactory(lanes=SOAK_LANES, response_len=SOAK_RESPONSE,
+                                    tokens_per_step=1, step_sleep_s=0.02, vocab=SOAK_VOCAB)
+    seen: list = []
+    scaler = trainer = None
+    killed: list = []
+    try:
+        trainer = Trainer(_train_args(disagg_hosts=SOAK_HOSTS, disagg_lanes_per_host=SOAK_LANES,
+                                      disagg_upload_batch=1, disagg_round_timeout_s=120.0),
+                          engine_factory=factory, use_threads=False)
+        _recording(trainer.learner, seen)
+        scaler = Autoscaler(
+            AutoscalerConfig(min_workers=SOAK_HOSTS, max_workers=2 * SOAK_HOSTS, interval_s=0.25,
+                             cooldown_s=1.0, up_hysteresis=1, down_hysteresis=2,
+                             low_occupancy=-1.0),
+            executor=GenerationTierExecutor(trainer.learner, trainer.fleet),
+            signal_source=disagg_signal_source(trainer.learner)).start()
+        # the wave lands once the first sequence was accepted and every host
+        # has joined and holds leases: a host killed while booting has
+        # nothing in flight to requeue.  The plan is installed only now, so
+        # the fleet started no chaos supervisor of its own
+        learner = trainer.learner
+
+        def every_host_decoding():
+            with learner._roster_lock, learner._lease_lock:
+                conns = list(learner.host_links)
+                return len(conns) >= SOAK_HOSTS and all(learner._conn_leases.get(c)
+                                                         for c in conns)
+
+        t_start = time.monotonic()
+        deadline = t_start + 120.0
+        while ((learner.total_sequences < 1 or not every_host_decoding())
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        chaos.install(chaos.FaultInjector(chaos.ChaosPlan.parse(plan)))
+        seqs_before_wave = learner.total_sequences
+        requeued0 = trainer.learner.requeued_leases
+        t_wave = time.monotonic()
+        killed = trainer.fleet.chaos_poll()
+        _zero_launch_counts()
+        rounds = [trainer.train_round() for _ in range(SOAK_ROUNDS)]
+        launches = _launch_counts()
+        requeued = trainer.learner.requeued_leases - requeued0
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        chaos.clear()
+        if trainer is not None:
+            trainer.close()
+    _join_hosts(trainer, "disagg_soak")
+    waves = [e for e in recorder.events() if e["seq"] >= seq0 and e["kind"] == "mass_kill"]
+    acct = _soak_accounting(seen, Trainer.budget)
+    acct["lost"] += trainer.learner.dropped_sequences  # evicted from a full queue
+    emit("disagg_soak", chaos=plan, hosts=SOAK_HOSTS, lanes=SOAK_LANES, hosts_killed=len(killed),
+         waves=len(waves), wave_s_after_start=round(t_wave - t_start, 2),
+         sequences_before_wave=seqs_before_wave,
+         requeued_leases=requeued, scale_ups=scaler.scale_ups, **acct,
+         absorbed_duplicates=trainer.learner.duplicate_sequences + trainer.learner.duplicate_leases,
+         learn_steps=len(rounds), launches={k: launches[k] for k in (
+             "per_sample", "segment_attention_fwd", "segment_attention_bwd_dq",
+             "segment_attention_bwd_dkv")},
+         losses_finite=all(math.isfinite(m["total_loss"]) for m in rounds), card=report["card"])
+    if (acct["lost"] or acct["duplicates"] or acct["payload_mismatches"] or not killed
+            or requeued < 1 or scaler.scale_ups < 1 or launches["per_sample"] != SOAK_ROUNDS
+            or launches["segment_attention_fwd"] != TRAIN_LAYERS * SOAK_ROUNDS
+            or not all(math.isfinite(m["total_loss"]) for m in rounds)):
+        raise AssertionError(f"disagg_soak: {acct}, killed {killed}, requeued {requeued}, "
+                             f"scale-ups {scaler.scale_ups}, launches {launches}")
+
+
+def phase_disagg_preempt(report: dict) -> None:
+    """The preempt soak through the trainer: the guard trips on a seeded
+    draw, the ledger saves, and a new trainer resumes it."""
+    import shutil
+    import tempfile
+
+    from scalerl_torch.data.sequence_replay import seq_export
+    from scalerl_torch.genrl.disagg import ScriptedEngineFactory
+    from scalerl_torch.runtime import chaos, telemetry
+    from scalerl_torch.runtime.supervisor import PreemptionGuard
+    from scalerl_torch.trainer.sequence_rl import DisaggSequenceRLTrainer, host_weights
+
+    class Trainer(_Budgeted, DisaggSequenceRLTrainer):
+        budget = (PREEMPT_WARM_ROUNDS + PREEMPT_ROUNDS) * TRAIN_B
+
+    ledger_dir = tempfile.mkdtemp(prefix="disagg_ledger_")
+    args = _train_args(disagg_hosts=2, disagg_lanes_per_host=4, disagg_ledger_dir=ledger_dir,
+                       disagg_upload_batch=2)
+    # slow hosts (4 lanes, 20 ms a token): the guard trips while leases are
+    # in flight and the budget is not yet issued, so the resume reissues
+    # open leases and its cursor issues new ones
+    factory = ScriptedEngineFactory(lanes=4, response_len=SOAK_RESPONSE, tokens_per_step=1,
+                                    step_sleep_s=0.02, vocab=SOAK_VOCAB)
+    seen: list = []
+    plan = "5:preempt=1.0@1"
+    guard = PreemptionGuard()  # not installed: the draw trips it as a signal would
+    try:
+        t1 = Trainer(args, engine_factory=factory)
+        _recording(t1.learner, seen)
+        for _ in range(PREEMPT_WARM_ROUNDS):
+            t1.train_round()
+        # the seeded draw fires at the next safe point: the round boundary
+        chaos.install(chaos.FaultInjector(chaos.ChaosPlan.parse(plan)))
+        t1.guard = guard
+        try:
+            summary1 = t1.train(PREEMPT_ROUNDS)  # saves the ledger and closes
+        finally:
+            chaos.clear()
+        _join_hosts(t1, "disagg_preempt (preempted)")
+        saved = dict(step=t1.learn_steps, epoch=t1.learner.learner_epoch,
+                     lease_seq=t1._lease_seq, rng=json.dumps(t1._lease_rng.bit_generator.state),
+                     weights=host_weights(t1.agent.get_weights()), replay=seq_export(t1.replay))
+        t2 = Trainer(args, engine_factory=factory)
+        _recording(t2.learner, seen)
+        resumed = dict(step=t2.learn_steps, epoch=t2.learner.learner_epoch,
+                       lease_seq=t2._lease_seq, rng=json.dumps(t2._lease_rng.bit_generator.state),
+                       reissued=t2.learner.resumed_sequences_reissued)
+        w2, r2 = host_weights(t2.agent.get_weights()), seq_export(t2.replay)
+        weights_equal = all(np.array_equal(w2[k], v) for k, v in saved["weights"].items())
+        replay_equal = (all(np.array_equal(r2["storage"][k], v)
+                            for k, v in saved["replay"]["storage"].items())
+                        and np.array_equal(r2["priorities"], saved["replay"]["priorities"])
+                        and (r2["pos"], r2["size"]) == (saved["replay"]["pos"],
+                                                        saved["replay"]["size"]))
+        try:
+            summary2 = t2.train(PREEMPT_ROUNDS)
+        finally:
+            t2.close()
+        _join_hosts(t2, "disagg_preempt (resumed)")
+    finally:
+        shutil.rmtree(ledger_dir, ignore_errors=True)
+    acct = _soak_accounting(seen, Trainer.budget)
+    new_seeds = sorted(s["seed"] for s in seen if s["seed"] > saved["lease_seq"])
+    exits = telemetry.get_recorder().events("preemption_exit")
+    dump = guard.flight_dump_path
+    emit("disagg_preempt", chaos=plan, saved_step=saved["step"], resumed_step=resumed["step"],
+         saved_epoch=saved["epoch"], resumed_epoch=resumed["epoch"],
+         lease_cursor_saved=saved["lease_seq"], lease_cursor_resumed=resumed["lease_seq"],
+         first_new_lease_seed=new_seeds[0] if new_seeds else None,
+         lease_rng_equal=saved["rng"] == resumed["rng"], reissued=resumed["reissued"],
+         weights_bit_equal=weights_equal, replay_bit_equal=replay_equal,
+         learn_steps_before=summary1["learn_steps"], learn_steps_after=summary2["learn_steps"],
+         flight_dump=dump, flight_dump_written=bool(dump) and os.path.exists(dump),
+         preemption_exits=len(exits), **acct, card=report["card"])
+    if (not guard.triggered or saved["step"] != PREEMPT_WARM_ROUNDS
+            or resumed["step"] != saved["step"] or resumed["epoch"] != saved["epoch"] + 1
+            or resumed["lease_seq"] != saved["lease_seq"] or saved["rng"] != resumed["rng"]
+            or not new_seeds or new_seeds[0] != saved["lease_seq"] + 1 or resumed["reissued"] < 1
+            or not weights_equal or not replay_equal
+            or summary2["learn_steps"] != saved["step"] + PREEMPT_ROUNDS
+            or acct["lost"] or acct["duplicates"] or acct["payload_mismatches"]
+            or not (dump and os.path.exists(dump)) or not exits):
+        raise AssertionError(f"disagg_preempt: saved {dict(saved, weights=None, replay=None)}, "
+                             f"resumed {resumed}, weights {weights_equal}, replay "
+                             f"{replay_equal}, {acct}, dump {dump}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
@@ -6094,7 +6615,8 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_onpolicy_train, phase_continuous_learn, phase_continuous_train,
           phase_serving_flush, phase_impala_serving, phase_serving_traffic,
           phase_fleet_impala, phase_fleet_elastic, phase_a3c_fleet, phase_marl_dqn,
-          phase_fleet_dqn]
+          phase_fleet_dqn, phase_genrl_spec, phase_quantize_push, phase_disagg_train,
+          phase_disagg_soak, phase_disagg_preempt]
 
 
 def main() -> int:

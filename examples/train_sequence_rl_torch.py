@@ -18,6 +18,12 @@ continuous-batching engine over the paged KV cache::
 
     python examples/train_sequence_rl_torch.py --learner-packing true \
         --learner-packed-attn pallas --genrl-engine continuous --genrl-lanes 32
+
+Speculative decoding on the continuous engine (n-gram self-drafting, one
+verify pass a step; a boolean option alone means true)::
+
+    python examples/train_sequence_rl_torch.py --genrl-engine continuous \
+        --spec-enable --spec-k 4 --spec-ngram 3
 """
 
 import argparse
@@ -42,9 +48,12 @@ def parse_args():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for f in dataclasses.fields(GenRLArguments):
-        kind = _to_bool if isinstance(f.default, bool) else type(f.default)
-        parser.add_argument("--" + f.name.replace("_", "-"), dest=f.name, type=kind,
-                            default=f.default)
+        if isinstance(f.default, bool):
+            parser.add_argument("--" + f.name.replace("_", "-"), dest=f.name, type=_to_bool,
+                                nargs="?", const=True, default=f.default)
+        else:
+            parser.add_argument("--" + f.name.replace("_", "-"), dest=f.name,
+                                type=type(f.default), default=f.default)
     ns = vars(parser.parse_args())
     device = ns.pop("device")
     return GenRLArguments(**ns), device
@@ -58,6 +67,11 @@ def main() -> None:
     print("device:", trainer.device)
     result = trainer.train(args.genrl_rounds)
     print("final:", {k: round(float(v), 4) for k, v in result.items()})
+    if args.spec_enable:
+        stats = trainer.engine.stats()
+        print("speculation:", {k: stats[k] for k in ("spec_proposed", "spec_accepted",
+                                                      "spec_acceptance_rate",
+                                                      "spec_rollback_pages")})
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ through ``torch.func.functional_call`` and every update builds new tensors,
 so the guard can keep the old state with a device-side select, the frozen
 ``ref_params`` are never written, and the weights handed to an engine stay
 what they were.  The optimizer is ``optax.chain(clip_by_global_norm, adam)``
-written out (``agents/dqn.py::AdamOptimizer``).  Checkpoints go through
+written out (``agents/dqn.py::AdamOptimizer``), wrapped in
+``fp32_optimizer_state`` under ``bf16_params``.  Checkpoints go through
 ``utils/checkpoint.py``; ``enable_mesh`` is not ported yet and raises.
 """
 
@@ -39,7 +40,7 @@ from scalerl_torch.models.transformer import (
     sequence_attention_mask,
     sequence_positions,
 )
-from scalerl_torch.parallel.train_step import maybe_guard_nonfinite
+from scalerl_torch.parallel.train_step import fp32_optimizer_state, maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -274,7 +275,7 @@ class TokenPPOAgent:
         self.args = args
         self.model = model
         self.device = model.pos_embed.device
-        self.optimizer = AdamOptimizer(args.learning_rate, max_norm=args.max_grad_norm)
+        self.optimizer = self._make_optimizer(args)
         params = {k: v.detach().clone() for k, v in model.named_parameters()}
         self.state = TokenPPOTrainState(
             params=params,
@@ -285,6 +286,14 @@ class TokenPPOAgent:
             tokens_seen=torch.zeros((), dtype=torch.int32, device=self.device),
         )
         self._learn = self.make_learn_fn()
+
+    @staticmethod
+    def _make_optimizer(args):
+        """Global-norm clip + Adam; with ``bf16_params`` wrapped in
+        ``fp32_optimizer_state``: float32 moments and clipping, each update
+        cast back to its param's dtype."""
+        tx = AdamOptimizer(args.learning_rate, max_norm=args.max_grad_norm)
+        return fp32_optimizer_state(tx) if getattr(args, "bf16_params", False) else tx
 
     def make_learn_fn(self) -> Callable:
         return make_token_ppo_learn_fn(self.model, self.optimizer, self.args)

@@ -601,15 +601,19 @@ class GenRLArguments(RLArguments):
     token-PPO learn step.  ``d_model``, ``n_layers`` and ``n_heads`` (on
     :class:`RLArguments`) size the policy.
 
-    Kept with their JAX defaults and refused by :meth:`validate` when set,
-    because the parts that read them are not ported yet: ``spec_enable``
-    (speculative decoding; its ``spec_k`` and ``spec_ngram`` are left out until
-    then), ``bf16_params`` (the token-PPO bf16 path), the sharded learner's
-    ``dp_size``/``mp_size`` (refused by :class:`RLArguments`), and the
-    ``disagg_*`` fields, which only the disaggregated trainer reads, and
-    ``resume``, which only that trainer reads in the JAX package.
-    ``genrl_iter_mode`` is accepted and has no effect: the port runs eagerly
-    with one loop form.
+    ``spec_enable`` turns on speculative decoding on the continuous engine
+    (``spec_k`` drafts a lane a pass from an n-gram table of width
+    ``spec_ngram``); ``bf16_params`` builds the policy with bfloat16
+    parameters and compute and keeps the optimizer state in float32; the
+    ``disagg_*`` fields configure :class:`~scalerl_torch.trainer.
+    sequence_rl.DisaggSequenceRLTrainer` (generation hosts, wire
+    quantization, the round timeout and the durable ledger directory).
+
+    Refused by :meth:`validate` when set: the sharded learner's
+    ``dp_size``/``mp_size`` (refused by :class:`RLArguments`), and
+    ``resume``, which no sequence-RL trainer reads (the disaggregated
+    trainer resumes through ``disagg_ledger_dir``).  ``genrl_iter_mode`` is
+    accepted and has no effect: the port runs eagerly with one loop form.
     """
 
     algo_name: str = "token_ppo"
@@ -655,7 +659,11 @@ class GenRLArguments(RLArguments):
     samples_per_prompt: int = 1  # completions per prompt (group sampling)
     genrl_steps_in_flight: int = 2
     genrl_prefix_cache: bool = True
-    spec_enable: bool = False  # not ported yet: must stay False
+    # speculative decoding (continuous engine only): up to spec_k drafts a
+    # lane a pass from the lane's own n-gram table, verified in one pass
+    spec_enable: bool = False
+    spec_k: int = 4  # draft tokens a pass when spec_enable (>= 1)
+    spec_ngram: int = 3  # n-gram width the drafter matches
 
     # Packed learner: bin-pack compact sequences into [rows, learner_pack_len]
     # rows with per-token segment ids; the learn step attends within
@@ -665,32 +673,25 @@ class GenRLArguments(RLArguments):
     # pallas | auto = the CUDA segment flash kernels, xla = the dense mask
     learner_packed_attn: str = "auto"
 
-    # Not ported yet: must stay at these values.
+    # Disaggregated dataflow (genrl/disagg.py): generation hosts stream
+    # completed sequences over the fleet wire into the learner's replay.
     disagg_hosts: int = 2
-    disagg_lanes_per_host: int = 0
-    disagg_quantize: str = "int8"
-    disagg_upload_batch: int = 4
+    disagg_lanes_per_host: int = 0  # 0 -> max(1, genrl_batch // disagg_hosts)
+    disagg_quantize: str = "int8"  # snapshot wire format: int8 | none
+    disagg_upload_batch: int = 4  # completed sequences per uplink frame
+    # how long one round may wait for its batch before raising
     disagg_round_timeout_s: float = 120.0
+    # non-empty: the durable learner ledger lives in <dir>/learner_ledger,
+    # and a trainer built against the same dir resumes from it
     disagg_ledger_dir: str = ""
 
     def validate(self) -> None:
         super().validate()
-        unported = {
-            "resume": "a resume path in the sequence-RL trainer (the JAX package resumes "
-                      "only its disaggregated trainer, through genrl/ledger.py)",
-            "spec_enable": "speculative decoding (genrl/drafter.py)",
-            "bf16_params": "bf16 parameters on the token-PPO learner (the bf16 path of "
-                           "agents/token_ppo.py)",
-            **{f.name: "the disaggregated trainer (genrl/disagg.py)"
-               for f in fields(self) if f.name.startswith("disagg_")},
-        }
-        defaults = {f.name: f.default for f in fields(self)}
-        for name, part in unported.items():
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} needs {part}, which is not ported yet; "
-                    f"leave it at {defaults[name]!r}"
-                )
+        if self.resume:
+            raise NotImplementedError(
+                f"resume={self.resume!r}: the sequence-RL trainers read no resume path; "
+                "the disaggregated trainer resumes through disagg_ledger_dir"
+            )
         if self.vocab_size < 4:
             raise ValueError(f"vocab_size must be >= 4, got {self.vocab_size}")
         if self.prompt_len < 1 or self.max_new_tokens < 1:
@@ -748,6 +749,15 @@ class GenRLArguments(RLArguments):
             raise ValueError(
                 f"genrl_steps_in_flight must be >= 1, got {self.genrl_steps_in_flight}"
             )
+        if self.spec_enable and self.genrl_engine != "continuous":
+            raise ValueError(
+                "spec_enable requires genrl_engine='continuous' (the cohort engine's round "
+                f"has no verify pass), got {self.genrl_engine!r}"
+            )
+        if self.spec_enable and self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1 when spec_enable, got {self.spec_k}")
+        if self.spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {self.spec_ngram}")
         if self.learner_packed_attn not in ("auto", "pallas", "xla"):
             raise ValueError(
                 f"learner_packed_attn must be auto | pallas | xla, got {self.learner_packed_attn!r}"
@@ -759,6 +769,19 @@ class GenRLArguments(RLArguments):
                 f"learner_pack_len ({self.learner_pack_len}) must fit one maximum-length "
                 f"sequence (prompt_len + max_new_tokens = {self.prompt_len + self.max_new_tokens}) "
                 "or every full-length completion would be shed"
+            )
+        if self.disagg_hosts < 1:
+            raise ValueError(f"disagg_hosts must be >= 1, got {self.disagg_hosts}")
+        if self.disagg_lanes_per_host < 0 or self.disagg_upload_batch < 1:
+            raise ValueError(
+                "disagg_lanes_per_host must be >= 0 and disagg_upload_batch >= 1, got "
+                f"{self.disagg_lanes_per_host}/{self.disagg_upload_batch}"
+            )
+        if self.disagg_quantize not in ("int8", "none"):
+            raise ValueError(f"disagg_quantize must be int8 | none, got {self.disagg_quantize!r}")
+        if self.disagg_round_timeout_s <= 0:
+            raise ValueError(
+                f"disagg_round_timeout_s must be positive, got {self.disagg_round_timeout_s}"
             )
 
 

@@ -25,7 +25,22 @@ runs a FIXED number of decode lanes and swaps *sequences* through them:
   prompt pages copy-on-write and get a private copy of the partial page;
 - **paged KV** — the refcounting :class:`PageAllocator`: admission
   reserves a sequence's worst case (exhaustion backpressures, never
-  corrupts); physical pages are drawn as contexts grow.
+  corrupts); physical pages are drawn as contexts grow;
+- **speculative decoding** (``spec_k > 0``) — each pass, every live lane
+  proposes up to ``spec_k`` tokens from its own n-gram table
+  (:class:`~scalerl_torch.genrl.drafter.NgramDrafter`, no second model),
+  and ONE verify dispatch samples the bonus token from the carried logits,
+  feeds ``[t0, d1..dk]`` at positions ``cl..cl+k`` through the
+  shared-table tail-prefill path, accepts the longest draft prefix under
+  the speculative-sampling rule (greedy match at temperature 0; accept
+  with probability ``pi(d)`` and a carried banned-token residual at
+  temperature > 0) and advances each lane 1..k+1 tokens.  Rejected tails
+  roll back on the host by page-cursor rewind (``paging.rewind_pages``);
+  the device needs none, since attention never reads past a lane's cursor.
+  The verify pass attends without the paged kernel (the tail path gathers
+  through the table), so a speculating engine launches no paged decode.
+  Spec mode is synchronous (pass ``m+1``'s drafts need pass ``m``'s
+  tokens): ``steps_in_flight`` does not apply.
 
 Sampling is the cohort engine's (``engine.py``), so at temperature 0 the
 two engines are token-identical on the same params.  A ``push_params``
@@ -45,8 +60,10 @@ What differs from the JAX engine:
 - A CUDA index out of range is a device-side assert where a JAX gather
   clamps, so the cursor's table column and position are clamped before
   their gathers (a lane that reached its last slot indexes one past).
-- Speculative decoding (``spec_k > 0``) and its drafter are not ported
-  yet and raise (ROADMAP A5).
+- The verify pass's random draws (the bonus token and the accept test's
+  uniforms) come from one method, :meth:`ContinuousEngine._verify_draws`,
+  so a test can inject JAX's draws; the verify programs of the draft-width
+  ladder are one eager function (no per-bucket compile to count).
 """
 
 from __future__ import annotations
@@ -71,7 +88,8 @@ from scalerl_torch.genrl.engine import (
     sample_tokens,
     token_logp,
 )
-from scalerl_torch.genrl.paging import PageAllocator
+from scalerl_torch.genrl.drafter import NgramDrafter
+from scalerl_torch.genrl.paging import PageAllocator, rewind_pages
 from scalerl_torch.genrl.prefix_cache import PrefixCache
 from scalerl_torch.models.transformer import (
     TransformerPolicy,
@@ -97,8 +115,9 @@ class ContinuousConfig(GenerationConfig):
     flush predicate.  ``min_free_lanes`` holds admission until that many
     lanes are free (unless the pool is idle), so prefills amortize.
     ``paged_attn``: ``"pallas"`` or ``"auto"`` = the hand kernel,
-    ``"xla"`` = the plain version.  ``spec_k > 0`` is refused by the
-    engine (not ported yet).
+    ``"xla"`` = the plain version.  ``spec_k > 0`` turns speculative
+    decoding on with up to ``spec_k`` drafts a lane a pass, matched by an
+    n-gram table of width ``spec_ngram``; 0 leaves it out entirely.
     """
 
     lanes: int = 64
@@ -112,6 +131,7 @@ class ContinuousConfig(GenerationConfig):
     steps_in_flight: int = 2
     prefix_cache: bool = True
     spec_k: int = 0
+    spec_ngram: int = 3
 
     def validate(self) -> None:
         super().validate()
@@ -129,6 +149,8 @@ class ContinuousConfig(GenerationConfig):
             raise ValueError(f"steps_in_flight must be >= 1, got {self.steps_in_flight}")
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0 (0 = speculation off), got {self.spec_k}")
+        if self.spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {self.spec_ngram}")
 
 
 class CompletedSequence(NamedTuple):
@@ -175,7 +197,10 @@ class ContinuousEngine(ParamSnapshotPlane):
     ``model``: a token-mode :class:`TransformerPolicy` whose ``max_len``
     covers prompt bucket + response budget; ``params``: its initial
     ``{name: tensor}`` snapshot; ``device``: the card by default (raises
-    without one).
+    without one).  ``sync_guard=False`` leaves out the steady-state
+    guard (``torch.cuda.set_sync_debug_mode`` is process-wide, so an
+    engine that shares its process with other threads' work runs without
+    it).
     """
 
     def __init__(
@@ -184,14 +209,11 @@ class ContinuousEngine(ParamSnapshotPlane):
         params: Mapping[str, torch.Tensor],
         config: ContinuousConfig,
         device: DeviceLike = "cuda",
+        sync_guard: bool = True,
     ) -> None:
         config.validate()
         check_token_model(model, "ContinuousEngine")
-        if config.spec_k:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) and its drafter are not ported "
-                "yet (ROADMAP A5); use spec_k=0"
-            )
+        self._sync_guard = sync_guard
         self.device = dev = resolve_device(device)
         self.config = config
         self.model = model
@@ -244,6 +266,30 @@ class ContinuousEngine(ParamSnapshotPlane):
         self.macro_steps = 0
         self.completed_total = 0
         self._occupancy_sum = 0.0
+        # speculative decode: left out entirely at spec_k = 0
+        self._spec_k = config.spec_k
+        self._drafter: Optional[NgramDrafter] = None
+        # the verify width ladder over the pass's longest draft (0, 1, 2,
+        # 4, ..., k): a pass whose drafts are short verifies through a
+        # narrow forward instead of paying k positions a lane
+        self._spec_buckets: Tuple[int, ...] = ()
+        # the token rejected by the last pass's accept test, masked out of
+        # the next bonus draw (the residual at temperature > 0); host-side,
+        # riding the pass's one upload
+        self._banned = np.full((L,), -1, np.int32)
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.spec_rollback_pages_total = 0
+        self._spec_draft_s = 0.0
+        self._spec_verify_s = 0.0
+        if self._spec_k:
+            self._drafter = NgramDrafter(n=config.spec_ngram, k=config.spec_k)
+            ladder, b = [0], 1
+            while b < config.spec_k:
+                ladder.append(b)
+                b *= 2
+            ladder.append(config.spec_k)
+            self._spec_buckets = tuple(ladder)
         # prefill-savings accounting: full-page prefix tokens admitted vs
         # those skipped via cache hits and CoW group shares
         self.prefix_tokens_total = 0
@@ -257,6 +303,10 @@ class ContinuousEngine(ParamSnapshotPlane):
         self._completed_counter = reg.counter("genrl.completed")
         self._shared_counter = reg.counter("genrl.pages_shared")
         self._admit_hist = reg.histogram("genrl.admission_latency_s")
+        self._spec_proposed_counter = reg.counter("genrl.spec_proposed")
+        self._spec_accepted_counter = reg.counter("genrl.spec_accepted")
+        self._spec_rollback_counter = reg.counter("genrl.spec_rollback_pages")
+        self._spec_accept_gauge = reg.gauge("genrl.spec_acceptance_rate")
         reg.bind("genrl.pages", self.allocator.stats)
         if self._prefix_cache is not None:
             reg.bind("genrl.prefix", self._prefix_cache.stats)
@@ -268,6 +318,7 @@ class ContinuousEngine(ParamSnapshotPlane):
             "pending": self._batcher.stats()["pending_lanes"],
             "in_flight": len(self._inflight),
             "shed_total": self._batcher.shed_total,
+            "spec_k": self._spec_k,
         })
 
     # -- admission ------------------------------------------------------
@@ -430,6 +481,11 @@ class ContinuousEngine(ParamSnapshotPlane):
         lane.admit_macro = self.macro_steps
         self._table[lane_id] = 0
         self._table[lane_id, : len(pages)] = pages
+        if self._drafter is not None:
+            # a recycled lane id starts a fresh draft table over the new
+            # prompt, and the previous occupant's banned token dies with it
+            self._drafter.start(lane_id, prompt[:m])
+            self._banned[lane_id] = -1
 
     # -- prefill and fork dispatches --------------------------------------
     def _set_lane_state(self, lane_ids: torch.Tensor, logits: torch.Tensor,
@@ -613,8 +669,13 @@ class ContinuousEngine(ParamSnapshotPlane):
         """Pre-extend each live lane's pages to cover the in-flight decode
         horizon (within the lane's reservation, so it never fails).  With K
         macros in flight the host's ``context_len`` is stale by up to K-1
-        macros, so the horizon covers those plus the one about to go."""
-        steps = self.config.steps_per_macro * (len(self._inflight) + 1)
+        macros, so the horizon covers those plus the one about to go.  In
+        spec mode (synchronous) it is one verify pass's worst case: the
+        bonus token plus k accepted drafts."""
+        if self._spec_k:
+            steps = self._spec_k + 1
+        else:
+            steps = self.config.steps_per_macro * (len(self._inflight) + 1)
         for lane_id, lane in enumerate(self._lanes):
             if not lane.busy:
                 continue
@@ -631,7 +692,13 @@ class ContinuousEngine(ParamSnapshotPlane):
         """One engine cycle: admit -> dispatch the next macro step (ONE
         upload) -> read the OLDEST in-flight macro once ``steps_in_flight``
         are pending (ONE batched read) -> harvest.  Returns the sequences
-        that completed in the macro steps read this cycle."""
+        that completed in the macro steps read this cycle.
+
+        With ``spec_k > 0`` the cycle is the draft -> verify -> rewind loop
+        (:meth:`_spec_step`): the same admission, harvest and
+        one-upload-one-read discipline, synchronous by construction."""
+        if self._spec_k:
+            return self._spec_step()
         t_step0 = time.monotonic()
         self._admit()
         dispatched = False
@@ -642,7 +709,7 @@ class ContinuousEngine(ParamSnapshotPlane):
             occ = self.live_lanes / self.config.lanes
             self._occupancy_gauge.set(occ)
             self._occupancy_sum += occ
-            guard = steady_state_guard() if self._warm else nullcontext()
+            guard = steady_state_guard() if self._warm and self._sync_guard else nullcontext()
             with guard, torch.no_grad():
                 # ONE batched host->device upload per macro step
                 (table,) = _device_put((self._table,), self.device)
@@ -657,7 +724,7 @@ class ContinuousEngine(ParamSnapshotPlane):
         while self._inflight and (len(self._inflight) >= self.config.steps_in_flight
                                   or not dispatched):
             macro_idx, outputs = self._inflight.popleft()
-            guard = steady_state_guard() if self._warm else nullcontext()
+            guard = steady_state_guard() if self._warm and self._sync_guard else nullcontext()
             with guard:
                 host = _device_get(outputs)  # ONE batched device->host read
             completions.extend(self._harvest(self._unpack(host), macro_idx))
@@ -672,6 +739,274 @@ class ContinuousEngine(ParamSnapshotPlane):
             )
         return completions
 
+    # -- speculative decoding ----------------------------------------------
+    def _verify_draws(self, samp0: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One verify pass's random draws from the engine's generator: the
+        bonus token from ``samp0`` (the adjusted carried logits, the banned
+        token masked) and, at temperature > 0, the accept test's
+        ``[lanes, k]`` uniforms in ``[1e-20, 1)``.  A seam: tests inject
+        JAX's draws here."""
+        cfg = self.config
+        t0 = sample_tokens(self._generator, samp0, cfg.temperature)
+        if cfg.temperature == 0.0:
+            return t0, None
+        u = torch.rand((cfg.lanes, k), generator=self._generator, device=self.device)
+        return t0, u.clamp_(min=1e-20)
+
+    def _verify(self, params, gen: int, k: int, drafts: torch.Tensor, draft_len: torch.Tensor,
+                page_ids: torch.Tensor, offsets: torch.Tensor, table: torch.Tensor,
+                banned: torch.Tensor) -> torch.Tensor:
+        """One verify pass at draft width ``k`` (a ladder bucket): sample
+        the bonus token ``t0`` from the carried logits, run ONE forward
+        over ``[t0, d1..dk]`` at positions ``cl..cl+k`` through the
+        shared-table tail path (slot j's output is the distribution for
+        position ``cl+j+1``), accept the longest draft prefix, and carry
+        the state at the LAST ACCEPTED slot, whose output is the
+        distribution for the token at the new cursor.  K/V written for
+        rejected slots lies past the cursor: never attended (the tail path
+        masks ``pos <= qpos``) and overwritten by the next pass.
+
+        At temperature > 0, draft ``d_j`` is accepted with probability
+        ``pi_j(d_j)``; a rejected draft must be replaced from the residual
+        ``pi(x) / (1 - pi(d))`` over ``x != d``, which is the next pass's
+        bonus draw with ``d`` masked out (the ``banned`` carry).  The stored
+        behaviour logp always comes from the unmasked distribution.  At
+        temperature 0 both rules collapse to argmax equality and nothing is
+        banned.  Returns the packed int32 ``[L, 4(k+1) + 4]`` outputs
+        (tokens, logp bits, value bits, mask, then cursor, done, response
+        count and banned token)."""
+        cfg = self.config
+        L, T, V = cfg.lanes, k + 1, cfg.vocab_size
+        dev = self.device
+        greedy = cfg.temperature == 0.0
+        pad = max(cfg.eos_token, cfg.pad_token)
+        logits_st, value_st = self._logits_st[:L], self._value_st[:L]
+        cl, done, resp = self._cl[:L], self._done[:L], self._resp[:L]
+        rows = torch.arange(L, device=dev)
+        alive = ~done
+        adj0 = adjust_logits(logits_st, cfg.temperature, cfg.top_k, V)
+        if greedy:
+            samp0 = adj0
+        else:
+            ban_pen = torch.zeros(L, V, dtype=torch.float32, device=dev)
+            ban_pen.index_put_((rows, banned.clamp(0, V - 1).long()),
+                               torch.where(banned >= 0, -1e9, 0.0))
+            samp0 = adj0 + ban_pen
+        t0, u = self._verify_draws(samp0, k)
+        logp0 = token_logp(adj0, t0)
+        X = torch.cat([t0.to(torch.int32)[:, None], drafts], dim=1)
+        positions = (cl[:, None] + torch.arange(T, device=dev)[None, :]).clamp(
+            0, self.model.max_len - 1)
+        out, _ = self._run(params, gen, X, positions=positions, paged_cache=self._pools,
+                           page_ids=page_ids, page_offsets=offsets, page_table=table,
+                           prefix_starts=cl)
+        o_logits, o_value = out.policy_logits, out.baseline  # [L, T, V], [L, T]
+        adj = adjust_logits(o_logits.reshape(L * T, V), cfg.temperature, cfg.top_k,
+                            V).reshape(L, T, V)
+        # the accept test of draft j, against the distribution after slot
+        # j - 1, gated on the host's draft length and on no EOS emitted
+        # earlier in the pass
+        prev = adj[:, :k]
+        logp_d = torch.log_softmax(prev, dim=-1).gather(-1, drafts.long()[:, :, None])[:, :, 0]
+        if greedy:
+            accept = drafts == prev.argmax(dim=-1)
+        else:
+            accept = torch.log(u) < logp_d
+        valid = torch.arange(1, k + 1, device=dev)[None, :] <= draft_len[:, None]
+        ok = accept & valid
+        if cfg.eos_token >= 0:
+            ok = ok & (X[:, :k] != cfg.eos_token)
+        a = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)  # accepted drafts, [0, k]
+        # the emitted stream: t0 and the accepted prefix, in the decode
+        # macro's output layout (a prefix-contiguous mask)
+        slot = torch.arange(T, device=dev)[None, :]
+        mask = (slot <= a[:, None]) & alive[:, None]
+        emit = torch.where(mask, X, pad)
+        logps = torch.cat([logp0[:, None], logp_d], dim=1)
+        values = torch.cat([value_st[:, None], o_value[:, :k]], dim=1)
+        n_emit = ((1 + a) * alive.to(a.dtype)).to(torch.int32)
+        resp2 = resp + n_emit
+        cl2 = cl + n_emit
+        last_tok = X.gather(1, a.long()[:, None])[:, 0]
+        finished = resp2 >= self._response_budget
+        if cfg.eos_token >= 0:
+            finished = finished | (last_tok == cfg.eos_token)
+        done2 = done | (alive & finished)
+        new_logits = o_logits[rows, a.long()]
+        new_value = o_value[rows, a.long()]
+        if greedy or k == 0:
+            banned2 = torch.full((L,), -1, dtype=torch.int32, device=dev)
+        else:
+            # ban only on a genuine accept-test rejection (not draft or
+            # budget exhaustion) of a lane that is still live
+            j1 = a.clamp(0, k - 1).long()[:, None]
+            hit = accept.gather(1, j1)[:, 0]
+            d1 = drafts.gather(1, j1)[:, 0]
+            rej = (a < k) & valid.gather(1, j1)[:, 0] & ~hit & alive & ~done2
+            if cfg.eos_token >= 0:
+                rej = rej & (X[:, :k] != cfg.eos_token).gather(1, j1)[:, 0]
+            banned2 = torch.where(rej, d1, -1).to(torch.int32)
+        # pack before the state write-back: values[:, 0] reads the lane state
+        packed = torch.cat([
+            emit.to(torch.int32), as_int32(logps), as_int32(values), mask.to(torch.int32),
+            cl2[:, None], done2[:, None].to(torch.int32), resp2[:, None], banned2[:, None],
+        ], dim=1)
+        self._logits_st[:L].copy_(torch.where(alive[:, None], new_logits, logits_st))
+        self._value_st[:L].copy_(torch.where(alive, new_value, value_st))
+        self._cl[:L].copy_(cl2)
+        self._done[:L].copy_(done2)
+        self._resp[:L].copy_(resp2)
+        return packed
+
+    @staticmethod
+    def _unpack_verify(host: np.ndarray, T: int) -> Dict[str, np.ndarray]:
+        return {
+            "tokens": host[:, :T],
+            "logp": host[:, T:2 * T].view(np.float32),
+            "value": host[:, 2 * T:3 * T].view(np.float32),
+            "mask": host[:, 3 * T:4 * T].astype(np.float32),
+            "cl": host[:, 4 * T],
+            "done": host[:, 4 * T + 1].astype(bool),
+            "resp": host[:, 4 * T + 2],
+            "banned": host[:, 4 * T + 3],
+        }
+
+    def _spec_step(self) -> List[CompletedSequence]:
+        """One speculative cycle: admit -> draft (host n-gram lookups) ->
+        ONE batched upload + the verify pass -> ONE batched read -> feed
+        the drafter, harvest, and rewind the page cursor of every rejected
+        tail."""
+        t_step0 = time.monotonic()
+        self._admit()
+        completions: List[CompletedSequence] = []
+        occ = 0.0
+        draft_s = verify_s = 0.0
+        if self.live_lanes > 0:
+            self._ensure_pages()
+            params, gen = self._snapshot_params()
+            occ = self.live_lanes / self.config.lanes
+            self._occupancy_gauge.set(occ)
+            self._occupancy_sum += occ
+            cfg = self.config
+            ps, k, L = cfg.page_size, self._spec_k, cfg.lanes
+            # -- draft: per-lane proposals and page routing, host numpy
+            t_draft0 = time.monotonic()
+            drafts = np.zeros((L, k), np.int32)
+            draft_len = np.zeros((L,), np.int32)
+            busy = np.zeros((L,), bool)
+            cl_host = np.zeros((L,), np.int64)
+            proposed = 0
+            for lane_id, lane in enumerate(self._lanes):
+                if not lane.busy:
+                    continue
+                busy[lane_id] = True
+                cl_host[lane_id] = lane.context_len
+                # the bonus token always fits; drafts are clamped so the
+                # whole accepted run stays within the response budget
+                room = lane.prompt_len + self._response_budget - lane.context_len - 1
+                if room > 0:
+                    d = self._drafter.propose(lane_id)
+                    if d is not None:
+                        dl = min(len(d), room, k)
+                        if dl:
+                            drafts[lane_id, :dl] = d[:dl]
+                            draft_len[lane_id] = dl
+                            proposed += dl
+            # the smallest ladder width that fits the pass's longest draft
+            kb = next(b for b in self._spec_buckets if b >= int(draft_len.max()))
+            T = kb + 1
+            drafts = drafts[:, :kb]
+            # slot j writes K/V at flat position cl + j; slots past the
+            # draft length (and dead lanes) route to the null page
+            slot = np.arange(T)
+            gpos = cl_host[:, None] + slot[None, :]
+            page_idx = np.minimum(gpos // ps, self._table.shape[1] - 1)
+            writable = (slot[None, :] <= draft_len[:, None]) & busy[:, None]
+            page_ids = np.where(writable, self._table[np.arange(L)[:, None], page_idx],
+                                0).astype(np.int32)
+            offsets = np.where(writable, gpos % ps, 0).astype(np.int32)
+            draft_s = time.monotonic() - t_draft0
+            # -- verify: ONE batched upload, one pass, ONE batched read
+            t_verify0 = time.monotonic()
+            guard = steady_state_guard() if self._warm and self._sync_guard else nullcontext()
+            with guard, torch.no_grad():
+                up = _device_put((drafts, draft_len, page_ids, offsets, self._table,
+                                  self._banned), self.device)
+                packed = self._verify(params, gen, kb, *up)
+                host = self._unpack_verify(_device_get(packed), T)
+            verify_s = time.monotonic() - t_verify0
+            macro_idx = self.macro_steps
+            self.macro_steps += 1
+            self._warm = True
+            self._banned = np.array(host["banned"], np.int32)
+            # -- drafter upkeep from the outputs already read: live lanes
+            # learn their emitted tokens, finished lanes drop their tables
+            mask, tokens, done = host["mask"], host["tokens"], host["done"]
+            accepted = 0
+            for lane_id, lane in enumerate(self._lanes):
+                if not lane.busy:
+                    continue
+                count = int(mask[lane_id].sum())
+                accepted += max(count - 1, 0)
+                self._drafter.observe(lane_id, int(draft_len[lane_id]), max(count - 1, 0))
+                if count:
+                    self._drafter.extend(lane_id, tokens[lane_id, :count])
+                if done[lane_id]:
+                    self._drafter.release(lane_id)
+            completions = self._harvest(host, macro_idx)
+            # -- page-cursor rewind: every live lane frees the whole pages
+            # past its new cursor (refcount decrements only, so CoW-shared
+            # pages another holder needs are untouched)
+            freed = 0
+            for lane_id, lane in enumerate(self._lanes):
+                if not lane.busy:
+                    continue
+                keep = self.allocator.pages_for_tokens(lane.context_len)
+                n = rewind_pages(self.allocator, lane.pages, keep, holder=f"lane[{lane_id}]")
+                if n:
+                    self._table[lane_id, keep:keep + n] = 0
+                    freed += n
+            self.spec_proposed_total += proposed
+            self.spec_accepted_total += accepted
+            self.spec_rollback_pages_total += freed
+            self._spec_draft_s += draft_s
+            self._spec_verify_s += verify_s
+            if proposed:
+                self._spec_proposed_counter.inc(proposed)
+            if accepted:
+                self._spec_accepted_counter.inc(accepted)
+            if freed:
+                self._spec_rollback_counter.inc(freed)
+            self._spec_accept_gauge.set(self.spec_acceptance_rate)
+        if tracing.sampling_enabled():
+            # one head-sampled span per pass with draft and verify children
+            t_end = time.monotonic()
+            ctx = tracing.record_span(
+                "genrl.macro_step", None, t_step0, t_end, kind="genrl-spec",
+                completed=len(completions), live_lanes=self.live_lanes,
+                occupancy=round(occ, 4), acceptance_rate=round(self.spec_acceptance_rate, 4),
+            )
+            if draft_s or verify_s:
+                tracing.record_span("seq.draft", ctx, t_step0, t_step0 + draft_s,
+                                    kind="genrl-spec")
+                tracing.record_span("seq.verify", ctx, t_step0 + draft_s,
+                                    t_step0 + draft_s + verify_s, kind="genrl-spec")
+        return completions
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the verify pass accepted."""
+        return self.spec_accepted_total / max(self.spec_proposed_total, 1)
+
+    def spec_timers(self) -> Optional[Tuple[float, float]]:
+        """Cumulative host ``(draft_s, verify_s)`` over all spec passes, or
+        None with speculation off (the disaggregated host's seq.draft and
+        seq.verify trace edges are deltas of this)."""
+        if not self._spec_k:
+            return None
+        return (self._spec_draft_s, self._spec_verify_s)
+
     def stats(self) -> Dict[str, Any]:
         """Engine-lifetime counters from host state (no transfer)."""
         return {
@@ -681,6 +1016,13 @@ class ContinuousEngine(ParamSnapshotPlane):
             "mean_occupancy": self.mean_occupancy,
             "prefill_tokens": self.prefill_tokens,
             "prefix_saved_ratio": self.prefix_saved_ratio,
+            "spec_k": self._spec_k,
+            "spec_proposed": self.spec_proposed_total,
+            "spec_accepted": self.spec_accepted_total,
+            "spec_rollback_pages": self.spec_rollback_pages_total,
+            "spec_acceptance_rate": self.spec_acceptance_rate,
+            "spec_draft_s": self._spec_draft_s,
+            "spec_verify_s": self._spec_verify_s,
         }
 
     def _harvest(self, host: Dict[str, np.ndarray], macro_idx: int) -> List[CompletedSequence]:

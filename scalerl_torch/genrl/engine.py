@@ -219,7 +219,9 @@ class GenerationEngine(ParamSnapshotPlane):
     ``max_len >= prompt bucket + response bucket``).  ``params``: the
     initial snapshot, a ``{name: tensor}`` state dict of that model.
     ``device``: where the engine runs (the card by default; raises without
-    one).
+    one).  ``sync_guard=False`` leaves out the steady-state guard, for an
+    engine that shares its process with other threads' device work (the
+    guard's mode is process-wide).
     """
 
     def __init__(
@@ -228,9 +230,11 @@ class GenerationEngine(ParamSnapshotPlane):
         params: Mapping[str, torch.Tensor],
         config: GenerationConfig,
         device: DeviceLike = "cuda",
+        sync_guard: bool = True,
     ) -> None:
         config.validate()
         check_token_model(model, "GenerationEngine")
+        self._sync_guard = sync_guard
         self.device = resolve_device(device)
         max_p = bucket_for(config.max_prompt_len, config.resolved_prompt_buckets())
         max_r = bucket_for(config.max_new_tokens, config.resolved_response_buckets())
@@ -342,7 +346,8 @@ class GenerationEngine(ParamSnapshotPlane):
                        self.config.resolved_response_buckets())
         aligned = self._align_prompts(prompts, prompt_lengths, P)
         params, gen = self._snapshot_params()
-        guard = steady_state_guard() if (P, R) in self._warm else nullcontext()
+        guard = (steady_state_guard() if (P, R) in self._warm and self._sync_guard
+                 else nullcontext())
         with guard, torch.no_grad():
             # ONE batched host->device upload per round ...
             tokens, lengths = _device_put((aligned, prompt_lengths), self.device)

@@ -23,8 +23,8 @@ assembled rows.
 
 Field tables name numpy dtypes (``data/sequence_replay.py::seq_init`` maps
 them to torch's).  Oversize sheds are counted (``genrl.oversize_shed``,
-``genrl.pack_oversize_shed``); the JAX package's flight-recorder events are
-not ported.
+``genrl.pack_oversize_shed``) and recorded on the flight recorder
+(``oversize_shed``, ``pack_oversize_shed`` events).
 """
 
 from __future__ import annotations
@@ -170,6 +170,8 @@ def pack_completions(
         fits.append(c)
     if shed:
         telemetry.get_registry().counter("genrl.oversize_shed").inc(shed)
+        telemetry.record_event("oversize_shed", count=shed, prompt_pad=prompt_pad,
+                               response_pad=response_pad)
     completions = fits
     B = len(completions)
     S = prompt_pad + response_pad
@@ -399,6 +401,7 @@ def pack_learner_batch(
         telemetry.get_registry().counter("genrl.pack_oversize_shed").inc(
             len(shed)
         )
+        telemetry.record_event("pack_oversize_shed", count=len(shed), pack_len=pack_len)
     N, S = len(rows), pack_len
     tokens = np.full((N, S), pad_token, np.int32)
     seg = np.zeros((N, S), np.int32)

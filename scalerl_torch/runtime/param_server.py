@@ -9,8 +9,10 @@ device, with a monotonic generation bump and no host transfer;
 ``_snapshot_params`` hands consumers the current ``(params, generation)``;
 :meth:`staleness_steps` reads the bounded generation -> learner-step map.
 
-Quantized pushes (``quantize="int8" | "bf16"``) need the port of
-``runtime/quantize.py`` and raise ``NotImplementedError`` until then.
+A quantized push (``quantize="int8" | "bf16"``, ``runtime/quantize.py``)
+stores the compressed snapshot instead and dequantizes ON READ, cached
+until the next push: a replica holds the small format at rest and pays one
+dequantization a publish.
 
 :class:`ParameterServer` is the pull endpoint over the same plane: pullers
 get numpy weights with a version, fetched to the host once a version.
@@ -23,6 +25,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from scalerl_torch.runtime.quantize import dequantize_tree, quantize_tree
 
 Params = Dict[str, torch.Tensor]
 
@@ -47,6 +51,7 @@ class ParamSnapshotPlane:
         self._param_lock = threading.Lock()
         self._param_device = device
         self._params = None if params is None else _copy_params(params, device)
+        self._quantized = None
         self.generation = 0
         self._gen_steps: Dict[int, int] = {0: 0}
         self._latest_learner_step = 0
@@ -57,28 +62,34 @@ class ParamSnapshotPlane:
         learner_step: Optional[int] = None,
         quantize: Optional[str] = None,
     ) -> int:
-        """Publish fresh params (device-side copy + monotonic generation
-        bump).  Returns the new generation."""
+        """Publish fresh params (device-side copy, or the quantized
+        snapshot, + monotonic generation bump).  Returns the new
+        generation."""
+        snapshot, qsnap = _copy_params(params, self._param_device), None
         if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r} needs the port of runtime/quantize.py "
-                "(ROADMAP A5); push full-precision params"
-            )
-        snapshot = _copy_params(params, self._param_device)
+            # quantized from the copy, so the 1-D leaves it passes through
+            # never alias the live params
+            snapshot, qsnap = None, quantize_tree(snapshot, quantize)
         with self._param_lock:
             self.generation += 1
             gen = self.generation
             self._params = snapshot
-            self._latest_learner_step = (
-                int(learner_step) if learner_step is not None else gen
-            )
-            self._gen_steps[gen] = self._latest_learner_step
-            while len(self._gen_steps) > self._GEN_STEPS_CAP:
-                self._gen_steps.pop(min(self._gen_steps))
+            self._quantized = qsnap
+            self._record_step(gen, learner_step)
             return gen
+
+    def _record_step(self, gen: int, learner_step: Optional[int]) -> None:
+        """Under the param lock: extend the bounded generation -> step map."""
+        self._latest_learner_step = int(learner_step) if learner_step is not None else gen
+        self._gen_steps[gen] = self._latest_learner_step
+        while len(self._gen_steps) > self._GEN_STEPS_CAP:
+            self._gen_steps.pop(min(self._gen_steps))
 
     def _snapshot_params(self) -> Tuple[Params, int]:
         with self._param_lock:
+            if self._params is None and self._quantized is not None:
+                # dequantize on read, cached until the next push
+                self._params = dequantize_tree(self._quantized)
             return self._params, self.generation
 
     def staleness_steps(self, served_generation: int) -> float:
@@ -127,11 +138,9 @@ class ParameterServer(ParamSnapshotPlane):
         with self._param_lock:
             self.generation += 1
             self._params = snapshot
+            self._quantized = None
             self._is_host = to_host
-            self._latest_learner_step = self.generation
-            self._gen_steps[self.generation] = self.generation
-            while len(self._gen_steps) > self._GEN_STEPS_CAP:
-                self._gen_steps.pop(min(self._gen_steps))
+            self._record_step(self.generation, None)
             return self.generation
 
     def pull(self, have_version: int = -1) -> Tuple[Optional[Dict[str, np.ndarray]], int]:

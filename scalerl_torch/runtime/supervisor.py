@@ -27,8 +27,10 @@ that the trainers use (jax-free there too):
 
 ``PreemptionGuard.poll_chaos`` is the chaos ``preempt`` hook
 (``runtime/chaos.py``): a seeded draw at a safe point that delivers a real
-SIGTERM.  The JAX package also dumps its flight recorder beside a stall
-report, a signal or a trip; the port's reports do not yet.
+SIGTERM.  A stall, a caught signal and a divergence trip each record a
+flight-recorder event and dump the recorder's tail as JSON
+(``telemetry.flight_dump_path``), and the stall report carries that tail
+as text.
 """
 
 from __future__ import annotations
@@ -215,6 +217,7 @@ class StallWatchdog:
         )
         self.on_stall = on_stall
         self.dump_path = dump_path
+        self.flight_dump_path: Optional[str] = None  # set when the watchdog fires
         self.interrupt_main = interrupt_main
         self.name = name
         self.stalled: Optional[StallError] = None
@@ -312,7 +315,12 @@ class StallWatchdog:
 
     def _fire(self, snap: Dict[str, Any], stalled_for: float) -> None:
         self.fire_count += 1
+        telemetry.record_event("watchdog_stall", watchdog=self.name,
+                               stalled_for_s=round(stalled_for, 1))
         report = self._build_report(snap, stalled_for)
+        # the flight recorder's tail also lands as JSON beside the stack dump
+        self.flight_dump_path = telemetry.get_recorder().dump_json(
+            telemetry.flight_dump_path(f"stall_{self.name}"))
         logger.error("%s", report)
         err = StallError(report)
         self.stalled = err
@@ -338,8 +346,12 @@ class StallWatchdog:
             try:
                 value = fn()
                 lines.append(f"probe {name}: {value}")
+                telemetry.record_event("watchdog_probe", watchdog=self.name, probe=name,
+                                       value=str(value))
             except Exception as e:  # noqa: BLE001 — report what we can
                 lines.append(f"probe {name}: <error: {e!r}>")
+        lines.append("--- flight recorder (recent events) ---")
+        lines.append(telemetry.get_recorder().dump_text())
         lines.append("--- all-thread stacks (faulthandler) ---")
         lines.append(self._dump_stacks())
         return "\n".join(lines)
@@ -387,6 +399,7 @@ class PreemptionGuard:
         self._prev: Dict[int, Any] = {}
         self._installed = False
         self.received: Optional[int] = None
+        self.flight_dump_path: Optional[str] = None  # set on the first signal
 
     @property
     def triggered(self) -> bool:
@@ -410,10 +423,16 @@ class PreemptionGuard:
         except ValueError:
             name = str(signum)
         telemetry.get_registry().counter("supervisor.preemption_signals").inc()
+        # the preemption is itself an event, and the tail of what led up to
+        # it lands as JSON at once: the save at the next safe point may never
+        # run if the loop is wedged
+        telemetry.record_event("preemption_signal", signal=name)
+        self.flight_dump_path = telemetry.get_recorder().dump_json(
+            telemetry.flight_dump_path(f"signal_{name.lower()}"))
         # signal-safe enough: one write, no allocation-heavy formatting
         sys.stderr.write(
             f"[scalerl] caught {name}: checkpointing at next safe point "
-            "(repeat to force-quit)\n"
+            f"(repeat to force-quit; flight recorder -> {self.flight_dump_path})\n"
         )
 
     def install(self) -> "PreemptionGuard":
@@ -509,6 +528,9 @@ class DivergenceTripwire:
             self.consecutive = 0
             self.trips += 1
             telemetry.get_registry().counter("supervisor.divergence_trips").inc()
+            telemetry.record_event("divergence_trip", trips=self.trips, k=self.k)
+            # the events leading into a divergence, beside the rollback
+            telemetry.get_recorder().dump_json(telemetry.flight_dump_path("divergence"))
             self.on_trip()
             return True
         return False

@@ -20,13 +20,20 @@ Port of ``scalerl_tpu/trainer/sequence_rl.py::SequenceRLTrainer``:
 Once a round's shapes are warm, steps 3 and 4 run under
 ``steady_state_guard()``: on a card any other host synchronisation raises.
 
-The disaggregated trainer (``DisaggSequenceRLTrainer``) and the mesh hookup
-are not ported yet.
+:class:`DisaggSequenceRLTrainer` is the same learn half over the
+disaggregated dataflow (``genrl/disagg.py``): generation hosts stream
+completed sequences into the learner's replay, and quantized snapshots flow
+back; with a ledger directory it saves and resumes its whole plane.  The
+dp x mp mesh hookup is not ported (``RLArguments`` refuses ``dp_size`` and
+``mp_size``).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import threading
 import time
 from contextlib import nullcontext
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -36,7 +43,13 @@ import torch
 
 from scalerl_torch.agents.token_ppo import TokenPPOAgent
 from scalerl_torch.config import GenRLArguments
-from scalerl_torch.data.sequence_replay import seq_add, seq_init, seq_sample
+from scalerl_torch.data.sequence_replay import (
+    seq_add,
+    seq_export,
+    seq_import,
+    seq_init,
+    seq_sample,
+)
 from scalerl_torch.genrl.continuous import ContinuousConfig, ContinuousEngine
 from scalerl_torch.genrl.engine import GenerationConfig, GenerationEngine, _device_put
 from scalerl_torch.genrl.rollout import (
@@ -62,7 +75,9 @@ def build_genrl_model(args: GenRLArguments, device: DeviceLike = "cuda") -> Tran
     """Token-mode transformer sized off the shared policy fields, with
     ``max_len`` covering the largest (prompt, response) bucket pair and,
     with the packed learner, the packed row length; its weights are drawn
-    from ``args.seed``."""
+    from ``args.seed``.  ``bf16_params`` gives bfloat16 compute and
+    parameters (the LayerNorm scales and the heads stay float32, as Flax's
+    ``param_dtype`` leaves them)."""
     max_p = bucket_for(args.prompt_len, default_buckets(args.prompt_len))
     max_r = bucket_for(args.max_new_tokens, default_buckets(args.max_new_tokens))
     max_len = max_p + max_r
@@ -78,6 +93,8 @@ def build_genrl_model(args: GenRLArguments, device: DeviceLike = "cuda") -> Tran
         num_layers=args.n_layers,
         max_len=max_len,
         segment_attn_fn=seg_fn,
+        dtype=torch.bfloat16 if args.bf16_params else torch.float32,
+        param_dtype=torch.bfloat16 if args.bf16_params else torch.float32,
         device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )
@@ -111,7 +128,124 @@ def upload_units(fields: Mapping[str, np.ndarray], priorities: np.ndarray,
     return dict(zip(names, out[:-1])), out[-1]
 
 
-class SequenceRLTrainer:
+def _gen_config_kwargs(args: GenRLArguments, max_prompt_len: Optional[int] = None) -> Dict[str, Any]:
+    return dict(vocab_size=args.vocab_size, max_prompt_len=max_prompt_len or args.prompt_len,
+                max_new_tokens=args.max_new_tokens, temperature=args.temperature,
+                top_k=args.top_k, eos_token=args.eos_token, seed=args.seed)
+
+
+def _continuous_config(args: GenRLArguments, lanes: int,
+                       max_prompt_len: Optional[int] = None) -> ContinuousConfig:
+    """The continuous engine's config from the run's ``genrl_*`` paging
+    knobs, with speculation when ``spec_enable``."""
+    return ContinuousConfig(
+        lanes=lanes, page_size=args.genrl_page_size, num_pages=args.genrl_num_pages,
+        steps_per_macro=args.genrl_macro_steps, admit_max_wait_s=args.genrl_admit_wait_ms / 1e3,
+        max_pending=args.genrl_max_pending, paged_attn=args.genrl_paged_attn,
+        steps_in_flight=args.genrl_steps_in_flight, prefix_cache=args.genrl_prefix_cache,
+        spec_k=args.spec_k if args.spec_enable else 0, spec_ngram=args.spec_ngram,
+        **_gen_config_kwargs(args, max_prompt_len))
+
+
+class _LearnHalf:
+    """The learn half both sequence-RL trainers share: the agent, the
+    prioritized sequence replay, and the round's units -> upload ->
+    ``seq_add`` -> ``seq_sample`` (the PER sample kernel) -> token-PPO step,
+    with its reward bookkeeping.  The trainers differ in where a round's
+    sequences come from and where the learner publishes."""
+
+    def _init_agent(self, args: GenRLArguments, task: Optional[Any],
+                    agent: Optional[TokenPPOAgent], device: DeviceLike) -> None:
+        args.validate()
+        self.args = args
+        self.device = resolve_device(device)
+        self.task = task or TokenRecallTask(
+            vocab_size=args.vocab_size,
+            prompt_len=args.prompt_len,
+            response_len=args.max_new_tokens,
+        )
+        self.agent = agent or TokenPPOAgent(args, build_genrl_model(args, self.device))
+        if self.agent.device.type != self.device.type or (
+            self.device.index is not None and self.agent.device.index != self.device.index
+        ):
+            raise ValueError(f"agent lives on {self.agent.device}, trainer on {self.device}")
+        self.device = self.agent.device
+
+    def _init_replay(self, prompt_pad: int, response_pad: int) -> None:
+        """The replay's geometry is the LARGEST bucket pair, so one buffer
+        covers every round; with the packed learner the unit is a packed ROW
+        of several compact sequences, and insert row counts pad up a pow2
+        ladder."""
+        args = self.args
+        self._prompt_pad, self._response_pad = prompt_pad, response_pad
+        self.packing = bool(args.learner_packing)
+        self._pack_len = args.learner_pack_len or (prompt_pad + response_pad)
+        self._row_buckets = default_buckets(args.genrl_batch)
+        self.replay = seq_init(
+            packed_field_shapes(self._pack_len) if self.packing
+            else sequence_field_shapes(prompt_pad, response_pad),
+            (),  # no recurrent core: attention over the sequence is the memory
+            args.genrl_buffer_sequences,
+            device=self.device,
+        )
+        # "pallas" = the CUDA sample kernel (its plain version on the host)
+        self._seq_method = "pallas"
+        self._sample_generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)
+        self.learn_steps = 0
+        self.reward_history: List[float] = []
+        reg = telemetry.get_registry()
+        self._learn_meter = reg.meter("genrl.learn_steps_per_s")
+        self._reward_gauge = reg.gauge("genrl.mean_reward")
+        self._pad_gauge = reg.gauge("genrl.pad_ratio")
+
+    def _completion_units(self, packed, rewards):
+        """Replay units of a :func:`pack_completions` batch: ``(fields,
+        priorities, decode_tokens)``."""
+        if self.packing:
+            pk = packed_rows_from_completions(packed, rewards, self._pack_len)
+            return _bucketed_rows(pk, self._row_buckets, self._pad_gauge)
+        self._pad_gauge.set(
+            1.0 - (packed.prompt_len.sum() + packed.mask.sum()) / max(packed.sequences.size, 1)
+        )
+        fields, priorities = packed.fields(rewards)
+        return fields, priorities, packed.decode_tokens
+
+    def _learn_from(self, fields, priorities, guard=None) -> Tuple[Dict[str, float], float]:
+        """Upload, insert, sample and take one learn step (inside ``guard``);
+        returns the metrics (ONE batched device->host copy) and the learn
+        step's start stamp."""
+        with guard or nullcontext():
+            dev_fields, dev_priorities = upload_units(fields, priorities, self.device)
+            self.replay = seq_add(self.replay, dev_fields, (), dev_priorities)
+            batch, _core, _idx, weights = seq_sample(
+                self.replay, self._sample_generator, self.args.genrl_sample_batch,
+                method=self._seq_method,
+            )
+            batch = dict(batch)
+            batch["is_weight"] = weights
+            t_learn0 = time.monotonic()
+            metrics = self.agent.learn(batch)
+        return metrics, t_learn0
+
+    def _close_round(self, metrics: Dict[str, float], rewards, staleness: float,
+                     decode_tokens) -> Dict[str, float]:
+        mean_reward = float(np.mean(rewards))
+        self._reward_gauge.set(mean_reward)
+        metrics["round_reward"] = mean_reward
+        metrics["staleness"] = staleness
+        metrics["decode_tokens"] = float(decode_tokens)
+        self.reward_history.append(mean_reward)
+        return metrics
+
+    def _summary(self, metrics: Dict[str, float]) -> Dict[str, float]:
+        summary = dict(metrics)
+        tail = self.reward_history[-10:]
+        summary["final_reward_mean"] = float(np.mean(tail)) if tail else 0.0
+        summary["rounds"] = float(len(self.reward_history))
+        return summary
+
+
+class SequenceRLTrainer(_LearnHalf):
     """Single-learner sequence-RL loop over a synthetic (or injected) task.
 
     ``task``: anything with ``sample_prompts(batch, rng) -> (prompts,
@@ -129,47 +263,15 @@ class SequenceRLTrainer:
         agent: Optional[TokenPPOAgent] = None,
         device: DeviceLike = "cuda",
     ) -> None:
-        args.validate()
-        self.args = args
-        self.device = resolve_device(device)
-        self.task = task or TokenRecallTask(
-            vocab_size=args.vocab_size,
-            prompt_len=args.prompt_len,
-            response_len=args.max_new_tokens,
-        )
-        self.agent = agent or TokenPPOAgent(args, build_genrl_model(args, self.device))
-        if self.agent.device.type != self.device.type or (
-            self.device.index is not None and self.agent.device.index != self.device.index
-        ):
-            raise ValueError(f"agent lives on {self.agent.device}, trainer on {self.device}")
-        self.device = self.agent.device
-        base_cfg = dict(
-            vocab_size=args.vocab_size,
-            max_prompt_len=max(getattr(self.task, "max_prompt_len", args.prompt_len),
-                               args.prompt_len),
-            max_new_tokens=args.max_new_tokens,
-            temperature=args.temperature,
-            top_k=args.top_k,
-            eos_token=args.eos_token,
-            seed=args.seed,
-        )
+        self._init_agent(args, task, agent, device)
+        max_prompt_len = max(getattr(self.task, "max_prompt_len", args.prompt_len),
+                             args.prompt_len)
         self.continuous = args.genrl_engine == "continuous"
         if self.continuous:
             self.engine = ContinuousEngine(
                 self.agent.model,
                 self.agent.get_weights(),
-                ContinuousConfig(
-                    lanes=args.genrl_lanes or args.genrl_batch,
-                    page_size=args.genrl_page_size,
-                    num_pages=args.genrl_num_pages,
-                    steps_per_macro=args.genrl_macro_steps,
-                    admit_max_wait_s=args.genrl_admit_wait_ms / 1e3,
-                    max_pending=args.genrl_max_pending,
-                    paged_attn=args.genrl_paged_attn,
-                    steps_in_flight=args.genrl_steps_in_flight,
-                    prefix_cache=args.genrl_prefix_cache,
-                    **base_cfg,
-                ),
+                _continuous_config(args, args.genrl_lanes or args.genrl_batch, max_prompt_len),
                 device=self.device,
             )
             # a macro step can finish more lanes than one learn batch takes;
@@ -177,40 +279,19 @@ class SequenceRLTrainer:
             self._completion_backlog: List[Any] = []
         else:
             self.engine = GenerationEngine(
-                self.agent.model, self.agent.get_weights(), GenerationConfig(**base_cfg),
-                device=self.device,
+                self.agent.model, self.agent.get_weights(),
+                GenerationConfig(**_gen_config_kwargs(args, max_prompt_len)), device=self.device,
             )
-        # the replay's geometry is the engine's LARGEST bucket pair, so one
-        # buffer covers every round
-        self._prompt_pad = bucket_for(self.engine.config.max_prompt_len,
-                                      self.engine.config.resolved_prompt_buckets())
-        self._response_pad = bucket_for(args.max_new_tokens,
-                                        self.engine.config.resolved_response_buckets())
-        # packed learner: the replay unit is a packed ROW of several compact
-        # sequences; insert row counts pad up a pow2 ladder
-        self.packing = bool(args.learner_packing)
-        self._pack_len = args.learner_pack_len or (self._prompt_pad + self._response_pad)
-        self._row_buckets = default_buckets(args.genrl_batch)
-        self.replay = seq_init(
-            packed_field_shapes(self._pack_len) if self.packing
-            else sequence_field_shapes(self._prompt_pad, self._response_pad),
-            (),  # no recurrent core: attention over the sequence is the memory
-            args.genrl_buffer_sequences,
-            device=self.device,
+        self._init_replay(
+            bucket_for(self.engine.config.max_prompt_len,
+                       self.engine.config.resolved_prompt_buckets()),
+            bucket_for(args.max_new_tokens, self.engine.config.resolved_response_buckets()),
         )
-        # "pallas" = the CUDA sample kernel (its plain version on the host)
-        self._seq_method = "pallas"
         self._rng = np.random.default_rng(args.seed)
-        self._sample_generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)
         self._warm_inserts: set = set()
-        self.learn_steps = 0
         reg = telemetry.get_registry()
-        self._learn_meter = reg.meter("genrl.learn_steps_per_s")
-        self._reward_gauge = reg.gauge("genrl.mean_reward")
         self._stale_gauge = reg.gauge("genrl.staleness")
         self._kl_gauge = reg.gauge("genrl.kl_ref")
-        self._pad_gauge = reg.gauge("genrl.pad_ratio")
-        self.reward_history: List[float] = []
 
     def _generate_round(self):
         B = self.args.genrl_batch
@@ -266,15 +347,8 @@ class SequenceRLTrainer:
         packed = pack_completions(batch, self._prompt_pad, self._response_pad)
         rewards = self.task.score(packed.prompts, packed.prompt_len, packed.response_tokens,
                                   packed.response_len)
-        if self.packing:
-            pk = packed_rows_from_completions(packed, rewards, self._pack_len)
-            fields, priorities, decode = _bucketed_rows(pk, self._row_buckets, self._pad_gauge)
-            return fields, priorities, rewards, decode
-        self._pad_gauge.set(
-            1.0 - (packed.prompt_len.sum() + packed.mask.sum()) / max(packed.sequences.size, 1)
-        )
-        fields, priorities = packed.fields(rewards)
-        return fields, priorities, rewards, packed.decode_tokens
+        fields, priorities, decode = self._completion_units(packed, rewards)
+        return fields, priorities, rewards, decode
 
     def train_round(self) -> Dict[str, float]:
         """One generate -> score -> insert -> sample -> learn round."""
@@ -284,18 +358,8 @@ class SequenceRLTrainer:
         )
         t_add0 = time.monotonic()
         rows = int(priorities.shape[0])
-        guard = steady_state_guard() if rows in self._warm_inserts else nullcontext()
-        with guard:
-            dev_fields, dev_priorities = upload_units(fields, priorities, self.device)
-            self.replay = seq_add(self.replay, dev_fields, (), dev_priorities)
-            batch, _core, _idx, weights = seq_sample(
-                self.replay, self._sample_generator, self.args.genrl_sample_batch,
-                method=self._seq_method,
-            )
-            batch = dict(batch)
-            batch["is_weight"] = weights
-            t_learn0 = time.monotonic()
-            metrics = self.agent.learn(batch)  # ONE batched device->host copy
+        guard = steady_state_guard() if rows in self._warm_inserts else None
+        metrics, t_learn0 = self._learn_from(fields, priorities, guard)
         self._warm_inserts.add(rows)
         if tracing.sampling_enabled():
             # retroactive spans from stamps the round already took
@@ -316,15 +380,10 @@ class SequenceRLTrainer:
         # staleness from the metric that already crossed to the host
         staleness = self.engine.staleness_steps(int(round(metrics["mean_generation"])))
         self._stale_gauge.set(staleness)
-        mean_reward = float(np.mean(rewards))
-        self._reward_gauge.set(mean_reward)
+        telemetry.observe_staleness(staleness, plane="genrl")
         if "kl_ref" in metrics:
             self._kl_gauge.set(metrics["kl_ref"])
-        metrics["round_reward"] = mean_reward
-        metrics["staleness"] = staleness
-        metrics["decode_tokens"] = float(decode_tokens)
-        self.reward_history.append(mean_reward)
-        return metrics
+        return self._close_round(metrics, rewards, staleness, decode_tokens)
 
     def train(self, rounds: Optional[int] = None) -> Dict[str, float]:
         rounds = rounds if rounds is not None else self.args.genrl_rounds
@@ -338,8 +397,279 @@ class SequenceRLTrainer:
                     i + 1, rounds, metrics.get("round_reward", 0.0),
                     metrics.get("total_loss", 0.0), metrics.get("staleness", 0.0),
                 )
-        summary = dict(metrics)
-        tail = self.reward_history[-10:]
-        summary["final_reward_mean"] = float(np.mean(tail)) if tail else 0.0
-        summary["rounds"] = float(len(self.reward_history))
+        return self._summary(metrics)
+
+
+# ---------------------------------------------------------------------------
+# the disaggregated topology: generation fleet -> this learner
+
+
+def host_weights(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Params as float32 numpy (bfloat16 leaves widen: the wire frames
+    native numpy dtypes), fetched in ONE device->host copy."""
+    names = list(params)
+    flat = torch.cat([params[k].detach().reshape(-1).to(torch.float32) for k in names])
+    host = flat.cpu().numpy()
+    out, offset = {}, 0
+    for k in names:
+        n = params[k].numel()
+        out[k] = host[offset:offset + n].reshape(params[k].shape)
+        offset += n
+    return out
+
+
+class _WireCompletion:
+    """One wire sequence payload seen through the ``CompletedSequence``
+    attributes that ``pack_completions`` reads."""
+
+    __slots__ = ("prompt", "prompt_len", "response_tokens", "behavior_logp", "values",
+                 "generation")
+
+    def __init__(self, payload: Dict[str, Any]) -> None:
+        self.prompt = np.asarray(payload["prompt"], np.int32)
+        self.prompt_len = int(payload["prompt_len"])
+        self.response_tokens = np.asarray(payload["response_tokens"], np.int32)
+        self.behavior_logp = np.asarray(payload["behavior_logp"], np.float32)
+        self.values = np.asarray(payload["values"], np.float32)
+        self.generation = int(payload["generation"])
+
+
+class _CohortShellFactory:
+    """Picklable engine factory for the generation hosts: the token-mode
+    model and a fixed-cohort engine on ``device``, built inside the host
+    from the run's args and the first wire snapshot (uploaded in one
+    batched copy).  Its engines run without the sync guard: thread hosts
+    share the process with the learner, and the guard's mode is
+    process-wide."""
+
+    def __init__(self, args: GenRLArguments, round_batch: int, device: DeviceLike = "cuda") -> None:
+        self.args = args
+        self.round_batch = round_batch
+        self.device = device
+
+    def __call__(self, params: Any, generation: int):
+        from scalerl_torch.genrl.disagg import CohortEngineShell, upload_wire_params
+
+        dev = resolve_device(self.device)
+        engine = GenerationEngine(build_genrl_model(self.args, dev), upload_wire_params(params, dev),
+                                  GenerationConfig(**_gen_config_kwargs(self.args)), device=dev,
+                                  sync_guard=False)
+        return CohortEngineShell(engine, self.round_batch, initial_generation=generation)
+
+
+class _ContinuousShellFactory(_CohortShellFactory):
+    """The continuous-engine twin of :class:`_CohortShellFactory`:
+    ``round_batch`` lanes, the run's ``genrl_*`` paging knobs, and
+    speculation when ``spec_enable``."""
+
+    def __call__(self, params: Any, generation: int):
+        from scalerl_torch.genrl.disagg import ContinuousEngineShell, upload_wire_params
+
+        dev = resolve_device(self.device)
+        engine = ContinuousEngine(build_genrl_model(self.args, dev),
+                                  upload_wire_params(params, dev),
+                                  _continuous_config(self.args, self.round_batch), device=dev,
+                                  sync_guard=False)
+        return ContinuousEngineShell(engine, initial_generation=generation)
+
+
+class DisaggSequenceRLTrainer(_LearnHalf):
+    """Sequence RL over the disaggregated dataflow (``genrl/disagg.py``):
+    ``disagg_hosts`` generation hosts stream completed, generation-tagged
+    sequences over the codec-v2 fleet wire into this learner's sequence
+    replay, and quantized snapshots flow back every ``genrl_push_every``
+    learn steps.  The learn half (upload, replay insert, the PER sample
+    kernel, the token-PPO step through the segment kernels under
+    ``learner_packing``) is the one :class:`SequenceRLTrainer` runs: disaggregation
+    changes where sequences are born, not how they are learned from.
+
+    ``use_threads=True`` (default) runs the hosts as threads of this
+    process (the wire, leases, acks, dedup and snapshots all still flow);
+    ``False`` spawns host processes.  ``engine_factory`` builds each host's
+    engine shell from the first wire snapshot; the default is a real engine
+    on ``device``: the cohort engine, or the continuous one when
+    ``genrl_engine="continuous"`` (the JAX trainer always takes the cohort
+    engine).  No step runs under the steady-state guard: its mode is
+    process-wide, and thread hosts share the process.  Nothing is meshed,
+    so the JAX trainer's mesh dispatch lock has no counterpart.
+
+    With ``ledger_dir`` (or ``disagg_ledger_dir``), a
+    :class:`~scalerl_torch.runtime.supervisor.PreemptionGuard` safe point
+    between rounds turns SIGTERM into :meth:`save_resume` (the learner's
+    accounting plane, the replay, the agent's weights and the lease
+    cursor and generator in ONE crash-safe frame), and the next trainer
+    built against the same directory resumes at the same learn step under
+    a bumped learner epoch.
+    """
+
+    def __init__(
+        self,
+        args: GenRLArguments,
+        task: Optional[Any] = None,
+        agent: Optional[TokenPPOAgent] = None,
+        engine_factory: Optional[Any] = None,
+        use_threads: bool = True,
+        ledger_dir: Optional[str] = None,
+        guard: Optional[Any] = None,
+        device: DeviceLike = "cuda",
+    ) -> None:
+        from scalerl_torch.genrl.disagg import (
+            DisaggConfig,
+            LocalGenerationFleet,
+            SequenceLearner,
+            record_consumption_trace,
+        )
+
+        self._record_consumption_trace = record_consumption_trace
+        self._init_agent(args, task, agent, device)
+        self._init_replay(bucket_for(args.prompt_len, default_buckets(args.prompt_len)),
+                          bucket_for(args.max_new_tokens, default_buckets(args.max_new_tokens)))
+        lanes = args.disagg_lanes_per_host or max(1, args.genrl_batch // args.disagg_hosts)
+        self.config = DisaggConfig(
+            num_hosts=args.disagg_hosts,
+            lanes_per_host=lanes,
+            upload_batch=args.disagg_upload_batch,
+            snapshot_quantize=args.disagg_quantize,
+            # a shallow accepted-sequence queue with stale eviction keeps the
+            # consumed data fresh: queue depth IS worst-case staleness
+            seq_maxsize=max(4 * args.genrl_batch, 2 * lanes * args.disagg_hosts),
+        )
+        # the learner owns the prompts: leases carry the task's tokens, so
+        # generation hosts stay task-agnostic decode capacity
+        self._lease_rng = np.random.default_rng(args.seed + 2)
+        self._lease_lock = threading.Lock()
+        self._lease_seq = 0
+        self.guard = guard
+        ledger_dir = ledger_dir or args.disagg_ledger_dir
+        self.ledger_path = os.path.join(ledger_dir, "learner_ledger") if ledger_dir else None
+        self.learner = SequenceLearner(self.config, self._next_lease, ledger_path=self.ledger_path)
+        if self.learner.restored_extra is not None:
+            self._adopt_restored(self.learner.restored_extra)
+        self.learner.start()
+        if self.learner.generation == 0:
+            # a fresh start only: a restored learner already holds the wire
+            # snapshot (and the generation) its hosts must adopt
+            self.learner.publish(host_weights(self.agent.get_weights()), learner_step=0)
+        if engine_factory is None:
+            cls = _ContinuousShellFactory if args.genrl_engine == "continuous" else _CohortShellFactory
+            engine_factory = cls(args, lanes, self.device)
+        self.fleet = LocalGenerationFleet(self.learner, self.config, engine_factory,
+                                          use_threads=use_threads)
+        self.fleet.start()
+
+    def _adopt_restored(self, extra: Dict[str, Any]) -> None:
+        """Rebuild the trainer half of a preempted run from the ledger's
+        ``extra`` tree: the learn step, the replay, the agent's weights, the
+        lease cursor and generator (so resumed leases continue the exact
+        sequence), and the reward history."""
+        self.learn_steps = int(extra.get("learn_steps", 0))
+        self._lease_seq = int(extra.get("lease_seq", 0))
+        rng_state = extra.get("lease_rng")
+        if rng_state:
+            # PCG64's state words are 128-bit: they ride the ledger as JSON
+            self._lease_rng.bit_generator.state = json.loads(rng_state)
+        if "replay" in extra:
+            self.replay = seq_import(extra["replay"], self.device)
+        if "agent" in extra:
+            live = self.agent.get_weights()
+            self.agent.set_weights({
+                k: torch.from_numpy(np.asarray(v)).to(device=self.device, dtype=live[k].dtype)
+                for k, v in extra["agent"].items()})
+        self.reward_history = [float(r) for r in extra.get("reward_history", [])]
+        logger.info("disagg trainer resumed at learn step %d (epoch %d, %d leases reissued)",
+                    self.learn_steps, self.learner.learner_epoch,
+                    self.learner.resumed_sequences_reissued)
+
+    def save_resume(self) -> Optional[str]:
+        """The PreemptionGuard safe-point action: stop the plane and save
+        the learner's ledger and the trainer's state as one crash-safe
+        frame.  Returns the ledger path, or None without a ledger dir."""
+        self.learner.stop()
+        if self.ledger_path is None:
+            return None
+        extra = {
+            "learn_steps": self.learn_steps,
+            "lease_seq": self._lease_seq,
+            "lease_rng": json.dumps(self._lease_rng.bit_generator.state),
+            "reward_history": [float(r) for r in self.reward_history],
+            "replay": seq_export(self.replay),
+            "agent": host_weights(self.agent.get_weights()),
+        }
+        return self.learner.save_ledger(self.ledger_path, extra=extra)
+
+    def _next_lease(self) -> Dict[str, Any]:
+        with self._lease_lock:
+            self._lease_seq += 1
+            seq = self._lease_seq
+            prompts, lengths = self.task.sample_prompts(1, self._lease_rng)
+        n = int(lengths[0])
+        lease = {"seed": seq, "prompt": prompts[0, :n].astype(np.int32), "length": n}
+        if self.args.samples_per_prompt > 1:
+            # group sampling: the host fans the lease out into that many
+            # completions; the learner closes it when all of them arrived
+            lease["samples"] = self.args.samples_per_prompt
+        return lease
+
+    def train_round(self) -> Dict[str, float]:
+        """One disaggregated round: drain ``genrl_batch`` wire sequences ->
+        pack -> score -> insert -> sample -> learn -> publish the quantized
+        snapshot."""
+        B = self.args.genrl_batch
+        batch: List[_WireCompletion] = []
+        raw: List[Dict[str, Any]] = []  # keeps the trace and _t_q wire keys
+        deadline = time.monotonic() + self.args.disagg_round_timeout_s
+        while len(batch) < B:
+            payload = self.learner.get_sequence(timeout=0.2)
+            if payload is not None:
+                raw.append(payload)
+                batch.append(_WireCompletion(payload))
+            elif time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"disagg round starved: {len(batch)}/{B} sequences after "
+                    f"{self.args.disagg_round_timeout_s:.0f}s "
+                    f"(live hosts: {self.learner.live_host_count()})"
+                )
+        t_drain = time.monotonic()
+        packed = pack_completions(batch, self._prompt_pad, self._response_pad)
+        rewards = self.task.score(packed.prompts, packed.prompt_len, packed.response_tokens,
+                                  packed.response_len)
+        fields, priorities, _decode = self._completion_units(packed, rewards)
+        t_add0 = time.monotonic()
+        metrics, t_learn0 = self._learn_from(fields, priorities)
+        self.learn_steps += 1
+        # the consumed sequences' traces gain the learner-side edges, from
+        # stamps the round already took
+        self._record_consumption_trace(raw, t_drain, t_add0, t_learn0, t_learn0,
+                                       time.monotonic(), self.learn_steps)
+        self._learn_meter.mark()
+        if self.learn_steps % self.args.genrl_push_every == 0:
+            self.learner.publish(host_weights(self.agent.get_weights()),
+                                 learner_step=self.learn_steps)
+        staleness = self.learner.observe_consumed(int(round(metrics["mean_generation"])))
+        return self._close_round(metrics, rewards, staleness, packed.decode_tokens)
+
+    def train(self, rounds: Optional[int] = None) -> Dict[str, float]:
+        rounds = rounds if rounds is not None else self.args.genrl_rounds
+        metrics: Dict[str, float] = {}
+        try:
+            for _ in range(rounds):
+                if self.guard is not None and self.guard.poll_chaos("learner"):
+                    # the safe point: SIGTERM (real, or the chaos plan's
+                    # seeded preempt draw) landed; save the whole plane
+                    # between rounds and exit, and the next trainer against
+                    # the same ledger dir resumes this step
+                    telemetry.record_event("preemption_exit", plane="disagg",
+                                           step=self.learn_steps)
+                    self.save_resume()
+                    break
+                metrics = self.train_round()
+        finally:
+            self.close()
+        summary = self._summary(metrics)
+        summary["wire_sequences"] = float(self.learner.total_sequences)
+        summary["learn_steps"] = float(self.learn_steps)
         return summary
+
+    def close(self) -> None:
+        self.learner.stop()
+        self.fleet.join(timeout=5.0)

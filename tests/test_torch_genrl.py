@@ -236,8 +236,13 @@ def test_push_params_flushes_prefix_cache(setup):
     assert eng.prefix_tokens_saved == saved  # recomputed, no hit
     assert c.generation == 1
     _assert_matches_ref([c], setup, rows=[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.push_params(setup["state"], quantize="int8")
+    # a quantized push also flushes, and the engine decodes from the
+    # snapshot dequantized on read
+    assert eng.push_params(setup["state"], learner_step=4, quantize="int8") == 2
+    assert eng._prefix_cache.cached_pages == 0 and eng._quantized is not None
+    eng.submit(setup["prompts"][0], setup["lengths"][0])
+    q = eng.run_until(1, max_macro_steps=40)[0]
+    assert q.generation == 2 and len(q.response_tokens) == R_MAX
 
 
 @pytest.mark.parametrize("steps_in_flight", [1, 2])
@@ -321,8 +326,8 @@ def test_continuous_at_temperature_1_is_well_formed(setup):
 
 
 def test_engines_refuse_what_they_do_not_support(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _cont(setup, spec_k=2)
+    with pytest.raises(ValueError, match="spec_ngram"):
+        _cont(setup, spec_k=2, spec_ngram=0)
     features = TransformerPolicy(num_actions=3, d_model=32, num_heads=2, num_layers=1,
                                  max_len=16, obs_dim=4, device="cpu")
     for engine in (GenerationEngine, ContinuousEngine):

@@ -53,9 +53,13 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # the IMPALA, DQN, generation, sequence-RL training, replay and process-plane
     # slices, the remaining learners (A3C, PPO, IMPACT, SAC, TD3), the
-    # serving plane (server, client, router, hub, attribution), and the fleet
-    # (cluster, generation, autoscaler, the multi-agent env and vector envs)
-    assert len(_submodules()) >= 116
+    # serving plane (server, client, router, hub, attribution), the fleet
+    # (cluster, generation, autoscaler, the multi-agent env and vector envs),
+    # and the rest of sequence RL (quantize, drafter, ledger, disagg)
+    assert len(_submodules()) >= 120
+    for name in ("scalerl_torch.runtime.quantize", "scalerl_torch.genrl.drafter",
+                 "scalerl_torch.genrl.ledger", "scalerl_torch.genrl.disagg"):
+        assert name in _submodules()
 
 
 def _imported_roots(path: Path):
@@ -213,6 +217,45 @@ def test_sequence_rl_entry_points_refuse_the_default_device_without_a_card(monke
         with pytest.raises(RuntimeError, match="cuda"):
             make()
     SequenceRLTrainer(args, device="cpu").train_round()
+
+
+def test_disaggregated_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    """The disaggregated trainer and the real-engine host factories default
+    to the card; a wire snapshot reaches a real engine only as tensors on
+    its device (numpy params are refused)."""
+    from scalerl_torch.config import GenRLArguments
+    from scalerl_torch.genrl.disagg import upload_wire_params
+    from scalerl_torch.trainer.sequence_rl import (
+        DisaggSequenceRLTrainer,
+        _CohortShellFactory,
+        _ContinuousShellFactory,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = GenRLArguments(vocab_size=12, prompt_len=4, max_new_tokens=4, d_model=16, n_layers=1,
+                          n_heads=2, genrl_batch=4, genrl_sample_batch=4,
+                          genrl_buffer_sequences=8)
+    wire = {k: v.numpy() for k, v in _tiny_token_model().state_dict().items()}
+    for make in (
+        lambda: DisaggSequenceRLTrainer(args),
+        lambda: _CohortShellFactory(args, 2)(wire, 1),
+        lambda: _ContinuousShellFactory(args, 2)(wire, 1),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    with pytest.raises(TypeError, match="float32"):
+        upload_wire_params({k: torch.from_numpy(v) for k, v in wire.items()},
+                           torch.device("cpu"))
+    shell = _CohortShellFactory(args, 2, device="cpu")(wire, 1)
+    assert shell.engine.device.type == "cpu" and shell.generation == 1
+
+
+def _tiny_token_model():
+    from scalerl_torch.config import GenRLArguments
+    from scalerl_torch.trainer.sequence_rl import build_genrl_model
+
+    return build_genrl_model(GenRLArguments(vocab_size=12, prompt_len=4, max_new_tokens=4,
+                                            d_model=16, n_layers=1, n_heads=2), device="cpu")
 
 
 def test_actor_learner_entry_points_refuse_the_default_device_without_a_card(monkeypatch):

@@ -218,6 +218,9 @@ def test_param_snapshot_plane_copies_and_tags_generations():
     assert plane.push_params(live, learner_step=15) == 2
     assert torch.equal(plane._snapshot_params()[0]["w"], torch.full((3,), 2.0))
     assert plane.staleness_steps(1) == 5.0 and plane.staleness_steps(2) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plane.push_params(live, quantize="int8")
-    assert plane.generation == 2
+    # a quantized push stores int8 and dequantizes on read, within half a
+    # scale step of the source
+    assert plane.push_params({"w": torch.ones(3), "m": torch.eye(3)}, quantize="int8") == 3
+    snap = plane._snapshot_params()[0]
+    assert torch.equal(snap["w"], torch.ones(3)) and torch.allclose(snap["m"], torch.eye(3))
+    assert plane.generation == 3

@@ -273,17 +273,33 @@ def test_genrl_arguments_defaults_equal_the_jax_ones():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(spec_enable=True, genrl_engine="continuous"), "speculative"),
     (dict(dp_size=2), "sharded"),
     (dict(mp_size=2), "sharded"),
-    (dict(bf16_params=True), "bf16"),
-    (dict(disagg_hosts=4), "disaggregated"),
-    (dict(disagg_ledger_dir="/tmp/x"), "disaggregated"),
-    (dict(resume="ckpt"), "resume"),
+    (dict(resume="ckpt"), "disagg_ledger_dir"),
 ])
 def test_unported_fields_are_refused(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         GenRLArguments(**kw).validate()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(spec_enable=True), "genrl_engine"),
+    (dict(spec_enable=True, genrl_engine="continuous", spec_k=0), "spec_k"),
+    (dict(spec_ngram=0), "spec_ngram"),
+    (dict(disagg_hosts=0), "disagg_hosts"),
+    (dict(disagg_upload_batch=0), "disagg_upload_batch"),
+    (dict(disagg_quantize="fp8"), "disagg_quantize"),
+    (dict(disagg_round_timeout_s=0.0), "disagg_round_timeout_s"),
+])
+def test_lifted_switches_validate_like_jax(kw, match):
+    """Speculation, bf16 params and the disaggregated fields are no longer
+    refused; their checks are JAX's (the JAX arguments refuse the same)."""
+    with pytest.raises(ValueError, match=match):
+        GenRLArguments(**kw).validate()
+    with pytest.raises(ValueError):
+        JaxGenRLArguments(**kw).validate()
+    GenRLArguments(spec_enable=True, genrl_engine="continuous", bf16_params=True,
+                   disagg_hosts=4, disagg_ledger_dir="/tmp/x").validate()
 
 
 @pytest.mark.parametrize("kw,match", [

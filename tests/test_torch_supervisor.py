@@ -160,3 +160,40 @@ def test_liveness_tracker_lists_silent_keys():
     assert lt.stale(0.03) == ["a"]
     lt.forget("a")
     assert lt.last_seen("a") is None and lt.stale(10.0) == []
+
+
+def test_stall_signal_and_trip_dump_the_flight_recorder(tmp_path, monkeypatch):
+    """As in the JAX supervisor: a stall, a caught signal and a divergence
+    trip each record their event and write the flight recorder's tail as
+    JSON under ``SCALERL_TELEMETRY_DIR``; the stall report carries it as
+    text."""
+    import json
+
+    from scalerl_torch.runtime import telemetry
+
+    monkeypatch.setenv("SCALERL_TELEMETRY_DIR", str(tmp_path))
+    telemetry.record_event("before_the_stall", n=1)
+    fired = []
+    wd = tsup.StallWatchdog(deadline_s=0.2, on_stall=fired.append, name="dumps")
+    wd.counter("work").bump()  # one progress source that then stalls
+    wd.add_probe("depth", lambda: 4)
+    with wd:
+        deadline = time.monotonic() + 5.0
+        while not fired and time.monotonic() < deadline:
+            time.sleep(0.05)
+    assert fired and "flight recorder" in str(fired[0]) and "before_the_stall" in str(fired[0])
+    guard = tsup.PreemptionGuard()
+    guard.simulate()
+    trips = []
+    tw = tsup.DivergenceTripwire(1, lambda: trips.append(1))
+    assert tw.observe({"skipped_steps": 1.0}) and trips == [1]
+    for path, kind in ((wd.flight_dump_path, "watchdog_stall"),
+                       (guard.flight_dump_path, "preemption_signal"),
+                       (telemetry.flight_dump_path("divergence"), "divergence_trip")):
+        assert os.path.dirname(path) == str(tmp_path)
+        with open(path) as f:
+            kinds = [e["kind"] for e in json.load(f)["events"]]
+        assert kind in kinds, (path, kinds)
+    events = telemetry.get_recorder().events
+    assert events("watchdog_probe") and events("divergence_trip")
+    assert os.path.basename(guard.flight_dump_path).startswith("scalerl_flight_signal_sigterm")

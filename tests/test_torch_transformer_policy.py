@@ -110,8 +110,7 @@ def test_config_defaults_and_checks_match_jax():
         with pytest.raises(NotImplementedError, match="sharded learner"):
             tconfig.ImpalaArguments(**kw).validate()
     tconfig.ImpalaArguments(policy_arch="transformer", bf16_params=True).validate()
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tconfig.GenRLArguments(bf16_params=True).validate()
+    tconfig.GenRLArguments(bf16_params=True).validate()
 
 
 def test_build_mp_policy_dispatch():

@@ -116,3 +116,32 @@ def make_pursuit():
 
     return pursuit_v4.parallel_env(n_pursuers=2, n_evaders=2, max_cycles=8, x_size=8,
                                    y_size=8)
+
+
+class ReportingScriptedFactory:
+    """The port's scripted generation-host engine
+    (``genrl/disagg.py::ScriptedEngineFactory``) whose payloads also carry
+    what the host process loaded: its CUDA state and top-level modules."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __call__(self, params, generation):
+        from scalerl_torch.genrl.disagg import ScriptedEngineFactory
+
+        engine = ScriptedEngineFactory(**self.kw)(params, generation)
+        step = engine.step
+
+        def reporting_step():
+            import sys
+
+            import torch
+
+            out = step()
+            for payload in out:
+                payload["cuda_initialized"] = torch.cuda.is_initialized()
+                payload["modules"] = sorted({m.split(".")[0] for m in list(sys.modules)})
+            return out
+
+        engine.step = reporting_step
+        return engine
