@@ -411,6 +411,22 @@ no result line:
     the weights and the replay bit-equal, the lease cursor continuing,
     every lease answered once, and the guard's flight dump written.
     Phases 53-55 join every thread and child with a deadline.
+56. ``impala_anakin`` (run after ``impala_lstm_fused``): ``run_anakin``, N
+    chunks as one CUDA-graph replay, at ``impala_fused``'s width and at
+    ImpalaArguments' defaults, 4 chunks each: from one state, carry and
+    generator state, 4 ``run()`` chunks and the captured superchunk under
+    deterministic algorithms are bit-equal (params, carry, metric stream,
+    generator); the next replay, timed, draws different actions with the
+    generator moved on; V-trace launches in a replay = 4 x 5 by the
+    profiler; warm replays under sync debug mode "error"; env frames/s of
+    both, a profiled replay's busy share (its kernel time over the span of
+    its kernels), kernels a replay, peak memory.
+57. ``mesh_learn`` (run after ``flash_train_step``): a one-rank nccl
+    process group; ``enable_mesh`` at dp = mp = 1 on the transformer
+    learner at the sharded width (``SHARD_LEARN_TOL``, flash launches equal
+    to the unmeshed step's), the IMPALA step and the DQN step on a PER
+    batch (``LEARN_TOL``, V-trace and PER launches counted), each against
+    the same agent unmeshed; the group is destroyed at the phase's end.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -886,7 +902,8 @@ SYNTHETIC_FRAMES = 40_000  # 100,000 before phases 51-55 joined the script
 
 # ImpalaArguments' own defaults (T=80, B=8, conv + 2-layer LSTM, hidden 512,
 # float32, the lr schedule over 30M frames), as the fused loop runs them
-LSTM_ITERS, LSTM_CHUNKS = 5, 4  # 10 chunks before phases 51-55 joined the script
+# 4 chunks (10 before phases 51-55)
+LSTM_ITERS, LSTM_CHUNKS = 5, 4
 
 
 def _default_args(**kw):
@@ -1143,17 +1160,34 @@ def profile_device(fn):
 
 def _kernel_table(prof):
     """A finished profiler's ``[(kernel, device us, calls)]``, heaviest
-    first."""
+    first, summed from its raw device events (``key_averages`` takes ~30 s
+    over the ~354,000 kernels of an Anakin replay of the defaults' LSTM
+    chunks).  The device-side ranges of ``record_function`` annotations
+    (``step_marker``'s) span kernels already counted, so they are left out."""
     from torch.autograd import DeviceType
 
-    def device_us(e) -> float:
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+    rows: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                and e.duration_ns() > 0):
+            us, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((k, us, n) for k, (us, n) in rows.items()), key=lambda r: -r[1])
 
-    return sorted(
-        ((e.key, device_us(e), e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and device_us(e) > 0),
-        key=lambda k: -k[1],
-    )
+
+def _kernel_span_s(prof) -> float:
+    """Seconds from the first kernel's start to the last kernel's end in a
+    finished profiler's device events (``record_function`` ranges left out,
+    as in :func:`_kernel_table`)."""
+    from torch.autograd import DeviceType
+
+    starts, ends = [], []
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                and e.duration_ns() > 0):
+            starts.append(e.start_ns())
+            ends.append(e.start_ns() + e.duration_ns())
+    return (max(ends) - min(starts)) / 1e9
 
 
 def profile_host(fn, top: int = 12):
@@ -1601,6 +1635,7 @@ def phase_dqn_per(report: dict) -> None:
     from scalerl_torch.trainer.off_policy import OffPolicyTrainer
 
     set_tf32(False)
+    # 40,000 env steps: about 2,400 learn steps
     args = _dqn_args(use_pallas=True, warmup_learn_steps=2000, train_frequency=PER_NUM_ENVS,
                      max_timesteps=40_000, eval_frequency=10**9, save_model=False,
                      logger_backend="none", telemetry_interval_s=0.0,
@@ -4630,10 +4665,13 @@ def phase_process_impala(report: dict) -> None:
         raise AssertionError(f"process_impala: {failed}")
 
 
-IMPACT_TRAIN_S = 10.0  # 20 s before phases 51-55 joined the script
-ONPOLICY_EXAMPLE_STEPS = 8_000  # 16,000 before phases 51-55 joined the script
-ONPOLICY_RECALL_CHUNKS = 12  # 30 before phases 51-55 joined the script
-CONTINUOUS_TRAIN_STEPS = 3_000  # 6,000 before phases 51-55 joined the script
+# cut again when impala_anakin and mesh_learn joined the script: the script
+# must end within 1,200 s, and a host 1.3-1.9x slower than usual has run it
+# in 1,267 s (PERF.md's Findings)
+IMPACT_TRAIN_S = 7.0  # 10 s before, 20 before phases 51-55 joined the script
+ONPOLICY_EXAMPLE_STEPS = 6_000  # 8,000 before, 16,000 before phases 51-55
+ONPOLICY_RECALL_CHUNKS = 8  # 12 before, 30 before phases 51-55
+CONTINUOUS_TRAIN_STEPS = 2_000  # 3,000 before, 6,000 before phases 51-55
 # card vs host for the on-policy learn steps: the loss, the gradient at the
 # initial params and one optimizer step of it as LEARN_TOL holds IMPALA's.
 # A whole PPO learn step is 16 Adam steps (4 epochs x 4 minibatches); Adam
@@ -5744,7 +5782,7 @@ FLEET_TRAIN_S = 5.0  # 8 s before phases 51-55 joined the script
 FLEET_ELASTIC_S = 20.0
 A3C_FLEET_S = 4.0  # 6 s before phases 51-55 joined the script
 MARL_STEPS = 1_000  # env steps a lane, 8 lanes: ~8 s on the card's host
-FLEET_DQN_EPISODES = 100  # 200 before phases 51-55 joined the script
+FLEET_DQN_EPISODES = 60  # 100 before impala_anakin joined (why: at IMPACT_TRAIN_S), 200 before 51-55
 # the elastic wave: the supervisor draws from this seed's mass_kill stream
 # every 0.5 s once the learner has taken its first step, and the stream
 # first fires at its 10th draw, ~5 s into the window; at most one wave,
@@ -6129,7 +6167,7 @@ SPEC_V, SPEC_D, SPEC_LAYERS, SPEC_HEADS = 64, 256, 4, 8
 SPEC_P, SPEC_R, SPEC_LANES, SPEC_PAGE, SPEC_MACRO = 32, 512, 64, 16, 8
 SPEC_K, SPEC_NGRAM = 24, 3
 SPEC_ROUNDS = 1  # measured (off, on) round pairs after one warm-up pair
-DISAGG_TRAIN_S = 10.0
+DISAGG_TRAIN_S = 7.0  # 10 s before impala_anakin and mesh_learn joined (why: at IMPACT_TRAIN_S)
 DISAGG_CONT_ROUNDS = 2
 # one bf16 learn step, segment kernels against the dense mask: both sides
 # compute in bf16 and round in other places, held as the bf16 flash
@@ -6602,12 +6640,349 @@ def phase_disagg_preempt(report: dict) -> None:
                              f"{replay_equal}, {acct}, dump {dump}")
 
 
+# Anakin (phase impala_anakin): N chunks as one CUDA-graph replay, at the fused
+# phase's width and at ImpalaArguments' defaults
+ANAKIN_LSTM_CHUNKS = 4
+
+
+def _clone_tree(tree):
+    import torch
+
+    from scalerl_torch.utils.tree import tree_map
+
+    return tree_map(torch.clone, tree)
+
+
+def _tree_diff(a, b) -> tuple:
+    """(leaves that differ, their largest abs difference) of two trees."""
+    from scalerl_torch.utils.tree import tree_leaves
+
+    bad, worst = 0, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if not (x.shape == y.shape and bool((x == y).all())):
+            bad += 1
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return bad, worst
+
+
+def _anakin_case(report: dict, name: str, args, chunks: int) -> dict:
+    """One loop's Anakin checks: eager ``run()`` and one captured superchunk
+    from the same state, carry and generator state under deterministic
+    algorithms (bit-equal params, carry and metric stream; an op without a
+    deterministic version is named and its leaves held at ``LEARN_TOL``),
+    distinct draws across two replays, V-trace launches in a replay by the
+    profiler, and the warm replay's rate beside ``run()``'s (both with the
+    deterministic algorithms).  The timed warm replay is the second draw:
+    it starts from the first replay's generator state, which must have
+    moved on.  The device busy share is the profiled replay's kernel time
+    over the span from its first kernel's start to its last kernel's end."""
+    import warnings
+
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
+
+    T, B, iters = args.rollout_length, args.batch_size, MAIN_ITERS
+    env = SyntheticPixelEnv(num_envs=B)
+    agent = ImpalaAgent(args, obs_shape=env.observation_shape, num_actions=env.num_actions)
+    loop = DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), unroll_length=T,
+                                  iters_per_call=iters)
+    t0 = time.perf_counter()
+    state, carry, _ = loop.run(agent.state, loop.init_carry(), num_calls=1)  # warm-up chunk
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    state0, carry0, gen0 = _clone_tree(state), _clone_tree(carry), loop.generator.get_state()
+    frames = chunks * iters * T * B
+    prev_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eager_stream = []
+            t0 = time.perf_counter()
+            s_run, c_run, _ = loop.run(_clone_tree(state0), _clone_tree(carry0), num_calls=chunks,
+                                       on_metrics=lambda i, m: eager_stream.append(m))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            gen_after_run = loop.generator.get_state()
+            loop.generator.set_state(gen0)
+            ana_stream = []
+            t0 = time.perf_counter()
+            s_ana, c_ana, _ = loop.run_anakin(_clone_tree(state0), _clone_tree(carry0), chunks,
+                                              on_metrics=lambda i, m: ana_stream.append(m))
+            capture_s = time.perf_counter() - t0
+            s_ana, c_ana = _clone_tree(s_ana), _clone_tree(c_ana)
+        nondeterministic = sorted({str(w.message).split(" does not have")[0][:120]
+                                   for w in caught if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_cfg
+    bad_leaves, worst = _tree_diff((s_run, c_run), (s_ana, c_ana))
+    stream_equal = eager_stream == ana_stream
+    generator_equal = bool(torch.equal(gen_after_run, loop.generator.get_state()))
+    # warm replays: run_anakin's guarded path, timed, which is also the
+    # second draw (the generator has moved on, so the actions differ), then
+    # one under the profiler
+    gen1 = loop.generator.get_state()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, c, last = loop.run_anakin(s_ana, c_ana, chunks)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    draws_differ = (not torch.equal(c_ana.last_action, c.last_action)
+                    and not torch.equal(gen1, loop.generator.get_state()))
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop.train_superchunk(s, c, chunks)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    kernels = _kernel_table(prof)
+    span_s = _kernel_span_s(prof)
+    profile_s = time.perf_counter() - t0
+    vtrace_calls = sum(n for k, _, n in kernels if "vtrace_kernel" in k)
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    out = dict(B=B, T=T, iters_per_call=iters, chunks=chunks, frames=frames,
+               run_env_frames_per_s=frames / run_s, anakin_env_frames_per_s=frames / replay_s,
+               warmup_chunk_s=warmup_s, run_s=run_s, replay_s=replay_s,
+               first_call_with_capture_s=capture_s, profile_s=profile_s,
+               profile_traced_s=traced_s,
+               replay_device_busy_s=busy_s, replay_kernel_span_s=span_s,
+               replay_device_busy_share=busy_s / span_s,
+               replay_kernel_launches=sum(n for _, _, n in kernels),
+               replay_vtrace_launches=vtrace_calls, peak_mem_gib=peak_gib,
+               bit_equal=bad_leaves == 0 and stream_equal, differing_leaves=bad_leaves,
+               max_abs_diff=worst, metric_stream_equal=stream_equal,
+               generator_equal=generator_equal, replays_draw_differently=draws_differ,
+               nondeterministic_ops=nondeterministic, warm_sync_debug_mode="error",
+               last_chunk=last, card=report["card"])
+    emit(f"impala_anakin_{name}", **out)
+    if vtrace_calls != chunks * iters:
+        raise AssertionError(f"{name}: vtrace launches in a replay {vtrace_calls} != "
+                             f"{chunks * iters}")
+    if not (draws_differ and generator_equal):
+        raise AssertionError(f"{name}: replays draw the same actions or the generator moved "
+                             "otherwise than eager")
+    if not out["bit_equal"]:
+        if not nondeterministic:
+            raise AssertionError(f"{name}: replay not bit-equal to eager ({bad_leaves} leaves, "
+                                 f"{worst}; streams equal {stream_equal}) with every op "
+                                 "deterministic")
+        if not worst <= LEARN_TOL["kernel_vs_plain_update_abs"]:
+            raise AssertionError(f"{name}: replay off eager by {worst} beside "
+                                 f"{nondeterministic}")
+    return out
+
+
+def phase_impala_anakin(report: dict) -> None:
+    """Anakin on the card: ``run_anakin`` replays one CUDA graph of N chunks
+    (``runtime/device_loop.py``), at ``phase_impala_fused``'s width and at
+    ImpalaArguments' defaults (the LSTM chunk)."""
+    import torch
+
+    from scalerl_torch.config import ImpalaArguments
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ff = ImpalaArguments(use_lstm=False, hidden_size=512, rollout_length=MAIN_T,
+                         batch_size=MAIN_B, max_timesteps=0, compute_dtype="bfloat16",
+                         use_pallas=True)
+    report["anakin"] = {"ff": _anakin_case(report, "ff", ff, MAIN_CHUNKS),
+                        "lstm": _anakin_case(report, "lstm", _default_args(),
+                                             ANAKIN_LSTM_CHUNKS)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _flat_params(state) -> "object":
+    import torch
+
+    from scalerl_torch.parallel.sharding import gather_tree
+
+    return torch.cat([v.float().reshape(-1) for v in gather_tree(state.params).values()]).cpu()
+
+
+def _dqn_per_step(agent, sampler, args) -> dict:
+    """One DQN learn step on a PER batch sampled by the kernels from a full
+    ring of fixed contents, and the priority write-back; the PER launches
+    counted."""
+    import dataclasses
+
+    import torch
+
+    from scalerl_torch.data.prioritized import per_sample_from_uniforms
+    from scalerl_torch.ops import cuda_per
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (PER_CAPACITY, PER_NUM_ENVS)
+    state = sampler.buffer.state
+    done = torch.rand(shape, generator=g, device="cuda") < 0.05
+    for k, v in dict(obs=torch.randn(shape + (4,), generator=g, device="cuda"),
+                     next_obs=torch.randn(shape + (4,), generator=g, device="cuda"),
+                     action=torch.randint(0, 2, shape, generator=g, device="cuda"),
+                     reward=torch.rand(shape, generator=g, device="cuda"), done=done,
+                     boundary=done).items():
+        state.replay.storage[k].copy_(v)
+    state.priorities.copy_(torch.rand(shape, generator=g, device="cuda") * 2 + 0.05)
+    sampler.buffer.state = dataclasses.replace(
+        state, replay=dataclasses.replace(state.replay, pos=0, size=PER_CAPACITY))
+    u = torch.rand(PER_BATCH, generator=g, device="cuda")
+    cuda_per.sample_launches = cuda_per.update_launches = 0
+    batch = per_sample_from_uniforms(sampler.buffer.state, u, args.per_alpha, args.per_beta,
+                                     PER_N_STEP, args.gamma, sampler.buffer.sample_method)
+    metrics, td_abs = agent.learn_device(batch)
+    sampler.update_priorities(batch["indices"], td_abs + 1e-6)
+    torch.cuda.synchronize()
+    return dict(params=_flat_params(agent.state), loss=float(metrics["loss"]),
+                sample=cuda_per.sample_launches, update=cuda_per.update_launches)
+
+
+def phase_mesh_learn(report: dict) -> None:
+    """The sharded learn step on one card: a one-rank nccl process group,
+    ``enable_mesh`` at dp = mp = 1 (state leaves DTensors on a seven-dim
+    ``DeviceMesh``), each step held against the same agent unmeshed: the
+    transformer learner at the sharded width (``SHARD_LEARN_TOL``, flash
+    launches equal), the IMPALA step (V-trace launches equal) and the DQN
+    step on a PER batch (``LEARN_TOL``, PER launches counted).  The group is
+    destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from scalerl_torch.agents.dqn import DQNAgent
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+    from scalerl_torch.data.sampler import Sampler
+    from scalerl_torch.ops import cuda_per, cuda_vtrace
+    from scalerl_torch.ops import cuda_flash_attention as cfa
+
+    set_tf32(False)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        def rel(a: float, b: float) -> float:
+            return abs(a - b) / max(abs(b), 1.0)
+
+        # the transformer learner, bench.py --mode sharded's width
+        traj = _shard_traj("cuda")
+        tr = {}
+        for name in ("plain", "mesh"):
+            agent = ImpalaAgent(_shard_args(), (SHARD_OBS,), SHARD_A)
+            if name == "mesh":
+                agent.enable_mesh("dp=1,mp=1")
+                if agent.mesh.device_mesh is None:
+                    raise AssertionError("the meshed agent has no DeviceMesh")
+            before = _flat_params(agent.state)
+            cfa.fwd_launches = cfa.dq_launches = cfa.dkv_launches = 0
+            metrics = [agent.learn(traj) for _ in range(SHARD_LEARN_STEPS)]
+            torch.cuda.synchronize()
+            tr[name] = dict(metrics=metrics, update=_flat_params(agent.state) - before,
+                            launches=_flash_counts())
+            del agent
+        p, m = tr["plain"], tr["mesh"]
+        shard_errs = {
+            "loss_rel": max(rel(a["total_loss"], b["total_loss"])
+                            for a, b in zip(m["metrics"], p["metrics"])),
+            "grad_norm_rel": max(rel(a["grad_norm"], b["grad_norm"])
+                                 for a, b in zip(m["metrics"], p["metrics"])),
+            "update_rel_l2": float((m["update"] - p["update"]).norm() / p["update"].norm()),
+        }
+        # the IMPALA step at phase_impala_learn's configuration
+        T, B, A = 6, 4, 6
+        g = torch.Generator().manual_seed(3)
+        from scalerl_torch.data.trajectory import Trajectory
+
+        itraj = Trajectory(
+            obs=torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=g,
+                              dtype=torch.uint8).cuda(),
+            action=torch.randint(0, A, (T + 1, B), generator=g).cuda(),
+            reward=torch.randn(T + 1, B, generator=g).cuda(),
+            done=(torch.rand(T + 1, B, generator=g) < 0.2).cuda(),
+            logits=torch.randn(T + 1, B, A, generator=g).cuda())
+        im = {}
+        for name in ("plain", "mesh"):
+            args = ImpalaArguments(use_lstm=False, hidden_size=512, rollout_length=T,
+                                   batch_size=B, max_timesteps=0, use_pallas=True)
+            agent = ImpalaAgent(args, (84, 84, 4), A)
+            if name == "mesh":
+                agent.enable_mesh("dp=1")
+            before = _flat_params(agent.state)
+            cuda_vtrace.launches = 0
+            metrics = agent.learn(itraj)
+            im[name] = dict(metrics=metrics, update=_flat_params(agent.state) - before,
+                            vtrace=cuda_vtrace.launches)
+        impala_errs = {
+            "kernel_vs_plain_update_abs": float((im["mesh"]["update"]
+                                                 - im["plain"]["update"]).abs().max()),
+            "loss_rel": rel(im["mesh"]["metrics"]["total_loss"],
+                            im["plain"]["metrics"]["total_loss"]),
+            "grad_norm_rel": rel(im["mesh"]["metrics"]["grad_norm"],
+                                 im["plain"]["metrics"]["grad_norm"]),
+        }
+        # the DQN step on a PER batch: sample (kernels), learn, write back
+        dq = {}
+        for name in ("plain", "mesh"):
+            args = _dqn_args(use_pallas=True)
+            agent = DQNAgent(args, (4,), 2)
+            if name == "mesh":
+                agent.enable_mesh("dp=1")
+            sampler = Sampler((4,), PER_CAPACITY, PER_NUM_ENVS, use_per=True,
+                              per_alpha=args.per_alpha, n_step=PER_N_STEP, gamma=args.gamma,
+                              use_pallas=True)
+            dq[name] = _dqn_per_step(agent, sampler, args)
+        dqn_errs = {"kernel_vs_plain_update_abs": float((dq["mesh"]["params"]
+                                                         - dq["plain"]["params"]).abs().max()),
+                    "loss_rel": rel(dq["mesh"]["loss"], dq["plain"]["loss"])}
+    finally:
+        dist.destroy_process_group()
+    out = dict(mesh="dp=1,mp=1 (transformer), dp=1 (IMPALA, DQN)", backend="nccl",
+               transformer=dict(**shard_errs, tol={k: SHARD_LEARN_TOL[k] for k in shard_errs},
+                                flash_launches_mesh=m["launches"],
+                                flash_launches_plain=p["launches"], steps=SHARD_LEARN_STEPS),
+               impala=dict(**impala_errs, vtrace_launches_mesh=im["mesh"]["vtrace"],
+                           vtrace_launches_plain=im["plain"]["vtrace"]),
+               dqn=dict(**dqn_errs, per_sample_launches=dq["mesh"]["sample"],
+                        per_update_launches=dq["mesh"]["update"]),
+               tol=LEARN_TOL, card=report["card"])
+    emit("mesh_learn", **out)
+    report["mesh_learn"] = out
+    bad = {k: v for k, v in shard_errs.items() if not v <= SHARD_LEARN_TOL[k]}
+    bad.update({f"impala_{k}": v for k, v in impala_errs.items() if not v <= LEARN_TOL[k]})
+    bad.update({f"dqn_{k}": v for k, v in dqn_errs.items() if not v <= LEARN_TOL[k]})
+    if bad:
+        raise AssertionError(f"meshed steps off their unmeshed steps: {bad}")
+    if m["launches"] != p["launches"] or not all(m["launches"]):
+        raise AssertionError(f"flash launches {m['launches']} meshed, {p['launches']} not")
+    if im["mesh"]["vtrace"] != im["plain"]["vtrace"] or im["mesh"]["vtrace"] != 1:
+        raise AssertionError(f"vtrace launches {im['mesh']['vtrace']} meshed, "
+                             f"{im['plain']['vtrace']} not")
+    if not (dq["mesh"]["sample"] == dq["plain"]["sample"] > 0
+            and dq["mesh"]["update"] == dq["plain"]["update"] > 0):
+        raise AssertionError(f"PER launches meshed {dq['mesh']}, not {dq['plain']}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
-          phase_learn_synthetic, phase_learn_catch, phase_learn_recall, phase_per_kernels, phase_dqn_learn, phase_dqn_per,
+          phase_impala_anakin, phase_learn_synthetic, phase_learn_catch, phase_learn_recall,
+          phase_per_kernels, phase_dqn_learn, phase_dqn_per,
           phase_paged_attn, phase_genrl_model, phase_genrl_decode, phase_genrl_continuous,
           phase_segment_attn, phase_token_ppo_learn, phase_genrl_train, phase_flash_attn,
           phase_transformer_learn, phase_transformer_train, phase_flash_train_step,
+          phase_mesh_learn,
           phase_impala_trainer_device, phase_impala_trainer_host, phase_learn_cartpole_host,
           phase_dqn_resume, phase_dqn_rainbow_learn, phase_apex_train, phase_r2d2_device,
           phase_learn_r2d2_recall_device, phase_r2d2_host, phase_shm_ring,

@@ -174,14 +174,11 @@ class OnPolicyAgent(PolicyValueAgent):
 
     def learn_device(self, traj: Trajectory) -> Dict[str, torch.Tensor]:
         """One train step; metrics stay on the device."""
-        self.state, metrics = self._learn(self.state, traj)
+        (metrics,) = self._learn_step(traj)
         return metrics
 
     def learn(self, traj: Trajectory) -> Dict[str, float]:
         return get_metrics(self.learn_device(traj))  # one batched copy
-
-    def get_weights(self) -> Params:
-        return self.state.params
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))

@@ -9,6 +9,8 @@ from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 
+from scalerl_torch.parallel.sharding import MeshedAgentState
+
 
 class RecurrentEvalState:
     """Per-mode recurrent memory for the per-call host API (one slot per
@@ -52,7 +54,7 @@ class RecurrentEvalState:
         self._modes.clear()
 
 
-class BaseAgent(ABC):
+class BaseAgent(MeshedAgentState, ABC):
     """Algorithm-agnostic agent API consumed by the trainers."""
 
     @abstractmethod
@@ -75,14 +77,26 @@ class BaseAgent(ABC):
         raise NotImplementedError
 
     def save_checkpoint(self, path: str) -> str:
-        """Save ``self.state`` to the checkpoint directory ``path``."""
+        """Save ``self.state`` to the checkpoint directory ``path``; a meshed
+        agent's state is gathered to full tensors first
+        (``parallel/train_step.py::save_sharded``)."""
+        if getattr(self, "mesh", None) is not None:
+            from scalerl_torch.parallel.train_step import save_sharded
+
+            return save_sharded(self, path)
         from scalerl_torch.utils.checkpoint import save_checkpoint
 
         return save_checkpoint(path, self.state)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore ``self.state`` from ``path`` (its tree, dtypes and
-        devices), falling back through the retained ``.prev`` chain."""
+        devices), falling back through the retained ``.prev`` chain; a
+        meshed agent re-places the restored tensors in its layout."""
+        if getattr(self, "mesh", None) is not None:
+            from scalerl_torch.parallel.train_step import load_sharded
+
+            self.state = load_sharded(self, path)
+            return
         from scalerl_torch.utils.checkpoint import load_checkpoint
 
         self.state = load_checkpoint(path, self.state)

@@ -38,6 +38,7 @@ from scalerl_torch.ops.losses import (
     dqn_loss,
     make_support,
 )
+from scalerl_torch.parallel.sharding import batch_mean, reduce_gradients
 from scalerl_torch.parallel.train_step import maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
@@ -142,8 +143,8 @@ def _make_learn_core(
         # noisy layers at their mean weights leave the sigmas out of the
         # graph: their gradient is zero, as in the JAX package
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(v) if g is None else g
-                 for (k, v), g in zip(params.items(), grads)}
+        grads = reduce_gradients({k: torch.zeros_like(v) if g is None else g
+                                  for (k, v), g in zip(params.items(), grads)})
         updates, opt_state = optimizer.update(grads, state.opt_state)
         new_params = {k: state.params[k] + updates[k] for k in state.params}
 
@@ -158,8 +159,8 @@ def _make_learn_core(
         new_state = DQNTrainState(new_params, target_params, opt_state, step)
         metrics = {
             "loss": loss.detach(),
-            "td_error_mean": torch.mean(per_sample),
-            "q_mean": torch.mean(q.detach()),
+            "td_error_mean": batch_mean(per_sample),
+            "q_mean": batch_mean(q.detach()),
         }
         return new_state, metrics, per_sample
 
@@ -317,6 +318,7 @@ class DQNAgent(BaseAgent):
         self.eps = args.eps_greedy_start
         self.generator = torch.Generator(device=self.device).manual_seed(args.seed)
         self._learn = maybe_guard_nonfinite(self.make_learn_fn(), args)
+        self._shard_batch = None
 
     def make_learn_fn(self, noise: bool = True) -> Callable:
         """The unguarded learn function; ``noise=False`` runs noisy layers
@@ -366,7 +368,7 @@ class DQNAgent(BaseAgent):
         (the JAX agent returns numpy); the random draws come from the
         agent's device generator, so acting never waits on the host."""
         obs, squeeze = self._obs_batch(obs)
-        q = self.q_values(self.state.params, obs, noise=True)
+        q = self.q_values(self.acting_params(), obs, noise=True)
         actions = self.epsilon_greedy(q, self.eps, self.generator)
         return actions[0] if squeeze else actions
 
@@ -374,7 +376,7 @@ class DQNAgent(BaseAgent):
         """Greedy actions of the mean network, as :meth:`get_action`
         returns them."""
         obs, squeeze = self._obs_batch(obs)
-        actions = torch.argmax(self.q_values(self.state.params, obs), dim=-1)
+        actions = torch.argmax(self.q_values(self.acting_params(), obs), dim=-1)
         return actions[0] if squeeze else actions
 
     def update_exploration(self, num_env_steps: int = 1) -> float:
@@ -387,6 +389,8 @@ class DQNAgent(BaseAgent):
         the old one in a single assignment and no old tensor is written, so
         threads that read ``agent.state`` meanwhile see one whole state."""
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if self._shard_batch is not None:
+            batch = self._shard_batch(batch)
         self.state, metrics, td_abs = self._learn(self.state, batch)
         return metrics, td_abs
 
@@ -398,7 +402,16 @@ class DQNAgent(BaseAgent):
         return out
 
     def get_weights(self) -> Params:
-        return self.state.params
+        return self.acting_params()
+
+    def enable_mesh(self, mesh_or_spec) -> None:
+        """Data-parallel learn step over a mesh
+        (``parallel/train_step.py::enable_offpolicy_mesh``): the replay
+        batch splits over ``dp`` x ``fsdp`` and the per-sample |TD| comes
+        back whole for the PER write-back."""
+        from scalerl_torch.parallel.train_step import enable_offpolicy_mesh
+
+        enable_offpolicy_mesh(self, mesh_or_spec)
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))

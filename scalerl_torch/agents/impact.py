@@ -220,16 +220,13 @@ class ImpactAgent(PolicyValueAgent):
         self.surrogate.add(traj)
         metrics: Dict[str, torch.Tensor] = {}
         for _ in range(self.args.replay_times):
-            self.state, metrics = self._learn(self.state, self.surrogate.sample())
+            (metrics,) = self._learn_step(self.surrogate.sample())
         T, B = traj.reward.shape[0] - 1, traj.reward.shape[1]
         self.state = dataclasses.replace(self.state, env_frames=self.state.env_frames + T * B)
         return metrics
 
     def learn(self, traj: Trajectory) -> Dict[str, float]:
         return get_metrics(self.learn_device(traj))  # one batched copy
-
-    def get_weights(self) -> Params:
-        return self.state.params
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))

@@ -41,6 +41,7 @@ from scalerl_torch.models.policy import MLPPolicyNet
 from scalerl_torch.models.transformer_policy import build_mp_policy
 from scalerl_torch.ops.losses import baseline_loss, entropy_loss, policy_gradient_loss
 from scalerl_torch.ops.vtrace import vtrace_from_logits
+from scalerl_torch.parallel.sharding import batch_mean, global_batch, reduce_gradients
 from scalerl_torch.parallel.train_step import fp32_optimizer_state, maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
@@ -194,8 +195,8 @@ def impala_loss(
         "pg_loss": pg,
         "baseline_loss": bl,
         "entropy_loss": ent,
-        "mean_value": torch.mean(values),
-        "mean_reward": torch.mean(rewards),
+        "mean_value": batch_mean(values),
+        "mean_reward": batch_mean(rewards),
     }
     return total, {k: v.detach() for k, v in metrics.items()}
 
@@ -234,9 +235,9 @@ def make_impala_learn_fn(
             c_clip=args.vtrace_c_clip,
             vtrace_impl=vtrace_impl,
         )
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grads = reduce_gradients(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
         updates, opt_state = optimizer.update(grads, state.opt_state)
-        T, B = traj.reward.shape[0] - 1, traj.reward.shape[1]
+        T, B = traj.reward.shape[0] - 1, global_batch(traj.reward.shape[1])
         new_state = ImpalaTrainState(
             params={k: state.params[k] + updates[k] for k in state.params},
             opt_state=opt_state,
@@ -334,14 +335,11 @@ class ImpalaAgent(PolicyValueAgent):
 
     def learn_device(self, traj: Trajectory) -> Dict[str, torch.Tensor]:
         """One train step; metrics stay on the device."""
-        self.state, metrics = self._learn(self.state, traj)
+        (metrics,) = self._learn_step(traj)
         return metrics
 
     def learn(self, traj: Trajectory) -> Dict[str, float]:
         return get_metrics(self.learn_device(traj))  # one batched copy
-
-    def get_weights(self) -> Params:
-        return self.state.params
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))

@@ -25,16 +25,26 @@ one byte buffer) and one device-to-host copy of the actions and logits,
 which it returns as numpy; on tensors it returns tensors on the device.
 A core given as numpy (one an inference server answered with, when the
 agent is a serving client's local fallback) goes up in one more copy.
+
+:meth:`PolicyValueAgent.enable_mesh` shards the learn step over a mesh
+(``parallel/train_step.py``): the batch over ``dp`` x ``fsdp``, the state by
+the heuristic fsdp/tp rule, or under ``mp > 1`` by the logical rule table
+of ``parallel/logical.py`` (the transformer policy, whose activation seam
+``constrain`` gets ``activation_constraint``).  A meshed agent acts on its
+params gathered to full tensors once a learn step
+(``parallel/sharding.py::MeshedAgentState``).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import threading
 from typing import Any, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 from torch.func import functional_call
 
 from scalerl_torch.agents.base import BaseAgent, RecurrentEvalState
@@ -87,6 +97,11 @@ class PolicyValueAgent(BaseAgent):
     device: torch.device
     num_actions: int
 
+    _shard_batch = None
+    # False keeps the whole batch on every rank under a mesh (PPO: its
+    # minibatch shuffle spans the lanes of the whole batch)
+    _split_batch = True
+
     def _setup_host(self, seed: int) -> None:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._gen_lock = threading.Lock()
@@ -112,7 +127,7 @@ class PolicyValueAgent(BaseAgent):
         return model
 
     def _forward(self, obs, last_action, reward, done, core_state):
-        params = self.state.params  # one read: the learner swaps the state whole
+        params = self.acting_params()  # one read: the learner swaps the state whole
         out, new_core = functional_call(
             self._thread_model(), params,
             (obs[None], last_action[None], reward[None], done[None], core_state),
@@ -169,3 +184,56 @@ class PolicyValueAgent(BaseAgent):
     def load_checkpoint(self, path: str) -> None:
         super().load_checkpoint(path)
         self._eval_state.reset()  # a carried core came from the old weights
+
+    # ------------------------------------------------------------------
+    def enable_mesh(self, mesh_or_spec, batch_example=None) -> None:
+        """Shard the learn step over a mesh (``mesh_shape`` or ``dp_size`` x
+        ``mp_size``); call once, before training.  A mesh with ``mp > 1``
+        needs a model the logical rule table knows (the transformer
+        policy) and lays the state out by it; any other mesh keeps the
+        heuristic fsdp/tp layout."""
+        from scalerl_torch.parallel.logical import (
+            activation_constraint,
+            has_mp_params,
+            mp_param_spec,
+        )
+        from scalerl_torch.parallel.mesh import resolve_mesh
+        from scalerl_torch.parallel.train_step import make_parallel_learn_fn, multi_rank
+
+        mesh = resolve_mesh(mesh_or_spec)
+        if not self._split_batch and multi_rank(mesh):
+            # every rank computes the whole update, so its seeded draws
+            # (PPO's lane shuffle) take rank 0's seed on every rank
+            seed = [self.args.seed]
+            torch.distributed.broadcast_object_list(seed, src=0)
+            self.args = dataclasses.replace(self.args, seed=seed[0])
+        spec_fn = None
+        if mesh.shape["mp"] > 1:
+            if not has_mp_params(self.state.params):
+                raise ValueError(
+                    "mesh has mp > 1 but this agent's model has no model-parallel sharding "
+                    "rules: use a transformer policy (policy_arch='transformer') or a pure-dp "
+                    "mesh")
+            inner = getattr(self.model, "transformer", None)
+            if inner is not None and inner.constrain is None:
+                inner.constrain = activation_constraint(mesh)
+            spec_fn = lambda path, x: mp_param_spec(path, x, mesh)  # noqa: E731
+        plearn = make_parallel_learn_fn(self.make_learn_fn(), mesh, self.state,
+                                        batch_example=batch_example, param_specs=spec_fn,
+                                        split_batch=self._split_batch)
+        self.mesh = mesh
+        self.state = plearn.shard_state(self.state)
+        self._learn = plearn
+        self._shard_batch = plearn.shard_batch
+
+    def _learn_step(self, *batch):
+        """One update of ``self.state`` on ``batch`` (this rank's rows of it
+        under a mesh); returns the learn function's other outputs."""
+        if self._shard_batch is not None:
+            batch = tuple(self._shard_batch(b) for b in batch)
+        out = self._learn(self.state, *batch)
+        self.state = out[0]
+        return out[1:]
+
+    def get_weights(self):
+        return self.acting_params()

@@ -184,7 +184,10 @@ def make_ppo_learn_fn(
 
 class PPOAgent(OnPolicyAgent):
     """Host-facing PPO agent on ``trainer/on_policy.py`` (A3C's act and
-    learn surface and model zoo)."""
+    learn surface and model zoo).  Under a mesh each rank keeps the whole
+    chunk: the minibatch shuffle spans the lanes of all of it."""
+
+    _split_batch = False
 
     def make_learn_fn(self) -> Callable:
         """The learn step of this agent's model, optimizer and args."""

@@ -15,8 +15,9 @@ Actor threads act through :class:`EpsGreedyActorView`: each view owns a copy
 of the model (``functional_call`` swaps a module's parameters in place, so
 two threads must not run one module) and its own device generator, and
 reads ``agent.state.params`` once per act; the learner swaps the whole
-state in one assignment.  ``enable_mesh`` needs ``parallel/mesh.py`` and
-raises.
+state in one assignment.  ``enable_mesh`` splits the sequence batch over
+``dp`` x ``fsdp`` (``parallel/train_step.py``); the per-sequence
+priorities come back whole for the PER write-back.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from scalerl_torch.agents.dqn import AdamOptimizer, Params
 from scalerl_torch.agents.policy_value import pack_host_inputs
 from scalerl_torch.config import R2D2Arguments
 from scalerl_torch.models.recurrent_q import RecurrentQNet
+from scalerl_torch.parallel.sharding import batch_mean, batch_sum, reduce_gradients
 from scalerl_torch.parallel.train_step import maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
@@ -141,8 +143,8 @@ def make_r2d2_learn_fn(model: RecurrentQNet, optimizer: AdamOptimizer,
             q_online, q_target, action, reward, done, burn_in=b, n_steps=args.n_steps,
             gamma=args.gamma, rescale_eps=args.value_rescale_eps)
         per_seq = torch.mean(torch.square(td), dim=0)  # [B]
-        loss = 0.5 * torch.sum(weights * per_seq)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        loss = 0.5 * batch_sum(weights * per_seq)
+        grads = reduce_gradients(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
         updates, opt_state = optimizer.update(grads, state.opt_state)
         new_params = {k: state.params[k] + updates[k] for k in state.params}
         step = state.step + 1
@@ -152,8 +154,8 @@ def make_r2d2_learn_fn(model: RecurrentQNet, optimizer: AdamOptimizer,
         abs_td = torch.abs(td.detach())
         new_prio = (args.priority_eta * torch.amax(abs_td, dim=0)
                     + (1.0 - args.priority_eta) * torch.mean(abs_td, dim=0))
-        metrics = {"total_loss": loss.detach(), "mean_q": torch.mean(qa.detach()),
-                   "mean_abs_td": torch.mean(abs_td)}
+        metrics = {"total_loss": loss.detach(), "mean_q": batch_mean(qa.detach()),
+                   "mean_abs_td": batch_mean(abs_td)}
         return R2D2TrainState(new_params, target_params, opt_state, step), metrics, new_prio
 
     return maybe_guard_nonfinite(learn, args)
@@ -177,11 +179,12 @@ class EpsGreedyActorView:
         """One step over ``[B, ...]`` lanes -> ``(actions, q, core)``: numpy
         actions (int32) and Q-values for numpy inputs (one copy each way),
         device tensors for tensor inputs; the core stays on the device."""
+        params = self._agent.acting_params()  # one read of the state
         if isinstance(obs, torch.Tensor):
-            return self._agent.act_on(self.model, self._agent.state.params, obs, last_action,
+            return self._agent.act_on(self.model, params, obs, last_action,
                                       reward, done, core_state, self.eps, self.generator)
         inputs = pack_host_inputs(obs, last_action, reward, done, self._agent.device)
-        action, q, core = self._agent.act_on(self.model, self._agent.state.params, *inputs,
+        action, q, core = self._agent.act_on(self.model, params, *inputs,
                                              core_state, self.eps, self.generator)
         host = torch.cat([q, action[:, None].to(q.dtype)], dim=1).cpu().numpy()
         return host[:, -1].astype(np.int32), host[:, :-1], core
@@ -220,6 +223,7 @@ class R2D2Agent(BaseAgent):
         self._learn = make_r2d2_learn_fn(self.model, self.optimizer, args)
         self._eval_state = RecurrentEvalState(self.initial_state)
         self._views: Dict[str, EpsGreedyActorView] = {}
+        self._shard_batch = None
 
     # -- acting --------------------------------------------------------
     @torch.no_grad()
@@ -273,14 +277,33 @@ class R2D2Agent(BaseAgent):
 
     # -- learning ------------------------------------------------------
     def enable_mesh(self, mesh_or_spec) -> None:
-        raise NotImplementedError(
-            "a data-parallel R2D2 learner needs parallel/mesh.py, which is not ported yet")
+        """Data-parallel learn step over a mesh: the sequence batch splits
+        over ``dp`` x ``fsdp``, the params by the fsdp/tp rule (replicated:
+        the model has an LSTM core), and the priorities come back whole."""
+        from scalerl_torch.parallel.mesh import resolve_mesh
+        from scalerl_torch.parallel.train_step import make_parallel_learn_fn
+
+        mesh = resolve_mesh(mesh_or_spec)
+        n_shards = mesh.extent(("dp", "fsdp"))
+        if self.args.batch_size % n_shards != 0:
+            raise ValueError(
+                f"batch_size ({self.args.batch_size}) must divide by the mesh's dp*fsdp "
+                f"extent ({n_shards}) to shard the sequence batch")
+        plearn = make_parallel_learn_fn(self._learn, mesh, self.state, batch_time_major=False)
+        self.mesh = mesh
+        self.state = plearn.shard_state(self.state)
+        self._learn = plearn
+        self._shard_batch = plearn.shard_batch
 
     def learn_sequences(self, fields, core, weights) -> Tuple[Dict[str, torch.Tensor],
                                                               torch.Tensor]:
-        """One update on a sampled sequence batch; returns (metrics, new
-        priorities), both on the device, with the state replaced whole."""
-        self.state, metrics, prio = self._learn(self.state, fields, core, weights)
+        """One update on a sampled sequence batch (this rank's sequences of
+        it under a mesh); returns (metrics, new priorities), both on the
+        device, with the state replaced whole."""
+        batch = (fields, core, weights)
+        if self._shard_batch is not None:
+            batch = tuple(self._shard_batch(b) for b in batch)
+        self.state, metrics, prio = self._learn(self.state, *batch)
         return metrics, prio
 
     def learn(self, batch: Mapping[str, Any]) -> Dict[str, float]:
@@ -288,7 +311,7 @@ class R2D2Agent(BaseAgent):
         return get_metrics(metrics)  # one batched device->host copy
 
     def get_weights(self) -> Params:
-        return self.state.params
+        return self.acting_params()
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))

@@ -33,6 +33,12 @@ from scalerl_torch.agents.base import BaseAgent
 from scalerl_torch.agents.dqn import AdamOptimizer
 from scalerl_torch.config import SACArguments
 from scalerl_torch.models.mlp import TanhGaussianActor, TwinQNet
+from scalerl_torch.parallel.sharding import (
+    batch_mean,
+    global_batch,
+    local_rows,
+    reduce_gradients,
+)
 from scalerl_torch.parallel.train_step import maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils import counter_rng
@@ -76,7 +82,8 @@ class SACTrainState:
 
 
 def _grads(loss: torch.Tensor, leaves: Params) -> Params:
-    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    """The gradient dict, summed over the batch shards under a mesh."""
+    return reduce_gradients(dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values())))))
 
 
 def _requires_grad(params: Params) -> Params:
@@ -127,10 +134,10 @@ def make_sac_learn_fn(
         reward = batch["reward"].to(torch.float32)
         weights = batch.get("weights")
         weights = torch.ones_like(reward) if weights is None else weights
-        shape = (reward.shape[0], action_scale.shape[0])
-        if noise is None:
-            noise = {"next": counter_rng.normal(seed, 0, state.step, shape),
-                     "pi": counter_rng.normal(seed, 1, state.step, shape)}
+        shape = (global_batch(reward.shape[0]), action_scale.shape[0])
+        if noise is None:  # drawn for the global batch, this shard's rows kept
+            noise = {"next": local_rows(counter_rng.normal(seed, 0, state.step, shape)),
+                     "pi": local_rows(counter_rng.normal(seed, 1, state.step, shape))}
         alpha = torch.exp(state.log_alpha["log_alpha"])
 
         # critics: the clipped double-Q target with the entropy bonus
@@ -142,7 +149,7 @@ def make_sac_learn_fn(
 
         cp = _requires_grad(state.critic_params)
         q1, q2 = functional_call(critic, cp, (obs, action))
-        c_loss = 0.5 * torch.mean(weights * (torch.square(q1 - target)
+        c_loss = 0.5 * batch_mean(weights * (torch.square(q1 - target)
                                              + torch.square(q2 - target)))
         td_abs = torch.abs(q1 - target).detach()
         c_updates, critic_opt = critic_tx.update(_grads(c_loss, cp), state.critic_opt)
@@ -152,7 +159,7 @@ def make_sac_learn_fn(
         ap = _requires_grad(state.actor_params)
         a, logp = sample_action(ap, obs, noise["pi"])
         q1_pi, q2_pi = functional_call(critic, critic_params, (obs, a))
-        a_loss = torch.mean(alpha * logp - torch.minimum(q1_pi, q2_pi))
+        a_loss = batch_mean(alpha * logp - torch.minimum(q1_pi, q2_pi))
         a_updates, actor_opt = actor_tx.update(_grads(a_loss, ap), state.actor_opt)
         actor_params = _apply(state.actor_params, a_updates)
         logp = logp.detach()
@@ -160,7 +167,7 @@ def make_sac_learn_fn(
         # temperature: drive E[logp] toward -target_entropy
         if args.auto_alpha:
             la = _requires_grad(state.log_alpha)
-            al_loss = -torch.mean(torch.exp(la["log_alpha"]) * (logp + target_entropy))
+            al_loss = -batch_mean(torch.exp(la["log_alpha"]) * (logp + target_entropy))
             al_updates, alpha_opt = alpha_tx.update(_grads(al_loss, la), state.alpha_opt)
             log_alpha = _apply(state.log_alpha, al_updates)
         else:
@@ -186,8 +193,8 @@ def make_sac_learn_fn(
             "actor_loss": a_loss.detach(),
             "alpha_loss": al_loss.detach(),
             "alpha": torch.exp(log_alpha["log_alpha"]).detach(),
-            "entropy": -torch.mean(logp),
-            "mean_q_target": torch.mean(target),
+            "entropy": -batch_mean(logp),
+            "mean_q_target": batch_mean(target),
         }
         return new_state, metrics, td_abs
 
@@ -197,7 +204,10 @@ def make_sac_learn_fn(
 class ContinuousAgent(BaseAgent):
     """What SAC and TD3 share: the Box bounds on the device, the host and
     device observation batches, the guarded learn step and its
-    ``(metrics, td_abs)`` on the device, and the refusal of a mesh."""
+    ``(metrics, td_abs)`` on the device, and its mesh."""
+
+    _shard_batch = None
+    _acting_field = "actor_params"
 
     def _setup_bounds(self, obs_shape, action_low, action_high, device: DeviceLike) -> None:
         self.device = resolve_device(device)
@@ -219,15 +229,18 @@ class ContinuousAgent(BaseAgent):
         return torch.as_tensor(obs, dtype=torch.float32, device=self.device)
 
     def enable_mesh(self, mesh_or_spec) -> None:
-        raise NotImplementedError(
-            f"a data-parallel {type(self).__name__} needs the mesh of parallel/mesh.py "
-            "(enable_offpolicy_mesh), which is not ported yet"
-        )
+        """Data-parallel learn step over a mesh
+        (``parallel/train_step.py::enable_offpolicy_mesh``)."""
+        from scalerl_torch.parallel.train_step import enable_offpolicy_mesh
+
+        enable_offpolicy_mesh(self, mesh_or_spec)
 
     def learn_device(self, batch: Mapping[str, Any]) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """One train step; its metrics and the per-sample ``|Q1 - target|``
         stay on the device."""
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if self._shard_batch is not None:
+            batch = self._shard_batch(batch)
         self.state, metrics, td_abs = self._learn(self.state, batch)
         return metrics, td_abs
 
@@ -238,7 +251,7 @@ class ContinuousAgent(BaseAgent):
         return out
 
     def get_weights(self) -> Params:
-        return self.state.actor_params
+        return self.acting_params()
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, actor_params=dict(weights))
@@ -294,12 +307,13 @@ class SACAgent(ContinuousAgent):
     def get_action(self, obs, *, done=None) -> torch.Tensor:
         """``squash(mean + std * eps)`` with ``eps`` from the agent's device
         generator."""
-        mean, log_std = functional_call(self.actor, self.state.actor_params,
+        mean, log_std = functional_call(self.actor, self.acting_params(),
                                         (self._obs_batch(obs),))
         eps = torch.randn(mean.shape, generator=self.generator, device=mean.device)
         return squash(mean + torch.exp(log_std) * eps, self.action_scale, self.action_bias)
 
     @torch.no_grad()
     def predict(self, obs, *, done=None) -> torch.Tensor:
-        mean, _ = functional_call(self.actor, self.state.actor_params, (self._obs_batch(obs),))
+        mean, _ = functional_call(self.actor, self.acting_params(),
+                                  (self._obs_batch(obs),))
         return squash(mean, self.action_scale, self.action_bias)

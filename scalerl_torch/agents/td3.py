@@ -34,6 +34,7 @@ from scalerl_torch.agents.sac import (
 )
 from scalerl_torch.config import TD3Arguments
 from scalerl_torch.models.mlp import DeterministicActor, TwinQNet
+from scalerl_torch.parallel.sharding import batch_mean, global_batch, local_rows
 from scalerl_torch.parallel.train_step import maybe_guard_nonfinite, tree_select
 from scalerl_torch.utils import counter_rng
 from scalerl_torch.utils.platform import DeviceLike
@@ -77,9 +78,9 @@ def make_td3_learn_fn(
         weights = batch.get("weights")
         weights = torch.ones_like(reward) if weights is None else weights
         discount = batch_discount(batch, args.gamma, args.n_steps)
-        if noise is None:
-            noise = counter_rng.normal(seed, 0, state.step,
-                                       (reward.shape[0], action_scale.shape[0]))
+        if noise is None:  # drawn for the global batch, this shard's rows kept
+            noise = local_rows(counter_rng.normal(
+                seed, 0, state.step, (global_batch(reward.shape[0]), action_scale.shape[0])))
 
         # target policy smoothing: clipped noise on the target action
         with torch.no_grad():
@@ -93,7 +94,7 @@ def make_td3_learn_fn(
 
         cp = _requires_grad(state.critic_params)
         q1, q2 = functional_call(critic, cp, (obs, action))
-        c_loss = 0.5 * torch.mean(weights * (torch.square(q1 - target)
+        c_loss = 0.5 * batch_mean(weights * (torch.square(q1 - target)
                                              + torch.square(q2 - target)))
         td_abs = torch.abs(q1 - target).detach()
         c_updates, critic_opt = critic_tx.update(_grads(c_loss, cp), state.critic_opt)
@@ -104,7 +105,7 @@ def make_td3_learn_fn(
         ap = _requires_grad(state.actor_params)
         a = functional_call(actor, ap, (obs,)) * action_scale + action_bias
         q1_pi, _ = functional_call(critic, critic_params, (obs, a))
-        a_loss = -torch.mean(q1_pi)
+        a_loss = -batch_mean(q1_pi)
         a_updates, actor_opt_new = actor_tx.update(_grads(a_loss, ap), state.actor_opt)
         actor_params_new = _apply(state.actor_params, a_updates)
 
@@ -130,7 +131,7 @@ def make_td3_learn_fn(
             "loss": c_loss.detach(),
             "critic_loss": c_loss.detach(),
             "actor_loss": a_loss.detach(),
-            "mean_q_target": torch.mean(target),
+            "mean_q_target": batch_mean(target),
         }
         return new_state, metrics, td_abs
 
@@ -179,7 +180,7 @@ class TD3Agent(ContinuousAgent):
 
     @torch.no_grad()
     def _act(self, obs, noise_std: float) -> torch.Tensor:
-        a = functional_call(self.actor, self.state.actor_params, (self._obs_batch(obs),))
+        a = functional_call(self.actor, self.acting_params(), (self._obs_batch(obs),))
         a = a * self.action_scale + self.action_bias
         if noise_std:
             eps = torch.randn(a.shape, generator=self.generator, device=a.device)

@@ -21,7 +21,9 @@ so the guard can keep the old state with a device-side select, the frozen
 what they were.  The optimizer is ``optax.chain(clip_by_global_norm, adam)``
 written out (``agents/dqn.py::AdamOptimizer``), wrapped in
 ``fp32_optimizer_state`` under ``bf16_params``.  Checkpoints go through
-``utils/checkpoint.py``; ``enable_mesh`` is not ported yet and raises.
+``utils/checkpoint.py``.  ``enable_mesh`` splits the rows over ``dp`` x
+``fsdp`` and, with ``mp > 1``, lays the state out by the logical rule table
+(``parallel/logical.py``); every masked mean then spans the whole batch.
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ from scalerl_torch.models.transformer import (
     TransformerPolicy,
     sequence_attention_mask,
     sequence_positions,
+)
+from scalerl_torch.parallel.sharding import (
+    MeshedAgentState,
+    batch_mean,
+    batch_sum,
+    reduce_gradients,
 )
 from scalerl_torch.parallel.train_step import fp32_optimizer_state, maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
@@ -59,7 +67,7 @@ class TokenPPOTrainState:
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of ``x`` over positions where ``mask`` is 1 (safe on empty)."""
-    return torch.sum(x * mask) / torch.sum(mask).clamp(min=1.0)
+    return batch_sum(x * mask) / batch_sum(mask).clamp(min=1.0)
 
 
 def _ppo_terms(
@@ -167,9 +175,9 @@ def token_ppo_loss(
         clip_range, value_cost, entropy_cost, kl_cost, adv_norm,
     )
     metrics.update(
-        mean_reward=torch.mean(reward),
-        mean_generation=torch.mean(batch["generation"].float()),
-        mean_response_len=torch.mean(torch.sum(mask, dim=1)),
+        mean_reward=batch_mean(reward),
+        mean_generation=batch_mean(batch["generation"].float()),
+        mean_response_len=batch_mean(torch.sum(mask, dim=1)),
     )
     return _finish_metrics(total, metrics)
 
@@ -219,12 +227,12 @@ def token_ppo_packed_loss(
     # rows hold several sequences: the sequence count is the sum of each
     # row's largest segment id, and the reward and generation means are
     # token-weighted (the padded ones are sequence-weighted)
-    num_seqs = torch.sum(seg.amax(dim=1).float())
+    num_seqs = batch_sum(seg.amax(dim=1).float())
     metrics.update(
         mean_reward=masked_mean(reward, mask),
         mean_generation=masked_mean(batch["generation"][:, 1:].float(), mask),
-        mean_response_len=torch.sum(batch["mask"]) / num_seqs.clamp(min=1.0),
-        real_token_frac=torch.mean((seg > 0).float()),
+        mean_response_len=batch_sum(batch["mask"]) / num_seqs.clamp(min=1.0),
+        real_token_frac=batch_mean((seg > 0).float()),
     )
     return _finish_metrics(total, metrics)
 
@@ -243,14 +251,14 @@ def make_token_ppo_learn_fn(model: TransformerPolicy, optimizer: AdamOptimizer, 
             clip_range=args.clip_range, value_cost=args.value_cost,
             entropy_cost=args.entropy_cost, kl_cost=args.kl_cost, adv_norm=args.adv_norm,
         )
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grads = reduce_gradients(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
         updates, opt_state = optimizer.update(grads, state.opt_state)
         new_state = TokenPPOTrainState(
             params={k: state.params[k] + updates[k] for k in state.params},
             ref_params=state.ref_params,
             opt_state=opt_state,
             step=state.step + 1,
-            tokens_seen=state.tokens_seen + torch.sum(batch["mask"]).to(state.tokens_seen.dtype),
+            tokens_seen=state.tokens_seen + batch_sum(batch["mask"]).to(state.tokens_seen.dtype),
         )
         metrics["total_loss"] = loss.detach()
         metrics["grad_norm"] = global_norm(grads)
@@ -259,7 +267,7 @@ def make_token_ppo_learn_fn(model: TransformerPolicy, optimizer: AdamOptimizer, 
     return maybe_guard_nonfinite(learn, args)
 
 
-class TokenPPOAgent:
+class TokenPPOAgent(MeshedAgentState):
     """Host-facing token-PPO agent: the learn step and weight get/set.
 
     The acting path is the generation engine, not this agent.
@@ -286,6 +294,7 @@ class TokenPPOAgent:
             tokens_seen=torch.zeros((), dtype=torch.int32, device=self.device),
         )
         self._learn = self.make_learn_fn()
+        self._shard_batch = None
 
     @staticmethod
     def _make_optimizer(args):
@@ -299,14 +308,40 @@ class TokenPPOAgent:
         return make_token_ppo_learn_fn(self.model, self.optimizer, self.args)
 
     def enable_mesh(self, mesh_or_spec, batch_example=None) -> None:
-        raise NotImplementedError(
-            "the dp x mp sharded learn step needs parallel/mesh.py and "
-            "parallel/sharding.py, which are not ported yet"
+        """Shard the learn step over a mesh: rows over ``dp`` x ``fsdp``;
+        with ``mp > 1`` the state laid out by the logical rule table and
+        the model's ``constrain`` seam set to ``activation_constraint``."""
+        from scalerl_torch.parallel.logical import (
+            activation_constraint,
+            has_mp_params,
+            mp_param_spec,
         )
+        from scalerl_torch.parallel.mesh import resolve_mesh
+        from scalerl_torch.parallel.train_step import make_parallel_learn_fn
+
+        mesh = resolve_mesh(mesh_or_spec)
+        spec_fn = None
+        if mesh.shape["mp"] > 1:
+            if not has_mp_params(self.state.params):
+                raise ValueError(
+                    "mesh has mp > 1 but the model carries no model-parallel shardable params")
+            if self.model.constrain is None:
+                self.model.constrain = activation_constraint(mesh)
+            spec_fn = lambda path, x: mp_param_spec(path, x, mesh)  # noqa: E731
+        plearn = make_parallel_learn_fn(self.make_learn_fn(), mesh, self.state,
+                                        batch_example=batch_example, batch_time_major=False,
+                                        param_specs=spec_fn)
+        self.mesh = mesh
+        self.state = plearn.shard_state(self.state)
+        self._learn = plearn
+        self._shard_batch = plearn.shard_batch
 
     def learn_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-        """One train step, metrics left as device tensors."""
+        """One train step (on this rank's rows under a mesh), metrics left
+        as device tensors."""
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if self._shard_batch is not None:
+            batch = self._shard_batch(batch)
         self.state, metrics = self._learn(self.state, batch)
         return metrics
 
@@ -314,13 +349,22 @@ class TokenPPOAgent:
         return get_metrics(self.learn_device(batch))  # one batched device->host copy
 
     def get_weights(self) -> Params:
-        return self.state.params
+        return self.acting_params()
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))
 
     def save_checkpoint(self, path: str) -> str:
+        if self.mesh is not None:
+            from scalerl_torch.parallel.train_step import save_sharded
+
+            return save_sharded(self, path)
         return save_checkpoint(path, self.state)
 
     def load_checkpoint(self, path: str) -> None:
+        if self.mesh is not None:
+            from scalerl_torch.parallel.train_step import load_sharded
+
+            self.state = load_sharded(self, path)
+            return
         self.state = load_checkpoint(path, self.state)

@@ -131,8 +131,11 @@ class RLArguments:
     # (ops/cuda_per.py), and the transformer policy's attention
     # (ops/cuda_flash_attention.py).  On host tensors their plain versions run.
     use_pallas: bool = False
-    # The sharded learner's mesh (parallel/mesh.py and parallel/sharding.py,
-    # not ported): must stay at mp_size 1 and dp_size 0.
+    # The sharded learner's mesh (parallel/mesh.py): an explicit spec such as
+    # "dp=8" or "dp=4,mp=2", or the dp x mp topology from dp_size and mp_size
+    # (dp_size 0 takes every remaining rank); the trainers resolve it through
+    # parallel/train_step.py::maybe_enable_mesh_from_args.
+    mesh_shape: Optional[str] = None
     mp_size: int = 1
     dp_size: int = 0
     # Policy architecture for the actor-learner agents: "transformer" picks
@@ -192,12 +195,6 @@ class RLArguments:
             raise ValueError(
                 "autoscale_hysteresis must be >= 1, got "
                 f"{self.autoscale_hysteresis}"
-            )
-        if self.mp_size != 1 or self.dp_size != 0:
-            raise NotImplementedError(
-                f"mp_size={self.mp_size}, dp_size={self.dp_size} need the sharded learner "
-                "of parallel/mesh.py and parallel/sharding.py, which is not ported yet; "
-                "leave them at 1 and 0"
             )
 
 

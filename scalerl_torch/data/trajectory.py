@@ -3,8 +3,8 @@ buffers and their assembly.
 
 Port of ``scalerl_tpu/data/trajectory.py``: ``Trajectory``,
 ``TrajectorySpec`` (with ``host_zeros``, one rollout slot of numpy staging
-buffers for the host actor plane) and ``batch_to_trajectory`` (a drained
-batch of slots onto the device).
+buffers for the host actor plane), ``batch_to_trajectory`` (a drained
+batch of slots onto the device) and ``stack_trajectories``.
 Row convention (the reference's env-output layout):
 
 - ``obs[t]``: observation at step t.
@@ -106,3 +106,23 @@ def host_chunk_to_trajectory(fields: Dict[str, np.ndarray], core_state: Any,
         [fields[k] for k in ("obs", "action", "reward", "done", "logits")], device)
     return Trajectory(obs=obs, action=action.long(), reward=reward, done=done, logits=logits,
                       core_state=core_state)
+
+
+def stack_trajectories(trajs: list) -> Trajectory:
+    """Concatenate trajectories along the batch axis: dim 1 of the
+    time-major fields, dim 0 of the ``core_state`` leaves (``[B, ...]``).
+    The JAX function concatenates every leaf on axis 1, core leaves too."""
+
+    def cat_core(*cores):
+        if isinstance(cores[0], torch.Tensor):
+            return torch.cat(cores, dim=0)
+        return type(cores[0])(cat_core(*xs) for xs in zip(*cores))
+
+    return Trajectory(
+        obs=torch.cat([t.obs for t in trajs], dim=1),
+        action=torch.cat([t.action for t in trajs], dim=1),
+        reward=torch.cat([t.reward for t in trajs], dim=1),
+        done=torch.cat([t.done for t in trajs], dim=1),
+        logits=torch.cat([t.logits for t in trajs], dim=1),
+        core_state=cat_core(*[t.core_state for t in trajs]),
+    )

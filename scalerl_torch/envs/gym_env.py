@@ -1,11 +1,12 @@
 """Host environments behind gym's vector API.
 
 Port of ``scalerl_tpu/envs/gym_env.py``: :func:`make_gym_env` (a thunk
-building one gymnasium env, by registry id or ``"pkg.module:ClassName"``)
-and :func:`make_vect_envs` (a pool with SAME_STEP autoreset: on an
-episode's end ``step`` returns the reset observation and puts the true last
-one in ``infos["final_obs"]``; async pools run one spawned worker a env).
-Both import gymnasium when called.
+building one gymnasium env, by registry id or ``"pkg.module:ClassName"``),
+:func:`make_vect_envs` (a pool with SAME_STEP autoreset: on an episode's
+end ``step`` returns the reset observation and puts the true last one in
+``infos["final_obs"]``; async pools run one spawned worker a env); both
+import gymnasium when called.  :func:`make_multi_agent_vect_envs` pools
+PettingZoo parallel envs.
 
 Two views give the same vector API without gymnasium, for machines that
 have none: :class:`SyncVectorView` steps a list of the port's numpy envs
@@ -103,6 +104,17 @@ def make_vect_envs(
         return gym.vector.AsyncVectorEnv(thunks, shared_memory=True, autoreset_mode=mode,
                                          context="spawn")
     return gym.vector.SyncVectorEnv(thunks, autoreset_mode=mode)
+
+
+def make_multi_agent_vect_envs(env_fn: Callable, num_envs: int = 1, **env_kwargs):
+    """A pool of ``num_envs`` PettingZoo parallel envs, one spawned worker
+    each (``envs/vector/async_vec.py::AsyncMultiAgentVecEnv``), each built
+    by ``env_fn(**env_kwargs)``."""
+    from functools import partial
+
+    from scalerl_torch.envs.vector import AsyncMultiAgentVecEnv
+
+    return AsyncMultiAgentVecEnv([partial(env_fn, **env_kwargs) for _ in range(num_envs)])
 
 
 class SyncVectorView:

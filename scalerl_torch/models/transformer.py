@@ -304,8 +304,15 @@ class TransformerPolicy(nn.Module):
     (``ops/cuda_flash_attention.py::flash_attention``), as the Flax module
     routes it through the Pallas kernel; every other path is unchanged.
     ``dtype``/``param_dtype``: see the module docstring (bfloat16 for both
-    on the sharded learner plane).
+    on the sharded learner plane).  ``constrain`` is the activation-layout
+    seam: when set (``parallel/logical.py::activation_constraint``, by a
+    meshed agent's ``enable_mesh``), it is applied to the residual stream
+    after the embedding and after every block.  It redistributes DTensor
+    activations; the meshed learn step computes on gathered plain tensors,
+    which it passes through unchanged.
     """
+
+    constrain: Optional[Callable] = None
 
     def __init__(
         self,
@@ -441,6 +448,8 @@ class TransformerPolicy(nn.Module):
             x = self.obs_embed(obs.reshape(B, T, -1))
         pos = F.embedding(positions.long().clamp(0, self.max_len - 1), self.pos_embed)
         x = x + pos.to(self.dtype)
+        if self.constrain is not None:
+            x = self.constrain(x)
         for i, block in enumerate(self.blocks):
             x = block(
                 x, self.paged_attn_fn, self.segment_attn_fn, segment_ids,
@@ -454,6 +463,8 @@ class TransformerPolicy(nn.Module):
                 attn_lengths=attn_lengths,
                 prefix_starts=prefix_starts,
             )
+            if self.constrain is not None:
+                x = self.constrain(x)
         x = self.final_norm(x.float())
         out = TransformerOutput(self.policy_head(x), self.value_head(x).squeeze(-1))
         if paged_cache is not None:

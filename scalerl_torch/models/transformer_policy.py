@@ -10,8 +10,8 @@ drive every model through the time-major signature::
 and ``TransformerPolicy`` speaks batch-major ``[B, T, ...]``; the adapter
 moves the axes both ways.  The transformer attends causally within the
 chunk it is given, so ``core_state`` is empty.  ``MoEPolicyNet`` is not
-ported (``models/moe.py`` is not; ROADMAP A6), nor the activation-sharding
-seam ``constrain`` (the mp mesh, A6).
+ported, since ``models/moe.py`` is not.  The activation-layout seam
+``constrain`` lives on the inner ``TransformerPolicy``.
 """
 
 from __future__ import annotations
@@ -85,8 +85,7 @@ def build_mp_policy(args, obs_shape: Tuple[int, ...], num_actions: int,
         return None
     if arch == "moe":
         raise NotImplementedError(
-            "policy_arch='moe' needs MoEPolicyNet and models/moe.py, which are not ported "
-            "yet (ROADMAP A6)")
+            "policy_arch='moe' needs MoEPolicyNet and models/moe.py, which are not ported yet")
     if arch != "transformer":
         raise ValueError(f"unknown policy_arch {arch!r}; expected auto | transformer | moe")
     dtype = torch.bfloat16 if args.bf16_params else torch.float32

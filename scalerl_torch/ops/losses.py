@@ -3,6 +3,9 @@
 The IMPALA terms (``losses.py:21-41``) and the PPO clipped surrogate
 (``losses.py:44-73``) SUM over ``[T, B]``, the reference's convention; the DQN TD loss (``losses.py:76-93,167-188``) and the C51 terms
 (``losses.py:96-164``) average over the batch, as the JAX package's do.
+The batch reductions go through ``parallel/sharding.py``'s ``batch_sum`` /
+``batch_mean``, which are ``torch.sum`` / ``torch.mean`` outside a sharded
+learn step and span every batch shard inside one.
 """
 
 from __future__ import annotations
@@ -12,17 +15,19 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from scalerl_torch.parallel.sharding import batch_mean, batch_sum
+
 
 def baseline_loss(advantages: torch.Tensor) -> torch.Tensor:
     """0.5 * sum(advantages^2)."""
-    return 0.5 * torch.sum(torch.square(advantages))
+    return 0.5 * batch_sum(torch.square(advantages))
 
 
 def entropy_loss(logits: torch.Tensor) -> torch.Tensor:
     """sum(p * log p): the negative entropy (minimising adds entropy bonus)."""
     log_policy = F.log_softmax(logits, dim=-1)
     policy = torch.exp(log_policy)
-    return torch.sum(policy * log_policy)
+    return batch_sum(policy * log_policy)
 
 
 def policy_gradient_loss(
@@ -33,7 +38,7 @@ def policy_gradient_loss(
     """sum over [T, B] of -log pi(a_t|x_t) * advantage (advantage detached)."""
     log_policy = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(log_policy, -1, actions.long().unsqueeze(-1)).squeeze(-1)
-    return torch.sum(nll * advantages.detach())
+    return batch_sum(nll * advantages.detach())
 
 
 def clipped_surrogate_loss(
@@ -52,11 +57,11 @@ def clipped_surrogate_loss(
     adv = advantages.detach()
     unclipped = ratio * adv
     clipped = torch.clamp(ratio, 1.0 - clip_range, 1.0 + clip_range) * adv
-    loss = -torch.sum(torch.minimum(unclipped, clipped))
+    loss = -batch_sum(torch.minimum(unclipped, clipped))
     aux = {
-        "mean_ratio": torch.mean(ratio),
-        "mean_approx_kl": torch.mean((ratio - 1.0) - log_ratio),
-        "mean_clip_frac": torch.mean((torch.abs(ratio - 1.0) > clip_range).to(torch.float32)),
+        "mean_ratio": batch_mean(ratio),
+        "mean_approx_kl": batch_mean((ratio - 1.0) - log_ratio),
+        "mean_clip_frac": batch_mean((torch.abs(ratio - 1.0) > clip_range).to(torch.float32)),
     }
     return loss, {k: v.detach() for k, v in aux.items()}
 
@@ -92,7 +97,7 @@ def dqn_loss(
     per_elem = 0.5 * torch.square(td_error)
     if weights is not None:
         per_elem = per_elem * weights
-    return torch.mean(per_elem), torch.abs(td_error.detach())
+    return batch_mean(per_elem), torch.abs(td_error.detach())
 
 
 def make_support(v_min: float, v_max: float, num_atoms: int, device=None) -> torch.Tensor:
@@ -151,4 +156,4 @@ def c51_loss(
     log_p_a = torch.gather(log_p, 1, index)[:, 0]  # [B, N]
     ce = -torch.sum(target_probs * log_p_a, dim=-1)
     per_elem = ce if weights is None else ce * weights
-    return torch.mean(per_elem), ce.detach()
+    return batch_mean(per_elem), ce.detach()

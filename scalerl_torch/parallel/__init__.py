@@ -1,0 +1,42 @@
+"""Meshes, sharding rules and the sharded learn step (port of
+``scalerl_tpu/parallel``).
+
+Axis vocabulary, in mesh order: ``dp`` (data), ``pp``, ``fsdp`` (param and
+optimizer shards), ``tp`` (tensor, heuristic), ``sp``, ``ep`` and ``mp``
+(model, driven by the logical rule table of ``parallel/logical.py``).  A
+mesh spans the ranks of the default process group, one device a rank.
+"""
+
+from scalerl_torch.parallel.logical import (  # noqa: F401
+    LOGICAL_RULES,
+    activation_constraint,
+    has_mp_params,
+    make_shard_and_gather_fns,
+    mp_param_sharding,
+    mp_param_spec,
+)
+from scalerl_torch.parallel.mesh import (  # noqa: F401
+    AXIS_NAMES,
+    Mesh,
+    MeshSpec,
+    make_mesh,
+    mesh_spec_from_args,
+    resolve_mesh,
+)
+from scalerl_torch.parallel.sharding import (  # noqa: F401
+    batch_sharding,
+    has_scanned_params,
+    infer_param_spec,
+    param_sharding,
+    replicated,
+    shard_batch,
+    shard_params,
+    trajectory_sharding,
+)
+from scalerl_torch.parallel.train_step import (  # noqa: F401
+    enable_offpolicy_mesh,
+    fp32_optimizer_state,
+    make_parallel_act_fn,
+    make_parallel_learn_fn,
+    maybe_enable_mesh_from_args,
+)

@@ -1,0 +1,447 @@
+"""Sharding rules and the batch-axis reductions of the sharded learn step.
+
+Port of ``scalerl_tpu/parallel/sharding.py``.  A spec is a per-leaf tuple
+with one entry per dim, the twin of a ``PartitionSpec``'s entries: None
+(replicated), a mesh axis name, or a tuple of names (the batch dim over
+``("dp", "fsdp")``); ``()`` replicates the whole leaf.  The rule functions
+are pure functions of path names, shapes and the mesh's axis extents, so a
+``MeshSpec`` does for a mesh there.
+
+Trajectories split on their batch dim over ``dp`` x ``fsdp``, params
+replicate over ``dp`` and may shard over ``fsdp``/``tp``.  In the JAX
+package GSPMD then inserts the gradient reduction; here the learn step
+does it by hand (``parallel/train_step.py``), with the reductions below:
+
+- :func:`batch_sum` / :func:`batch_mean` reduce a loss term over the whole
+  batch.  Inside :func:`batch_reduction` the value is the sum over every
+  shard's rows, and the gradient is this shard's part of it, so summing
+  the shards' gradients (:func:`reduce_gradients`) gives the gradient of
+  the one-process loss at the same global batch; outside, they are
+  ``torch.sum`` and ``torch.mean``.
+- :func:`global_batch` scales a local batch count up to the global one.
+- :func:`batch_all` ands a flag over the shards.
+"""
+
+from __future__ import annotations
+
+import contextvars
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from scalerl_torch.parallel.mesh import AXIS_NAMES, Mesh, MeshSpec, resolve_mesh
+from scalerl_torch.utils.tree import tree_map, tree_map_with_path
+
+Spec = Tuple[Any, ...]
+BATCH_AXES: Tuple[str, str] = ("dp", "fsdp")
+
+
+def axis_sizes(mesh: Any) -> Dict[str, int]:
+    """``{axis: extent}`` of a :class:`Mesh` or a :class:`MeshSpec`."""
+    if isinstance(mesh, MeshSpec):
+        return {a: mesh.size(a) for a in AXIS_NAMES}
+    return mesh.shape
+
+
+def replicated(mesh: Any = None) -> Spec:
+    return ()
+
+
+def batch_sharding(mesh: Any = None, batch_dim: int = 0) -> Spec:
+    """Dim ``batch_dim`` over the data-parallel axes ``(dp, fsdp)``."""
+    return (None,) * batch_dim + (BATCH_AXES,)
+
+
+def trajectory_sharding(mesh: Any = None) -> Spec:
+    """Time-major ``[T+1, B, ...]`` chunks shard on dim 1."""
+    return batch_sharding(mesh, batch_dim=1)
+
+
+def path_names(path: Tuple[Any, ...]) -> Tuple[str, ...]:
+    """Path components as strings, dict keys split at their dots (the
+    port's param names, ``blocks.0.qkv.weight``, are one key each)."""
+    out = []
+    for p in path:
+        out.extend(str(p).split("."))
+    return tuple(out)
+
+
+def _batch_spec(path: Tuple[str, ...], x: torch.Tensor, time_major: Optional[bool],
+                batch_dim: int = 0) -> Spec:
+    """One batch leaf's spec: dim ``batch_dim`` of every leaf, or with
+    ``time_major`` given, dim 1 of time-major leaves and dim 0 of those
+    under ``core_state`` (every leaf's dim 0 when not ``time_major``)."""
+    if time_major is None:
+        dim = batch_dim
+    else:
+        dim = 0 if (not time_major or "core_state" in path_names(path)) else 1
+    return batch_sharding(None, dim) if x.ndim > dim else ()
+
+
+def batch_sharding_tree(batch_example: Any, mesh: Any = None, time_major: bool = True) -> Any:
+    """Per-leaf spec tree for a batch: time-major leaves shard dim 1,
+    leaves under ``core_state`` (and every leaf when not ``time_major``)
+    dim 0; scalars replicate."""
+    return tree_map_with_path(lambda p, x: _batch_spec(p, x, time_major), batch_example)
+
+
+def infer_param_spec(path: Tuple[Any, ...], x: Any, mesh: Any,
+                     axes: Tuple[str, ...] = ("fsdp", "tp"), min_shard: int = 8) -> Spec:
+    """The heuristic spec of one param leaf: for rank >= 2, the largest
+    divisible dim over ``axes[0]`` and the next over ``axes[1]``, each
+    shard keeping at least ``min_shard`` elements; rank 0-1 and
+    non-divisible leaves replicate (the JAX rule, its dims read in Flax's
+    order, :func:`flax_dims`)."""
+    if x.ndim < 2:
+        return ()
+    sizes = axis_sizes(mesh)
+    if not any(sizes.get(a, 1) > 1 for a in axes):
+        return ()
+    perm = flax_dims(path, x)
+    shape = tuple(x.shape[d] for d in perm)
+    spec: list = [None] * len(shape)
+    order = sorted(range(len(shape)), key=lambda d: -shape[d])
+    for axis_name in axes:
+        n = sizes.get(axis_name, 1)
+        if n <= 1:
+            continue
+        for d in order:
+            if spec[d] is None and shape[d] % n == 0 and shape[d] >= max(2, min_shard) * n:
+                spec[d] = axis_name
+                break
+    out: list = [None] * len(shape)
+    for i, d in enumerate(perm):
+        out[d] = spec[i]
+    return tuple(out)
+
+
+def flax_dims(path: Tuple[Any, ...], x: Any) -> Tuple[int, ...]:
+    """The port's dims in the order of the Flax leaf's: a ``weight`` of a
+    dense layer (``[out, in]``) or a conv (``[out, in, kh, kw]``) is the
+    transpose of the Flax kernel (``[in, out]``, ``[kh, kw, in, out]``),
+    so the heuristic rule, whose ties go to the earlier dim, reads it in
+    Flax's order and picks the dims the JAX package picks."""
+    names = path_names(path)
+    if names and names[-1] == "weight" and "token_embed" not in names:
+        if x.ndim == 2:
+            return (1, 0)
+        if x.ndim == 4:
+            return (2, 3, 1, 0)
+    return tuple(range(x.ndim))
+
+
+def has_scanned_params(tree: Any) -> bool:
+    """True when the tree holds recurrent-core params (``core.*``, the LSTM
+    of ``AtariNet`` and ``RecurrentQNet``, the twin of flax's ``Scan*``
+    modules).  Such trees replicate every leaf under the heuristic rule, as
+    in the JAX package."""
+    found = []
+    tree_map_with_path(lambda p, x: found.append("core" in path_names(p)), tree)
+    return any(found)
+
+
+SpecFn = Callable[[Tuple[str, ...], torch.Tensor], Spec]
+
+
+def param_spec_fn(params: Any, mesh: Any, axes: Tuple[str, ...] = ("fsdp", "tp")) -> SpecFn:
+    """The fsdp/tp rule as a function of a leaf's path and value (every
+    leaf replicated when the tree has recurrent-core params)."""
+    if axes and has_scanned_params(params):
+        axes = ()
+    return lambda path, x: infer_param_spec(path, x, mesh, axes=axes)
+
+
+def param_sharding(params: Any, mesh: Any, axes: Tuple[str, ...] = ("fsdp", "tp")) -> Any:
+    """Spec tree of a param or train-state tree under the fsdp/tp rule."""
+    return tree_map_with_path(param_spec_fn(params, mesh, axes), params)
+
+
+# ---------------------------------------------------------------------------
+# placing tensors
+
+
+def placements(spec: Spec, ndim: int) -> list:
+    """DTensor placements over the mesh's seven dims for one leaf's spec."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate() for _ in AXIS_NAMES]
+    for d, entry in enumerate(spec[:ndim]):
+        if entry is None:
+            continue
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            out[AXIS_NAMES.index(a)] = Shard(d)
+    return out
+
+
+def place(x: torch.Tensor, spec: Spec, mesh: Mesh, src_rank: Optional[int] = None) -> torch.Tensor:
+    """A full tensor as a DTensor laid out by ``spec``, each rank keeping
+    its own slice: of its own copy (``src_rank=None``, for a tensor that is
+    the same on every rank), or of ``src_rank``'s copy, which is broadcast
+    (a state each rank built from its own seed).  A one-device mesh without
+    a process group keeps the tensor as it is."""
+    if mesh.device_mesh is None:
+        return x
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, mesh.device_mesh, placements(spec, x.ndim),
+                             src_data_rank=src_rank)
+
+
+def place_tree(tree: Any, spec_fn: SpecFn, mesh: Mesh, src_rank: Optional[int] = None) -> Any:
+    return tree_map_with_path(lambda p, x: place(x, spec_fn(p, x), mesh, src_rank), tree)
+
+
+def gather(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor as the full tensor on every rank; others pass through."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def gather_tree(tree: Any) -> Any:
+    return tree_map(gather, tree)
+
+
+def shard_params(params: Any, mesh) -> Any:
+    """Place a param tree by the fsdp/tp rule."""
+    mesh = resolve_mesh(mesh)
+    return place_tree(params, param_spec_fn(params, mesh), mesh)
+
+
+def flat_index(mesh: Mesh, axes: Tuple[str, ...]) -> int:
+    """This rank's flat coordinate over ``axes``, the first the most
+    significant."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coordinate(a)
+    return idx
+
+
+def _batch_index(mesh: Mesh) -> int:
+    """This rank's batch shard: its flat (dp, fsdp) coordinate."""
+    return flat_index(mesh, BATCH_AXES)
+
+
+def check_divisible(batch: Any, specs_fn: SpecFn, mesh: Mesh) -> None:
+    """Fail with an actionable message where a batch dim does not divide
+    by its mesh extent."""
+
+    def chk(path, x):
+        for d, entry in enumerate(specs_fn(path, x)):
+            if entry is None:
+                continue
+            names = (entry,) if isinstance(entry, str) else tuple(entry)
+            extent = mesh.extent(names)
+            if extent > 1 and x.shape[d] % extent != 0:
+                raise ValueError(
+                    f"batch dim {d} of size {x.shape[d]} must divide by the mesh extent "
+                    f"{extent} (axes {names}) to shard; adjust batch_size/num_envs or the "
+                    "mesh shape")
+
+    tree_map_with_path(chk, batch)
+
+
+def shard_batch(batch: Any, mesh, batch_dim: int = 0, time_major: Optional[bool] = None) -> Any:
+    """This rank's slice of a global batch tree (the same on every rank),
+    split on its batch dim over ``dp`` x ``fsdp`` (:func:`_batch_spec`).
+    Leaves stay plain tensors."""
+    mesh = resolve_mesh(mesh)
+
+    def spec_fn(p, x):
+        return _batch_spec(p, x, time_major, batch_dim)
+
+    check_divisible(batch, spec_fn, mesh)
+    n = mesh.extent(BATCH_AXES)
+    if n == 1:
+        return batch
+    idx = _batch_index(mesh)
+
+    def take(p, x):
+        spec = spec_fn(p, x)
+        if not spec:
+            return x
+        dim = len(spec) - 1
+        size = x.shape[dim] // n
+        return x.narrow(dim, idx * size, size)
+
+    return tree_map_with_path(take, batch)
+
+
+def pad_to_multiple(x: np.ndarray, multiple: int, axis: int) -> np.ndarray:
+    """Host-side pad so a dim divides the mesh."""
+    size = x.shape[axis]
+    rem = size % multiple
+    if rem == 0:
+        return x
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (0, multiple - rem)
+    return np.pad(x, pad)
+
+
+# ---------------------------------------------------------------------------
+# batch-axis reductions inside the sharded learn step
+
+_BATCH_MESH: contextvars.ContextVar = contextvars.ContextVar("scalerl_batch_mesh", default=None)
+
+
+@contextmanager
+def batch_reduction(mesh: Mesh) -> Iterator[None]:
+    """Within the block the batch reductions below span the shards of
+    ``mesh``'s ``dp`` x ``fsdp`` ranks (nothing changes on one shard)."""
+    token = _BATCH_MESH.set(mesh if mesh.extent(BATCH_AXES) > 1 else None)
+    try:
+        yield
+    finally:
+        _BATCH_MESH.reset(token)
+
+
+def _all_reduce(x: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
+    for axis in BATCH_AXES:
+        group = mesh.group(axis)
+        if group is not None:
+            dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sum(x)`` over the global batch.  Sharded, the value is the
+    shards' total and the gradient flows through this shard's part."""
+    s = torch.sum(x)
+    mesh = _BATCH_MESH.get()
+    if mesh is None:
+        return s
+    total = _all_reduce(s.detach().clone(), dist.ReduceOp.SUM, mesh)
+    return total + (s - s.detach())
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``torch.mean(x)`` over the global batch (equal shards)."""
+    mesh = _BATCH_MESH.get()
+    if mesh is None:
+        return torch.mean(x)
+    return batch_sum(x) / (x.numel() * mesh.extent(BATCH_AXES))
+
+
+def global_batch(n: int) -> int:
+    """A local batch count as the global one."""
+    mesh = _BATCH_MESH.get()
+    return n if mesh is None else n * mesh.extent(BATCH_AXES)
+
+
+def local_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This shard's rows of a tensor drawn for the global batch (a
+    counter-based draw of the global shape)."""
+    mesh = _BATCH_MESH.get()
+    if mesh is None:
+        return x
+    size = x.shape[dim] // mesh.extent(BATCH_AXES)
+    return x.narrow(dim, _batch_index(mesh) * size, size)
+
+
+def batch_all(flag: torch.Tensor) -> torch.Tensor:
+    """A 0-dim bool that holds on every shard."""
+    mesh = _BATCH_MESH.get()
+    if mesh is None:
+        return flag
+    return _all_reduce(flag.to(torch.int32), dist.ReduceOp.MIN, mesh).to(torch.bool)
+
+
+def reduce_gradients(grads: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[torch.Tensor]]:
+    """Sum a gradient dict over the batch shards in one flat collective
+    (None entries, unused params, stay None)."""
+    mesh = _BATCH_MESH.get()
+    if mesh is None:
+        return grads
+    keys = [k for k, g in grads.items() if g is not None]
+    flat = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in keys])
+    _all_reduce(flat, dist.ReduceOp.SUM, mesh)
+    out = dict(grads)
+    offset = 0
+    for k in keys:
+        g = grads[k]
+        out[k] = flat[offset:offset + g.numel()].view(g.shape).to(g.dtype)
+        offset += g.numel()
+    return out
+
+
+def gather_batch(x: torch.Tensor, mesh: Mesh, dim: int = 0,
+                 axes: Tuple[str, ...] = BATCH_AXES) -> torch.Tensor:
+    """Per-row outputs of this rank -> the rows of every rank along
+    ``axes``, concatenated on ``dim`` in :func:`flat_index` order (for the
+    batch axes: dp-major, fsdp-minor, the order :func:`shard_batch` splits
+    in)."""
+    for axis in reversed(axes):
+        group = mesh.group(axis)
+        if group is None:
+            continue
+        parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        x = torch.cat(parts, dim=dim)
+    return x
+
+
+def pool_axes(mesh: Mesh, split_batch: bool = True) -> Tuple[str, ...]:
+    """The axes whose ranks pool the batches they collected themselves:
+    with the batch split, the axes other than ``dp`` x ``fsdp`` (every
+    rank of one batch shard must see the same rows); unsplit, every axis."""
+    return tuple(a for a in AXIS_NAMES
+                 if mesh.shape[a] > 1 and not (split_batch and a in BATCH_AXES))
+
+
+def pool_batch(batch: Any, mesh: Mesh, axes: Tuple[str, ...],
+               time_major: Optional[bool] = None) -> Any:
+    """Every rank's own batch tree concatenated over ``axes`` on its batch
+    dim (:func:`_batch_spec`), the same on each rank of those axes."""
+    if not axes:
+        return batch
+
+    def pool(p, x):
+        spec = _batch_spec(p, x, time_major)
+        return gather_batch(x, mesh, len(spec) - 1, axes) if spec else x
+
+    return tree_map_with_path(pool, batch)
+
+
+def own_rows(x: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...], dim: int = 0) -> torch.Tensor:
+    """This rank's rows of a per-row output of :func:`pool_batch`'s
+    batch (the inverse of its concatenation)."""
+    if not axes:
+        return x
+    size = x.shape[dim] // mesh.extent(axes)
+    return x.narrow(dim, flat_index(mesh, axes) * size, size)
+
+
+class MeshedAgentState:
+    """The ``state`` of an agent that can take a mesh, and the params its
+    acting paths read.
+
+    Under a mesh, each assignment of ``state`` gathers the acting params
+    (the ``_acting_field`` of the state) to full tensors once, on the thread
+    that assigns it: the learner's, which every rank runs in the same
+    order.  :meth:`acting_params` returns that copy, so actor threads and
+    ``get_weights`` issue no collective (collectives from threads in no
+    fixed order would pair up differently on each rank).  Without a mesh it
+    returns the state's own params."""
+
+    mesh = None
+    _acting_field = "params"
+    _acting = None
+
+    @property
+    def state(self) -> Any:
+        return self._state
+
+    @state.setter
+    def state(self, value: Any) -> None:
+        # the copy first: a reader between the two stores sees it, not a
+        # sharded state
+        self._acting = (None if self.mesh is None
+                        else gather_tree(getattr(value, self._acting_field)))
+        self._state = value
+
+    def acting_params(self) -> Any:
+        acting = self._acting  # one read: the learner replaces it whole
+        return getattr(self._state, self._acting_field) if acting is None else acting

@@ -1,9 +1,10 @@
-"""The all-finite update guard and the float32 optimizer-state wrapper.
+"""The all-finite update guard, the float32 optimizer-state wrapper and the
+sharded learn step.
 
-Port of ``scalerl_tpu/parallel/train_step.py::guard_nonfinite_updates`` /
-``maybe_guard_nonfinite`` and ``fp32_optimizer_state``.  A learn step whose result holds NaN/Inf is
-SKIPPED (the input state survives) instead of poisoning the run, and the
-verdict rides the metrics as ``nonfinite_grads`` / ``skipped_steps``.
+Port of ``scalerl_tpu/parallel/train_step.py``.  A learn step whose result
+holds NaN/Inf is SKIPPED (the input state survives) instead of poisoning
+the run, and the verdict rides the metrics as ``nonfinite_grads`` /
+``skipped_steps``.
 
 The JAX version gates with ``lax.cond``.  Here the choice is a device-side
 ``torch.where`` over every leaf of the state: branching on the verdict in
@@ -16,9 +17,28 @@ step test into the select, not by skipping the reduction.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from scalerl_torch.parallel.mesh import Mesh, mesh_spec_from_args, resolve_mesh
+from scalerl_torch.parallel.sharding import (
+    BATCH_AXES,
+    SpecFn,
+    batch_all,
+    batch_reduction,
+    batch_sharding_tree,
+    gather_batch,
+    gather_tree,
+    own_rows,
+    param_spec_fn,
+    place_tree,
+    pool_axes,
+    pool_batch,
+    shard_batch,
+)
+from scalerl_torch.utils.tree import tree_map_with_path
 
 
 # A train state is a dataclass of tensors and (nested) dicts of tensors.
@@ -64,7 +84,10 @@ def guard_nonfinite_updates(learn_fn: Callable, check_every: int = 1) -> Callabl
     def guarded(state, *args):
         out = learn_fn(state, *args)
         new_state, metrics, aux = out[0], dict(out[1]), tuple(out[2:])
-        skip = ((state.step % check_every) == 0) & ~all_finite((new_state, aux))
+        # sharded, each shard checks its own rows of the aux outputs, and
+        # every shard must reach the same verdict
+        ok = batch_all(all_finite((new_state, aux)))
+        skip = ((state.step % check_every) == 0) & ~ok
         safe_state = tree_select(~skip, new_state, state)
         safe_aux = tuple(
             torch.where(skip, torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0), x)
@@ -117,3 +140,218 @@ def fp32_optimizer_state(optimizer: Any) -> _Fp32OptimizerState:
     """Wrap one of the port's optimizers (``init(params)`` and ``update(grads,
     state) -> (updates, state)``) so its state lives in float32."""
     return _Fp32OptimizerState(optimizer)
+
+
+
+# ---------------------------------------------------------------------------
+# the sharded learn step
+
+
+class ParallelLearnFn:
+    """A learn function ``(state, *batch) -> (state, metrics, *aux)`` over a
+    mesh (``make_parallel_learn_fn``'s result).
+
+    The state's leaves are DTensors placed by the spec (a one-device mesh
+    with no process group keeps plain tensors).  A step gathers them to full
+    tensors, runs the learn function on this rank's batch rows under
+    :func:`parallel.sharding.batch_reduction` (its batch reductions and
+    gradients then span every shard, so the update is the one-process
+    update at the same global batch, the same on every rank), places the
+    new state back, and all-gathers each per-row aux output along dim 0, so
+    it comes back replicated (in the local mode below, as this rank's own
+    rows).  The metrics come out replicated.
+
+    Helpers: :meth:`shard_state` places rank 0's full state on every rank
+    (counters replicated; ranks that built their agents from seeds of their
+    own start alike), :meth:`gather_state` is its inverse, :meth:`shard_batch`
+    takes this rank's rows of a global batch (dim 1 of time-major
+    trajectories, dim 0 of ``core_state`` and of ``[B, ...]`` batches);
+    ``state_sharding`` / ``batch_sharding`` are the spec trees.  With
+    ``split_batch=False`` every rank keeps the whole batch and computes the
+    whole update (the state is still placed by the spec).
+
+    ``local_batches=True`` (a trainer's mode, set by
+    :func:`maybe_enable_mesh_from_args`) takes each rank's batch as the one
+    it collected itself: :meth:`shard_batch` pools the batches of the ranks
+    that share a batch shard (the non-batch axes; every rank when the batch
+    is not split), so the step is the one-process step on the batches of
+    all ranks together and no rank's rows go unused, and the per-row aux
+    outputs come back as this rank's own rows.
+
+    The fsdp, tp and mp layouts shard the state's storage between steps
+    only: a step gathers every leaf, the optimizer moments included, and
+    computes on full tensors, so its peak memory is that of a replicated
+    state and mp splits no compute."""
+
+    def __init__(self, learn_fn: Callable, mesh: Mesh, state_example: Any,
+                 batch_example: Any = None, batch_time_major: bool = True,
+                 spec_fn: Optional[SpecFn] = None, split_batch: bool = True) -> None:
+        self.learn_fn = learn_fn
+        self.mesh = mesh
+        self.split_batch = split_batch
+        self.spec_fn = spec_fn if spec_fn is not None else param_spec_fn(state_example, mesh)
+        self.batch_time_major = batch_time_major
+        self.state_sharding = tree_map_with_path(self.spec_fn, gather_tree(state_example))
+        self.batch_sharding = (None if batch_example is None else
+                               batch_sharding_tree(batch_example, mesh, batch_time_major))
+        self.local_batches = False
+
+    def shard_state(self, state: Any) -> Any:
+        return place_tree(gather_tree(state), self.spec_fn, self.mesh, src_rank=0)
+
+    def gather_state(self, state: Any) -> Any:
+        return gather_tree(state)
+
+    def shard_batch(self, batch: Any) -> Any:
+        if self.local_batches:
+            return pool_batch(batch, self.mesh, pool_axes(self.mesh, self.split_batch),
+                              self.batch_time_major)
+        if not self.split_batch:
+            return batch
+        return shard_batch(batch, self.mesh, time_major=self.batch_time_major)
+
+    def __call__(self, state: Any, *batch: Any):
+        if not self.split_batch:
+            out = self.learn_fn(gather_tree(state), *batch)
+            aux = tuple(out[2:])
+        else:
+            with batch_reduction(self.mesh):
+                out = self.learn_fn(gather_tree(state), *batch)
+            aux = tuple(out[2:] if self.local_batches else
+                        (gather_batch(a, self.mesh) for a in out[2:]))
+        if self.local_batches:
+            axes = pool_axes(self.mesh, self.split_batch)
+            aux = tuple(own_rows(a, self.mesh, axes) for a in aux)
+        # the new state is the same on every rank: each places its own copy
+        return (place_tree(out[0], self.spec_fn, self.mesh), out[1]) + aux
+
+
+def make_parallel_learn_fn(learn_fn: Callable, mesh, state_example: Any, batch_example: Any = None,
+                           batch_time_major: bool = True, param_specs: Optional[SpecFn] = None,
+                           split_batch: bool = True) -> ParallelLearnFn:
+    """``learn_fn`` over ``mesh`` with the batch split over ``dp`` x ``fsdp``
+    and the state laid out by ``param_specs`` (a function of a leaf's path
+    and value: the mp table of ``parallel/logical.py`` for the transformer
+    family), else by the heuristic fsdp/tp rule.
+
+    The JAX function donates the pre-update state; here the step builds new
+    tensors, and the old state is freed when the caller drops it."""
+    return ParallelLearnFn(learn_fn, resolve_mesh(mesh), state_example, batch_example,
+                           batch_time_major, param_specs, split_batch)
+
+
+def maybe_enable_mesh_from_args(agent, args) -> bool:
+    """Resolve ``RLArguments``' ``mesh_shape``/``dp_size``/``mp_size`` into
+    a mesh and enable it on the agent.  A no-op (False) when no mesh is
+    asked for, the agent has no ``enable_mesh`` or already has a mesh, so
+    every trainer calls it at construction.  A trainer feeds each rank the
+    batches that rank collected, so the agent's meshed step (whichever
+    call enabled it) is put in its ``local_batches`` mode."""
+    spec = mesh_spec_from_args(args)
+    enabled = False
+    if (spec is not None and hasattr(agent, "enable_mesh")
+            and getattr(agent, "mesh", None) is None):
+        agent.enable_mesh(spec)
+        enabled = True
+    learn = getattr(agent, "_learn", None)
+    if isinstance(learn, ParallelLearnFn):
+        learn.local_batches = True
+    return enabled
+
+
+def multi_rank(mesh: Optional[Mesh]) -> bool:
+    """True when ``mesh`` spans more than one process."""
+    return mesh is not None and mesh.device_mesh is not None and dist.get_world_size() > 1
+
+
+class RankAgreement:
+    """What the ranks of a meshed trainer must decide alike (stop, save,
+    the frame count those hang on), summed over every rank in one small
+    all-reduce: every rank must take the same learn steps and issue the
+    same collectives.  :meth:`__call__` returns the global count and each
+    flag set on any rank; without a mesh of several ranks, the local
+    values."""
+
+    def __init__(self, mesh: Optional[Mesh]) -> None:
+        self.device = mesh.device_type if multi_rank(mesh) else None
+
+    def __call__(self, count: int, *flags: bool) -> Tuple:
+        if self.device is None:
+            return (count,) + tuple(bool(f) for f in flags)
+        t = torch.tensor([count] + [int(bool(f)) for f in flags], dtype=torch.int64,
+                         device=self.device)
+        dist.all_reduce(t)
+        total, *any_set = t.tolist()
+        return (total,) + tuple(v > 0 for v in any_set)
+
+
+def place_agent_state(agent, state: Any) -> Any:
+    """A full state (a restored checkpoint) in the meshed agent's layout;
+    as it is without a mesh."""
+    if getattr(agent, "mesh", None) is None:
+        return state
+    return agent._learn.shard_state(state)
+
+
+def enable_offpolicy_mesh(agent, mesh_or_spec) -> None:
+    """The data-parallel learn step of the off-policy agents (DQN, SAC,
+    TD3): ``agent.args.batch_size``, ``agent.state`` and ``agent._learn``,
+    ``(state, batch) -> (state, metrics, td_abs)``.  The replay batch splits
+    over ``dp`` x ``fsdp``, big params over ``fsdp``/``tp`` where they
+    divide, and the per-sample |TD| comes back replicated for the PER
+    write-back.  Sets ``agent.mesh`` and ``agent._shard_batch``, re-lays
+    out ``agent.state`` and makes ``agent._learn`` the sharded step."""
+    mesh = resolve_mesh(mesh_or_spec)
+    n_batch_shards = mesh.extent(BATCH_AXES)
+    if agent.args.batch_size % n_batch_shards != 0:
+        raise ValueError(
+            f"batch_size ({agent.args.batch_size}) must divide by the mesh's dp*fsdp extent "
+            f"({n_batch_shards}) to shard the replay batch")
+    plearn = make_parallel_learn_fn(agent._learn, mesh, agent.state, batch_time_major=False)
+    agent.mesh = mesh
+    agent.state = plearn.shard_state(agent.state)
+    agent._shard_batch = plearn.shard_batch
+    agent._learn = plearn
+
+
+def make_parallel_act_fn(act_fn: Callable[..., Any], mesh, params_example: Any) -> Callable[..., Any]:
+    """An inference function ``(params, *batch) -> ...`` for mesh serving:
+    ``.shard_params`` places params by the fsdp/tp rule and
+    ``.shard_batch`` takes this rank's rows (dim 0 over ``dp``); the call
+    gathers the params and runs on the rank's rows."""
+    mesh = resolve_mesh(mesh)
+    spec_fn = param_spec_fn(params_example, mesh)
+
+    def act(params, *batch):
+        return act_fn(gather_tree(params), *batch)
+
+    act.shard_params = lambda p: place_tree(p, spec_fn, mesh)  # type: ignore[attr-defined]
+    act.shard_batch = lambda b: shard_batch(b, mesh, batch_dim=0)  # type: ignore[attr-defined]
+    return act
+
+
+def save_sharded(agent, path: str) -> str:
+    """Save a meshed agent's state gathered to full tensors through
+    ``make_shard_and_gather_fns`` (every rank gathers; rank 0 writes, then
+    every rank waits for the write)."""
+    from scalerl_torch.parallel.logical import apply_fns, make_shard_and_gather_fns
+    from scalerl_torch.utils.checkpoint import save_checkpoint
+
+    _, gather_fns = make_shard_and_gather_fns(agent._learn.state_sharding, agent.mesh)
+    full = apply_fns(gather_fns, agent.state)
+    out = path
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        out = save_checkpoint(path, full)
+    if dist.is_initialized():
+        dist.barrier()
+    return out
+
+
+def load_sharded(agent, path: str) -> Any:
+    """A meshed agent's state from ``path``: restored full, then placed in
+    the agent's layout through ``make_shard_and_gather_fns``."""
+    from scalerl_torch.parallel.logical import apply_fns, make_shard_and_gather_fns
+    from scalerl_torch.utils.checkpoint import load_checkpoint
+
+    shard_fns, _ = make_shard_and_gather_fns(agent._learn.state_sharding, agent.mesh)
+    return apply_fns(shard_fns, load_checkpoint(path, gather_tree(agent.state)))

@@ -16,6 +16,20 @@ the loop's own ``torch.Generator`` (Gumbel-max, replacing
 ``jax.random.categorical``), so the stream differs from JAX's for the same
 seed.
 
+:meth:`DeviceActorLearnerLoop.run_anakin` drives N chunks as one dispatch
+(Anakin): on a CUDA device :meth:`~DeviceActorLearnerLoop.train_superchunk`
+replays one ``torch.cuda.CUDAGraph`` holding the N chunks, the twin of the
+JAX package's one XLA program for N chunks; on the CPU it runs the N chunks
+eagerly, the same Python as :meth:`~DeviceActorLearnerLoop.run`'s body.
+The graph is captured once per N, after one warm eager chunk run on copies
+(cuDNN's algorithm search and the first allocations happen there), with the
+loop's generator registered so that every replay advances it as the eager
+chunks would: a replay from a given state, carry and generator state draws
+what the eager chunks draw.  State and carry live in the graph's own
+buffers, which the graph overwrites with the new ones at its end, so the
+state and carry a replay returns are overwritten by the next (the twin of
+the JAX inputs' donation).
+
 :meth:`DeviceActorLearnerLoop.run_until` drives chunks until the windowed
 mean episode return reaches a threshold; the reference's learning curves
 (``examples/curves/common.py``) run on it.  Both take the
@@ -26,9 +40,9 @@ guard's flag) and ``instrument`` (feed each chunk's host metrics and the
 ``rates.fps`` / ``rates.chunks_per_s`` meters into the telemetry registry),
 and mark each chunk for ``utils/profiling.py``'s traces.
 
-Not ported yet: the mesh (``shard_map``) path, ``train_superchunk`` /
-``run_anakin`` (one program for N chunks) and ``iter_mode`` (a Python loop
-needs none).
+Not ported yet: the mesh (``shard_map``) path of the fused loop.
+``iter_mode`` has no twin: it picks between ``lax.scan`` and an unrolled body for XLA, and a
+Python loop (or a graph captured from one) has one form.
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import math
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -45,9 +60,10 @@ from scalerl_torch.agents.impala import ImpalaTrainState, sample_categorical
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.envs.tensor_envs.base import TensorEnv
 from scalerl_torch.runtime import telemetry
-from scalerl_torch.runtime.dispatch import MetricsPipeline, get_metrics, steady_state_guard
+from scalerl_torch.runtime.dispatch import get_metrics, pipelined_drive, steady_state_guard
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
 from scalerl_torch.utils.profiling import step_marker
+from scalerl_torch.utils.tree import tree_leaves, tree_map
 
 LearnFn = Callable[[ImpalaTrainState, Trajectory], Tuple[ImpalaTrainState, Dict]]
 
@@ -91,6 +107,10 @@ class DeviceActorLearnerLoop:
         # the first chunk may synchronise (cuDNN's algorithm search, first
         # allocations); every later one runs under the sync guard
         self._warm = False
+        # Anakin: one captured graph per superchunk length, and the lengths
+        # whose first run is behind them (their later runs are guarded)
+        self._superchunks: Dict[int, _SuperchunkGraph] = {}
+        self._superchunk_warm: set = set()
 
     # ------------------------------------------------------------------
     def init_carry(self) -> ActorCarry:
@@ -172,9 +192,95 @@ class DeviceActorLearnerLoop:
         mean_metrics["episode_count_sum"] = torch.sum(carry.episode_count)
         return state, carry, mean_metrics
 
+    def _superchunk_eager(self, state, carry, num_chunks: int):
+        per_chunk = []
+        for _ in range(num_chunks):
+            state, carry, m = self.train_chunk(state, carry)
+            per_chunk.append(m)
+        return state, carry, {k: torch.stack([m[k] for m in per_chunk]) for k in per_chunk[0]}
+
+    def train_superchunk(
+        self, state: ImpalaTrainState, carry: ActorCarry, num_chunks: int
+    ) -> Tuple[ImpalaTrainState, ActorCarry, Dict[str, torch.Tensor]]:
+        """``num_chunks`` chunks as one dispatch (Anakin): one CUDA graph
+        replay on a card, the chunks eagerly on the CPU.  Metrics come back
+        as device tensors stacked ``[num_chunks]`` per key; read them with
+        one ``dispatch.get_metrics`` call.  On a card the returned state and
+        carry are the graph's buffers (module docstring)."""
+        if self.device.type != "cuda":
+            return self._superchunk_eager(state, carry, num_chunks)
+        graph = self._superchunks.get(num_chunks)
+        if graph is None:
+            graph = _SuperchunkGraph(self, state, carry, num_chunks)
+            self._superchunks[num_chunks] = graph
+        return graph.replay(state, carry)
+
+    def run_anakin(
+        self,
+        state: ImpalaTrainState,
+        carry: ActorCarry,
+        num_calls: int,
+        on_metrics: Optional[Callable[[int, Dict[str, float]], None]] = None,
+        progress=None,
+        instrument: bool = True,
+    ) -> Tuple[ImpalaTrainState, ActorCarry, Dict[str, float]]:
+        """Drive ``num_calls`` chunks as ONE dispatch and ONE batched metric
+        read after it.  ``on_metrics(i, metrics)`` fires per chunk, in
+        order, with :meth:`run`'s keys; the telemetry meters are marked once
+        for the superchunk.  Every call after the first for a given
+        ``num_calls`` runs under the sync guard.  The returned metrics are
+        the last chunk's, with ``chunks_done`` / ``nonfinite_chunks``."""
+        guard = steady_state_guard() if num_calls in self._superchunk_warm else nullcontext()
+        with guard:
+            with step_marker(0):
+                state, carry, stacked = self.train_superchunk(state, carry, num_calls)
+            if progress is not None:
+                progress.bump()
+            host = get_metrics(stacked)  # one batched copy for every chunk
+        self._superchunk_warm.add(num_calls)
+        tally = _ChunkTally(telemetry.observe_train_metrics if instrument else None, on_metrics)
+        for i in range(num_calls):
+            # get_metrics gives one-element tensors back as floats: N = 1
+            tally.run_chunk(i, {k: float(np.atleast_1d(v)[i]) for k, v in host.items()})
+        if instrument:
+            reg = telemetry.get_registry()
+            reg.meter("rates.chunks_per_s").mark(num_calls)
+            reg.meter("rates.fps").mark(self._frames_per_call() * num_calls)
+        return state, carry, tally.summary(num_calls)
+
     def _guard(self):
         """The sync guard once the loop is warm, else nothing."""
         return steady_state_guard() if self._warm else nullcontext()
+
+    def _frames_per_call(self) -> int:
+        return self.unroll_length * self.venv.num_envs * self.iters_per_call
+
+    def _drive(self, state, carry, num_calls: int, on_ready: Callable[[int, Dict[str, float]], None],
+               depth: int, progress, stop: Callable[[], bool]):
+        """Dispatch up to ``num_calls`` chunks through
+        :func:`dispatch.pipelined_drive`, each warm chunk under the sync
+        guard: ``on_ready(i, host_metrics)`` fires in chunk order ``depth -
+        1`` chunks behind, and ``stop()`` is polled before the first
+        dispatch and after each read (a True is kept, not polled again).
+        Returns the new state and carry and the chunks dispatched."""
+        box = [state, carry]
+        stopped = False
+
+        def latched() -> bool:
+            nonlocal stopped
+            stopped = stopped or stop()
+            return stopped
+
+        def dispatch(i: int):
+            with self._guard(), step_marker(i):
+                box[0], box[1], dev_metrics = self.train_chunk(box[0], box[1])
+                if progress is not None:
+                    progress.bump()
+            self._warm = True
+            return dev_metrics
+
+        done = 0 if latched() else pipelined_drive(dispatch, num_calls, on_ready, depth, latched)
+        return box[0], box[1], done
 
     # ------------------------------------------------------------------
     def run(
@@ -198,47 +304,19 @@ class DeviceActorLearnerLoop:
         ``return_mean`` / ``chunks_done`` (the chunks dispatched: a
         preemption checkpoint records these, not ``num_calls``) /
         ``nonfinite_chunks``."""
-        metrics: Dict[str, float] = {}
-        nonfinite_chunks = 0
-        pipe = MetricsPipeline(depth=chunks_in_flight)
-        observe = self._observer(instrument)
+        tally = _ChunkTally(self._observer(instrument), on_metrics)
+        state, carry, chunks_done = self._drive(
+            state, carry, num_calls, tally.run_chunk, chunks_in_flight, progress,
+            lambda: should_stop is not None and should_stop())
+        return state, carry, tally.summary(chunks_done)
 
-        def consume(ready) -> None:
-            nonlocal metrics, nonfinite_chunks
-            for i, host_m in ready:
-                m = dict(host_m)
-                observe(m)
-                if m.get("skipped_steps", 0.0) > 0.0:
-                    nonfinite_chunks += 1
-                m["episodes"] = m.pop("episode_count_sum")
-                m["return_mean"] = m.pop("episode_return_sum") / max(m["episodes"], 1.0)
-                metrics = m
-                if on_metrics is not None:
-                    on_metrics(i, m)
-
-        chunks_done = 0
-        for i in range(num_calls):
-            if should_stop is not None and should_stop():
-                break
-            with self._guard(), step_marker(i):
-                state, carry, dev_metrics = self.train_chunk(state, carry)
-                chunks_done += 1
-                if progress is not None:
-                    progress.bump()
-                consume(pipe.push(i, dev_metrics))
-            self._warm = True
-        consume(pipe.drain())
-        metrics["chunks_done"] = float(chunks_done)
-        metrics["nonfinite_chunks"] = float(nonfinite_chunks)
-        return state, carry, metrics
-
-    def _observer(self, instrument: bool) -> Callable[[Dict[str, float]], None]:
-        """Per-chunk registry feed (host floats only), or nothing."""
+    def _observer(self, instrument: bool) -> Optional[Callable[[Dict[str, float]], None]]:
+        """Per-chunk registry feed (host floats only), or None."""
         if not instrument:
-            return lambda m: None
+            return None
         reg = telemetry.get_registry()
         chunk_meter, fps_meter = reg.meter("rates.chunks_per_s"), reg.meter("rates.fps")
-        frames_per_call = self.unroll_length * self.venv.num_envs * self.iters_per_call
+        frames_per_call = self._frames_per_call()
 
         def observe(m: Dict[str, float]) -> None:
             telemetry.observe_train_metrics(m)
@@ -274,48 +352,118 @@ class DeviceActorLearnerLoop:
         the same for every ``chunks_in_flight``.  Returns ``(state, carry,
         summary)``, the summary with ``windowed_return`` / ``frames`` /
         ``hit`` / ``nonfinite_chunks``."""
-        frames_per_call = self.unroll_length * self.venv.num_envs * self.iters_per_call
+        frames_per_call = self._frames_per_call()
         init = get_metrics({"s": carry.return_sum.sum(), "c": carry.episode_count.sum()})
         prev_sum, prev_cnt = init["s"], init["c"]
         windowed = math.nan
-        frames = 0
         hit = False
-        nonfinite_chunks = 0
-        pipe = MetricsPipeline(depth=chunks_in_flight)
-        observe = self._observer(instrument)
+        tally = _ChunkTally(self._observer(instrument))
 
-        def consume(ready) -> None:
-            nonlocal windowed, prev_sum, prev_cnt, hit, nonfinite_chunks
-            for i, m in ready:
-                observe(m)
-                if m.get("skipped_steps", 0.0) > 0.0:
-                    nonfinite_chunks += 1
-                s, c = m["episode_return_sum"], m["episode_count_sum"]
-                if c > prev_cnt:
-                    windowed = (s - prev_sum) / (c - prev_cnt)
-                    prev_sum, prev_cnt = s, c
-                if on_metrics is not None:
-                    on_metrics((i + 1) * frames_per_call, windowed, dict(m))
-                if windowed >= threshold:
-                    hit = True
+        def consume(i: int, m: Dict[str, float]) -> None:
+            nonlocal windowed, prev_sum, prev_cnt, hit
+            tally.add(m)
+            s, c = m["episode_return_sum"], m["episode_count_sum"]
+            if c > prev_cnt:
+                windowed = (s - prev_sum) / (c - prev_cnt)
+                prev_sum, prev_cnt = s, c
+            if on_metrics is not None:
+                on_metrics((i + 1) * frames_per_call, windowed, dict(m))
+            if windowed >= threshold:
+                hit = True
 
-        for i in range(max_calls):
-            if should_stop is not None and should_stop():
-                break
-            with self._guard(), step_marker(i):
-                state, carry, dev_metrics = self.train_chunk(state, carry)
-                frames += frames_per_call
-                if progress is not None:
-                    progress.bump()
-                consume(pipe.push(i, dev_metrics))
-            self._warm = True
-            if hit:
-                break
-        consume(pipe.drain())
+        state, carry, dispatched = self._drive(
+            state, carry, max_calls, consume, chunks_in_flight, progress,
+            lambda: hit or (should_stop is not None and should_stop()))
         summary = {
             "windowed_return": windowed,
-            "frames": float(frames),
+            "frames": float(dispatched * frames_per_call),
             "hit": hit,
-            "nonfinite_chunks": float(nonfinite_chunks),
+            "nonfinite_chunks": float(tally.nonfinite_chunks),
         }
         return state, carry, summary
+
+
+class _ChunkTally:
+    """The per-chunk consume that ``run``, ``run_until`` and ``run_anakin``
+    share: :meth:`add` feeds a chunk's host metrics to ``observe`` and
+    counts the chunks whose update the non-finite guard skipped;
+    :meth:`run_chunk` also renames the episode sums to ``run``'s keys
+    (``episodes``, ``return_mean``) and hands the chunk to ``on_metrics``;
+    :meth:`summary` is the last such chunk with ``chunks_done`` /
+    ``nonfinite_chunks``."""
+
+    def __init__(self, observe: Optional[Callable[[Dict[str, float]], None]] = None,
+                 on_metrics: Optional[Callable[[int, Dict[str, float]], None]] = None) -> None:
+        self.observe = observe
+        self.on_metrics = on_metrics
+        self.nonfinite_chunks = 0
+        self.last: Dict[str, float] = {}
+
+    def add(self, m: Dict[str, float]) -> None:
+        if self.observe is not None:
+            self.observe(m)
+        if m.get("skipped_steps", 0.0) > 0.0:
+            self.nonfinite_chunks += 1
+
+    def run_chunk(self, i: int, host_m: Dict[str, float]) -> None:
+        m = dict(host_m)
+        self.add(m)
+        m["episodes"] = m.pop("episode_count_sum")
+        m["return_mean"] = m.pop("episode_return_sum") / max(m["episodes"], 1.0)
+        self.last = m
+        if self.on_metrics is not None:
+            self.on_metrics(i, m)
+
+    def summary(self, chunks_done: int) -> Dict[str, float]:
+        self.last["chunks_done"] = float(chunks_done)
+        self.last["nonfinite_chunks"] = float(self.nonfinite_chunks)
+        return self.last
+
+
+class _SuperchunkGraph:
+    """``num_chunks`` chunks of a loop captured as one ``torch.cuda.CUDAGraph``.
+
+    The capture follows one warm eager chunk, run on copies of the state
+    and carry on a side stream, after which the loop's generator is set
+    back, so the warm-up draws nothing the caller sees.  The graph reads
+    the state and carry from its own static buffers and copies the new ones
+    back into them at its end; the metrics are one stacked ``[keys, N]``
+    buffer, cloned after each replay.  A capture that fails raises."""
+
+    def __init__(self, loop: DeviceActorLearnerLoop, state, carry, num_chunks: int) -> None:
+        gen = loop.generator
+        saved = gen.get_state()
+        main = torch.cuda.current_stream(loop.device)
+        side = torch.cuda.Stream(device=loop.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loop.train_chunk(tree_map(torch.clone, state), tree_map(torch.clone, carry))
+        main.wait_stream(side)
+        gen.set_state(saved)
+        self.state = tree_map(torch.clone, state)
+        self.carry = tree_map(torch.clone, carry)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(gen)
+        with torch.cuda.graph(self.graph):
+            new_state, new_carry, stacked = loop._superchunk_eager(
+                self.state, self.carry, num_chunks)
+            for dst, src in zip(self._leaves(), tree_leaves((new_state, new_carry))):
+                dst.copy_(src)
+            self.keys = list(stacked)
+            self.metrics = torch.stack([stacked[k].to(torch.float32) for k in self.keys])
+
+    def _leaves(self):
+        return tree_leaves((self.state, self.carry))
+
+    def replay(self, state, carry):
+        leaves, given = self._leaves(), tree_leaves((state, carry))
+        if len(leaves) != len(given):
+            raise ValueError(
+                f"the superchunk was captured for {len(leaves)} state and carry tensors, "
+                f"got {len(given)}")
+        for dst, src in zip(leaves, given):
+            if src is not dst:
+                dst.copy_(src)
+        self.graph.replay()
+        metrics = self.metrics.clone()
+        return self.state, self.carry, {k: metrics[i] for i, k in enumerate(self.keys)}

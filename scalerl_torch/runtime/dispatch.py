@@ -7,7 +7,8 @@ Port of ``scalerl_tpu/runtime/dispatch.py``.
   first.
 - :class:`MetricsPipeline` keeps ``depth`` chunks' metrics pending, so the
   host reads chunk ``i`` only after dispatching chunk ``i + depth - 1`` and
-  never stalls the device on a fresh result.
+  never stalls the device on a fresh result; :func:`pipelined_drive` drives
+  a dispatch function through one.
 - :func:`steady_state_guard` is the counterpart of the JAX package's
   transfer guard: ``torch.cuda.set_sync_debug_mode("error")`` around warm
   chunks, so any operation that synchronises with the host raises at its
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 from collections import deque
 from contextlib import contextmanager
-from typing import Any, Deque, Dict, Iterator, List, Mapping, Tuple
+from typing import Any, Callable, Deque, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,3 +115,34 @@ class MetricsPipeline:
         ready = [self._materialize(item) for item in self._pending]
         self._pending.clear()
         return ready
+
+
+def pipelined_drive(
+    dispatch: Callable[[int], Any],
+    num_calls: int,
+    on_ready: Optional[Callable[[int, Any], None]] = None,
+    depth: int = 2,
+    stop: Optional[Callable[[], bool]] = None,
+) -> int:
+    """Drive ``dispatch(i) -> device metrics`` for up to ``num_calls``
+    chunks with ``depth`` in flight; ``on_ready(i, host_metrics)`` fires in
+    chunk order, ``depth - 1`` chunks behind the dispatch.  ``stop()`` is
+    polled after each materialisation batch: once it is True no further
+    chunk is dispatched, and the chunks in flight are still drained.
+    Returns the number of chunks dispatched."""
+    pipe = MetricsPipeline(depth=depth)
+
+    def consume(ready) -> bool:
+        for tag, host in ready:
+            if on_ready is not None:
+                on_ready(tag, host)
+        return bool(stop is not None and stop())
+
+    dispatched = 0
+    for i in range(num_calls):
+        payload = dispatch(i)
+        dispatched += 1
+        if consume(pipe.push(i, payload)):
+            break
+    consume(pipe.drain())
+    return dispatched

@@ -46,6 +46,12 @@ import torch
 from scalerl_torch.agents.impala import ImpalaAgent
 from scalerl_torch.config import ImpalaArguments
 from scalerl_torch.data.trajectory import TrajectorySpec, batch_to_trajectory
+from scalerl_torch.parallel.sharding import gather_tree
+from scalerl_torch.parallel.train_step import (
+    RankAgreement,
+    maybe_enable_mesh_from_args,
+    place_agent_state,
+)
 from scalerl_torch.runtime import telemetry
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.runtime.param_server import ParameterServer
@@ -202,7 +208,9 @@ class HostPlaneMixin:
         return True
 
     def _resume_pytree(self) -> Dict:
-        return {"agent": self.agent.state, "env_frames": np.asarray(self.env_frames, np.int64)}
+        # a meshed state is saved whole (every rank gathers, the main one writes)
+        return {"agent": gather_tree(self.agent.state),
+                "env_frames": np.asarray(self.env_frames, np.int64)}
 
     def save_resume(self) -> None:
         self.save_resume_checkpoint(self._resume_pytree(), self.env_frames,
@@ -213,7 +221,7 @@ class HostPlaneMixin:
         state = self.load_resume_checkpoint(self._resume_pytree())
         if state is None:
             return False
-        self.agent.state = state["agent"]
+        self.agent.state = place_agent_state(self.agent, state["agent"])
         self.env_frames = int(state["env_frames"])
         self.param_server.push(self.agent.get_weights(), to_host=False)
         if self.is_main_process:
@@ -259,6 +267,8 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
         _refuse_process_mode(args)
         super().__init__(args, run_name=run_name)
         self.agent = agent
+        # RLArguments' mesh_shape / dp_size / mp_size, before any actor starts
+        maybe_enable_mesh_from_args(agent, args)
         self.env_fns = env_fns
         self.stop_event = threading.Event()
         self.frame_lock = threading.Lock()
@@ -418,11 +428,20 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
                 raise item
             return item
 
+        # under a mesh of several ranks, total_frames counts the frames of
+        # every rank, and each decision that gates a learn step is taken
+        # alike on all of them
+        agree = RankAgreement(getattr(self.agent, "mesh", None))
         try:
-            while self.env_frames < total_frames and not self.stop_event.is_set():
+            while True:
+                frames, halted, preempted = agree(
+                    self.env_frames, self.stop_event.is_set(),
+                    guard is not None and guard.triggered)
+                if frames >= total_frames or halted:
+                    break
                 if watchdog is not None:
                     watchdog.check()
-                if guard is not None and guard.triggered:
+                if preempted:
                     # a safe point: the last learn step is complete and
                     # no slot is half consumed
                     if saving:
@@ -443,13 +462,15 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
                     self.inference_server.push_params(self.agent.get_weights(),
                                                       learner_step=learn_steps_done)
 
-                if saving and cadence.due(self.env_frames):
-                    cadence.mark_saved(self.env_frames)
+                (frames,) = agree(self.env_frames)
+                _, save_due = agree(0, saving and cadence.due(frames))
+                if save_due:
+                    cadence.mark_saved(frames)
                     self.save_resume()
 
-                if self.env_frames - last_log_frames >= args.logger_frequency:
-                    last_log_frames = self.env_frames
-                    sps = (self.env_frames - start_frames) / max(time.time() - start, 1e-8)
+                if frames - last_log_frames >= args.logger_frequency:
+                    last_log_frames = frames
+                    sps = (frames - start_frames) / max(time.time() - start, 1e-8)
                     rets = [r for m in self.episode_metrics for r in m.episode_returns[-20:]]
                     ret_mean = float(np.mean(rets)) if rets else float("nan")
                     host_metrics = get_metrics(metrics)  # one batched copy

@@ -22,8 +22,8 @@ Port of ``scalerl_tpu/trainer/apex.py``:
   learn steps for consumers off the process.
 
 Resume checkpoints hold the agent's state, the whole replay and the
-counters.  Not ported: a meshed agent (``data/sharded_replay.py``); C51
-raises, as the JAX trainer does.
+counters.  A meshed agent needs ``data/sharded_replay.py``, which is not
+ported, and raises; C51 raises, as the JAX trainer does.
 """
 
 from __future__ import annotations

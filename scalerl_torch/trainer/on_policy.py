@@ -26,6 +26,13 @@ import numpy as np
 
 from scalerl_torch.config import A3CArguments
 from scalerl_torch.data.trajectory import host_chunk_to_trajectory
+from scalerl_torch.parallel.sharding import gather_tree
+from scalerl_torch.parallel.train_step import (
+    RankAgreement,
+    maybe_enable_mesh_from_args,
+    multi_rank,
+    place_agent_state,
+)
 from scalerl_torch.runtime import telemetry
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.trainer.base import BaseTrainer
@@ -43,6 +50,8 @@ class OnPolicyTrainer(BaseTrainer):
     ) -> None:
         super().__init__(args, run_name=run_name)
         self.agent = agent
+        # RLArguments' mesh_shape / dp_size / mp_size, before any actor starts
+        maybe_enable_mesh_from_args(agent, args)
         self.train_envs = train_envs
         self.eval_envs = eval_envs
         self.num_envs = getattr(train_envs, "num_envs", 1)
@@ -122,7 +131,8 @@ class OnPolicyTrainer(BaseTrainer):
     # ------------------------------------------------------------------
     def _resume_pytree(self) -> Dict:
         return {
-            "agent": self.agent.state,
+            # a meshed state is saved whole (every rank gathers, the main one writes)
+            "agent": gather_tree(self.agent.state),
             "global_step": np.asarray(self.global_step, np.int64),
             "learn_steps": np.asarray(self.learn_steps, np.int64),
         }
@@ -136,7 +146,7 @@ class OnPolicyTrainer(BaseTrainer):
         state = self.load_resume_checkpoint(self._resume_pytree())
         if state is None:
             return False
-        self.agent.state = state["agent"]
+        self.agent.state = place_agent_state(self.agent, state["agent"])
         self.global_step = int(state["global_step"])
         self.learn_steps = int(state["learn_steps"])
         if self.is_main_process:
@@ -156,13 +166,19 @@ class OnPolicyTrainer(BaseTrainer):
         start_step = self.global_step
         last_log = self.global_step
         last_eval = self.global_step
-        last_save = self.global_step
+        # under a mesh of several ranks, max_timesteps counts the steps of
+        # every rank, and the gates of collectives (saves) are taken alike
+        # on all of them; a meshed save gathers on every rank
+        agree = RankAgreement(getattr(self.agent, "mesh", None))
+        saver = self.is_main_process or multi_rank(getattr(self.agent, "mesh", None))
+        (last_save,) = agree(self.global_step)
         train_info: Dict[str, float] = {}
 
-        while self.global_step < args.max_timesteps:
+        while agree(self.global_step)[0] < args.max_timesteps:
             traj, carry = self.collect_rollout(*carry)
             train_info = self.agent.learn_device(traj)
             self.learn_steps += 1
+            (steps,) = agree(self.global_step)
 
             if self.global_step - last_log >= args.logger_frequency:
                 last_log = self.global_step
@@ -195,13 +211,13 @@ class OnPolicyTrainer(BaseTrainer):
                         f"{eval_info['reward_mean']:.1f} +- {eval_info['reward_std']:.1f}"
                     )
 
-            if saving and self.global_step - last_save >= args.save_frequency:
-                last_save = self.global_step
-                if self.is_main_process:
+            if saving and steps - last_save >= args.save_frequency:
+                last_save = steps
+                if saver:
                     self.agent.save_checkpoint(f"{self.model_save_dir}/ckpt_{self.global_step}")
                     self.save_resume()
 
-        if saving and self.is_main_process:
+        if saving and saver:
             self.agent.save_checkpoint(f"{self.model_save_dir}/ckpt_final")
             self.save_resume()
         self.last_train_info = get_metrics(train_info)

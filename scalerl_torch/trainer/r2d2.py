@@ -17,9 +17,9 @@ Port of ``scalerl_tpu/trainer/r2d2.py``:
 The running max priority stays on the device: no learn step reads it to
 the host; a checkpoint reads it once.  Resume restores the agent, the whole
 replay (storage, stored cores, priorities, cursors), the frame counter and
-the max priority.  A data-parallel agent needs ``data/sharded_replay.py``
-and ``parallel/mesh.py``, which are not ported: ``R2D2Agent.enable_mesh``
-raises.
+the max priority.  A meshed agent (``R2D2Agent.enable_mesh``) learns on its
+rows of each sampled batch and hands back every priority; the JAX
+trainer's sharded replay (``data/sharded_replay.py``) is not ported.
 """
 
 from __future__ import annotations

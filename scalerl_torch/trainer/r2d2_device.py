@@ -17,8 +17,8 @@ through the agent's public ``learn_sequences``.  Every warm iteration runs
 under ``torch.cuda.set_sync_debug_mode("error")``: no host sync, the running
 max priority included, until a log boundary reads the metrics in one copy.
 
-``mesh=`` (the JAX trainer's sharded fused loop) needs ``parallel/mesh.py``
-and ``data/sharded_replay.py`` and raises.
+``mesh=`` (the JAX trainer's sharded fused loop) needs
+``data/sharded_replay.py`` and raises.
 """
 
 from __future__ import annotations
@@ -71,8 +71,8 @@ class DeviceR2D2Trainer(BaseTrainer):
     ) -> None:
         if mesh is not None:
             raise NotImplementedError(
-                "the sharded fused R2D2 loop (mesh=) needs parallel/mesh.py and "
-                "data/sharded_replay.py, which are not ported yet")
+                "the sharded fused R2D2 loop (mesh=) needs data/sharded_replay.py, which "
+                "is not ported yet")
         super().__init__(args, run_name=run_name)
         if venv.device != agent.device:
             raise ValueError(f"the env runs on {venv.device}, the agent on {agent.device}")

@@ -23,9 +23,10 @@ Once a round's shapes are warm, steps 3 and 4 run under
 :class:`DisaggSequenceRLTrainer` is the same learn half over the
 disaggregated dataflow (``genrl/disagg.py``): generation hosts stream
 completed sequences into the learner's replay, and quantized snapshots flow
-back; with a ledger directory it saves and resumes its whole plane.  The
-dp x mp mesh hookup is not ported (``RLArguments`` refuses ``dp_size`` and
-``mp_size``).
+back; with a ledger directory it saves and resumes its whole plane.  Both
+resolve ``RLArguments``' ``mesh_shape``/``dp_size``/``mp_size`` into the
+agent's dp x mp mesh (``parallel/train_step.py::maybe_enable_mesh_from_args``)
+and refuse one that spans several processes.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from scalerl_torch.genrl.rollout import (
 from scalerl_torch.genrl.task import TokenRecallTask
 from scalerl_torch.models.transformer import TransformerPolicy
 from scalerl_torch.ops.cuda_segment_attention import make_segment_attn_fn
+from scalerl_torch.parallel.train_step import maybe_enable_mesh_from_args, multi_rank
 from scalerl_torch.runtime import telemetry, tracing
 from scalerl_torch.runtime.dispatch import steady_state_guard
 from scalerl_torch.utils.buckets import bucket_for, default_buckets
@@ -170,6 +172,13 @@ class _LearnHalf:
         ):
             raise ValueError(f"agent lives on {self.agent.device}, trainer on {self.device}")
         self.device = self.agent.device
+        maybe_enable_mesh_from_args(self.agent, args)
+        if multi_rank(self.agent.mesh):
+            raise ValueError(
+                "the sequence-RL trainers run in one process: their rounds, preemption and "
+                "generation plane are not agreed across ranks, so a mesh of "
+                f"{self.agent.mesh.size} ranks would desynchronise them; use a one-rank mesh "
+                "here, or TokenPPOAgent.enable_mesh with the learn batches fed on every rank")
 
     def _init_replay(self, prompt_pad: int, response_pad: int) -> None:
         """The replay's geometry is the LARGEST bucket pair, so one buffer

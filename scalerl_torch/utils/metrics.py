@@ -1,10 +1,11 @@
-"""Episode accounting for vector envs (port of ``EpisodeMetrics`` of
+"""Episode accounting for vector envs (port of ``EpisodeMetrics``,
+``calculate_vectorized_scores`` and ``calculate_mean`` of
 ``scalerl_tpu/utils/metrics.py``).  Plain numpy on the host: episode
 boundaries are data-dependent."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 
@@ -53,3 +54,34 @@ class EpisodeMetrics:
             "return_min": float(np.min(rets)),
             "length_mean": float(np.mean(lens)),
         }
+
+
+def calculate_vectorized_scores(rewards: np.ndarray, dones: np.ndarray,
+                                include_unterminated: bool = False) -> List[float]:
+    """Split ``[T, N]`` reward/done arrays into completed-episode returns,
+    env by env; ``include_unterminated`` adds each env's open episode."""
+    rewards = np.asarray(rewards, dtype=np.float64)
+    dones = np.asarray(dones).astype(bool)
+    if rewards.ndim == 1:
+        rewards, dones = rewards[:, None], dones[:, None]
+    scores: List[float] = []
+    for env in range(rewards.shape[1]):
+        acc, steps = 0.0, 0
+        for r, d in zip(rewards[:, env], dones[:, env]):
+            acc += r
+            steps += 1
+            if d:
+                scores.append(acc)
+                acc, steps = 0.0, 0
+        if include_unterminated and steps > 0:
+            scores.append(acc)
+    return scores
+
+
+def calculate_mean(dicts: Sequence[Mapping[str, float]]) -> Dict[str, float]:
+    """Average a list of metric dicts key by key (keys may be ragged)."""
+    out: Dict[str, List[float]] = {}
+    for d in dicts:
+        for k, v in d.items():
+            out.setdefault(k, []).append(float(v))
+    return {k: float(np.mean(v)) for k, v in out.items()}

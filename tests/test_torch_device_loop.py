@@ -301,3 +301,100 @@ def test_synthetic_probe_reads_the_policy_in_every_cell():
     params["policy.bias"] = params["policy.bias"].clone()
     params["policy.bias"][2] = -50.0
     assert synthetic_action_probs(agent.model, params, loop.venv)["dead_actions"] == [2]
+
+
+# ---------------------------------------------------------------------------
+# Anakin: N chunks as one dispatch
+
+
+def _clone_tree(tree):
+    from scalerl_torch.utils.tree import tree_map
+
+    return tree_map(torch.clone, tree)
+
+
+def test_run_anakin_equals_run_chunk_for_chunk_bit_for_bit(monkeypatch):
+    """``run_anakin(N)`` from a state, carry and generator state gives the
+    params, carry and per-chunk metric stream of N ``run()`` chunks from
+    the same start, bit for bit, with one batched copy for all N."""
+    _, targs = args_pair(rollout_length=T, batch_size=B, use_pallas=True)
+    agent, loop = _port_loop(targs, seed=4)
+    carry0 = loop.init_carry()
+    state0, gen0 = _clone_tree(agent.state), loop.generator.get_state()
+    n = 3
+    run_stream = []
+    s_run, c_run, m_run = loop.run(_clone_tree(state0), _clone_tree(carry0), num_calls=n,
+                                   on_metrics=lambda i, m: run_stream.append((i, dict(m))),
+                                   instrument=False)
+    loop.generator.set_state(gen0)
+    copies = []
+    real_get = dispatch._device_get
+    monkeypatch.setattr(dispatch, "_device_get", lambda x: copies.append(1) or real_get(x))
+    ana_stream = []
+    s_ana, c_ana, m_ana = loop.run_anakin(_clone_tree(state0), _clone_tree(carry0), num_calls=n,
+                                          on_metrics=lambda i, m: ana_stream.append((i, dict(m))),
+                                          instrument=False)
+    assert len(copies) == 1
+    assert ana_stream == run_stream
+    assert m_ana == m_run and m_ana["chunks_done"] == float(n)
+    for k in s_run.params:
+        assert torch.equal(s_run.params[k], s_ana.params[k]), k
+    from scalerl_torch.utils.tree import tree_leaves
+
+    for a, b in zip(tree_leaves((s_run, c_run)), tree_leaves((s_ana, c_ana))):
+        assert torch.equal(a, b)
+    assert int(s_ana.step) == n * ITERS
+    assert torch.equal(loop.generator.get_state(), _after_run_generator(targs, n))
+
+
+def _after_run_generator(targs, n):
+    agent, loop = _port_loop(targs, seed=4)
+    loop.run(agent.state, loop.init_carry(), num_calls=n, instrument=False)
+    return loop.generator.get_state()
+
+
+def test_run_anakin_metric_keys_match_jax_and_meters_mark_once():
+    from scalerl_torch.runtime import telemetry
+
+    jargs, targs = args_pair(rollout_length=T, batch_size=B, use_pallas=True)
+    jagent, jloop = _jax_loop(jargs)
+    key = jax.random.PRNGKey(0)
+    # num_calls=2: the JAX run_anakin(num_calls=1) raises TypeError, since
+    # its get_metrics returns one-element arrays as floats
+    _, _, jmetrics = jloop.run_anakin(jagent.state, jloop.init_carry(key), key, num_calls=2,
+                                      instrument=False)
+    telemetry.reset()
+    agent, loop = _port_loop(targs)
+    seen = []
+    state, _, metrics = loop.run_anakin(agent.state, loop.init_carry(), num_calls=2,
+                                        on_metrics=lambda i, m: seen.append((i, set(m))))
+    assert set(metrics) == set(jmetrics)
+    assert [i for i, _ in seen] == [0, 1]
+    _, _, one = loop.run_anakin(state, loop.init_carry(), num_calls=1, instrument=False)
+    assert set(one) == set(jmetrics) and one["chunks_done"] == 1.0
+    assert all(keys == set(jmetrics) - {"chunks_done", "nonfinite_chunks"} for _, keys in seen)
+    snap = telemetry.get_registry().snapshot()
+    assert snap["rates"]["chunks_per_s"]["total"] == 2
+    assert snap["rates"]["fps"]["total"] == 2 * T * B * ITERS
+    # a second call of the same length is the warm one: under the guard
+    assert 2 in loop._superchunk_warm
+    telemetry.reset()
+
+
+@pytest.mark.parametrize("stop_after", [None, 3, 1])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_pipelined_drive_matches_jax_order_and_count(depth, stop_after):
+    import jax.numpy as jnp
+
+    from scalerl_tpu.runtime import dispatch as jdispatch
+
+    def drive(mod, make):
+        payloads = [{"v": make(float(i))} for i in range(6)]
+        seen = []
+        stop = None if stop_after is None else (lambda: len(seen) >= stop_after)
+        n = mod.pipelined_drive(lambda i: payloads[i], num_calls=6,
+                                on_ready=lambda i, m: seen.append((i, m["v"])),
+                                depth=depth, stop=stop)
+        return n, seen
+
+    assert drive(dispatch, torch.tensor) == drive(jdispatch, jnp.float32)

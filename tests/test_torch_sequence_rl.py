@@ -273,13 +273,18 @@ def test_genrl_arguments_defaults_equal_the_jax_ones():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(dp_size=2), "sharded"),
-    (dict(mp_size=2), "sharded"),
+    # the mesh fields validate; resolved in one process they are refused
+    (dict(dp_size=2), "init_process_group"),
+    (dict(mp_size=2), "does not divide"),
     (dict(resume="ckpt"), "disagg_ledger_dir"),
 ])
 def test_unported_fields_are_refused(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        GenRLArguments(**kw).validate()
+    from scalerl_torch.parallel import make_mesh, mesh_spec_from_args
+
+    args = GenRLArguments(**kw)
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        args.validate()
+        make_mesh(mesh_spec_from_args(args))
 
 
 @pytest.mark.parametrize("kw,match", [
