@@ -427,6 +427,32 @@ no result line:
     to the unmeshed step's), the IMPALA step and the DQN step on a PER
     batch (``LEARN_TOL``, V-trace and PER launches counted), each against
     the same agent unmeshed; the group is destroyed at the phase's end.
+58. ``mesh_replay`` (run after ``r2d2_host``): a one-rank nccl group; the
+    sharded replays of ``data/sharded_replay.py`` at dp = 1, each against
+    its unsharded buffer fed the same: the transition buffer on
+    ``apex_train``'s plane (3,640 rows x 288 lanes = 1,048,320
+    transitions, batch 512, ``use_pallas``) and the sequence ring on
+    ``r2d2_device``'s (2,048 sequences of 21 x 84x84x4 uint8, batch 16):
+    the state bit-equal after a bulk fill and inserts through both, a
+    sample from the same uniforms with exact indices and rows and weights
+    within ``MESH_WEIGHT_TOL``, a write-back bit-equal to the plain
+    version (the transitions' through the update kernel); one sample call
+    (two kernel launches) a sample, one update launch a transition
+    write-back (none for sequences, a plain scatter as in JAX); µs a
+    sample and a write-back of both buffers.
+59. ``mesh_loops``: a one-rank nccl group; ``DeviceActorLearnerLoop(mesh=)``
+    at ``impala_fused``'s width and the mesh-fused
+    ``DeviceR2D2Trainer(mesh=)`` at ``r2d2_device``'s settings
+    (``MESH_R2D2_ITERS`` iterations), each against its unmeshed twin from
+    the same state and generator under deterministic algorithms:
+    bit-equal (or, where an op without a deterministic version or the
+    keep-empty write-back makes a difference, named, within
+    ``LEARN_TOL``), warm chunks and iterations under sync debug mode
+    "error", V-trace 5 launches a chunk, sample launches = learn steps;
+    then ``examples/train_apex_torch.py`` with ``--mesh-shape dp=1`` at
+    ``apex_train``'s settings for ``MESH_APEX_S`` on its
+    ``ShardedPrioritizedReplay``, the sample and update kernels launched
+    once each a learn step; frames/s of each beside its twin's.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -4104,6 +4130,8 @@ def phase_apex_train(report: dict) -> None:
     restore_diff = _trees_bit_equal(_host_tree(resumed._resume_pytree()), saves[-1]) \
         if saves else ["no save"]
     resumed.close()
+    report["apex_train"] = {"env_steps_per_s": trainer.global_step / seconds,
+                            "learn_steps_per_s": trainer.learn_steps / seconds}
     emit("apex_train", actors=trainer.args.num_actors, envs_per_actor=trainer.envs_per_actor,
          slab=trainer.buffer.num_envs, replay=[trainer.buffer.capacity, trainer.buffer.num_envs],
          batch=PER_BATCH, seconds=seconds, env_steps=trainer.global_step,
@@ -6975,6 +7003,522 @@ def phase_mesh_learn(report: dict) -> None:
         raise AssertionError(f"PER launches meshed {dq['mesh']}, not {dq['plain']}")
 
 
+MESH_APEX_ROWS, MESH_APEX_LANES = 3640, 288  # apex_train's plane: 2^20 // 288 rows of 288
+MESH_REPLAY_ADDS = 64  # global adds through both buffers' inserts after the bulk fill
+MESH_SEQ_INSERTS = 4  # inserts of 16 sequences after the bulk fill
+MESH_TIMED_REPS = 20
+MESH_WEIGHT_TOL = 1e-6  # importance weights, sharded vs unsharded sample
+MESH_R2D2_ITERS = 40  # DeviceR2D2Trainer iterations a twin
+MESH_APEX_S = 5.0
+
+
+def _one_rank_group() -> None:
+    """A one-rank nccl process group; the caller destroys it."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+
+
+def _one_rank_mesh():
+    from scalerl_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh("dp=1")
+    if mesh.device_mesh is None:
+        raise AssertionError("the one-rank mesh has no DeviceMesh")
+    return mesh
+
+
+def _planes_equal(a: dict, b: dict) -> list:
+    """The names of the planes that differ between two dicts of tensors."""
+    return [k for k in a if not (a[k].shape == b[k].shape and bool((a[k] == b[k]).all()))]
+
+
+def _mesh_replay_transitions(mesh, card: str) -> dict:
+    """``ShardedPrioritizedReplay`` at dp = 1 on ``apex_train``'s plane
+    against ``PrioritizedReplayBuffer`` fed the same: state, sample (the
+    same uniforms) and write-back, launches counted, times beside."""
+    import dataclasses
+
+    import torch
+
+    from scalerl_torch.data.prioritized import PrioritizedReplayBuffer, per_sample_from_uniforms
+    from scalerl_torch.data.sharded_replay import ShardedPrioritizedReplay
+    from scalerl_torch.ops import cuda_per
+    from scalerl_torch.ops.per import update_priorities_blocks
+
+    R, L = MESH_APEX_ROWS, MESH_APEX_LANES
+    kw = dict(alpha=0.6, n_step=1, gamma=0.99, sample_method="pallas", update_method="pallas",
+              extra_fields={"n_steps": ((), torch.int32)})
+    sharded = ShardedPrioritizedReplay((4,), R, mesh, num_envs=L, **kw)
+    plain = PrioritizedReplayBuffer((4,), R, num_envs=L, **kw)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    done = torch.rand(R, L, generator=g, device="cuda") < 0.05
+    bulk = dict(obs=torch.randn(R, L, 4, generator=g, device="cuda"),
+                next_obs=torch.randn(R, L, 4, generator=g, device="cuda"),
+                action=torch.randint(0, 2, (R, L), generator=g, device="cuda"),
+                reward=torch.rand(R, L, generator=g, device="cuda"), done=done,
+                n_steps=torch.randint(1, 4, (R, L), generator=g, device="cuda",
+                                      dtype=torch.int32))
+    prio = torch.rand(R, L, generator=g, device="cuda") * 2 + 0.05
+    for buf in (sharded, plain):
+        st = buf.state
+        for k, v in bulk.items():
+            st.replay.storage[k].copy_(v)
+        st.priorities.copy_(prio)
+        buf.state = dataclasses.replace(st, replay=dataclasses.replace(st.replay, pos=0, size=R))
+    for _ in range(MESH_REPLAY_ADDS):  # the insert path, wrapping the full ring
+        step = dict(obs=torch.randn(L, 4, generator=g, device="cuda"),
+                    next_obs=torch.randn(L, 4, generator=g, device="cuda"),
+                    action=torch.randint(0, 2, (L,), generator=g, device="cuda"),
+                    reward=torch.rand(L, generator=g, device="cuda"),
+                    done=torch.rand(L, generator=g, device="cuda") < 0.05,
+                    n_steps=torch.randint(1, 4, (L,), generator=g, device="cuda",
+                                          dtype=torch.int32))
+        p = torch.rand(L, generator=g, device="cuda") * 4
+        sharded.add_with_priorities(step, p)
+        plain.add_with_priorities(step, p)
+    full = sharded.full_state()
+    state_diff = _planes_equal(full.replay.storage, plain.state.replay.storage)
+    state_diff += _planes_equal({"priorities": full.priorities,
+                                 "max_priority": full.max_priority},
+                                {"priorities": plain.state.priorities,
+                                 "max_priority": plain.state.max_priority})
+    if (full.replay.pos, full.replay.size) != (plain.state.replay.pos, plain.state.replay.size):
+        state_diff.append("cursors")
+
+    u = torch.rand(PER_BATCH, generator=g, device="cuda")
+    _zero_launch_counts()
+    got = sharded.sample(PER_BATCH, beta=0.4, u=u)
+    torch.cuda.synchronize()
+    sample_calls = cuda_per.sample_launches
+    want = per_sample_from_uniforms(plain.state, u, 0.6, 0.4, 1, 0.99, "pallas")
+    sample_diff = _planes_equal({k: v for k, v in got.items() if k != "weights"},
+                                {k: v for k, v in want.items() if k != "weights"})
+    weight_err = float((got["weights"] - want["weights"]).abs().max())
+
+    idx = got["indices"]
+    td = torch.rand(PER_BATCH, generator=g, device="cuda") * 3
+    before = sharded.state.priorities.clone()
+    _zero_launch_counts()
+    sharded.update_priorities(idx, td)
+    torch.cuda.synchronize()
+    update_launches = cuda_per.update_launches
+    update_priorities_blocks(before.view(-1), idx, td.clamp_min(1e-6), method="xla")
+    plain.update_priorities(idx, td)
+    write_back_equal = (bool(torch.equal(sharded.state.priorities, before))
+                        and bool(torch.equal(sharded.state.priorities, plain.state.priorities))
+                        and bool(torch.equal(sharded.state.max_priority,
+                                             plain.state.max_priority)))
+    times = {
+        "sharded_sample_us": 1e3 * eager_time_ms(
+            lambda: sharded.sample(PER_BATCH, beta=0.4, u=u), MESH_TIMED_REPS),
+        "plain_sample_us": 1e3 * eager_time_ms(
+            lambda: per_sample_from_uniforms(plain.state, u, 0.6, 0.4, 1, 0.99, "pallas"),
+            MESH_TIMED_REPS),
+        "sharded_write_back_us": 1e3 * eager_time_ms(
+            lambda: sharded.update_priorities(idx, td), MESH_TIMED_REPS),
+        "plain_write_back_us": 1e3 * eager_time_ms(
+            lambda: plain.update_priorities(idx, td), MESH_TIMED_REPS),
+    }
+    return dict(plane=[R, L], transitions=R * L, batch=PER_BATCH, adds=MESH_REPLAY_ADDS,
+                state_mismatches=state_diff, sample_mismatches=sample_diff,
+                weight_max_abs_err=weight_err, weight_tol=MESH_WEIGHT_TOL,
+                sample_calls=sample_calls, sample_kernel_launches=2 * sample_calls,
+                update_launches=update_launches, write_back_bit_equal=write_back_equal,
+                **times, card=card)
+
+
+def _mesh_replay_sequences(mesh, card: str) -> dict:
+    """``ShardedSequenceReplay`` at dp = 1 on ``r2d2_device``'s geometry
+    (2,048 sequences of 21 x 84x84x4 uint8) against the sequence ring fed
+    the same: state, sample and keep-empty write-back, times beside."""
+    import dataclasses
+
+    import torch
+
+    from scalerl_torch.data import sequence_replay as sr
+    from scalerl_torch.data.sharded_replay import ShardedSequenceReplay
+    from scalerl_torch.ops import cuda_per
+    from scalerl_torch.trainer.r2d2 import sequence_fields
+
+    slots, T1, B, core_dim = R2D2_SLOTS, 21, R2D2_BATCH, 256
+    fields = sequence_fields((84, 84, 4), T1)
+    sharded = ShardedSequenceReplay(fields, ((core_dim,),), slots, mesh, alpha=0.6, beta=0.4,
+                                    sample_method="pallas")
+    plain = sr.seq_init(fields, ((core_dim,),), slots, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def sequences(n):
+        return ({"obs": torch.randint(0, 256, (n, T1, 84, 84, 4), generator=g, device="cuda",
+                                      dtype=torch.uint8),
+                 "action": torch.randint(0, 6, (n, T1), generator=g, device="cuda",
+                                         dtype=torch.int32),
+                 "reward": torch.randn(n, T1, generator=g, device="cuda"),
+                 "done": torch.rand(n, T1, generator=g, device="cuda") < 0.05},
+                ((torch.randn(n, core_dim, generator=g, device="cuda"),
+                  torch.randn(n, core_dim, generator=g, device="cuda")),),
+                torch.rand(n, generator=g, device="cuda") * 2 + 0.05)
+
+    bulk, core, prio = sequences(slots)
+    for st in (sharded.state, plain):
+        for k, v in bulk.items():
+            st.storage[k].copy_(v)
+        st.core[0][0].copy_(core[0][0])
+        st.core[0][1].copy_(core[0][1])
+        st.priorities.copy_(prio)
+    del bulk, core
+    sharded.state = dataclasses.replace(sharded.state, pos=0, size=slots)
+    plain = dataclasses.replace(plain, pos=0, size=slots)
+    for _ in range(MESH_SEQ_INSERTS):
+        batch, core, prio = sequences(B)
+        sharded.add(batch, core, prio)
+        plain = sr.seq_add(plain, batch, core, prio)
+    full = sharded.full_state()
+    state_diff = _planes_equal(full.storage, plain.storage)
+    state_diff += _planes_equal({"c": full.core[0][0], "h": full.core[0][1],
+                                 "priorities": full.priorities},
+                                {"c": plain.core[0][0], "h": plain.core[0][1],
+                                 "priorities": plain.priorities})
+    if (full.pos, full.size) != (plain.pos, plain.size):
+        state_diff.append("cursors")
+    del full
+
+    u = torch.rand(B, generator=g, device="cuda")
+    _zero_launch_counts()
+    f, c, idx, w = sharded.sample(B, u=u)
+    torch.cuda.synchronize()
+    sample_calls = cuda_per.sample_launches
+    wf, wc, widx, ww = sr.seq_sample(plain, None, B, alpha=0.6, beta=0.4, method="pallas", u=u)
+    sample_diff = _planes_equal({**f, "c": c[0][0], "h": c[0][1], "idx": idx},
+                                {**wf, "c": wc[0][0], "h": wc[0][1], "idx": widx})
+    weight_err = float((w - ww).abs().max())
+    new_p = torch.rand(B, generator=g, device="cuda") + 0.1
+    _zero_launch_counts()
+    sharded.update_priorities(idx, new_p)
+    plain = sr.seq_update_priorities_keep_empty(plain, widx, new_p)
+    torch.cuda.synchronize()
+    write_back_equal = bool(torch.equal(sharded.state.priorities, plain.priorities))
+    update_launches = cuda_per.update_launches
+    times = {
+        "sharded_sample_us": 1e3 * eager_time_ms(lambda: sharded.sample(B, u=u),
+                                                 MESH_TIMED_REPS),
+        "plain_sample_us": 1e3 * eager_time_ms(
+            lambda: sr.seq_sample(plain, None, B, alpha=0.6, beta=0.4, method="pallas", u=u),
+            MESH_TIMED_REPS),
+        "sharded_write_back_us": 1e3 * eager_time_ms(
+            lambda: sharded.update_priorities(idx, new_p), MESH_TIMED_REPS),
+        "plain_write_back_us": 1e3 * eager_time_ms(
+            lambda: sr.seq_update_priorities_keep_empty(plain, widx, new_p), MESH_TIMED_REPS),
+    }
+    return dict(slots=slots, T1=T1, obs=[84, 84, 4], batch=B, inserts=MESH_SEQ_INSERTS,
+                state_mismatches=state_diff, sample_mismatches=sample_diff,
+                weight_max_abs_err=weight_err, weight_tol=MESH_WEIGHT_TOL,
+                sample_calls=sample_calls, sample_kernel_launches=2 * sample_calls,
+                update_launches=update_launches, write_back_bit_equal=write_back_equal,
+                **times, card=card)
+
+
+def phase_mesh_replay(report: dict) -> None:
+    """The sharded replays (``data/sharded_replay.py``) at dp = 1 on a
+    one-rank nccl group, each against its unsharded buffer fed the same:
+    the transition buffer on ``apex_train``'s 2^20 plane with
+    ``use_pallas`` (state bit-equal, a sample with the same uniforms gives
+    exact indices and weights within ``MESH_WEIGHT_TOL``, a write-back
+    through the update kernel bit-equal to the plain version; the sample
+    kernels launch twice a sample, the update kernel once a write-back),
+    and the sequence ring on ``r2d2_device``'s geometry (the same checks;
+    its keep-empty write-back is a plain scatter, as in JAX).  µs a sample
+    and a write-back of both, in this run.  The group is destroyed at the
+    end."""
+    import torch
+    import torch.distributed as dist
+
+    _one_rank_group()
+    try:
+        mesh = _one_rank_mesh()
+        trans = _mesh_replay_transitions(mesh, report["card"])
+        seqs = _mesh_replay_sequences(mesh, report["card"])
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    emit("mesh_replay", transitions=trans, sequences=seqs, mesh="dp=1", backend="nccl",
+         card=report["card"])
+    report["mesh_replay"] = {"transitions": trans, "sequences": seqs}
+    failed = []
+    for name, out, update in (("transitions", trans, 1), ("sequences", seqs, 0)):
+        checks = {
+            "state bit-equal": not out["state_mismatches"],
+            "exact indices and rows": not out["sample_mismatches"],
+            "weights": out["weight_max_abs_err"] <= MESH_WEIGHT_TOL,
+            "one sample call (2 kernel launches)": out["sample_calls"] == 1,
+            "update launches": out["update_launches"] == update,
+            "write-back bit-equal": out["write_back_bit_equal"],
+        }
+        failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh_replay: {failed}")
+
+
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+    cuBLAS's deterministic workspace, as a context that records the ops
+    that have no deterministic version."""
+    import contextlib
+    import warnings
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        prev_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        found: list = []
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                yield found
+            found += sorted({str(w.message).split(" does not have")[0][:120]
+                             for w in caught if "deterministic" in str(w.message)})
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if prev_cfg is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_cfg
+
+    return ctx()
+
+
+def _mesh_device_loop(card: str) -> dict:
+    """The fused loop at ``impala_fused``'s width, meshed (dp = 1) and not,
+    ``MAIN_CHUNKS`` chunks a run from one state, carry and generator state
+    under deterministic algorithms, in turns (plain, mesh, mesh, plain);
+    warm chunks under sync debug mode "error"; V-trace launches of a meshed
+    run counted."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+    from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ImpalaArguments(use_lstm=False, hidden_size=512, rollout_length=MAIN_T,
+                           batch_size=MAIN_B, max_timesteps=0, compute_dtype="bfloat16",
+                           use_pallas=True)
+    env = SyntheticPixelEnv(num_envs=MAIN_B)
+    agent = ImpalaAgent(args, obs_shape=env.observation_shape, num_actions=env.num_actions)
+    loops = {"plain": DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), MAIN_T,
+                                             iters_per_call=MAIN_ITERS),
+             "mesh": DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(), MAIN_T,
+                                            iters_per_call=MAIN_ITERS, mesh=_one_rank_mesh())}
+    state, carry, _ = loops["plain"].run(agent.state, loops["plain"].init_carry(), 1)
+    loops["mesh"].run(_clone_tree(state), _clone_tree(carry), 1)  # its own warm-up chunk
+    gen0 = loops["plain"].generator.get_state()
+    runs: dict = {}
+    seconds: dict = {"plain": [], "mesh": []}
+    with _deterministic() as nondeterministic:
+        # in turns, plain, mesh, mesh, plain: each twin pays the same warmth
+        for name in ("plain", "mesh", "mesh", "plain"):
+            loop = loops[name]
+            loop.generator.set_state(gen0)
+            stream: list = []
+            cuda_vtrace.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, c, _ = loop.run(_clone_tree(state), _clone_tree(carry), MAIN_CHUNKS,
+                               on_metrics=lambda i, m: stream.append(m))
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            runs.setdefault(name, dict(state=s, carry=c, stream=stream,
+                                       vtrace=cuda_vtrace.launches,
+                                       gen=loop.generator.get_state()))
+    p, m = runs["plain"], runs["mesh"]
+    bad, worst = _tree_diff((p["state"], p["carry"]), (m["state"], m["carry"]))
+    frames = MAIN_CHUNKS * MAIN_ITERS * MAIN_T * MAIN_B
+    return dict(B=MAIN_B, T=MAIN_T, iters_per_call=MAIN_ITERS, chunks=MAIN_CHUNKS,
+                order="plain, mesh, mesh, plain",
+                mesh_env_frames_per_s=[frames / x for x in seconds["mesh"]],
+                plain_env_frames_per_s=[frames / x for x in seconds["plain"]],
+                bit_equal=bad == 0 and p["stream"] == m["stream"],
+                differing_leaves=bad, max_abs_diff=worst,
+                metric_stream_equal=p["stream"] == m["stream"],
+                generator_equal=bool(torch.equal(p["gen"], m["gen"])),
+                vtrace_launches_mesh=m["vtrace"], vtrace_launches_plain=p["vtrace"],
+                nondeterministic_ops=nondeterministic, warm_sync_debug_mode="error", card=card)
+
+
+def _mesh_device_r2d2(card: str) -> dict:
+    """``DeviceR2D2Trainer`` at ``r2d2_device``'s settings, meshed (dp = 1)
+    and not, ``MESH_R2D2_ITERS`` iterations each from the same seed under
+    deterministic algorithms; warm iterations under sync debug mode
+    "error"; launches counted."""
+    import torch
+
+    from scalerl_torch.agents.r2d2 import R2D2Agent
+    from scalerl_torch.config import R2D2Arguments
+    from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.trainer.r2d2_device import DeviceR2D2Trainer
+
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = R2D2Arguments(env_id="SyntheticPixel-v0", use_pallas=True, logger_backend="none",
+                         telemetry_interval_s=0.0, save_model=False, logger_frequency=10**9,
+                         replay_capacity=R2D2_SLOTS, work_dir=_work_dir("mesh_r2d2_device"))
+    env = SyntheticPixelEnv(16)
+    frames = MESH_R2D2_ITERS * args.rollout_length * env.num_envs
+    runs = {}
+    with _deterministic() as nondeterministic:
+        for name, mesh in (("plain", None), ("mesh", _one_rank_mesh())):
+            agent = R2D2Agent(args, env.observation_shape, env.num_actions)
+            trainer = DeviceR2D2Trainer(args, agent, env, mesh=mesh)
+            _zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = trainer.train(total_frames=frames)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs[name] = dict(state=_clone_tree(agent.state), launches=_launch_counts(),
+                              prio=trainer.replay.priorities.clone(), seconds=seconds,
+                              learn_steps=int(agent.state.step), result=result)
+            trainer.close()
+            del trainer, agent
+            torch.cuda.empty_cache()
+    p, m = runs["plain"], runs["mesh"]
+    bad, worst = _tree_diff(p["state"], m["state"])
+    prio_equal = bool(torch.equal(p["prio"], m["prio"]))
+    # where the two differ, name the cause: a slot the plain write-back made
+    # live that the keep-empty one left empty
+    resurrected = int(((p["prio"] > 0) & (m["prio"] == 0)).sum())
+    return dict(envs=env.num_envs, iterations=MESH_R2D2_ITERS, batch=args.batch_size,
+                replay_slots=args.replay_capacity,
+                mesh_env_frames_per_s=m["result"]["env_frames"] / m["seconds"],
+                plain_env_frames_per_s=p["result"]["env_frames"] / p["seconds"],
+                learn_steps_mesh=m["learn_steps"], learn_steps_plain=p["learn_steps"],
+                launches_mesh=m["launches"], bit_equal=bad == 0 and prio_equal,
+                differing_leaves=bad, max_abs_diff=worst, priorities_equal=prio_equal,
+                slots_the_plain_write_back_made_live=resurrected,
+                mesh_total_loss=m["result"].get("total_loss"),
+                mesh_skipped_steps=m["result"].get("skipped_steps"),
+                nondeterministic_ops=nondeterministic, warm_sync_debug_mode="error", card=card)
+
+
+def _mesh_apex(report: dict) -> dict:
+    """``examples/train_apex_torch.py``'s ``main()`` at ``apex_train``'s
+    settings with ``--mesh-shape dp=1`` for ``MESH_APEX_S`` (SIGTERM;
+    the guard saves), every kernel's launch count zeroed just before."""
+    import threading
+    from unittest import mock
+
+    import torch
+
+    from scalerl_torch.data.sharded_replay import ShardedPrioritizedReplay
+    from scalerl_torch.trainer.apex import ApexTrainer
+
+    set_tf32(False)
+    argv = ["--use-pallas", "--env-backend", "jax", "--num-envs", "16", "--n-steps", "3",
+            "--buffer-size", str(1 << 20), "--batch-size", str(PER_BATCH),
+            "--max-timesteps", str(10**9), "--eval-frequency", str(10**9),
+            "--logger-frequency", "5000", "--save-frequency", str(10**9),
+            "--logger-backend", "none", "--telemetry-interval-s", "0",
+            "--work-dir", _work_dir("mesh_apex"), "--mesh-shape", "dp=1"]
+    started, run = threading.Event(), ApexTrainer.run
+
+    def timed_run(self):
+        self.t0 = time.perf_counter()
+        started.set()
+        try:
+            return run(self)
+        finally:
+            self.t1 = time.perf_counter()
+
+    killer, done = _sigterm_after(MESH_APEX_S, started)
+    _zero_launch_counts()
+    try:
+        with mock.patch.object(ApexTrainer, "run", timed_run):
+            out = _example_module("train_apex_torch").main(argv)
+    finally:
+        done.set()
+        killer.join()
+    torch.cuda.synchronize()
+    trainer = out["trainer"]
+    seconds = trainer.t1 - trainer.t0
+    launches = _launch_counts()
+    losses = [m["loss"] for _, kind, m in trainer.log_history if kind == "train" and "loss" in m]
+    twin = report.get("apex_train", {})
+    return dict(sharded=isinstance(trainer.buffer, ShardedPrioritizedReplay),
+                meshed=out["agent"].mesh is not None,
+                replay_shard=getattr(out["agent"]._learn, "batch_mode", None) == "replay_shard",
+                replay=[trainer.buffer.capacity, trainer.buffer.num_envs], seconds=seconds,
+                env_steps=trainer.global_step, mesh_env_steps_per_s=trainer.global_step / seconds,
+                plain_env_steps_per_s=twin.get("env_steps_per_s"),
+                learn_steps=trainer.learn_steps,
+                mesh_learn_steps_per_s=trainer.learn_steps / seconds,
+                plain_learn_steps_per_s=twin.get("learn_steps_per_s"), launches=launches,
+                finite=bool(losses) and all(math.isfinite(x) for x in losses),
+                actor_errors=sum(a.error is not None for a in trainer.actors),
+                card=report["card"])
+
+
+def phase_mesh_loops(report: dict) -> None:
+    """The loops and trainers under a one-rank nccl mesh, each beside its
+    unmeshed twin: the fused device loop (``DeviceActorLearnerLoop(mesh=)``)
+    and the mesh-fused ``DeviceR2D2Trainer``, both
+    bit-equal to the unmeshed runs under deterministic algorithms (or, where
+    an op without a deterministic version or the keep-empty write-back makes
+    a difference, named, within ``LEARN_TOL``), V-trace launches 5 a chunk,
+    sample launches = learn steps; and the Ape-X example with
+    ``--mesh-shape dp=1`` on its ``ShardedPrioritizedReplay``, the sample
+    and update kernels launched once each a learn step.  frames/s of each
+    beside its twin's.  The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+
+    _one_rank_group()
+    try:
+        loop = _mesh_device_loop(report["card"])
+        r2d2 = _mesh_device_r2d2(report["card"])
+        apex = _mesh_apex(report)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    emit("mesh_loops", device_loop=loop, r2d2_device=r2d2, apex=apex, mesh="dp=1",
+         backend="nccl", tol=LEARN_TOL["kernel_vs_plain_update_abs"], card=report["card"])
+    report["mesh_loops"] = {"device_loop": loop, "r2d2_device": r2d2, "apex": apex}
+    tol = LEARN_TOL["kernel_vs_plain_update_abs"]
+
+    def close(out) -> bool:
+        cause = out["nondeterministic_ops"] or out.get("slots_the_plain_write_back_made_live")
+        return out["bit_equal"] or (bool(cause) and out["max_abs_diff"] <= tol)
+
+    checks = {
+        "device loop = unmeshed loop": close(loop) and loop["generator_equal"],
+        "vtrace launches 5 a chunk": loop["vtrace_launches_mesh"] == MAIN_CHUNKS * MAIN_ITERS
+        == loop["vtrace_launches_plain"],
+        "device r2d2 = unmeshed trainer": close(r2d2),
+        "device r2d2 learn steps": r2d2["learn_steps_mesh"] == r2d2["learn_steps_plain"] > 0,
+        "device r2d2 sample launches = learn steps":
+            r2d2["launches_mesh"]["per_sample"] == r2d2["learn_steps_mesh"],
+        "device r2d2 finite": math.isfinite(r2d2["mesh_total_loss"] or float("nan"))
+        and r2d2["mesh_skipped_steps"] == 0.0,
+        "apex sharded and meshed": apex["sharded"] and apex["meshed"] and apex["replay_shard"],
+        "apex learn steps": apex["learn_steps"] > 0,
+        "apex sample launches = learn steps": apex["launches"]["per_sample"]
+        == apex["learn_steps"],
+        "apex update launches = learn steps": apex["launches"]["per_update"]
+        == apex["learn_steps"],
+        "apex finite, no actor errors": apex["finite"] and apex["actor_errors"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh_loops: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_impala_anakin, phase_learn_synthetic, phase_learn_catch, phase_learn_recall,
@@ -6985,7 +7529,8 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_mesh_learn,
           phase_impala_trainer_device, phase_impala_trainer_host, phase_learn_cartpole_host,
           phase_dqn_resume, phase_dqn_rainbow_learn, phase_apex_train, phase_r2d2_device,
-          phase_learn_r2d2_recall_device, phase_r2d2_host, phase_shm_ring,
+          phase_learn_r2d2_recall_device, phase_r2d2_host, phase_mesh_replay,
+          phase_mesh_loops, phase_shm_ring,
           phase_parallel_dqn, phase_process_impala, phase_impact_learn, phase_impact_train,
           phase_onpolicy_train, phase_continuous_learn, phase_continuous_train,
           phase_serving_flush, phase_impala_serving, phase_serving_traffic,

@@ -408,7 +408,9 @@ class DQNAgent(BaseAgent):
         """Data-parallel learn step over a mesh
         (``parallel/train_step.py::enable_offpolicy_mesh``): the replay
         batch splits over ``dp`` x ``fsdp`` and the per-sample |TD| comes
-        back whole for the PER write-back."""
+        back whole for the PER write-back (in the step's ``"replay_shard"``
+        batch mode, which ``ApexTrainer`` asks for over its sharded replay,
+        each rank's batch is its shard's rows and the |TD| those rows')."""
         from scalerl_torch.parallel.train_step import enable_offpolicy_mesh
 
         enable_offpolicy_mesh(self, mesh_or_spec)

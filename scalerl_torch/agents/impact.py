@@ -44,6 +44,7 @@ from scalerl_torch.data.circular import CircularTrajectoryBuffer
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.ops.losses import baseline_loss, entropy_loss
 from scalerl_torch.ops.vtrace import vtrace_from_logits
+from scalerl_torch.parallel.sharding import batch_mean, batch_sum, reduce_gradients
 from scalerl_torch.parallel.train_step import maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
@@ -119,7 +120,7 @@ def impact_loss(
     ratio = torch.exp(logp_cur - logp_tgt)
     adv = vt.pg_advantages.detach()
     clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
-    pg = -torch.sum(torch.minimum(ratio * adv, clipped * adv))
+    pg = -batch_sum(torch.minimum(ratio * adv, clipped * adv))
     bl = baseline_cost * baseline_loss(vt.vs - values[:-1])
     ent = entropy_cost * entropy_loss(logits[:-1])
     total = pg + bl + ent
@@ -128,10 +129,10 @@ def impact_loss(
         "pg_loss": pg,
         "baseline_loss": bl,
         "entropy_loss": ent,
-        "mean_value": torch.mean(values),
-        "mean_reward": torch.mean(rewards),
-        "mean_ratio": torch.mean(ratio),
-        "mean_clip_frac": torch.mean((torch.abs(ratio - 1.0) > clip_eps).to(torch.float32)),
+        "mean_value": batch_mean(values),
+        "mean_reward": batch_mean(rewards),
+        "mean_ratio": batch_mean(ratio),
+        "mean_clip_frac": batch_mean((torch.abs(ratio - 1.0) > clip_eps).to(torch.float32)),
     }
     return total, {k: v.detach() for k, v in metrics.items()}
 
@@ -155,7 +156,8 @@ def make_impact_learn_fn(
             reward_clipping=args.reward_clipping, rho_clip=args.vtrace_rho_clip,
             c_clip=args.vtrace_c_clip, vtrace_impl=vtrace_impl,
         )
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grads = reduce_gradients(
+            dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
         updates, opt_state = optimizer.update(grads, state.opt_state)
         new_params = {k: state.params[k] + updates[k] for k in state.params}
         new_step = state.step + 1

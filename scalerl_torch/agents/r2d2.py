@@ -279,7 +279,10 @@ class R2D2Agent(BaseAgent):
     def enable_mesh(self, mesh_or_spec) -> None:
         """Data-parallel learn step over a mesh: the sequence batch splits
         over ``dp`` x ``fsdp``, the params by the fsdp/tp rule (replicated:
-        the model has an LSTM core), and the priorities come back whole."""
+        the model has an LSTM core), and the priorities come back whole (in
+        the step's ``"replay_shard"`` batch mode, which ``R2D2Trainer`` asks
+        for over its sharded replay, each rank's batch is its shard's rows
+        and the priorities are those rows')."""
         from scalerl_torch.parallel.mesh import resolve_mesh
         from scalerl_torch.parallel.train_step import make_parallel_learn_fn
 

@@ -100,7 +100,26 @@ def per_sample_from_uniforms(
     The distribution is ``p_i^alpha`` over valid logical rows (those with a
     full n-step window).  ``method``: ``cumsum``, ``hierarchical`` or
     ``pallas`` (the CUDA kernel), as in ``ops/per.py``."""
-    capacity, num_envs = state.priorities.shape
+    num_envs = state.priorities.shape[1]
+    flat_logical, probs, n_rows = per_draw(state, u, alpha, n_step, method)
+    n_valid = float(max(n_rows * num_envs, 1))
+    weights = (n_valid * probs.clamp_min(1e-12)) ** (-beta)
+    weights = weights / weights.max().clamp_min(1e-12)
+
+    batch = gather_transitions(
+        state.replay, flat_logical // num_envs, flat_logical % num_envs, n_step, gamma
+    )
+    batch["weights"] = weights
+    return batch
+
+
+def per_draw(
+    state: PrioritizedState, u: torch.Tensor, alpha: float, n_step: int, method: str
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The draw of :func:`per_sample_from_uniforms`: ``(flat logical
+    indices [B], their probabilities [B], the valid rows)``, stratified
+    over the plane's ``p^alpha`` mass from the uniforms ``u``."""
+    capacity = state.priorities.shape[0]
     batch_size = u.shape[0]
     device = state.priorities.device
     start = _logical_start(state.replay, capacity)
@@ -116,17 +135,8 @@ def per_sample_from_uniforms(
 
     targets = (torch.arange(batch_size, device=device) + u) / batch_size * total
     flat_logical = proportional_sample(flat_p, targets, method=method)
-
     probs = flat_p[flat_logical] / total.clamp_min(1e-12)
-    n_valid = float(max(n_rows * num_envs, 1))
-    weights = (n_valid * probs.clamp_min(1e-12)) ** (-beta)
-    weights = weights / weights.max().clamp_min(1e-12)
-
-    batch = gather_transitions(
-        state.replay, flat_logical // num_envs, flat_logical % num_envs, n_step, gamma
-    )
-    batch["weights"] = weights
-    return batch
+    return flat_logical, probs, n_rows
 
 
 def per_sample(

@@ -20,6 +20,12 @@ does it by hand (``parallel/train_step.py``), with the reductions below:
   ``torch.sum`` and ``torch.mean``.
 - :func:`global_batch` scales a local batch count up to the global one.
 - :func:`batch_all` ands a flag over the shards.
+
+:func:`batch_reduction` spans ``dp`` x ``fsdp`` by default, or the axes it
+is given: the data-parallel loops (``runtime/device_loop.py``,
+``trainer/r2d2_device.py``) run any learn function inside
+``batch_reduction(mesh, (axis_name,))``, the twin of the JAX learn
+functions' ``psum``/``pmean`` over their ``grad_axis``.
 """
 
 from __future__ import annotations
@@ -284,22 +290,29 @@ def pad_to_multiple(x: np.ndarray, multiple: int, axis: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # batch-axis reductions inside the sharded learn step
 
+# (mesh, axes) the batch reductions span, or None outside a sharded step
 _BATCH_MESH: contextvars.ContextVar = contextvars.ContextVar("scalerl_batch_mesh", default=None)
 
 
 @contextmanager
-def batch_reduction(mesh: Mesh) -> Iterator[None]:
+def batch_reduction(mesh: Mesh, axes: Tuple[str, ...] = BATCH_AXES) -> Iterator[None]:
     """Within the block the batch reductions below span the shards of
-    ``mesh``'s ``dp`` x ``fsdp`` ranks (nothing changes on one shard)."""
-    token = _BATCH_MESH.set(mesh if mesh.extent(BATCH_AXES) > 1 else None)
+    ``mesh``'s ``axes`` (``dp`` x ``fsdp`` by default; nothing changes on
+    one shard)."""
+    axes = tuple(axes)
+    token = _BATCH_MESH.set((mesh, axes) if mesh.extent(axes) > 1 else None)
     try:
         yield
     finally:
         _BATCH_MESH.reset(token)
 
 
-def _all_reduce(x: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
-    for axis in BATCH_AXES:
+def axes_all_reduce(x: torch.Tensor, op, mesh: Mesh,
+                    axes: Tuple[str, ...] = BATCH_AXES) -> torch.Tensor:
+    """``x`` reduced in place over the ranks of ``mesh``'s ``axes``, one
+    collective a dim of more than one rank (a sum or a max composes over
+    the dims); the identity on one shard."""
+    for axis in axes:
         group = mesh.group(axis)
         if group is not None:
             dist.all_reduce(x, op=op, group=group)
@@ -310,54 +323,56 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     """``torch.sum(x)`` over the global batch.  Sharded, the value is the
     shards' total and the gradient flows through this shard's part."""
     s = torch.sum(x)
-    mesh = _BATCH_MESH.get()
-    if mesh is None:
+    bound = _BATCH_MESH.get()
+    if bound is None:
         return s
-    total = _all_reduce(s.detach().clone(), dist.ReduceOp.SUM, mesh)
+    total = axes_all_reduce(s.detach().clone(), dist.ReduceOp.SUM, *bound)
     return total + (s - s.detach())
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """``torch.mean(x)`` over the global batch (equal shards)."""
-    mesh = _BATCH_MESH.get()
-    if mesh is None:
+    bound = _BATCH_MESH.get()
+    if bound is None:
         return torch.mean(x)
-    return batch_sum(x) / (x.numel() * mesh.extent(BATCH_AXES))
+    mesh, axes = bound
+    return batch_sum(x) / (x.numel() * mesh.extent(axes))
 
 
 def global_batch(n: int) -> int:
     """A local batch count as the global one."""
-    mesh = _BATCH_MESH.get()
-    return n if mesh is None else n * mesh.extent(BATCH_AXES)
+    bound = _BATCH_MESH.get()
+    return n if bound is None else n * bound[0].extent(bound[1])
 
 
 def local_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """This shard's rows of a tensor drawn for the global batch (a
     counter-based draw of the global shape)."""
-    mesh = _BATCH_MESH.get()
-    if mesh is None:
+    bound = _BATCH_MESH.get()
+    if bound is None:
         return x
-    size = x.shape[dim] // mesh.extent(BATCH_AXES)
-    return x.narrow(dim, _batch_index(mesh) * size, size)
+    mesh, axes = bound
+    size = x.shape[dim] // mesh.extent(axes)
+    return x.narrow(dim, flat_index(mesh, axes) * size, size)
 
 
 def batch_all(flag: torch.Tensor) -> torch.Tensor:
     """A 0-dim bool that holds on every shard."""
-    mesh = _BATCH_MESH.get()
-    if mesh is None:
+    bound = _BATCH_MESH.get()
+    if bound is None:
         return flag
-    return _all_reduce(flag.to(torch.int32), dist.ReduceOp.MIN, mesh).to(torch.bool)
+    return axes_all_reduce(flag.to(torch.int32), dist.ReduceOp.MIN, *bound).to(torch.bool)
 
 
 def reduce_gradients(grads: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[torch.Tensor]]:
     """Sum a gradient dict over the batch shards in one flat collective
     (None entries, unused params, stay None)."""
-    mesh = _BATCH_MESH.get()
-    if mesh is None:
+    bound = _BATCH_MESH.get()
+    if bound is None:
         return grads
     keys = [k for k, g in grads.items() if g is not None]
     flat = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in keys])
-    _all_reduce(flat, dist.ReduceOp.SUM, mesh)
+    axes_all_reduce(flat, dist.ReduceOp.SUM, *bound)
     out = dict(grads)
     offset = 0
     for k in keys:
@@ -365,6 +380,25 @@ def reduce_gradients(grads: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Opti
         out[k] = flat[offset:offset + g.numel()].view(g.shape).to(g.dtype)
         offset += g.numel()
     return out
+
+
+def agreed_seed(seed: int, mesh: Optional[Mesh]) -> int:
+    """Rank 0's ``seed`` on every rank of ``mesh`` (one broadcast; as it is
+    without a process group): the seed a rank's shard draws derive from."""
+    if mesh is None or mesh.device_mesh is None:
+        return seed
+    t = torch.tensor([seed], dtype=torch.int64, device=mesh.device_type)
+    dist.broadcast(t, src=0)
+    return int(t.item())
+
+
+def shard_seed(seed: int, index: int) -> int:
+    """The seed of shard ``index``'s draws: ``seed`` itself for shard 0 (so
+    a one-shard mesh draws what the unmeshed path draws), a mix of both for
+    the others (the twin of ``jax.random.fold_in(key, index)``)."""
+    if index == 0:
+        return seed
+    return (seed * 0x9E3779B97F4A7C15 + index * 0xBF58476D1CE4E5B9) % (2**63 - 1)
 
 
 def gather_batch(x: torch.Tensor, mesh: Mesh, dim: int = 0,

@@ -147,6 +147,9 @@ def fp32_optimizer_state(optimizer: Any) -> _Fp32OptimizerState:
 # the sharded learn step
 
 
+BATCH_MODES = ("split", "local", "replay_shard")
+
+
 class ParallelLearnFn:
     """A learn function ``(state, *batch) -> (state, metrics, *aux)`` over a
     mesh (``make_parallel_learn_fn``'s result).
@@ -158,8 +161,8 @@ class ParallelLearnFn:
     gradients then span every shard, so the update is the one-process
     update at the same global batch, the same on every rank), places the
     new state back, and all-gathers each per-row aux output along dim 0, so
-    it comes back replicated (in the local mode below, as this rank's own
-    rows).  The metrics come out replicated.
+    it comes back replicated (in the other batch modes below, as this
+    rank's own rows).  The metrics come out replicated.
 
     Helpers: :meth:`shard_state` places rank 0's full state on every rank
     (counters replicated; ranks that built their agents from seeds of their
@@ -170,13 +173,22 @@ class ParallelLearnFn:
     ``split_batch=False`` every rank keeps the whole batch and computes the
     whole update (the state is still placed by the spec).
 
-    ``local_batches=True`` (a trainer's mode, set by
-    :func:`maybe_enable_mesh_from_args`) takes each rank's batch as the one
-    it collected itself: :meth:`shard_batch` pools the batches of the ranks
-    that share a batch shard (the non-batch axes; every rank when the batch
-    is not split), so the step is the one-process step on the batches of
-    all ranks together and no rank's rows go unused, and the per-row aux
-    outputs come back as this rank's own rows.
+    ``batch_mode`` (one of :data:`BATCH_MODES`, set by a trainer through
+    :func:`maybe_enable_mesh_from_args`) says what a rank's batch is:
+
+    - ``"split"`` (the default): a global batch, which :meth:`shard_batch`
+      splits over ``dp`` x ``fsdp``;
+    - ``"local"``: the batch this rank collected itself; :meth:`shard_batch`
+      pools the batches of the ranks that share a batch shard (the
+      non-batch axes; every rank when the batch is not split), so the step
+      is the one-process step on the batches of all ranks together and no
+      rank's rows go unused;
+    - ``"replay_shard"``: this rank's replay shard's rows
+      (``data/sharded_replay.py``), which the ranks of one shard drew
+      alike; the step takes them as they are, with no split and no pooling.
+
+    In the last two the per-row aux outputs come back as this rank's own
+    rows.
 
     The fsdp, tp and mp layouts shard the state's storage between steps
     only: a step gathers every leaf, the optimizer moments included, and
@@ -194,7 +206,13 @@ class ParallelLearnFn:
         self.state_sharding = tree_map_with_path(self.spec_fn, gather_tree(state_example))
         self.batch_sharding = (None if batch_example is None else
                                batch_sharding_tree(batch_example, mesh, batch_time_major))
-        self.local_batches = False
+        self.batch_mode = "split"
+
+    def _pool_axes(self) -> Tuple[str, ...]:
+        """The axes whose ranks pool their own batches (not in "split")."""
+        if self.batch_mode == "replay_shard":
+            return ()
+        return pool_axes(self.mesh, self.split_batch)
 
     def shard_state(self, state: Any) -> Any:
         return place_tree(gather_tree(state), self.spec_fn, self.mesh, src_rank=0)
@@ -203,9 +221,8 @@ class ParallelLearnFn:
         return gather_tree(state)
 
     def shard_batch(self, batch: Any) -> Any:
-        if self.local_batches:
-            return pool_batch(batch, self.mesh, pool_axes(self.mesh, self.split_batch),
-                              self.batch_time_major)
+        if self.batch_mode != "split":
+            return pool_batch(batch, self.mesh, self._pool_axes(), self.batch_time_major)
         if not self.split_batch:
             return batch
         return shard_batch(batch, self.mesh, time_major=self.batch_time_major)
@@ -217,11 +234,10 @@ class ParallelLearnFn:
         else:
             with batch_reduction(self.mesh):
                 out = self.learn_fn(gather_tree(state), *batch)
-            aux = tuple(out[2:] if self.local_batches else
-                        (gather_batch(a, self.mesh) for a in out[2:]))
-        if self.local_batches:
-            axes = pool_axes(self.mesh, self.split_batch)
-            aux = tuple(own_rows(a, self.mesh, axes) for a in aux)
+            own = self.batch_mode != "split"
+            aux = tuple(out[2:] if own else (gather_batch(a, self.mesh) for a in out[2:]))
+        if self.batch_mode != "split":
+            aux = tuple(own_rows(a, self.mesh, self._pool_axes()) for a in aux)
         # the new state is the same on every rank: each places its own copy
         return (place_tree(out[0], self.spec_fn, self.mesh), out[1]) + aux
 
@@ -240,13 +256,17 @@ def make_parallel_learn_fn(learn_fn: Callable, mesh, state_example: Any, batch_e
                            batch_time_major, param_specs, split_batch)
 
 
-def maybe_enable_mesh_from_args(agent, args) -> bool:
+def maybe_enable_mesh_from_args(agent, args, batch_mode: str = "local") -> bool:
     """Resolve ``RLArguments``' ``mesh_shape``/``dp_size``/``mp_size`` into
     a mesh and enable it on the agent.  A no-op (False) when no mesh is
     asked for, the agent has no ``enable_mesh`` or already has a mesh, so
-    every trainer calls it at construction.  A trainer feeds each rank the
-    batches that rank collected, so the agent's meshed step (whichever
-    call enabled it) is put in its ``local_batches`` mode."""
+    every trainer calls it at construction.  The agent's meshed step
+    (whichever call enabled it) is put in ``batch_mode``
+    (:class:`ParallelLearnFn`): ``"local"`` for a trainer that feeds each
+    rank the batches that rank collected, ``"replay_shard"`` for one that
+    feeds it the rows of its replay shard."""
+    if batch_mode not in BATCH_MODES:
+        raise ValueError(f"batch_mode must be one of {BATCH_MODES}, got {batch_mode!r}")
     spec = mesh_spec_from_args(args)
     enabled = False
     if (spec is not None and hasattr(agent, "enable_mesh")
@@ -255,7 +275,7 @@ def maybe_enable_mesh_from_args(agent, args) -> bool:
         enabled = True
     learn = getattr(agent, "_learn", None)
     if isinstance(learn, ParallelLearnFn):
-        learn.local_batches = True
+        learn.batch_mode = batch_mode
     return enabled
 
 
@@ -283,6 +303,14 @@ class RankAgreement:
         dist.all_reduce(t)
         total, *any_set = t.tolist()
         return (total,) + tuple(v > 0 for v in any_set)
+
+    def least(self, count: int) -> int:
+        """The smallest of the ranks' ``count``s (one all-reduce)."""
+        if self.device is None:
+            return count
+        t = torch.tensor([count], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return int(t.item())
 
 
 def place_agent_state(agent, state: Any) -> Any:

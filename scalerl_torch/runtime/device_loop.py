@@ -40,25 +40,47 @@ guard's flag) and ``instrument`` (feed each chunk's host metrics and the
 ``rates.fps`` / ``rates.chunks_per_s`` meters into the telemetry registry),
 and mark each chunk for ``utils/profiling.py``'s traces.
 
-Not ported yet: the mesh (``shard_map``) path of the fused loop.
+``mesh=`` runs the loop data-parallel (the JAX ``shard_map`` path, the
+Podracer "Anakin" layout): each rank steps its ``num_envs / n`` lanes and
+carry (``n`` the extent of ``axis_name``) and draws from its own generator
+(rank r along the axis from ``shard_seed(seed, r)``, ``seed`` rank 0's:
+rank 0 keeps the loop's stream, so a one-rank mesh is the unmeshed loop bit
+for bit).  The learn function runs inside
+``parallel.sharding.batch_reduction(mesh, (axis_name,))``: its gradients,
+batch sums and means and frame count span the axis (the JAX learn
+function's ``psum``/``pmean`` over its ``grad_axis``), so every rank keeps
+the same params.  Any learn function of the port's agents serves as it is,
+so there is no unsynced one for the loop to refuse, as the JAX loop does.
+The episode sums are summed over the axis.  A ``should_stop`` set on any
+rank stops every rank.  ``train_superchunk`` and ``run_anakin`` refuse a
+mesh, as the JAX loop's do: no collective is captured in a graph.
 ``iter_mode`` has no twin: it picks between ``lax.scan`` and an unrolled body for XLA, and a
 Python loop (or a graph captured from one) has one form.
 """
 
 from __future__ import annotations
 
+import copy
+import math
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
-import math
-
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from scalerl_torch.agents.impala import ImpalaTrainState, sample_categorical
 from scalerl_torch.data.trajectory import Trajectory
 from scalerl_torch.envs.tensor_envs.base import TensorEnv
+from scalerl_torch.parallel.mesh import resolve_mesh
+from scalerl_torch.parallel.sharding import (
+    agreed_seed,
+    axes_all_reduce,
+    batch_reduction,
+    shard_seed,
+)
+from scalerl_torch.parallel.train_step import RankAgreement
 from scalerl_torch.runtime import telemetry
 from scalerl_torch.runtime.dispatch import get_metrics, pipelined_drive, steady_state_guard
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
@@ -92,9 +114,15 @@ class DeviceActorLearnerLoop:
         iters_per_call: int = 10,
         seed: int = 0,
         device: DeviceLike = "cuda",
+        mesh=None,
+        axis_name: str = "dp",
     ) -> None:
         """``venv`` must live on ``device``; ``seed`` seeds the loop's
-        generator, which draws the env resets, env steps and actions."""
+        generator, which draws the env resets, env steps and actions.
+
+        ``mesh``: shard the loop over the mesh axis ``axis_name`` (module
+        docstring); ``venv`` holds the lanes of every rank, and
+        ``venv.num_envs`` must divide by the axis size."""
         self.device = resolve_device(device)
         if venv.device != self.device:
             raise ValueError(f"venv is on {venv.device}, the loop on {self.device}")
@@ -103,7 +131,23 @@ class DeviceActorLearnerLoop:
         self.learn_fn = learn_fn
         self.unroll_length = unroll_length
         self.iters_per_call = iters_per_call
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.mesh = None if mesh is None else resolve_mesh(mesh)
+        self.axis_name = axis_name
+        # the lanes this rank steps: all of them without a mesh
+        self.local_venv = venv
+        rank = 0
+        if self.mesh is not None:
+            n = self.mesh.shape[axis_name]
+            if venv.num_envs % n != 0:
+                raise ValueError(
+                    f"num_envs ({venv.num_envs}) must divide by mesh axis "
+                    f"{axis_name!r} size ({n})")
+            rank = self.mesh.coordinate(axis_name)
+            self.local_venv = copy.copy(venv)
+            self.local_venv.num_envs = venv.num_envs // n
+        self._agree = RankAgreement(self.mesh)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            shard_seed(agreed_seed(seed, self.mesh), rank))
         # the first chunk may synchronise (cuDNN's algorithm search, first
         # allocations); every later one runs under the sync guard
         self._warm = False
@@ -114,8 +158,9 @@ class DeviceActorLearnerLoop:
 
     # ------------------------------------------------------------------
     def init_carry(self) -> ActorCarry:
-        B = self.venv.num_envs
-        env_state, obs = self.venv.reset(self.generator)
+        """This rank's carry (every lane's without a mesh)."""
+        B = self.local_venv.num_envs
+        env_state, obs = self.local_venv.reset(self.generator)
         zeros = torch.zeros(B, dtype=torch.float32, device=self.device)
         return ActorCarry(
             env_state=env_state,
@@ -145,7 +190,7 @@ class DeviceActorLearnerLoop:
             )
             logits = out.policy_logits[0]
             action = sample_categorical(logits, self.generator)
-            env_state, next_obs, reward, done = self.venv.step(
+            env_state, next_obs, reward, done = self.local_venv.step(
                 c.env_state, action, self.generator
             )
             rows.append((c.obs, c.last_action, c.reward, c.done, logits))
@@ -179,18 +224,31 @@ class DeviceActorLearnerLoop:
     ) -> Tuple[ImpalaTrainState, ActorCarry, Dict[str, torch.Tensor]]:
         """``iters_per_call`` unroll+update iterations; metrics stay on the
         device: the per-iteration learn metrics averaged over the chunk, and
-        the episode sums."""
+        the episode sums (over every rank of a mesh)."""
         per_iter = []
-        for _ in range(self.iters_per_call):
-            carry, traj = self._unroll(state.params, carry)
-            state, metrics = self.learn_fn(state, traj)
-            per_iter.append(metrics)
+        reduction = (nullcontext() if self.mesh is None else
+                     batch_reduction(self.mesh, (self.axis_name,)))
+        with reduction:
+            for _ in range(self.iters_per_call):
+                carry, traj = self._unroll(state.params, carry)
+                state, metrics = self.learn_fn(state, traj)
+                per_iter.append(metrics)
         mean_metrics = {
             k: torch.stack([m[k] for m in per_iter]).mean() for k in per_iter[0]
         }
-        mean_metrics["episode_return_sum"] = torch.sum(carry.return_sum)
-        mean_metrics["episode_count_sum"] = torch.sum(carry.episode_count)
+        (mean_metrics["episode_return_sum"],
+         mean_metrics["episode_count_sum"]) = self.episode_sums(carry)
         return state, carry, mean_metrics
+
+    def episode_sums(self, carry: ActorCarry) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The sum of completed episodes' returns and their count, over
+        every rank of the mesh axis (one all-reduce of the pair)."""
+        ret, cnt = torch.sum(carry.return_sum), torch.sum(carry.episode_count)
+        if self.mesh is None or self.mesh.group(self.axis_name) is None:
+            return ret, cnt
+        pair = axes_all_reduce(torch.stack([ret, cnt]), dist.ReduceOp.SUM, self.mesh,
+                               (self.axis_name,))
+        return pair[0], pair[1]
 
     def _superchunk_eager(self, state, carry, num_chunks: int):
         per_chunk = []
@@ -206,7 +264,12 @@ class DeviceActorLearnerLoop:
         replay on a card, the chunks eagerly on the CPU.  Metrics come back
         as device tensors stacked ``[num_chunks]`` per key; read them with
         one ``dispatch.get_metrics`` call.  On a card the returned state and
-        carry are the graph's buffers (module docstring)."""
+        carry are the graph's buffers (module docstring).  A mesh is
+        refused, as the JAX loop refuses it."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "train_superchunk composes with the single-device fused loop; the mesh "
+                "path runs a chunk at a time (drive it through run())")
         if self.device.type != "cuda":
             return self._superchunk_eager(state, carry, num_chunks)
         graph = self._superchunks.get(num_chunks)
@@ -307,8 +370,18 @@ class DeviceActorLearnerLoop:
         tally = _ChunkTally(self._observer(instrument), on_metrics)
         state, carry, chunks_done = self._drive(
             state, carry, num_calls, tally.run_chunk, chunks_in_flight, progress,
-            lambda: should_stop is not None and should_stop())
+            self._stop_fn(should_stop))
         return state, carry, tally.summary(chunks_done)
+
+    def _stop_fn(self, should_stop: Optional[Callable[[], bool]]) -> Callable[[], bool]:
+        """``should_stop`` as the drive polls it: under a mesh of several
+        ranks, set on any rank stops every rank (one small all-reduce a
+        poll), so the ranks take the same chunks."""
+        if should_stop is None:
+            return lambda: False
+        if self._agree.device is None:
+            return should_stop
+        return lambda: self._agree(0, should_stop())[1]
 
     def _observer(self, instrument: bool) -> Optional[Callable[[Dict[str, float]], None]]:
         """Per-chunk registry feed (host floats only), or None."""
@@ -353,7 +426,9 @@ class DeviceActorLearnerLoop:
         summary)``, the summary with ``windowed_return`` / ``frames`` /
         ``hit`` / ``nonfinite_chunks``."""
         frames_per_call = self._frames_per_call()
-        init = get_metrics({"s": carry.return_sum.sum(), "c": carry.episode_count.sum()})
+        stop = self._stop_fn(should_stop)
+        ret, cnt = self.episode_sums(carry)
+        init = get_metrics({"s": ret, "c": cnt})
         prev_sum, prev_cnt = init["s"], init["c"]
         windowed = math.nan
         hit = False
@@ -373,7 +448,7 @@ class DeviceActorLearnerLoop:
 
         state, carry, dispatched = self._drive(
             state, carry, max_calls, consume, chunks_in_flight, progress,
-            lambda: hit or (should_stop is not None and should_stop()))
+            lambda: hit or stop())
         summary = {
             "windowed_return": windowed,
             "frames": float(dispatched * frames_per_call),

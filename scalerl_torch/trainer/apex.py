@@ -22,8 +22,26 @@ Port of ``scalerl_tpu/trainer/apex.py``:
   learn steps for consumers off the process.
 
 Resume checkpoints hold the agent's state, the whole replay and the
-counters.  A meshed agent needs ``data/sharded_replay.py``, which is not
-ported, and raises; C51 raises, as the JAX trainer does.
+counters.  C51 raises, as the JAX trainer does.
+
+Under a meshed agent (``DQNAgent.enable_mesh``, or the args' ``mesh_shape``
+/ ``dp_size`` / ``mp_size``; one process a device) the
+replay is a ``ShardedPrioritizedReplay`` (``data/sharded_replay.py``) over
+the learner's ``dp`` x ``fsdp`` ranks.  Each rank runs its own actors, and
+one global add is every rank's slab side by side: the buffer is
+``world x slab`` lanes wide, a replay shard's block holds the slabs of
+its ranks (those that differ only in mp are gathered over mp, the one
+insert traffic: each such rank receives the others' slabs), and the ranks
+add in lockstep, agreeing on the count each drain with one all-reduce
+(min).  So the state is the unsharded buffer's under that sequence of
+adds, with ``buffer_size`` transitions of capacity.  Each rank samples its
+shard's ``batch_size / S`` rows, learns on them (the agent's step in its
+``"replay_shard"`` batch mode) and writes their priorities back to its own block.
+Actors act on the learner's acting copies of ``params`` and
+``target_params``, which the learner thread publishes after each step, so
+no actor issues a collective.  Stopping, saving and the frame count are
+agreed across ranks (``RankAgreement``), and a checkpoint holds the replay
+gathered whole.
 """
 
 from __future__ import annotations
@@ -40,6 +58,14 @@ import torch
 from scalerl_torch.agents.dqn import DQNAgent, make_dqn_priority_fn
 from scalerl_torch.config import ApexArguments
 from scalerl_torch.data.prioritized import PrioritizedReplayBuffer
+from scalerl_torch.data.sharded_replay import ShardedPrioritizedReplay
+from scalerl_torch.parallel.sharding import gather_batch, gather_tree, pool_axes, pool_batch
+from scalerl_torch.parallel.train_step import (
+    RankAgreement,
+    maybe_enable_mesh_from_args,
+    multi_rank,
+    place_agent_state,
+)
 from scalerl_torch.runtime import telemetry
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.runtime.param_server import ParameterServer
@@ -142,7 +168,7 @@ class ApexActorThread(threading.Thread):
             self.timings.reset()
             for t in range(T):
                 obs_dev = torch.as_tensor(obs, device=agent.device).to(torch.float32)
-                q = agent.q_values(agent.state.params, obs_dev, network=self.network)
+                q = agent.q_values(tr.acting[0], obs_dev, network=self.network)
                 actions = agent.epsilon_greedy(q, self.eps, self.generator).cpu().numpy()
                 next_obs, reward, term, trunc, infos = self.envs.step(actions)
                 real_next = np.array(next_obs, copy=True)
@@ -167,8 +193,8 @@ class ApexActorThread(threading.Thread):
             dev_slab = {k: torch.as_tensor(v, device=agent.device) for k, v in slab.items()}
             for k in ("obs", "next_obs"):
                 dev_slab[k] = dev_slab[k].to(torch.float32)
-            st = agent.state  # one read: params and target_params stay paired
-            prio = self.priority(st.params, st.target_params, dev_slab["obs"],
+            params, target = tr.acting  # one read: the two stay paired
+            prio = self.priority(params, target, dev_slab["obs"],
                                  dev_slab["action"], dev_slab["reward"], dev_slab["next_obs"],
                                  dev_slab["done"], dev_slab["n_steps"])
             self.timings.time("priority")
@@ -196,10 +222,6 @@ class ApexTrainer(BaseTrainer):
         eval_envs=None,
         run_name: Optional[str] = None,
     ) -> None:
-        if getattr(agent, "mesh", None) is not None:
-            raise NotImplementedError(
-                "Ape-X with a meshed agent needs data/sharded_replay.py, which is not "
-                "ported yet")
         if args.categorical_dqn:
             raise ValueError(
                 "categorical_dqn (C51) is not supported by ApexTrainer: its priority and "
@@ -207,6 +229,9 @@ class ApexTrainer(BaseTrainer):
                 "DQNAgent with OffPolicyTrainer for C51")
         super().__init__(args, run_name=run_name)
         self.agent = agent
+        # RLArguments' mesh_shape / dp_size / mp_size, before any actor
+        # starts; a meshed step learns on the rows of this rank's replay shard
+        maybe_enable_mesh_from_args(agent, args, batch_mode="replay_shard")
         self.eval_envs = eval_envs
         self._actor_envs = [make_envs(i) for i in range(args.num_actors)]
         env0 = self._actor_envs[0]
@@ -219,16 +244,32 @@ class ApexTrainer(BaseTrainer):
         # its realised window length), so the capacity in transitions
         # converts to rows, and n_step=1: no window spans two slabs
         slab_width = (args.rollout_length - args.n_steps + 1) * self.envs_per_actor
-        self.buffer = PrioritizedReplayBuffer(
-            obs_shape, capacity=max(args.buffer_size // slab_width, 2), num_envs=slab_width,
-            alpha=args.per_alpha, n_step=1, gamma=args.gamma,
+        buffer_kw = dict(
+            obs_shape=obs_shape, alpha=args.per_alpha, n_step=1, gamma=args.gamma,
             sample_method="pallas" if args.use_pallas else "hierarchical",
             update_method="pallas" if args.use_pallas else "xla",
             extra_fields={"n_steps": ((), torch.int32)}, device=agent.device,
         )
+        self.mesh = getattr(agent, "mesh", None)
+        self._agree = RankAgreement(self.mesh)
+        if self.mesh is not None:
+            # one global add is every rank's slab side by side (module docstring)
+            width = slab_width * self.mesh.size
+            self.buffer = ShardedPrioritizedReplay(
+                capacity=max(args.buffer_size // width, 2), mesh=self.mesh, num_envs=width,
+                seed=args.seed + 0x53A1, **buffer_kw)
+            self.generator = self.buffer.generator
+            self._pool = pool_axes(self.mesh)  # the ranks that share a replay shard
+            self._pending: list = []
+        else:
+            self.buffer = PrioritizedReplayBuffer(
+                capacity=max(args.buffer_size // slab_width, 2), num_envs=slab_width,
+                **buffer_kw)
+            self.generator = torch.Generator(device=agent.device).manual_seed(
+                args.seed + 0x53A1)
         self.per_beta = LinearDecayScheduler(args.per_beta, args.per_beta_final,
                                              args.max_timesteps)
-        self.generator = torch.Generator(device=agent.device).manual_seed(args.seed + 0x53A1)
+        self._publish_acting()
         self.param_server = ParameterServer()
         self.param_server.push(agent.get_weights(), to_host=False)
 
@@ -246,8 +287,18 @@ class ApexTrainer(BaseTrainer):
     def _actor_error(self, actor_id: int, err: BaseException) -> None:
         self._errors.put((actor_id, err))
 
+    def _publish_acting(self) -> None:
+        """The ``(params, target_params)`` the actors read, in one
+        assignment: the state's own without a mesh, else the acting copy
+        and the target gathered once, here on the learner's thread."""
+        st = self.agent.state
+        target = st.target_params if self.mesh is None else gather_tree(st.target_params)
+        self.acting = (self.agent.acting_params(), target)
+
     def _drain_slabs(self, block: bool) -> int:
         """Move the pending actor slabs into the replay (the one writer)."""
+        if self.mesh is not None:
+            return self._drain_in_lockstep(block)
         drained = 0
         while True:
             try:
@@ -259,16 +310,43 @@ class ApexTrainer(BaseTrainer):
             drained += 1
         return drained
 
-    def train_step(self) -> Dict[str, torch.Tensor]:
+    def _drain_in_lockstep(self, block: bool) -> int:
+        """The meshed drain: take what this rank's actors queued (up to the
+        queue's depth), agree on the count every rank has, and add that
+        many global steps, each rank its own slab (pooled over the ranks of
+        its replay shard)."""
+        limit = self._slab_queue.maxsize
+        while len(self._pending) < limit:
+            try:
+                self._pending.append(self._slab_queue.get(
+                    block=block and not self._pending, timeout=1.0))
+            except queue.Empty:
+                break
+        count = self._agree.least(len(self._pending))
+        for slab, prio in self._pending[:count]:
+            if self._pool:
+                slab = pool_batch(slab, self.mesh, self._pool)
+                prio = gather_batch(prio, self.mesh, 0, self._pool)
+            self.buffer.add_shard_with_priorities(slab, prio)
+            self.timings.time("insert")
+        del self._pending[:count]
+        return count
+
+    def train_step(self, frames: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Sample, learn, write the new priorities back; the metrics stay on
-        the device."""
-        beta = self.per_beta.value(self.global_step)
+        the device.  ``frames``: the step count the beta schedule reads (the
+        ranks' agreed count under a mesh), default ``global_step``."""
+        beta = self.per_beta.value(self.global_step if frames is None else frames)
         self.timings.reset()
         batch = self.buffer.sample(self.args.batch_size, beta=beta, generator=self.generator)
         self.timings.time("sample")
         metrics, td_abs = self.agent.learn_device(batch)
+        self._publish_acting()
         self.timings.time("learn")
-        self.buffer.update_priorities(batch["indices"], td_abs + 1e-6)
+        if self.mesh is None:
+            self.buffer.update_priorities(batch["indices"], td_abs + 1e-6)
+        else:  # this shard's own rows
+            self.buffer.update_shard_priorities(batch["indices"], td_abs + 1e-6)
         self.timings.time("update_prio")
         self.learn_steps += 1
         if self.learn_steps % self.args.actor_update_frequency == 0:
@@ -277,9 +355,10 @@ class ApexTrainer(BaseTrainer):
 
     # -- resume --------------------------------------------------------
     def _resume_pytree(self) -> Dict:
+        # a meshed state and replay are saved whole (every rank gathers)
         return {
-            "agent": self.agent.state,
-            "replay": self.buffer.state,
+            "agent": gather_tree(self.agent.state),
+            "replay": self.buffer.state if self.mesh is None else self.buffer.full_state(),
             "global_step": np.asarray(self.global_step, np.int64),
             "learn_steps": np.asarray(self.learn_steps, np.int64),
         }
@@ -293,8 +372,12 @@ class ApexTrainer(BaseTrainer):
         state = self.load_resume_checkpoint(self._resume_pytree())
         if state is None:
             return False
-        self.agent.state = state["agent"]
-        self.buffer.state = state["replay"]
+        self.agent.state = place_agent_state(self.agent, state["agent"])
+        if self.mesh is None:
+            self.buffer.state = state["replay"]
+        else:
+            self.buffer.load_full_state(state["replay"])
+        self._publish_acting()
         self.global_step = int(state["global_step"])
         self.learn_steps = int(state["learn_steps"])
         self.param_server.push(self.agent.get_weights(), to_host=False)
@@ -344,58 +427,68 @@ class ApexTrainer(BaseTrainer):
             a.start()
 
         start = time.time()
-        start_step = self.global_step
+        # under a mesh of several ranks max_timesteps counts the steps of
+        # every rank, and each decision that gates a collective is agreed
+        agree = self._agree
+        (start_step,) = agree(self.global_step)
         # seeded from the (possibly resumed) step, or the first iteration
         # logs and evaluates at once
-        last_log = last_eval = self.global_step
-        cadence = CheckpointCadence(args.save_frequency, args.checkpoint_interval_s,
-                                    self.global_step)
+        last_log = last_eval = start_step
+        cadence = CheckpointCadence(args.save_frequency, args.checkpoint_interval_s, start_step)
         train_info: Dict = {}
         try:
-            while self.global_step < args.max_timesteps:
+            while True:
+                frames, preempted, crashed = agree(
+                    self.global_step, guard is not None and guard.triggered,
+                    not self._errors.empty())
+                if frames >= args.max_timesteps:
+                    break
                 if watchdog is not None:
                     watchdog.check()
-                if guard is not None and guard.triggered:
+                if preempted:
                     if saving:
                         self.save_resume()
                     break
-                if not self._errors.empty():
+                if crashed:
+                    if self._errors.empty():
+                        raise RuntimeError("an apex actor crashed on another rank")
                     actor_id, err = self._errors.get()
                     raise RuntimeError(f"apex actor {actor_id} crashed") from err
                 self._drain_slabs(block=True)
                 if len(self.buffer) >= args.warmup_learn_steps:
-                    train_info = self.train_step()
+                    train_info = self.train_step(frames)
 
-                if self.global_step - last_log >= args.logger_frequency:
-                    last_log = self.global_step
-                    fps = (self.global_step - start_step) / max(time.time() - start, 1e-8)
+                if frames - last_log >= args.logger_frequency:
+                    last_log = frames
+                    fps = (frames - start_step) / max(time.time() - start, 1e-8)
                     summary = self.metrics.summary()
                     host = get_metrics(train_info)  # one batched device->host copy
                     counters = {"rpm_size": float(len(self.buffer)), "fps": fps,
                                 "learn_steps": float(self.learn_steps),
                                 "weight_version": float(self.param_server.version)}
-                    self.log(self.global_step, "train", {**host, **summary, **counters})
+                    self.log(frames, "train", {**host, **summary, **counters})
                     if self._instrument:
                         telemetry.observe_train_metrics(host)
                         reg = telemetry.get_registry()
                         reg.set_gauges({**host, **summary, **counters}, prefix="train.")
-                        self.logger.log_registry(self.global_step, step_type="train",
+                        self.logger.log_registry(frames, step_type="train",
                                                  include_prefixes=("train.",))
                     if self.is_main_process:
                         self.text_logger.info(
-                            f"step {self.global_step} | fps {fps:.0f} | return "
+                            f"step {frames} | fps {fps:.0f} | return "
                             f"{summary.get('return_mean', float('nan')):.1f} | loss "
                             f"{host.get('loss', float('nan')):.4f} | learn {self.learn_steps}")
 
                 if (self.eval_envs is not None
-                        and self.global_step - last_eval >= args.eval_frequency):
-                    last_eval = self.global_step
+                        and frames - last_eval >= args.eval_frequency):
+                    last_eval = frames
                     eval_info = self.run_evaluate_episodes()
-                    self.log(self.global_step, "eval", eval_info)
-                    self.logger.log_test_data(eval_info, self.global_step)
+                    self.log(frames, "eval", eval_info)
+                    self.logger.log_test_data(eval_info, frames)
 
-                if saving and cadence.due(self.global_step):
-                    cadence.mark_saved(self.global_step)
+                _, save_due = agree(0, saving and cadence.due(frames))
+                if save_due:
+                    cadence.mark_saved(frames)
                     self.save_resume()
         finally:
             self._stop.set()
@@ -405,7 +498,8 @@ class ApexTrainer(BaseTrainer):
                 guard.restore()
             for a in self.actors:
                 a.join(timeout=10.0)
-            if saving and self.is_main_process:
+            # a meshed state is gathered by every rank and written by rank 0
+            if saving and (self.is_main_process or multi_rank(self.mesh)):
                 self.agent.save_checkpoint(f"{self.model_save_dir}/ckpt_final")
         return self.metrics.summary()
 

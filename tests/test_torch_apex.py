@@ -14,6 +14,7 @@ import torch
 
 from scalerl_torch.agents.dqn import DQNAgent
 from scalerl_torch.config import ApexArguments
+from scalerl_torch.data.sharded_replay import ShardedPrioritizedReplay
 from scalerl_torch.envs.gym_env import TensorVectorView
 from scalerl_torch.envs.tensor_envs import TensorCartPole
 from scalerl_torch.trainer.apex import ApexTrainer, fold_n_step
@@ -147,13 +148,20 @@ def test_apex_actor_crash_funnels():
     assert all(not a.is_alive() for a in trainer.actors)
 
 
-def test_apex_refuses_c51_and_a_meshed_agent():
+def test_apex_refuses_c51_and_shards_replay_for_a_meshed_agent():
+    """C51 is refused; a meshed agent gets the sharded replay (here on a
+    one-device mesh, which needs no process group)."""
     args = _args(categorical_dqn=True, num_atoms=11)
     agent = DQNAgent(args, (4,), 2, device="cpu")
     with pytest.raises(ValueError, match="categorical_dqn"):
         ApexTrainer(args, agent, _make_envs(args))
     args = _args()
     agent = DQNAgent(args, (4,), 2, device="cpu")
-    agent.mesh = "dp=2"
-    with pytest.raises(NotImplementedError, match="data/sharded_replay.py"):
-        ApexTrainer(args, agent, _make_envs(args))
+    agent.enable_mesh("dp=1")
+    trainer = ApexTrainer(args, agent, _make_envs(args))
+    try:
+        assert isinstance(trainer.buffer, ShardedPrioritizedReplay)
+        assert trainer.buffer.n_shards == 1
+        assert agent._learn.batch_mode == "replay_shard"
+    finally:
+        trainer.close()

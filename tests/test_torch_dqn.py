@@ -26,6 +26,7 @@ from scalerl_torch import config as tconfig
 from scalerl_torch import convert
 from scalerl_torch.agents import dqn as tdqn
 from scalerl_torch.data import prioritized as tprio
+from scalerl_torch.data.sharded_replay import ShardedPrioritizedReplay
 from scalerl_torch.models.mlp import QNet as TQNet
 from scalerl_torch.ops import losses as tlosses
 from scalerl_torch.trainer.off_policy import OffPolicyTrainer
@@ -133,9 +134,10 @@ def test_unported_features_are_refused():
         ApexTrainer(c51, tdqn.DQNAgent(c51, OBS, A, device="cpu"), envs)
     args = tconfig.ApexArguments(**apex)
     meshed = tdqn.DQNAgent(args, OBS, A, device="cpu")
-    meshed.mesh = "dp=2"
-    with pytest.raises(NotImplementedError, match="data/sharded_replay.py"):
-        ApexTrainer(args, meshed, envs)
+    meshed.enable_mesh("dp=1")  # a one-device mesh: Ape-X builds its sharded replay
+    trainer = ApexTrainer(args, meshed, envs)
+    assert isinstance(trainer.buffer, ShardedPrioritizedReplay)
+    trainer.close()
     rargs = tconfig.R2D2Arguments(hidden_size=8, logger_backend="none", save_model=False,
                                   telemetry_interval_s=0.0)
     env = TensorRecall(2, device="cpu")
@@ -143,8 +145,8 @@ def test_unported_features_are_refused():
     # one process: a two-device mesh needs a process group of two ranks
     with pytest.raises(ValueError, match="init_process_group"):
         agent.enable_mesh("dp=2")
-    with pytest.raises(NotImplementedError, match="data/sharded_replay.py"):
-        DeviceR2D2Trainer(rargs, agent, env, mesh="dp=2")
+    # the mesh-fused loop on a one-device mesh builds
+    assert DeviceR2D2Trainer(rargs, agent, env, mesh="dp=1").mesh.shape["dp"] == 1
 
 
 @pytest.mark.parametrize("dueling", [False, True])

@@ -324,6 +324,8 @@ def test_unported_mesh_paths_are_refused(tmp_path):
     # one process: a two-device mesh needs a process group of two ranks
     with pytest.raises(ValueError, match="init_process_group"):
         trainer.agent.enable_mesh("dp=2")
-    with pytest.raises(NotImplementedError, match="data/sharded_replay.py"):
-        DeviceR2D2Trainer(trainer.args, trainer.agent, trainer.venv, mesh="dp=2")
+    # the mesh-fused loop, once refused, builds on a one-device mesh
+    meshed = DeviceR2D2Trainer(trainer.args, trainer.agent, trainer.venv, mesh="dp=1")
+    assert meshed.mesh.shape["dp"] == 1 and meshed.local_venv.num_envs == trainer.venv.num_envs
+    meshed.close()
     trainer.close()

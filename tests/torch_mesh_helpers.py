@@ -110,7 +110,7 @@ def _host_trainer(case, workdir):
     return {"agree": _ranks_agree(agent.state), "shape": dict(agent.mesh.shape),
             "learn_steps": [int(s[0]) for s in all_steps],
             "frames": [int(s[1]) for s in all_steps], "loss": result["total_loss"],
-            "published": published, "local": agent._learn.local_batches,
+            "published": published, "local": agent._learn.batch_mode == "local",
             "layout": _layout(agent.state, agent.mesh)}
 
 
