@@ -453,6 +453,26 @@ no result line:
     ``apex_train``'s settings for ``MESH_APEX_S`` on its
     ``ShardedPrioritizedReplay``, the sample and update kernels launched
     once each a learn step; frames/s of each beside its twin's.
+60. ``moe_impala`` (run after ``mesh_loops``): ``policy_arch="moe"``
+    (``MoEPolicyNet`` at the JAX defaults: d_model 128, 8 experts, hidden
+    256, capacity factor 2.0) on ``impala_fused``'s geometry: the
+    index-form MoE layer on the card against its dense one-hot plain twin
+    at the learner's 10,752 tokens (out, aux, dispatch_frac, gradients;
+    ``MOE_LAYER_TOL``) and one learn step with each form (``LEARN_TOL``);
+    the fused loop, ``MAIN_CHUNKS`` warm chunks (V-trace 5 launches a
+    chunk), a profiled chunk's device ms, env frames/s beside
+    ``impala_fused``'s AtariNet rate, the tokens dropped a learn step; one
+    meshed learn step at dp = mp = 1 on a one-rank nccl group against the
+    unmeshed step under deterministic algorithms, bit for bit.
+61. ``parallel_families``: a one-rank nccl group made by the port's
+    ``initialize_multihost``; ring attention (T4k bf16 and T1k float32,
+    causal), the sequence-parallel transformer at the transformer
+    learner's width, the heterogeneous pipeline (M = 4) and expert
+    parallelism (10,752 tokens), each at extent 1 against its plain twin,
+    outputs and gradients (``FAMILY_TOL``, the CPU tests'), with each
+    path's ms beside its twin's; every collective and point-to-point call
+    is counted and must stay 0 (at extent 1 none runs; the multi-rank
+    paths are held on 4 gloo ranks on the CPU).
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -903,6 +923,7 @@ def phase_impala_fused(report: dict) -> None:
     seconds = time.perf_counter() - t0
     launches = cuda_vtrace.launches
     report["launches"] = {"vtrace": launches}
+    report["impala_fused_rate"] = MAIN_CHUNKS * MAIN_ITERS * MAIN_T * MAIN_B / seconds
 
     frames = MAIN_CHUNKS * MAIN_ITERS * MAIN_T * MAIN_B
     emit("impala_fused", B=MAIN_B, T=MAIN_T, iters_per_call=MAIN_ITERS,
@@ -7519,6 +7540,417 @@ def phase_mesh_loops(report: dict) -> None:
         raise AssertionError(f"mesh_loops: {failed}")
 
 
+# Switch-MoE IMPALA (phase 60): policy_arch="moe" at the JAX defaults on
+# impala_fused's geometry; the learner's [T+1, B] chunk is 10,752 tokens
+MOE_D, MOE_E, MOE_H, MOE_CF = 128, 8, 256, 2.0
+MOE_TOKENS = (MAIN_T + 1) * MAIN_B
+# the index-form layer against its dense one-hot twin on the same inputs,
+# float32 with TF32 off: a product with a one-hot entry is exact and the
+# expert products are the same batched matmuls, so only sum orders may
+# differ; held relative to each tensor's largest element (at least 1)
+MOE_LAYER_TOL = 1e-5
+
+
+def _rel_err(got, want, floor: float = 1.0) -> float:
+    """Max abs difference over the larger of ``floor`` and the largest
+    |want| (gradients pass a floor near 0: relative to their largest)."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), floor)
+
+
+def _moe_args(**kw):
+    from scalerl_torch.config import ImpalaArguments
+
+    base = dict(policy_arch="moe", d_model=MOE_D, moe_experts=MOE_E, moe_hidden=MOE_H,
+                use_lstm=False, rollout_length=MAIN_T, batch_size=MAIN_B, max_timesteps=0,
+                use_pallas=True)
+    return ImpalaArguments(**{**base, **kw})
+
+
+def _moe_traj(obs_shape, A, seed=5):
+    import torch
+
+    from scalerl_torch.data.trajectory import Trajectory
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T1 = MAIN_T + 1
+    logits = torch.randn(T1, MAIN_B, A, generator=g, device="cuda")
+    logits[-1] = 0.0
+    return Trajectory(
+        obs=torch.randint(0, 256, (T1, MAIN_B) + tuple(obs_shape), generator=g, device="cuda",
+                          dtype=torch.uint8),
+        action=torch.randint(0, A, (T1, MAIN_B), generator=g, device="cuda"),
+        reward=torch.randn(T1, MAIN_B, generator=g, device="cuda"),
+        done=torch.rand(T1, MAIN_B, generator=g, device="cuda") < 0.05, logits=logits)
+
+
+def _moe_layer_check(layer, x) -> dict:
+    """The index-form layer against its dense twin on ``x``: out, aux,
+    dispatch_frac and the gradients of ``sum(out^2) + 0.01 aux`` (input and
+    every param); each form's forward + backward time."""
+    import torch
+
+    res = {}
+    for name, dense in (("index", False), ("dense", True)):
+        layer.dense_dispatch = dense
+        xin = x.detach().clone().requires_grad_(True)
+
+        def step():
+            out = layer(xin)
+            loss = (out.out ** 2).sum() + 0.01 * out.aux_loss
+            return out, torch.autograd.grad(loss, [xin] + list(layer.parameters()))
+
+        out, grads = step()
+        res[name] = dict(out=out, grads=grads, ms=eager_time_ms(step, 2, reps=3))
+    layer.dense_dispatch = False
+    i, d = res["index"], res["dense"]
+    return dict(out_rel_err=_rel_err(i["out"].out, d["out"].out),
+                aux_abs_err=abs(float(i["out"].aux_loss.detach())
+                                - float(d["out"].aux_loss.detach())),
+                dispatch_frac=float(i["out"].dispatch_frac),
+                dispatch_frac_dense=float(d["out"].dispatch_frac),
+                grad_rel_err=max(_rel_err(a, b, 1e-30) for a, b in zip(i["grads"], d["grads"])),
+                index_ms=i["ms"], dense_ms=d["ms"])
+
+
+def phase_moe_impala(report: dict) -> None:
+    """``policy_arch="moe"`` (``MoEPolicyNet``, the JAX defaults) on
+    ``impala_fused``'s geometry: the index-form MoE layer against its dense
+    one-hot twin at the learner's 10,752 tokens (``MOE_LAYER_TOL``), one
+    learn step with each (``LEARN_TOL``); the fused loop (V-trace launches
+    5 a chunk, warm chunks under sync debug mode "error", a profiled
+    chunk's device time); one meshed learn step at dp = mp = 1 on a
+    one-rank nccl group against the unmeshed step under deterministic
+    algorithms, bit for bit."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.models.moe import MoEPolicyNet
+    from scalerl_torch.ops import cuda_vtrace
+    from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
+
+    set_tf32(False)
+    env = SyntheticPixelEnv(num_envs=MAIN_B)
+    obs_shape, A = env.observation_shape, env.num_actions
+    traj = _moe_traj(obs_shape, A)
+    agent = ImpalaAgent(_moe_args(), obs_shape, A)
+    if not isinstance(agent.model, MoEPolicyNet):
+        raise AssertionError(f"policy_arch='moe' built {type(agent.model).__name__}")
+    policy = agent.model.moe_policy
+    with torch.no_grad():  # the layer's input in the learn step: the embedded chunk
+        x = F.relu(policy.embed(traj.obs.reshape(MOE_TOKENS, -1).float()))
+    layer = _moe_layer_check(policy.moe, x)
+    del agent
+
+    # one learn step with each form, from the same weights and chunk
+    steps = {}
+    for name, dense in (("index", False), ("dense", True)):
+        a = ImpalaAgent(_moe_args(), obs_shape, A)
+        a.model.moe_policy.moe.dense_dispatch = dense
+        before = _flat_params(a.state)
+        metrics = a.learn(traj)
+        steps[name] = (metrics, _flat_params(a.state) - before)
+        del a
+    (mi, ui), (md, ud) = steps["index"], steps["dense"]
+    learn_errs = {"kernel_vs_plain_update_abs": float((ui - ud).abs().max()),
+                  "loss_rel": abs(mi["total_loss"] - md["total_loss"]) / max(
+                      abs(md["total_loss"]), 1.0),
+                  "grad_norm_rel": abs(mi["grad_norm"] - md["grad_norm"]) / max(
+                      abs(md["grad_norm"]), 1.0)}
+
+    # the fused loop, as impala_fused runs AtariNet
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    agent = ImpalaAgent(_moe_args(), obs_shape, A)
+    loop = DeviceActorLearnerLoop(agent.model, env, agent.make_learn_fn(),
+                                  unroll_length=MAIN_T, iters_per_call=MAIN_ITERS)
+    carry = loop.init_carry()
+    state, carry, _ = loop.run(agent.state, carry, num_calls=1)  # warm-up chunk
+    chunk_metrics = []
+    cuda_vtrace.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, carry, _ = loop.run(state, carry, num_calls=MAIN_CHUNKS,
+                                  on_metrics=lambda i, m: chunk_metrics.append(m))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = cuda_vtrace.launches
+    _, kernels = profile_device(lambda: loop.run(state, carry, num_calls=1))
+    device_ms = sum(us for _, us, _ in kernels) / 1e3
+    del loop, agent, state, carry
+
+    # the meshed step at dp = mp = 1 against the unmeshed one
+    set_tf32(False)
+    _one_rank_group()
+    try:
+        mesh_steps = {}
+        with _deterministic() as nondeterministic:
+            for name in ("plain", "mesh"):
+                a = ImpalaAgent(_moe_args(), obs_shape, A)
+                if name == "mesh":
+                    a.enable_mesh("dp=1,mp=1")
+                before = _flat_params(a.state)
+                cuda_vtrace.launches = 0
+                metrics = a.learn(traj)
+                torch.cuda.synchronize()
+                mesh_steps[name] = (metrics, _flat_params(a.state) - before, cuda_vtrace.launches)
+                del a
+    finally:
+        dist.destroy_process_group()
+    (mp_, up, vp), (mm, um, vm) = mesh_steps["plain"], mesh_steps["mesh"]
+    mesh_bit_equal = bool(torch.equal(up, um)) and mp_ == mm
+    mesh_max_abs = float((up - um).abs().max())
+
+    frames = MAIN_CHUNKS * MAIN_ITERS * MAIN_T * MAIN_B
+    out = dict(tokens=MOE_TOKENS, experts=MOE_E, d_model=MOE_D, d_hidden=MOE_H,
+               capacity_factor=MOE_CF, capacity=max(int(MOE_CF * MOE_TOKENS / MOE_E), 1),
+               layer=layer, layer_tol=MOE_LAYER_TOL,
+               tokens_dropped_per_learn_step=round(MOE_TOKENS * (1 - layer["dispatch_frac"])),
+               learn_index_vs_dense=learn_errs, learn_tol=LEARN_TOL,
+               B=MAIN_B, T=MAIN_T, iters_per_call=MAIN_ITERS, chunks=MAIN_CHUNKS,
+               env_frames_per_s=frames / seconds, chunk_s=seconds / MAIN_CHUNKS,
+               device_ms_per_chunk=device_ms,
+               impala_fused_atarinet_env_frames_per_s=report.get("impala_fused_rate"),
+               vtrace_launches=launches,
+               mesh=dict(spec="dp=1,mp=1", backend="nccl", bit_equal=mesh_bit_equal,
+                         max_abs_diff=mesh_max_abs, vtrace_launches_mesh=vm,
+                         vtrace_launches_plain=vp, nondeterministic_ops=nondeterministic),
+               warm_sync_debug_mode="error", card=report["card"])
+    emit("moe_impala", **out)
+    report["moe_impala"] = out
+    checks = {
+        "layer out": layer["out_rel_err"] <= MOE_LAYER_TOL,
+        "layer aux": layer["aux_abs_err"] <= MOE_LAYER_TOL,
+        "layer dispatch_frac": layer["dispatch_frac"] == layer["dispatch_frac_dense"],
+        "layer grads": layer["grad_rel_err"] <= MOE_LAYER_TOL,
+        "learn step": all(v <= LEARN_TOL[k] for k, v in learn_errs.items()),
+        "vtrace launches 5 a chunk": launches == MAIN_CHUNKS * MAIN_ITERS,
+        "chunk metrics": len(chunk_metrics) == MAIN_CHUNKS and all(
+            math.isfinite(v) for m in chunk_metrics for v in m.values())
+        and all(m["skipped_steps"] == 0.0 for m in chunk_metrics),
+        "meshed step": mesh_bit_equal or (
+            bool(nondeterministic) and mesh_max_abs <= LEARN_TOL["kernel_vs_plain_update_abs"]),
+        "meshed vtrace launches": vm == vp == 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"moe_impala: {failed}")
+
+
+# the mesh families at extent 1 (phase 61): the CPU tests' tolerances
+# (tests/test_torch_mesh_families.py), held relative to each compared
+# tensor's largest element (at least 1); ring attention at PERF.md's T4k
+# bf16 and T1k float32 shapes, the sequence-parallel transformer and the
+# pipeline's block at the transformer learner's width, expert parallelism
+# at the MoE learner's 10,752 tokens
+FAMILY_RING_SHAPES = {"T4k_bf16": ((1, 4096, 8, 64), "bfloat16"),
+                      "T1k_f32": ((2, 1024, 4, 64), "float32")}
+FAMILY_TOL = {"ring_float32": 2e-5, "ring_bfloat16": 0.06, "sequence": 3e-5,
+              "pipeline": 2e-5, "pipeline_grads": 5e-5, "expert": 2e-5,
+              "expert_grads": 1e-5}
+FAMILY_PIPE_M = 4
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_object", "broadcast",
+               "broadcast_object_list", "send", "recv", "isend", "irecv", "batch_isend_irecv",
+               "reduce_scatter_tensor", "all_to_all")
+
+
+def _count_collectives():
+    """Wrap ``torch.distributed``'s collectives and point-to-point calls with
+    counters; returns the counts and a function that restores them."""
+    import torch.distributed as dist
+
+    counts = {name: 0 for name in COLLECTIVES}
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrap(name):
+        def counted(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return counted
+
+    for name in COLLECTIVES:
+        setattr(dist, name, wrap(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+    return counts, restore
+
+
+def _grad_pair(fn_a, fn_b, inputs):
+    """Outputs and input gradients of two functions of ``inputs`` under one
+    loss (the sum of squares of every output), and each one's forward +
+    backward time."""
+    import torch
+
+    res = []
+    for fn in (fn_a, fn_b):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+        def step():
+            outs = fn(*leaves)
+            outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+            loss = sum((o.float() ** 2).sum() for o in outs)
+            return outs, torch.autograd.grad(loss, leaves)
+
+        outs, grads = step()
+        res.append((outs, grads, eager_time_ms(step, 2, reps=3)))
+    return res
+
+
+def _families_at_extent_one(meshes: dict) -> dict:
+    """The four paths at extent 1 against their plain twins: each one's
+    errors (``{"err", "tol"}``) and forward + backward ms."""
+    import torch
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from scalerl_torch.models.moe import MoEMLP
+    from scalerl_torch.models.transformer import TransformerPolicy
+    from scalerl_torch.ops.ring_attention import full_attention, make_ring_attention_fn
+    from scalerl_torch.parallel import (
+        hetero_sequential_apply,
+        make_expert_parallel_apply,
+        make_hetero_pipeline_apply,
+        make_sequence_parallel_apply,
+    )
+
+    errors: dict = {}
+    times: dict = {}
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def record(path, pair, out_tol, grad_tol):
+        (got, got_grads, ms), (want, want_grads, plain_ms) = pair
+        errors[f"{path}:out"] = {"err": max(_rel_err(a, b) for a, b in zip(got, want)),
+                                 "tol": out_tol}
+        errors[f"{path}:grads"] = {"err": max(_rel_err(a, b, 1e-30)
+                                              for a, b in zip(got_grads, want_grads)),
+                                   "tol": grad_tol}
+        times[path] = {"ms": ms, "plain_ms": plain_ms}
+
+    # ring attention at sp = 1 against full attention, causal
+    ring = make_ring_attention_fn(meshes["sp"], causal=True)
+    for name, (shape, dtype) in FAMILY_RING_SHAPES.items():
+        qkv = [torch.randn(shape, generator=g, device="cuda").to(getattr(torch, dtype))
+               for _ in range(3)]
+        tol = FAMILY_TOL[f"ring_{dtype}"]
+        record(f"ring_{name}", _grad_pair(
+            ring, lambda q, k, v: full_attention(q, k, v, causal=True), qkv), tol, tol)
+
+    # the sequence-parallel transformer at sp = 1 against the plain model,
+    # at the transformer learner's width
+    T1 = SHARD_T + 1
+    model = TransformerPolicy(num_actions=SHARD_A, d_model=SHARD_D, num_heads=SHARD_HEADS,
+                              num_layers=SHARD_LAYERS, max_len=T1, obs_dim=SHARD_OBS,
+                              generator=torch.Generator().manual_seed(0))
+    obs = torch.randn(SHARD_B, T1, SHARD_OBS, generator=g, device="cuda")
+    sp_apply = make_sequence_parallel_apply(model, meshes["sp"])
+    names = [n for n, _ in model.named_parameters()]
+
+    def sequence(*ps):
+        return tuple(sp_apply(dict(zip(names, ps)), obs))
+
+    def plain(*ps):
+        return tuple(functional_call(model, dict(zip(names, ps)), (obs,)))
+
+    record("sequence", _grad_pair(sequence, plain, [p for _, p in model.named_parameters()]),
+           FAMILY_TOL["sequence"], FAMILY_TOL["sequence"])
+
+    # the heterogeneous pipeline at pp = 1, M = 4: embed -> one block of the
+    # model above -> final norm and policy head
+    block = model.blocks[0]
+    embed_keys, head_keys = ("w", "b", "pos"), ("ln", "w", "b")
+    block_names = [n for n, _ in block.named_parameters()]
+
+    def embed_fn(p, x):
+        return F.linear(x, p["w"], p["b"]) + p["pos"]
+
+    def block_fn(p, x):
+        return functional_call(block, p, (x,))
+
+    def head_fn(p, x):
+        return F.linear(F.layer_norm(x, (SHARD_D,), p["ln"], None, 1e-6), p["w"], p["b"])
+
+    def tree(ps):
+        e, b, h = ps[:3], ps[3:3 + len(block_names)], ps[3 + len(block_names):]
+        return {"embed": dict(zip(embed_keys, e)), "block": dict(zip(block_names, b)),
+                "head": dict(zip(head_keys, h))}
+
+    pipe = make_hetero_pipeline_apply(embed_fn, block_fn, head_fn, meshes["pp"],
+                                      FAMILY_PIPE_M)
+    leaves = ([model.obs_embed.weight, model.obs_embed.bias, model.pos_embed[:T1]]
+              + [p[None] for _, p in block.named_parameters()]
+              + [model.final_norm.weight, model.policy_head.weight, model.policy_head.bias])
+    record("pipeline", _grad_pair(
+        lambda *ps: pipe(tree(ps), obs),
+        lambda *ps: hetero_sequential_apply(embed_fn, block_fn, head_fn, tree(ps), obs),
+        leaves), FAMILY_TOL["pipeline"], FAMILY_TOL["pipeline_grads"])
+
+    # expert parallelism at ep = 1 against the single-device layer, at the
+    # MoE learner's tokens
+    layer = MoEMLP(MOE_E, MOE_D, MOE_H, MOE_CF, generator=torch.Generator().manual_seed(1))
+    x = torch.randn(MOE_TOKENS, MOE_D, generator=g, device="cuda")
+    apply_fn, sharded = make_expert_parallel_apply(layer, meshes["ep"])
+    expert_names = list(sharded)
+
+    def expert(xx, *ps):
+        out = apply_fn(dict(zip(expert_names, ps)), xx)
+        return out.out, out.aux_loss
+
+    def single(xx, *ps):
+        out = functional_call(layer, dict(zip(expert_names, ps)), (xx,))
+        return out.out, out.aux_loss
+
+    record("expert", _grad_pair(expert, single, [x] + [sharded[n] for n in expert_names]),
+           FAMILY_TOL["expert"], FAMILY_TOL["expert_grads"])
+    return dict(errors=errors, times=times, ring_shapes=FAMILY_RING_SHAPES,
+                sequence_width=dict(d_model=SHARD_D, layers=SHARD_LAYERS, heads=SHARD_HEADS,
+                                    B=SHARD_B, T=T1),
+                pipeline_microbatches=FAMILY_PIPE_M, expert_tokens=MOE_TOKENS)
+
+
+def phase_parallel_families(report: dict) -> None:
+    """Ring attention, the sequence-parallel transformer, the heterogeneous
+    pipeline and expert parallelism at extent 1 (sp = pp = ep = 1), each
+    against its plain twin, forward and backward, on a one-rank nccl group
+    that the port's own ``initialize_multihost`` makes.  At extent 1 no
+    collective runs: every ``torch.distributed`` collective and
+    point-to-point call is counted and must stay at 0.  The multi-rank
+    paths are held on the CPU on 4 gloo ranks."""
+    import torch.distributed as dist
+
+    from scalerl_torch.parallel import initialize_multihost, make_mesh
+
+    set_tf32(False)
+    ran = initialize_multihost(coordinator_address=f"127.0.0.1:{_free_port()}",
+                               num_processes=1, process_id=0)
+    if not ran or dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        raise AssertionError(f"initialize_multihost: ran={ran}")
+    try:
+        meshes = {axis: make_mesh(f"{axis}=1") for axis in ("sp", "pp", "ep")}
+        if any(m.device_mesh is None for m in meshes.values()):
+            raise AssertionError("a one-rank mesh has no DeviceMesh")
+        counts, restore = _count_collectives()
+        try:
+            out = _families_at_extent_one(meshes)
+        finally:
+            restore()
+    finally:
+        dist.destroy_process_group()
+    print("parallel_families: at extent 1 (sp = pp = ep = 1, one card) no collective runs; "
+          "the multi-rank paths are held on the CPU on 4 gloo ranks", flush=True)
+    emit("parallel_families", world_size=1, backend="nccl", **out, collectives=counts,
+         card=report["card"])
+    report["parallel_families"] = out
+    bad = {k: v for k, v in out["errors"].items() if not v["err"] <= v["tol"]}
+    if bad or any(counts.values()):
+        raise AssertionError(f"parallel_families: off tolerance {bad}, collectives {counts}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_impala_anakin, phase_learn_synthetic, phase_learn_catch, phase_learn_recall,
@@ -7530,7 +7962,7 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_impala_trainer_device, phase_impala_trainer_host, phase_learn_cartpole_host,
           phase_dqn_resume, phase_dqn_rainbow_learn, phase_apex_train, phase_r2d2_device,
           phase_learn_r2d2_recall_device, phase_r2d2_host, phase_mesh_replay,
-          phase_mesh_loops, phase_shm_ring,
+          phase_mesh_loops, phase_moe_impala, phase_parallel_families, phase_shm_ring,
           phase_parallel_dqn, phase_process_impala, phase_impact_learn, phase_impact_train,
           phase_onpolicy_train, phase_continuous_learn, phase_continuous_train,
           phase_serving_flush, phase_impala_serving, phase_serving_traffic,

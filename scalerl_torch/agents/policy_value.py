@@ -189,8 +189,8 @@ class PolicyValueAgent(BaseAgent):
     def enable_mesh(self, mesh_or_spec, batch_example=None) -> None:
         """Shard the learn step over a mesh (``mesh_shape`` or ``dp_size`` x
         ``mp_size``); call once, before training.  A mesh with ``mp > 1``
-        needs a model the logical rule table knows (the transformer
-        policy) and lays the state out by it; any other mesh keeps the
+        needs a model the logical rule table knows (the transformer or
+        MoE policy) and lays the state out by it; any other mesh keeps the
         heuristic fsdp/tp layout."""
         from scalerl_torch.parallel.logical import (
             activation_constraint,
@@ -212,9 +212,9 @@ class PolicyValueAgent(BaseAgent):
             if not has_mp_params(self.state.params):
                 raise ValueError(
                     "mesh has mp > 1 but this agent's model has no model-parallel sharding "
-                    "rules: use a transformer policy (policy_arch='transformer') or a pure-dp "
-                    "mesh")
-            inner = getattr(self.model, "transformer", None)
+                    "rules: use a transformer or MoE policy (policy_arch='transformer' or "
+                    "'moe') or a pure-dp mesh")
+            inner = getattr(self.model, "transformer", getattr(self.model, "moe_policy", None))
             if inner is not None and inner.constrain is None:
                 inner.constrain = activation_constraint(mesh)
             spec_fn = lambda path, x: mp_param_spec(path, x, mesh)  # noqa: E731

@@ -140,8 +140,8 @@ class RLArguments:
     dp_size: int = 0
     # Policy architecture for the actor-learner agents: "transformer" picks
     # models/transformer_policy.py::TransformerPolicyNet, sized by d_model,
-    # n_layers and n_heads; "auto" keeps the agent's own model; "moe" is not
-    # ported (moe_experts and moe_hidden size it in the JAX package).
+    # n_layers and n_heads; "moe" picks models/moe.py::MoEPolicyNet, sized by
+    # d_model, moe_experts and moe_hidden; "auto" keeps the agent's own model.
     policy_arch: str = "auto"
     d_model: int = 128
     n_layers: int = 2

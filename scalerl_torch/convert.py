@@ -42,6 +42,13 @@ bfloat16 under ``bf16_params``).  ``TransformerPolicyNet``'s tree is the same
 under ``transformer/``, the port's ``transformer.*``
 (:func:`transformer_policy_net_to_torch` and back).
 
+``MoEPolicyNet``'s tree is ``moe_policy/{embed, moe/{router, w_in, w_out},
+LayerNorm_0, policy_head, value_head}``, the port's ``moe_policy.*`` with
+``LayerNorm_0`` as ``norm``: dense kernels transpose, the expert banks
+``w_in`` ``[E, M, H]`` and ``w_out`` ``[E, H, M]`` keep their layout
+(:func:`moe_policy_net_to_torch` and back; :func:`moe_policy_to_torch` and
+:func:`moe_mlp_to_torch` for the inner modules).
+
 Any tree shaped like the params converts the same way, which covers the
 optimizer moments: :func:`rmsprop_state_to_torch` pulls RMSProp's ``nu``
 (the schedule's update count, and with momentum the trace) out of an optax
@@ -291,6 +298,38 @@ def _transformer_names(tree: Mapping[str, Any]) -> Dict[Tuple[str, ...], str]:
     return names
 
 
+def _named_to_torch(tree: Mapping[str, Any], names: Mapping[Tuple[str, ...], str],
+                    device: torch.device | str) -> Dict[str, torch.Tensor]:
+    """Flax leaves at ``names``' paths -> the port's state dict, each leaf
+    in its own dtype; ``kernel`` leaves (dense, ``[in, out]``) become ``[out,
+    in]``, every other leaf keeps its layout."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, torch_name in names.items():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        arr = np.asarray(leaf)
+        if path[-1] == "kernel":
+            arr = arr.T
+        out[torch_name] = _leaf_to_torch(arr, device)
+    return out
+
+
+def _named_to_flax(state: Mapping[str, torch.Tensor],
+                   names: Mapping[Tuple[str, ...], str]) -> Dict[str, Any]:
+    """The inverse of :func:`_named_to_torch`: ``{"params": {...}}``."""
+    params: Dict[str, Any] = {}
+    for path, torch_name in names.items():
+        arr = _leaf_to_numpy(state[torch_name])
+        if path[-1] == "kernel":
+            arr = arr.T
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return {"params": params}
+
+
 def transformer_to_torch(
     tree: Mapping[str, Any], device: torch.device | str = "cpu"
 ) -> Dict[str, torch.Tensor]:
@@ -300,16 +339,7 @@ def transformer_to_torch(
     kernels ``[in, out]`` become ``[out, in]``; embeddings, ``pos_embed``
     and norm scales keep their layout."""
     tree = tree.get("params", tree)
-    out: Dict[str, torch.Tensor] = {}
-    for path, torch_name in _transformer_names(tree).items():
-        leaf = tree
-        for key in path:
-            leaf = leaf[key]
-        arr = np.asarray(leaf)
-        if path[-1] == "kernel":
-            arr = arr.T
-        out[torch_name] = _leaf_to_torch(arr, device)
-    return out
+    return _named_to_torch(tree, _transformer_names(tree), device)
 
 
 def torch_to_transformer(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -323,16 +353,7 @@ def torch_to_transformer(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     for head in ("token_embed", "obs_embed"):
         if f"{head}.weight" in state:
             skeleton[head] = None
-    params: Dict[str, Any] = {}
-    for path, torch_name in _transformer_names(skeleton).items():
-        arr = _leaf_to_numpy(state[torch_name])
-        if path[-1] == "kernel":
-            arr = arr.T
-        node = params
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
-    return {"params": params}
+    return _named_to_flax(state, _transformer_names(skeleton))
 
 
 def transformer_policy_net_to_torch(
@@ -352,6 +373,54 @@ def torch_to_transformer_policy_net(state: Mapping[str, torch.Tensor]) -> Dict[s
     ``{"params": {"transformer": {...}}}`` of numpy arrays."""
     inner = {k[len("transformer."):]: v for k, v in state.items()}
     return {"params": {"transformer": torch_to_transformer(inner)["params"]}}
+
+
+# Flax MoEMLP path -> the port's MoEMLP name; the expert banks keep the JAX
+# layout ([E, M, H] and [E, H, M]), only the router's kernel transposes
+MOE_MLP_NAMES: Dict[Tuple[str, ...], str] = {
+    ("router", "kernel"): "router.weight", ("w_in",): "w_in", ("w_out",): "w_out"}
+
+
+def _moe_policy_names() -> Dict[Tuple[str, ...], str]:
+    """Flax ``MoEPolicy`` path -> the port's name: ``embed``,
+    ``LayerNorm_0`` (the port's ``norm``), the two heads and ``moe/...``."""
+    names = {("LayerNorm_0", "scale"): "norm.weight", ("LayerNorm_0", "bias"): "norm.bias"}
+    for dense in ("embed", "policy_head", "value_head"):
+        names[(dense, "kernel")] = f"{dense}.weight"
+        names[(dense, "bias")] = f"{dense}.bias"
+    names.update({("moe",) + path: f"moe.{name}" for path, name in MOE_MLP_NAMES.items()})
+    return names
+
+
+def moe_mlp_to_torch(tree: Mapping[str, Any],
+                     device: torch.device | str = "cpu") -> Dict[str, torch.Tensor]:
+    """A Flax ``MoEMLP`` param tree -> the port's ``MoEMLP`` state dict."""
+    return _named_to_torch(tree.get("params", tree), MOE_MLP_NAMES, device)
+
+
+def moe_policy_to_torch(tree: Mapping[str, Any],
+                        device: torch.device | str = "cpu") -> Dict[str, torch.Tensor]:
+    """A Flax ``MoEPolicy`` param tree -> the port's ``MoEPolicy`` state
+    dict.  The embedding's rows follow ``obs.reshape(N, -1)``, the NHWC
+    flatten of pixel obs, which is the port's order too."""
+    return _named_to_torch(tree.get("params", tree), _moe_policy_names(), device)
+
+
+def moe_policy_net_to_torch(tree: Mapping[str, Any],
+                            device: torch.device | str = "cpu") -> Dict[str, torch.Tensor]:
+    """A Flax ``MoEPolicyNet`` param tree (``moe_policy/...``, with or
+    without the top ``params`` level) -> the port's ``MoEPolicyNet`` state
+    dict (``moe_policy.*``)."""
+    tree = tree.get("params", tree)
+    return {f"moe_policy.{k}": v
+            for k, v in moe_policy_to_torch(tree["moe_policy"], device).items()}
+
+
+def torch_to_moe_policy_net(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`moe_policy_net_to_torch`:
+    ``{"params": {"moe_policy": {...}}}`` of numpy arrays."""
+    inner = {k[len("moe_policy."):]: v for k, v in state.items()}
+    return {"params": {"moe_policy": _named_to_flax(inner, _moe_policy_names())["params"]}}
 
 
 def _find_field(state: Any, field: str) -> Optional[Any]:

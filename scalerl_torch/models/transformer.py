@@ -19,8 +19,9 @@ The forward has the JAX module's paths, chosen by its arguments:
 
 - full causal, through :func:`~scalerl_torch.ops.attention.full_attention`
   or, with ``use_flash``, the CUDA flash kernels
-  (``ops/cuda_flash_attention.py``); or masked under ``attn_mask``
-  ``[B, T, T]``;
+  (``ops/cuda_flash_attention.py``), or through ``attn_fn`` when the model
+  has one (ring attention under ``parallel/sequence.py``); or masked under
+  ``attn_mask`` ``[B, T, T]``;
 - packed rows (``segment_ids``): through ``segment_attn_fn`` in every
   block when the model has one (the CUDA segment flash kernels,
   ``ops/cuda_segment_attention.py``), else the dense
@@ -225,9 +226,11 @@ class TransformerBlock(nn.Module):
         page_table: Optional[torch.Tensor] = None,
         attn_lengths: Optional[torch.Tensor] = None,
         prefix_starts: Optional[torch.Tensor] = None,
+        attn_fn: Optional[Callable] = None,
     ) -> torch.Tensor:
         """Returns the block's output; cache arguments are written in place
-        (see :class:`TransformerPolicy`)."""
+        (see :class:`TransformerPolicy`).  ``attn_fn`` replaces the plain
+        causal attention (and the flash kernels) on the unmasked path."""
         B, T, _ = x.shape
         H = self.num_heads
         D = self.d_model // H
@@ -274,6 +277,8 @@ class TransformerBlock(nn.Module):
             out = segment_attn_fn(q, k, v, segment_ids).to(dtype)
         elif attn_mask is not None:
             out = _masked_attention(q, k, v, attn_mask, dtype)
+        elif attn_fn is not None:
+            out = attn_fn(q, k, v)
         elif self.use_flash:
             # the whole-trajectory forward through the flash kernels; q, k,
             # v go in as the strided views they are
@@ -304,7 +309,12 @@ class TransformerPolicy(nn.Module):
     (``ops/cuda_flash_attention.py::flash_attention``), as the Flax module
     routes it through the Pallas kernel; every other path is unchanged.
     ``dtype``/``param_dtype``: see the module docstring (bfloat16 for both
-    on the sharded learner plane).  ``constrain`` is the activation-layout
+    on the sharded learner plane).  ``attn_fn(q, k, v)`` replaces the
+    causal attention of the unmasked full forward in every block (and
+    ``use_flash`` there), as the Flax module's ``attn_fn``: it must apply
+    its own causal mask (``parallel/sequence.py`` passes ring attention);
+    the segment, mask, cache and paged paths take precedence over it.
+    ``constrain`` is the activation-layout
     seam: when set (``parallel/logical.py::activation_constraint``, by a
     meshed agent's ``enable_mesh``), it is applied to the residual stream
     after the embedding and after every block.  It redistributes DTensor
@@ -331,6 +341,7 @@ class TransformerPolicy(nn.Module):
         param_dtype: torch.dtype = torch.float32,
         device: DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
+        attn_fn: Optional[Callable] = None,
     ) -> None:
         """``generator``: a host ``torch.Generator`` for the initial weights
         (Flax's defaults: truncated LeCun-normal kernels, zero biases, unit
@@ -353,6 +364,7 @@ class TransformerPolicy(nn.Module):
         self.dtype = dtype
         self.paged_attn_fn = paged_attn_fn
         self.segment_attn_fn = segment_attn_fn
+        self.attn_fn = attn_fn
         if vocab_size is not None:
             self.token_embed = nn.Embedding(vocab_size, d_model)
         else:
@@ -462,6 +474,7 @@ class TransformerPolicy(nn.Module):
                 page_table=page_table,
                 attn_lengths=attn_lengths,
                 prefix_starts=prefix_starts,
+                attn_fn=self.attn_fn,
             )
             if self.constrain is not None:
                 x = self.constrain(x)

@@ -9,9 +9,10 @@ drive every model through the time-major signature::
 
 and ``TransformerPolicy`` speaks batch-major ``[B, T, ...]``; the adapter
 moves the axes both ways.  The transformer attends causally within the
-chunk it is given, so ``core_state`` is empty.  ``MoEPolicyNet`` is not
-ported, since ``models/moe.py`` is not.  The activation-layout seam
-``constrain`` lives on the inner ``TransformerPolicy``.
+chunk it is given, so ``core_state`` is empty.  ``MoEPolicyNet`` (the
+Switch-MoE actor-critic) lives in ``models/moe.py``; this module's
+:func:`build_mp_policy` dispatches to it.  The activation-layout seam
+``constrain`` lives on the inner ``TransformerPolicy`` (or ``MoEPolicy``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from scalerl_torch.models.atari import AtariNetOutput
+from scalerl_torch.models.moe import MoEPolicyNet
 from scalerl_torch.models.transformer import TransformerPolicy
 from scalerl_torch.utils.platform import DeviceLike
 
@@ -76,16 +78,19 @@ def build_mp_policy(args, obs_shape: Tuple[int, ...], num_actions: int,
     ``"transformer"`` returns a :class:`TransformerPolicyNet` sized from
     ``RLArguments`` (``d_model``, ``n_layers``, ``n_heads``,
     ``bf16_params``; ``max_len = rollout_length + 1``, the learner's
-    ``[T+1, B]`` chunk); ``"auto"`` returns None and the caller keeps its own
-    model.  ``args.use_pallas``, the port's one switch for its kernels (it
-    routes V-trace and PER too), turns on ``use_flash``; the JAX function
-    leaves ``use_flash`` off, and both compute the same attention."""
+    ``[T+1, B]`` chunk); ``"moe"`` a :class:`~scalerl_torch.models.moe.
+    MoEPolicyNet` (``d_model``, ``moe_experts``, ``moe_hidden``; float32,
+    as in JAX); ``"auto"`` returns None and the caller keeps its own model.
+    ``args.use_pallas``, the port's one switch for its kernels (it routes
+    V-trace and PER too), turns on ``use_flash``; the JAX function leaves
+    ``use_flash`` off, and both compute the same attention."""
     arch = args.policy_arch
     if arch in ("auto", "", None):
         return None
     if arch == "moe":
-        raise NotImplementedError(
-            "policy_arch='moe' needs MoEPolicyNet and models/moe.py, which are not ported yet")
+        return MoEPolicyNet(num_actions=num_actions, obs_shape=tuple(obs_shape),
+                            d_model=args.d_model, num_experts=args.moe_experts,
+                            d_hidden=args.moe_hidden, device=device, generator=generator)
     if arch != "transformer":
         raise ValueError(f"unknown policy_arch {arch!r}; expected auto | transformer | moe")
     dtype = torch.bfloat16 if args.bf16_params else torch.float32

@@ -1,5 +1,7 @@
-"""Meshes, sharding rules and the sharded learn step (port of
-``scalerl_tpu/parallel``).
+"""Meshes, sharding rules, the sharded learn step and the mesh families that
+compute on shards: ring-attention sequence parallelism over ``sp``, the GPipe
+pipeline over ``pp`` and expert parallelism over ``ep``; and the multi-node
+rendezvous (port of ``scalerl_tpu/parallel``).
 
 Axis vocabulary, in mesh order: ``dp`` (data), ``pp``, ``fsdp`` (param and
 optimizer shards), ``tp`` (tensor, heuristic), ``sp``, ``ep`` and ``mp``
@@ -40,3 +42,15 @@ from scalerl_torch.parallel.train_step import (  # noqa: F401
     make_parallel_learn_fn,
     maybe_enable_mesh_from_args,
 )
+from scalerl_torch.parallel.expert import (  # noqa: F401
+    expert_param_sharding,
+    make_expert_parallel_apply,
+)
+from scalerl_torch.parallel.multihost import initialize_multihost  # noqa: F401
+from scalerl_torch.parallel.pipeline import (  # noqa: F401
+    hetero_sequential_apply,
+    make_hetero_pipeline_apply,
+    make_pipeline_apply,
+    sequential_apply,
+)
+from scalerl_torch.parallel.sequence import make_sequence_parallel_apply  # noqa: F401

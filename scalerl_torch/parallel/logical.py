@@ -13,8 +13,8 @@ params and the optimizer moments, whose paths end in the same param names
 (``opt_state.nu.transformer.blocks.0.qkv.weight``).  The table is in the
 port's layout: a ``torch.nn.Linear`` weight is ``[out, in]``, the transpose
 of a Flax kernel, so each 2-D row lists the JAX row's axes reversed.  The
-MoE rows (``w_in``, ``w_out``) keep the JAX layout; ``models/moe.py`` is
-not ported yet.
+MoE rows (``w_in``, ``w_out``, the expert banks of ``models/moe.py``) keep
+the JAX layout.
 
 Divisibility guard: a dim shards only when the mesh extent divides it, and
 a mesh axis shards at most one dim of a tensor; everything else

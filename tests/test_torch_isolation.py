@@ -80,7 +80,7 @@ def test_no_port_source_imports_jax():
         *(REPO / "examples" / f"train_{n}_torch.py" for n in ("a3c", "ppo", "impact", "sac", "td3",
                                                                "fleet_impala", "fleet_dqn",
                                                                "a3c_fleet", "marl_dqn")),
-        REPO / "tests" / "torch_fleet_helpers.py"]
+        REPO / "tests" / "torch_fleet_helpers.py", REPO / "tests" / "torch_family_helpers.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -173,6 +173,27 @@ def test_transformer_learner_entry_points_refuse_the_default_device_without_a_ca
         with pytest.raises(RuntimeError, match="cuda"):
             make()
     ImpalaAgent(args, (8,), 3, device="cpu")
+
+
+def test_mesh_family_entry_points_refuse_the_default_device_without_a_card(monkeypatch):
+    from scalerl_torch.models.moe import MoEMLP, MoEPolicyNet
+    from scalerl_torch.parallel import initialize_multihost, make_expert_parallel_apply, make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    model = MoEMLP(4, 8, 16, device="cpu")
+    for make in (
+        lambda: initialize_multihost(coordinator_address="127.0.0.1:1", num_processes=1,
+                                     process_id=0),
+        lambda: make_expert_parallel_apply(model, make_mesh("ep=1")),
+        lambda: MoEMLP(4, 8, 16),
+        lambda: MoEPolicyNet(3, (8,)),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    apply_fn, params = make_expert_parallel_apply(model, make_mesh("ep=1"), device="cpu")
+    assert apply_fn(params, torch.zeros(5, 8)).out.shape == (5, 8)
 
 
 def test_learning_slice_entry_points_refuse_the_default_device_without_a_card(monkeypatch):

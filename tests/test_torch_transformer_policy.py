@@ -24,6 +24,7 @@ from scalerl_torch import config as tconfig
 from scalerl_torch import convert
 from scalerl_torch.agents import impala as timpala
 from scalerl_torch.data.trajectory import Trajectory
+from scalerl_torch.models.moe import MoEPolicyNet
 from scalerl_torch.models.policy import MLPPolicyNet
 from scalerl_torch.models.transformer_policy import TransformerPolicyNet, build_mp_policy
 from scalerl_torch.parallel.train_step import fp32_optimizer_state
@@ -125,8 +126,13 @@ def test_build_mp_policy_dispatch():
     assert isinstance(net, TransformerPolicyNet)
     assert net.transformer.max_len == T + 1 and net.transformer.num_heads == 2
     assert build_mp_policy(dataclasses.replace(targs, policy_arch="auto"), OBS, A) is None
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        build_mp_policy(dataclasses.replace(targs, policy_arch="moe"), OBS, A)
+    moe = build_mp_policy(dataclasses.replace(targs, policy_arch="moe", moe_experts=4,
+                                              moe_hidden=24), OBS, A, device="cpu")
+    assert isinstance(moe, MoEPolicyNet)
+    inner = moe.moe_policy
+    assert (inner.moe.num_experts, inner.moe.d_hidden, inner.moe.d_model) == (4, 24, 32)
+    assert inner.embed.in_features == OBS_DIM and inner.policy_head.out_features == A
+    assert moe.initial_state(B) == ()
     flat = timpala.build_model(dataclasses.replace(targs, policy_arch="auto"), OBS, A,
                                device="cpu")
     assert isinstance(flat, MLPPolicyNet)
