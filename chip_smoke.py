@@ -8,11 +8,13 @@ no result line:
 
 1. ``device``: needs ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` reports them.
-2. ``build``: compiles every CUDA source of ``scalerl_torch/csrc`` with
-   ``nvcc`` (one process per source, all started together); fails if
-   ptxas reports a local-memory spill in any kernel; reports the
-   registers of each flash, segment, paged, PER and V-trace kernel
-   (instantiation).
+2. ``build``: starts compiling every CUDA source of ``scalerl_torch/csrc``
+   with ``nvcc`` (one process per source, all started together) and waits
+   for V-trace's; the others compile while the next phases run.
+   ``kernels_built``, run before ``paged_attn``, waits for the rest and
+   prints the ``build`` line: fails if ptxas reports a local-memory spill
+   in any kernel; reports the registers of each flash, segment, paged, PER
+   and V-trace kernel (instantiation).
 3. ``vtrace``: the V-trace kernel against its plain PyTorch version on the
    card, for three clip settings (max abs error <= 1e-5, each call twice
    and bit-equal), at the fused loop's [20, 512], ImpalaArguments'
@@ -413,12 +415,13 @@ no result line:
     Phases 53-55 join every thread and child with a deadline.
 56. ``impala_anakin`` (run after ``impala_lstm_fused``): ``run_anakin``, N
     chunks as one CUDA-graph replay, at ``impala_fused``'s width and at
-    ImpalaArguments' defaults, 4 chunks each: from one state, carry and
-    generator state, 4 ``run()`` chunks and the captured superchunk under
+    ImpalaArguments' defaults, 2 chunks each: from one state, carry and
+    generator state, 2 ``run()`` chunks and the captured superchunk under
     deterministic algorithms are bit-equal (params, carry, metric stream,
     generator); the next replay, timed, draws different actions with the
-    generator moved on; V-trace launches in a replay = 4 x 5 by the
-    profiler; warm replays under sync debug mode "error"; env frames/s of
+    generator moved on; V-trace launches captured into the graph = 2 x 5,
+    and seen by the profiler in a replay (1 to 2 x 5: CUPTI can lose a
+    record); warm replays under sync debug mode "error"; env frames/s of
     both, a profiled replay's busy share (its kernel time over the span of
     its kernels), kernels a replay, peak memory.
 57. ``mesh_learn`` (run after ``flash_train_step``): a one-rank nccl
@@ -671,20 +674,36 @@ def _spills(log: str) -> list:
 
 
 def phase_build(report: dict) -> None:
+    """Start one ``nvcc`` for each kernel source, all together, and wait for
+    V-trace's, which the next phases launch; the others compile while those
+    phases run (the PER kernels' first launch waits for theirs), and
+    ``phase_kernels_built``, before the first phase that launches an
+    attention kernel, waits for the rest and reads every compile's report."""
     from scalerl_torch.utils import cuda_build
 
     # the kernels must come from the checkout this script sits in
     if cuda_build.PACKAGE_DIR.parent != Path(__file__).resolve().parent:
         raise RuntimeError(f"scalerl_torch found at {cuda_build.PACKAGE_DIR}, not beside this script")
+    report["build_t0"] = time.perf_counter()
+    cuda_build.start(cuda_build.KERNEL_SOURCES)
+    cuda_build.build(["vtrace"])
+
+
+def phase_kernels_built(report: dict) -> None:
+    from scalerl_torch.utils import cuda_build
+
     t0 = time.perf_counter()
-    logs = cuda_build.build(cuda_build.KERNEL_SOURCES)
-    seconds = time.perf_counter() - t0
+    cuda_build.build(cuda_build.KERNEL_SOURCES)
+    waited = time.perf_counter() - t0
+    seconds = time.perf_counter() - report["build_t0"]
+    logs = cuda_build.compile_logs
     ptxas = {
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
     }
     spills = [f"{name}: {line}" for name, log in logs.items() for line in _spills(log)]
-    emit("build", seconds=seconds, sources=list(cuda_build.KERNEL_SOURCES), ptxas=ptxas,
+    emit("build", seconds=seconds, waited_s=waited, sources=list(cuda_build.KERNEL_SOURCES),
+         ptxas=ptxas,
          spill_free=not spills, flash_registers=_registers(logs.get("flash_attention", "")),
          segment_registers=_registers(logs.get("segment_attention", "")),
          paged_registers=_registers(logs.get("paged_attention", "")),
@@ -3555,7 +3574,8 @@ TRAINER_ITERS = 10  # DeviceActorLearnerTrainer's iterations a call
 # remaining learners' phases; APEX_TRAIN_S, R2D2_HOST_S, PDQN_TRAIN_S and
 # PROC_TRAIN_S are 8 s beside the serving phases, so the whole script stays
 # inside its time limit; beside phases 51-55 HOST_TRAIN_S is 6 s (12 before)
-# and PDQN_TRAIN_S and PROC_TRAIN_S 5 s
+# and PDQN_TRAIN_S and PROC_TRAIN_S 5 s; beside shard_compute APEX_TRAIN_S and
+# R2D2_HOST_S are 6 s and PDQN_TRAIN_S and PROC_TRAIN_S 4 s
 HOST_TRAIN_S = 6.0
 HOST_PROFILE_STEPS = 1  # its trace holds ~70,000 kernels a learn step
 DQN_RESUME_STEPS, DQN_RESUME_MORE, DQN_TRIP_K = 6_000, 4_000, 3
@@ -3936,8 +3956,8 @@ def phase_dqn_resume(report: dict) -> None:
 
 
 RAINBOW_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4, "host_rel": 1e-4}
-APEX_TRAIN_S, R2D2_HOST_S = 8.0, 8.0
-R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 120, 5  # 300 iterations before phases 51-55 joined the script
+APEX_TRAIN_S, R2D2_HOST_S = 6.0, 6.0  # 8 s before shard_compute joined the script
+R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 80, 5  # 120 before shard_compute, 300 before phases 51-55
 
 
 def _leaf_rel_err(got: dict, want: dict) -> float:
@@ -4350,8 +4370,8 @@ def phase_r2d2_host(report: dict) -> None:
 # The process plane (phases 35-37)
 RING_PRODUCERS, RING_SLOTS, RING_PER_PRODUCER = 4, 32, 40
 RING_TEAR_SPEC, RING_TEAR_SLOTS = "16:slot_tear=0.25", 40
-PDQN_TRAIN_S = 5.0
-PROC_TRAIN_S = 5.0
+PDQN_TRAIN_S = 4.0  # 5 s before shard_compute joined the script
+PROC_TRAIN_S = 4.0
 # seconds a training phase may take to reach its first learn step
 FIRST_LEARN_DEADLINE_S = 240.0
 
@@ -6216,7 +6236,7 @@ SPEC_V, SPEC_D, SPEC_LAYERS, SPEC_HEADS = 64, 256, 4, 8
 SPEC_P, SPEC_R, SPEC_LANES, SPEC_PAGE, SPEC_MACRO = 32, 512, 64, 16, 8
 SPEC_K, SPEC_NGRAM = 24, 3
 SPEC_ROUNDS = 1  # measured (off, on) round pairs after one warm-up pair
-DISAGG_TRAIN_S = 7.0  # 10 s before impala_anakin and mesh_learn joined (why: at IMPACT_TRAIN_S)
+DISAGG_TRAIN_S = 5.0  # 7 s before shard_compute, 10 before impala_anakin and mesh_learn joined
 DISAGG_CONT_ROUNDS = 2
 # one bf16 learn step, segment kernels against the dense mask: both sides
 # compute in bf16 and round in other places, held as the bf16 flash
@@ -6691,7 +6711,8 @@ def phase_disagg_preempt(report: dict) -> None:
 
 # Anakin (phase impala_anakin): N chunks as one CUDA-graph replay, at the fused
 # phase's width and at ImpalaArguments' defaults
-ANAKIN_LSTM_CHUNKS = 4
+ANAKIN_FF_CHUNKS = 2  # MAIN_CHUNKS (4) before the whole script neared its time limit
+ANAKIN_LSTM_CHUNKS = 2  # 4 before shard_compute joined the script
 
 
 def _clone_tree(tree):
@@ -6719,9 +6740,13 @@ def _anakin_case(report: dict, name: str, args, chunks: int) -> dict:
     from the same state, carry and generator state under deterministic
     algorithms (bit-equal params, carry and metric stream; an op without a
     deterministic version is named and its leaves held at ``LEARN_TOL``),
-    distinct draws across two replays, V-trace launches in a replay by the
-    profiler, and the warm replay's rate beside ``run()``'s (both with the
-    deterministic algorithms).  The timed warm replay is the second draw:
+    distinct draws across two replays, V-trace launches captured into the
+    graph (the wrapper's count over the capture: a replay launches what was
+    captured) and seen by the profiler in a replay (at least one, and no
+    more than were captured: CUPTI can lose a record among the replay's
+    ~10^5 kernels on a loaded host, and once saw 19 of 20), and the warm
+    replay's rate beside ``run()``'s (both with the deterministic
+    algorithms).  The timed warm replay is the second draw:
     it starts from the first replay's generator state, which must have
     moved on.  The device busy share is the profiled replay's kernel time
     over the span from its first kernel's start to its last kernel's end."""
@@ -6731,6 +6756,7 @@ def _anakin_case(report: dict, name: str, args, chunks: int) -> dict:
 
     from scalerl_torch.agents.impala import ImpalaAgent
     from scalerl_torch.envs.tensor_envs import SyntheticPixelEnv
+    from scalerl_torch.ops import cuda_vtrace
     from scalerl_torch.runtime.device_loop import DeviceActorLearnerLoop
 
     T, B, iters = args.rollout_length, args.batch_size, MAIN_ITERS
@@ -6759,10 +6785,13 @@ def _anakin_case(report: dict, name: str, args, chunks: int) -> dict:
             gen_after_run = loop.generator.get_state()
             loop.generator.set_state(gen0)
             ana_stream = []
+            cuda_vtrace.launches = 0
             t0 = time.perf_counter()
             s_ana, c_ana, _ = loop.run_anakin(_clone_tree(state0), _clone_tree(carry0), chunks,
                                               on_metrics=lambda i, m: ana_stream.append(m))
             capture_s = time.perf_counter() - t0
+            # the capture follows one warm eager chunk of ``iters`` launches
+            captured_vtrace = cuda_vtrace.launches - iters
             s_ana, c_ana = _clone_tree(s_ana), _clone_tree(c_ana)
         nondeterministic = sorted({str(w.message).split(" does not have")[0][:120]
                                    for w in caught if "deterministic" in str(w.message)})
@@ -6808,6 +6837,7 @@ def _anakin_case(report: dict, name: str, args, chunks: int) -> dict:
                replay_device_busy_s=busy_s, replay_kernel_span_s=span_s,
                replay_device_busy_share=busy_s / span_s,
                replay_kernel_launches=sum(n for _, _, n in kernels),
+               captured_vtrace_launches=captured_vtrace,
                replay_vtrace_launches=vtrace_calls, peak_mem_gib=peak_gib,
                bit_equal=bad_leaves == 0 and stream_equal, differing_leaves=bad_leaves,
                max_abs_diff=worst, metric_stream_equal=stream_equal,
@@ -6815,9 +6845,10 @@ def _anakin_case(report: dict, name: str, args, chunks: int) -> dict:
                nondeterministic_ops=nondeterministic, warm_sync_debug_mode="error",
                last_chunk=last, card=report["card"])
     emit(f"impala_anakin_{name}", **out)
-    if vtrace_calls != chunks * iters:
-        raise AssertionError(f"{name}: vtrace launches in a replay {vtrace_calls} != "
-                             f"{chunks * iters}")
+    if captured_vtrace != chunks * iters or not 1 <= vtrace_calls <= captured_vtrace:
+        raise AssertionError(f"{name}: vtrace launches captured {captured_vtrace} != "
+                             f"{chunks * iters}, or seen in a replay {vtrace_calls} outside "
+                             f"[1, {captured_vtrace}]")
     if not (draws_differ and generator_equal):
         raise AssertionError(f"{name}: replays draw the same actions or the generator moved "
                              "otherwise than eager")
@@ -6845,7 +6876,7 @@ def phase_impala_anakin(report: dict) -> None:
     ff = ImpalaArguments(use_lstm=False, hidden_size=512, rollout_length=MAIN_T,
                          batch_size=MAIN_B, max_timesteps=0, compute_dtype="bfloat16",
                          use_pallas=True)
-    report["anakin"] = {"ff": _anakin_case(report, "ff", ff, MAIN_CHUNKS),
+    report["anakin"] = {"ff": _anakin_case(report, "ff", ff, ANAKIN_FF_CHUNKS),
                         "lstm": _anakin_case(report, "lstm", _default_args(),
                                              ANAKIN_LSTM_CHUNKS)}
 
@@ -7951,10 +7982,370 @@ def phase_parallel_families(report: dict) -> None:
         raise AssertionError(f"parallel_families: off tolerance {bad}, collectives {counts}")
 
 
+# the learn step on its shards across two ranks of the one card (phase 62).
+# Two nccl ranks on one card fail at their first all-reduce ("Duplicate GPU
+# detected"); a probe of two gloo ranks on cuda:0 found all_reduce (float32,
+# bfloat16, an int32 MIN), all_gather, all_gather_into_tensor, broadcast
+# and reduce_scatter_tensor right on CUDA tensors in the card's PyTorch.  So
+# this phase runs the meshed step on 2 spawned gloo ranks, both on cuda:0,
+# each configuration at full width against the one-rank step on the same
+# global batch in this process; the probe runs first in the ranks, and a
+# failed collective fails the phase.  Two ranks share one card's SMs and
+# gloo stages each collective through host memory, so their ms per step is
+# the cost of that setup, not of two cards.
+SC_WORLD = 2
+SC_JOIN_S = 300.0
+SC_STEPS = 2  # compared learn steps from the same state; the second is timed
+SC_ATARI_A = 6
+SC_CONFIGS = {
+    "transformer_bf16_mp2": "mp=2",  # bench.py's sharded learner: d 1024, 8 layers, bf16, flash
+    "transformer_f32_mp2": "mp=2",  # the same in float32
+    "token_ppo_mp2": "mp=2",  # V 1024, d 256, 4 layers, 64 rows of 512, segment kernels
+    "impala_fsdp2": "fsdp=2",  # AtariNet 512, B 512, T 20, V-trace kernel
+    "impala_tp2": "tp=2",
+}
+# per step and rank: a flash kernel per block, a segment kernel per block
+# (kl_cost = 0: no reference forward), V-trace once
+SC_LAUNCHES = {
+    "transformer": {k: SHARD_LAYERS for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                              "flash_attention_bwd_dkv")},
+    "token_ppo": {k: TRAIN_LAYERS for k in ("segment_attention_fwd",
+                                            "segment_attention_bwd_dq",
+                                            "segment_attention_bwd_dkv")},
+    "impala": {"vtrace": 1},
+}
+# the sharded step against the one-rank step.  The loss and the grad norm of
+# the first step (one state, one batch) at the CPU tests' bounds
+# (tests/test_torch_sharded_learner.py: loss 1e-5, metrics 1e-4), in bf16 at
+# the bf16 learner's (SHARD_BF16_TOL: a row-parallel layer rounds each
+# rank's partial product to bfloat16 before the sum, where one rank rounds
+# the whole product once).  The update after SC_STEPS steps: the float32
+# transformer's params at the CPU tests' rtol 2e-5, atol 2e-6; token-PPO's
+# by relative L2 (TOKEN_PPO_TOL: Adam's first step is lr * sign(g) where a
+# gradient element sits at float noise); IMPALA's as card against host
+# (LEARN_TOL): its column- and row-parallel convs and GEMMs run at other
+# shapes, for which cuDNN and cuBLAS pick other algorithms, and on the card
+# the one-rank step's own trunk gradients move 2e-3 to 8e-3 of their
+# largest between cuDNN and PyTorch's own convolutions at this batch (ReLU
+# masks flip where a pre-activation sits at rounding; tools/shard_grads_study.py).
+# The bf16 update is printed, not held: the float32 twin holds the path
+SC_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "param_rtol": 2e-5, "param_atol": 2e-6,
+          "update_rel_l2": TOKEN_PPO_TOL["update_rel_l2"],
+          "conv_update_rel_l2": LEARN_TOL["card_vs_host_update_rel_l2"],
+          "bf16_loss_rel": SHARD_BF16_TOL["loss_rel"],
+          "bf16_grad_norm_rel": SHARD_BF16_TOL["grad_leaf_rel"]}
+SC_PROBE_OPS = ("all_reduce", "all_reduce_bf16", "all_reduce_min_int32", "all_gather",
+                "broadcast", "reduce_scatter_tensor", "scatter")
+
+
+def _sc_family(name: str) -> str:
+    return name.split("_")[0] if not name.startswith("token") else "token_ppo"
+
+
+def _sc_agent(name: str):
+    """The agent of configuration ``name`` from its seed, and its global
+    batch (made on the host from a seed, so every process holds the same)."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.config import ImpalaArguments
+    from scalerl_torch.data.trajectory import Trajectory
+
+    if name.startswith("transformer"):
+        args = _shard_args(bf16_params=name == "transformer_bf16_mp2")
+        return ImpalaAgent(args, (SHARD_OBS,), SHARD_A), (_shard_traj("cuda", seed=5),)
+    if name == "token_ppo_mp2":
+        from scalerl_torch.agents.token_ppo import TokenPPOAgent
+        from scalerl_torch.trainer.sequence_rl import build_genrl_model
+
+        args = _train_args()
+        fields = _learn_step_fields(np.random.default_rng(2))
+        batch = {k: torch.tensor(v).cuda() for k, v in fields.items()}
+        batch["is_weight"] = (torch.rand(TRAIN_B, generator=torch.Generator().manual_seed(3))
+                              * 0.7 + 0.3).cuda()
+        return TokenPPOAgent(args, build_genrl_model(args)), (batch,)
+    T, B, A = MAIN_T, MAIN_B, SC_ATARI_A
+    g = torch.Generator().manual_seed(9)
+    traj = Trajectory(
+        obs=torch.randint(0, 256, (T + 1, B, 84, 84, 4), generator=g, dtype=torch.uint8).cuda(),
+        action=torch.randint(0, A, (T + 1, B), generator=g).cuda(),
+        reward=torch.randn(T + 1, B, generator=g).cuda(),
+        done=(torch.rand(T + 1, B, generator=g) < 0.05).cuda(),
+        logits=torch.randn(T + 1, B, A, generator=g).cuda())
+    args = ImpalaArguments(use_lstm=False, hidden_size=512, rollout_length=T, batch_size=B,
+                           max_timesteps=0, use_pallas=True)
+    return ImpalaAgent(args, (84, 84, 4), A), (traj,)
+
+
+def _sc_flat(state) -> "object":
+    """The params of ``state`` as one flat float32 vector on the host."""
+    import torch
+
+    from scalerl_torch.parallel.sharding import gather_tree
+
+    return torch.cat([v.float().reshape(-1) for v in gather_tree(state.params).values()]).cpu()
+
+
+def _sc_measure(agent, before) -> dict:
+    """``SC_STEPS`` learn steps of ``agent`` (meshed or not) on its batch,
+    held in a local state (no acting copy is made), from the params
+    ``before`` (flat, taken before the mesh placed them): the metrics, the
+    update of the whole params, the launches per step, the peak memory the
+    steps took above what was allocated before them, the state's bytes on
+    this rank, and the last step's ms on the host clock."""
+    import torch
+
+    from scalerl_torch.parallel.sharding import to_local
+    from scalerl_torch.utils.tree import tree_leaves
+
+    batch = agent._sc_batch
+    if agent._shard_batch is not None:
+        batch = tuple(agent._shard_batch(b) for b in batch)
+    state = agent.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the state, the batch, what came before
+    _zero_launch_counts()
+    metrics = []
+    for _ in range(SC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = agent._learn(state, *batch)[:2]
+        metrics.append({k: float(v) for k, v in m.items()})
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v / SC_STEPS for k, v in _launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    state_bytes = sum(to_local(x).numel() * to_local(x).element_size()
+                      for x in tree_leaves(state))
+    return dict(metrics=metrics, before=before, after=_sc_flat(state), launches=launches,
+                peak_bytes=peak, state_bytes=state_bytes, ms_per_step=ms)
+
+
+def _sc_probe_ops(rank: int, world: int) -> dict:
+    """Each collective the meshed step issues (and the scatter that places a
+    state), on CUDA tensors over the gloo group: True where the result is
+    right, else the error."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    total = sum(range(1, world + 1))
+
+    def all_reduce(dtype=torch.float32):
+        x = torch.full((1000,), float(rank + 1), device=dev, dtype=dtype)
+        dist.all_reduce(x)
+        return bool((x == total).all())
+
+    def all_reduce_min():
+        x = torch.tensor([rank], dtype=torch.int32, device=dev)
+        dist.all_reduce(x, op=dist.ReduceOp.MIN)
+        return int(x) == 0
+
+    def all_gather():
+        parts = [torch.empty(4, 3, device=dev) for _ in range(world)]
+        dist.all_gather(parts, torch.full((4, 3), float(rank), device=dev))
+        return all(bool((p == i).all()) for i, p in enumerate(parts))
+
+    def broadcast():
+        x = torch.full((5,), float(rank + 7), device=dev)
+        dist.broadcast(x, src=0)
+        return bool((x == 7).all())
+
+    def reduce_scatter_tensor():
+        x = torch.arange(4 * world, dtype=torch.float32, device=dev)
+        out = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        return bool((out == world * torch.arange(4 * rank, 4 * rank + 4, device=dev)).all())
+
+    def scatter():
+        out = torch.empty(3, device=dev)
+        parts = [torch.full((3,), float(i), device=dev) for i in range(world)] if rank == 0 else None
+        dist.scatter(out, parts, src=0)
+        return bool((out == rank).all())
+
+    ops = {"all_reduce": all_reduce, "all_reduce_bf16": lambda: all_reduce(torch.bfloat16),
+           "all_reduce_min_int32": all_reduce_min, "all_gather": all_gather,
+           "broadcast": broadcast, "reduce_scatter_tensor": reduce_scatter_tensor,
+           "scatter": scatter}
+    out = {}
+    for name in SC_PROBE_OPS:
+        try:
+            out[name] = ops[name]()
+        except Exception as exc:  # noqa: BLE001 - reported verbatim, and the phase fails
+            out[name] = f"{type(exc).__name__}: {exc}"
+    torch.cuda.synchronize()
+    return out
+
+
+def _sc_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of the phase: the probe, then every configuration meshed;
+    writes ``rank<r>.pt``."""
+    import datetime
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from scalerl_torch.parallel.mesh import make_mesh
+
+    faulthandler.enable()  # a crash in a collective names its Python frame
+    torch.cuda.set_device(0)
+    set_tf32(False)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    results: dict = {}
+    try:
+        results["probe"] = _sc_probe_ops(rank, world)
+        if not all(v is True for v in results["probe"].values()):
+            raise RuntimeError(f"gloo on CUDA tensors: {results['probe']}")
+        # the ranks start up while the parent runs the one-rank steps; they
+        # step only once those are done, so no two steps share the card
+        deadline = time.monotonic() + SC_JOIN_S
+        while not os.path.exists(os.path.join(workdir, "go")):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"no go from the parent in {SC_JOIN_S} s")
+            time.sleep(0.05)
+        for name, spec in SC_CONFIGS.items():
+            print(f"shard_compute rank {rank}: {name} at {spec}", file=sys.stderr, flush=True)
+            t0 = time.perf_counter()
+            agent, agent._sc_batch = _sc_agent(name)
+            before = _sc_flat(agent.state)
+            agent.enable_mesh(make_mesh(spec, device_type="cuda"))
+            results[name] = _sc_measure(agent, before)
+            results[name]["shape"] = dict(agent.mesh.shape)
+            results[name]["seconds"] = round(time.perf_counter() - t0, 1)
+            del agent
+            torch.cuda.empty_cache()
+    except Exception:  # noqa: BLE001 - carried to the parent, which fails the phase
+        results["error"] = traceback.format_exc()
+    torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_shard_compute(report: dict) -> None:
+    """The learn step on its shards on 2 gloo ranks of the one card (see
+    the constants above; multi-rank, chosen when the probe passed): the
+    transformer learner at mp = 2 in bf16 and float32 (flash kernels on
+    n_heads / 2 heads), token-PPO at mp = 2 (segment kernels), IMPALA's
+    AtariNet at fsdp = 2 and at tp = 2 (V-trace kernel), each from one
+    seed and on one global batch, against the one-rank step here: loss,
+    grad norm and update (``SC_TOL``), each rank's launches per step
+    (``SC_LAUNCHES``), peak memory and state bytes beside the one rank's,
+    and the second step's ms.  The phase's own time: ~70 s on an H100's host
+    (the IMPALA tp step ~4 s, its conv activations gathered through host
+    memory); the ranks start up (spawn, CUDA, gloo, the probe) while the
+    one-rank steps run here, and step after them.  The windows of earlier
+    phases marked "before shard_compute" were cut to pay for part of it."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="shard_compute_")
+    ctx = tmp.start_processes(_sc_rank, args=(SC_WORLD, _free_port(), workdir),
+                              nprocs=SC_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + SC_JOIN_S
+    ref, ref_s = {}, {}
+    try:
+        for name in SC_CONFIGS:
+            t_cfg = time.perf_counter()
+            agent, agent._sc_batch = _sc_agent(name)
+            ref[name] = _sc_measure(agent, _sc_flat(agent.state))
+            del agent
+            torch.cuda.empty_cache()
+            ref_s[name] = round(time.perf_counter() - t_cfg, 1)
+        t1 = time.perf_counter()
+        Path(workdir, "go").touch()
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"shard_compute: the ranks did not end in {SC_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+             for r in range(SC_WORLD)]
+    seconds = {"one_rank": round(t1 - t0, 1), "ranks_after_go": round(time.perf_counter() - t1, 1),
+               "one_rank_by_config": ref_s,
+               "rank0_by_config": {k: ranks[0].get(k, {}).get("seconds") for k in SC_CONFIGS}}
+    print(f"shard_compute: gloo probe on cuda:0, {SC_WORLD} ranks: "
+          f"{json.dumps([r.get('probe') for r in ranks])}", flush=True)
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError(f"shard_compute ranks failed: {errors[0]}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1.0)
+
+    out, failed = {}, {}
+    for name in SC_CONFIGS:
+        one, got = ref[name], [r[name] for r in ranks]
+        bf16 = "bf16" in name
+        upd_one = one["after"] - one["before"]
+        upd = got[0]["after"] - got[0]["before"]
+        errs = {
+            "loss_rel": max(rel(g["metrics"][0]["total_loss"], one["metrics"][0]["total_loss"])
+                            for g in got),
+            "grad_norm_rel": max(rel(g["metrics"][0]["grad_norm"],
+                                     one["metrics"][0]["grad_norm"]) for g in got),
+            "update_rel_l2": float((upd - upd_one).norm() / upd_one.norm()),
+            "param_max_abs_err": float((got[0]["after"] - one["after"]).abs().max()),
+        }
+        param_ok = bool(torch.allclose(got[0]["after"], one["after"], rtol=SC_TOL["param_rtol"],
+                                       atol=SC_TOL["param_atol"]))
+        bounds = ({"loss_rel": SC_TOL["bf16_loss_rel"],
+                   "grad_norm_rel": SC_TOL["bf16_grad_norm_rel"]} if bf16 else
+                  {"loss_rel": SC_TOL["loss_rel"], "grad_norm_rel": SC_TOL["grad_norm_rel"]})
+        if name == "token_ppo_mp2":
+            bounds["update_rel_l2"] = SC_TOL["update_rel_l2"]
+        elif name.startswith("impala"):
+            bounds["update_rel_l2"] = SC_TOL["conv_update_rel_l2"]
+        bad = {k: errs[k] for k, b in bounds.items() if not errs[k] <= b}
+        if name == "transformer_f32_mp2" and not param_ok:
+            bad["params"] = errs["param_max_abs_err"]
+        ranks_agree = all(g["metrics"] == got[0]["metrics"] for g in got)
+        if not ranks_agree:
+            bad["ranks_disagree"] = [g["metrics"][0]["total_loss"] for g in got]
+        want = SC_LAUNCHES[_sc_family(name)]
+        launches = [{k: g["launches"].get(k, 0) for k in want} for g in got]
+        if any(lc != want for lc in launches) or {k: one["launches"].get(k, 0)
+                                                  for k in want} != want:
+            bad["launches"] = launches
+        if not all(g["state_bytes"] < one["state_bytes"] for g in got):
+            bad["state_bytes"] = [g["state_bytes"] for g in got]
+        if bad:
+            failed[name] = bad
+        out[name] = dict(
+            mesh=SC_CONFIGS[name], **errs, params_allclose=param_ok, bounds=bounds,
+            loss=[g["metrics"][0]["total_loss"] for g in got], ranks_agree=ranks_agree,
+            loss_one_rank=one["metrics"][0]["total_loss"],
+            launches_per_step=launches, launches_one_rank=one["launches"],
+            step_peak_mb=[round(g["peak_bytes"] / 2**20, 1) for g in got],
+            step_peak_mb_one_rank=round(one["peak_bytes"] / 2**20, 1),
+            state_mb=[round(g["state_bytes"] / 2**20, 1) for g in got],
+            state_mb_one_rank=round(one["state_bytes"] / 2**20, 1),
+            ms_step2=[round(g["ms_per_step"], 2) for g in got],
+            ms_step2_one_rank=round(one["ms_per_step"], 2))
+    launches_on_shards = {}
+    for name, o in out.items():
+        for k, v in o["launches_per_step"][0].items():
+            launches_on_shards[k] = launches_on_shards.get(k, 0) + v
+    result = dict(world=SC_WORLD, backend="gloo", device="cuda:0 for both ranks",
+                  probe=ranks[0]["probe"], configs=out, tol=SC_TOL, seconds=seconds,
+                  card=report["card"])
+    emit("shard_compute", **result)
+    report["shard_compute"] = result
+    report["launches_on_shards"] = launches_on_shards
+    if failed:
+        raise AssertionError(f"shard_compute: sharded steps off the one-rank step: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_impala_anakin, phase_learn_synthetic, phase_learn_catch, phase_learn_recall,
-          phase_per_kernels, phase_dqn_learn, phase_dqn_per,
+          phase_per_kernels, phase_dqn_learn, phase_dqn_per, phase_kernels_built,
           phase_paged_attn, phase_genrl_model, phase_genrl_decode, phase_genrl_continuous,
           phase_segment_attn, phase_token_ppo_learn, phase_genrl_train, phase_flash_attn,
           phase_transformer_learn, phase_transformer_train, phase_flash_train_step,
@@ -7968,7 +8359,7 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_serving_flush, phase_impala_serving, phase_serving_traffic,
           phase_fleet_impala, phase_fleet_elastic, phase_a3c_fleet, phase_marl_dqn,
           phase_fleet_dqn, phase_genrl_spec, phase_quantize_push, phase_disagg_train,
-          phase_disagg_soak, phase_disagg_preempt]
+          phase_disagg_soak, phase_disagg_preempt, phase_shard_compute]
 
 
 def main() -> int:
@@ -8029,6 +8420,9 @@ def main() -> int:
         "bound_ms": report[name]["bound_ms"],
         "bound_by": report[name]["bound_by"],
         "library_ms": report[name].get("library_ms"),
+        # launches per learn step on each rank of shard_compute's two-rank
+        # steps (summed over its configurations)
+        "launches_on_shards": report["launches_on_shards"].get(name, 0),
     } for name, source, replaces in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -41,7 +41,12 @@ from scalerl_torch.models.policy import MLPPolicyNet
 from scalerl_torch.models.transformer_policy import build_mp_policy
 from scalerl_torch.ops.losses import baseline_loss, entropy_loss, policy_gradient_loss
 from scalerl_torch.ops.vtrace import vtrace_from_logits
-from scalerl_torch.parallel.sharding import batch_mean, global_batch, reduce_gradients
+from scalerl_torch.parallel.sharding import (
+    batch_mean,
+    global_batch,
+    reduce_gradients,
+    tree_square_sum,
+)
 from scalerl_torch.parallel.train_step import fp32_optimizer_state, maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
@@ -72,7 +77,10 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int) 
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in tree.values()))
+    """The L2 norm over every leaf; inside a meshed step on shards, of the
+    whole tree, each sharded leaf's part summed over its shards and each
+    replicated leaf counted once (``parallel/sharding.py::tree_square_sum``)."""
+    return torch.sqrt(tree_square_sum(tree))
 
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Params:

@@ -220,7 +220,7 @@ class PolicyValueAgent(BaseAgent):
             spec_fn = lambda path, x: mp_param_spec(path, x, mesh)  # noqa: E731
         plearn = make_parallel_learn_fn(self.make_learn_fn(), mesh, self.state,
                                         batch_example=batch_example, param_specs=spec_fn,
-                                        split_batch=self._split_batch)
+                                        split_batch=self._split_batch, modules=(self.model,))
         self.mesh = mesh
         self.state = plearn.shard_state(self.state)
         self._learn = plearn

@@ -292,7 +292,9 @@ class R2D2Agent(BaseAgent):
             raise ValueError(
                 f"batch_size ({self.args.batch_size}) must divide by the mesh's dp*fsdp "
                 f"extent ({n_shards}) to shard the sequence batch")
-        plearn = make_parallel_learn_fn(self._learn, mesh, self.state, batch_time_major=False)
+        models = [m for m in vars(self).values() if isinstance(m, torch.nn.Module)]
+        plearn = make_parallel_learn_fn(self._learn, mesh, self.state, batch_time_major=False,
+                                        modules=models)
         self.mesh = mesh
         self.state = plearn.shard_state(self.state)
         self._learn = plearn

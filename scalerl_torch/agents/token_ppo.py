@@ -330,7 +330,7 @@ class TokenPPOAgent(MeshedAgentState):
             spec_fn = lambda path, x: mp_param_spec(path, x, mesh)  # noqa: E731
         plearn = make_parallel_learn_fn(self.make_learn_fn(), mesh, self.state,
                                         batch_example=batch_example, batch_time_major=False,
-                                        param_specs=spec_fn)
+                                        param_specs=spec_fn, modules=(self.model,))
         self.mesh = mesh
         self.state = plearn.shard_state(self.state)
         self._learn = plearn

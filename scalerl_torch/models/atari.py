@@ -182,6 +182,9 @@ class AtariNet(nn.Module):
         done: torch.Tensor,  # [T, B] bool (read by the LSTM core only)
         core_state: LSTMState = (),
     ) -> Tuple[AtariNetOutput, LSTMState]:
+        # the layers' own code, or on their shards inside a meshed learn step
+        from scalerl_torch.parallel.shard_compute import conv2d, linear
+
         T, B = frame.shape[0], frame.shape[1]
         dt = self.dtype
         x = frame.to(dt) / 255.0
@@ -191,9 +194,9 @@ class AtariNet(nn.Module):
             top, bottom = same_padding(x.shape[2], kern, stride)
             left, right = same_padding(x.shape[3], kern, stride)
             x = F.pad(x, (left, right, top, bottom))
-            x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride))
+            x = F.relu(conv2d(conv, x, dt))
         x = x.permute(0, 2, 3, 1).reshape(T * B, -1)  # (h, w, c) order
-        x = F.relu(F.linear(x, self.fc.weight.to(dt), self.fc.bias.to(dt)))
+        x = F.relu(linear(self.fc, x, dt))
 
         actions = torch.arange(self.num_actions, device=frame.device)
         one_hot_action = (last_action.reshape(T * B, 1) == actions).to(dt)

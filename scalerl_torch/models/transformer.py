@@ -231,12 +231,20 @@ class TransformerBlock(nn.Module):
         """Returns the block's output; cache arguments are written in place
         (see :class:`TransformerPolicy`).  ``attn_fn`` replaces the plain
         causal attention (and the flash kernels) on the unmasked path."""
+        from scalerl_torch.parallel.shard_compute import head_parallel
+
         B, T, _ = x.shape
         H = self.num_heads
         D = self.d_model // H
         dtype = x.dtype
         h = self.ln_0(x)
-        q, k, v = self.qkv(h).split(self.d_model, dim=-1)
+        # inside a learn step on shards over mp: this rank's heads only
+        hp = head_parallel(self)
+        if hp is None:
+            q, k, v = self.qkv(h).split(self.d_model, dim=-1)
+        else:
+            H //= hp.size
+            q, k, v = hp.column(self.qkv, h, self.qkv.compute_dtype).split(H * D, dim=-1)
         q, k, v = q.reshape(B, T, H, D), k.reshape(B, T, H, D), v.reshape(B, T, H, D)
         if paged_cache is not None:
             kp, vp = paged_cache
@@ -285,8 +293,16 @@ class TransformerBlock(nn.Module):
             out = flash_attention(q, k, v, causal=True)
         else:
             out = full_attention(q, k, v, causal=True)
-        x = x + self.proj(out.reshape(B, T, self.d_model))
-        h = self.mlp_out(F.gelu(self.mlp_in(self.ln_1(x)), approximate="tanh"))
+        if hp is None:
+            x = x + self.proj(out.reshape(B, T, self.d_model))
+        else:
+            x = x + hp.row(self.proj, out.reshape(B, T, H * D), self.proj.compute_dtype)
+        h = self.ln_1(x)
+        if hp is not None and hp.mlp:
+            h = hp.column(self.mlp_in, h, self.mlp_in.compute_dtype)
+            h = hp.row(self.mlp_out, F.gelu(h, approximate="tanh"), self.mlp_out.compute_dtype)
+        else:
+            h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
         return x + h
 
 
@@ -318,8 +334,10 @@ class TransformerPolicy(nn.Module):
     seam: when set (``parallel/logical.py::activation_constraint``, by a
     meshed agent's ``enable_mesh``), it is applied to the residual stream
     after the embedding and after every block.  It redistributes DTensor
-    activations; the meshed learn step computes on gathered plain tensors,
-    which it passes through unchanged.
+    activations; the meshed learn step computes on local shards and keeps
+    the residual stream a replicated plain tensor, which it passes through
+    unchanged.  Inside that step a block under ``mp`` attends on the rank's
+    own heads (``parallel/shard_compute.py::head_parallel``).
     """
 
     constrain: Optional[Callable] = None

@@ -51,6 +51,17 @@ def expert_param_sharding(params: Mapping[str, torch.Tensor], mesh) -> Dict[str,
     return {name: spec(name, p) for name, p in params.items()}
 
 
+def expert_parallel_outputs(x: torch.Tensor, routing, w_in: torch.Tensor, w_out: torch.Tensor,
+                            C: int, group, first_expert: int) -> torch.Tensor:
+    """The raw expert outputs ``[N, M]`` of the replicated tokens ``x`` with
+    this rank's experts ``[first_expert, first_expert + E_local)`` (the
+    banks ``w_in``/``w_out``), summed over ``group``: replicated and
+    differentiable, the input's expert-path gradient summed over it too."""
+    (x_e,) = SumGrads.apply(group, x)
+    y = expert_outputs(x_e, routing, w_in, w_out, C, first_expert=first_expert)
+    return SumForward.apply(y, group)
+
+
 def make_expert_parallel_apply(model: MoEMLP, mesh, params: Optional[Mapping] = None,
                                device: DeviceLike = "cuda"
                                ) -> Tuple[object, Dict[str, torch.Tensor]]:
@@ -82,9 +93,8 @@ def make_expert_parallel_apply(model: MoEMLP, mesh, params: Optional[Mapping] = 
         if group is None or w_in.shape[0] == E:  # one rank, or replicated banks
             y = expert_outputs(x, routing, w_in, w_out, C)
         else:
-            (x_e,) = SumGrads.apply(group, x)
-            y = expert_outputs(x_e, routing, w_in, w_out, C, first_expert=rank * w_in.shape[0])
-            y = SumForward.apply(y, group)
+            y = expert_parallel_outputs(x, routing, w_in, w_out, C, group,
+                                        rank * w_in.shape[0])
         return MoEOutput(y * routing.gate[:, None], routing.aux, routing.dispatch_frac)
 
     return apply_fn, sharded

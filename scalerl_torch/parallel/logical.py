@@ -115,8 +115,9 @@ def has_mp_params(tree: Any) -> bool:
 def activation_constraint(mesh: Mesh, batch_axis: str = "dp") -> Callable:
     """The inter-layer activation layout: ``[B, ...]`` over ``batch_axis``,
     replicated over ``mp``.  A DTensor activation is redistributed to it; a
-    plain tensor is the rank's own batch rows already (the sharded learn
-    step computes on local rows) and passes through."""
+    plain tensor is the rank's own batch rows already, replicated over
+    ``mp`` (the sharded learn step computes on local rows, and its layers
+    return replicated activations), and passes through."""
 
     def constrain(x):
         from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -134,9 +135,10 @@ def make_shard_and_gather_fns(specs: Any, mesh: Mesh) -> Tuple[Any, Any]:
     """Per-leaf placement and fetch functions from a spec tree: ``shard_fns``
     place a full tensor into its layout (a DTensor), ``gather_fns`` fetch a
     placed leaf back to one full tensor on every rank (the sharded
-    checkpoint path)."""
-    shard_fns = _map_specs(lambda s: (lambda x: place(x, s, mesh)), specs)
-    gather_fns = _map_specs(lambda s: gather, specs)
+    checkpoint path); a leaf stored head-aligned (``sharding.storage_groups``)
+    is permuted on the way in and back on the way out."""
+    shard_fns = _map_specs(lambda s, p: (lambda x: place(x, s, mesh, path=p)), specs)
+    gather_fns = _map_specs(lambda s, p: (lambda x: gather(x, p)), specs)
     return shard_fns, gather_fns
 
 
@@ -154,14 +156,17 @@ def apply_fns(fns: Any, tree: Any) -> Any:
     return fns(tree)
 
 
-def _map_specs(fn: Callable[[Spec], Any], specs: Any) -> Any:
-    """``fn`` over a spec tree of a train state (dataclasses and dicts, a
-    tuple being one leaf's spec)."""
+def _map_specs(fn: Callable[[Spec, Tuple[str, ...]], Any], specs: Any,
+               path: Tuple[str, ...] = ()) -> Any:
+    """``fn(spec, path)`` over a spec tree of a train state (dataclasses and
+    dicts, a tuple being one leaf's spec; the path as
+    ``tree_map_with_path`` gives it)."""
     import dataclasses
 
     if dataclasses.is_dataclass(specs) and not isinstance(specs, type):
         return dataclasses.replace(specs, **{
-            f.name: _map_specs(fn, getattr(specs, f.name)) for f in dataclasses.fields(specs)})
+            f.name: _map_specs(fn, getattr(specs, f.name), path + (f.name,))
+            for f in dataclasses.fields(specs)})
     if isinstance(specs, dict):
-        return {k: _map_specs(fn, v) for k, v in specs.items()}
-    return fn(specs)
+        return {k: _map_specs(fn, v, path + (str(k),)) for k, v in specs.items()}
+    return fn(specs, path)

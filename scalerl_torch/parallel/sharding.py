@@ -21,6 +21,15 @@ does it by hand (``parallel/train_step.py``), with the reductions below:
 - :func:`global_batch` scales a local batch count up to the global one.
 - :func:`batch_all` ands a flag over the shards.
 
+Inside a step that computes on shards (:func:`shard_context`, entered by
+``ParallelLearnFn``) the leaves are local shards: :func:`reduce_gradients`
+sums a sharded leaf's gradient over the batch axes that do not shard it,
+:func:`tree_square_sum` (the global norm) sums each sharded leaf's part
+over its shards and counts a replicated leaf once, and :func:`all_ranks`
+ands a flag over every axis that shards a leaf as well.  A qkv weight over
+``mp`` is stored head-aligned (:func:`storage_groups`); :func:`place` and
+:func:`gather` keep the Flax order outside.
+
 :func:`batch_reduction` spans ``dp`` x ``fsdp`` by default, or the axes it
 is given: the data-parallel loops (``runtime/device_loop.py``,
 ``trainer/r2d2_device.py``) run any learn function inside
@@ -32,12 +41,14 @@ from __future__ import annotations
 
 import contextvars
 from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from scalerl_torch.parallel.collectives import all_gather_dim
 from scalerl_torch.parallel.mesh import AXIS_NAMES, Mesh, MeshSpec, resolve_mesh
 from scalerl_torch.utils.tree import tree_map, tree_map_with_path
 
@@ -182,33 +193,115 @@ def placements(spec: Spec, ndim: int) -> list:
     return out
 
 
-def place(x: torch.Tensor, spec: Spec, mesh: Mesh, src_rank: Optional[int] = None) -> torch.Tensor:
+def spec_of(x: torch.Tensor) -> Spec:
+    """The spec a placed DTensor was laid out by (``()`` for a plain
+    tensor): the inverse of :func:`placements`."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return ()
+    axes: list = [[] for _ in range(x.ndim)]
+    for name, p in zip(AXIS_NAMES, x.placements):
+        if isinstance(p, Shard):
+            axes[p.dim].append(name)
+    out = tuple(None if not a else a[0] if len(a) == 1 else tuple(a) for a in axes)
+    return out if any(out) else ()
+
+
+# The fused qkv weight's output dim holds q, k and v, each ``d_model`` rows,
+# head-major.  Over ``mp`` a contiguous shard would hold all of q and part
+# of k, not whole heads, so a qkv leaf (and its optimizer moments, whose
+# paths end in the same names) sharded over mp is stored head-aligned: the
+# full tensor is placed with its rows permuted so that rank r's contiguous
+# shard is its q, k and v rows (a strided shard of the output dim), and
+# gathered back through the inverse.  The unsharded model's rows, the
+# checkpoints and ``convert.py`` keep the Flax order.
+QKV_GROUPS = 3
+HEAD_ALIGNED_AXIS = "mp"
+
+
+def storage_groups(path: Tuple[Any, ...], spec: Spec) -> int:
+    """3 for a leaf stored head-aligned (a ``qkv.weight`` whose dim 0 shards
+    over ``mp``), else 1."""
+    names = path_names(path)
+    if tuple(names[-2:]) == ("qkv", "weight") and spec and spec[0] == HEAD_ALIGNED_AXIS:
+        return QKV_GROUPS
+    return 1
+
+
+def to_head_aligned(x: torch.Tensor, size: int, groups: int, dim: int = 0) -> torch.Tensor:
+    """Rows ``[g, r, i]`` (group-major, Flax order) -> ``[r, g, i]``
+    (rank-major) along ``dim``."""
+    dim %= x.ndim
+    return x.unflatten(dim, (groups, size, -1)).transpose(dim, dim + 1).flatten(dim, dim + 2)
+
+
+def from_head_aligned(x: torch.Tensor, size: int, groups: int, dim: int = 0) -> torch.Tensor:
+    """The inverse of :func:`to_head_aligned`."""
+    dim %= x.ndim
+    return x.unflatten(dim, (size, groups, -1)).transpose(dim, dim + 1).flatten(dim, dim + 2)
+
+
+def place(x: torch.Tensor, spec: Spec, mesh: Mesh, src_rank: Optional[int] = None,
+          path: Tuple[Any, ...] = ()) -> torch.Tensor:
     """A full tensor as a DTensor laid out by ``spec``, each rank keeping
     its own slice: of its own copy (``src_rank=None``, for a tensor that is
     the same on every rank), or of ``src_rank``'s copy, which is broadcast
-    (a state each rank built from its own seed).  A one-device mesh without
-    a process group keeps the tensor as it is."""
+    (a state each rank built from its own seed).  A leaf at ``path`` that
+    :func:`storage_groups` names is stored head-aligned.  A one-device mesh
+    without a process group keeps the tensor as it is."""
     if mesh.device_mesh is None:
         return x
     from torch.distributed.tensor import distribute_tensor
 
+    groups = storage_groups(path, spec)
+    if groups > 1:
+        x = to_head_aligned(x, mesh.shape[HEAD_ALIGNED_AXIS], groups)
     return distribute_tensor(x, mesh.device_mesh, placements(spec, x.ndim),
                              src_data_rank=src_rank)
 
 
 def place_tree(tree: Any, spec_fn: SpecFn, mesh: Mesh, src_rank: Optional[int] = None) -> Any:
-    return tree_map_with_path(lambda p, x: place(x, spec_fn(p, x), mesh, src_rank), tree)
+    return tree_map_with_path(lambda p, x: place(x, spec_fn(p, x), mesh, src_rank, p), tree)
 
 
-def gather(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor as the full tensor on every rank; others pass through."""
-    from torch.distributed.tensor import DTensor
+# DTensor leaves gathered to full tensors (every call of :func:`gather` on a
+# DTensor); the sharded learn step gathers none
+GATHER_STATS = {"dtensor_gathers": 0}
 
-    return x.full_tensor() if isinstance(x, DTensor) else x
+
+def gather(x: torch.Tensor, path: Tuple[Any, ...] = ()) -> torch.Tensor:
+    """A DTensor as the full tensor on every rank, in the Flax order (a
+    head-aligned leaf at ``path`` is put back); others pass through.  One
+    ``all_gather`` a sharding mesh dim, the innermost first, as plain
+    ``torch.distributed`` calls: DTensor's own ``full_tensor`` waits on a
+    functional collective, which crashes over gloo on CUDA tensors (PyTorch
+    2.11 on the H100), where plain gloo collectives work."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    GATHER_STATS["dtensor_gathers"] += 1
+    full, mesh = x.to_local(), x.device_mesh
+    for mesh_dim in reversed(range(mesh.ndim)):
+        p = x.placements[mesh_dim]
+        if isinstance(p, Shard) and mesh.size(mesh_dim) > 1:
+            full = all_gather_dim(full, p.dim, mesh.get_group(mesh_dim), mesh.size(mesh_dim))
+    groups = storage_groups(path, spec_of(x))
+    if groups > 1:
+        full = from_head_aligned(full, mesh.size(AXIS_NAMES.index(HEAD_ALIGNED_AXIS)), groups)
+    return full
 
 
 def gather_tree(tree: Any) -> Any:
-    return tree_map(gather, tree)
+    return tree_map_with_path(lambda p, x: gather(x, p), tree)
+
+
+def to_local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; others pass through."""
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def shard_params(params: Any, mesh) -> Any:
@@ -339,6 +432,13 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     return batch_sum(x) / (x.numel() * mesh.extent(axes))
 
 
+def bound_batch_axes() -> Tuple[str, ...]:
+    """The axes the batch reductions span in this block (``()`` outside
+    :func:`batch_reduction`, or on one shard)."""
+    bound = _BATCH_MESH.get()
+    return () if bound is None else bound[1]
+
+
 def global_batch(n: int) -> int:
     """A local batch count as the global one."""
     bound = _BATCH_MESH.get()
@@ -365,21 +465,116 @@ def batch_all(flag: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_gradients(grads: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[torch.Tensor]]:
-    """Sum a gradient dict over the batch shards in one flat collective
-    (None entries, unused params, stay None)."""
+    """Sum a gradient dict over the batch shards, one flat collective a
+    set of axes (None entries, unused params, stay None).  Inside a step
+    that computes on shards (:func:`shard_context`), a sharded leaf's
+    gradient is this rank's slice, already summed over the batch axes that
+    shard it (an fsdp weight's gather reduce-scatters its gradient), so it
+    is summed over the other batch axes only; a replicated leaf over all."""
     bound = _BATCH_MESH.get()
     if bound is None:
         return grads
-    keys = [k for k, g in grads.items() if g is not None]
-    flat = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in keys])
-    axes_all_reduce(flat, dist.ReduceOp.SUM, *bound)
+    mesh, axes = bound
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for k, g in grads.items():
+        if g is not None:
+            done = leaf_axes(k, g)
+            by_axes.setdefault(tuple(a for a in axes if a not in done), []).append(k)
     out = dict(grads)
-    offset = 0
-    for k in keys:
-        g = grads[k]
-        out[k] = flat[offset:offset + g.numel()].view(g.shape).to(g.dtype)
-        offset += g.numel()
+    for todo, keys in by_axes.items():
+        if not todo:
+            continue
+        flat = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in keys])
+        axes_all_reduce(flat, dist.ReduceOp.SUM, mesh, todo)
+        offset = 0
+        for k in keys:
+            g = grads[k]
+            out[k] = flat[offset:offset + g.numel()].view(g.shape).to(g.dtype)
+            offset += g.numel()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the step that computes on shards
+
+
+@dataclass(frozen=True)
+class ShardContext:
+    """What a learn step that computes on shards knows of its state:
+    ``mesh``, and ``axes`` of every sharded leaf, keyed by (param name,
+    local shape); param names are the last component of a state path
+    (``transformer.blocks.0.qkv.weight``), the keys of the gradient dicts."""
+
+    mesh: Mesh
+    axes: Dict[Tuple[str, Tuple[int, ...]], Tuple[str, ...]]
+
+    @property
+    def shard_axes(self) -> Tuple[str, ...]:
+        """The mesh axes that shard some leaf."""
+        return tuple(a for a in AXIS_NAMES if any(a in ax for ax in self.axes.values()))
+
+
+_SHARD_CTX: contextvars.ContextVar = contextvars.ContextVar("scalerl_shard_ctx", default=None)
+
+
+@contextmanager
+def shard_context(ctx: Optional[ShardContext]) -> Iterator[None]:
+    """Within the block the learn step computes on the local shards of
+    ``ctx``'s state (``parallel/shard_compute.py``): the sharded layers run
+    their collectives, and the gradient reductions, the global norm and the
+    all-finite verdict account for the leaves' shards."""
+    token = _SHARD_CTX.set(ctx)
+    try:
+        yield
+    finally:
+        _SHARD_CTX.reset(token)
+
+
+def active_shard_context() -> Optional[ShardContext]:
+    return _SHARD_CTX.get()
+
+
+def leaf_axes(name: str, x: torch.Tensor) -> Tuple[str, ...]:
+    """The mesh axes that shard the leaf ``name`` of local shape
+    ``x.shape`` in the active step (``()``: replicated, or no such step)."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None:
+        return ()
+    return ctx.axes.get((name, tuple(x.shape)), ())
+
+
+def tree_square_sum(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``sum(x ** 2)`` over every leaf of the whole (unsharded) tree: inside
+    a step on shards, each sharded leaf's part is summed over the axes that
+    shard it, and a replicated leaf counts once."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or not ctx.axes:
+        return sum(torch.sum(torch.square(x)) for x in tree.values())
+    parts: Dict[Tuple[str, ...], list] = {}
+    for k, x in tree.items():
+        parts.setdefault(leaf_axes(k, x), []).append(torch.sum(torch.square(x)))
+    total = 0
+    for axes, terms in parts.items():
+        s = sum(terms)
+        if axes:
+            s = axes_all_reduce(s.detach().clone(), dist.ReduceOp.SUM, ctx.mesh, axes)
+        total = total + s
+    return total
+
+
+def all_ranks(flag: torch.Tensor) -> torch.Tensor:
+    """A 0-dim bool that holds on every rank whose verdict can differ: over
+    the batch shards (:func:`batch_all`), and inside a step on shards also
+    over every axis that shards a leaf, so that a NaN in one rank's shard
+    is seen by all."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or not ctx.axes:
+        return batch_all(flag)
+    bound = _BATCH_MESH.get()
+    batch = bound[1] if bound is not None else ()
+    axes = tuple(a for a in AXIS_NAMES if a in batch or a in ctx.shard_axes)
+    return axes_all_reduce(flag.to(torch.int32), dist.ReduceOp.MIN, ctx.mesh,
+                           axes).to(torch.bool)
 
 
 def agreed_seed(seed: int, mesh: Optional[Mesh]) -> int:

@@ -17,7 +17,7 @@ step test into the select, not by skipping the reduction.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -25,8 +25,10 @@ import torch.distributed as dist
 from scalerl_torch.parallel.mesh import Mesh, mesh_spec_from_args, resolve_mesh
 from scalerl_torch.parallel.sharding import (
     BATCH_AXES,
+    ShardContext,
+    Spec,
     SpecFn,
-    batch_all,
+    all_ranks,
     batch_reduction,
     batch_sharding_tree,
     gather_batch,
@@ -34,11 +36,14 @@ from scalerl_torch.parallel.sharding import (
     own_rows,
     param_spec_fn,
     place_tree,
+    placements,
     pool_axes,
     pool_batch,
     shard_batch,
+    shard_context,
+    to_local,
 )
-from scalerl_torch.utils.tree import tree_map_with_path
+from scalerl_torch.utils.tree import tree_map, tree_map_with_path
 
 
 # A train state is a dataclass of tensors and (nested) dicts of tensors.
@@ -84,9 +89,9 @@ def guard_nonfinite_updates(learn_fn: Callable, check_every: int = 1) -> Callabl
     def guarded(state, *args):
         out = learn_fn(state, *args)
         new_state, metrics, aux = out[0], dict(out[1]), tuple(out[2:])
-        # sharded, each shard checks its own rows of the aux outputs, and
-        # every shard must reach the same verdict
-        ok = batch_all(all_finite((new_state, aux)))
+        # sharded, each rank checks its own rows of the aux outputs and its
+        # own shards of the state, and every rank must reach the same verdict
+        ok = all_ranks(all_finite((new_state, aux)))
         skip = ((state.step % check_every) == 0) & ~ok
         safe_state = tree_select(~skip, new_state, state)
         safe_aux = tuple(
@@ -155,12 +160,12 @@ class ParallelLearnFn:
     mesh (``make_parallel_learn_fn``'s result).
 
     The state's leaves are DTensors placed by the spec (a one-device mesh
-    with no process group keeps plain tensors).  A step gathers them to full
-    tensors, runs the learn function on this rank's batch rows under
+    with no process group keeps plain tensors).  A step runs the learn
+    function on their local shards and this rank's batch rows under
     :func:`parallel.sharding.batch_reduction` (its batch reductions and
     gradients then span every shard, so the update is the one-process
-    update at the same global batch, the same on every rank), places the
-    new state back, and all-gathers each per-row aux output along dim 0, so
+    update at the same global batch), places the new state's shards back,
+    and all-gathers each per-row aux output along dim 0, so
     it comes back replicated (in the other batch modes below, as this
     rank's own rows).  The metrics come out replicated.
 
@@ -190,20 +195,59 @@ class ParallelLearnFn:
     In the last two the per-row aux outputs come back as this rank's own
     rows.
 
-    The fsdp, tp and mp layouts shard the state's storage between steps
-    only: a step gathers every leaf, the optimizer moments included, and
-    computes on full tensors, so its peak memory is that of a replicated
-    state and mp splits no compute."""
+    The step computes on shards: the learn function gets each rank's local
+    shards under the leaves' own names and never a gathered state.  The
+    layers of ``modules`` (the models the learn function runs through
+    ``functional_call``) are set up by ``parallel/shard_compute.py`` to
+    compute on those shards: an fsdp weight is gathered where its layer
+    uses it and its gradient reduce-scattered, tp/mp layers run column- and
+    row-parallel, the transformer's attention on a rank's own heads.  The
+    optimizer updates its moments elementwise on their shards; a sharded
+    leaf's gradient is summed over the batch axes that do not shard it, the
+    global norm sums each sharded leaf over its shards and counts a
+    replicated one once, and the all-finite verdict spans every axis that
+    shards a leaf, so a NaN in one rank's shard skips the step on all.  The
+    new state is placed from the local results, with no second scatter.
+    Every sharded leaf must belong to a param of ``modules``."""
 
     def __init__(self, learn_fn: Callable, mesh: Mesh, state_example: Any,
                  batch_example: Any = None, batch_time_major: bool = True,
-                 spec_fn: Optional[SpecFn] = None, split_batch: bool = True) -> None:
+                 spec_fn: Optional[SpecFn] = None, split_batch: bool = True,
+                 modules: Sequence[torch.nn.Module] = ()) -> None:
+        from scalerl_torch.parallel.shard_compute import install
+
         self.learn_fn = learn_fn
         self.mesh = mesh
         self.split_batch = split_batch
         self.spec_fn = spec_fn if spec_fn is not None else param_spec_fn(state_example, mesh)
         self.batch_time_major = batch_time_major
-        self.state_sharding = tree_map_with_path(self.spec_fn, gather_tree(state_example))
+        full = gather_tree(state_example)
+        self._specs: Dict[Tuple[str, ...], Spec] = {}
+        axes: Dict[Tuple[str, Tuple[int, ...]], Tuple[str, ...]] = {}
+
+        def record(path, x):
+            spec = tuple(self.spec_fn(path, x))
+            self._specs[path] = spec
+            leaf_axes = tuple(a for e in spec if e is not None
+                              for a in ((e,) if isinstance(e, str) else e))
+            if not leaf_axes or mesh.device_mesh is None:
+                return
+            local = tuple(n // _extent(mesh, e) for n, e in zip(x.shape, spec + (None,) * x.ndim))
+            key = (path[-1], local)
+            if axes.setdefault(key, leaf_axes) != leaf_axes:
+                raise ValueError(f"state leaves named {path[-1]!r} of local shape {local} are "
+                                 f"sharded over both {axes[key]} and {leaf_axes}")
+
+        tree_map_with_path(record, full)
+        self.state_sharding = tree_map_with_path(lambda p, _: self._specs[p], full)
+        self.shard_ctx = None if mesh.device_mesh is None else ShardContext(mesh, axes)
+        if self.shard_ctx is not None:
+            covered = install(modules, self.spec_fn)
+            missing = sorted({name for name, _ in axes} - covered)
+            if missing:
+                raise ValueError(f"sharded state leaves {missing} are no param of the modules "
+                                 "the learn step runs: pass those models to "
+                                 "make_parallel_learn_fn(modules=...)")
         self.batch_sharding = (None if batch_example is None else
                                batch_sharding_tree(batch_example, mesh, batch_time_major))
         self.batch_mode = "split"
@@ -227,33 +271,54 @@ class ParallelLearnFn:
             return batch
         return shard_batch(batch, self.mesh, time_major=self.batch_time_major)
 
+    def _placed(self, path: Tuple[str, ...], x: torch.Tensor) -> torch.Tensor:
+        """A leaf of the new state, this rank's shard, as the DTensor of its
+        spec (a leaf the example did not have replicates)."""
+        from torch.distributed.tensor import DTensor
+
+        spec = self._specs.get(path, ())
+        return DTensor.from_local(x, self.mesh.device_mesh, placements(spec, x.ndim),
+                                  run_check=False)
+
     def __call__(self, state: Any, *batch: Any):
-        if not self.split_batch:
-            out = self.learn_fn(gather_tree(state), *batch)
-            aux = tuple(out[2:])
-        else:
-            with batch_reduction(self.mesh):
-                out = self.learn_fn(gather_tree(state), *batch)
-            own = self.batch_mode != "split"
-            aux = tuple(out[2:] if own else (gather_batch(a, self.mesh) for a in out[2:]))
+        local = tree_map(to_local, state)
+        with shard_context(self.shard_ctx):
+            if not self.split_batch:
+                out = self.learn_fn(local, *batch)
+                aux = tuple(out[2:])
+            else:
+                with batch_reduction(self.mesh):
+                    out = self.learn_fn(local, *batch)
+                own = self.batch_mode != "split"
+                aux = tuple(out[2:] if own else (gather_batch(a, self.mesh) for a in out[2:]))
         if self.batch_mode != "split":
             aux = tuple(own_rows(a, self.mesh, self._pool_axes()) for a in aux)
-        # the new state is the same on every rank: each places its own copy
-        return (place_tree(out[0], self.spec_fn, self.mesh), out[1]) + aux
+        new_state = out[0]
+        if self.mesh.device_mesh is not None:
+            new_state = tree_map_with_path(self._placed, new_state)
+        return (new_state, out[1]) + aux
+
+
+def _extent(mesh: Mesh, entry) -> int:
+    if entry is None:
+        return 1
+    return mesh.extent((entry,) if isinstance(entry, str) else tuple(entry))
 
 
 def make_parallel_learn_fn(learn_fn: Callable, mesh, state_example: Any, batch_example: Any = None,
                            batch_time_major: bool = True, param_specs: Optional[SpecFn] = None,
-                           split_batch: bool = True) -> ParallelLearnFn:
+                           split_batch: bool = True,
+                           modules: Sequence[torch.nn.Module] = ()) -> ParallelLearnFn:
     """``learn_fn`` over ``mesh`` with the batch split over ``dp`` x ``fsdp``
     and the state laid out by ``param_specs`` (a function of a leaf's path
     and value: the mp table of ``parallel/logical.py`` for the transformer
-    family), else by the heuristic fsdp/tp rule.
+    family), else by the heuristic fsdp/tp rule; ``modules`` are the models
+    ``learn_fn`` runs, set up to compute on their shards.
 
     The JAX function donates the pre-update state; here the step builds new
     tensors, and the old state is freed when the caller drops it."""
     return ParallelLearnFn(learn_fn, resolve_mesh(mesh), state_example, batch_example,
-                           batch_time_major, param_specs, split_batch)
+                           batch_time_major, param_specs, split_batch, modules)
 
 
 def maybe_enable_mesh_from_args(agent, args, batch_mode: str = "local") -> bool:
@@ -335,7 +400,9 @@ def enable_offpolicy_mesh(agent, mesh_or_spec) -> None:
         raise ValueError(
             f"batch_size ({agent.args.batch_size}) must divide by the mesh's dp*fsdp extent "
             f"({n_batch_shards}) to shard the replay batch")
-    plearn = make_parallel_learn_fn(agent._learn, mesh, agent.state, batch_time_major=False)
+    models = [m for m in vars(agent).values() if isinstance(m, torch.nn.Module)]
+    plearn = make_parallel_learn_fn(agent._learn, mesh, agent.state, batch_time_major=False,
+                                    modules=models)
     agent.mesh = mesh
     agent.state = plearn.shard_state(agent.state)
     agent._shard_batch = plearn.shard_batch

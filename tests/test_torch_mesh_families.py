@@ -461,3 +461,11 @@ def test_moe_impala_meshed_step_matches_jax_unmeshed(world):
         assert abs(float(got["metrics"][k]) - float(case["want_metrics"][k])) < 1e-4, k
     assert got["layout"]["mp"] >= 2  # w_in/w_out (and their moments) over mp
     assert int(state.step) == int(want.step)
+
+
+def test_moe_impala_step_runs_its_experts_on_their_mp_shards(world):
+    """The banks over mp run through the expert-parallel apply with the mp
+    group: each rank runs its own experts, and no state leaf is gathered."""
+    _, got = _result(world, "moe_impala")
+    assert got["seen"]["experts"] > 0
+    assert got["seen"]["dtensor_gathers"] == 0

@@ -106,6 +106,34 @@ def _impala_case(spec, seed, **kw):
                 batch=Trajectory(**{k: torch.tensor(v) for k, v in traj.items()}), want=want)
 
 
+ATARI_OBS, ATARI_A = (24, 24, 4), 6
+
+
+def _atari_case(spec, seed):
+    """IMPALA's feed-forward ``AtariNet`` (hidden 64) on 24x24x4 frames: at
+    ``fsdp=2,tp=2`` conv1 gathers over fsdp, conv2 is row- and conv3
+    column-parallel over tp (each with a weight dim over fsdp) and the
+    dense layer column-parallel; at ``dp=2,tp=2`` conv1 and conv2 are
+    column-, conv3 and the dense layer row-parallel."""
+    from torch_port_helpers import random_traj
+
+    fields = dict(use_lstm=False, hidden_size=64, rollout_length=5, batch_size=8,
+                  max_timesteps=0)
+    jagent = jimpala.ImpalaAgent(jconfig.ImpalaArguments(**fields), obs_shape=ATARI_OBS,
+                                 num_actions=ATARI_A, key=jax.random.PRNGKey(seed))
+    traj = random_traj(5, 8, ATARI_OBS, ATARI_A, seed=seed)
+
+    def want():
+        jstate, jm = jax.jit(jagent.make_learn_fn())(
+            jagent.state, JaxTrajectory(**{k: jnp.asarray(v) for k, v in traj.items()},
+                                        core_state=()))
+        return dict(want_state=state_to_torch(jstate), want_metrics=to_numpy(jm))
+
+    return dict(kind="impala", spec=spec, args=tconfig.ImpalaArguments(**fields),
+                obs_shape=ATARI_OBS, num_actions=ATARI_A, state=state_to_torch(jagent.state),
+                batch=Trajectory(**{k: torch.tensor(v) for k, v in traj.items()}), want=want)
+
+
 def _offpolicy_batch(B, obs, act_low=None, act_high=None, A=None, seed=0):
     rng = np.random.default_rng(seed)
     batch = dict(obs=rng.normal(size=(B, obs)).astype(np.float32),
@@ -264,6 +292,15 @@ def _cases():
         "impala_dp4": _impala_case("dp=4", 0, hidden_size=32),
         "impala_dp2_fsdp2": _impala_case("dp=2,fsdp=2", 1, hidden_size=32),
         "transformer_dp2_mp2": _impala_case("dp=2,mp=2", 2, **transformer),
+        "transformer_mp4": _impala_case("mp=4", 3, **dict(transformer, n_heads=4)),
+        # 2 heads over mp=4: no whole head a rank, so qkv runs column-parallel
+        # and its head-aligned output columns are put back in order
+        "transformer_mp4_h2": _impala_case("mp=4", 4, **transformer),
+        # the heuristic rule on the transformer: its dense weights gathered
+        # where used, pos_embed gathered for the policy's own forward
+        "transformer_dp2_fsdp2": _impala_case("dp=2,fsdp=2", 5, **transformer),
+        "atari_fsdp2_tp2": _atari_case("fsdp=2,tp=2", 6),
+        "atari_dp2_tp2": _atari_case("dp=2,tp=2", 7),
         "dqn_dp2": _dqn_case("dp=2,tp=2"),
         "sac_dp2": _continuous_case("sac", "dp=2,tp=2"),
         "td3_dp2": _continuous_case("td3", "dp=2,tp=2"),
@@ -293,6 +330,8 @@ def _cases():
         "constraint": dict(kind="constraint", spec="dp=2,mp=2",
                            x=torch.arange(32, dtype=torch.float32).reshape(4, 8)),
     }
+    nan = {k: v for k, v in cases["atari_dp2_tp2"].items() if k != "want"}
+    cases["nan_shard"] = {**nan, "kind": "nan_shard", "leaf": "fc.weight", "nan_rank": 0}
     cases["local_impala_dp2_fsdp2"] = _local_twin(cases, "impala_dp2_fsdp2")
     cases["local_transformer_dp2_mp2"] = _local_twin(cases, "transformer_dp2_mp2")
     return cases
@@ -363,7 +402,12 @@ def _assert_metrics_close(got, want, loss_keys=("total_loss", "loss")):
         np.testing.assert_allclose(float(got[k]), float(v), rtol=tol, atol=tol, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["impala_dp4", "impala_dp2_fsdp2", "transformer_dp2_mp2"])
+IMPALA_CASES = ["impala_dp4", "impala_dp2_fsdp2", "transformer_dp2_mp2", "transformer_mp4",
+                "transformer_mp4_h2", "transformer_dp2_fsdp2", "atari_fsdp2_tp2",
+                "atari_dp2_tp2"]
+
+
+@pytest.mark.parametrize("name", IMPALA_CASES)
 def test_impala_meshed_step_matches_jax_unmeshed(world, name):
     case, got = _result(world, name)
     _assert_state_close(got["state"], case["want_state"], ("params",))
@@ -373,6 +417,60 @@ def test_impala_meshed_step_matches_jax_unmeshed(world, name):
     if "mp" in case["spec"]:
         assert got["layout"]["mp"] >= 4  # qkv/proj/mlp leaves and moments over mp
     assert int(got["state"].env_frames) == 5 * 8
+
+
+@pytest.mark.parametrize("name", IMPALA_CASES)
+def test_placed_state_gathers_to_the_converted_state(world, name):
+    """gather_state gives back the Flax-ordered tensors convert.py made, bit
+    for bit; a qkv leaf over mp is stored as its rank's heads' q, k, v rows."""
+    case, got = _result(world, name)
+    assert got["roundtrip"]
+    if "mp" in case["spec"]:
+        assert got["head_aligned"] and all(got["head_aligned"])
+
+
+@pytest.mark.parametrize("name", IMPALA_CASES)
+def test_meshed_step_gathers_no_state_leaf(world, name):
+    """The learn function gets the local shards: no leaf of the state (no
+    optimizer moment, no param) is gathered to a full DTensor in the step."""
+    _, got = _result(world, name)
+    assert got["seen"]["dtensor_gathers"] == 0
+
+
+@pytest.mark.parametrize("name", ["impala_dp2_fsdp2", "atari_fsdp2_tp2"])
+def test_fsdp_step_holds_at_most_two_leaves_gathered(world, name):
+    """fsdp weights are gathered where their layer uses them and freed
+    after: the full-weight bytes alive at once stay within the two largest
+    leaves' (one layer's weight, and the next's while it is gathered)."""
+    _, got = _result(world, name)
+    seen = got["seen"]
+    assert seen["weight_gathers"] > 0
+    assert 0 < seen["peak_gathered_bytes"] <= got["two_largest_bytes"]
+
+
+@pytest.mark.parametrize("name", ["atari_fsdp2_tp2", "atari_dp2_tp2"])
+def test_column_layer_computes_a_tp_slice(world, name):
+    """A column-parallel layer computes 1/tp of its output features on each
+    rank, then gathers them: every gathered activation is tp slices."""
+    _, got = _result(world, name)
+    columns = got["seen"]["columns"]
+    assert columns, "no column-parallel layer ran"
+    assert all(size == 2 and local * 2 == whole for local, whole, size in columns)
+
+
+@pytest.mark.parametrize("name,heads", [("transformer_dp2_mp2", 1), ("transformer_mp4", 1),
+                                        ("transformer_mp4_h2", 2)])
+def test_transformer_attends_on_the_rank_own_heads(world, name, heads):
+    """Under mp each block's attention runs on n_heads / mp heads a rank."""
+    _, got = _result(world, name)
+    assert got["seen"]["heads"] and set(got["seen"]["heads"]) == {heads}
+
+
+def test_nan_in_one_rank_shard_skips_the_step_on_every_rank(world):
+    _, got = _result(world, "nan_shard")
+    assert got["sharded"]  # the poisoned moment is split over tp
+    assert got["skipped"] == [1.0] * WORLD
+    assert got["kept"]
 
 
 @pytest.mark.parametrize("name", ["dqn_dp2", "sac_dp2", "td3_dp2"])
@@ -401,6 +499,10 @@ def test_token_ppo_meshed_step_matches_jax_unmeshed(world):
     _assert_state_close(got["state"], case["want_state"], ("params", "ref_params"))
     _assert_metrics_close(got["metrics"], case["want_metrics"])
     assert got["layout"]["mp"] >= 4 and got["constrained"]
+    # the vocab head over mp, and every block's attention on its rank's head
+    assert got["vocab_sharded"]
+    assert got["seen"]["heads"] and set(got["seen"]["heads"]) == {1}
+    assert got["seen"]["dtensor_gathers"] == 0
 
 
 def test_mp_mesh_without_rules_is_refused(world):

@@ -47,8 +47,63 @@ def _layout(state, mesh) -> dict:
             "mp": sum(isinstance(ps[mp_dim], Shard) for ps in placed)}
 
 
+def _spec(x):
+    from scalerl_torch.parallel.sharding import spec_of
+
+    return spec_of(x) or (None,) * x.ndim
+
+
 def _full(tree):
     return tree_map(lambda x: x.detach().clone(), gather_tree(tree))
+
+
+def _instrumented_step(agent, batch):
+    """One meshed learn step, the learn function called directly (the acting
+    copy gathers outside it), with what the step did counted: DTensor
+    leaves gathered, full weights the layers gathered (count and most bytes
+    alive at once), each column layer's local output (its width, the full
+    width, the extent), the heads each attention call saw, and the
+    expert-parallel calls."""
+    from scalerl_torch.models import transformer
+    from scalerl_torch.parallel import expert, shard_compute, sharding
+
+    seen = {"columns": [], "heads": [], "experts": 0}
+    real_gather, real_experts = shard_compute.GatherShards, expert.expert_parallel_outputs
+    real_full, real_masked = transformer.full_attention, transformer._masked_attention
+
+    class RecordingGather:
+        @staticmethod
+        def apply(x, dim, group, size, index, reduce):
+            out = real_gather.apply(x, dim, group, size, index, reduce)
+            seen["columns"].append((x.shape[dim], out.shape[dim], size))
+            return out
+
+    def full(q, k, v, **kw):
+        seen["heads"].append(q.shape[2])
+        return real_full(q, k, v, **kw)
+
+    def masked(q, k, v, *args):
+        seen["heads"].append(q.shape[2])
+        return real_masked(q, k, v, *args)
+
+    def experts(*args, **kw):
+        seen["experts"] += 1
+        return real_experts(*args, **kw)
+
+    shard_compute.GatherShards, expert.expert_parallel_outputs = RecordingGather, experts
+    transformer.full_attention, transformer._masked_attention = full, masked
+    before = sharding.GATHER_STATS["dtensor_gathers"]
+    shard_compute.reset_gather_stats()
+    try:
+        out = agent._learn(agent.state, *(agent._shard_batch(b) for b in batch))
+    finally:
+        shard_compute.GatherShards, expert.expert_parallel_outputs = real_gather, real_experts
+        transformer.full_attention, transformer._masked_attention = real_full, real_masked
+    seen.update(dtensor_gathers=sharding.GATHER_STATS["dtensor_gathers"] - before,
+                weight_gathers=shard_compute.GATHER_STATS["gathers"],
+                peak_gathered_bytes=shard_compute.GATHER_STATS["peak_live_bytes"])
+    agent.state = out[0]
+    return out[1], seen
 
 
 def _impala(case):
@@ -58,8 +113,53 @@ def _impala(case):
     agent.state = case["state"]
     agent.enable_mesh(case["spec"])
     layout = _layout(agent.state, agent.mesh)
+    placed = _placement_checks(agent, case["state"])
+    metrics, seen = _instrumented_step(agent, (case["batch"],))
+    full = _full(agent.state)
+    sizes = sorted(x.numel() * x.element_size() for x in full.params.values())
+    return {"state": full, "metrics": get_metrics(metrics), "layout": layout, "seen": seen,
+            "two_largest_bytes": sum(sizes[-2:]), **placed}
+
+
+def _placement_checks(agent, state):
+    """The placed state gathers back to the converted one bit for bit, and
+    each qkv leaf over mp holds this rank's heads' q, k and v rows."""
+    from scalerl_torch.parallel.sharding import to_local
+
+    roundtrip = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(agent._learn.gather_state(agent.state)), tree_leaves(state)))
+    mesh, aligned = agent.mesh, []
+    for name, x in agent.state.params.items():
+        if name.endswith("qkv.weight") and _spec(x)[0] == "mp":
+            size, r = mesh.shape["mp"], mesh.coordinate("mp")
+            n = x.shape[0] // 3 // size
+            rows = [state.params[name][g * n * size + r * n:g * n * size + (r + 1) * n]
+                    for g in range(3)]
+            aligned.append(torch.equal(to_local(x), torch.cat(rows)))
+    return {"roundtrip": roundtrip, "head_aligned": aligned}
+
+
+def _nan_shard(case):
+    """A NaN in one rank's shard of a sharded optimizer moment: the step
+    must be skipped on every rank, which keep their params."""
+    from scalerl_torch.agents.impala import ImpalaAgent
+
+    agent = ImpalaAgent(case["args"], case["obs_shape"], case["num_actions"], device="cpu")
+    agent.state = case["state"]
+    agent.enable_mesh(case["spec"])
+    name = case["leaf"]
+    nu = agent.state.opt_state["nu"][name]
+    if dist.get_rank() == case["nan_rank"]:
+        nu.to_local().view(-1)[0] = float("nan")
+    before = _full(agent.state.params)
     metrics = agent.learn(case["batch"])
-    return {"state": _full(agent.state), "metrics": metrics, "layout": layout}
+    after = _full(agent.state.params)
+    skipped = torch.tensor([metrics["skipped_steps"]])
+    every = [torch.empty_like(skipped) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, skipped)
+    kept = all(torch.equal(before[k], after[k]) for k in before)
+    return {"skipped": [float(s) for s in every], "kept": kept,
+            "sharded": len(nu.to_local().shape) == 2 and nu.to_local().shape != nu.shape}
 
 
 def _local(case):
@@ -182,9 +282,11 @@ def _token_ppo(case):
     agent.state = case["state"]
     agent.enable_mesh(case["spec"])
     layout = _layout(agent.state, agent.mesh)
-    metrics = agent.learn(case["batch"])
-    return {"state": _full(agent.state), "metrics": metrics, "layout": layout,
-            "constrained": agent.model.constrain is not None}
+    batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+    metrics, seen = _instrumented_step(agent, (batch,))
+    return {"state": _full(agent.state), "metrics": get_metrics(metrics), "layout": layout,
+            "constrained": agent.model.constrain is not None, "seen": seen,
+            "vocab_sharded": _spec(agent.state.params["policy_head.weight"])[0] == "mp"}
 
 
 def _refusal(case):
@@ -247,7 +349,7 @@ def _trainer(case, workdir):
     return out
 
 
-RUNNERS = {"impala": _impala, "dqn": _dqn, "sac": _continuous, "td3": _continuous,
+RUNNERS = {"impala": _impala, "nan_shard": _nan_shard, "dqn": _dqn, "sac": _continuous, "td3": _continuous,
            "r2d2": _r2d2, "token_ppo": _token_ppo, "refusal": _refusal, "local": _local,
            "constraint": _constraint}
 
