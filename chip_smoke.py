@@ -477,6 +477,21 @@ no result line:
     is counted and must stay 0 (at extent 1 none runs; the multi-rank
     paths are held on 4 gloo ranks on the CPU).
 
+62-63. ``shard_compute`` (the learn step on shards, PR 24) and then
+    ``genrl_on_shards`` on its 2 gloo ranks of cuda:0, which wait for it
+    (no second start-up): the paged kernel at a rank's 4 of 8 heads
+    (``[256, 1, 4, 32]`` against ``[6145, 16, 4, 32]``) against its plain
+    version (``PAGED_TOL``) and timed beside its bound; the continuous
+    engine at the generation width and ``SequenceRLTrainer`` at the
+    training width (continuous engine) at mp = 2 against one rank here:
+    ``GS_MACROS`` macro steps of 256 lanes at temperature 0 (tokens equal,
+    logp within ``GEN_IDENTITY_LOGP_TOL``, the ranks' logits bit-equal,
+    paged launches a rank = 64 a macro step as on one rank, pool and param
+    bytes a rank beside one rank's) and ``GS_ROUNDS`` rounds (round 1's
+    tokens equal and its loss within ``SC_TOL``'s ``loss_rel``, segment 4
+    and PER sample 1 a learn step a rank, rounds/s and peak memory a
+    rank).
+
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
 ``envs/gym_env.py``'s views, their logger ``none``.
@@ -1768,7 +1783,7 @@ GEN_PAGE, GEN_MACRO, GEN_MIN_FREE = 16, 16, 32
 GEN_MAX_LEN = 2 * (GEN_P + GEN_R)
 GEN_PAGES_PER_LANE = (GEN_P + GEN_R) // GEN_PAGE  # 24
 GEN_NUM_PAGES = GEN_LANES * GEN_PAGES_PER_LANE + 1  # 6,145 with the null page
-GEN_TARGET_S = 4.0  # 8 s before phases 51-55 joined the script, 10 before 43-45
+GEN_TARGET_S = 2.0  # 4 s before genrl_on_shards, 8 before phases 51-55, 10 before 43-45
 # the kernel against its plain version: the same float32 arithmetic summed
 # in another order (an online softmax over chunks of 16 tokens against one
 # softmax and an einsum); JAX pins its kernel to its reference at 1e-5
@@ -1910,11 +1925,9 @@ def phase_paged_attn(report: dict) -> None:
 
     set_tf32(False)
     kernel = cuda_paged_attention.paged_decode_attention
-    g = torch.Generator().manual_seed(11)
     B, H, D = GEN_LANES, GEN_HEADS, GEN_D // GEN_HEADS
     ps, M, N = GEN_PAGE, GEN_PAGES_PER_LANE, GEN_NUM_PAGES
-    main_lengths = torch.randint(1, M * ps + 1, (B,), generator=g)
-    main_lengths[0], main_lengths[1], main_lengths[2] = M * ps, 1, 17
+    main_lengths = _paged_main_lengths()
     cases = []
 
     def check(name, inp, tol, **extra):
@@ -2317,9 +2330,9 @@ TRAIN_V, TRAIN_D, TRAIN_HEADS, TRAIN_LAYERS = 1024, 256, 8, 4
 TRAIN_P, TRAIN_R, TRAIN_B = 128, 128, 64
 TRAIN_PACK_LEN = 512
 TRAIN_HEAD_DIM = TRAIN_D // TRAIN_HEADS
-TRAIN_COHORT_S = 4.0  # 10 s before phases 51-55 joined the script, 15 before 43-45
+TRAIN_COHORT_S = 2.0  # 4 s before genrl_on_shards, 10 before phases 51-55, 15 before 43-45
 TRAIN_CONTINUOUS_ROUNDS = 2  # 3 before phases 51-55 joined the script
-TRAIN_LEARN_RATE_S = 1.5  # 3 s before phases 51-55 joined the script
+TRAIN_LEARN_RATE_S = 1.0  # 1.5 s before genrl_on_shards, 3 before phases 51-55
 # the segment kernels against the plain version in float32: the same
 # arithmetic summed in another order (each warp's online softmax and sums
 # over its 16 rows of a 64-row tile, the warps combined in order, against
@@ -2966,7 +2979,7 @@ def phase_genrl_train(report: dict) -> None:
 SHARD_D, SHARD_LAYERS, SHARD_HEADS = 1024, 8, 16
 SHARD_T, SHARD_B, SHARD_OBS, SHARD_A = 16, 8, 64, 16
 SHARD_HEAD_DIM = SHARD_D // SHARD_HEADS
-SHARD_TRAIN_S = 4.0  # 10 s before phases 51-55 joined the script, 15 before 43-45
+SHARD_TRAIN_S = 2.0  # 4 s before genrl_on_shards, 10 before phases 51-55, 15 before 43-45
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # the flash kernels against the plain version.  float32: the same products
 # summed in another order (each warp of the micro-tile kernels sums over its
@@ -3956,8 +3969,8 @@ def phase_dqn_resume(report: dict) -> None:
 
 
 RAINBOW_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4, "host_rel": 1e-4}
-APEX_TRAIN_S, R2D2_HOST_S = 6.0, 6.0  # 8 s before shard_compute joined the script
-R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 80, 5  # 120 before shard_compute, 300 before phases 51-55
+APEX_TRAIN_S, R2D2_HOST_S = 6.0, 4.0  # 8, 8 s before shard_compute; R2D2 6 before genrl_on_shards
+R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 60, 5  # 80 before genrl_on_shards, 120 before shard_compute, 300 before 51-55
 
 
 def _leaf_rel_err(got: dict, want: dict) -> float:
@@ -4370,8 +4383,8 @@ def phase_r2d2_host(report: dict) -> None:
 # The process plane (phases 35-37)
 RING_PRODUCERS, RING_SLOTS, RING_PER_PRODUCER = 4, 32, 40
 RING_TEAR_SPEC, RING_TEAR_SLOTS = "16:slot_tear=0.25", 40
-PDQN_TRAIN_S = 4.0  # 5 s before shard_compute joined the script
-PROC_TRAIN_S = 4.0
+PDQN_TRAIN_S = 3.0  # 4 s before genrl_on_shards, 5 before shard_compute joined the script
+PROC_TRAIN_S = 3.0  # 4 s before genrl_on_shards
 # seconds a training phase may take to reach its first learn step
 FIRST_LEARN_DEADLINE_S = 240.0
 
@@ -4739,8 +4752,8 @@ def phase_process_impala(report: dict) -> None:
 # in 1,267 s (PERF.md's Findings)
 IMPACT_TRAIN_S = 7.0  # 10 s before, 20 before phases 51-55 joined the script
 ONPOLICY_EXAMPLE_STEPS = 6_000  # 8,000 before, 16,000 before phases 51-55
-ONPOLICY_RECALL_CHUNKS = 8  # 12 before, 30 before phases 51-55
-CONTINUOUS_TRAIN_STEPS = 2_000  # 3,000 before, 6,000 before phases 51-55
+ONPOLICY_RECALL_CHUNKS = 6  # 8 before genrl_on_shards, 12 before, 30 before phases 51-55
+CONTINUOUS_TRAIN_STEPS = 1_500  # 2,000 before genrl_on_shards, 3,000 before, 6,000 before 51-55
 # card vs host for the on-policy learn steps: the loss, the gradient at the
 # initial params and one optimizer step of it as LEARN_TOL holds IMPALA's.
 # A whole PPO learn step is 16 Adam steps (4 epochs x 4 minibatches); Adam
@@ -5407,7 +5420,8 @@ SERVE_TOL = 1e-4
 SERVE_TRAIN_S = HOST_TRAIN_S
 SERVE_PROFILE_STEPS = 1
 # bench.py --mode traffic on an accelerator (bench.py:589-590)
-TRAFFIC_REPLICAS, TRAFFIC_CLIENTS, TRAFFIC_RPS, TRAFFIC_S, TRAFFIC_SLO_MS = 3, 16, 200.0, 10.0, 100.0
+# TRAFFIC_S is 8 s (10 before genrl_on_shards joined the script)
+TRAFFIC_REPLICAS, TRAFFIC_CLIENTS, TRAFFIC_RPS, TRAFFIC_S, TRAFFIC_SLO_MS = 3, 16, 200.0, 8.0, 100.0
 TRAFFIC_OBS, TRAFFIC_ACTIONS, TRAFFIC_LANES = 64, 16, 4
 
 
@@ -5847,7 +5861,7 @@ def phase_serving_traffic(report: dict) -> None:
 # ---------------------------------------------------------------------------
 # the fleet: host CPU actors feeding the learner on the card
 
-FLEET_TRAIN_S = 5.0  # 8 s before phases 51-55 joined the script
+FLEET_TRAIN_S = 3.0  # 5 s before genrl_on_shards, 8 before phases 51-55 joined the script
 FLEET_ELASTIC_S = 20.0
 A3C_FLEET_S = 4.0  # 6 s before phases 51-55 joined the script
 MARL_STEPS = 1_000  # env steps a lane, 8 lanes: ~8 s on the card's host
@@ -6236,7 +6250,7 @@ SPEC_V, SPEC_D, SPEC_LAYERS, SPEC_HEADS = 64, 256, 4, 8
 SPEC_P, SPEC_R, SPEC_LANES, SPEC_PAGE, SPEC_MACRO = 32, 512, 64, 16, 8
 SPEC_K, SPEC_NGRAM = 24, 3
 SPEC_ROUNDS = 1  # measured (off, on) round pairs after one warm-up pair
-DISAGG_TRAIN_S = 5.0  # 7 s before shard_compute, 10 before impala_anakin and mesh_learn joined
+DISAGG_TRAIN_S = 3.0  # 5 s before genrl_on_shards, 7 before shard_compute, 10 before impala_anakin
 DISAGG_CONT_ROUNDS = 2
 # one bf16 learn step, segment kernels against the dense mask: both sides
 # compute in bf16 and round in other places, held as the bf16 flash
@@ -7060,7 +7074,7 @@ MESH_REPLAY_ADDS = 64  # global adds through both buffers' inserts after the bul
 MESH_SEQ_INSERTS = 4  # inserts of 16 sequences after the bulk fill
 MESH_TIMED_REPS = 20
 MESH_WEIGHT_TOL = 1e-6  # importance weights, sharded vs unsharded sample
-MESH_R2D2_ITERS = 40  # DeviceR2D2Trainer iterations a twin
+MESH_R2D2_ITERS = 30  # DeviceR2D2Trainer iterations a twin (40 before genrl_on_shards)
 MESH_APEX_S = 5.0
 
 
@@ -8218,8 +8232,42 @@ def _sc_rank(rank: int, world: int, port: int, workdir: str) -> None:
             torch.cuda.empty_cache()
     except Exception:  # noqa: BLE001 - carried to the parent, which fails the phase
         results["error"] = traceback.format_exc()
-    torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
+    _sc_save(results, workdir, f"rank{rank}.pt")
+    if "error" not in results:
+        # the same world serves genrl_on_shards, after its one-rank runs
+        try:
+            genrl = _gs_rank(workdir)
+        except Exception:  # noqa: BLE001 - carried to the parent, which fails the phase
+            genrl = {"error": traceback.format_exc()}
+        _sc_save(genrl, workdir, f"genrl{rank}.pt")
     dist.destroy_process_group()
+
+
+def _sc_save(results: dict, workdir: str, name: str) -> None:
+    """``torch.save`` under a temporary name, then renamed: the parent
+    waits for the name, so it never reads a half-written file."""
+    import torch
+
+    torch.save(results, os.path.join(workdir, name + ".tmp"))
+    os.replace(os.path.join(workdir, name + ".tmp"), os.path.join(workdir, name))
+
+
+def _sc_wait(ctx, workdir: str, names, deadline: float, what: str) -> None:
+    """Wait for the ranks' result files ``names``; a rank that died or a
+    deadline passed fails the phase."""
+    while not all(os.path.exists(os.path.join(workdir, n)) for n in names):
+        if any(p.exitcode not in (None, 0) for p in ctx.processes):
+            raise AssertionError(f"{what}: a rank died: exit codes "
+                                 f"{[p.exitcode for p in ctx.processes]}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: the ranks did not finish in time")
+        time.sleep(0.1)
+
+
+def _sc_kill(ctx) -> None:
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
 
 
 def phase_shard_compute(report: dict) -> None:
@@ -8258,15 +8306,17 @@ def phase_shard_compute(report: dict) -> None:
             ref_s[name] = round(time.perf_counter() - t_cfg, 1)
         t1 = time.perf_counter()
         Path(workdir, "go").touch()
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"shard_compute: the ranks did not end in {SC_JOIN_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
-             for r in range(SC_WORLD)]
+        _sc_wait(ctx, workdir, [f"rank{r}.pt" for r in range(SC_WORLD)], deadline,
+                 "shard_compute")
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SC_WORLD)]
+    except BaseException:
+        _sc_kill(ctx)
+        raise
+    if any("error" in r for r in ranks):
+        _sc_kill(ctx)
+    else:  # the ranks wait for genrl_on_shards
+        report["sc_world"] = (ctx, workdir)
     seconds = {"one_rank": round(t1 - t0, 1), "ranks_after_go": round(time.perf_counter() - t1, 1),
                "one_rank_by_config": ref_s,
                "rank0_by_config": {k: ranks[0].get(k, {}).get("seconds") for k in SC_CONFIGS}}
@@ -8342,6 +8392,275 @@ def phase_shard_compute(report: dict) -> None:
         raise AssertionError(f"shard_compute: sharded steps off the one-rank step: {failed}")
 
 
+# genrl_on_shards: sequence RL on shard_compute's two gloo ranks of the card
+# (no second start-up), each rank on its own GEN_HEADS / 2 heads.  The
+# continuous engine at the generation width for GS_MACROS macro steps at
+# temperature 0 (every lane admitted at once, one macro in flight), and
+# SequenceRLTrainer at the training width on the continuous engine for
+# GS_ROUNDS rounds, each against the same on one rank here.  Tokens must
+# be identical and logp within GEN_IDENTITY_LOGP_TOL; the trainer's first
+# loss within SC_TOL's loss_rel of one rank's; the paged kernel at the
+# rank's 4 heads within PAGED_TOL of its plain version
+GS_MACROS = 4
+GS_ROUNDS = 2
+GS_GO_S = 300.0  # how long the ranks wait for the parent's one-rank runs
+GS_JOIN_S = 300.0
+
+
+def _gs_gen_agent():
+    """A token-PPO agent on the generation width's model (seed 0), whose
+    engines run its params."""
+    from scalerl_torch.agents.token_ppo import TokenPPOAgent
+
+    return TokenPPOAgent(_train_args(vocab_size=GEN_V), _gen_model("cuda"))
+
+
+def _gs_decode(agent) -> dict:
+    """``GS_MACROS`` macro steps of the continuous engine on ``agent``'s
+    params (its rank's shards under a mesh), all lanes admitted at once, at
+    temperature 0: each lane's tokens and logp, the paged launches, the
+    pools' and params' bytes on this rank, ms a macro step after the first,
+    the carried logits."""
+    import torch
+
+    from scalerl_torch.genrl.continuous import ContinuousEngine
+    from scalerl_torch.ops import cuda_paged_attention
+
+    meshed = agent.shard_ctx is not None
+    eng = ContinuousEngine(agent.model, agent.engine_weights(),
+                           _gen_config(temperature=0.0, steps_in_flight=1),
+                           sync_guard=not meshed, shard_ctx=agent.shard_ctx)
+    prompts, lengths = _prompts(np.random.default_rng(9), GEN_LANES)
+    for i in range(GEN_LANES):
+        eng.submit(prompts[i], lengths[i], tag=i)
+    torch.cuda.synchronize()
+    cuda_paged_attention.launches = 0
+    done = eng.step()  # admission (prefill) and the first macro step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GS_MACROS - 1):
+        done.extend(eng.step())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (GS_MACROS - 1)
+    launches = cuda_paged_attention.launches
+    tokens = {c.tag: (c.response_tokens, c.behavior_logp) for c in done}
+    for lane in eng._lanes:
+        if lane.busy:
+            tokens[lane.tag] = (np.concatenate(lane.tokens), np.concatenate(lane.logps))
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    params, _ = eng._snapshot_params()
+    return dict(tokens=tokens, launches=launches, macros=eng.macro_steps, ms_per_macro=ms,
+                pool_bytes=nbytes([*eng._pools.k, *eng._pools.v]),
+                param_bytes=nbytes(params.values()), pool_shape=list(eng._pools.k[0].shape),
+                logits=eng._logits_st.cpu(), completed=len(done))
+
+
+def _gs_train_args():
+    return _train_args(genrl_engine="continuous", genrl_page_size=GEN_PAGE,
+                       genrl_macro_steps=GEN_MACRO)
+
+
+def _gs_train(agent) -> dict:
+    """``GS_ROUNDS`` rounds of ``SequenceRLTrainer`` on ``agent`` from cold,
+    every launch count zeroed just before: each round's metrics and
+    inserted tokens, the launches, rounds/s, peak memory."""
+    import torch
+
+    from scalerl_torch.genrl.task import TokenRecallTask
+    from scalerl_torch.trainer import sequence_rl
+
+    tokens = []
+    real_add = sequence_rl.seq_add
+
+    def recording(state, fields, core, priorities):
+        tokens.append(fields["tokens"].clone())  # read after the rounds: no sync here
+        return real_add(state, fields, core, priorities)
+
+    task = TokenRecallTask(vocab_size=TRAIN_V, prompt_len=(2, TRAIN_P), response_len=TRAIN_R)
+    trainer = sequence_rl.SequenceRLTrainer(_gs_train_args(), task=task, agent=agent)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sequence_rl.seq_add = recording
+    _zero_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        metrics = [trainer.train_round() for _ in range(GS_ROUNDS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sequence_rl.seq_add = real_add
+    return dict(metrics=metrics, tokens=[t.cpu() for t in tokens], launches=_launch_counts(),
+                seconds=wall,
+                rounds_per_s=GS_ROUNDS / wall,
+                peak_bytes=torch.cuda.max_memory_allocated() - held, held_bytes=held,
+                pool_heads=trainer.engine._run.heads)
+
+
+def _gs_rank(workdir: str) -> dict:
+    """One rank of ``genrl_on_shards``: waits for the parent's go, then the
+    engine and the trainer on a mesh of ``mp = SC_WORLD``."""
+    import torch
+
+    from scalerl_torch.agents.token_ppo import TokenPPOAgent
+    from scalerl_torch.parallel.mesh import make_mesh
+    from scalerl_torch.trainer.sequence_rl import build_genrl_model
+
+    deadline = time.monotonic() + GS_GO_S
+    while not os.path.exists(os.path.join(workdir, "go_genrl")):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no genrl_on_shards go from the parent in {GS_GO_S} s")
+        time.sleep(0.05)
+    mesh = make_mesh(f"mp={SC_WORLD}", device_type="cuda")
+    agent = _gs_gen_agent()
+    agent.enable_mesh(mesh)
+    out = {"decode": _gs_decode(agent)}
+    del agent
+    torch.cuda.empty_cache()
+    agent = TokenPPOAgent(_gs_train_args(), build_genrl_model(_gs_train_args()))
+    agent.enable_mesh(mesh)
+    out["train"] = _gs_train(agent)
+    return out
+
+
+def _paged_main_lengths():
+    """The lanes' lengths of row 6's timing (``paged_attn``'s main case)."""
+    import torch
+
+    M, ps = GEN_PAGES_PER_LANE, GEN_PAGE
+    g = torch.Generator().manual_seed(11)
+    lengths = torch.randint(1, M * ps + 1, (GEN_LANES,), generator=g)
+    lengths[0], lengths[1], lengths[2] = M * ps, 1, 17
+    return lengths
+
+
+def phase_genrl_on_shards(report: dict) -> None:
+    """Sequence RL on shard_compute's world (constants above): the paged
+    kernel at a rank's ``[256, 1, 4, 32]`` against ``[6145, 16, 4, 32]``
+    pools, checked and timed here; the continuous engine and the trainer on
+    one rank here; then the go, and the same on 2 ranks at ``mp = 2``.
+    Each rank's tokens, logp and loss against one rank's, the ranks'
+    carried logits bit-equal, paged launches per rank equal to one rank's
+    (64 a macro step), segment 4 and PER sample 1 a learn step, pool and
+    param bytes per rank beside one rank's, rounds/s and peak memory."""
+    import torch
+
+    from scalerl_torch.agents.token_ppo import TokenPPOAgent
+    from scalerl_torch.ops import cuda_paged_attention
+    from scalerl_torch.ops.paged_attention import paged_attention_reference
+    from scalerl_torch.trainer.sequence_rl import build_genrl_model
+
+    if "sc_world" not in report:
+        raise AssertionError("genrl_on_shards runs on shard_compute's ranks, which are gone")
+    ctx, workdir = report.pop("sc_world")
+    set_tf32(False)
+    t0 = time.perf_counter()
+    try:
+        # the kernel on a rank's heads, alone on the card
+        H = GEN_HEADS // SC_WORLD
+        lengths = _paged_main_lengths()
+        inp = _paged_case(GEN_LANES, H, GEN_D // GEN_HEADS, GEN_PAGE, GEN_PAGES_PER_LANE,
+                          GEN_NUM_PAGES, lengths, seed=12, dtype=torch.float32, shared=8)
+        got = cuda_paged_attention.paged_decode_attention(**inp)
+        err = (got - paged_attention_reference(**inp)).abs().max().item()
+        kernel = dict(shape=list(inp["q"].shape), pools=list(inp["k_pages"].shape),
+                      max_abs_err=err, tol=PAGED_TOL,
+                      **_paged_timing(inp, lengths, with_plain=True))
+        one = {"decode": _gs_decode(_gs_gen_agent())}
+        torch.cuda.empty_cache()
+        one["train"] = _gs_train(TokenPPOAgent(_gs_train_args(),
+                                               build_genrl_model(_gs_train_args())))
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        Path(workdir, "go_genrl").touch()
+        _sc_wait(ctx, workdir, [f"genrl{r}.pt" for r in range(SC_WORLD)],
+                 time.monotonic() + GS_JOIN_S, "genrl_on_shards")
+        ranks = [torch.load(os.path.join(workdir, f"genrl{r}.pt"), weights_only=False)
+                 for r in range(SC_WORLD)]
+        ctx.join(timeout=60)
+    finally:
+        _sc_kill(ctx)
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError(f"genrl_on_shards ranks failed: {errors[0]}")
+    failed = {}
+    if not err <= PAGED_TOL:
+        failed["paged_kernel"] = err
+
+    # the engine
+    d1, dr = one["decode"], [r["decode"] for r in ranks]
+    mismatched = [sum(not np.array_equal(d["tokens"][i][0], d1["tokens"][i][0])
+                      for i in d1["tokens"]) for d in dr]
+    logp_err = max((float(np.abs(d["tokens"][i][1] - d1["tokens"][i][1]).max())
+                    for d in dr for i in d1["tokens"]
+                    if np.array_equal(d["tokens"][i][0], d1["tokens"][i][0])
+                    and len(d1["tokens"][i][1])), default=0.0)
+    logits_equal = all(torch.equal(d["logits"], dr[0]["logits"]) for d in dr)
+    want_launches = GEN_MACRO * GEN_LAYERS * GS_MACROS
+    decode = dict(
+        macros=GS_MACROS, lanes=GEN_LANES, mismatched_lanes=mismatched, logp_max_abs_err=logp_err,
+        logp_tol=GEN_IDENTITY_LOGP_TOL, ranks_logits_bit_equal=logits_equal,
+        paged_launches=[d["launches"] for d in dr], paged_launches_one_rank=d1["launches"],
+        pool_shape=[d["pool_shape"] for d in dr], pool_shape_one_rank=d1["pool_shape"],
+        pool_mb=[round(d["pool_bytes"] / 2**20, 1) for d in dr],
+        pool_mb_one_rank=round(d1["pool_bytes"] / 2**20, 1),
+        pool_share=[d["pool_bytes"] / d1["pool_bytes"] for d in dr],
+        param_mb=[round(d["param_bytes"] / 2**20, 2) for d in dr],
+        param_mb_one_rank=round(d1["param_bytes"] / 2**20, 2),
+        ms_per_macro=[round(d["ms_per_macro"], 2) for d in dr],
+        ms_per_macro_one_rank=round(d1["ms_per_macro"], 2),
+        completed=[d["completed"] for d in dr])
+    if any(mismatched) or not logp_err <= GEN_IDENTITY_LOGP_TOL or not logits_equal:
+        failed["decode"] = dict(mismatched=mismatched, logp=logp_err, logits_equal=logits_equal)
+    if any(d["launches"] != want_launches for d in dr + [d1]):
+        failed["paged_launches"] = decode["paged_launches"] + [d1["launches"]]
+    if any(d["pool_shape"][2] != H for d in dr):
+        failed["pool_heads"] = decode["pool_shape"]
+
+    # the trainer
+    t1r, tr = one["train"], [r["train"] for r in ranks]
+    same_tokens = all(torch.equal(a, b) for t in tr for a, b in zip(t["tokens"][:1],
+                                                                    t1r["tokens"][:1]))
+    loss1 = t1r["metrics"][0]["total_loss"]
+    loss_rel = max(abs(t["metrics"][0]["total_loss"] - loss1) / max(abs(loss1), 1.0) for t in tr)
+    want = {k: TRAIN_LAYERS * GS_ROUNDS for k in ("segment_attention_fwd",
+                                                   "segment_attention_bwd_dq",
+                                                   "segment_attention_bwd_dkv")}
+    want["per_sample"] = GS_ROUNDS
+    launches = [{k: t["launches"][k] for k in (*want, "paged_attention")} for t in tr]
+    train = dict(
+        rounds=GS_ROUNDS, round1_tokens_equal=same_tokens, loss_rel=loss_rel,
+        loss_tol=SC_TOL["loss_rel"], loss=[t["metrics"][0]["total_loss"] for t in tr],
+        loss_one_rank=loss1, ranks_agree=all(t["metrics"] == tr[0]["metrics"] for t in tr),
+        launches=launches, launches_one_rank={k: t1r["launches"][k]
+                                              for k in (*want, "paged_attention")},
+        rounds_per_s=[round(t["rounds_per_s"], 3) for t in tr],
+        rounds_per_s_one_rank=round(t1r["rounds_per_s"], 3),
+        peak_mb=[round(t["peak_bytes"] / 2**20, 1) for t in tr],
+        peak_mb_one_rank=round(t1r["peak_bytes"] / 2**20, 1),
+        held_mb=[round(t["held_bytes"] / 2**20, 1) for t in tr],
+        held_mb_one_rank=round(t1r["held_bytes"] / 2**20, 1),
+        pool_heads=[t["pool_heads"] for t in tr],
+        skipped_steps=[sum(m["skipped_steps"] for m in t["metrics"]) for t in tr])
+    if not same_tokens or not loss_rel <= SC_TOL["loss_rel"] or not train["ranks_agree"]:
+        failed["train"] = dict(tokens_equal=same_tokens, loss_rel=loss_rel,
+                               ranks_agree=train["ranks_agree"])
+    if any({k: lc[k] for k in want} != want for lc in launches) or any(
+            lc["paged_attention"] != t1r["launches"]["paged_attention"] for lc in launches):
+        failed["train_launches"] = launches
+    if any(train["skipped_steps"]) or any(h != H for h in train["pool_heads"]):
+        failed["train_steps"] = dict(skipped=train["skipped_steps"], heads=train["pool_heads"])
+    report["paged_attention_heads_on_rank"] = kernel
+    report["launches_genrl_on_shards"] = {
+        **launches[0], "paged_attention": dr[0]["launches"] + launches[0]["paged_attention"]}
+    emit("genrl_on_shards", world=SC_WORLD, backend="gloo", device="cuda:0 for both ranks",
+         heads_per_rank=H, kernel=kernel, decode=decode, train=train,
+         seconds={"one_rank": round(t1 - t0, 1), "ranks_after_go": round(
+             time.perf_counter() - t1, 1)}, card=report["card"])
+    if failed:
+        raise AssertionError(f"genrl_on_shards: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_impala_anakin, phase_learn_synthetic, phase_learn_catch, phase_learn_recall,
@@ -8359,7 +8678,8 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_serving_flush, phase_impala_serving, phase_serving_traffic,
           phase_fleet_impala, phase_fleet_elastic, phase_a3c_fleet, phase_marl_dqn,
           phase_fleet_dqn, phase_genrl_spec, phase_quantize_push, phase_disagg_train,
-          phase_disagg_soak, phase_disagg_preempt, phase_shard_compute]
+          phase_disagg_soak, phase_disagg_preempt, phase_shard_compute,
+          phase_genrl_on_shards]
 
 
 def main() -> int:
@@ -8374,6 +8694,8 @@ def main() -> int:
         except Exception as exc:  # noqa: BLE001 — report the phase and fail
             traceback.print_exc()
             emit(name, ok=False, error=f"{type(exc).__name__}: {exc}")
+            if "sc_world" in report:  # ranks left waiting for genrl_on_shards
+                _sc_kill(report["sc_world"][0])
             return 1
         seconds[name] = round(time.perf_counter() - t_phase, 1)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "scalerl_tpu"))
@@ -8423,6 +8745,9 @@ def main() -> int:
         # launches per learn step on each rank of shard_compute's two-rank
         # steps (summed over its configurations)
         "launches_on_shards": report["launches_on_shards"].get(name, 0),
+        # launches on rank 0 of genrl_on_shards (its engine's macro steps
+        # and its trainer's rounds)
+        "launches_genrl_on_shards": report["launches_genrl_on_shards"].get(name, 0),
     } for name, source, replaces in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

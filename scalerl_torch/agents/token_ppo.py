@@ -24,13 +24,17 @@ written out (``agents/dqn.py::AdamOptimizer``), wrapped in
 ``utils/checkpoint.py``.  ``enable_mesh`` splits the rows over ``dp`` x
 ``fsdp`` and, with ``mp > 1``, lays the state out by the logical rule table
 (``parallel/logical.py``); every masked mean then spans the whole batch.
+A meshed agent keeps no gathered acting copy: its engines take the rank's
+local shards (:meth:`TokenPPOAgent.engine_weights`, with
+:attr:`TokenPPOAgent.shard_ctx`), and :meth:`TokenPPOAgent.get_weights`
+gathers the whole tree where it is called, on every rank alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch.func import functional_call
@@ -44,13 +48,17 @@ from scalerl_torch.models.transformer import (
 )
 from scalerl_torch.parallel.sharding import (
     MeshedAgentState,
+    ShardContext,
     batch_mean,
     batch_sum,
+    gather_tree,
     reduce_gradients,
+    to_local,
 )
 from scalerl_torch.parallel.train_step import fp32_optimizer_state, maybe_guard_nonfinite
 from scalerl_torch.runtime.dispatch import get_metrics
 from scalerl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from scalerl_torch.utils.tree import tree_map
 
 Params = Dict[str, torch.Tensor]
 Batch = Mapping[str, torch.Tensor]
@@ -277,6 +285,9 @@ class TokenPPOAgent(MeshedAgentState):
     build_genrl_model`` seeds them from ``args.seed``).
     """
 
+    # single-threaded callers only (the trainers' rounds): no gathered copy
+    _acting_copy = False
+
     def __init__(self, args, model: TransformerPolicy) -> None:
         if model.vocab_size is None:
             raise ValueError("TokenPPOAgent needs a token-mode TransformerPolicy (vocab_size set)")
@@ -349,7 +360,21 @@ class TokenPPOAgent(MeshedAgentState):
         return get_metrics(self.learn_device(batch))  # one batched device->host copy
 
     def get_weights(self) -> Params:
-        return self.acting_params()
+        """The whole params: the state's own, or under a mesh gathered to
+        full tensors, a collective that every rank calls in the same
+        order."""
+        return gather_tree(self.state.params)
+
+    def engine_weights(self) -> Params:
+        """What a generation engine runs: the params, under a mesh each
+        leaf's local shard on this rank (nothing is gathered)."""
+        return tree_map(to_local, self.state.params)
+
+    @property
+    def shard_ctx(self) -> Optional[ShardContext]:
+        """The meshed learn step's computation on shards, which an engine
+        on :meth:`engine_weights` runs in (None without a process group)."""
+        return getattr(self._learn, "shard_ctx", None)
 
     def set_weights(self, weights: Params) -> None:
         self.state = dataclasses.replace(self.state, params=dict(weights))

@@ -47,6 +47,14 @@ two engines are token-identical on the same params.  A ``push_params``
 mid-flight rotates the policy under lanes already decoding and FLUSHES the
 prefix cache.
 
+On a mesh (``shard_ctx``, as the cohort engine takes it) the pools hold the
+rank's own ``num_heads / mp`` heads, and the paged kernel attends on those.
+The ranks that hold one model between them step in lockstep, and their
+host bookkeeping (allocator, page table, prefix cache, drafter) evolves
+alike because it is deterministic host code fed the same tokens.  The one
+host decision that reads the clock, the admission flush, is taken on the
+first of those ranks and its request count broadcast (:meth:`_poll`).
+
 What differs from the JAX engine:
 
 - The JAX engine compiles each dispatch into one program (``iter_mode``
@@ -97,6 +105,9 @@ from scalerl_torch.models.transformer import (
     prompt_attention_mask,
 )
 from scalerl_torch.ops.cuda_paged_attention import make_paged_attn_fn
+from scalerl_torch.parallel.collectives import broadcast_int
+from scalerl_torch.parallel.shard_compute import model_axis
+from scalerl_torch.parallel.sharding import ShardContext
 from scalerl_torch.runtime import telemetry, tracing
 from scalerl_torch.runtime.dispatch import steady_state_guard
 from scalerl_torch.runtime.param_server import ParamSnapshotPlane
@@ -200,7 +211,9 @@ class ContinuousEngine(ParamSnapshotPlane):
     without one).  ``sync_guard=False`` leaves out the steady-state
     guard (``torch.cuda.set_sync_debug_mode`` is process-wide, so an
     engine that shares its process with other threads' work runs without
-    it).
+    it, as does one on a mesh that syncs).  ``shard_ctx``: the mesh's
+    computation on shards, ``params`` then the rank's local shards (module
+    docstring).
     """
 
     def __init__(
@@ -210,6 +223,7 @@ class ContinuousEngine(ParamSnapshotPlane):
         config: ContinuousConfig,
         device: DeviceLike = "cuda",
         sync_guard: bool = True,
+        shard_ctx: Optional[ShardContext] = None,
     ) -> None:
         config.validate()
         check_token_model(model, "ContinuousEngine")
@@ -219,7 +233,14 @@ class ContinuousEngine(ParamSnapshotPlane):
         self.model = model
         # the model's paged decode reads go through the configured attention
         # unless the caller's model already names one
-        self._run = _ModelRunner(model, dev, paged_attn_fn=make_paged_attn_fn(config.paged_attn))
+        self._run = _ModelRunner(model, dev, params,
+                                 paged_attn_fn=make_paged_attn_fn(config.paged_attn),
+                                 shard_ctx=shard_ctx)
+        self._shard_ctx = shard_ctx
+        # the ranks that step this engine's lanes with this one (None: alone)
+        axis = None if shard_ctx is None else model_axis(shard_ctx.mesh)
+        self._lane_group = None if axis is None else shard_ctx.mesh.group(axis)
+        self._admits = axis is None or shard_ctx.mesh.coordinate(axis) == 0
         self._init_param_plane(params, dev)
         L = config.lanes
         ps = config.page_size
@@ -249,7 +270,7 @@ class ContinuousEngine(ParamSnapshotPlane):
         self._admit_buckets = default_buckets(L)
         # device state: pools + per-lane decode carry, updated in place;
         # row L of the lane state is the trash row for admission pad rows
-        self._pools = init_paged_kv_cache(num_pages, ps, model.num_layers, model.num_heads,
+        self._pools = init_paged_kv_cache(num_pages, ps, model.num_layers, self._run.heads,
                                           model.head_dim, device=dev)
         self._logits_st = torch.zeros(L + 1, config.vocab_size, dtype=torch.float32, device=dev)
         self._value_st = torch.zeros(L + 1, dtype=torch.float32, device=dev)
@@ -380,7 +401,7 @@ class ContinuousEngine(ParamSnapshotPlane):
         # never over-commit the pool: cap the flush at the number of
         # worst-case sequences the allocator can still reserve
         affordable = (self.allocator.capacity - self.allocator.reserved) // self._worst_pages
-        batch = self._batcher.poll_batch(max_lanes=min(len(free_ids), affordable))
+        batch = self._poll(min(len(free_ids), affordable))
         if not batch:
             return
         now = time.monotonic()
@@ -463,6 +484,20 @@ class ContinuousEngine(ParamSnapshotPlane):
         # stream is ordered, so a later reader sees the completed writes
         for prompt, m, full_pages in inserts:
             self._prefix_cache.insert(prompt, m, full_pages)
+
+    def _poll(self, max_lanes: int) -> List[ServingRequest]:
+        """The requests to admit now.  The flush predicate reads the host
+        clock (``admit_max_wait_s``), so ranks that step these lanes
+        together would admit apart: the first of them polls and broadcasts
+        how many requests it took, and each other takes that many off its
+        own queue, which holds the same requests in the same order."""
+        if not self._admits:
+            return self._batcher.take(broadcast_int(0, self._shard_ctx.mesh.device_type,
+                                                    self._lane_group))
+        batch = self._batcher.poll_batch(max_lanes=max_lanes) or []
+        if self._lane_group is not None:
+            broadcast_int(len(batch), self._shard_ctx.mesh.device_type, self._lane_group)
+        return batch
 
     def _occupy(self, lane_id: int, req: ServingRequest, prompt: np.ndarray, m: int,
                 pages: List[int], reserved: int, gen: int, now: float) -> None:

@@ -29,6 +29,15 @@ temperature 0 (argmax) is token-identical across the two packages.
 The engine runs the model from the parameter snapshot: it keeps its own
 copy of the module (``copy.deepcopy``) and loads the snapshot into it when
 the generation changes; the caller's module is never modified.
+
+On a mesh (``shard_ctx``, a meshed agent's ``ParallelLearnFn.shard_ctx``)
+the snapshot is the rank's local shards: every forward runs on them
+(``parallel/shard_compute.py::on_shards``), a block under ``mp`` on the
+rank's own heads, and the cache holds those ``num_heads / mp`` heads.  The
+policy head's output is gathered, so the logits, the draws from the
+identically seeded generator and the tokens are the same on every rank
+that holds the model with this one (``shard_compute.model_axis``); those
+ranks call the engine in lockstep.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ from scalerl_torch.models.transformer import (
     prefill_attention_mask,
     sequence_positions,
 )
+from scalerl_torch.parallel.shard_compute import local_heads, on_shards
+from scalerl_torch.parallel.sharding import ShardContext
 from scalerl_torch.runtime import dispatch, telemetry, tracing
 from scalerl_torch.runtime.dispatch import steady_state_guard
 from scalerl_torch.runtime.param_server import ParamSnapshotPlane
@@ -185,22 +196,40 @@ class GenerationResult(NamedTuple):
 class _ModelRunner:
     """The engines' private copy of the model, with the parameter snapshot
     loaded into it on a generation change (a device-side copy, ordered on
-    the stream after any work already enqueued)."""
+    the stream after any work already enqueued).  Each param takes the
+    shape of the snapshot's (a rank's shard under a mesh), and every call
+    runs :func:`~scalerl_torch.parallel.shard_compute.on_shards` of
+    ``shard_ctx``."""
 
     def __init__(self, model: TransformerPolicy, device: torch.device,
-                 paged_attn_fn=None) -> None:
+                 params: Mapping[str, torch.Tensor], paged_attn_fn=None,
+                 shard_ctx: Optional[ShardContext] = None) -> None:
         net = copy.deepcopy(model).to(device)
         net.requires_grad_(False)
+        for name, t in params.items():
+            prefix, _, leaf = name.rpartition(".")
+            owner = net.get_submodule(prefix)
+            p = owner._parameters[leaf]
+            if p.shape != t.shape:
+                owner._parameters[leaf] = torch.nn.Parameter(
+                    p.new_empty(t.shape), requires_grad=False)
         if paged_attn_fn is not None and net.paged_attn_fn is None:
             net.paged_attn_fn = paged_attn_fn
         self.net = net
+        self.shard_ctx = shard_ctx
         self._bound: Optional[int] = None
 
     def __call__(self, params: Mapping[str, torch.Tensor], generation: int, *args, **kwargs):
         if self._bound != generation:
             self.net.load_state_dict(params)
             self._bound = generation
-        return self.net(*args, **kwargs)
+        with on_shards(self.shard_ctx):
+            return self.net(*args, **kwargs)
+
+    @property
+    def heads(self) -> int:
+        """The heads a cache of this model holds on this rank."""
+        return local_heads(self.net.blocks[0], self.shard_ctx)
 
 
 def check_token_model(model: TransformerPolicy, engine: str) -> None:
@@ -221,7 +250,10 @@ class GenerationEngine(ParamSnapshotPlane):
     ``device``: where the engine runs (the card by default; raises without
     one).  ``sync_guard=False`` leaves out the steady-state guard, for an
     engine that shares its process with other threads' device work (the
-    guard's mode is process-wide).
+    guard's mode is process-wide) or whose mesh syncs (gloo stages its
+    collectives through host memory).  ``shard_ctx``: the mesh's
+    computation on shards, ``params`` then the rank's local shards (module
+    docstring).
     """
 
     def __init__(
@@ -231,6 +263,7 @@ class GenerationEngine(ParamSnapshotPlane):
         config: GenerationConfig,
         device: DeviceLike = "cuda",
         sync_guard: bool = True,
+        shard_ctx: Optional[ShardContext] = None,
     ) -> None:
         config.validate()
         check_token_model(model, "GenerationEngine")
@@ -245,7 +278,8 @@ class GenerationEngine(ParamSnapshotPlane):
             )
         self.model = model
         self.config = config
-        self._run = _ModelRunner(model, self.device)
+        self._run = _ModelRunner(model, self.device, params, shard_ctx=shard_ctx)
+        self._shard_ctx = shard_ctx
         self._init_param_plane(params, self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self._warm: set = set()
@@ -268,7 +302,7 @@ class GenerationEngine(ParamSnapshotPlane):
         model, cfg = self.model, self.config
         B = tokens.shape[0]
         S = P + R
-        cache = init_kv_cache(B, S, model.num_layers, model.num_heads, model.head_dim,
+        cache = init_kv_cache(B, S, model.num_layers, self._run.heads, model.head_dim,
                               device=self.device)
         ppos = sequence_positions(lengths, P, S)[:, :P]
         pmask = prefill_attention_mask(lengths, P, S)
@@ -323,11 +357,15 @@ class GenerationEngine(ParamSnapshotPlane):
         prompts: np.ndarray,
         prompt_lengths: Optional[np.ndarray] = None,
         max_new_tokens: Optional[int] = None,
+        prompt_bucket: Optional[int] = None,
     ) -> GenerationResult:
         """Run one generation round; returns host numpy results.
 
         ``prompts``: ``[B, L]`` int32, right-padded (row ``b`` real for its
-        first ``prompt_lengths[b]`` columns).  One upload, one round on the
+        first ``prompt_lengths[b]`` columns).  ``prompt_bucket``: the prompt
+        bucket to pad into, where it is not the longest prompt's (a
+        data-parallel trainer passes its whole round's, so every group's
+        share lands in one bucket pair).  One upload, one round on the
         device, one batched read (under ``steady_state_guard()`` once the
         bucket pair is warm)."""
         t_round0 = time.monotonic()
@@ -342,6 +380,11 @@ class GenerationEngine(ParamSnapshotPlane):
                 f"max_prompt_len={self.config.max_prompt_len}"
             )
         P = bucket_for(int(prompt_lengths.max(initial=1)), self.config.resolved_prompt_buckets())
+        if prompt_bucket is not None:
+            if prompt_bucket < P:
+                raise ValueError(f"prompt_bucket {prompt_bucket} is below the longest "
+                                 f"prompt's bucket {P}")
+            P = prompt_bucket
         R = bucket_for(int(max_new_tokens or self.config.max_new_tokens),
                        self.config.resolved_response_buckets())
         aligned = self._align_prompts(prompts, prompt_lengths, P)

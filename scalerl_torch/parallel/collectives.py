@@ -13,7 +13,8 @@ that each rank uses for its own part only, so their gradient is summed.
 and :class:`SliceShard` (a rank's slice; its backward all-gathers) are
 each other's transposes: the first assembles a sharded weight or a
 column-parallel layer's output, the second feeds a row-parallel layer its
-part of a replicated input.
+part of a replicated input.  :func:`broadcast_int` hands one rank's host
+decision to the others.
 """
 
 from __future__ import annotations
@@ -55,6 +56,15 @@ class SumGrads(torch.autograd.Function):
         dist.all_reduce(flat, group=ctx.group)
         parts = flat.split([g.numel() for g in grads])
         return (None, *(p.reshape(g.shape).to(g.dtype) for p, g in zip(parts, grads)))
+
+
+def broadcast_int(value: int, device, group=None) -> int:
+    """The first rank of ``group`` (of the world when None) hands its
+    ``value`` to every rank of it: one int64 broadcast, for a host decision
+    the ranks must take alike (a seed, an admission count)."""
+    t = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    dist.broadcast(t, src=0 if group is None else dist.get_global_rank(group, 0), group=group)
+    return int(t.item())
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:

@@ -35,13 +35,22 @@ model that reads a layer's params itself calls those two functions (as
 ``AtariNet`` does).  Any other module with a sharded param gathers it at
 the start of its ``forward``.  Outside a step on shards every layer runs
 its plain code on whole tensors.
+
+The same layers serve a forward outside a learn step (:func:`on_shards`,
+:func:`call_on_shards`): ``make_parallel_act_fn`` and the generation
+engines run the model on the local shards with no autograd, and a
+transformer block's caches then hold the rank's own heads
+(:func:`local_heads`).  The ranks that hold one model between them (the
+same ``dp`` coordinate, :func:`model_axis`) run such a forward in
+lockstep.
 """
 
 from __future__ import annotations
 
 import weakref
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Optional, Set, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,8 +75,11 @@ from scalerl_torch.parallel.sharding import (
     active_shard_context,
     bound_batch_axes,
     from_head_aligned,
+    shard_context,
     storage_groups,
+    to_local,
 )
+from scalerl_torch.utils.tree import tree_map
 
 # axes a layer splits its features over (column- or row-parallel); every
 # other axis is gathered where the weight is used
@@ -344,6 +356,49 @@ def head_parallel(block) -> Optional[HeadParallel]:
            and (mlp_in.bias_sharded or block.mlp_in.bias is None)
            and mlp_out.parallel == (HEAD_ALIGNED_AXIS, "row"))
     return HeadParallel(size, mlp)
+
+
+# ---------------------------------------------------------------------------
+# a forward on shards outside a learn step
+
+
+@contextmanager
+def on_shards(ctx: Optional[ShardContext]) -> Iterator[None]:
+    """Within the block a model of the state ``ctx`` describes runs its
+    forward on the local shards, with no autograd: the layers issue their
+    collectives as in a learn step, and nothing gathers a param whole that
+    the step would not.  None (no mesh): the plain forward."""
+    with torch.no_grad(), shard_context(ctx):
+        yield
+
+
+def call_on_shards(ctx: Optional[ShardContext], fn: Callable, params: Any, *args, **kwargs):
+    """``fn(local params, *args, **kwargs)`` :func:`on_shards`, the params'
+    DTensor leaves given as their local shards (as ``ParallelLearnFn``
+    hands a learn function its state)."""
+    with on_shards(ctx):
+        return fn(tree_map(to_local, params), *args, **kwargs)
+
+
+def local_heads(block, ctx: Optional[ShardContext]) -> int:
+    """The heads a ``TransformerBlock`` attends on :func:`on_shards` of
+    ``ctx``: ``num_heads / mp`` where it runs on the rank's own heads, else
+    all of them.  A cache it writes there holds that many."""
+    with shard_context(ctx):
+        hp = head_parallel(block)
+    return block.num_heads if hp is None else block.num_heads // hp.size
+
+
+def model_axis(mesh: Mesh) -> Optional[str]:
+    """The axis of the ranks that hold one model between them and so run
+    its forward in lockstep (every rank of one ``dp`` coordinate): the one
+    axis besides ``dp`` with more than one rank, or None where each rank
+    holds the whole model.  Raises for a mesh with several such axes."""
+    axes = [a for a, n in mesh.shape.items() if a != "dp" and n > 1]
+    if len(axes) > 1:
+        raise ValueError(f"a forward on shards outside a learn step takes one model axis "
+                         f"besides dp; the mesh has {axes}")
+    return axes[0] if axes else None
 
 
 # ---------------------------------------------------------------------------

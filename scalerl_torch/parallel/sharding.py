@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from scalerl_torch.parallel.collectives import all_gather_dim
+from scalerl_torch.parallel.collectives import all_gather_dim, broadcast_int
 from scalerl_torch.parallel.mesh import AXIS_NAMES, Mesh, MeshSpec, resolve_mesh
 from scalerl_torch.utils.tree import tree_map, tree_map_with_path
 
@@ -582,9 +582,7 @@ def agreed_seed(seed: int, mesh: Optional[Mesh]) -> int:
     without a process group): the seed a rank's shard draws derive from."""
     if mesh is None or mesh.device_mesh is None:
         return seed
-    t = torch.tensor([seed], dtype=torch.int64, device=mesh.device_type)
-    dist.broadcast(t, src=0)
-    return int(t.item())
+    return broadcast_int(seed, mesh.device_type)
 
 
 def shard_seed(seed: int, index: int) -> int:
@@ -653,10 +651,13 @@ class MeshedAgentState:
     order.  :meth:`acting_params` returns that copy, so actor threads and
     ``get_weights`` issue no collective (collectives from threads in no
     fixed order would pair up differently on each rank).  Without a mesh it
-    returns the state's own params."""
+    returns the state's own params.  An agent with no acting threads sets
+    ``_acting_copy = False`` and keeps no copy: its single-threaded callers
+    act on the shards (token-PPO's engines)."""
 
     mesh = None
     _acting_field = "params"
+    _acting_copy = True
     _acting = None
 
     @property
@@ -667,7 +668,7 @@ class MeshedAgentState:
     def state(self, value: Any) -> None:
         # the copy first: a reader between the two stores sees it, not a
         # sharded state
-        self._acting = (None if self.mesh is None
+        self._acting = (None if self.mesh is None or not self._acting_copy
                         else gather_tree(getattr(value, self._acting_field)))
         self._state = value
 

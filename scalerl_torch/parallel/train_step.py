@@ -214,40 +214,15 @@ class ParallelLearnFn:
                  batch_example: Any = None, batch_time_major: bool = True,
                  spec_fn: Optional[SpecFn] = None, split_batch: bool = True,
                  modules: Sequence[torch.nn.Module] = ()) -> None:
-        from scalerl_torch.parallel.shard_compute import install
-
         self.learn_fn = learn_fn
         self.mesh = mesh
         self.split_batch = split_batch
         self.spec_fn = spec_fn if spec_fn is not None else param_spec_fn(state_example, mesh)
         self.batch_time_major = batch_time_major
         full = gather_tree(state_example)
-        self._specs: Dict[Tuple[str, ...], Spec] = {}
-        axes: Dict[Tuple[str, Tuple[int, ...]], Tuple[str, ...]] = {}
-
-        def record(path, x):
-            spec = tuple(self.spec_fn(path, x))
-            self._specs[path] = spec
-            leaf_axes = tuple(a for e in spec if e is not None
-                              for a in ((e,) if isinstance(e, str) else e))
-            if not leaf_axes or mesh.device_mesh is None:
-                return
-            local = tuple(n // _extent(mesh, e) for n, e in zip(x.shape, spec + (None,) * x.ndim))
-            key = (path[-1], local)
-            if axes.setdefault(key, leaf_axes) != leaf_axes:
-                raise ValueError(f"state leaves named {path[-1]!r} of local shape {local} are "
-                                 f"sharded over both {axes[key]} and {leaf_axes}")
-
-        tree_map_with_path(record, full)
+        self._specs, self.shard_ctx = shard_layout(mesh, self.spec_fn, full, modules,
+                                                   "make_parallel_learn_fn")
         self.state_sharding = tree_map_with_path(lambda p, _: self._specs[p], full)
-        self.shard_ctx = None if mesh.device_mesh is None else ShardContext(mesh, axes)
-        if self.shard_ctx is not None:
-            covered = install(modules, self.spec_fn)
-            missing = sorted({name for name, _ in axes} - covered)
-            if missing:
-                raise ValueError(f"sharded state leaves {missing} are no param of the modules "
-                                 "the learn step runs: pass those models to "
-                                 "make_parallel_learn_fn(modules=...)")
         self.batch_sharding = (None if batch_example is None else
                                batch_sharding_tree(batch_example, mesh, batch_time_major))
         self.batch_mode = "split"
@@ -303,6 +278,41 @@ def _extent(mesh: Mesh, entry) -> int:
     if entry is None:
         return 1
     return mesh.extent((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def shard_layout(mesh: Mesh, spec_fn: SpecFn, full: Any, modules: Sequence[torch.nn.Module],
+                 maker: str) -> Tuple[Dict[Tuple[str, ...], Spec], Optional[ShardContext]]:
+    """Each leaf's spec in the tree ``full`` (by path) and the
+    :class:`ShardContext` of a computation on its shards (None without a
+    process group), the layers of ``modules`` set up to compute on those
+    shards (``parallel/shard_compute.py``); every sharded leaf must be a
+    param of ``modules`` (``maker`` names the call to pass them to)."""
+    from scalerl_torch.parallel.shard_compute import install
+
+    specs: Dict[Tuple[str, ...], Spec] = {}
+    axes: Dict[Tuple[str, Tuple[int, ...]], Tuple[str, ...]] = {}
+
+    def record(path, x):
+        spec = tuple(spec_fn(path, x))
+        specs[path] = spec
+        leaf_axes = tuple(a for e in spec if e is not None
+                          for a in ((e,) if isinstance(e, str) else e))
+        if not leaf_axes or mesh.device_mesh is None:
+            return
+        local = tuple(n // _extent(mesh, e) for n, e in zip(x.shape, spec + (None,) * x.ndim))
+        key = (path[-1], local)
+        if axes.setdefault(key, leaf_axes) != leaf_axes:
+            raise ValueError(f"state leaves named {path[-1]!r} of local shape {local} are "
+                             f"sharded over both {axes[key]} and {leaf_axes}")
+
+    tree_map_with_path(record, full)
+    if mesh.device_mesh is None:
+        return specs, None
+    missing = sorted({name for name, _ in axes} - install(modules, spec_fn))
+    if missing:
+        raise ValueError(f"sharded leaves {missing} are no param of the modules that compute "
+                         f"on them: pass those models to {maker}(modules=...)")
+    return specs, ShardContext(mesh, axes)
 
 
 def make_parallel_learn_fn(learn_fn: Callable, mesh, state_example: Any, batch_example: Any = None,
@@ -409,16 +419,31 @@ def enable_offpolicy_mesh(agent, mesh_or_spec) -> None:
     agent._learn = plearn
 
 
-def make_parallel_act_fn(act_fn: Callable[..., Any], mesh, params_example: Any) -> Callable[..., Any]:
-    """An inference function ``(params, *batch) -> ...`` for mesh serving:
-    ``.shard_params`` places params by the fsdp/tp rule and
-    ``.shard_batch`` takes this rank's rows (dim 0 over ``dp``); the call
-    gathers the params and runs on the rank's rows."""
+def make_parallel_act_fn(act_fn: Callable[..., Any], mesh, params_example: Any,
+                         param_specs: Optional[SpecFn] = None,
+                         modules: Sequence[torch.nn.Module] = ()) -> Callable[..., Any]:
+    """An inference function ``(params, *batch) -> ...`` for mesh serving
+    that computes on shards, as the JAX one runs jitted on the placed
+    params: ``.shard_params`` places params by ``param_specs`` (default the
+    fsdp/tp rule; the mp table of ``parallel/logical.py`` puts a
+    transformer on each rank's own heads) and ``.shard_batch`` takes this
+    rank's rows (dim 0 over ``dp`` x ``fsdp``).  The call runs ``act_fn``
+    on the params' local shards and the rank's rows with no autograd
+    (``parallel/shard_compute.py::call_on_shards``; ``modules`` are the
+    models ``act_fn`` runs through ``functional_call``, set up to compute
+    on their shards) and returns the rank's rows of the result; no param
+    is gathered whole.  The layers issue collectives, so every rank must
+    call it in the same order: single-threaded callers only.  Actor threads
+    act on ``MeshedAgentState``'s gathered copy instead."""
+    from scalerl_torch.parallel.shard_compute import call_on_shards
+
     mesh = resolve_mesh(mesh)
-    spec_fn = param_spec_fn(params_example, mesh)
+    spec_fn = param_specs if param_specs is not None else param_spec_fn(params_example, mesh)
+    _, ctx = shard_layout(mesh, spec_fn, gather_tree(params_example), modules,
+                          "make_parallel_act_fn")
 
     def act(params, *batch):
-        return act_fn(gather_tree(params), *batch)
+        return call_on_shards(ctx, act_fn, params, *batch)
 
     act.shard_params = lambda p: place_tree(p, spec_fn, mesh)  # type: ignore[attr-defined]
     act.shard_batch = lambda b: shard_batch(b, mesh, batch_dim=0)  # type: ignore[attr-defined]

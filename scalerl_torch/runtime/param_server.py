@@ -12,7 +12,10 @@ device, with a monotonic generation bump and no host transfer;
 A quantized push (``quantize="int8" | "bf16"``, ``runtime/quantize.py``)
 stores the compressed snapshot instead and dequantizes ON READ, cached
 until the next push: a replica holds the small format at rest and pays one
-dequantization a publish.
+dequantization a publish.  A consumer that holds its rank's shards sets
+``_shard_ctx`` (a meshed engine): the quantization runs inside that
+computation on shards, so a sharded leaf gets the whole leaf's int8
+scale.
 
 :class:`ParameterServer` is the pull endpoint over the same plane: pullers
 get numpy weights with a version, fetched to the host once a version.
@@ -45,6 +48,7 @@ class ParamSnapshotPlane:
     then ``push_params`` / ``_snapshot_params`` / ``staleness_steps``."""
 
     _GEN_STEPS_CAP = 64
+    _shard_ctx = None
 
     def _init_param_plane(self, params: Optional[Mapping[str, torch.Tensor]],
                           device: torch.device) -> None:
@@ -67,9 +71,12 @@ class ParamSnapshotPlane:
         generation."""
         snapshot, qsnap = _copy_params(params, self._param_device), None
         if quantize is not None:
+            from scalerl_torch.parallel.sharding import shard_context
+
             # quantized from the copy, so the 1-D leaves it passes through
             # never alias the live params
-            snapshot, qsnap = None, quantize_tree(snapshot, quantize)
+            with shard_context(self._shard_ctx):
+                snapshot, qsnap = None, quantize_tree(snapshot, quantize)
         with self._param_lock:
             self.generation += 1
             gen = self.generation
@@ -84,6 +91,23 @@ class ParamSnapshotPlane:
         self._gen_steps[gen] = self._latest_learner_step
         while len(self._gen_steps) > self._GEN_STEPS_CAP:
             self._gen_steps.pop(min(self._gen_steps))
+
+    def generation_map(self) -> np.ndarray:
+        """``[[generation, newest learner step], [g, step of g], ...]``
+        int64: what :meth:`restore_params` takes back from a checkpoint."""
+        with self._param_lock:
+            head = [(self.generation, self._latest_learner_step)]
+            return np.array(head + sorted(self._gen_steps.items()), np.int64)
+
+    def restore_params(self, params: Mapping[str, torch.Tensor], generation_map: np.ndarray) -> None:
+        """Publish ``params`` under the generation and generation -> step
+        map that :meth:`generation_map` gave (a resumed run)."""
+        rows = [tuple(int(v) for v in r) for r in np.asarray(generation_map)]
+        snapshot = _copy_params(params, self._param_device)
+        with self._param_lock:
+            self.generation, self._latest_learner_step = rows[0]
+            self._gen_steps = dict(rows[1:])
+            self._params, self._quantized = snapshot, None
 
     def _snapshot_params(self) -> Tuple[Params, int]:
         with self._param_lock:

@@ -172,6 +172,18 @@ class DynamicBatcher:
                 return None
             return self._take_locked(limit)
 
+    def take(self, n_requests: int) -> List[ServingRequest]:
+        """The ``n_requests`` oldest pending requests, whatever the flush
+        predicate says: a rank that admits what another rank's
+        :meth:`poll_batch` flushed from an identical queue."""
+        with self._cond:
+            if n_requests > len(self._pending):
+                raise RuntimeError(f"take({n_requests}) from a queue of {len(self._pending)}: "
+                                   "the queues of ranks in lockstep drifted apart")
+            batch = [self._pending.popleft() for _ in range(n_requests)]
+            self._pending_lanes -= sum(r.lanes for r in batch)
+            return batch
+
     def _take_locked(
         self, max_lanes: Optional[int] = None
     ) -> List[ServingRequest]:

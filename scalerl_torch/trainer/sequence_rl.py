@@ -20,13 +20,35 @@ Port of ``scalerl_tpu/trainer/sequence_rl.py::SequenceRLTrainer``:
 Once a round's shapes are warm, steps 3 and 4 run under
 ``steady_state_guard()``: on a card any other host synchronisation raises.
 
+Both trainers resolve ``RLArguments``' ``mesh_shape``/``dp_size``/``mp_size``
+into the agent's dp x mp mesh (``parallel/train_step.py::
+maybe_enable_mesh_from_args``).  :class:`SequenceRLTrainer` runs its rounds
+on a mesh of several ranks in lockstep, and no rank decides anything on its
+own:
+
+- the prompt rng, the replay's sample generator and every engine seed come
+  from rank 0's seed (``agreed_seed``);
+- each ``dp`` group generates its contiguous share of the round (the cohort
+  engine: rows of the round's prompts, padded into the round's prompt
+  bucket; the continuous engine: ``genrl_batch / dp`` completions from
+  prompts of its own stream), its ``mp`` ranks decoding on their own heads
+  (the engines on the agent's local shards, ``genrl/engine.py``); the
+  completions are all-gathered over ``dp`` in prompt order, so every rank
+  scores, packs and inserts the same rows into its replicated replay and
+  samples the same batch;
+- the learn step splits that batch over ``dp`` x ``fsdp`` (``"split"``), the
+  one-process step on the whole batch;
+- stop, the time window and a preemption's save are agreed at each round's
+  start (``RankAgreement``).
+
+The steady-state guard is off on such a mesh: gloo stages its collectives
+through host memory, and the admission broadcast reads a host int.
+
 :class:`DisaggSequenceRLTrainer` is the same learn half over the
 disaggregated dataflow (``genrl/disagg.py``): generation hosts stream
 completed sequences into the learner's replay, and quantized snapshots flow
-back; with a ledger directory it saves and resumes its whole plane.  Both
-resolve ``RLArguments``' ``mesh_shape``/``dp_size``/``mp_size`` into the
-agent's dp x mp mesh (``parallel/train_step.py::maybe_enable_mesh_from_args``)
-and refuse one that spans several processes.
+back; with a ledger directory it saves and resumes its whole plane.  It
+refuses a mesh that spans several processes.
 """
 
 from __future__ import annotations
@@ -41,6 +63,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scalerl_torch.agents.token_ppo import TokenPPOAgent
 from scalerl_torch.config import GenRLArguments
@@ -64,10 +87,17 @@ from scalerl_torch.genrl.rollout import (
 from scalerl_torch.genrl.task import TokenRecallTask
 from scalerl_torch.models.transformer import TransformerPolicy
 from scalerl_torch.ops.cuda_segment_attention import make_segment_attn_fn
-from scalerl_torch.parallel.train_step import maybe_enable_mesh_from_args, multi_rank
+from scalerl_torch.parallel.mesh import AXIS_NAMES
+from scalerl_torch.parallel.sharding import agreed_seed, gather_batch, shard_seed
+from scalerl_torch.parallel.train_step import (
+    RankAgreement,
+    maybe_enable_mesh_from_args,
+    multi_rank,
+)
 from scalerl_torch.runtime import telemetry, tracing
 from scalerl_torch.runtime.dispatch import steady_state_guard
 from scalerl_torch.utils.buckets import bucket_for, default_buckets
+from scalerl_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from scalerl_torch.utils.platform import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -172,13 +202,9 @@ class _LearnHalf:
         ):
             raise ValueError(f"agent lives on {self.agent.device}, trainer on {self.device}")
         self.device = self.agent.device
-        maybe_enable_mesh_from_args(self.agent, args)
-        if multi_rank(self.agent.mesh):
-            raise ValueError(
-                "the sequence-RL trainers run in one process: their rounds, preemption and "
-                "generation plane are not agreed across ranks, so a mesh of "
-                f"{self.agent.mesh.size} ranks would desynchronise them; use a one-rank mesh "
-                "here, or TokenPPOAgent.enable_mesh with the learn batches fed on every rank")
+        # every rank learns on its rows of the one batch that all sampled
+        maybe_enable_mesh_from_args(self.agent, args, batch_mode="split")
+        self.seed = agreed_seed(args.seed, self.agent.mesh)
 
     def _init_replay(self, prompt_pad: int, response_pad: int) -> None:
         """The replay's geometry is the LARGEST bucket pair, so one buffer
@@ -199,7 +225,7 @@ class _LearnHalf:
         )
         # "pallas" = the CUDA sample kernel (its plain version on the host)
         self._seq_method = "pallas"
-        self._sample_generator = torch.Generator(device=self.device).manual_seed(args.seed + 1)
+        self._sample_generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         self.learn_steps = 0
         self.reward_history: List[float] = []
         reg = telemetry.get_registry()
@@ -262,7 +288,8 @@ class SequenceRLTrainer(_LearnHalf):
     rewards``; defaults to :class:`TokenRecallTask`.  ``device``: where the
     model, the engine, the replay and the learner live (the card by
     default; raises without one).  With an ``agent``, its model's device
-    must be ``device``.
+    must be ``device``.  On a mesh of several ranks every rank builds its
+    trainer alike and calls :meth:`train` alike (module docstring).
     """
 
     def __init__(
@@ -273,34 +300,70 @@ class SequenceRLTrainer(_LearnHalf):
         device: DeviceLike = "cuda",
     ) -> None:
         self._init_agent(args, task, agent, device)
+        mesh = self.agent.mesh
+        self._mesh = mesh if multi_rank(mesh) else None
+        self._agree = RankAgreement(mesh)
+        self._dp = 1 if self._mesh is None else mesh.shape["dp"]
+        self._dp_index = 0 if self._mesh is None else mesh.coordinate("dp")
+        if args.genrl_batch % self._dp:
+            raise ValueError(f"genrl_batch ({args.genrl_batch}) must divide by the mesh's dp "
+                             f"extent ({self._dp}): each dp group generates its share")
         max_prompt_len = max(getattr(self.task, "max_prompt_len", args.prompt_len),
                              args.prompt_len)
         self.continuous = args.genrl_engine == "continuous"
+        # each dp group draws from a stream of its own (dp group 0 from the
+        # run's seed, so one group draws what one rank would)
+        gen_seed = shard_seed(self.seed, self._dp_index)
+        engine_kw = dict(device=self.device, sync_guard=self._mesh is None,
+                         shard_ctx=self.agent.shard_ctx)
         if self.continuous:
-            self.engine = ContinuousEngine(
-                self.agent.model,
-                self.agent.get_weights(),
-                _continuous_config(args, args.genrl_lanes or args.genrl_batch, max_prompt_len),
-                device=self.device,
-            )
+            config = _continuous_config(args, args.genrl_lanes or args.genrl_batch,
+                                        max_prompt_len)
+            config.seed = gen_seed
+            self.engine = ContinuousEngine(self.agent.model, self.agent.engine_weights(),
+                                           config, **engine_kw)
             # a macro step can finish more lanes than one learn batch takes;
             # the extras carry into the next round
             self._completion_backlog: List[Any] = []
+            # the prompts of this dp group's own completions
+            self._rng = np.random.default_rng(gen_seed)
         else:
-            self.engine = GenerationEngine(
-                self.agent.model, self.agent.get_weights(),
-                GenerationConfig(**_gen_config_kwargs(args, max_prompt_len)), device=self.device,
-            )
+            config = GenerationConfig(**_gen_config_kwargs(args, max_prompt_len))
+            config.seed = gen_seed
+            self.engine = GenerationEngine(self.agent.model, self.agent.engine_weights(),
+                                           config, **engine_kw)
+            # every rank draws the whole round's prompts and takes its rows
+            self._rng = np.random.default_rng(self.seed)
         self._init_replay(
             bucket_for(self.engine.config.max_prompt_len,
                        self.engine.config.resolved_prompt_buckets()),
             bucket_for(args.max_new_tokens, self.engine.config.resolved_response_buckets()),
         )
-        self._rng = np.random.default_rng(args.seed)
         self._warm_inserts: set = set()
         reg = telemetry.get_registry()
         self._stale_gauge = reg.gauge("genrl.staleness")
         self._kl_gauge = reg.gauge("genrl.kl_ref")
+
+    def _gather_dp(self, rows):
+        """A round's per-row host arrays (the numpy fields of a named tuple,
+        ``[n, ...]`` int32 or float32) from every dp group, in dp order: ONE
+        all-gather over ``dp`` of one packed int32 buffer (float32 fields as
+        their bits)."""
+        if self._dp == 1:
+            return rows
+        fields = {k: v for k, v in rows._asdict().items() if isinstance(v, np.ndarray)}
+        n = len(next(iter(fields.values())))
+        flat = np.concatenate([np.ascontiguousarray(v).reshape(n, -1).view(np.int32)
+                               for v in fields.values()], axis=1)
+        every = gather_batch(torch.from_numpy(flat).to(self._mesh.device_type), self._mesh, 0,
+                             ("dp",)).cpu().numpy()
+        out, col = {}, 0
+        for k, v in fields.items():
+            width = int(np.prod(v.shape[1:], dtype=np.int64))
+            out[k] = np.ascontiguousarray(every[:, col:col + width]).view(v.dtype).reshape(
+                (-1,) + v.shape[1:])
+            col += width
+        return rows._replace(**out)
 
     def _generate_round(self):
         B = self.args.genrl_batch
@@ -313,7 +376,11 @@ class SequenceRLTrainer(_LearnHalf):
             lengths = np.repeat(lengths, spp, axis=0)
         else:
             prompts, lengths = self.task.sample_prompts(B, self._rng)
-        result = self.engine.generate(prompts, lengths)
+        share = slice(self._dp_index * B // self._dp, (self._dp_index + 1) * B // self._dp)
+        # the round's prompt bucket, so every dp group's rows land in it
+        bucket = bucket_for(int(np.max(lengths)), self.engine.config.resolved_prompt_buckets())
+        result = self._gather_dp(self.engine.generate(prompts[share], lengths[share],
+                                                      prompt_bucket=bucket))
         rewards = self.task.score(prompts, lengths, result.response_tokens, result.response_len)
         return result, rewards
 
@@ -338,7 +405,7 @@ class SequenceRLTrainer(_LearnHalf):
     def _round_continuous(self):
         """One continuous round: keep the lane pool fed, then pack exactly
         ``genrl_batch`` finished sequences (overshoot waits in the backlog)."""
-        B = self.args.genrl_batch
+        B = self.args.genrl_batch // self._dp  # this dp group's share
         spp = self.args.samples_per_prompt
         while len(self._completion_backlog) < B:
             deficit = (B - len(self._completion_backlog) - self.engine.live_lanes
@@ -353,7 +420,7 @@ class SequenceRLTrainer(_LearnHalf):
             self._completion_backlog.extend(self.engine.step())
         batch = self._completion_backlog[:B]
         self._completion_backlog = self._completion_backlog[B:]
-        packed = pack_completions(batch, self._prompt_pad, self._response_pad)
+        packed = self._gather_dp(pack_completions(batch, self._prompt_pad, self._response_pad))
         rewards = self.task.score(packed.prompts, packed.prompt_len, packed.response_tokens,
                                   packed.response_len)
         fields, priorities, decode = self._completion_units(packed, rewards)
@@ -367,7 +434,8 @@ class SequenceRLTrainer(_LearnHalf):
         )
         t_add0 = time.monotonic()
         rows = int(priorities.shape[0])
-        guard = steady_state_guard() if rows in self._warm_inserts else None
+        guard = (steady_state_guard() if rows in self._warm_inserts and self._mesh is None
+                 else None)
         metrics, t_learn0 = self._learn_from(fields, priorities, guard)
         self._warm_inserts.add(rows)
         if tracing.sampling_enabled():
@@ -385,7 +453,7 @@ class SequenceRLTrainer(_LearnHalf):
         if self.learn_steps % self.args.genrl_push_every == 0:
             # learner_step feeds the plane's generation -> step map, so the
             # staleness below counts learner steps behind the newest push
-            self.engine.push_params(self.agent.get_weights(), learner_step=self.learn_steps)
+            self.engine.push_params(self.agent.engine_weights(), learner_step=self.learn_steps)
         # staleness from the metric that already crossed to the host
         staleness = self.engine.staleness_steps(int(round(metrics["mean_generation"])))
         self._stale_gauge.set(staleness)
@@ -394,11 +462,29 @@ class SequenceRLTrainer(_LearnHalf):
             self._kl_gauge.set(metrics["kl_ref"])
         return self._close_round(metrics, rewards, staleness, decode_tokens)
 
-    def train(self, rounds: Optional[int] = None) -> Dict[str, float]:
+    def train(self, rounds: Optional[int] = None, seconds: Optional[float] = None,
+              guard: Optional[Any] = None, save_path: Optional[str] = None) -> Dict[str, float]:
+        """Up to ``rounds`` rounds (``genrl_rounds`` by default).  At each
+        round's start the ranks agree (``RankAgreement``) whether any of
+        them has run ``seconds`` or seen a preemption on ``guard`` (a
+        :class:`~scalerl_torch.runtime.supervisor.PreemptionGuard`, polled
+        as the learner's safe point); the first stops the loop, the second
+        saves to ``save_path`` (:meth:`save_checkpoint`) and stops it."""
         rounds = rounds if rounds is not None else self.args.genrl_rounds
         metrics: Dict[str, float] = {}
         log_every = max(self.args.logger_frequency or 50, 1)
+        t0 = time.monotonic()
         for i in range(rounds):
+            _, out_of_time, preempted = self._agree(
+                0, seconds is not None and time.monotonic() - t0 >= seconds,
+                guard is not None and guard.poll_chaos("learner"))
+            if preempted:
+                telemetry.record_event("preemption_exit", plane="genrl", step=self.learn_steps)
+                if save_path is not None:
+                    self.save_checkpoint(save_path)
+                break
+            if out_of_time:
+                break
             metrics = self.train_round()
             if (i + 1) % log_every == 0 or i + 1 == rounds:
                 logger.info(
@@ -407,6 +493,49 @@ class SequenceRLTrainer(_LearnHalf):
                     metrics.get("total_loss", 0.0), metrics.get("staleness", 0.0),
                 )
         return self._summary(metrics)
+
+    def _frame_name(self) -> str:
+        return f"trainer_dp{self._dp_index}"
+
+    def save_checkpoint(self, path: str) -> str:
+        """The run in the directory ``path``: the agent's state (``agent``,
+        under a mesh gathered by every rank and written by rank 0) and each
+        dp group's round-loop state, written by its first rank
+        (``trainer_dp<g>``: learn steps, reward history, the prompt rng,
+        the replay, the sample and engine generators, the engine's
+        generation map).  Every rank calls it alike.  A cohort-engine run
+        resumed from it (:meth:`load_checkpoint`) continues bit for bit; a
+        continuous engine restarts with no lane live and no backlog."""
+        self.agent.save_checkpoint(os.path.join(path, "agent"))
+        if self._mesh is None or all(self._mesh.coordinate(a) == 0
+                                     for a in AXIS_NAMES if a != "dp"):
+            save_checkpoint(os.path.join(path, self._frame_name()), {
+                "learn_steps": np.int64(self.learn_steps),
+                "reward_history": np.asarray(self.reward_history, np.float64),
+                "prompt_rng": np.frombuffer(
+                    json.dumps(self._rng.bit_generator.state).encode(), np.uint8),
+                "sample_generator": self._sample_generator.get_state(),
+                "engine_generator": self.engine._generator.get_state(),
+                "generation_map": self.engine.generation_map(),
+                "replay": seq_export(self.replay),
+            })
+        if self._mesh is not None:
+            dist.barrier()
+        return path
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume the run :meth:`save_checkpoint` wrote to ``path``; every
+        rank calls it alike."""
+        self.agent.load_checkpoint(os.path.join(path, "agent"))
+        frame = load_checkpoint(os.path.join(path, self._frame_name()))
+        self.learn_steps = int(frame["learn_steps"])
+        self.reward_history = [float(r) for r in frame["reward_history"]]
+        self._rng.bit_generator.state = json.loads(bytes(frame["prompt_rng"].numpy()))
+        self._sample_generator.set_state(frame["sample_generator"])
+        self.engine._generator.set_state(frame["engine_generator"])
+        self.engine.restore_params(self.agent.engine_weights(), frame["generation_map"])
+        # the replay has no recurrent core, whose empty tuple holds no leaf
+        self.replay = seq_import({**frame["replay"], "core": ()}, self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -531,6 +660,13 @@ class DisaggSequenceRLTrainer(_LearnHalf):
 
         self._record_consumption_trace = record_consumption_trace
         self._init_agent(args, task, agent, device)
+        if multi_rank(self.agent.mesh):
+            raise ValueError(
+                "DisaggSequenceRLTrainer runs its learner in one process: across "
+                f"{self.agent.mesh.size} ranks its generation fleet, leases and ledger would "
+                "have to live on rank 0, which would broadcast each learn batch to the "
+                "others, and nothing does that yet; use SequenceRLTrainer, whose rounds run "
+                "in lockstep across ranks, or a one-rank mesh here")
         self._init_replay(bucket_for(args.prompt_len, default_buckets(args.prompt_len)),
                           bucket_for(args.max_new_tokens, default_buckets(args.max_new_tokens)))
         lanes = args.disagg_lanes_per_host or max(1, args.genrl_batch // args.disagg_hosts)
