@@ -491,6 +491,22 @@ no result line:
     tokens equal and its loss within ``SC_TOL``'s ``loss_rel``, segment 4
     and PER sample 1 a learn step a rank, rounds/s and peak memory a
     rank).
+64-65. ``serving_on_shards`` and ``disagg_on_shards`` on the same ranks,
+    each after its go file.  The serving trainer with its learner at mp =
+    2 (``RLArguments``' transformer: d 128, 2 layers, 2 of 4 heads a rank,
+    the flash kernels, on the port's CartPole) for ``SS_LEARN_STEPS``
+    learn steps: a rank serves half of each mp leaf and the live shards of
+    the last push; a fixed batch's logits bit-equal across the ranks and
+    within ``SS_TOL`` of a one-rank server at the gathered weights; the
+    flash forward 2 a flush on the flush thread and 2 a learn step on the
+    learner's, all on 2 heads.  ``DisaggSequenceRLTrainer`` at the
+    training width at mp = 2, rank 0 owning the fleet (2 continuous hosts
+    of 32 lanes, int8 snapshots), ``GS_ROUNDS`` rounds from cold: round
+    1's loss within ``SC_TOL``'s ``loss_rel`` of one rank's learn step on
+    the same rows, the ranks' metrics bit-equal, segment 4 and PER sample
+    1 a learn step a rank, paged launches on rank 0's hosts alone, lost =
+    0.  Rates and peak memory beside ``impala_serving``'s and
+    ``disagg_train``'s.
 
 Host-side phases use no gymnasium and no tensorboardX (the card's machine
 may have neither): their envs are the port's numpy and tensor envs behind
@@ -983,8 +999,8 @@ SYNTHETIC_FRAMES = 40_000  # 100,000 before phases 51-55 joined the script
 
 # ImpalaArguments' own defaults (T=80, B=8, conv + 2-layer LSTM, hidden 512,
 # float32, the lr schedule over 30M frames), as the fused loop runs them
-# 4 chunks (10 before phases 51-55)
-LSTM_ITERS, LSTM_CHUNKS = 5, 4
+# 3 chunks (4 before serving_on_shards, 10 before phases 51-55)
+LSTM_ITERS, LSTM_CHUNKS = 5, 3
 
 
 def _default_args(**kw):
@@ -1916,9 +1932,35 @@ def _paged_timing(inp: dict, lengths, with_plain: bool) -> dict:
     return timing
 
 
-def phase_paged_attn(report: dict) -> None:
+def _paged_gather_sdpa(inp: dict):
+    """The library's computation of the paged kernel's function on ``inp``:
+    every lane's pages gathered whole, then
+    ``F.scaled_dot_product_attention`` under the length mask (context only;
+    the port never calls it).  Returns the call, ``[B, 1, H, D]``."""
     import torch
     import torch.nn.functional as F
+
+    B, _, H, D = inp["q"].shape
+    N, ps = inp["k_pages"].shape[:2]
+    M = inp["page_table"].shape[1]
+    kflat = inp["k_pages"].view(N * ps, H, D)
+    vflat = inp["v_pages"].view(N * ps, H, D)
+    idx = (inp["page_table"].long()[:, :, None] * ps
+           + torch.arange(ps, device="cuda")[None, None, :]).reshape(B, M * ps)
+    valid = torch.arange(M * ps, device="cuda")[None, :] < inp["lengths"][:, None]
+    valid = valid[:, None, None, :]
+
+    def gather_sdpa():
+        k = kflat[idx].transpose(1, 2)
+        v = vflat[idx].transpose(1, 2)
+        return F.scaled_dot_product_attention(inp["q"].transpose(1, 2), k, v,
+                                              attn_mask=valid).transpose(1, 2)
+
+    return gather_sdpa
+
+
+def phase_paged_attn(report: dict) -> None:
+    import torch
 
     from scalerl_torch.ops import cuda_paged_attention
     from scalerl_torch.ops.paged_attention import paged_attention_reference
@@ -1972,19 +2014,8 @@ def phase_paged_attn(report: dict) -> None:
     worst = max(c["max_abs_err"] for c in cases if c["dtype"] == "float32")
 
     inp = _paged_case(B, H, D, ps, M, N, main_lengths, seed=12, dtype=torch.float32, shared=8)
-    kflat = inp["k_pages"].view(N * ps, H, D)
-    vflat = inp["v_pages"].view(N * ps, H, D)
-    idx = (inp["page_table"].long()[:, :, None] * ps
-           + torch.arange(ps, device="cuda")[None, None, :]).reshape(B, M * ps)
-    valid = torch.arange(M * ps, device="cuda")[None, :] < inp["lengths"][:, None]
-    valid = valid[:, None, None, :]
-
-    def gather_sdpa():
-        k = kflat[idx].transpose(1, 2)
-        v = vflat[idx].transpose(1, 2)
-        return F.scaled_dot_product_attention(inp["q"].transpose(1, 2), k, v, attn_mask=valid)
-
-    lib_err = (gather_sdpa().transpose(1, 2) - paged_attention_reference(**inp)).abs().max().item()
+    gather_sdpa = _paged_gather_sdpa(inp)
+    lib_err = (gather_sdpa() - paged_attention_reference(**inp)).abs().max().item()
     timing = _paged_timing(inp, main_lengths, with_plain=True)
     timing["library_ms"] = gpu_time_ms(gather_sdpa, 20)
     report["paged_attention"] = {"max_abs_err": worst, **timing}
@@ -3969,8 +4000,8 @@ def phase_dqn_resume(report: dict) -> None:
 
 
 RAINBOW_TOL = {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4, "host_rel": 1e-4}
-APEX_TRAIN_S, R2D2_HOST_S = 6.0, 4.0  # 8, 8 s before shard_compute; R2D2 6 before genrl_on_shards
-R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 60, 5  # 80 before genrl_on_shards, 120 before shard_compute, 300 before 51-55
+APEX_TRAIN_S, R2D2_HOST_S = 4.5, 3.0  # 8, 8 s before shard_compute; R2D2 6 before genrl_on_shards; 6, 4 before serving_on_shards
+R2D2_DEVICE_ITERS, R2D2_PROFILE_ITERS = 40, 5  # 60 before serving_on_shards, 80 before genrl_on_shards, 120 before shard_compute, 300 before 51-55
 
 
 def _leaf_rel_err(got: dict, want: dict) -> float:
@@ -4383,8 +4414,8 @@ def phase_r2d2_host(report: dict) -> None:
 # The process plane (phases 35-37)
 RING_PRODUCERS, RING_SLOTS, RING_PER_PRODUCER = 4, 32, 40
 RING_TEAR_SPEC, RING_TEAR_SLOTS = "16:slot_tear=0.25", 40
-PDQN_TRAIN_S = 3.0  # 4 s before genrl_on_shards, 5 before shard_compute joined the script
-PROC_TRAIN_S = 3.0  # 4 s before genrl_on_shards
+PDQN_TRAIN_S = 2.5  # 3 s before serving_on_shards, 4 before genrl_on_shards, 5 before shard_compute
+PROC_TRAIN_S = 2.5  # 3 s before serving_on_shards, 4 before genrl_on_shards
 # seconds a training phase may take to reach its first learn step
 FIRST_LEARN_DEADLINE_S = 240.0
 
@@ -4751,7 +4782,7 @@ def phase_process_impala(report: dict) -> None:
 # must end within 1,200 s, and a host 1.3-1.9x slower than usual has run it
 # in 1,267 s (PERF.md's Findings)
 IMPACT_TRAIN_S = 7.0  # 10 s before, 20 before phases 51-55 joined the script
-ONPOLICY_EXAMPLE_STEPS = 6_000  # 8,000 before, 16,000 before phases 51-55
+ONPOLICY_EXAMPLE_STEPS = 4_000  # 6,000 before serving_on_shards, 8,000 before, 16,000 before phases 51-55
 ONPOLICY_RECALL_CHUNKS = 6  # 8 before genrl_on_shards, 12 before, 30 before phases 51-55
 CONTINUOUS_TRAIN_STEPS = 1_500  # 2,000 before genrl_on_shards, 3,000 before, 6,000 before 51-55
 # card vs host for the on-policy learn steps: the loss, the gradient at the
@@ -5420,8 +5451,8 @@ SERVE_TOL = 1e-4
 SERVE_TRAIN_S = HOST_TRAIN_S
 SERVE_PROFILE_STEPS = 1
 # bench.py --mode traffic on an accelerator (bench.py:589-590)
-# TRAFFIC_S is 8 s (10 before genrl_on_shards joined the script)
-TRAFFIC_REPLICAS, TRAFFIC_CLIENTS, TRAFFIC_RPS, TRAFFIC_S, TRAFFIC_SLO_MS = 3, 16, 200.0, 8.0, 100.0
+# TRAFFIC_S is 6 s (8 before serving_on_shards, 10 before genrl_on_shards)
+TRAFFIC_REPLICAS, TRAFFIC_CLIENTS, TRAFFIC_RPS, TRAFFIC_S, TRAFFIC_SLO_MS = 3, 16, 200.0, 6.0, 100.0
 TRAFFIC_OBS, TRAFFIC_ACTIONS, TRAFFIC_LANES = 64, 16, 4
 
 
@@ -5653,6 +5684,9 @@ def phase_impala_serving(report: dict) -> None:
          actor_ms_per_slot={k: v * 1e3 for k, v in trainer.actors[0].timings.means().items()},
          learner_ms_per_step={k: v * 1e3 for k, v in trainer.learn_timings.means().items()},
          card=report["card"])
+    # what serving_on_shards reports its meshed rates beside
+    report["impala_serving"] = dict(requests_per_s=rates["answered"] / sec,
+                                    flushes_per_s=rates["flushes"] / sec)
     emit("impala_serving_profile", learn_steps=SERVE_PROFILE_STEPS,
          profiled_s=state["profiled_s"], device_busy_s=busy_s,
          device_busy_share=busy_s / state["profiled_s"] if kernels else None,
@@ -5861,11 +5895,11 @@ def phase_serving_traffic(report: dict) -> None:
 # ---------------------------------------------------------------------------
 # the fleet: host CPU actors feeding the learner on the card
 
-FLEET_TRAIN_S = 3.0  # 5 s before genrl_on_shards, 8 before phases 51-55 joined the script
+FLEET_TRAIN_S = 2.0  # 3 s before serving_on_shards, 5 before genrl_on_shards, 8 before phases 51-55
 FLEET_ELASTIC_S = 20.0
-A3C_FLEET_S = 4.0  # 6 s before phases 51-55 joined the script
-MARL_STEPS = 1_000  # env steps a lane, 8 lanes: ~8 s on the card's host
-FLEET_DQN_EPISODES = 60  # 100 before impala_anakin joined (why: at IMPACT_TRAIN_S), 200 before 51-55
+A3C_FLEET_S = 3.0  # 4 s before serving_on_shards, 6 before 51-55 joined the script
+MARL_STEPS = 700  # env steps a lane, 8 lanes: ~6 s on the card's host (1,000 before serving_on_shards)
+FLEET_DQN_EPISODES = 45  # 60 before serving_on_shards, 100 before impala_anakin joined (why: at IMPACT_TRAIN_S), 200 before 51-55
 # the elastic wave: the supervisor draws from this seed's mass_kill stream
 # every 0.5 s once the learner has taken its first step, and the stream
 # first fires at its 10th draw, ~5 s into the window; at most one wave,
@@ -6262,7 +6296,7 @@ DISAGG_BF16_LOSS_REL = 2.0 ** -5
 # (|q| <= 127), so the bound is s * (0.5 + 2 * 127 * 2^-24)
 INT8_DEQ_SLACK = 2 * 127 * 2.0 ** -24
 SOAK_HOSTS, SOAK_LANES, SOAK_RESPONSE, SOAK_VOCAB = 2, 8, 8, 32
-SOAK_ROUNDS = 8  # learn rounds the soak's lease budget covers
+SOAK_ROUNDS = 6  # learn rounds the soak's lease budget covers (8 before serving_on_shards)
 PREEMPT_WARM_ROUNDS, PREEMPT_ROUNDS = 2, 3
 THREAD_JOIN_S = 10.0
 
@@ -6479,6 +6513,7 @@ def phase_disagg_train(report: dict) -> None:
     emit("disagg_train", hosts=2, engine="continuous", page_size=GEN_PAGE,
          steps_per_macro=GEN_MACRO, **cont, card=report["card"])
     _check_train_window("disagg_train continuous", cont, continuous=True)
+    report["disagg_train_continuous"] = cont  # beside disagg_on_shards' rates
     torch.cuda.empty_cache()
 
     # bf16_params: one learn step, segment kernels against the dense mask
@@ -7074,8 +7109,8 @@ MESH_REPLAY_ADDS = 64  # global adds through both buffers' inserts after the bul
 MESH_SEQ_INSERTS = 4  # inserts of 16 sequences after the bulk fill
 MESH_TIMED_REPS = 20
 MESH_WEIGHT_TOL = 1e-6  # importance weights, sharded vs unsharded sample
-MESH_R2D2_ITERS = 30  # DeviceR2D2Trainer iterations a twin (40 before genrl_on_shards)
-MESH_APEX_S = 5.0
+MESH_R2D2_ITERS = 20  # DeviceR2D2Trainer iterations a twin (30 before serving_on_shards, 40 before genrl_on_shards)
+MESH_APEX_S = 3.5  # 5 s before serving_on_shards
 
 
 def _one_rank_group() -> None:
@@ -8233,13 +8268,17 @@ def _sc_rank(rank: int, world: int, port: int, workdir: str) -> None:
     except Exception:  # noqa: BLE001 - carried to the parent, which fails the phase
         results["error"] = traceback.format_exc()
     _sc_save(results, workdir, f"rank{rank}.pt")
-    if "error" not in results:
-        # the same world serves genrl_on_shards, after its one-rank runs
+    # the same world serves genrl_on_shards, serving_on_shards and
+    # disagg_on_shards in turn, each after its go file; a hand-off that
+    # failed ends the chain
+    for run, name in ((_gs_rank, "genrl"), (_ss_rank, "serving"), (_ds_rank, "disagg")):
+        if "error" in results:
+            break
         try:
-            genrl = _gs_rank(workdir)
+            results = run(workdir)
         except Exception:  # noqa: BLE001 - carried to the parent, which fails the phase
-            genrl = {"error": traceback.format_exc()}
-        _sc_save(genrl, workdir, f"genrl{rank}.pt")
+            results = {"error": traceback.format_exc()}
+        _sc_save(results, workdir, f"{name}{rank}.pt")
     dist.destroy_process_group()
 
 
@@ -8268,6 +8307,15 @@ def _sc_kill(ctx) -> None:
     for p in ctx.processes:
         if p.is_alive():
             p.kill()
+
+
+def _sc_go(workdir: str, name: str) -> None:
+    """In a rank: wait for the parent's go file ``name``."""
+    deadline = time.monotonic() + GS_GO_S
+    while not os.path.exists(os.path.join(workdir, name)):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no {name} from the parent in {GS_GO_S} s")
+        time.sleep(0.05)
 
 
 def phase_shard_compute(report: dict) -> None:
@@ -8506,11 +8554,7 @@ def _gs_rank(workdir: str) -> dict:
     from scalerl_torch.parallel.mesh import make_mesh
     from scalerl_torch.trainer.sequence_rl import build_genrl_model
 
-    deadline = time.monotonic() + GS_GO_S
-    while not os.path.exists(os.path.join(workdir, "go_genrl")):
-        if time.monotonic() > deadline:
-            raise RuntimeError(f"no genrl_on_shards go from the parent in {GS_GO_S} s")
-        time.sleep(0.05)
+    _sc_go(workdir, "go_genrl")
     mesh = make_mesh(f"mp={SC_WORLD}", device_type="cuda")
     agent = _gs_gen_agent()
     agent.enable_mesh(mesh)
@@ -8552,34 +8596,36 @@ def phase_genrl_on_shards(report: dict) -> None:
 
     if "sc_world" not in report:
         raise AssertionError("genrl_on_shards runs on shard_compute's ranks, which are gone")
-    ctx, workdir = report.pop("sc_world")
+    # the ranks stay for serving_on_shards; a phase that fails ends them
+    # (main)
+    ctx, workdir = report["sc_world"]
     set_tf32(False)
     t0 = time.perf_counter()
-    try:
-        # the kernel on a rank's heads, alone on the card
-        H = GEN_HEADS // SC_WORLD
-        lengths = _paged_main_lengths()
-        inp = _paged_case(GEN_LANES, H, GEN_D // GEN_HEADS, GEN_PAGE, GEN_PAGES_PER_LANE,
-                          GEN_NUM_PAGES, lengths, seed=12, dtype=torch.float32, shared=8)
-        got = cuda_paged_attention.paged_decode_attention(**inp)
-        err = (got - paged_attention_reference(**inp)).abs().max().item()
-        kernel = dict(shape=list(inp["q"].shape), pools=list(inp["k_pages"].shape),
-                      max_abs_err=err, tol=PAGED_TOL,
-                      **_paged_timing(inp, lengths, with_plain=True))
-        one = {"decode": _gs_decode(_gs_gen_agent())}
-        torch.cuda.empty_cache()
-        one["train"] = _gs_train(TokenPPOAgent(_gs_train_args(),
-                                               build_genrl_model(_gs_train_args())))
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        Path(workdir, "go_genrl").touch()
-        _sc_wait(ctx, workdir, [f"genrl{r}.pt" for r in range(SC_WORLD)],
-                 time.monotonic() + GS_JOIN_S, "genrl_on_shards")
-        ranks = [torch.load(os.path.join(workdir, f"genrl{r}.pt"), weights_only=False)
-                 for r in range(SC_WORLD)]
-        ctx.join(timeout=60)
-    finally:
-        _sc_kill(ctx)
+    # the kernel on a rank's heads, alone on the card
+    H = GEN_HEADS // SC_WORLD
+    lengths = _paged_main_lengths()
+    inp = _paged_case(GEN_LANES, H, GEN_D // GEN_HEADS, GEN_PAGE, GEN_PAGES_PER_LANE,
+                      GEN_NUM_PAGES, lengths, seed=12, dtype=torch.float32, shared=8)
+    got = cuda_paged_attention.paged_decode_attention(**inp)
+    want = paged_attention_reference(**inp)
+    err = (got - want).abs().max().item()
+    gather_sdpa = _paged_gather_sdpa(inp)
+    kernel = dict(shape=list(inp["q"].shape), pools=list(inp["k_pages"].shape),
+                  max_abs_err=err, tol=PAGED_TOL,
+                  **_paged_timing(inp, lengths, with_plain=True),
+                  library_ms=gpu_time_ms(gather_sdpa, 20),
+                  library_max_abs_err=(gather_sdpa() - want).abs().max().item())
+    one = {"decode": _gs_decode(_gs_gen_agent())}
+    torch.cuda.empty_cache()
+    one["train"] = _gs_train(TokenPPOAgent(_gs_train_args(),
+                                           build_genrl_model(_gs_train_args())))
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    Path(workdir, "go_genrl").touch()
+    _sc_wait(ctx, workdir, [f"genrl{r}.pt" for r in range(SC_WORLD)],
+             time.monotonic() + GS_JOIN_S, "genrl_on_shards")
+    ranks = [torch.load(os.path.join(workdir, f"genrl{r}.pt"), weights_only=False)
+             for r in range(SC_WORLD)]
     errors = [r["error"] for r in ranks if "error" in r]
     if errors:
         raise AssertionError(f"genrl_on_shards ranks failed: {errors[0]}")
@@ -8661,6 +8707,471 @@ def phase_genrl_on_shards(report: dict) -> None:
         raise AssertionError(f"genrl_on_shards: {failed}")
 
 
+# serving_on_shards: the serving trainer (actor_mode="serving") with its
+# learner at mp = SC_WORLD, on shard_compute's ranks (a third hand-off on
+# that world: the ranks wait for a go_serving file).  RLArguments' own
+# transformer widths (d_model 128, 2 layers, 4 heads: 2 a rank) with the
+# flash kernels, the port's CartPole (TensorCartPole on the host behind
+# TensorVectorView), SS_ACTORS actors of SS_ENVS lanes a rank and
+# SS_LEARN_STEPS learn steps.  T is ImpalaArguments' 80 cut to SS_T (the
+# CartPole recipe's 16): each act is a lockstep flush of gloo collectives,
+# so a learn step waits for T of them.  Then a new server on each rank's
+# trained agent flushes one fixed batch (SS_REQUEST_LANES: each rank's own
+# requests, pooled in rank order), held against a one-rank server at the
+# gathered weights here: logits within SS_TOL (two matmul splits apart),
+# bit-equal across the ranks
+SS_ENVS, SS_ACTORS, SS_T, SS_LEARN_STEPS = 2, 4, 16, 3
+SS_REQUEST_LANES = ((3, 1), (2,))  # 6 lanes pooled, bucket 8
+SS_TOL = 1e-5
+SS_JOIN_S = 300.0
+
+
+def _ss_args(**kw):
+    from scalerl_torch.config import ImpalaArguments
+
+    base = dict(env_id="CartPole-v1", policy_arch="transformer", use_pallas=True,
+                use_lstm=False, num_actors=SS_ACTORS, batch_size=SS_ACTORS * SS_ENVS,
+                rollout_length=SS_T, actor_mode="serving", logger_backend="none",
+                logger_frequency=10**9, telemetry_interval_s=0.0, save_model=False)
+    return ImpalaArguments(**{**base, **kw})
+
+
+def _ss_requests(rank: int) -> list:
+    """Rank ``rank``'s fixed act requests: (id, payload) pairs."""
+    rng = np.random.default_rng(30 + rank)
+    return [(10 * rank + i, {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+                             "last_action": rng.integers(0, 2, n).astype(np.int32),
+                             "reward": rng.normal(size=n).astype(np.float32),
+                             "done": rng.uniform(size=n) < 0.3, "core": ()})
+            for i, n in enumerate(SS_REQUEST_LANES[rank])]
+
+
+def _ss_fixed_flush(agent, args, rank: int) -> dict:
+    """A new server on ``agent`` flushes this rank's fixed requests in one
+    lockstep tick: the pooled inputs, logits and actions of the bucket, and
+    the replies."""
+    import torch
+
+    from scalerl_torch.serving import InferenceServer, ServingConfig, local_pair
+
+    server = InferenceServer(agent, ServingConfig.from_args(args))
+    pooled = {}
+    serve = server._serve
+
+    def recording(params, obs, last_action, reward, done, core):
+        action, logits, new_core = serve(params, obs, last_action, reward, done, core)
+        pooled.update(obs=obs.cpu(), last_action=last_action.cpu(), reward=reward.cpu(),
+                      done=done.cpu(), logits=logits.cpu(), action=action.cpu())
+        return action, logits, new_core
+
+    server._serve = recording
+    c_end, s_end = local_pair()
+    server.hub.add_connection(s_end)
+    mine = _ss_requests(rank)
+    try:
+        for req_id, payload in mine:
+            server._admit(s_end, {"kind": "act", "req": req_id, **payload})
+        time.sleep(2 * server.config.max_wait_s)  # every request of the rank due
+        offered = server.batcher.ready()
+        if len(offered) != len(mine) or server._tick(offered) != "flushed":
+            raise AssertionError(f"rank {rank}: the fixed batch's tick did not flush "
+                                 f"({len(offered)} of {len(mine)} requests offered)")
+        torch.cuda.synchronize()
+        replies = [c_end.recv(timeout=20.0) for _ in mine]
+    finally:
+        server.hub.close()
+    return dict(pooled=pooled, replies=replies)
+
+
+def _ss_rank(workdir: str) -> dict:
+    """One rank of ``serving_on_shards``: the serving trainer on a mesh of
+    ``mp = SC_WORLD`` for ``SS_LEARN_STEPS`` learn steps, every launch
+    count zeroed just before and read once its server and actors stopped
+    (each flash forward's heads and thread recorded), then the fixed
+    batch."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.envs.gym_env import TensorVectorView
+    from scalerl_torch.envs.tensor_envs import TensorCartPole
+    from scalerl_torch.ops import cuda_flash_attention
+    from scalerl_torch.parallel.mesh import make_mesh
+    from scalerl_torch.parallel.sharding import to_local
+    from scalerl_torch.runtime import telemetry
+    from scalerl_torch.trainer.actor_learner import HostActorLearnerTrainer
+
+    _sc_go(workdir, "go_serving")
+    rank = dist.get_rank()
+    set_tf32(False)
+    args = _ss_args(work_dir=_work_dir(f"serving_on_shards_{rank}"))
+    agent = ImpalaAgent(args, (4,), 2)
+    agent.enable_mesh(make_mesh(f"mp={SC_WORLD}", device_type="cuda"))
+    fns = [lambda: TensorVectorView(TensorCartPole(SS_ENVS, device="cpu"))
+           for _ in range(SS_ACTORS)]
+    reg = telemetry.get_registry()
+    fallbacks0 = reg.counter("serving_client.fallbacks").value
+    trainer = HostActorLearnerTrainer(args, agent, fns, run_name="serving_on_shards")
+    server = trainer.inference_server
+    learner_thread = threading.current_thread().name
+    flash = {}  # (thread kind, heads) -> forward launches
+    real_fwd = cuda_flash_attention.flash_forward_kernel
+
+    def fwd(q, *a, **kw):
+        name = threading.current_thread().name
+        kind = ("flush" if name == "serve-flush" else "learner" if name == learner_thread
+                else "other")
+        flash[(kind, int(q.shape[2]))] = flash.get((kind, int(q.shape[2])), 0) + 1
+        return real_fwd(q, *a, **kw)
+
+    learn = agent.learn_device
+
+    def learn_device(traj):
+        metrics = learn(traj)
+        if trainer.learn_steps + 1 >= SS_LEARN_STEPS:  # every rank stops at the same step
+            trainer.stop_event.set()
+        return metrics
+
+    agent.learn_device = learn_device
+    cuda_flash_attention.flash_forward_kernel = fwd
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = trainer.train(total_frames=10**9)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.close()
+        cuda_flash_attention.flash_forward_kernel = real_fwd
+    launches = _launch_counts()
+    full = agent.get_weights()
+    out = dict(
+        learn_steps=trainer.learn_steps, seconds=wall, flushes=server.flushes,
+        answered=server.answered, requests_per_s=server.answered / wall,
+        flushes_per_s=server.flushes / wall, generation=server.generation,
+        accounting=server.accounting(), puts=server.device_puts, gets=server.device_gets,
+        launches=launches, flash_fwd_by_thread_heads=flash,
+        fallbacks=reg.counter("serving_client.fallbacks").value - fallbacks0,
+        loss=result.get("total_loss"), skipped_steps=result.get("skipped_steps"),
+        served={k: (list(v.shape), list(full[k].shape)) for k, v in server._params.items()},
+        served_bytes=sum(v.numel() * v.element_size() for v in server._params.values()),
+        whole_bytes=sum(v.numel() * v.element_size() for v in full.values()),
+        shards_are_live=all(torch.equal(server._params[k], to_local(v))
+                            for k, v in agent.state.params.items()),
+        threads_alive=[t.name for t in server._threads if t.is_alive()])
+    out["fixed"] = _ss_fixed_flush(agent, args, rank)
+    if rank == 0:
+        out["weights"] = {k: v.cpu() for k, v in full.items()}
+    del trainer, agent
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving_on_shards(report: dict) -> None:
+    """The inference server on the learner's mp shards, on shard_compute's
+    ranks (constants above): the go, then the serving trainer at mp = 2 on
+    each rank and the fixed batch; here a one-rank server at rank 0's
+    gathered weights on the same pooled inputs.  Checks: a rank serves 1/2
+    of each mp leaf and the live shards of the last push (a generation a
+    learn step); the fixed batch's logits bit-equal across the ranks and
+    within ``SS_TOL`` of the one-rank server's, actions equal across the
+    ranks; the flash forward on each rank's 2 heads, 2 a flush on the flush
+    thread and 2 a learn step on the learner's, backward 2 and V-trace 1 a
+    learn step; no fallback, every request answered, finite losses.
+    Flushes/s and requests/s beside the unmeshed ``impala_serving``'s."""
+    import torch
+
+    from scalerl_torch.agents.impala import ImpalaAgent
+    from scalerl_torch.serving import InferenceServer, ServingConfig
+
+    if "sc_world" not in report:
+        raise AssertionError("serving_on_shards runs on shard_compute's ranks, which are gone")
+    ctx, workdir = report["sc_world"]
+    set_tf32(False)
+    t0 = time.perf_counter()
+    Path(workdir, "go_serving").touch()
+    _sc_wait(ctx, workdir, [f"serving{r}.pt" for r in range(SC_WORLD)],
+             time.monotonic() + SS_JOIN_S, "serving_on_shards")
+    ranks = [torch.load(os.path.join(workdir, f"serving{r}.pt"), weights_only=False)
+             for r in range(SC_WORLD)]
+    t1 = time.perf_counter()
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError(f"serving_on_shards ranks failed: {errors[0]}")
+    args = _ss_args(work_dir=_work_dir("serving_on_shards"))
+    agent = ImpalaAgent(args, (4,), 2)
+    agent.set_weights({k: v.cuda() for k, v in ranks[0]["weights"].items()})
+    one = InferenceServer(agent, ServingConfig.from_args(args))
+    pooled = ranks[0]["fixed"]["pooled"]
+    params, _ = one._snapshot_params()
+    with torch.no_grad():
+        action1, logits1, _ = one._serve(params, *(pooled[k].cuda() for k in (
+            "obs", "last_action", "reward", "done")), ())
+    torch.cuda.synchronize()
+    logits_err = (logits1.cpu() - pooled["logits"]).abs().max().item()
+    one_bytes = sum(v.numel() * v.element_size() for v in params.values())
+
+    L, H = args.n_layers, args.n_heads // SC_WORLD
+    failed = {}
+    for r, got in enumerate(ranks):
+        n, flushes = got["learn_steps"], got["flushes"]
+        sharded = {k: s for k, s in got["served"].items() if s[0] != s[1]}
+        halves = all(SC_WORLD * math.prod(s[0]) == math.prod(s[1]) for s in sharded.values())
+        fl = got["flash_fwd_by_thread_heads"]
+        lc = got["launches"]
+        acc = got["accounting"]
+        checks = {
+            "learn steps": n == SS_LEARN_STEPS,
+            "half of each mp leaf": len(sharded) >= 4 and halves,
+            "serves the live shards": got["shards_are_live"] and got["generation"] == n,
+            "flash fwd on the flush thread, 2 heads": fl.get(("flush", H), 0) == L * flushes > 0
+            and not any(k[0] == "flush" and k[1] != H for k in fl),
+            "flash fwd on the learner, 2 heads": fl.get(("learner", H), 0) == L * n
+            and not any(k[0] == "learner" and k[1] != H for k in fl),
+            "flash bwd, V-trace a learn step": (lc["flash_attention_bwd_dq"],
+                                                lc["flash_attention_bwd_dkv"],
+                                                lc["vtrace"]) == (L * n, L * n, n),
+            "one put and one get a flush": got["puts"] == got["gets"] == flushes,
+            "no fallback": got["fallbacks"] == 0,
+            "every request answered": acc["balanced"] and acc["errors"] == 0
+            and acc["pending"] == 0 and acc["answered"] > 0,
+            "finite loss, no skipped step": got["loss"] is not None
+            and math.isfinite(got["loss"]) and got["skipped_steps"] == 0.0,
+            "threads stopped": not got["threads_alive"],
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            failed[f"rank{r}"] = bad
+    fixed = [g["fixed"]["pooled"] for g in ranks]
+    ranks_equal = all(torch.equal(f["logits"], fixed[0]["logits"])
+                      and torch.equal(f["action"], fixed[0]["action"]) for f in fixed)
+    if not ranks_equal:
+        failed["fixed_batch_ranks_equal"] = False
+    if not logits_err <= SS_TOL:
+        failed["fixed_batch_logits_err"] = logits_err
+    report["launches_serving_on_shards"] = ranks[0]["launches"]
+    ref = report.get("impala_serving", {})
+    emit("serving_on_shards", world=SC_WORLD, backend="gloo", device="cuda:0 for both ranks",
+         d_model=args.d_model, layers=L, heads=args.n_heads, heads_per_rank=H, T=SS_T,
+         actors=SS_ACTORS, lanes_per_actor=SS_ENVS, learn_steps=[g["learn_steps"] for g in ranks],
+         flushes=[g["flushes"] for g in ranks],
+         flushes_per_s=[round(g["flushes_per_s"], 2) for g in ranks],
+         requests_per_s=[round(g["requests_per_s"], 2) for g in ranks],
+         seconds=[round(g["seconds"], 2) for g in ranks],
+         impala_serving_unmeshed=ref,
+         served_mb=[round(g["served_bytes"] / 2**20, 4) for g in ranks],
+         served_mb_one_rank=round(one_bytes / 2**20, 4),
+         sharded_leaves=sum(s[0] != s[1] for s in ranks[0]["served"].values()),
+         flash_fwd_by_thread_heads=[{f"{k[0]}/{k[1]}": v for k, v in g[
+             "flash_fwd_by_thread_heads"].items()} for g in ranks],
+         launches=[{k: v for k, v in g["launches"].items() if v} for g in ranks],
+         fixed_lanes=SS_REQUEST_LANES, fixed_logits_max_abs_err=logits_err, tol=SS_TOL,
+         fixed_ranks_bit_equal=ranks_equal,
+         fixed_actions_equal_one_rank=bool(torch.equal(action1.cpu(), pooled["action"])),
+         losses=[g["loss"] for g in ranks], accounting=[g["accounting"] for g in ranks],
+         phase_seconds={"ranks": round(t1 - t0, 1), "here": round(time.perf_counter() - t1, 1)},
+         card=report["card"])
+    del one, agent
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"serving_on_shards: {failed}")
+
+
+# disagg_on_shards: DisaggSequenceRLTrainer at the training width at mp =
+# SC_WORLD on the same ranks (the fourth hand-off, go_disagg).  Rank 0 owns
+# the fleet: disagg_train's continuous configuration (2 thread hosts of 32
+# lanes, int8 snapshots); every rank learns its rows of each round's batch.
+# GS_ROUNDS rounds from cold, the lease cursor stopped at their GS_ROUNDS *
+# TRAIN_B sequences so every lease issued is accounted for (lost = issued -
+# received once).  Round 1's loss against one rank's learn step on the same
+# sequences here (SC_TOL's loss_rel)
+DS_JOIN_S = 300.0
+
+
+def _ds_args():
+    return _train_args(disagg_hosts=2, genrl_engine="continuous", genrl_page_size=GEN_PAGE,
+                       genrl_macro_steps=GEN_MACRO)
+
+
+def _ds_rank(workdir: str) -> dict:
+    """One rank of ``disagg_on_shards``: the trainer on a mesh of ``mp =
+    SC_WORLD`` for ``GS_ROUNDS`` rounds from cold, every launch count zeroed
+    before it is built (its hosts start decoding at once) and read after
+    its hosts joined; each round's learn batch, the metrics, the accounting
+    of the leases, rounds/s and the peak memory of the rank's process."""
+    import torch
+    import torch.distributed as dist
+
+    from scalerl_torch.agents.token_ppo import TokenPPOAgent
+    from scalerl_torch.parallel.mesh import make_mesh
+    from scalerl_torch.trainer.sequence_rl import DisaggSequenceRLTrainer, build_genrl_model
+
+    class Trainer(_Budgeted, DisaggSequenceRLTrainer):
+        budget = GS_ROUNDS * TRAIN_B
+
+    _sc_go(workdir, "go_disagg")
+    set_tf32(False)
+    args = _ds_args()
+    agent = TokenPPOAgent(args, build_genrl_model(args))
+    agent.enable_mesh(make_mesh(f"mp={SC_WORLD}", device_type="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(args, task=_disagg_task(), agent=agent)
+    seen: list = []  # the lease id of every sequence rank 0 takes
+    if trainer.owns_fleet:
+        get_sequence = trainer.learner.get_sequence
+
+        def taking(timeout=None):
+            s = get_sequence(timeout=timeout)
+            if s is not None:
+                seen.append(s["lease_id"])
+            return s
+
+        trainer.learner.get_sequence = taking
+    batches = []
+    learn_from = trainer._learn_from
+
+    def recording(fields, priorities, guard=None):
+        batches.append(({k: np.array(v) for k, v in fields.items()}, np.array(priorities)))
+        return learn_from(fields, priorities, guard)
+
+    trainer._learn_from = recording
+    try:
+        t1 = time.perf_counter()
+        metrics = [trainer.train_round() for _ in range(GS_ROUNDS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        trainer.close()
+    if trainer.owns_fleet:
+        _join_hosts(trainer, "disagg_on_shards")
+    launches = _launch_counts()
+    out = dict(metrics=metrics, batch=batches[0], launches=launches, rounds_per_s=GS_ROUNDS / wall,
+               seconds=wall, build_s=t1 - t0, owns_fleet=trainer.owns_fleet,
+               has_learner=trainer.learner is not None, has_fleet=trainer.fleet is not None,
+               peak_bytes=torch.cuda.max_memory_allocated() - held, held_bytes=held,
+               rank=dist.get_rank(), learn_steps=trainer.learn_steps)
+    if trainer.owns_fleet:
+        ids = seen
+        out.update(issued=trainer._lease_seq, received=len(ids), unique=len(set(ids)),
+                   lost=trainer._lease_seq - len(set(ids)) + trainer.learner.dropped_sequences,
+                   duplicates=len(ids) - len(set(ids)),
+                   quantize=trainer.config.snapshot_quantize,
+                   snapshot_mb=trainer.learner.snapshot_wire_bytes / 2**20,
+                   generation=trainer.learner.generation)
+    del trainer, agent
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_disagg_on_shards(report: dict) -> None:
+    """``DisaggSequenceRLTrainer`` across shard_compute's ranks (constants
+    above): the go, then ``GS_ROUNDS`` rounds at mp = 2 with rank 0's hosts;
+    here one rank's learn step on round 1's sequences.  Checks: round 1's
+    loss within ``SC_TOL``'s loss_rel of one rank's, the ranks' metrics
+    bit-equal, segment 4/4/4 and PER sample 1 a learn step on each rank,
+    paged launches on rank 0 (its hosts) and none on rank 1, rank 0 alone
+    owning the fleet, int8 snapshots, lost = 0 and no duplicate, finite
+    losses and no skipped step.  Rounds/s and a round's peak memory per
+    rank beside one rank's ``disagg_train`` (continuous); the last
+    hand-off, so the ranks are joined here."""
+    import torch
+
+    from scalerl_torch.trainer.sequence_rl import _LearnHalf
+    from scalerl_torch.utils.buckets import bucket_for, default_buckets
+
+    class OneRank(_LearnHalf):
+        """The disaggregated trainer's learn half on this process's card."""
+
+        def __init__(self, args):
+            self._init_agent(args, _disagg_task(), None, "cuda")
+            self._init_replay(bucket_for(args.prompt_len, default_buckets(args.prompt_len)),
+                              bucket_for(args.max_new_tokens,
+                                         default_buckets(args.max_new_tokens)))
+
+    if "sc_world" not in report:
+        raise AssertionError("disagg_on_shards runs on shard_compute's ranks, which are gone")
+    ctx, workdir = report.pop("sc_world")
+    set_tf32(False)
+    t0 = time.perf_counter()
+    try:
+        Path(workdir, "go_disagg").touch()
+        _sc_wait(ctx, workdir, [f"disagg{r}.pt" for r in range(SC_WORLD)],
+                 time.monotonic() + DS_JOIN_S, "disagg_on_shards")
+        ranks = [torch.load(os.path.join(workdir, f"disagg{r}.pt"), weights_only=False)
+                 for r in range(SC_WORLD)]
+        ctx.join(timeout=60)
+    finally:
+        _sc_kill(ctx)
+    t1 = time.perf_counter()
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError(f"disagg_on_shards ranks failed: {errors[0]}")
+    fields, priorities = ranks[0]["batch"]
+    one = OneRank(_ds_args())
+    metrics1, _ = one._learn_from(fields, priorities)
+    del one
+    torch.cuda.empty_cache()
+    loss1 = metrics1["total_loss"]
+    loss_rel = max(abs(g["metrics"][0]["total_loss"] - loss1) / max(abs(loss1), 1.0)
+                   for g in ranks)
+    want = {k: TRAIN_LAYERS * GS_ROUNDS for k in ("segment_attention_fwd",
+                                                   "segment_attention_bwd_dq",
+                                                   "segment_attention_bwd_dkv")}
+    want["per_sample"] = GS_ROUNDS
+    first = ranks[0]
+    failed = {}
+    if not loss_rel <= SC_TOL["loss_rel"]:
+        failed["loss_rel"] = loss_rel
+    if not all(g["metrics"] == first["metrics"] for g in ranks):
+        failed["ranks_disagree"] = [[m["total_loss"] for m in g["metrics"]] for g in ranks]
+    launches = [g["launches"] for g in ranks]
+    if any({k: lc[k] for k in want} != want for lc in launches):
+        failed["learn_launches"] = [{k: lc[k] for k in want} for lc in launches]
+    if launches[0]["paged_attention"] <= 0 or any(lc["paged_attention"] for lc in launches[1:]):
+        failed["paged_launches"] = [lc["paged_attention"] for lc in launches]
+    if not (first["owns_fleet"] and first["has_learner"] and first["has_fleet"]) or any(
+            g["owns_fleet"] or g["has_learner"] or g["has_fleet"] for g in ranks[1:]):
+        failed["fleet_owner"] = [(g["owns_fleet"], g["has_learner"], g["has_fleet"])
+                                 for g in ranks]
+    if first["lost"] or first["duplicates"] or first["issued"] != GS_ROUNDS * TRAIN_B:
+        failed["accounting"] = {k: first[k] for k in ("issued", "received", "unique", "lost",
+                                                      "duplicates")}
+    if first["quantize"] != "int8":
+        failed["quantize"] = first["quantize"]
+    steps = [m for g in ranks for m in g["metrics"]]
+    if not all(math.isfinite(m["total_loss"]) for m in steps) or any(
+            m["skipped_steps"] for m in steps):
+        failed["steps"] = [(m["total_loss"], m["skipped_steps"]) for m in steps]
+    report["launches_disagg_on_shards"] = launches[0]
+    cont = report.get("disagg_train_continuous", {})
+    emit("disagg_on_shards", world=SC_WORLD, backend="gloo", device="cuda:0 for both ranks",
+         heads_per_rank=TRAIN_HEADS // SC_WORLD, hosts_on_rank0=2,
+         lanes_per_host=TRAIN_B // 2, rounds=GS_ROUNDS, quantize=first["quantize"],
+         snapshot_mb=first["snapshot_mb"], generation=first["generation"],
+         loss=[g["metrics"][0]["total_loss"] for g in ranks], loss_one_rank=loss1,
+         loss_rel=loss_rel, loss_tol=SC_TOL["loss_rel"],
+         launches=[{k: v for k, v in lc.items() if v} for lc in launches],
+         accounting={k: first[k] for k in ("issued", "received", "unique", "lost",
+                                           "duplicates")},
+         rounds_per_s=[round(g["rounds_per_s"], 3) for g in ranks],
+         rounds_per_s_one_rank_disagg_train=cont.get("rounds_per_s"),
+         peak_mb=[round(g["peak_bytes"] / 2**20, 1) for g in ranks],
+         peak_mb_one_rank_disagg_train=(round(cont["peak_mem_gib"] * 1024, 1)
+                                        if "peak_mem_gib" in cont else None),
+         build_s=[round(g["build_s"], 2) for g in ranks],
+         phase_seconds={"ranks": round(t1 - t0, 1), "here": round(time.perf_counter() - t1, 1)},
+         card=report["card"])
+    if failed:
+        raise AssertionError(f"disagg_on_shards: {failed}")
+
+
 PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_learn,
           phase_impala_fused, phase_impala_lstm_learn, phase_impala_lstm_fused,
           phase_impala_anakin, phase_learn_synthetic, phase_learn_catch, phase_learn_recall,
@@ -8679,7 +9190,7 @@ PHASES = [phase_device, phase_build, phase_vtrace, phase_model, phase_impala_lea
           phase_fleet_impala, phase_fleet_elastic, phase_a3c_fleet, phase_marl_dqn,
           phase_fleet_dqn, phase_genrl_spec, phase_quantize_push, phase_disagg_train,
           phase_disagg_soak, phase_disagg_preempt, phase_shard_compute,
-          phase_genrl_on_shards]
+          phase_genrl_on_shards, phase_serving_on_shards, phase_disagg_on_shards]
 
 
 def main() -> int:
@@ -8748,6 +9259,11 @@ def main() -> int:
         # launches on rank 0 of genrl_on_shards (its engine's macro steps
         # and its trainer's rounds)
         "launches_genrl_on_shards": report["launches_genrl_on_shards"].get(name, 0),
+        # launches on rank 0 of serving_on_shards (its serving trainer's
+        # learn steps and flushes) and of disagg_on_shards (its learn
+        # steps, and its generation hosts' decoding)
+        "launches_serving_on_shards": report["launches_serving_on_shards"].get(name, 0),
+        "launches_disagg_on_shards": report["launches_disagg_on_shards"].get(name, 0),
     } for name, source, replaces in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -377,7 +377,15 @@ class TokenPPOAgent(MeshedAgentState):
         return getattr(self._learn, "shard_ctx", None)
 
     def set_weights(self, weights: Params) -> None:
-        self.state = dataclasses.replace(self.state, params=dict(weights))
+        """Whole params, :meth:`get_weights`' inverse: under a mesh each rank
+        keeps its slice of its own copy (the same on every rank)."""
+        weights = dict(weights)
+        if self.mesh is not None:
+            from scalerl_torch.parallel.logical import apply_fns, make_shard_and_gather_fns
+
+            shard_fns, _ = make_shard_and_gather_fns(self._learn.state_sharding, self.mesh)
+            weights = apply_fns(shard_fns.params, weights)
+        self.state = dataclasses.replace(self.state, params=weights)
 
     def save_checkpoint(self, path: str) -> str:
         if self.mesh is not None:

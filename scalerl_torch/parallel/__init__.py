@@ -24,6 +24,7 @@ from scalerl_torch.parallel.mesh import (  # noqa: F401
     make_mesh,
     mesh_spec_from_args,
     resolve_mesh,
+    with_own_groups,
 )
 from scalerl_torch.parallel.sharding import (  # noqa: F401
     batch_sharding,
@@ -40,6 +41,7 @@ from scalerl_torch.parallel.train_step import (  # noqa: F401
     fp32_optimizer_state,
     make_parallel_act_fn,
     make_parallel_learn_fn,
+    make_pooled_act_fn,
     maybe_enable_mesh_from_args,
 )
 from scalerl_torch.parallel.expert import (  # noqa: F401

@@ -14,7 +14,8 @@ and :class:`SliceShard` (a rank's slice; its backward all-gathers) are
 each other's transposes: the first assembles a sharded weight or a
 column-parallel layer's output, the second feeds a row-parallel layer its
 part of a replicated input.  :func:`broadcast_int` hands one rank's host
-decision to the others.
+decision to the others, :func:`broadcast_object` one rank's host data (a
+round of sequences that only it received).
 """
 
 from __future__ import annotations
@@ -65,6 +66,15 @@ def broadcast_int(value: int, device, group=None) -> int:
     t = torch.tensor([int(value)], dtype=torch.int64, device=device)
     dist.broadcast(t, src=0 if group is None else dist.get_global_rank(group, 0), group=group)
     return int(t.item())
+
+
+def broadcast_object(obj):
+    """Rank 0 hands a picklable host object to every rank of the world (two
+    broadcasts: its size, then its bytes); the others pass anything, None
+    say."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:

@@ -12,6 +12,11 @@ to its world size, and its ``device_mesh`` is a
 names.  A one-device mesh needs no group: it has no ``device_mesh``, and
 every collective over it is the identity.  A mesh of more devices with no
 initialised group raises.
+
+:func:`with_own_groups` gives a mesh over the same ranks whose axes have
+process groups of their own: a second thread (the inference server's
+flush) issues its collectives there, so they never interleave with the
+learner thread's on the mesh's own groups.
 """
 
 from __future__ import annotations
@@ -67,11 +72,14 @@ class Mesh:
 
     ``shape`` maps every axis of :data:`AXIS_NAMES` to its extent (the JAX
     ``Mesh.shape``); ``device_mesh`` is the named ``DeviceMesh``, None for a
-    one-device mesh built with no process group."""
+    one-device mesh built with no process group; ``groups``, where set, the
+    process group of each axis of more than one rank in place of the
+    device mesh's (:func:`with_own_groups`)."""
 
     shape: Dict[str, int]
     device_type: str
     device_mesh: Optional[object] = None
+    groups: Optional[Dict[str, object]] = None
 
     @property
     def size(self) -> int:
@@ -96,7 +104,32 @@ class Mesh:
         """The process group along ``axis`` (None when it has one rank)."""
         if self.device_mesh is None or self.shape[axis] == 1:
             return None
+        if self.groups is not None:
+            return self.groups[axis]
         return self.device_mesh.get_group(axis)
+
+
+def with_own_groups(mesh: Mesh, timeout=None) -> Mesh:
+    """``mesh`` over the same ranks and coordinates, with a new process
+    group for each line of each axis of more than one rank (``timeout``,
+    a ``datetime.timedelta``, bounds each collective's wait on them).
+    ``new_group`` is collective over the world, so every rank calls this at
+    the same point, and builds every line's group in the same order; a mesh
+    with no process group comes back as it is."""
+    if mesh.device_mesh is None:
+        return mesh
+    ranks = mesh.device_mesh.mesh
+    me = dist.get_rank()
+    groups: Dict[str, object] = {}
+    for i, axis in enumerate(AXIS_NAMES):
+        if mesh.shape[axis] == 1:
+            continue
+        for line in ranks.movedim(i, -1).reshape(-1, mesh.shape[axis]).tolist():
+            group = dist.new_group(line, timeout=timeout)
+            if me in line:
+                groups[axis] = group
+    return Mesh(shape=dict(mesh.shape), device_type=mesh.device_type,
+                device_mesh=mesh.device_mesh, groups=groups)
 
 
 def _default_device_type() -> str:

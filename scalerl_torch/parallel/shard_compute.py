@@ -481,15 +481,19 @@ def _swap_class(module: nn.Module, mixin: type) -> None:
 
 
 def _plain_linear(m: nn.Module) -> bool:
+    """A linear layer running the plain code, or set up already (a model
+    installed twice, such as a copy of an agent's model)."""
     if not isinstance(m, nn.Linear):
         return False
     from scalerl_torch.models.transformer import _Dense
 
-    return type(m).forward in (nn.Linear.forward, _Dense.forward)
+    return isinstance(m, _LinearOnShards) or type(m).forward in (nn.Linear.forward,
+                                                                 _Dense.forward)
 
 
 def _plain_conv(m: nn.Module) -> bool:
-    return (isinstance(m, nn.Conv2d) and type(m).forward is nn.Conv2d.forward
+    return (isinstance(m, nn.Conv2d)
+            and (isinstance(m, _Conv2dOnShards) or type(m).forward is nn.Conv2d.forward)
             and m.groups == 1 and m.padding_mode == "zeros" and not isinstance(m.padding, str))
 
 

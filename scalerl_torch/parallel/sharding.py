@@ -297,6 +297,39 @@ def gather_tree(tree: Any) -> Any:
     return tree_map_with_path(lambda p, x: gather(x, p), tree)
 
 
+def local_shard(x: torch.Tensor, spec: Spec, mesh: Mesh, path: Tuple[Any, ...] = ()) -> torch.Tensor:
+    """This rank's shard of the full tensor ``x`` laid out by ``spec``, cut
+    out locally with no collective: what ``place(x, spec, mesh,
+    path=path).to_local()`` holds (a leaf :func:`storage_groups` names is
+    taken head-aligned)."""
+    if mesh.device_mesh is None:
+        return x
+    groups = storage_groups(path, spec)
+    if groups > 1:
+        x = to_head_aligned(x, mesh.shape[HEAD_ALIGNED_AXIS], groups)
+    for d, entry in enumerate(spec[:x.ndim]):
+        if entry is None:
+            continue
+        axes = tuple(a for a in AXIS_NAMES if a in ((entry,) if isinstance(entry, str) else entry))
+        n = mesh.extent(axes)
+        size = x.shape[d] // n
+        x = x.narrow(d, flat_index(mesh, axes) * size, size)
+    return x
+
+
+def local_tree(tree: Any, spec_fn: SpecFn, mesh: Mesh) -> Any:
+    """This rank's shards of a tree with no collective: a DTensor leaf's
+    local shard, a full tensor's :func:`local_shard` by ``spec_fn``."""
+    from torch.distributed.tensor import DTensor
+
+    def one(path, x):
+        if isinstance(x, DTensor):
+            return x.to_local()
+        return local_shard(x, tuple(spec_fn(path, x)), mesh, path)
+
+    return tree_map_with_path(one, tree)
+
+
 def to_local(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's local shard; others pass through."""
     from torch.distributed.tensor import DTensor
@@ -639,6 +672,28 @@ def own_rows(x: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...], dim: int = 0) -
         return x
     size = x.shape[dim] // mesh.extent(axes)
     return x.narrow(dim, flat_index(mesh, axes) * size, size)
+
+
+def pool_rows(x: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...], counts: Any,
+              pad_to: Optional[int] = None) -> torch.Tensor:
+    """The rows of every rank of ``axes`` that own any, where their number
+    differs: ``x`` holds ``max(counts)`` rows on every rank, this rank's own
+    ``counts[i]`` first (``i`` its :func:`flat_index` over ``axes``); the
+    result is each rank's own rows in that order, zero-padded to ``pad_to``
+    rows, the same on each rank of ``axes`` (one all-gather a dim)."""
+    m = x.shape[0]
+    every = gather_batch(x, mesh, 0, axes)
+    idx = torch.cat([torch.arange(i * m, i * m + int(c)) for i, c in enumerate(counts)])
+    out = every.index_select(0, idx.to(every.device))
+    if pad_to is not None and pad_to > out.shape[0]:
+        out = torch.cat([out, out.new_zeros((pad_to - out.shape[0],) + tuple(out.shape[1:]))])
+    return out
+
+
+def pooled_own_rows(x: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...], counts: Any) -> torch.Tensor:
+    """This rank's rows of a per-row output of :func:`pool_rows`'s batch."""
+    i = flat_index(mesh, axes)
+    return x.narrow(0, int(sum(counts[:i])), int(counts[i]))
 
 
 class MeshedAgentState:

@@ -33,12 +33,15 @@ from scalerl_torch.parallel.sharding import (
     batch_sharding_tree,
     gather_batch,
     gather_tree,
+    local_tree,
     own_rows,
     param_spec_fn,
     place_tree,
     placements,
     pool_axes,
     pool_batch,
+    pool_rows,
+    pooled_own_rows,
     shard_batch,
     shard_context,
     to_local,
@@ -447,6 +450,43 @@ def make_parallel_act_fn(act_fn: Callable[..., Any], mesh, params_example: Any,
 
     act.shard_params = lambda p: place_tree(p, spec_fn, mesh)  # type: ignore[attr-defined]
     act.shard_batch = lambda b: shard_batch(b, mesh, batch_dim=0)  # type: ignore[attr-defined]
+    return act
+
+
+def make_pooled_act_fn(act_fn: Callable[..., Any], mesh, params_example: Any,
+                       param_specs: Optional[SpecFn] = None,
+                       modules: Sequence[torch.nn.Module] = ()) -> Callable[..., Any]:
+    """The sibling of :func:`make_parallel_act_fn` for rows that each rank
+    collected itself, the ``"local"`` batch mode's rule: ``act(params, rows,
+    counts, pad_to=None, *args)`` pools each rank's own rows over the ranks
+    that hold one model between them (its model axis,
+    ``shard_compute.model_axis``; ``rows`` holds ``max(counts)`` rows, its
+    own ``counts[i]`` first, :func:`parallel.sharding.pool_rows`), pads the
+    pooled batch to ``pad_to`` rows, runs ``act_fn(local params, pooled,
+    *args)`` on the params' shards with no autograd, and returns this
+    rank's rows of each output (:func:`parallel.sharding.pooled_own_rows`).
+    ``params_example`` is a tree of full tensors (no collective is issued
+    to read it); ``.local_params`` cuts a rank's shards out of a params tree
+    with no collective; ``.axes`` are the pooled axes.  Every rank of a
+    model axis calls it in the same order, from one thread; a second thread
+    beside a learner runs it on a mesh of groups of its own
+    (``parallel/mesh.py::with_own_groups``)."""
+    from scalerl_torch.parallel.shard_compute import call_on_shards, model_axis
+
+    mesh = resolve_mesh(mesh)
+    spec_fn = param_specs if param_specs is not None else param_spec_fn(params_example, mesh)
+    _, ctx = shard_layout(mesh, spec_fn, params_example, modules, "make_pooled_act_fn")
+    axis = model_axis(mesh) if mesh.device_mesh is not None else None
+    axes = () if axis is None else (axis,)
+
+    def act(params, rows, counts, pad_to=None, *args):
+        pooled = pool_rows(rows, mesh, axes, counts, pad_to)
+        out = call_on_shards(ctx, act_fn, params, pooled, *args)
+        return tree_map(lambda y: pooled_own_rows(y, mesh, axes, counts), out)
+
+    act.axes = axes  # type: ignore[attr-defined]
+    act.shard_ctx = ctx  # type: ignore[attr-defined]
+    act.local_params = lambda p: local_tree(p, spec_fn, mesh)  # type: ignore[attr-defined]
     return act
 
 

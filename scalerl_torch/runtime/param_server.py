@@ -15,7 +15,10 @@ until the next push: a replica holds the small format at rest and pays one
 dequantization a publish.  A consumer that holds its rank's shards sets
 ``_shard_ctx`` (a meshed engine): the quantization runs inside that
 computation on shards, so a sharded leaf gets the whole leaf's int8
-scale.
+scale.  A consumer that holds only its rank's shards of the params
+(``serving/server.py`` under an mp learner) overrides
+:meth:`ParamSnapshotPlane._local_params`, which every push and restore
+passes the params through first.
 
 :class:`ParameterServer` is the pull endpoint over the same plane: pullers
 get numpy weights with a version, fetched to the host once a version.
@@ -39,8 +42,9 @@ Params = Dict[str, torch.Tensor]
 PULL_TIMEOUT_S = 120.0
 
 
-def _copy_params(params: Mapping[str, torch.Tensor], device: torch.device) -> Params:
-    return {k: v.detach().to(device, copy=True) for k, v in params.items()}
+def _copy_params(params: Mapping[str, Any], device: torch.device) -> Params:
+    """A device copy of every leaf (numpy leaves, host weights, go up)."""
+    return {k: torch.as_tensor(v).detach().to(device, copy=True) for k, v in params.items()}
 
 
 class ParamSnapshotPlane:
@@ -69,7 +73,7 @@ class ParamSnapshotPlane:
         """Publish fresh params (device-side copy, or the quantized
         snapshot, + monotonic generation bump).  Returns the new
         generation."""
-        snapshot, qsnap = _copy_params(params, self._param_device), None
+        snapshot, qsnap = _copy_params(self._local_params(params), self._param_device), None
         if quantize is not None:
             from scalerl_torch.parallel.sharding import shard_context
 
@@ -84,6 +88,10 @@ class ParamSnapshotPlane:
             self._quantized = qsnap
             self._record_step(gen, learner_step)
             return gen
+
+    def _local_params(self, params: Mapping[str, Any]) -> Mapping[str, Any]:
+        """The leaves of ``params`` this plane holds (all of them here)."""
+        return params
 
     def _record_step(self, gen: int, learner_step: Optional[int]) -> None:
         """Under the param lock: extend the bounded generation -> step map."""
@@ -103,7 +111,7 @@ class ParamSnapshotPlane:
         """Publish ``params`` under the generation and generation -> step
         map that :meth:`generation_map` gave (a resumed run)."""
         rows = [tuple(int(v) for v in r) for r in np.asarray(generation_map)]
-        snapshot = _copy_params(params, self._param_device)
+        snapshot = _copy_params(self._local_params(params), self._param_device)
         with self._param_lock:
             self.generation, self._latest_learner_step = rows[0]
             self._gen_steps = dict(rows[1:])

@@ -172,10 +172,35 @@ class DynamicBatcher:
                 return None
             return self._take_locked(limit)
 
+    def ready(self) -> List[ServingRequest]:
+        """The requests that :meth:`next_batch` would hand over now, by this
+        batcher's own size and deadline, without taking them: what a rank
+        of a lockstep flush offers its group before each rank takes its own
+        (:meth:`take`).  Empty while no flush is due; a closed batcher
+        offers everything it holds."""
+        with self._cond:
+            if not self._pending:
+                return []
+            if self._closed:
+                return list(self._pending)
+            due = self._pending_lanes >= self.config.max_batch or (
+                time.monotonic() >= self._pending[0].t_enqueue + self.config.max_wait_s)
+            if not due:
+                return []
+            out: List[ServingRequest] = []
+            lanes = 0
+            for req in self._pending:
+                if out and lanes + req.lanes > self.config.max_batch:
+                    break
+                out.append(req)
+                lanes += req.lanes
+            return out
+
     def take(self, n_requests: int) -> List[ServingRequest]:
         """The ``n_requests`` oldest pending requests, whatever the flush
         predicate says: a rank that admits what another rank's
-        :meth:`poll_batch` flushed from an identical queue."""
+        :meth:`poll_batch` flushed from an identical queue, or what its own
+        :meth:`ready` offered."""
         with self._cond:
             if n_requests > len(self._pending):
                 raise RuntimeError(f"take({n_requests}) from a queue of {len(self._pending)}: "

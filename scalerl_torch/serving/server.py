@@ -36,7 +36,43 @@ fleet's codec (``fleet/transport.py``).  The server owns:
 - **SLO telemetry**: ``serving.latency_s`` (a digest histogram),
   ``serving.batch_occupancy``, ``serving.requests_per_s``, flush and
   request counters, the staleness gauge (:meth:`observe_staleness`), and
-  the ``health`` reply the router polls.
+  the ``health`` reply the router polls;
+- **the learner's mp layout**: beside a learner whose mesh has ``mp > 1``
+  the server takes the learner's per-leaf specs (the params of
+  ``ParallelLearnFn.state_sharding``, the twin of the JAX
+  ``_live_param_shardings``) and holds only the rank's shards of the
+  served params, on every push: the live state's local shards, or a rank's
+  cut of whole host weights, with no collective.  The ranks of one mp
+  group then flush in lockstep on shards.  At each tick every rank offers
+  what its own batcher would admit now (:meth:`DynamicBatcher.ready`, by
+  its own deadline), packed into rows on the host first, with its
+  snapshot's generation, the observations' spec, a stop flag and whether
+  its batch failed to pack; the group all-gathers the offers, and every
+  rank reads the same verdict from them.  Nothing offered, or generations
+  apart (a push between two ranks' reads): each waits a poll and offers
+  again.  Specs apart: every rank answers its batch with an error.  Else
+  each rank takes its own offer (``take``; a rank whose batch failed to
+  pack answers it with the error and pools none), the group pools its rows
+  in rank order, pads them to the bucket of the pooled lanes and runs the
+  policy on its shards (``parallel/train_step.py::make_pooled_act_fn``);
+  every rank draws the Gumbel noise over the whole pooled bucket from its
+  ``config.seed`` generator, so the ranks' actions agree, and replies to
+  its own requests only.  A request that no offer could carry (an
+  observation dtype outside ``_OBS_DTYPES``, more than ``_OBS_DIMS`` dims a
+  lane) is refused at admission, before any collective.  A stop on any
+  rank ends the group's loop on the same tick, after one last flush of
+  what every rank holds.  A failure inside the pooled flush's collectives
+  or the policy on shards leaves the group out of step: that rank answers
+  its batch with the error and leaves the loop, and a peer left in a
+  collective fails after ``_GROUP_TIMEOUT_S`` and leaves too.  These
+  collectives run on process groups of the server's own
+  (``parallel/mesh.py::with_own_groups``), built at construction on every
+  rank in the same order, so the flush thread never shares a group with
+  the learner thread, and no twin of the JAX ``dispatch_guard`` serialises
+  the two.  That holds with gloo, where it was run (two ranks on one
+  card); with nccl, two threads on each rank launching on two
+  communicators in an order that differs between ranks might deadlock on
+  the device, and that is unverified until two cards run it.
 
 Wire protocol (dicts over a ``Connection``):
 
@@ -123,6 +159,83 @@ def _device_get(packed: torch.Tensor, relax: bool = False) -> np.ndarray:
         return packed.cpu().numpy()
 
 
+# what the ranks of a lockstep flush offer each other a tick: requests,
+# lanes, a stop flag, the snapshot's generation, whether the rank's batch
+# failed to pack, and the observations' dtype (an index into _OBS_DTYPES, -1
+# with no lanes), number of dims a lane and per-lane shape (up to _OBS_DIMS
+# dims, -1 past its end), which a rank with no request of its own pools
+# zeros of
+_OBS_DTYPES = (np.float32, np.uint8, np.float64, np.float16, np.int32, np.int64, np.bool_)
+_OBS_DIMS = 4
+_NO_SPEC = (-1, 0) + (-1,) * _OBS_DIMS
+# the wait between two ticks at which nothing was offered
+_GROUP_POLL_S = 0.002
+# how long a rank waits in a collective of the server's groups for its
+# peers (a peer whose flush failed inside the pooled section never comes)
+_GROUP_TIMEOUT_S = 300.0
+
+
+def _obs_spec(dtype, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The offer's encoding of observations of ``dtype`` and per-lane
+    ``shape``; ValueError where a lockstep flush cannot carry them."""
+    codes = [np.dtype(d) for d in _OBS_DTYPES]
+    if np.dtype(dtype) not in codes:
+        raise ValueError(f"a lockstep flush pools observations of dtypes "
+                         f"{[c.name for c in codes]}, not {np.dtype(dtype).name}")
+    if len(shape) > _OBS_DIMS:
+        raise ValueError(f"a lockstep flush pools observations of at most {_OBS_DIMS} "
+                         f"dims a lane, got {tuple(shape)}")
+    return (codes.index(np.dtype(dtype)), len(shape)) + tuple(shape) + (-1,) * (
+        _OBS_DIMS - len(shape))
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _pack_rows(arrays: Sequence[np.ndarray]) -> np.ndarray:
+    """``[n, ...]`` host arrays -> one ``[n, S]`` uint8 array, lane-major:
+    each lane's bytes of every array, each padded to 4 (so lanes can be
+    pooled and picked out as rows)."""
+    n = arrays[0].shape[0]
+    widths = [a.dtype.itemsize * int(np.prod(a.shape[1:], dtype=np.int64)) for a in arrays]
+    buf = np.zeros((n, sum(w + (-w) % 4 for w in widths)), np.uint8)
+    offset = 0
+    for a, w in zip(arrays, widths):
+        buf[:, offset:offset + w] = np.ascontiguousarray(a).reshape(n, -1).view(np.uint8)
+        offset += w + (-w) % 4
+    return buf
+
+
+def _unpack_rows(rows: torch.Tensor, layout) -> List[torch.Tensor]:
+    """The typed ``[N, ...]`` tensors of :func:`_pack_rows`'s ``[N, S]``
+    rows, ``layout`` the arrays' ``(dtype, per-lane shape)``."""
+    out, offset = [], 0
+    for dtype, shape in layout:
+        w = np.dtype(dtype).itemsize * int(np.prod(shape, dtype=np.int64))
+        out.append(rows[:, offset:offset + w].contiguous().view(_torch_dtype(dtype))
+                   .reshape((rows.shape[0],) + tuple(shape)))
+        offset += w + (-w) % 4
+    return out
+
+
+def _row_width(layout) -> int:
+    """The bytes of one :func:`_pack_rows` row of arrays of ``layout``."""
+    widths = [np.dtype(d).itemsize * int(np.prod(s, dtype=np.int64)) for d, s in layout]
+    return sum(w + (-w) % 4 for w in widths)
+
+
+def _live_param_specs(agent) -> Optional[Dict[str, Any]]:
+    """The learner's per-leaf param specs (by param name) when the agent
+    trains on a mesh of several ranks with ``mp > 1``: the params of its
+    ``ParallelLearnFn.state_sharding``.  None otherwise, so a server beside
+    an unmeshed or pure-dp learner holds the whole policy as before."""
+    mesh = getattr(agent, "mesh", None)
+    if mesh is None or mesh.device_mesh is None or mesh.shape.get("mp", 1) <= 1:
+        return None
+    return getattr(getattr(getattr(agent, "_learn", None), "state_sharding", None), "params", None)
+
+
 def _pad_lanes(arr: np.ndarray, bucket: int) -> np.ndarray:
     """Zero-pad a [B, ...] host array up to [bucket, ...]."""
     n = arr.shape[0]
@@ -142,6 +255,11 @@ class InferenceServer(ParamSnapshotPlane):
     ``guard_warm_flushes``: arm
     ``steady_state_guard()`` around warm flushes (see the module
     docstring: only for a server with the card to itself).
+    Beside a learner whose mesh has ``mp > 1`` the server holds the rank's
+    shards in the learner's layout and flushes in lockstep with the other
+    ranks of its mp group; it is then built at the same point on every rank
+    (it makes process groups), and pushes go to every rank of the group in
+    the same order.
     """
 
     def __init__(
@@ -158,7 +276,32 @@ class InferenceServer(ParamSnapshotPlane):
         # a recurrent core's per-lane shapes, read once (no device copy): the
         # cold core_init reply is host zeros of these
         self._core_shapes = [tuple(c.shape[1:]) for c, _ in self._model.initial_state(1)]
-        self._init_param_plane(agent.get_weights(), self.device)
+        self._param_specs = _live_param_specs(agent)
+        self.mesh = None
+        self._act = None
+        params = agent.get_weights()
+        if self._param_specs is not None:
+            import datetime
+
+            from scalerl_torch.parallel.mesh import with_own_groups
+            from scalerl_torch.parallel.train_step import make_pooled_act_fn
+
+            specs = self._param_specs
+            self.mesh = with_own_groups(agent.mesh,
+                                        timeout=datetime.timedelta(seconds=_GROUP_TIMEOUT_S))
+            self._full_shapes = {k: tuple(v.shape) for k, v in params.items()}
+            self._act = make_pooled_act_fn(self._serve_rows, self.mesh, params,
+                                           param_specs=lambda path, x: specs.get(path[-1], ()),
+                                           modules=(self._model,))
+            (axis,) = self._act.axes
+            self._pool_group = self.mesh.group(axis)
+            self._pool_size = self.mesh.shape[axis]
+            # a quantized push scales a sharded leaf by the whole leaf's max:
+            # one all-reduce on the LEARNER's groups, from the pushing thread
+            self._shard_ctx = getattr(agent._learn, "shard_ctx", None)
+            # the live state's shards: no gather
+            params = agent.state.params
+        self._init_param_plane(self._local_params(params), self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
         self.batcher = DynamicBatcher(self.config)
         self.hub = QueueHub(
@@ -194,9 +337,32 @@ class InferenceServer(ParamSnapshotPlane):
         self.answered = 0
         self.shed = 0
         self.errors = 0
+        # act requests refused at admission, answered with an error and
+        # never admitted (observations a lockstep flush cannot carry)
+        self.refused = 0
+        # the failure that put a lockstep group out of step, if any
+        self.group_error: Optional[BaseException] = None
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._listen_sock = None
+
+    def _local_params(self, params):
+        """The rank's shards of pushed params under the learner's mp layout:
+        a DTensor leaf (the live state) gives its local shard, a whole
+        tensor or numpy leaf (host weights, a restored checkpoint) its cut;
+        neither issues a collective.  Unmeshed, the params as they are."""
+        if self._act is None:
+            return params
+        from torch.distributed.tensor import DTensor
+
+        full = {}
+        for k, v in params.items():
+            v = torch.as_tensor(v)
+            if not isinstance(v, DTensor) and tuple(v.shape) != self._full_shapes[k]:
+                raise ValueError(f"push {k!r} whole ({self._full_shapes[k]}) or as the learner's "
+                                 f"sharded state, not of shape {tuple(v.shape)}")
+            full[k] = v
+        return self._act.local_params(full)
 
     def observe_staleness(self, served_generation: int) -> float:
         """Learner steps between the newest pushed params and the generation
@@ -290,6 +456,14 @@ class InferenceServer(ParamSnapshotPlane):
         kind = msg.get("kind")
         if kind == "act":
             obs = np.asarray(msg["obs"])
+            if self._act is not None:
+                try:
+                    _obs_spec(obs.dtype, tuple(obs.shape[1:]))
+                except ValueError as e:
+                    self.refused += 1
+                    self.hub.send(conn, {"kind": "act_result", "req": msg.get("req"),
+                                         "error": repr(e)})
+                    return
             req = ServingRequest(
                 conn=conn,
                 req_id=msg.get("req"),
@@ -342,6 +516,9 @@ class InferenceServer(ParamSnapshotPlane):
 
     # -- the flush loop -------------------------------------------------
     def _flush_loop(self) -> None:
+        if self._act is not None:
+            self._group_flush_loop()
+            return
         while True:
             batch = self.batcher.next_batch(poll_s=0.05)
             if batch is None:
@@ -350,10 +527,163 @@ class InferenceServer(ParamSnapshotPlane):
                 self._flush(batch)
             except Exception as e:  # noqa: BLE001 — answer, then keep serving
                 logger.exception("serving: flush failed")
-                for req in batch:
-                    self.errors += 1
-                    self.hub.send(req.conn, {"kind": "act_result", "req": req.req_id,
-                                             "error": repr(e)})
+                self._answer_errors(batch, e)
+
+    def _answer_errors(self, batch: List[ServingRequest], e: BaseException) -> None:
+        for req in batch:
+            self.errors += 1
+            self.hub.send(req.conn, {"kind": "act_result", "req": req.req_id, "error": repr(e)})
+
+    def _prepare(self, batch: List[ServingRequest]):
+        """This rank's offered lanes packed into ``[lanes, S]`` host rows
+        (:func:`_pack_rows`) and their observation spec, or the error that
+        kept them from packing: all of it before any collective, so a bad
+        batch on one rank cannot leave its peers waiting."""
+        if not batch:
+            return None, _NO_SPEC, None
+        try:
+            host = self._assemble(batch, sum(r.lanes for r in batch))
+            arrays = [host["obs"], host["last_action"], host["reward"], host["done"],
+                      *(a for pair in host["core"] for a in pair)]
+            spec = _obs_spec(arrays[0].dtype, arrays[0].shape[1:])
+            if [(a.dtype, a.shape[1:]) for a in arrays] != self._lane_layout(spec):
+                raise ValueError("the lanes' arrays do not match the policy's: "
+                                 f"{[(a.dtype.name, a.shape) for a in arrays]}")
+            return _pack_rows(arrays), spec, None
+        except Exception as e:  # noqa: BLE001 — answered after the offer
+            return None, _NO_SPEC, e
+
+    def _lane_layout(self, spec: Tuple[int, ...]) -> List[Tuple[np.dtype, Tuple[int, ...]]]:
+        """The ``(dtype, per-lane shape)`` of each packed array: the
+        observations of ``spec``, last actions, rewards, done flags, then
+        the core's (c, h) pairs."""
+        code, ndim = spec[:2]
+        obs = (np.dtype(_OBS_DTYPES[code]), tuple(spec[2:2 + ndim]))
+        core = [(np.dtype(np.float32), s) for s in self._core_shapes for _ in range(2)]
+        return [obs, (np.dtype(np.int32), ()), (np.dtype(np.float32), ()),
+                (np.dtype(np.bool_), ()), *core]
+
+    def _offer(self, n: int, lanes: int, stop: bool, gen: int, spec: Tuple[int, ...],
+               fault: bool) -> List[List[int]]:
+        """This rank's offer, all-gathered over its mp group (one int64
+        all-gather on the server's own group): a row a rank, in group
+        order, ``[requests, lanes, stop, generation, fault, *spec]``."""
+        import torch.distributed as dist
+
+        mine = torch.tensor([n, lanes, int(stop), gen, int(fault), *spec], dtype=torch.int64,
+                            device=self.mesh.device_type)
+        parts = [torch.empty_like(mine) for _ in range(self._pool_size)]
+        dist.all_gather(parts, mine, group=self._pool_group)
+        return torch.stack(parts).tolist()
+
+    def _group_flush_loop(self) -> None:
+        """The lockstep flush of an mp group (module docstring): a tick at a
+        time until a stop, a failed pooled flush, or the stop's last tick."""
+        last = False
+        while True:
+            verdict = self._tick(self.batcher.ready(), last)
+            if verdict == "stop":
+                # a stop on any rank: admit nothing more here, flush what
+                # every rank holds on one last tick, and leave together
+                self.batcher.close()
+                last = True
+            elif verdict == "failed" or last:
+                break
+            elif verdict == "idle":
+                self._stop.wait(_GROUP_POLL_S)
+        # what the group leaves behind: a stop's last tick with generations
+        # apart, or a failed pooled flush
+        self.batcher.close()
+        self._answer_errors(self.batcher.take(len(self.batcher.ready())),
+                            RuntimeError("serving group stopped"))
+
+    def _tick(self, offered: List[ServingRequest], last: bool = False) -> str:
+        """One offer of ``offered`` (the oldest pending requests), then the
+        verdict every rank reads from the offers alike: ``"stop"`` (a rank
+        stops; nothing taken), ``"idle"`` (nothing offered, or generations
+        apart), ``"failed"`` (the pooled section failed here), else
+        ``"flushed"``: each rank took its offer and answered it, by a pooled
+        flush or with an error."""
+        params, gen = self._snapshot_params()
+        packed, spec, fault = self._prepare(offered)
+        offers = self._offer(len(offered), sum(r.lanes for r in offered),
+                             last or self._stop.is_set(), gen, spec, fault is not None)
+        if not last and any(o[2] for o in offers):
+            return "stop"
+        if not any(o[1] for o in offers) or len({o[3] for o in offers}) > 1:
+            return "idle"
+        batch = self.batcher.take(len(offered))
+        if fault is not None:
+            self._answer_errors(batch, fault)
+            batch, packed = [], None
+        counts = [0 if o[4] else o[1] for o in offers]
+        specs = sorted({tuple(o[5:]) for o in offers if o[1] and not o[4]})
+        if len(specs) > 1:
+            self._answer_errors(batch, ValueError(
+                "the ranks of a lockstep flush hold observations of different specs "
+                f"(dtype code, dims, shape): {specs}"))
+        elif specs and not self._flush_pooled(batch, packed, counts, specs[0], params, gen):
+            return "failed"
+        return "flushed"
+
+    def _serve_rows(self, params, rows: torch.Tensor, layout):
+        """:meth:`_serve` on a pooled ``[bucket, S]`` batch of packed lanes."""
+        obs, last_action, reward, done, *flat_core = _unpack_rows(rows, layout)
+        core = tuple(zip(flat_core[0::2], flat_core[1::2]))
+        return self._serve(params, obs, last_action, reward, done, core)
+
+    def _flush_pooled(self, batch: List[ServingRequest], packed: Optional[np.ndarray],
+                      counts: List[int], spec: Tuple[int, ...], params, gen: int) -> bool:
+        """One lockstep flush: the group's lanes pooled in rank order and
+        padded to the bucket of the pooled lanes, the policy on the rank's
+        shards, replies to this rank's own requests.  False when the pooled
+        section (its collectives and the policy on shards) failed here: the
+        group is out of step, and the loop ends."""
+        lanes = sum(counts)
+        bucket = bucket_for(lanes, self.batcher.buckets)
+        t_flush0 = time.monotonic()
+        layout = self._lane_layout(spec)
+        if packed is None:  # no lanes of this rank's own
+            packed = np.zeros((0, _row_width(layout)), np.uint8)
+        try:
+            with torch.no_grad():
+                (rows,) = _device_put([_pad_lanes(packed, max(counts))], self.device)
+                self.device_puts += 1
+                action, logits, new_core = self._act(params, rows, counts, bucket, layout)
+        except Exception as e:  # noqa: BLE001 — answered; the peers time out
+            logger.exception("serving: pooled flush failed; the lockstep group stops")
+            self.group_error = e
+            self._answer_errors(batch, e)
+            return False
+        try:
+            out = self._fetch(action, logits, new_core, False)
+            self._finish(batch, out, gen, t_flush0, bucket, lanes)
+        except Exception as e:  # noqa: BLE001 — answer, then keep serving
+            logger.exception("serving: pooled flush failed")
+            self._answer_errors(batch, e)
+        return True
+
+    def _fetch(self, action, logits, new_core, relax: bool):
+        """ONE device->host read of a flush's outputs: ``(actions, logits,
+        [(c, h), ...])`` as host arrays."""
+        packed = torch.cat([action[:, None].float(), logits.float(),
+                            *(t.float() for pair in new_core for t in pair)], dim=1)
+        out = _device_get(packed, relax=relax)
+        self.device_gets += 1
+        A = logits.shape[-1]
+        widths = [t.shape[-1] for pair in new_core for t in pair]
+        host_core, offset = [], 1 + A
+        for w_c, w_h in zip(widths[0::2], widths[1::2]):
+            host_core.append((out[:, offset:offset + w_c], out[:, offset + w_c:offset + w_c + w_h]))
+            offset += w_c + w_h
+        return out[:, 0].astype(np.int32), out[:, 1:1 + A], host_core
+
+    def _finish(self, batch, out, gen: int, t_flush0: float, bucket: int, lanes: int) -> None:
+        self._warm_buckets.add(bucket)
+        self.flushes += 1
+        self._flush_counter.inc()
+        self._occ_hist.observe(lanes / max(bucket, 1))
+        self._reply(batch, out, gen, t_flush0, bucket)
 
     def _assemble(self, batch: List[ServingRequest], bucket: int) -> Dict[str, Any]:
         """Stack requests into ONE set of [bucket, ...] host arrays (numpy
@@ -407,22 +737,8 @@ class InferenceServer(ParamSnapshotPlane):
             self.device_puts += 1
             core = tuple((dev[4 + 2 * i], dev[5 + 2 * i]) for i in range(len(host["core"])))
             action, logits, new_core = self._serve(params, *dev[:4], core)
-            packed = torch.cat([action[:, None].float(), logits.float(),
-                                *(t.float() for pair in new_core for t in pair)], dim=1)
-            out = _device_get(packed, relax=armed)
-            self.device_gets += 1
-        self._warm_buckets.add(bucket)
-        self.flushes += 1
-        self._flush_counter.inc()
-        self._occ_hist.observe(lanes / max(bucket, 1))
-        A = logits.shape[-1]
-        widths = [t.shape[-1] for pair in new_core for t in pair]
-        host_core, offset = [], 1 + A
-        for w_c, w_h in zip(widths[0::2], widths[1::2]):
-            host_core.append((out[:, offset:offset + w_c], out[:, offset + w_c:offset + w_c + w_h]))
-            offset += w_c + w_h
-        self._reply(batch, (out[:, 0].astype(np.int32), out[:, 1:1 + A], host_core), gen,
-                    t_flush0, bucket)
+            out = self._fetch(action, logits, new_core, armed)
+        self._finish(batch, out, gen, t_flush0, bucket, lanes)
 
     def _reply(self, batch: List[ServingRequest], out, gen: int, t_flush0: float = 0.0,
                bucket: int = 0) -> None:

@@ -23,7 +23,13 @@ Port of ``scalerl_tpu/trainer/actor_learner.py``:
   after each learn step, reports the staleness of the oldest client's last
   served generation at each log, and closes the clients before the server
   at teardown.  The agent is each client's local fallback
-  (``serving_client.fallbacks`` counts its use).  ``"process"`` is
+  (``serving_client.fallbacks`` counts its use).  Beside a learner whose
+  mesh has ``mp > 1`` every rank builds its server from the learner's
+  layout (the rank's shards, flushed in lockstep over its mp group on
+  groups of the server's own), pushes the live state's shards after each
+  learn step, and stops its server at teardown; the clients' fallback
+  acts on the agent's gathered copy, so actor threads issue no
+  collective.  ``"process"`` is
   ``trainer/process_actor_learner.py``'s and refused here.
 - :class:`DeviceActorLearnerTrainer`: IMPALA over the port's tensor envs
   through ``DeviceActorLearnerLoop.run``; a preemption stops dispatch at the
@@ -458,9 +464,12 @@ class HostActorLearnerTrainer(HostPlaneMixin, BaseTrainer):
                 self.param_server.push(self.agent.get_weights(), to_host=False)
                 if self.inference_server is not None:
                     # a new generation: every reply from here on is tagged
-                    # with it (a flush in flight keeps its old tag)
-                    self.inference_server.push_params(self.agent.get_weights(),
-                                                      learner_step=learn_steps_done)
+                    # with it (a flush in flight keeps its old tag).  Under
+                    # the learner's mp layout the live state's shards go,
+                    # on every rank in the same order
+                    served = (self.agent.state.params if self.inference_server.mesh is not None
+                              else self.agent.get_weights())
+                    self.inference_server.push_params(served, learner_step=learn_steps_done)
 
                 (frames,) = agree(self.env_frames)
                 _, save_due = agree(0, saving and cadence.due(frames))

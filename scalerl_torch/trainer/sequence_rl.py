@@ -47,8 +47,9 @@ through host memory, and the admission broadcast reads a host int.
 :class:`DisaggSequenceRLTrainer` is the same learn half over the
 disaggregated dataflow (``genrl/disagg.py``): generation hosts stream
 completed sequences into the learner's replay, and quantized snapshots flow
-back; with a ledger directory it saves and resumes its whole plane.  It
-refuses a mesh that spans several processes.
+back; with a ledger directory it saves and resumes its whole plane.  Across
+ranks, rank 0 owns the generation fleet and broadcasts each round's
+sequences; every rank learns its rows of the batch.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ from scalerl_torch.genrl.rollout import (
 from scalerl_torch.genrl.task import TokenRecallTask
 from scalerl_torch.models.transformer import TransformerPolicy
 from scalerl_torch.ops.cuda_segment_attention import make_segment_attn_fn
+from scalerl_torch.parallel.collectives import broadcast_object
 from scalerl_torch.parallel.mesh import AXIS_NAMES
 from scalerl_torch.parallel.sharding import agreed_seed, gather_batch, shard_seed
 from scalerl_torch.parallel.train_step import (
@@ -628,8 +630,25 @@ class DisaggSequenceRLTrainer(_LearnHalf):
     on ``device``: the cohort engine, or the continuous one when
     ``genrl_engine="continuous"`` (the JAX trainer always takes the cohort
     engine).  No step runs under the steady-state guard: its mode is
-    process-wide, and thread hosts share the process.  Nothing is meshed,
-    so the JAX trainer's mesh dispatch lock has no counterpart.
+    process-wide, and thread hosts share the process.
+
+    On a mesh of several ranks every rank builds the trainer alike and
+    calls :meth:`train` alike.  Rank 0 owns the fleet: it alone builds the
+    :class:`~scalerl_torch.genrl.disagg.SequenceLearner`, the
+    ``LocalGenerationFleet``, the leases and the ledger.  Each round starts
+    with a broadcast from rank 0 (``parallel/collectives.py::
+    broadcast_object``): a status (go, starved or stop), the round's packed
+    fields, priorities and rewards, and the consumed generations; a starved
+    round raises the same ``RuntimeError`` on every rank.  Every rank then
+    inserts the same rows into its replicated replay, samples them with the
+    agreed seed and learns its rows of the batch (``"split"``).  At a push
+    every rank gathers the weights (``agent.get_weights``) and rank 0
+    publishes them, so an int8 snapshot scales each leaf by the whole
+    leaf's max.  The chaos poll and the time window are agreed at each
+    round's start (``RankAgreement``).  Rank 0's thread hosts share the
+    card with the learner ranks; their engines run whole wire snapshots and
+    issue no collective, so the JAX trainer's mesh dispatch lock has no
+    counterpart.
 
     With ``ledger_dir`` (or ``disagg_ledger_dir``), a
     :class:`~scalerl_torch.runtime.supervisor.PreemptionGuard` safe point
@@ -637,7 +656,10 @@ class DisaggSequenceRLTrainer(_LearnHalf):
     accounting plane, the replay, the agent's weights and the lease
     cursor and generator in ONE crash-safe frame), and the next trainer
     built against the same directory resumes at the same learn step under
-    a bumped learner epoch.
+    a bumped learner epoch.  On a mesh every rank gathers the weights into
+    that frame and rank 0 writes it; a resume hands rank 0's trainer state
+    (learn step, replay, weights, sample generator) to every rank, which
+    places the weights in its layout.
     """
 
     def __init__(
@@ -660,13 +682,11 @@ class DisaggSequenceRLTrainer(_LearnHalf):
 
         self._record_consumption_trace = record_consumption_trace
         self._init_agent(args, task, agent, device)
-        if multi_rank(self.agent.mesh):
-            raise ValueError(
-                "DisaggSequenceRLTrainer runs its learner in one process: across "
-                f"{self.agent.mesh.size} ranks its generation fleet, leases and ledger would "
-                "have to live on rank 0, which would broadcast each learn batch to the "
-                "others, and nothing does that yet; use SequenceRLTrainer, whose rounds run "
-                "in lockstep across ranks, or a one-rank mesh here")
+        mesh = self.agent.mesh
+        self._mesh = mesh if multi_rank(mesh) else None
+        self._agree = RankAgreement(mesh)
+        # rank 0 owns the fleet, the leases and the ledger
+        self.owns_fleet = self._mesh is None or dist.get_rank() == 0
         self._init_replay(bucket_for(args.prompt_len, default_buckets(args.prompt_len)),
                           bucket_for(args.max_new_tokens, default_buckets(args.max_new_tokens)))
         lanes = args.disagg_lanes_per_host or max(1, args.genrl_batch // args.disagg_hosts)
@@ -687,26 +707,43 @@ class DisaggSequenceRLTrainer(_LearnHalf):
         self.guard = guard
         ledger_dir = ledger_dir or args.disagg_ledger_dir
         self.ledger_path = os.path.join(ledger_dir, "learner_ledger") if ledger_dir else None
-        self.learner = SequenceLearner(self.config, self._next_lease, ledger_path=self.ledger_path)
-        if self.learner.restored_extra is not None:
-            self._adopt_restored(self.learner.restored_extra)
-        self.learner.start()
-        if self.learner.generation == 0:
+        self.learner = self.fleet = None
+        restored, fresh = None, True
+        if self.owns_fleet:
+            self.learner = SequenceLearner(self.config, self._next_lease,
+                                           ledger_path=self.ledger_path)
+            restored, fresh = self.learner.restored_extra, self.learner.generation == 0
+            self.learner_epoch = self.learner.learner_epoch
+        if self._mesh is not None:
+            restored, fresh, self.learner_epoch = broadcast_object(
+                (restored, fresh, self.learner_epoch) if self.owns_fleet else None)
+        if restored is not None:
+            self._adopt_restored(restored)
+        if self.owns_fleet:
+            self.learner.start()
+        if fresh:
             # a fresh start only: a restored learner already holds the wire
-            # snapshot (and the generation) its hosts must adopt
-            self.learner.publish(host_weights(self.agent.get_weights()), learner_step=0)
-        if engine_factory is None:
-            cls = _ContinuousShellFactory if args.genrl_engine == "continuous" else _CohortShellFactory
-            engine_factory = cls(args, lanes, self.device)
-        self.fleet = LocalGenerationFleet(self.learner, self.config, engine_factory,
-                                          use_threads=use_threads)
-        self.fleet.start()
+            # snapshot (and the generation) its hosts must adopt.  Under a
+            # mesh every rank gathers, rank 0 publishes
+            weights = self.agent.get_weights()
+            if self.owns_fleet:
+                self.learner.publish(host_weights(weights), learner_step=0)
+        self.wire_sequences = 0
+        if self.owns_fleet:
+            if engine_factory is None:
+                cls = (_ContinuousShellFactory if args.genrl_engine == "continuous"
+                       else _CohortShellFactory)
+                engine_factory = cls(args, lanes, self.device)
+            self.fleet = LocalGenerationFleet(self.learner, self.config, engine_factory,
+                                              use_threads=use_threads)
+            self.fleet.start()
 
     def _adopt_restored(self, extra: Dict[str, Any]) -> None:
         """Rebuild the trainer half of a preempted run from the ledger's
         ``extra`` tree: the learn step, the replay, the agent's weights, the
         lease cursor and generator (so resumed leases continue the exact
-        sequence), and the reward history."""
+        sequence), the sample generator, and the reward history.  On a mesh
+        every rank adopts rank 0's tree."""
         self.learn_steps = int(extra.get("learn_steps", 0))
         self._lease_seq = int(extra.get("lease_seq", 0))
         rng_state = extra.get("lease_rng")
@@ -715,30 +752,39 @@ class DisaggSequenceRLTrainer(_LearnHalf):
             self._lease_rng.bit_generator.state = json.loads(rng_state)
         if "replay" in extra:
             self.replay = seq_import(extra["replay"], self.device)
+        if "sample_generator" in extra:
+            self._sample_generator.set_state(
+                torch.from_numpy(np.asarray(extra["sample_generator"], np.uint8)))
         if "agent" in extra:
-            live = self.agent.get_weights()
+            live = self.agent.state.params
             self.agent.set_weights({
                 k: torch.from_numpy(np.asarray(v)).to(device=self.device, dtype=live[k].dtype)
                 for k, v in extra["agent"].items()})
         self.reward_history = [float(r) for r in extra.get("reward_history", [])]
-        logger.info("disagg trainer resumed at learn step %d (epoch %d, %d leases reissued)",
-                    self.learn_steps, self.learner.learner_epoch,
-                    self.learner.resumed_sequences_reissued)
+        logger.info("disagg trainer resumed at learn step %d (epoch %d)",
+                    self.learn_steps, self.learner_epoch)
 
     def save_resume(self) -> Optional[str]:
         """The PreemptionGuard safe-point action: stop the plane and save
         the learner's ledger and the trainer's state as one crash-safe
-        frame.  Returns the ledger path, or None without a ledger dir."""
-        self.learner.stop()
+        frame.  Returns the ledger path, or None without a ledger dir.  On
+        a mesh every rank calls it and gathers the weights; rank 0 writes."""
         if self.ledger_path is None:
+            if self.owns_fleet:
+                self.learner.stop()
             return None
+        weights = host_weights(self.agent.get_weights())  # gathered on every rank of a mesh
+        if not self.owns_fleet:
+            return self.ledger_path
+        self.learner.stop()
         extra = {
             "learn_steps": self.learn_steps,
             "lease_seq": self._lease_seq,
             "lease_rng": json.dumps(self._lease_rng.bit_generator.state),
             "reward_history": [float(r) for r in self.reward_history],
             "replay": seq_export(self.replay),
-            "agent": host_weights(self.agent.get_weights()),
+            "agent": weights,
+            "sample_generator": self._sample_generator.get_state().numpy(),
         }
         return self.learner.save_ledger(self.ledger_path, extra=extra)
 
@@ -755,11 +801,15 @@ class DisaggSequenceRLTrainer(_LearnHalf):
             lease["samples"] = self.args.samples_per_prompt
         return lease
 
-    def train_round(self) -> Dict[str, float]:
-        """One disaggregated round: drain ``genrl_batch`` wire sequences ->
-        pack -> score -> insert -> sample -> learn -> publish the quantized
-        snapshot."""
+    def _drain_round(self) -> Dict[str, Any]:
+        """Rank 0's half of a round: drain ``genrl_batch`` wire sequences,
+        pack and score them.  The status ``"go"`` carries the round's
+        fields, priorities, rewards and consumed generations; ``"starved"``
+        and ``"stop"`` (and ``"error"``, any other failure of the drain on a
+        mesh) the error every rank raises."""
         B = self.args.genrl_batch
+        if self.learner.stopped:
+            return {"status": "stop", "error": "the disaggregated learner has stopped"}
         batch: List[_WireCompletion] = []
         raw: List[Dict[str, Any]] = []  # keeps the trace and _t_q wire keys
         deadline = time.monotonic() + self.args.disagg_round_timeout_s
@@ -769,36 +819,77 @@ class DisaggSequenceRLTrainer(_LearnHalf):
                 raw.append(payload)
                 batch.append(_WireCompletion(payload))
             elif time.monotonic() > deadline:
-                raise RuntimeError(
+                return {"status": "starved", "error": (
                     f"disagg round starved: {len(batch)}/{B} sequences after "
                     f"{self.args.disagg_round_timeout_s:.0f}s "
-                    f"(live hosts: {self.learner.live_host_count()})"
-                )
+                    f"(live hosts: {self.learner.live_host_count()})")}
         t_drain = time.monotonic()
         packed = pack_completions(batch, self._prompt_pad, self._response_pad)
         rewards = self.task.score(packed.prompts, packed.prompt_len, packed.response_tokens,
                                   packed.response_len)
         fields, priorities, _decode = self._completion_units(packed, rewards)
+        return {"status": "go", "fields": fields, "priorities": priorities, "rewards": rewards,
+                "decode_tokens": packed.decode_tokens,
+                "generations": np.asarray([c.generation for c in batch], np.int64),
+                "raw": raw, "t_drain": t_drain}
+
+    def train_round(self) -> Dict[str, float]:
+        """One disaggregated round: drain ``genrl_batch`` wire sequences ->
+        pack -> score -> insert -> sample -> learn -> publish the quantized
+        snapshot (on a mesh: rank 0 drains and broadcasts, every rank
+        learns)."""
+        rnd = None
+        if self.owns_fleet:
+            try:
+                rnd = self._drain_round()
+            except Exception as e:  # noqa: BLE001 — raised on every rank below
+                if self._mesh is None:
+                    raise
+                logger.exception("disagg round failed on rank 0")
+                rnd = {"status": "error", "error": f"disagg round failed on rank 0: {e!r}"}
+        if self._mesh is not None:
+            # the wire payloads and the drain stamp stay on rank 0
+            shared = broadcast_object(None if rnd is None else {
+                k: v for k, v in rnd.items() if k not in ("raw", "t_drain")})
+            rnd = shared if rnd is None else rnd
+        if rnd["status"] != "go":
+            raise RuntimeError(rnd["error"])
         t_add0 = time.monotonic()
-        metrics, t_learn0 = self._learn_from(fields, priorities)
+        metrics, t_learn0 = self._learn_from(rnd["fields"], rnd["priorities"])
         self.learn_steps += 1
-        # the consumed sequences' traces gain the learner-side edges, from
-        # stamps the round already took
-        self._record_consumption_trace(raw, t_drain, t_add0, t_learn0, t_learn0,
-                                       time.monotonic(), self.learn_steps)
+        if self.owns_fleet:
+            # the consumed sequences' traces gain the learner-side edges,
+            # from stamps the round already took
+            self._record_consumption_trace(rnd["raw"], rnd["t_drain"], t_add0, t_learn0,
+                                           t_learn0, time.monotonic(), self.learn_steps)
         self._learn_meter.mark()
         if self.learn_steps % self.args.genrl_push_every == 0:
-            self.learner.publish(host_weights(self.agent.get_weights()),
-                                 learner_step=self.learn_steps)
-        staleness = self.learner.observe_consumed(int(round(metrics["mean_generation"])))
-        return self._close_round(metrics, rewards, staleness, packed.decode_tokens)
+            weights = self.agent.get_weights()  # gathered on every rank of a mesh
+            if self.owns_fleet:
+                self.learner.publish(host_weights(weights), learner_step=self.learn_steps)
+        staleness = wire = None
+        if self.owns_fleet:
+            staleness = self.learner.observe_consumed(int(round(metrics["mean_generation"])))
+            wire = self.learner.total_sequences
+        if self._mesh is not None:
+            staleness, wire = broadcast_object((staleness, wire))
+        self.wire_sequences = wire
+        return self._close_round(metrics, rnd["rewards"], staleness, rnd["decode_tokens"])
 
-    def train(self, rounds: Optional[int] = None) -> Dict[str, float]:
+    def train(self, rounds: Optional[int] = None,
+              seconds: Optional[float] = None) -> Dict[str, float]:
+        """Up to ``rounds`` rounds (``genrl_rounds`` by default), ``seconds``
+        at most; at each round's start the ranks agree whether any of them
+        ran out of time or drew a preemption."""
         rounds = rounds if rounds is not None else self.args.genrl_rounds
         metrics: Dict[str, float] = {}
+        t0 = time.monotonic()
         try:
             for _ in range(rounds):
-                if self.guard is not None and self.guard.poll_chaos("learner"):
+                _, out_of_time, preempted = self._agree(
+                    0, seconds is not None and time.monotonic() - t0 >= seconds,
+                    self.guard is not None and self.guard.poll_chaos("learner"))
+                if preempted:
                     # the safe point: SIGTERM (real, or the chaos plan's
                     # seeded preempt draw) landed; save the whole plane
                     # between rounds and exit, and the next trainer against
@@ -807,14 +898,20 @@ class DisaggSequenceRLTrainer(_LearnHalf):
                                            step=self.learn_steps)
                     self.save_resume()
                     break
+                if out_of_time:
+                    break
                 metrics = self.train_round()
         finally:
             self.close()
         summary = self._summary(metrics)
-        summary["wire_sequences"] = float(self.learner.total_sequences)
+        summary["wire_sequences"] = float(self.learner.total_sequences if self.owns_fleet
+                                          else self.wire_sequences)
         summary["learn_steps"] = float(self.learn_steps)
         return summary
 
     def close(self) -> None:
-        self.learner.stop()
-        self.fleet.join(timeout=5.0)
+        """Stop the learner and join the fleet (rank 0's; the other ranks
+        own neither)."""
+        if self.owns_fleet:
+            self.learner.stop()
+            self.fleet.join(timeout=5.0)

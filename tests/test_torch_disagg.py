@@ -354,14 +354,14 @@ def test_drain_protocol_loses_no_sequence():
         assert len(warm) == 4
         assert learner.drain_hosts(1) == 1
         seqs = warm + _collect(lambda: learner, n - 4)
+        assert len(seqs) == n and len({s["lease_id"] for s in seqs}) == n
         deadline = time.monotonic() + 20.0
         while learner.hosts_drained < 1 and time.monotonic() < deadline:
             time.sleep(0.05)
+        assert learner.hosts_drained == 1 and learner.live_host_count() == 1
     finally:
         learner.stop()
         fleet.join(timeout=10.0)
-    assert len(seqs) == n and len({s["lease_id"] for s in seqs}) == n
-    assert learner.hosts_drained == 1 and learner.live_host_count() == 1
     assert telemetry.get_recorder().events("drain_request")
 
 

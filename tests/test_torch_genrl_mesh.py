@@ -26,9 +26,18 @@ JAX function on its 8 host devices within 1e-5 and gathers no param.
 inserts, replay and metrics bit-equal; its first round's generation at
 temperature 0 is the JAX one-process trainer's, its first loss within 1e-5
 of the port's one-rank trainer and its params after two rounds at the JAX
-mesh tests' ``rtol=2e-5, atol=2e-6``.  A save resumes bit for bit, the
-time window and a preemption stop every rank alike, and the disaggregated
-trainer refuses several ranks naming what it lacks.
+mesh tests' ``rtol=2e-5, atol=2e-6``.  A save resumes bit for bit, and
+the time window and a preemption stop every rank alike.
+
+``DisaggSequenceRLTrainer`` at ``dp=2,mp=2`` with scripted generation
+hosts on rank 0 (which alone owns the fleet): two rounds' inserts, replay
+and metrics are bit-equal across ranks, and round 1's loss is within 1e-5
+of the one-rank learn step on the same sequences; through a ``mass_kill``
+wave on rank 0's spawned hosts no lease issued before it is lost; a
+preemption seen on one rank saves on all, and the next trainer resumes at
+the same learn step under epoch 2 on every rank; a time window that ran out
+on one rank stops all before their first round; a starved round, and a
+drain whose scoring fails on rank 0, raise on every rank.
 """
 
 import dataclasses
@@ -70,6 +79,10 @@ TASK = dict(vocab_size=V, prompt_len=(1, P_MAX), response_len=R_MAX)
 COHORT = dict(vocab_size=V, max_prompt_len=P_MAX, max_new_tokens=R_MAX, seed=7)
 ENGINE = dict(COHORT, lanes=3, page_size=2, steps_per_macro=2, admit_max_wait_s=0.002,
               prefix_cache=True)
+# the disaggregated trainer: two scripted hosts of 2 lanes (4 with the
+# wave), each a sequence of R_MAX tokens a 0.2 s, so the learner keeps up
+DISAGG = dict(disagg_hosts=2, disagg_lanes_per_host=2, disagg_upload_batch=1)
+SCRIPTED = dict(lanes=2, response_len=R_MAX, tokens_per_step=1, step_sleep_s=0.05, vocab=V)
 INT_FIELDS = ("tokens", "segment_ids", "positions", "generation")
 FLOAT_FIELDS = ("behavior_logp", "value", "mask", "reward")
 
@@ -98,6 +111,7 @@ def _cases_and_references():
     jt = jseq.SequenceRLTrainer(jargs, task=JaxTask(**TASK))
     state = H.token_ppo_state_to_torch(jt.agent.state)
     meshed = dataclasses.replace(targs, mesh_shape=SPEC)
+    disagg = dataclasses.replace(meshed, **DISAGG)
     prompts, lengths = _prompts()
     tokens = np.random.default_rng(2).integers(1, V, size=(8, P_MAX)).astype(np.int32)
     base = dict(state=state, prompts=prompts, lengths=lengths)
@@ -112,7 +126,18 @@ def _cases_and_references():
         "resume": dict(base, kind="resume", task=TASK,
                        args=dataclasses.replace(meshed, temperature=1.0)),
         "stops": dict(base, kind="stops", args=meshed, task=TASK),
-        "disagg": dict(base, kind="disagg", args=meshed),
+        "disagg": dict(base, kind="disagg", args=disagg, task=TASK, scripted=SCRIPTED),
+        "disagg_kill": dict(base, kind="disagg_kill", task=TASK, max_rounds=10,
+                            args=dataclasses.replace(disagg, disagg_hosts=4),
+                            scripted=SCRIPTED, chaos="777:mass_kill=1.0@1"),
+        "disagg_resume": dict(base, kind="disagg_resume", args=disagg, task=TASK,
+                              scripted=SCRIPTED),
+        "disagg_window": dict(base, kind="disagg_window", args=disagg, task=TASK,
+                              scripted=SCRIPTED),
+        "disagg_starved": dict(base, kind="disagg_starved", task=TASK, scripted=SCRIPTED,
+                               args=dataclasses.replace(disagg, disagg_round_timeout_s=0.5)),
+        "disagg_drain_error": dict(base, kind="disagg_drain_error", args=disagg, task=TASK,
+                                   scripted=SCRIPTED),
     }
 
     def references():
@@ -148,7 +173,7 @@ def _cases_and_references():
         ref["one_rank_params"] = {k: v.clone() for k, v in tt.agent.state.params.items()}
         return ref
 
-    return cases, references
+    return cases, references, state
 
 
 def _free_port() -> int:
@@ -163,7 +188,7 @@ def world(tmp_path_factory):
     are computed here while the ranks run.  Returns (references, the
     ranks' results)."""
     workdir = str(tmp_path_factory.mktemp("genrl_mesh"))
-    cases, references = _cases_and_references()
+    cases, references, state = _cases_and_references()
     torch.save(cases, f"{workdir}/cases.pt")
     ctx = mp.start_processes(torch_genrl_mesh_helpers.run_rank,
                              args=(WORLD, _free_port(), workdir), nprocs=WORLD, join=False,
@@ -171,6 +196,7 @@ def world(tmp_path_factory):
     deadline = time.monotonic() + JOIN_TIMEOUT_S
     try:
         ref = references()
+        ref["state"] = state
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"the {WORLD}-rank world did not finish in "
@@ -322,7 +348,84 @@ def test_stop_and_preemption_are_agreed_across_ranks(world):
     assert _ranks(world, "stops")[0]["saved"]
 
 
-def test_disaggregated_trainer_refuses_several_ranks(world):
-    for got in _ranks(world, "disagg"):
-        assert got["refusal"] is not None
-        assert "fleet, leases and ledger" in got["refusal"] and "rank 0" in got["refusal"]
+def test_disaggregated_rounds_are_bit_equal_across_ranks(world):
+    ranks = _ranks(world, "disagg")
+    first = ranks[0]
+    assert first["owns_fleet"] and first["learner"] and first["fleet"]
+    assert first["generation"] == 3  # the first snapshot, then one a round
+    assert first["batch_mode"] == "split"
+    for other in ranks[1:]:
+        assert not (other["owns_fleet"] or other["learner"] or other["fleet"])
+        assert other["metrics"] == first["metrics"]
+        assert len(other["inserts"]) == len(first["inserts"]) == 2
+        for (fa, pa), (fb, pb) in zip(first["inserts"], other["inserts"]):
+            assert all(torch.equal(fa[k], fb[k]) for k in fa) and torch.equal(pa, pb)
+        assert all(torch.equal(first["replay"][k], other["replay"][k]) for k in first["replay"])
+        assert torch.equal(first["priorities"], other["priorities"])
+        for pa, pb in zip(first["params"], other["params"]):
+            assert all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+class _OneRank(tseq._LearnHalf):
+    """The disaggregated trainer's learn half on one rank."""
+
+    def __init__(self, args, state):
+        agent = TokenPPOAgent(args, tseq.build_genrl_model(args, device="cpu"))
+        agent.state = state
+        self._init_agent(args, None, agent, "cpu")
+        self._init_replay(tseq.bucket_for(args.prompt_len, tseq.default_buckets(args.prompt_len)),
+                          tseq.bucket_for(args.max_new_tokens,
+                                          tseq.default_buckets(args.max_new_tokens)))
+
+
+def test_disaggregated_first_loss_matches_one_rank_on_the_same_sequences(world):
+    got = _ranks(world, "disagg")[0]
+    fields, priorities = got["inserts"][0]
+    _, targs = H.genrl_args_pair(**FIELDS, temperature=0.0)
+    one = _OneRank(dataclasses.replace(targs, **DISAGG), world[0]["state"])
+    metrics, _ = one._learn_from({k: v.numpy() for k, v in fields.items()}, priorities.numpy())
+    np.testing.assert_allclose(got["metrics"][0]["total_loss"], metrics["total_loss"],
+                               atol=TOL, rtol=TOL)
+    assert got["metrics"][0]["mean_generation"] == metrics["mean_generation"]
+
+
+def test_disaggregated_trainer_loses_no_lease_through_a_mass_kill_wave(world):
+    ranks = _ranks(world, "disagg_kill")
+    first = ranks[0]
+    assert first["killed"] == 2 and first["cut"] > 0 and first["requeued"] >= 1
+    assert first["lost"] == 0 and first["duplicates"] == 0 and first["dropped"] == 0
+    for got in ranks:
+        assert got["rounds"] == first["rounds"] == got["steps"]
+        assert got["losses"] == first["losses"] and all(np.isfinite(got["losses"]))
+
+
+def test_disaggregated_preemption_resumes_the_same_step_on_every_rank(world):
+    ranks = _ranks(world, "disagg_resume")
+    # one frame: the ledger (and its rotation), no save beside it
+    assert ranks[0]["saved"] and all(n.startswith("learner_ledger") for n in ranks[0]["saved"])
+    for got in ranks:
+        assert got["rounds"] == 2.0 and got["steps"] == 2.0
+        resumed = got["resumed"]
+        assert resumed["steps"] == 2 and resumed["epoch"] == 2
+        assert resumed["params_equal"] and resumed["layout_equal"]
+        assert resumed["replay_equal"] and resumed["sampler_equal"]
+        assert len(resumed["rewards"]) == 2 and got["steps_after"] == 3
+        assert got["loss_after"] == ranks[0]["loss_after"]
+
+
+def test_disaggregated_time_window_is_agreed_across_ranks(world):
+    ranks = _ranks(world, "disagg_window")
+    for got in ranks:
+        assert got["rounds"] == 0.0 and got["steps"] == 0
+    assert ranks[0]["stopped"] and all(got["stopped"] is None for got in ranks[1:])
+
+
+def test_a_starved_disaggregated_round_raises_on_every_rank(world):
+    for got in _ranks(world, "disagg_starved"):
+        assert got["raised"] is not None and "starved" in got["raised"]
+
+
+def test_a_failed_disaggregated_drain_raises_on_every_rank(world):
+    for got in _ranks(world, "disagg_drain_error"):
+        assert got["raised"] is not None and "injected scoring failure" in got["raised"]
+        assert got["steps"] == 0

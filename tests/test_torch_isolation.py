@@ -80,7 +80,9 @@ def test_no_port_source_imports_jax():
         *(REPO / "examples" / f"train_{n}_torch.py" for n in ("a3c", "ppo", "impact", "sac", "td3",
                                                                "fleet_impala", "fleet_dqn",
                                                                "a3c_fleet", "marl_dqn")),
-        REPO / "tests" / "torch_fleet_helpers.py", REPO / "tests" / "torch_family_helpers.py"]
+        REPO / "tests" / "torch_fleet_helpers.py", REPO / "tests" / "torch_family_helpers.py",
+        REPO / "tests" / "torch_genrl_mesh_helpers.py",
+        REPO / "tests" / "torch_serving_mesh_helpers.py"]
     for path in sources:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -3,15 +3,17 @@
 Jax-free, so a spawned rank boots without importing JAX.  Each rank joins
 one process group, runs every case of ``cases.pt`` (written by the test
 module: the converted token-PPO state, the prompts and each case's mesh)
-through the port's meshed engines, ``make_parallel_act_fn`` and
-``SequenceRLTrainer``, and writes what it saw to ``rank<r>.pt``; the test
-compares the ranks with each other and with the unmeshed references.
+through the port's meshed engines, ``make_parallel_act_fn``,
+``SequenceRLTrainer`` and ``DisaggSequenceRLTrainer``, and writes what it
+saw to ``rank<r>.pt``; the test compares the ranks with each other and
+with the unmeshed references.
 """
 
 import os
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -211,14 +213,195 @@ def _stops(case, workdir):
                 saved=os.path.isdir(os.path.join(path, "agent")))
 
 
-def _disagg(case):
+def _disagg_trainer(case, **kw):
+    from scalerl_torch.genrl.disagg import ScriptedEngineFactory
+    from scalerl_torch.genrl.task import TokenRecallTask
     from scalerl_torch.trainer.sequence_rl import DisaggSequenceRLTrainer
 
+    factory = kw.pop("engine_factory", None) or ScriptedEngineFactory(**case["scripted"])
+    return DisaggSequenceRLTrainer(case["args"], task=TokenRecallTask(**case["task"]),
+                                   agent=_agent(case), engine_factory=factory, device="cpu", **kw)
+
+
+def _disagg(case):
+    """Two rounds of the disaggregated trainer, its scripted thread hosts on
+    rank 0: each round's replay insert and metrics, the params after each,
+    the replay at the end, and who owns the fleet."""
+    from scalerl_torch.trainer import sequence_rl
+
+    inserts = []
+    real_add = sequence_rl.seq_add
+
+    def recording(state, fields, core, priorities):
+        inserts.append(({k: v.clone() for k, v in fields.items()}, priorities.clone()))
+        return real_add(state, fields, core, priorities)
+
+    sequence_rl.seq_add = recording
     try:
-        DisaggSequenceRLTrainer(case["args"], agent=_agent(case), device="cpu")
-    except ValueError as e:
-        return {"refusal": str(e)}
-    return {"refusal": None}
+        t = _disagg_trainer(case)
+        try:
+            metrics, params = [], []
+            for _ in range(2):
+                metrics.append(t.train_round())
+                params.append(_full(t.agent.state.params))
+        finally:
+            t.close()
+    finally:
+        sequence_rl.seq_add = real_add
+    return dict(inserts=inserts, metrics=metrics, params=params,
+                replay={k: v.clone() for k, v in t.replay.storage.items()},
+                priorities=t.replay.priorities.clone(), owns_fleet=t.owns_fleet,
+                learner=t.learner is not None, fleet=t.fleet is not None,
+                generation=None if t.learner is None else t.learner.generation,
+                batch_mode=t.agent._learn.batch_mode)
+
+
+def _disagg_kill(case):
+    """A mass_kill wave on rank 0's spawned scripted hosts after the first
+    round; rounds go on (every rank alike, as rank 0 says) until every
+    lease issued before the wave has been learned from: how many never
+    arrived (``lost``) and how many twice."""
+    from scalerl_torch.parallel.collectives import broadcast_int
+    from scalerl_torch.runtime import chaos
+
+    t = _disagg_trainer(case, use_threads=False)
+    seeds = []
+    try:
+        if t.owns_fleet:
+            real_get = t.learner.get_sequence
+
+            def recording(timeout=None):
+                payload = real_get(timeout=timeout)
+                if payload is not None:
+                    seeds.append(int(payload["seed"]))
+                return payload
+
+            t.learner.get_sequence = recording
+        metrics = [t.train_round()]
+        killed, cut = [], 0
+        if t.owns_fleet:
+            os.environ[chaos.ENV_VAR] = case["chaos"]
+            chaos.clear()
+            try:
+                killed = t.fleet.chaos_poll()
+            finally:
+                del os.environ[chaos.ENV_VAR]
+                chaos.clear()
+            cut = t._lease_seq
+        for _ in range(case["max_rounds"]):
+            if broadcast_int(int(t.owns_fleet and set(range(1, cut + 1)) <= set(seeds)), "cpu"):
+                break
+            metrics.append(t.train_round())
+        requeued = t.learner.requeued_leases if t.owns_fleet else None
+        dropped = t.learner.dropped_sequences if t.owns_fleet else None
+    finally:
+        t.close()
+    return dict(killed=len(killed), cut=cut, lost=len(set(range(1, cut + 1)) - set(seeds)),
+                duplicates=len(seeds) - len(set(seeds)), requeued=requeued, dropped=dropped,
+                rounds=len(metrics), steps=t.learn_steps,
+                losses=[m["total_loss"] for m in metrics])
+
+
+class _PreemptedOnRank1After:
+    """A preemption guard that only rank 1 sees tripped, at its
+    ``rounds + 1``-th poll."""
+
+    def __init__(self, rounds: int) -> None:
+        self.polls, self.rounds = 0, rounds
+
+    def poll_chaos(self, site: str) -> bool:
+        self.polls += 1
+        return dist.get_rank() == 1 and self.polls > self.rounds
+
+
+def _disagg_resume(case, workdir):
+    """Two rounds, then a preemption seen on rank 1 alone: every rank
+    gathers the weights into rank 0's ledger, the one frame written.  A new
+    trainer against the same ledger resumes at the same learn step under
+    epoch 2 on every rank, with the same params (in the learner's layout),
+    replay and sampler, and takes another round."""
+    from scalerl_torch.data.sequence_replay import seq_export
+
+    ledger = os.path.join(workdir, "disagg_ledger")
+    t = _disagg_trainer(case, ledger_dir=ledger, guard=_PreemptedOnRank1After(2))
+    summary = t.train(4)
+    cut = dict(params=_full(t.agent.state.params), replay=seq_export(t.replay),
+               sampler=t._sample_generator.get_state().clone())
+    r = _disagg_trainer(case, ledger_dir=ledger)
+    try:
+        resumed = dict(steps=r.learn_steps, epoch=r.learner_epoch,
+                       params_equal=all(torch.equal(a, b) for a, b in zip(
+                           tree_leaves(cut["params"]), tree_leaves(_full(r.agent.state.params)))),
+                       layout_equal=all(
+                           type(a) is type(b) and a.shape == b.shape
+                           and getattr(a, "placements", None) == getattr(b, "placements", None)
+                           for a, b in zip(tree_leaves(t.agent.state.params),
+                                           tree_leaves(r.agent.state.params))),
+                       replay_equal=all(np.array_equal(v, seq_export(r.replay)["storage"][k])
+                                        for k, v in cut["replay"]["storage"].items()),
+                       sampler_equal=torch.equal(cut["sampler"], r._sample_generator.get_state()),
+                       rewards=list(r.reward_history))
+        after = r.train_round()
+    finally:
+        r.close()
+    return dict(rounds=summary["rounds"], steps=summary["learn_steps"], resumed=resumed,
+                steps_after=r.learn_steps, loss_after=after["total_loss"],
+                saved=sorted(os.listdir(ledger)))
+
+
+def _disagg_window(case):
+    """Rank 0 alone runs out of its time window (0 s): every rank stops
+    before its first round, and rank 0's fleet is closed."""
+    t = _disagg_trainer(case)
+    summary = t.train(3, seconds=0.0 if dist.get_rank() == 0 else 1e9)
+    return dict(rounds=summary["rounds"], steps=t.learn_steps,
+                stopped=None if t.learner is None else t.learner.stopped)
+
+
+class _IdleFactory:
+    """Hosts whose engines never admit a lease."""
+
+    def __call__(self, params, generation):
+        from scalerl_torch.genrl.disagg import ScriptedSequenceEngine
+
+        eng = ScriptedSequenceEngine()
+        eng.capacity = lambda: 0
+        return eng
+
+
+def _disagg_starved(case):
+    t = _disagg_trainer(case, engine_factory=_IdleFactory())
+    try:
+        t.train(1)
+    except RuntimeError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+class _ScoreFails:
+    """A task whose scoring raises: the drain of rank 0 fails past the
+    starvation check."""
+
+    def __init__(self, task):
+        self._task = task
+
+    def __getattr__(self, name):
+        return getattr(self._task, name)
+
+    def score(self, *args, **kwargs):
+        raise ValueError("injected scoring failure")
+
+
+def _disagg_drain_error(case):
+    """Rank 0's scoring raises: every rank raises the same error."""
+    t = _disagg_trainer(case)
+    if dist.get_rank() == 0:
+        t.task = _ScoreFails(t.task)
+    try:
+        t.train(1)
+    except RuntimeError as e:
+        return {"raised": str(e), "steps": t.learn_steps}
+    return {"raised": None, "steps": t.learn_steps}
 
 
 def run_rank(rank: int, world: int, port: int, workdir: str) -> None:
@@ -240,8 +423,18 @@ def run_rank(rank: int, world: int, port: int, workdir: str) -> None:
                 results[name] = _resume(case, workdir)
             elif kind == "stops":
                 results[name] = _stops(case, workdir)
-            else:
+            elif kind == "disagg":
                 results[name] = _disagg(case)
+            elif kind == "disagg_kill":
+                results[name] = _disagg_kill(case)
+            elif kind == "disagg_resume":
+                results[name] = _disagg_resume(case, workdir)
+            elif kind == "disagg_window":
+                results[name] = _disagg_window(case)
+            elif kind == "disagg_drain_error":
+                results[name] = _disagg_drain_error(case)
+            else:
+                results[name] = _disagg_starved(case)
         except Exception:  # noqa: BLE001 - carried to the test, which fails on it
             results[name] = {"error": traceback.format_exc()}
     torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
